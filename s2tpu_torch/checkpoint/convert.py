@@ -1,0 +1,98 @@
+"""JAX EfficientNet-UNet weights -> the port's state dict.
+
+The port's own copy of the export mapping in
+``s2tpu/checkpoint/convert_torch.py`` (``export_reference_unet_state_dict``
+and its helpers). The port's module names are the reference PyTorch
+model's state-dict names, so the result loads into
+``s2tpu_torch.models.efficientnet_unet.EfficientNetUNet`` with
+``strict=True``. Inputs are the Flax ``params`` and ``batch_stats`` trees as
+nested dicts of numpy arrays; every mapping is a pure transpose, so values
+are bit-exact.
+
+Layouts: Dense kernel (I, O) -> 1x1 conv (O, I, 1, 1); conv kernel
+(kh, kw, I, O) -> (O, I, kh, kw); depthwise (k, k, 1, C) -> (C, 1, k, k);
+ConvTranspose (kh, kw, I, O), which flax applies spatially mirrored, ->
+un-mirrored torch (I, O, kh, kw); BatchNorm scale/bias + mean/var ->
+weight/bias + running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _f32(x) -> np.ndarray:
+    a = np.asarray(x)
+    return a.astype(np.float32) if a.dtype != np.float32 else a
+
+
+def _conv(kernel) -> np.ndarray:
+    return _f32(kernel).transpose(3, 2, 0, 1)  # (kh, kw, I, O) -> (O, I, kh, kw)
+
+
+def _dense_to_conv1x1(kernel) -> np.ndarray:
+    return np.ascontiguousarray(_f32(kernel).T)[:, :, None, None]  # (I, O) -> (O, I, 1, 1)
+
+
+def _convtrans(p: dict, out: dict, prefix: str) -> None:
+    k = _f32(p["kernel"])[::-1, ::-1]  # un-mirror flax's transpose-conv kernel
+    out[f"{prefix}.weight"] = np.ascontiguousarray(k.transpose(2, 3, 0, 1))  # -> (I, O, kh, kw)
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _bn(p: dict, s: dict, out: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = _f32(p["scale"])
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+    out[f"{prefix}.running_mean"] = _f32(s["mean"])
+    out[f"{prefix}.running_var"] = _f32(s["var"])
+    out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _conv_with_bias(p: dict, out: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = _conv(p["kernel"])
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _double_conv(p: dict, s: dict, out: dict, prefix: str) -> None:
+    _conv_with_bias(p["conv0"], out, f"{prefix}.0")
+    _bn(p["bn0"], s["bn0"], out, f"{prefix}.1")
+    _conv_with_bias(p["conv1"], out, f"{prefix}.3")
+    _bn(p["bn1"], s["bn1"], out, f"{prefix}.4")
+
+
+def unet_state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """Flax EfficientNetUNet (params, batch_stats) -> the port's state dict."""
+    enc_p, enc_s = params["encoder"], batch_stats["encoder"]
+    out: dict[str, np.ndarray] = {"encoder.stem.0.weight": _conv(enc_p["stem_conv"]["kernel"])}
+    _bn(enc_p["stem_bn"], enc_s["stem_bn"], out, "encoder.stem.1")
+    n_blocks = sum(1 for k in enc_p if k.startswith("block_"))
+    for i in range(n_blocks):
+        p, s, pre = enc_p[f"block_{i}"], enc_s[f"block_{i}"], f"encoder.blocks.{i}"
+        if "expand_conv" in p:
+            out[f"{pre}.stem.0.weight"] = _dense_to_conv1x1(p["expand_conv"]["kernel"])
+            _bn(p["expand_bn"], s["expand_bn"], out, f"{pre}.stem.1")
+            out[f"{pre}.stem.3.weight"] = _conv(p["depthwise_conv"]["kernel"])
+            _bn(p["depthwise_bn"], s["depthwise_bn"], out, f"{pre}.stem.4")
+        else:
+            out[f"{pre}.stem.0.weight"] = _conv(p["depthwise_conv"]["kernel"])
+            _bn(p["depthwise_bn"], s["depthwise_bn"], out, f"{pre}.stem.1")
+        if "se_reduce" in p:
+            for ours, theirs in (("se_reduce", 1), ("se_expand", 3)):
+                out[f"{pre}.squeeze_excitation.{theirs}.weight"] = _dense_to_conv1x1(p[ours]["kernel"])
+                out[f"{pre}.squeeze_excitation.{theirs}.bias"] = _f32(p[ours]["bias"])
+        out[f"{pre}.final_layer.0.weight"] = _dense_to_conv1x1(p["project_conv"]["kernel"])
+        _bn(p["project_bn"], s["project_bn"], out, f"{pre}.final_layer.1")
+    out["encoder.conv_head.0.weight"] = _dense_to_conv1x1(enc_p["head_conv"]["kernel"])
+    _bn(enc_p["head_bn"], enc_s["head_bn"], out, "encoder.conv_head.1")
+
+    n_up = sum(1 for k in params if k.startswith("up_conv"))
+    for i in range(n_up):
+        _convtrans(params[f"up_conv{i}"], out, f"up_convs.{i}")
+        _double_conv(params[f"double_conv{i}"], batch_stats[f"double_conv{i}"], out, f"double_convs.{i}")
+    if "input_up_conv" in params:
+        _convtrans(params["input_up_conv"], out, "input_up_conv")
+        _double_conv(params["input_double_conv"], batch_stats["input_double_conv"], out, "input_double_conv")
+    out["out_conv1x1.weight"] = _dense_to_conv1x1(params["classifier"]["kernel"])
+    out["out_conv1x1.bias"] = _f32(params["classifier"]["bias"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # owned, contiguous copies

@@ -1,0 +1,96 @@
+"""Batch inference CLI: checkpoint -> per-segment class-map GeoTIFFs or batch logits.
+
+The port of ``s2tpu/cli/infer.py``. It reads a checkpoint directory written
+by ``s2tpu_torch.checkpoint.io.save_checkpoint`` (``config.json`` +
+``model.pt``) and writes the same files as the JAX CLI: ``pred_<seg>.tif``
+(georeferenced uint8 class maps) with ``--tiled``, else ``batch_<i>.npy``
+(center-crop logits). Runs on the card unless ``--device cpu``.
+
+    python -m s2tpu_torch.cli.infer <ckpt_dir> [--split val] [--tiled] [--out DIR]
+        [--data-dir DIR] [--device cuda|cpu] [--batch-size N]
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from s2tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
+
+SEGMENTS_PER_CALL = 4  # segments whose tiles share one prediction queue
+
+
+def main(argv: list[str] | None = None) -> Path:
+    from s2tpu_torch import resolve_device
+    from s2tpu_torch.checkpoint.io import load_checkpoint
+    from s2tpu_torch.configs.paths import OUT_DIR
+    from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES
+    from s2tpu_torch.data import statistics
+    from s2tpu_torch.data.dataset import TiffSource, center_crop_batches, train_val_test_split
+    from s2tpu_torch.infer.predict import Predictor
+    from s2tpu_torch.infer.tiled import tiled_predict_many
+    from s2tpu_torch.infer.writer import PredictionWriter
+
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("ckpt_dir", help="checkpoint directory (config.json + model.pt)")
+    p.add_argument("--split", default="val", choices=["train", "val", "test"])
+    p.add_argument("--tiled", action="store_true", help="full-segment tiled prediction")
+    p.add_argument("--out", default=None, help="output directory (default: out/<ckpt name>)")
+    p.add_argument("--data-dir", default=None, help="data root overriding the config's")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument(
+        "--batch-size", type=int, default=None,
+        help="tiles per model call with --tiled (default 8); crops per call otherwise "
+        "(default: the config's eval batch)",
+    )
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    config, state_dict = load_checkpoint(args.ckpt_dir)
+    if args.data_dir:
+        config.datamodule.dataset_cfg.data_dir = args.data_dir
+    dm_cfg, ds = config.datamodule, config.datamodule.dataset_cfg
+    source = TiffSource(ds.aoi, ds.label_map, ds.data_dir, n_time_frames=ds.n_time_frames)
+    splits = train_val_test_split(len(source), dm_cfg.data_split, seed=dm_cfg.shuffle_seed)
+    indices = dict(zip(("train", "val", "test"), splits))[args.split]
+
+    stats_path = source.data_dirs.base_path / "mean_std.json"
+    if stats_path.exists():
+        mean, std = statistics.load_mean_std(stats_path)
+    else:
+        stats = statistics.calculate_mean_std(source)
+        mean, std = np.asarray(stats["mean"], np.float32), np.asarray(stats["std"], np.float32)
+
+    dtype = COMPUTE_DTYPES[config.train.compute_dtype]
+    model = config.build_model(dtype=dtype, device=device)
+    model.load_state_dict(state_dict, strict=True)
+    predictor = Predictor(model, mean, std, dtype, device, ds.stack_time_into_channels)
+
+    out_dir = Path(args.out) if args.out else OUT_DIR / Path(args.ckpt_dir).name
+    writer = PredictionWriter(out_dir)
+    if args.tiled:
+        for g in range(0, len(indices), SEGMENTS_PER_CALL):
+            chunk = [int(i) for i in indices[g : g + SEGMENTS_PER_CALL]]
+            imgs, geos = zip(*(source.read_with_geo(i) for i in chunk))
+            class_maps, _ = tiled_predict_many(
+                predictor, np.stack(imgs), num_classes=config.num_classes,
+                tile=dm_cfg.random_crop_size, batch_size=args.batch_size or 8,
+            )
+            for i, cm, geo in zip(chunk, class_maps, geos):
+                writer.write_class_map(source.label_index_for(i), cm, geo=geo)
+        logger.info(f"Wrote {len(indices)} tiled class maps to {out_dir}")
+    else:
+        bs = args.batch_size or dm_cfg.batch_size * dm_cfg.val_batch_size_multiplier
+        for images in center_crop_batches(source, indices, dm_cfg.random_crop_size, bs):
+            writer.write_batch(predictor(torch.from_numpy(images)).cpu().numpy())
+        logger.info(f"Wrote batch logits to {out_dir}")
+    return out_dir
+
+
+if __name__ == "__main__":
+    main()

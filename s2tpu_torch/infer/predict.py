@@ -1,0 +1,44 @@
+"""Raw-DN tiles -> logits: the port of ``SegmentationTrainer._predict`` and
+``_model_input`` (``s2tpu/train/trainer.py``)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from s2tpu_torch.data.augment import normalize
+
+
+class Predictor:
+    """Normalize + forward on one device, under ``torch.inference_mode()``.
+
+    Maps (B, H, W, C) raw-DN tiles, or (B, T, H, W, C) when
+    ``stack_time_into_channels`` folds frames into channels (frame-major,
+    as the JAX trainer does), to (B, H, W, K) f32 logits on ``device``.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        mean: np.ndarray | torch.Tensor,
+        std: np.ndarray | torch.Tensor,
+        compute_dtype: torch.dtype,
+        device: torch.device,
+        stack_time_into_channels: bool = False,
+    ) -> None:
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.mean = torch.as_tensor(np.asarray(mean, np.float32), device=self.device)
+        self.std = torch.as_tensor(np.asarray(std, np.float32), device=self.device)
+        self.compute_dtype = compute_dtype
+        self.stack_time_into_channels = stack_time_into_channels
+
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            x = normalize(images.to(self.device), self.mean, self.std, dtype=self.compute_dtype)
+            if x.dim() == 5:
+                if not self.stack_time_into_channels:
+                    raise ValueError("(B, T, H, W, C) input needs stack_time_into_channels")
+                b, t, h, w, c = x.shape
+                x = x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
+            return self.model(x).to(torch.float32)

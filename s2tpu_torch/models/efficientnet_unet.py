@@ -1,0 +1,373 @@
+"""EfficientNet-UNet (B0-B7) in PyTorch: the port of ``s2tpu/models/efficientnet_unet.py``.
+
+The same compound-scaled MBConv encoder (divisor-8 filter rounding, SE ratio
+0.25 of the block's *input* width), a U-Net decoder with k2 s2 transpose
+convs over four skip stages plus an input-concat stage, and an f32 1x1
+classifier with a class-prior bias.
+
+Layout: the public input and output are NHWC, as in JAX: (B, H, W, C) in,
+(B, H, W, K) logits out. Inside, tensors are NCHW-shaped in
+``torch.channels_last`` memory, so the depthwise kernel reads plain NHWC
+memory and cuDNN runs its convolutions channels-last. Only the dense math
+of the JAX model is ported: its space-to-depth ``packed_*`` options are TPU
+layouts over the same parameters.
+
+Module names are the reference PyTorch model's state-dict names
+(``encoder.stem.0``, ``encoder.blocks.{i}.stem.*``,
+``...squeeze_excitation.{1,3}``, ``...final_layer.*``, ``encoder.conv_head.*``,
+``up_convs.{i}``, ``double_convs.{i}.{0,1,3,4}``, ``input_up_conv``,
+``input_double_conv.*``, ``out_conv1x1``), so a reference state dict without
+its unused ``encoder.fc.*`` loads with ``strict=True``.
+
+Numerics that differ from torch's defaults, taken from the JAX model:
+XLA SAME padding (asymmetric at stride 2), encoder BatchNorm eps 1e-3 and
+decoder eps 1e-5, BatchNorm from running statistics (inference only here;
+drop-connect and dropout belong to training).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from s2tpu_torch.ops.depthwise_conv import depthwise_conv2d, same_padding
+
+# (width_coefficient, depth_coefficient, resolution, dropout_rate) per version.
+SCALING: dict[str, tuple[float, float, int, float]] = {
+    "b0": (1.0, 1.0, 224, 0.2),
+    "b1": (1.0, 1.1, 240, 0.2),
+    "b2": (1.1, 1.2, 260, 0.3),
+    "b3": (1.2, 1.4, 300, 0.3),
+    "b4": (1.4, 1.8, 380, 0.4),
+    "b5": (1.6, 2.2, 456, 0.4),
+    "b6": (1.8, 2.6, 528, 0.5),
+    "b7": (2.0, 3.1, 600, 0.5),
+}
+
+# Canonical EfficientNet stage definitions (kernel, repeats, in, out, expand,
+# stride, se_ratio).
+STAGES: list[tuple[int, int, int, int, int, int, float]] = [
+    (3, 1, 32, 16, 1, 1, 0.25),
+    (3, 2, 16, 24, 6, 2, 0.25),
+    (5, 2, 24, 40, 6, 2, 0.25),
+    (3, 3, 40, 80, 6, 2, 0.25),
+    (5, 3, 80, 112, 6, 1, 0.25),
+    (5, 4, 112, 192, 6, 2, 0.25),
+    (3, 1, 192, 320, 6, 1, 0.25),
+]
+
+DECODER_BN_EPS = 1e-5  # flax BatchNorm's default: the JAX DoubleConv passes none
+UP_FEATURES = (512, 256, 128, 64)
+
+
+def round_filters(filters: int, width: float | None, divisor: int = 8, min_depth: int | None = None) -> int:
+    """Width-scale a filter count, rounding to the divisor (never down >10%)."""
+    if width is None:
+        return filters
+    filters *= width
+    min_depth = min_depth or divisor
+    new = max(min_depth, int(filters + divisor / 2) // divisor * divisor)
+    if new < 0.9 * filters:
+        new += divisor
+    return int(new)
+
+
+def round_repeats(repeats: int, depth: float | None) -> int:
+    return int(math.ceil(depth * repeats)) if depth is not None else repeats
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    kernel_size: int
+    in_filters: int
+    out_filters: int
+    expand_ratio: int
+    stride: int
+    se_ratio: float
+    skip: bool = True
+
+
+def build_block_specs(width: float, depth: float, divisor: int = 8, min_depth: int | None = None) -> list[BlockSpec]:
+    specs: list[BlockSpec] = []
+    for k, r, i, o, e, s, se in STAGES:
+        i, o = round_filters(i, width, divisor, min_depth), round_filters(o, width, divisor, min_depth)
+        r = round_repeats(r, depth)
+        specs.append(BlockSpec(k, i, o, e, s, se))
+        specs.extend(BlockSpec(k, o, o, e, 1, se) for _ in range(r - 1))
+    return specs
+
+
+@dataclass(frozen=True)
+class EfficientNetUNetConfig:
+    """The JAX model's config without its ``packed_*`` fields, which choose
+    TPU space-to-depth layouts over the same math: the port runs the dense
+    math only. The BatchNorm momenta and drop-connect serve training."""
+
+    version: str
+    in_channels: int
+    num_classes: int
+    bn_momentum: float = 0.99
+    bn_epsilon: float = 1e-3
+    depth_divisor: int = 8
+    drop_connect_rate: float | None = 0.2
+    min_depth: int | None = None
+    class_distribution: tuple[float, ...] | None = None
+    dropout_rate: float | None = None
+    width_coefficient: float | None = None
+    depth_coefficient: float | None = None
+    concat_input: bool = True
+    decoder_bn_momentum: float = 0.9
+    bn_momentum_override: float | None = None
+
+    def __post_init__(self) -> None:
+        if self.version not in SCALING:
+            raise ValueError(f"No EfficientNet version {self.version!r}")
+        if self.class_distribution is not None and not isinstance(self.class_distribution, tuple):
+            object.__setattr__(self, "class_distribution", tuple(self.class_distribution))
+
+    @property
+    def scaling(self) -> tuple[float, float, float]:
+        w, d, _, drop = SCALING[self.version]
+        return (
+            self.width_coefficient or w,
+            self.depth_coefficient or d,
+            self.dropout_rate or drop,
+        )
+
+    @property
+    def block_specs(self) -> list[BlockSpec]:
+        w, d, _ = self.scaling
+        return build_block_specs(w, d, self.depth_divisor, self.min_depth)
+
+
+# ---------------------------------------------------------------------------
+# Layers (each subclasses the torch module whose parameters it holds, so the
+# state-dict names and shapes are the reference's)
+# ---------------------------------------------------------------------------
+class Conv2dSame(nn.Conv2d):
+    """Conv with XLA's SAME padding, which is asymmetric at stride 2 on even
+    sizes (the k3 s2 stem pads (0, 1); torch's ``padding=1`` would pad (1, 1))."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        ph = same_padding(x.shape[2], kh, sh)
+        pw = same_padding(x.shape[3], kw, sw)
+        return F.conv2d(F.pad(x, (*pw, *ph)), self.weight, self.bias, self.stride)
+
+
+class Conv1x1(nn.Conv2d):
+    """1x1 conv as a channel dot over the NHWC memory of a channels-last tensor
+    (the JAX model's ``nn.Dense`` over the last axis)."""
+
+    def __init__(self, cin: int, cout: int, bias: bool, **factory) -> None:
+        super().__init__(cin, cout, 1, bias=bias, **factory)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x.permute(0, 2, 3, 1), self.weight.flatten(1), self.bias)
+        return y.permute(0, 3, 1, 2)
+
+
+class DepthwiseConv(nn.Conv2d):
+    """Depthwise conv (weight (C, 1, k, k)) through ``ops.depthwise_conv``:
+    stride 1 runs the CUDA kernel on the card."""
+
+    def __init__(self, channels: int, kernel_size: int, stride: int, **factory) -> None:
+        super().__init__(channels, channels, kernel_size, stride=stride, groups=channels, bias=False, **factory)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight[:, 0].permute(1, 2, 0).contiguous()  # (k, k, C)
+        y = depthwise_conv2d(x.permute(0, 2, 3, 1).contiguous(), w, self.stride[0])
+        return y.permute(0, 3, 1, 2)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Inference BatchNorm from running statistics: scale and shift are folded
+    in f32, then applied in the activation dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("s2tpu_torch serves only: BatchNorm runs from running statistics")
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class GlobalAvgPool(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3), keepdim=True)
+
+
+class MBConv(nn.Module):
+    """Mobile inverted bottleneck: expand -> depthwise -> SE -> project."""
+
+    def __init__(self, spec: BlockSpec, bn_eps: float, **factory) -> None:
+        super().__init__()
+        s = spec
+        mid = s.in_filters * s.expand_ratio
+        layers: list[nn.Module] = []
+        if s.expand_ratio != 1:
+            layers += [Conv1x1(s.in_filters, mid, bias=False, **factory), BatchNorm(mid, eps=bn_eps), nn.SiLU()]
+        layers += [DepthwiseConv(mid, s.kernel_size, s.stride, **factory), BatchNorm(mid, eps=bn_eps), nn.SiLU()]
+        self.stem = nn.Sequential(*layers)
+        self.squeeze_excitation = None
+        if 0 < s.se_ratio <= 1:
+            squeezed = max(1, int(s.in_filters * s.se_ratio))
+            self.squeeze_excitation = nn.Sequential(
+                GlobalAvgPool(),
+                Conv1x1(mid, squeezed, bias=True, **factory),
+                nn.SiLU(),
+                Conv1x1(squeezed, mid, bias=True, **factory),
+                nn.Sigmoid(),
+            )
+        self.final_layer = nn.Sequential(
+            Conv1x1(mid, s.out_filters, bias=False, **factory), BatchNorm(s.out_filters, eps=bn_eps)
+        )
+        self.residual = s.skip and s.stride == 1 and s.in_filters == s.out_filters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.stem(x)
+        if self.squeeze_excitation is not None:
+            y = y * self.squeeze_excitation(y)
+        y = self.final_layer(y)
+        return y + x if self.residual else y
+
+
+class EfficientNetEncoder(nn.Module):
+    """Compound-scaled MBConv encoder returning the decoder's feature pyramid."""
+
+    def __init__(self, config: EfficientNetUNetConfig, **factory) -> None:
+        super().__init__()
+        w, _, _ = config.scaling
+        eps = config.bn_epsilon
+        self.specs = config.block_specs
+        stem_filters = round_filters(32, w, config.depth_divisor, config.min_depth)
+        self.head_filters = round_filters(1280, w, config.depth_divisor, config.min_depth)
+        self.stem = nn.Sequential(
+            Conv2dSame(config.in_channels, stem_filters, 3, stride=2, bias=False, **factory),
+            BatchNorm(stem_filters, eps=eps),
+            nn.SiLU(),
+        )
+        self.blocks = nn.ModuleList(MBConv(s, eps, **factory) for s in self.specs)
+        self.conv_head = nn.Sequential(
+            Conv1x1(self.specs[-1].out_filters, self.head_filters, bias=False, **factory),
+            BatchNorm(self.head_filters, eps=eps),
+            nn.SiLU(),
+        )
+
+    @property
+    def skip_filters(self) -> list[int]:
+        """Channel widths of the skips (1/16 first), as in the JAX encoder."""
+        out: list[int] = []
+        reduction = 2
+        for i, s in enumerate(self.specs):
+            if s.stride == 2:
+                reduction *= 2
+            if (s.stride == 2 or i == 0) and reduction < 32:
+                out.append(s.out_filters)
+        return list(reversed(out))
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """-> [1/32 conv_head, 1/16, 1/8, 1/4, 1/2]: deepest first."""
+        x = self.stem(x)
+        skips: list[torch.Tensor] = []
+        reduction = 2
+        for i, (block, spec) in enumerate(zip(self.blocks, self.specs)):
+            if spec.stride == 2:
+                reduction *= 2
+            x = block(x)
+            # first block output at each resolution above 1/32
+            if (i == 0 or spec.stride == 2) and reduction < 32:
+                skips.insert(0, x)
+        return [self.conv_head(x), *skips]
+
+
+def _double_conv(cin: int, features: int, **factory) -> nn.Sequential:
+    return nn.Sequential(
+        nn.Conv2d(cin, features, 3, padding=1, **factory),
+        BatchNorm(features, eps=DECODER_BN_EPS),
+        nn.ReLU(),
+        nn.Conv2d(features, features, 3, padding=1, **factory),
+        BatchNorm(features, eps=DECODER_BN_EPS),
+        nn.ReLU(),
+    )
+
+
+class EfficientNetUNet(nn.Module):
+    """U-Net over the EfficientNet encoder: (B, H, W, C) -> (B, H, W, K) f32 logits.
+
+    Conv and dense weights are held in ``dtype`` (the compute dtype);
+    BatchNorm parameters, running statistics and the classifier stay f32.
+    Parameters are initialised on the CPU from ``generator`` (the JAX
+    model's initialisers: truncated-normal fan-out variance scaling, class-
+    prior classifier bias), then moved to ``device``.
+    """
+
+    def __init__(
+        self,
+        config: EfficientNetUNetConfig,
+        dtype: torch.dtype = torch.float32,
+        device: torch.device | str = "cpu",
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.encoder = EfficientNetEncoder(config)
+        cin = self.encoder.head_filters
+        self.up_convs = nn.ModuleList()
+        self.double_convs = nn.ModuleList()
+        for feats, skip in zip(UP_FEATURES, self.encoder.skip_filters):
+            self.up_convs.append(nn.ConvTranspose2d(cin, feats, 2, stride=2))
+            self.double_convs.append(_double_conv(feats + skip, feats))
+            cin = feats
+        self.input_up_conv = self.input_double_conv = None
+        if config.concat_input:
+            self.input_up_conv = nn.ConvTranspose2d(cin, 32, 2, stride=2)
+            self.input_double_conv = _double_conv(32 + config.in_channels, 32)
+            cin = 32
+        self.out_conv1x1 = Conv1x1(cin, config.num_classes, bias=True)
+        self._init_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and m is not self.out_conv1x1:
+                m.to(dtype)
+        self.to(device=device, memory_format=torch.channels_last)
+        self.eval()
+
+    @torch.no_grad()
+    def _init_parameters(self, generator: torch.Generator) -> None:
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                # flax variance_scaling(2.0, "fan_out", "truncated_normal"):
+                # fan_out = kh * kw * out_features in either torch layout.
+                out_features = m.out_channels
+                std = math.sqrt(2.0 / (out_features * m.kernel_size[0] * m.kernel_size[1])) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+        dist = self.config.class_distribution
+        if dist is not None:
+            d = torch.tensor(dist, dtype=torch.float32) + 1e-6
+            bias = self.out_conv1x1.bias
+            bias.copy_(torch.log(d[1] / d[0]).expand_as(bias) if d.shape[0] == 2 else torch.log(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        features = self.encoder(x)
+        y = features[0]
+        for up, double_conv, skip in zip(self.up_convs, self.double_convs, features[1:]):
+            y = double_conv(torch.cat([up(y), skip], dim=1))
+        if self.input_up_conv is not None:
+            # the input stage concatenates the normalized input itself
+            y = self.input_double_conv(torch.cat([self.input_up_conv(y), x], dim=1))
+        logits = self.out_conv1x1(y.to(torch.float32))  # classifier in f32
+        return logits.permute(0, 2, 3, 1)
+
+
+def count_stride1_depthwise(config: EfficientNetUNetConfig) -> int:
+    """Stride-1 depthwise layers per forward: the kernel's launches (35 for B5)."""
+    return sum(s.stride == 1 for s in config.block_specs)
+

@@ -1,0 +1,80 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use and load them with ctypes.
+
+Each library is compiled from sources under ``ops/csrc/`` into a shared
+object with a plain C interface, for ``sm_90a`` (Hopper):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC ...
+
+The object lands in ``ops/build/`` under a name keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. ``-Xptxas -v`` output (registers, shared memory, spills) is kept
+beside it in a ``.log`` file. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libraries: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from PATH, else from ``$CUDA_HOME`` or ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def library_path(name: str, sources: list[str]) -> Path:
+    """Build output for ``name``: ``build/lib<name>_<hash of sources + flags>.so``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.encode())
+        digest.update((CSRC_DIR / src).read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_log(name: str, sources: list[str]) -> str:
+    """The compiler's ``-Xptxas -v`` report of the last build of ``name``."""
+    log = library_path(name, sources).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
+    """Compile ``sources`` (relative to ``csrc/``) if needed, then load them once."""
+    with _lock:
+        lib = _libraries.get(name)
+        if lib is not None:
+            return lib
+        so = library_path(name, sources)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
+            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
+        lib = ctypes.CDLL(str(so))
+        _libraries[name] = lib
+        return lib

@@ -1,0 +1,105 @@
+"""s2tpu_torch depthwise conv vs the JAX package's (Pallas interpret mode / lax).
+
+On the CPU the port's wrapper takes its plain version; the CUDA kernel is
+checked against that plain version by the ``cuda``-marked test on a card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from s2tpu.ops.depthwise_conv import _lax_depthwise, depthwise_conv2d_s1 as jax_depthwise_s1
+from s2tpu_torch.ops import depthwise_conv as dw
+
+
+def _inputs(seed: int, shape: tuple[int, ...], k: int) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    w = rng.normal(size=(k, k, shape[-1])).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+@pytest.mark.parametrize("c", [8, 130])  # one Pallas lane tile / across tiles
+def test_plain_and_cpu_dispatch_match_pallas(k, c):
+    x, w = _inputs(k * 1000 + c, (2, 12, 10, c), k)  # non-square H, W
+    ref = np.asarray(jax_depthwise_s1(jnp.asarray(x), jnp.asarray(w), True))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    plain = dw.depthwise_conv2d_s1_reference(xt, wt).numpy()
+    dispatched = dw.depthwise_conv2d_s1(xt, wt).numpy()
+    np.testing.assert_allclose(plain, ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dispatched, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("hw", [(12, 10), (13, 11)])
+def test_stride2_matches_lax_same_padding(k, hw):
+    x, w = _inputs(7 + k, (2, *hw, 6), k)
+    ref = np.asarray(_lax_depthwise(jnp.asarray(x), jnp.asarray(w), 2))
+    ours = dw.depthwise_conv2d(torch.from_numpy(x), torch.from_numpy(w), stride=2).numpy()
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "size,k,stride,pad",
+    [(224, 3, 2, (0, 1)), (112, 5, 2, (1, 2)), (56, 3, 1, (1, 1)), (7, 5, 1, (2, 2)), (13, 3, 2, (1, 1))],
+)
+def test_same_padding_is_xla_same(size, k, stride, pad):
+    assert dw.same_padding(size, k, stride) == pad
+
+
+def test_cpu_path_does_not_touch_kernel_loader(monkeypatch):
+    from s2tpu_torch.ops import _build
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the CPU path must not build or load the CUDA kernel")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(dw, "_kernel_fn", None)
+    before = dw.LAUNCHES
+    x, w = _inputs(3, (1, 5, 4, 6), 3)
+    dw.depthwise_conv2d_s1(torch.from_numpy(x), torch.from_numpy(w))
+    assert dw.LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "x,w,err",
+    [
+        (torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 4), ValueError),  # C mismatch
+        (torch.zeros(1, 4, 4, 3), torch.zeros(3, 2, 3), ValueError),  # non-square filter
+        (torch.zeros(4, 4, 3), torch.zeros(3, 3, 3), ValueError),  # rank
+        (torch.zeros(1, 4, 4, 3, dtype=torch.float64), torch.zeros(3, 3, 3, dtype=torch.float64), TypeError),
+        (torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 3, dtype=torch.bfloat16), TypeError),
+        (torch.zeros(1, 3, 4, 4).permute(0, 2, 3, 1), torch.zeros(3, 3, 4), ValueError),  # not NHWC-contiguous
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_does_not_take(x, w, err):
+    with pytest.raises(err):
+        dw.depthwise_conv2d_s1(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,c,h,w", [(3, 48, 112, 112), (5, 384, 28, 28), (3, 1824, 7, 7), (5, 130, 13, 11), (2, 7, 9, 6)])
+def test_cuda_kernel_matches_plain(dtype, k, c, h, w):
+    """Kernel vs plain version on the card: the kernel issues the same
+    uncontracted f32 multiplies and adds in the same order, so f32 agrees to
+    rounding of the final cast and bf16 to one bf16 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, wt = _inputs(c + k, (2, h, w, c), k)
+    xc = torch.from_numpy(x).to("cuda", dtype)
+    wc = torch.from_numpy(wt).to("cuda", dtype)
+    before = dw.LAUNCHES
+    out = dw.depthwise_conv2d_s1(xc, wc)
+    torch.cuda.synchronize()
+    assert dw.LAUNCHES == before + 1
+    ref = dw.depthwise_conv2d_s1_reference(xc, wc).to(torch.float32)
+    err = (out.to(torch.float32) - ref).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * float(ref.abs().max())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+        assert bool((err <= ulp).all())

@@ -1,0 +1,69 @@
+"""s2tpu_torch stands alone: no JAX and nothing of s2tpu, and the card by default."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+# Runs in a fresh interpreter: drops any preloaded forbidden module, blocks
+# new imports of them, then imports every module of the port and chip_smoke.
+_PROBE = r"""
+import importlib, pkgutil, sys
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "s2tpu")
+
+def forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+for name in [m for m in sys.modules if forbidden(m)]:
+    del sys.modules[name]
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if forbidden(name):
+            raise ImportError(f"forbidden import: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import s2tpu_torch
+names = ["s2tpu_torch"] + [m.name for m in pkgutil.walk_packages(s2tpu_torch.__path__, "s2tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+leaked = sorted(m for m in sys.modules if forbidden(m))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_s2tpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+
+
+def test_resolve_device_defaults_to_cuda(monkeypatch):
+    from s2tpu_torch import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from s2tpu_torch.cli.infer import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([str(tmp_path / "missing")])
