@@ -1,4 +1,4 @@
-"""Drive s2tpu_torch's serving path on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving and training paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,39 @@ It imports nothing of JAX or of the JAX package ``s2tpu``. Phases, in order;
 any failure raises and the script exits non-zero without printing a result:
 
 1. Device: card name, count, and ``nvidia-smi`` name + power limit.
-2. Build: the depthwise kernel, compiled by nvcc for sm_90a from
-   ``s2tpu_torch/ops/csrc`` (ptxas registers / shared memory printed).
-3. Kernel vs plain: ``depthwise_conv2d_s1`` against
+2. Build: the three kernel libraries (depthwise forward/input gradient,
+   depthwise filter gradient, fused CE/focal), one nvcc each for sm_90a from
+   ``s2tpu_torch/ops/csrc``, all started together (ptxas registers / shared
+   memory / spills printed per library).
+3. Kernel vs plain, serving shapes: ``depthwise_conv2d_s1`` against
    ``depthwise_conv2d_s1_reference`` at every distinct stride-1 shape of
    EfficientNet-UNet-B5 at 224^2, batch 8, plus a ragged shape, in bf16 and
    f32, with CUDA-event times beside the byte bound and one cuDNN call
    (``F.conv2d(groups=C)``, channels-last) as a yardstick.
-4. Slice: B5 (full width and depth, seeded random weights, random BatchNorm
-   statistics) saved as a port checkpoint and served through
+4. Kernel vs plain, training shapes: the depthwise input gradient (kernel #1
+   with the flipped filter) and filter gradient (kernel #2) at every B5
+   stride-1 shape at batch 32 plus the ragged shape, bf16 and f32, beside
+   cuDNN's ``convolution_backward``; the fused CE/focal forward (#3) and
+   backward (#4) at N = 32 * 224^2 pixels, K = 4, CE and focal, with and
+   without ``ignore_index=0``, non-uniform class weights and cotangent,
+   beside ``F.cross_entropy`` for the CE mode.
+5. Serving slice: B5 (full width and depth, seeded random weights, random
+   BatchNorm statistics) saved as a port checkpoint and served through
    ``s2tpu_torch.cli.infer --tiled`` in bf16 over a synthetic 512^2 AOI;
    class maps checked, the kernel's launch count checked against 35 per
    model batch, and one batch of tiles held in f32 against the same model
    on the CPU.
-5. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then the last
+6. Training slice: B5 trained through ``s2tpu_torch.cli.train_segmentation``
+   (bf16 compute, f32 parameters, focal + weighted loss, batch 32, 224^2
+   crops) on a synthetic ``osm-multiclass`` AOI for 2 epochs of 2 steps,
+   each followed by an eval pass and a checkpoint; every kernel's launches
+   checked against the steps and eval batches, losses finite, parameters
+   moved, and the run directory served by ``cli.infer --tiled``. Then the
+   warm train step's time, images/s, peak memory and profile.
+7. One train step in f32 on the card (TF32 off) against the CPU, same
+   weights and batch, drop-connect off: loss, BatchNorm running statistics
+   and the gradients of fixed layers.
+8. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -28,6 +47,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -42,7 +62,9 @@ import torch.nn.functional as F
 REPO = Path(__file__).resolve().parent
 SEED = 0
 BATCH = 8  # tiles per model call, the CLI's default
+TRAIN_BATCH = 32  # BASELINE.json config #2's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
 SPIN_CYCLES_PER_S = 2.0e9  # at or above the H100's top SM clock: the spin lasts at least as asked
 # Distinct stride-1 depthwise shapes (k, C, H=W) of B5 at 224^2 and how many
 # of the 35 layers of one forward run at each.
@@ -56,6 +78,39 @@ RAGGED = (5, 130, 13, 11)  # (k, C, H, W): odd C, non-square, not a tile multipl
 # to f32 rounding growth, not bit-exact.
 F32_LOGITS_RTOL = 1e-3
 F32_ARGMAX_AGREEMENT = 0.999
+# Fused CE/focal at the training slice's shape: every pixel of a batch of 32
+# crops of 224^2, osm-multiclass's 4 classes.
+CE_PIXELS = TRAIN_BATCH * 224 * 224
+CE_CLASSES = 4
+FOCAL_GAMMA = 2.0
+# Training slice: 80 segments of 256^2 at split (0.8, 0.2, 0) give 64 train
+# segments (2 steps of 32 per epoch) and 16 val segments (1 padded eval batch
+# of 64 per epoch).
+TRAIN_SEGMENTS, TRAIN_SEGMENT_SIZE, TRAIN_EPOCHS = 80, 256, 2
+# Card f32 vs CPU f32 train step: B5 at batch 4, 128^2 crops. Both sum in
+# different orders, so the card may differ from the CPU by f32 rounding as
+# amplified through the network. The amplification is measured in the run:
+# the CPU step is repeated with inputs and weights perturbed by 1e-7
+# (relative), and the card may differ from the CPU by at most
+# F32_STEP_SENSITIVITY_FACTOR times that, and never less than the floors.
+# Train-mode BatchNorm over few values per channel (2^2 maps at the deepest
+# level) makes early-layer gradients move by ~1 % under such a perturbation.
+F32_STEP_BATCH, F32_STEP_CROP = 4, 128
+F32_STEP_SENSITIVITY_FACTOR = 10.0
+F32_STEP_FLOOR = {"loss": 1e-5, "running_stats": 1e-4, "grad": 1e-4}
+F32_STEP_GRAD_CEILING = 0.2  # a tolerance above this would check nothing
+
+
+# Device kernels by kind, matched on name fragments in this order (the
+# port's kernels first, then cuDNN/cuBLAS convolutions and matrix products).
+KERNEL_KINDS = {
+    "port kernels": ("depthwise_s1_", "fused_ce_"),
+    "conv/gemm": ("xmma", "gemm", "cutlass", "cudnn", "conv", "nchwToNhwc", "nhwcToNchw"),
+    "optimizer": ("multi_tensor_apply",),
+    "reductions": ("reduce_kernel",),
+    "copies": ("Memcpy", "Memset", "copy_kernel", "cat_"),
+    "elementwise": ("elementwise_kernel",),
+}
 
 
 def log(msg: str) -> None:
@@ -106,23 +161,63 @@ def b5_stride1_shapes() -> dict[tuple[int, int, int], int]:
     return shapes
 
 
-def phase_build() -> None:
-    from s2tpu_torch.ops import _build, depthwise_conv as dw
+def kernel_libraries() -> dict[str, list[str]]:
+    """Every kernel library of the port: name -> sources under ops/csrc."""
+    from s2tpu_torch.ops import depthwise_conv as dw, fused_ce
 
-    so = _build.library_path("depthwise_conv", dw.SOURCES)
-    for stale in (so, so.with_suffix(".log")):
-        stale.unlink(missing_ok=True)  # always prove the build from the checkout's sources
+    return {
+        "depthwise_conv": dw.SOURCES,
+        "depthwise_grad_weight": dw.GRAD_WEIGHT_SOURCES,
+        "fused_ce": fused_ce.SOURCES,
+    }
+
+
+def phase_build() -> None:
+    from s2tpu_torch.ops import _build
+
+    libraries = kernel_libraries()
+    for name, sources in libraries.items():
+        so = _build.library_path(name, sources)
+        for stale in (so, so.with_suffix(".log")):
+            stale.unlink(missing_ok=True)  # always prove the build from the checkout's sources
     t0 = time.perf_counter()
-    _build.load_library("depthwise_conv", dw.SOURCES)
+    _build.load_libraries(libraries)  # one nvcc per library, all at once
     seconds = time.perf_counter() - t0
-    report = _build.build_log("depthwise_conv", dw.SOURCES)
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
-    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
-    log(
-        f"ptxas -v: {len(regs)} kernel instantiations, registers {min(regs)}..{max(regs)} per thread, "
-        f"{spills} bytes spilled, shared memory dynamic (k*k*64*4 bytes at most: {5 * 5 * 64 * 4} at k=5)"
-    )
-    log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} -> {so.relative_to(REPO)} in {seconds:.1f} s")
+    for name, sources in libraries.items():
+        report = _build.build_log(name, sources)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
+        log(
+            f"ptxas -v {name}: {len(regs)} kernel instantiations, registers {min(regs)}..{max(regs)} per thread, "
+            f"static smem up to {max(smem, default=0)} bytes, {spills} bytes spilled; "
+            f"-> {_build.library_path(name, sources).relative_to(REPO)}"
+        )
+    log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libraries)} libraries concurrently in {seconds:.1f} s")
+
+
+def depthwise_error(out: torch.Tensor, ref: torch.Tensor, what: str) -> torch.Tensor:
+    """|kernel - plain| of a depthwise conv output; raises beyond the
+    tolerance. f32: the kernel issues the plain version's uncontracted f32
+    multiplies and adds in the same order, so exact up to the last bit of
+    f32 (1e-6 x max|plain|). bf16: both accumulate in f32 and round once to
+    bf16, so within one bf16 ulp of the plain result."""
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        ok = float(err.max()) <= 1e-6 * float(ref.float().abs().max())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(2.0**-126))) - 7)
+        ok = bool((err <= ulp).all())
+    if not ok:
+        raise AssertionError(f"{what} disagrees with its plain version: max err {float(err.max())}")
+    return err
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of bytes over the HBM rate and
+    f32 operations over the f32 (non-tensor-core) peak."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def check_kernel(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -134,17 +229,7 @@ def check_kernel(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.
     out = dw.depthwise_conv2d_s1(x, wt)
     ref = dw.depthwise_conv2d_s1_reference(x, wt)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs()
-    if dtype == torch.float32:
-        # Same uncontracted f32 multiplies and adds in the same order: exact
-        # up to the last bit of f32.
-        ok = float(err.max()) <= 1e-6 * float(ref.float().abs().max())
-    else:
-        # Both accumulate in f32 and round once to bf16: within one bf16 ulp.
-        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(2.0**-126))) - 7)
-        ok = bool((err <= ulp).all())
-    if not ok:
-        raise AssertionError(f"depthwise kernel disagrees at k={k} C={c} {h}x{w} {dtype}: max err {float(err.max())}")
+    err = depthwise_error(out, ref, f"depthwise kernel at k={k} C={c} {h}x{w} {dtype}")
     x_cl = x.permute(0, 3, 1, 2)  # channels-last NCHW view of the same memory
     w_conv = wt.permute(2, 0, 1).unsqueeze(1).contiguous()
     times = {
@@ -154,7 +239,7 @@ def check_kernel(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.
     }
     nbytes = (x.numel() + out.numel() + wt.numel()) * x.element_size()
     times["mb_moved"] = nbytes / 1e6
-    times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    times["bound_ms"], times["bound_by"] = bound(nbytes, 2 * k * k * out.numel())
     times["max_abs_err"] = float(err.max())
     return times
 
@@ -170,12 +255,14 @@ def phase_kernels() -> dict:
     )
     gen = torch.Generator().manual_seed(SEED)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    max_err = 0.0
+    max_err, bound_by = 0.0, set()
     cases = [((k, c, h, h), n) for (k, c, h), n in shapes.items()] + [(RAGGED, 0)]
     for dtype in (torch.bfloat16, torch.float32):
         for (k, c, h, w), n in cases:
             t = check_kernel(k, c, h, w, dtype, gen)
             max_err = max(max_err, t["max_abs_err"])
+            if n and dtype == torch.bfloat16:
+                bound_by.add(t["bound_by"])
             log(
                 f"depthwise {str(dtype).split('.')[1]:8s} k={k} C={c:4d} {h:3d}x{w:<3d} B={BATCH}: "
                 f"kernel_ms={t['kernel_ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
@@ -191,7 +278,182 @@ def phase_kernels() -> dict:
         "depthwise per B5 forward (35 layers, bf16, batch 8): "
         + " ".join(f"{key}={val:.4f}" for key, val in totals.items())
     )
-    return {**totals, "max_abs_err": max_err}
+    return {**totals, "max_abs_err": max_err, "bound_by": "/".join(sorted(bound_by))}
+
+
+def check_train_kernels(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """Depthwise input gradient (kernel #1, flipped filter) and filter
+    gradient (kernel #2) vs their plain versions at batch TRAIN_BATCH;
+    raises on disagreement. Returns times in ms."""
+    from s2tpu_torch.ops import depthwise_conv as dw
+
+    x = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to("cuda", dtype)
+    g = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to("cuda", dtype)
+    wt = torch.randn(k, k, c, generator=gen).to("cuda", dtype)
+    what = f"k={k} C={c} {h}x{w} B={TRAIN_BATCH} {dtype}"
+    dx = dw.depthwise_conv2d_s1_input_grad(g, wt)
+    dx_err = depthwise_error(dx, dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)), f"depthwise input gradient at {what}")
+    dwk = dw.depthwise_conv2d_s1_grad_weight(x, g, k)
+    dw_ref = dw.depthwise_conv2d_s1_grad_weight_reference(x, g, k)
+    # f32 sums of the same products in another order (per-thread runs, a
+    # block reduction, then the slices): the error of a sum of n terms is at
+    # most ~(chain length) x 2^-24 x sum|terms|, and the kernel's longest
+    # chain is ~1e3 terms, so |err| <= 1e-4 x sum_{b,y,x}|g||x_pad| per tap.
+    magnitude = dw.depthwise_conv2d_s1_grad_weight_reference(x.abs(), g.abs(), k)
+    torch.cuda.synchronize()
+    dw_err = (dwk - dw_ref).abs()
+    if not bool((dw_err <= 1e-4 * magnitude).all()):
+        raise AssertionError(f"depthwise filter gradient at {what} disagrees: max err {float(dw_err.max())}")
+
+    pad = k // 2
+    x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # channels-last NCHW views
+    w_conv = wt.permute(2, 0, 1).unsqueeze(1).contiguous()
+
+    def cudnn_backward(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            g_cl, x_cl, w_conv, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], c, mask
+        )
+
+    nbytes_dx = (g.numel() + dx.numel() + wt.numel()) * g.element_size()
+    nbytes_dw = (x.numel() + g.numel()) * x.element_size() + dwk.numel() * 4
+    flops = 2 * k * k * x.numel()
+    t = {
+        "dx_ms": cuda_ms(lambda: dw.depthwise_conv2d_s1_input_grad(g, wt)),
+        "dx_plain_ms": cuda_ms(lambda: dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)), iters=3, warmup=1),
+        "dx_library_ms": cuda_ms(cudnn_backward([True, False, False])),
+        "dw_ms": cuda_ms(lambda: dw.depthwise_conv2d_s1_grad_weight(x, g, k)),
+        "dw_plain_ms": cuda_ms(lambda: dw.depthwise_conv2d_s1_grad_weight_reference(x, g, k), iters=3, warmup=1),
+        "dw_library_ms": cuda_ms(cudnn_backward([False, True, False])),
+        "dx_max_abs_err": float(dx_err.max()),
+        "dw_max_abs_err": float(dw_err.max()),
+        "dw_mb_moved": nbytes_dw / 1e6,
+    }
+    t["dx_bound_ms"], _ = bound(nbytes_dx, flops)
+    t["dw_bound_ms"], t["dw_bound_by"] = bound(nbytes_dw, flops)
+    return t
+
+
+def phase_train_kernels() -> dict:
+    """Kernels #1 (as input gradient) and #2 at every B5 stride-1 shape at
+    batch 32 and the ragged shape; totals over one B5 train step (bf16)."""
+    log(
+        "depthwise backward tolerance: input gradient as the forward (same arithmetic); filter gradient "
+        "|err| <= 1e-4 x sum|g||x| per tap (f32 sums in another order)"
+    )
+    gen = torch.Generator().manual_seed(SEED + 1)
+    keys = ["dx_ms", "dx_plain_ms", "dx_library_ms", "dx_bound_ms", "dw_ms", "dw_plain_ms", "dw_library_ms", "dw_bound_ms"]
+    totals = dict.fromkeys(keys, 0.0)
+    max_err, dw_bound_by = {"dx": 0.0, "dw": 0.0}, set()
+    cases = [((k, c, h, h), n) for (k, c, h), n in B5_STRIDE1_SHAPES.items()] + [(RAGGED, 0)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for (k, c, h, w), n in cases:
+            t = check_train_kernels(k, c, h, w, dtype, gen)
+            max_err = {key: max(val, t[f"{key}_max_abs_err"]) for key, val in max_err.items()}
+            if n and dtype == torch.bfloat16:
+                dw_bound_by.add(t["dw_bound_by"])
+            log(
+                f"depthwise backward {str(dtype).split('.')[1]:8s} k={k} C={c:4d} {h:3d}x{w:<3d} B={TRAIN_BATCH}: "
+                f"dx_ms={t['dx_ms']:.4f} dx_plain_ms={t['dx_plain_ms']:.4f} dx_library_ms={t['dx_library_ms']:.4f} "
+                f"dx_bound_ms={t['dx_bound_ms']:.4f} | dw_ms={t['dw_ms']:.4f} dw_plain_ms={t['dw_plain_ms']:.4f} "
+                f"dw_library_ms={t['dw_library_ms']:.4f} dw_mb_moved={t['dw_mb_moved']:.2f} dw_bound_ms={t['dw_bound_ms']:.4f} "
+                f"({t['dw_bound_by']}) dw_share_of_bound={t['dw_bound_ms'] / t['dw_ms']:.3f} layers_per_B5_step={n} "
+                f"max_abs_err dx={t['dx_max_abs_err']:.3g} dw={t['dw_max_abs_err']:.3g}"
+            )
+            if dtype == torch.bfloat16:  # the training path's dtype: one step's 35 layers
+                for key in keys:
+                    totals[key] += n * t[key]
+    log(
+        f"depthwise backward per B5 train step (35 layers, bf16, batch {TRAIN_BATCH}): "
+        + " ".join(f"{key}={val:.4f}" for key, val in totals.items())
+    )
+    return {
+        **totals, "dx_max_abs_err": max_err["dx"], "dw_max_abs_err": max_err["dw"],
+        "dw_bound_by": "/".join(sorted(dw_bound_by)),
+    }
+
+
+def phase_fused_ce() -> dict:
+    """Kernels #3/#4 vs their plain versions at N = 32 * 224^2, K = 4, in
+    CE and focal mode, with and without ignore_index=0. Returns the times of
+    the training path's mode (focal, ignore 0, class weights)."""
+    import torch.nn.functional as F
+
+    from s2tpu_torch.ops import fused_ce
+
+    log(
+        "fused CE tolerance: |err| <= 1e-5 x |plain| + 2e-6 x (1 + max|logit|) per element, weights exact: "
+        "the same f32 formula in the same order, with expf/logf/powf that may differ from torch's by an ulp "
+        "or two, and ce = lse - l_y cancels to an error of a few ulps of |lse|"
+    )
+    gen = torch.Generator().manual_seed(SEED + 2)
+    n, k = CE_PIXELS, CE_CLASSES
+    logits = (3.0 * torch.randn(n, k, generator=gen)).cuda()
+    labels = torch.randint(0, k, (n,), generator=gen, dtype=torch.int32).cuda()
+    cw = torch.tensor([0.05, 0.7, 0.5, 0.75], device="cuda")  # non-uniform, the masked class raw
+    g = (0.5 + torch.rand(n, generator=gen)).cuda()  # non-uniform per-pixel cotangent
+    scale = 1.0 + float(logits.abs().max())
+    fwd_bytes = (n * k + n + 2 * n + k) * 4
+    bwd_bytes = (2 * n * k + 2 * n + k) * 4
+    fwd_flops, bwd_flops = n * (4 * k + 11), n * (8 * k + 17)  # f32 operations per pixel, approximate
+    labels_long = labels.long()
+    out = {}
+    for gamma in (None, FOCAL_GAMMA):
+        for ignore in (None, 0):
+            mode = f"{'focal' if gamma else 'ce'} ignore={ignore}"
+            loss, weight = fused_ce.fused_ce_forward(logits, labels, cw, ignore, gamma)
+            loss_ref, weight_ref = fused_ce.fused_ce_forward_reference(logits, labels, cw, ignore, gamma)
+            dl = fused_ce.fused_ce_backward(logits, labels, cw, g, ignore, gamma)
+            dl_ref = fused_ce.fused_ce_backward_reference(logits, labels, cw, g, ignore, gamma)
+            torch.cuda.synchronize()
+            loss_err, dl_err = (loss - loss_ref).abs(), (dl - dl_ref).abs()
+            ok = (
+                bool((loss_err <= 1e-5 * loss_ref.abs() + 2e-6 * scale).all())
+                and bool(torch.equal(weight, weight_ref))
+                and bool((dl_err <= 1e-5 * dl_ref.abs() + 2e-6 * scale).all())
+                and bool(torch.isfinite(loss).all() and torch.isfinite(dl).all())
+            )
+            if not ok:
+                raise AssertionError(
+                    f"fused CE {mode} disagrees: loss max err {float(loss_err.max())}, "
+                    f"dlogits max err {float(dl_err.max())}, weights equal {torch.equal(weight, weight_ref)}"
+                )
+            t = {
+                "fwd_ms": cuda_ms(lambda: fused_ce.fused_ce_forward(logits, labels, cw, ignore, gamma)),
+                "fwd_plain_ms": cuda_ms(lambda: fused_ce.fused_ce_forward_reference(logits, labels, cw, ignore, gamma)),
+                "bwd_ms": cuda_ms(lambda: fused_ce.fused_ce_backward(logits, labels, cw, g, ignore, gamma)),
+                "bwd_plain_ms": cuda_ms(
+                    lambda: fused_ce.fused_ce_backward_reference(logits, labels, cw, g, ignore, gamma)
+                ),
+                "fwd_library_ms": None,
+                "bwd_library_ms": None,
+                "fwd_max_abs_err": float(loss_err.max()),
+                "bwd_max_abs_err": float(dl_err.max()),
+            }
+            t["fwd_bound_ms"], t["fwd_bound_by"] = bound(fwd_bytes, fwd_flops)
+            t["bwd_bound_ms"], t["bwd_bound_by"] = bound(bwd_bytes, bwd_flops)
+            if gamma is None:  # one PyTorch call computes the CE mode; focal has none
+                ii = -100 if ignore is None else ignore
+                t["fwd_library_ms"] = cuda_ms(
+                    lambda: F.cross_entropy(logits, labels_long, weight=cw, ignore_index=ii, reduction="none")
+                )
+                leaf = logits.clone().requires_grad_()
+                lib_loss = F.cross_entropy(leaf, labels_long, weight=cw, ignore_index=ii, reduction="none")
+                t["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_loss, leaf, g, retain_graph=True))
+            lib = lambda key: "none" if t[key] is None else f"{t[key]:.4f}"  # noqa: E731
+            log(
+                f"fused CE {mode:16s} N={n} K={k}: fwd_ms={t['fwd_ms']:.4f} fwd_plain_ms={t['fwd_plain_ms']:.4f} "
+                f"fwd_library_ms={lib('fwd_library_ms')} fwd_bound_ms={t['fwd_bound_ms']:.4f} ({t['fwd_bound_by']}) | "
+                f"bwd_ms={t['bwd_ms']:.4f} bwd_plain_ms={t['bwd_plain_ms']:.4f} bwd_library_ms={lib('bwd_library_ms')} "
+                f"bwd_bound_ms={t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}) | max_abs_err "
+                f"loss={t['fwd_max_abs_err']:.3g} dlogits={t['bwd_max_abs_err']:.3g}"
+            )
+            out[(gamma, ignore)] = t
+    main_mode = out[(FOCAL_GAMMA, 0)]  # the training path: focal, masked class 0, weighted
+    main_mode["ce_fwd_ms"], main_mode["ce_fwd_library_ms"] = out[(None, 0)]["fwd_ms"], out[(None, 0)]["fwd_library_ms"]
+    main_mode["ce_bwd_ms"], main_mode["ce_bwd_library_ms"] = out[(None, 0)]["bwd_ms"], out[(None, 0)]["bwd_library_ms"]
+    main_mode["fwd_max_abs_err"] = max(t["fwd_max_abs_err"] for t in out.values())
+    main_mode["bwd_max_abs_err"] = max(t["bwd_max_abs_err"] for t in out.values())
+    return main_mode
 
 
 def randomize_batch_stats_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
@@ -206,29 +468,42 @@ def randomize_batch_stats_(model: torch.nn.Module, generator: torch.Generator) -
     return model
 
 
-def profile_serve(serve, wall_s: float) -> None:
-    """Device time by kernel over one serving call (torch.profiler), and the
-    device's busy share of the unprofiled wall time ``wall_s``."""
+def profile_device(label: str, run, wall_s: float) -> float | None:
+    """Device time by kernel over one call of ``run`` (torch.profiler), and
+    the device's busy share of the unprofiled wall time ``wall_s`` of the
+    same call; returns that share (None when nothing was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve()
+        run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # Device work only: a user annotation (the optimizer's "Optimizer.step#Adam.step"
+    # range) is mirrored onto the device timeline and would count its span twice.
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))
+    ]
     device_ms = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 for e in kernels}
     total = sum(device_ms.values())
     if total == 0.0:
-        log("slice profile: the profiler recorded no device time (not measured)")
-        return
+        log(f"{label} profile: the profiler recorded no device time (not measured)")
+        return None
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
     log(
-        f"slice profile (bf16 serve): device_busy_ms={total:.3f} of wall_ms={wall_s * 1e3:.3f} "
+        f"{label} profile: device_busy_ms={total:.3f} of wall_ms={wall_s * 1e3:.3f} "
         f"(busy share {total / (wall_s * 1e3):.3f}); kernels {len(kernels)} names, launches "
         f"{sum(e.count for e in kernels)}"
     )
     for name, ms in top:
-        log(f"slice profile top: {ms:9.3f} ms  {name[:110]}")
+        log(f"{label} profile top: {ms:9.3f} ms  {name[:110]}")
+    by_kind: dict[str, float] = {}
+    for name, ms in device_ms.items():
+        kind = next((k for k, marks in KERNEL_KINDS.items() if any(m in name for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    log(f"{label} profile by kind (ms): " + " ".join(f"{k}={v:.3f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    return total / (wall_s * 1e3)
 
 
 def phase_slice(work: Path) -> int:
@@ -314,7 +589,7 @@ def phase_slice(work: Path) -> int:
         f"slice serve (bf16, tiled_predict_many): tiles_per_s={n_tiles / serve_s:.2f} "
         f"ms_per_512_segment={serve_s / n_seg * 1e3:.2f}"
     )
-    profile_serve(lambda: tiled_predict_many(predictor, images, config.num_classes), serve_s)
+    profile_device("slice (bf16 serve)", lambda: tiled_predict_many(predictor, images, config.num_classes), serve_s)
 
     # One batch of tiles: card f32 (TF32 off) vs CPU f32, same weights.
     torch.backends.cudnn.allow_tf32 = False
@@ -341,6 +616,215 @@ def phase_slice(work: Path) -> int:
     return launches
 
 
+def reset_launch_counts() -> None:
+    from s2tpu_torch.ops import depthwise_conv as dw, fused_ce
+
+    dw.LAUNCHES = dw.DX_LAUNCHES = dw.DW_LAUNCHES = 0
+    fused_ce.FWD_LAUNCHES = fused_ce.BWD_LAUNCHES = 0
+
+
+def launch_counts() -> dict[str, int]:
+    from s2tpu_torch.ops import depthwise_conv as dw, fused_ce
+
+    return {
+        "depthwise_fwd": dw.LAUNCHES, "depthwise_dx": dw.DX_LAUNCHES, "depthwise_dw": dw.DW_LAUNCHES,
+        "fused_ce_fwd": fused_ce.FWD_LAUNCHES, "fused_ce_bwd": fused_ce.BWD_LAUNCHES,
+    }
+
+
+def phase_train(work: Path) -> dict:
+    """Train B5 through the training CLI on the card, check it, serve its
+    checkpoint, then time warm train steps. Returns the path's launch counts."""
+    from s2tpu_torch.checkpoint.io import load_checkpoint
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args, main as train_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.data.dataset import TiffSource, make_synthetic_fixture
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.data.statistics import load_mean_std
+    from s2tpu_torch.geo.tiff import read_geotiff
+    from s2tpu_torch.models.efficientnet_unet import count_stride1_depthwise
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    data_dir, out = work / "train_data", work / "train_preds"
+    t0 = time.perf_counter()
+    make_synthetic_fixture(
+        data_dir, aoi="small", label_map="osm-multiclass", n_segments=TRAIN_SEGMENTS,
+        size=(TRAIN_SEGMENT_SIZE, TRAIN_SEGMENT_SIZE),
+    )
+    log(f"train setup: {TRAIN_SEGMENTS} segments {TRAIN_SEGMENT_SIZE}x{TRAIN_SEGMENT_SIZE}x6 in {time.perf_counter() - t0:.1f} s")
+    name = f"chip-smoke-{os.getpid()}"
+    argv = [
+        "small", "osm-multiclass", "efficientnet-unet-b5", "--loss-type", "focal", "--weighted-loss",
+        "--bs", str(TRAIN_BATCH), "--crop", "224", "--compute-dtype", "bfloat16", "--epochs", str(TRAIN_EPOCHS),
+        "--log-interval", "1", "--data-dir", str(data_dir), "--name", name, "--seed", str(SEED),
+    ]
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        history = train_main(argv)  # the main path
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = launch_counts()
+        (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
+        step_losses = [
+            rec["train/loss_step"] for rec in map(json.loads, (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open())
+            if "train/loss_step" in rec
+        ]
+        config, state = load_checkpoint(run_dir)
+
+        # Launches: every train step runs each stride-1 depthwise layer
+        # forward, as input gradient and as filter gradient, and the fused
+        # loss forward and backward; every eval batch the forwards.
+        n_train = int(config.datamodule.data_split[0] * TRAIN_SEGMENTS)
+        n_val = int(config.datamodule.data_split[1] * TRAIN_SEGMENTS)
+        steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
+        eval_batches = TRAIN_EPOCHS * math.ceil(n_val / (TRAIN_BATCH * config.datamodule.val_batch_size_multiplier))
+        init_model = config.build_model(
+            dtype=torch.bfloat16, device="cpu", param_dtype=torch.float32, generator=torch.Generator().manual_seed(SEED)
+        )
+        per = count_stride1_depthwise(init_model.config)
+        expected = {
+            "depthwise_fwd": per * (steps + eval_batches), "depthwise_dx": per * steps, "depthwise_dw": per * steps,
+            "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
+        }
+        if launches != expected:
+            raise AssertionError(f"training path launches {launches} != expected {expected}")
+        losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
+        if len(step_losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"training losses not finite or missing: steps {step_losses}, history {history}")
+
+        # The parameters moved: the checkpoint against the same seeded init.
+        init = init_model.state_dict()
+        params = [k for k, _ in init_model.named_parameters()]
+        unmoved = [k for k in params if torch.equal(init[k], state[k].to(init[k].dtype))]
+        if unmoved or any(state[k].dtype != torch.float32 for k in params):
+            raise AssertionError(f"parameters not moved or not f32: {unmoved[:5]} ({len(unmoved)} of {len(params)})")
+
+        # The run directory serves unchanged.
+        infer_main([str(run_dir), "--tiled", "--out", str(out), "--data-dir", str(data_dir)])
+        preds = sorted(out.glob("pred_*.tif"))
+        if len(preds) != n_val:
+            raise AssertionError(f"{len(preds)} class maps for {n_val} val segments")
+        for p in preds:
+            data, _ = read_geotiff(p)
+            if data.shape != (1, TRAIN_SEGMENT_SIZE, TRAIN_SEGMENT_SIZE) or data.max() >= config.num_classes:
+                raise AssertionError(f"{p.name}: shape {data.shape}, max {data.max()}")
+        log(
+            f"train cli (B5, bf16 compute, f32 params, focal + weighted, batch {TRAIN_BATCH}, 224^2): "
+            f"{TRAIN_EPOCHS} epochs, {steps} steps, {eval_batches} eval batches in {cli_s:.3f} s end to end; "
+            f"step losses {[round(v, 5) for v in step_losses]}; val loss {[round(r['val/loss'], 5) for r in history]}; "
+            f"launches {launches} = expected; {len(params)} parameter tensors all moved, f32; "
+            f"checkpoint {run_dir.name}/epoch_{TRAIN_EPOCHS - 1} served: {len(preds)} class maps"
+        )
+
+        # Warm train steps on one device batch: time, throughput, memory, profile.
+        cfg = config_from_args(build_parser().parse_args(argv))
+        cfg.train.class_distribution = config.train.class_distribution
+        ds = cfg.datamodule.dataset_cfg
+        dm = Datamodule(cfg.datamodule, source=TiffSource(ds.aoi, ds.label_map, ds.data_dir))
+        dm.set_mean_std(*load_mean_std(dm.source.data_dirs.base_path / "mean_std.json"))
+        trainer = SegmentationTrainer(cfg, dm, device="cuda")
+        host = next(dm.train_batches(0))
+        images, labels = torch.from_numpy(host.images).cuda(), torch.from_numpy(host.labels).cuda()
+        trainer.train_step(images, labels)  # warm-up: cuDNN heuristics, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_timed = 3
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            trainer.train_step(images, labels)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n_timed
+        peak = torch.cuda.max_memory_allocated()
+        log(
+            f"train step (warm, B5 bf16, batch {TRAIN_BATCH}, 224^2, mean of {n_timed}): ms_per_step={step_s * 1e3:.3f} "
+            f"images_per_s={TRAIN_BATCH / step_s:.2f} peak_mem_bytes={peak}"
+        )
+        t0 = time.perf_counter()
+        trainer.train_step(images, labels)
+        torch.cuda.synchronize()
+        busy = profile_device("train step (bf16)", lambda: trainer.train_step(images, labels), time.perf_counter() - t0)
+        return {"launches": launches, "ms_per_step": step_s * 1e3, "peak_mem_bytes": peak, "busy_share": busy}
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}_*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+            f.unlink(missing_ok=True)
+
+
+def phase_f32_step() -> None:
+    """One B5 train step in f32 on the card (TF32 off) and on the CPU, same
+    weights and batch, drop-connect off; raises beyond the tolerances."""
+    from s2tpu_torch.models.efficientnet_unet import DepthwiseConv, EfficientNetUNet, EfficientNetUNetConfig, MBConv
+    from s2tpu_torch.train.losses import make_loss_fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist = [0.0, 0.3, 0.5, 0.2]
+    cfg = EfficientNetUNetConfig(version="b5", in_channels=6, num_classes=4, class_distribution=dist)
+    rng = np.random.default_rng(SEED)
+    b, s = F32_STEP_BATCH, F32_STEP_CROP
+    x = torch.from_numpy(rng.normal(size=(b, s, s, 6)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 4, size=(b, s, s)).astype(np.int32))
+
+    def step(device: str, eps: float = 0.0) -> dict:
+        model = EfficientNetUNet(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+        for m in model.modules():
+            if isinstance(m, MBConv):
+                m.drop_rate = 0.0
+        xd = x.to(device)
+        if eps:
+            noise = torch.Generator().manual_seed(SEED + 3)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1.0 + eps * torch.randn(p.shape, generator=noise).to(device))
+            xd = xd * (1.0 + eps * torch.randn(x.shape, generator=noise).to(device))
+        dws = [n for n, m in model.named_modules() if isinstance(m, DepthwiseConv) and m.stride[0] == 1]
+        layers = ["encoder.stem.0.weight", f"{dws[0]}.weight", f"{dws[-1]}.weight", "double_convs.0.0.weight",
+                  "out_conv1x1.weight"]
+        loss_fn = make_loss_fn("focal", 4, masked_loss=True, weighted_loss=True, class_distribution=dist, device=device)
+        model.train()
+        loss = loss_fn(model(xd), y.to(device)).total
+        loss.backward()
+        named = dict(model.named_parameters())
+        return {
+            "loss": float(loss.detach()),
+            "stats": {n: t.detach().cpu() for n, t in model.named_buffers() if "running" in n},
+            "grads": {n: named[n].grad.detach().cpu() for n in layers},
+        }
+
+    def distance(a: dict, ref: dict) -> dict:
+        return {
+            "loss": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "running_stats": max(float(((a["stats"][n] - t).abs() / t.abs().clamp_min(1.0)).max())
+                                 for n, t in ref["stats"].items()),
+            **{f"grad {n}": float((a["grads"][n] - t).norm() / t.norm()) for n, t in ref["grads"].items()},
+        }
+
+    t0 = time.perf_counter()
+    cpu = step("cpu")
+    sensitivity = distance(step("cpu", eps=1e-7), cpu)
+    card = step("cuda")
+    diff = distance(card, cpu)
+    failures = []
+    for key, d in diff.items():
+        floor = F32_STEP_FLOOR["grad" if key.startswith("grad") else key]
+        tol = max(F32_STEP_SENSITIVITY_FACTOR * sensitivity[key], floor)
+        if key.startswith("grad") and tol > F32_STEP_GRAD_CEILING:
+            failures.append(f"{key}: tolerance {tol:.3g} too loose to check anything")
+        if not d <= tol:
+            failures.append(f"{key}: card vs cpu {d:.3g} > {tol:.3g}")
+        log(
+            f"f32 train step card vs cpu (B5, batch {b}, {s}^2, focal + weighted): {key}: {d:.3g} "
+            f"(cpu moved {sensitivity[key]:.3g} under a 1e-7 perturbation; limit {tol:.3g})"
+        )
+    if failures:
+        raise AssertionError("card vs CPU f32 train step: " + "; ".join(failures))
+    log(f"f32 train step card vs cpu: loss {card['loss']:.6f} vs {cpu['loss']:.6f}, in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -354,28 +838,93 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    phase_build()
-    dw_times = phase_kernels()
+    def timed(phase: str, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        return result
+
+    t_start = time.perf_counter()
+    timed("build", phase_build)
+    dw_times = timed("kernels (serving shapes)", phase_kernels)
+    bwd_times = timed("kernels (depthwise backward)", phase_train_kernels)
+    ce_times = timed("kernels (fused CE)", phase_fused_ce)
     work = REPO / "out" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches = phase_slice(work)
+        serve_launches = timed("serving slice", phase_slice, work)
+        train = timed("training slice", phase_train, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    timed("f32 train step card vs cpu", phase_f32_step)
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [{
-        "name": "depthwise_conv2d_s1",
-        "route": "cuda",
-        "source": "s2tpu_torch/ops/csrc/depthwise_conv.cu",
-        "replaces": "s2tpu/ops/depthwise_conv.py:45",
-        "launches": launches,
-        "max_abs_err": dw_times["max_abs_err"],
-        "ms": dw_times["ms"],
-        "plain_ms": dw_times["plain_ms"],
-        "bound_ms": dw_times["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": dw_times["library_ms"],
-    }]
+    launches = train["launches"]
+    kernels = [
+        {
+            "name": "depthwise_conv2d_s1",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/depthwise_conv.cu",
+            "replaces": "s2tpu/ops/depthwise_conv.py:45",
+            "launches": serve_launches,
+            "max_abs_err": max(dw_times["max_abs_err"], bwd_times["dx_max_abs_err"]),
+            "ms": dw_times["ms"],
+            "plain_ms": dw_times["plain_ms"],
+            "bound_ms": dw_times["bound_ms"],
+            "bound_by": dw_times["bound_by"],
+            "library_ms": dw_times["library_ms"],
+            # the same kernel on the training path: forwards and input gradients
+            "train_launches": launches["depthwise_fwd"],
+            "dx_launches": launches["depthwise_dx"],
+            "dx_ms": bwd_times["dx_ms"],
+            "dx_plain_ms": bwd_times["dx_plain_ms"],
+            "dx_bound_ms": bwd_times["dx_bound_ms"],
+            "dx_library_ms": bwd_times["dx_library_ms"],
+        },
+        {
+            "name": "depthwise_conv2d_s1_grad_weight",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/depthwise_grad_weight.cu",
+            "replaces": "s2tpu/ops/depthwise_conv.py:101",
+            "launches": launches["depthwise_dw"],
+            "max_abs_err": bwd_times["dw_max_abs_err"],
+            "ms": bwd_times["dw_ms"],
+            "plain_ms": bwd_times["dw_plain_ms"],
+            "bound_ms": bwd_times["dw_bound_ms"],
+            "bound_by": bwd_times["dw_bound_by"],
+            "library_ms": bwd_times["dw_library_ms"],
+        },
+        {
+            "name": "fused_ce_forward",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/fused_ce.cu",
+            "replaces": "s2tpu/ops/fused_ce.py:45",
+            "launches": launches["fused_ce_fwd"],
+            "max_abs_err": ce_times["fwd_max_abs_err"],
+            "ms": ce_times["fwd_ms"],
+            "plain_ms": ce_times["fwd_plain_ms"],
+            "bound_ms": ce_times["fwd_bound_ms"],
+            "bound_by": ce_times["fwd_bound_by"],
+            "library_ms": ce_times["fwd_library_ms"],
+            "ce_ms": ce_times["ce_fwd_ms"],
+            "ce_library_ms": ce_times["ce_fwd_library_ms"],
+        },
+        {
+            "name": "fused_ce_backward",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/fused_ce.cu",
+            "replaces": "s2tpu/ops/fused_ce.py:65",
+            "launches": launches["fused_ce_bwd"],
+            "max_abs_err": ce_times["bwd_max_abs_err"],
+            "ms": ce_times["bwd_ms"],
+            "plain_ms": ce_times["bwd_plain_ms"],
+            "bound_ms": ce_times["bwd_bound_ms"],
+            "bound_by": ce_times["bwd_bound_by"],
+            "library_ms": ce_times["bwd_library_ms"],
+            "ce_ms": ce_times["ce_bwd_ms"],
+            "ce_library_ms": ce_times["ce_bwd_library_ms"],
+        },
+    ]
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -2,12 +2,14 @@
 
 The port of ``s2tpu/cli/infer.py``. It reads a checkpoint directory written
 by ``s2tpu_torch.checkpoint.io.save_checkpoint`` (``config.json`` +
-``model.pt``) and writes the same files as the JAX CLI: ``pred_<seg>.tif``
+``model.pt``), or a training run directory written by
+``s2tpu_torch.cli.train_segmentation`` (its latest epoch, or ``--epoch``),
+and writes the same files as the JAX CLI: ``pred_<seg>.tif``
 (georeferenced uint8 class maps) with ``--tiled``, else ``batch_<i>.npy``
 (center-crop logits). Runs on the card unless ``--device cpu``.
 
     python -m s2tpu_torch.cli.infer <ckpt_dir> [--split val] [--tiled] [--out DIR]
-        [--data-dir DIR] [--device cuda|cpu] [--batch-size N]
+        [--data-dir DIR] [--device cuda|cpu] [--batch-size N] [--epoch N]
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def main(argv: list[str] | None = None) -> Path:
     from s2tpu_torch.infer.writer import PredictionWriter
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("ckpt_dir", help="checkpoint directory (config.json + model.pt)")
+    p.add_argument("ckpt_dir", help="checkpoint directory (config.json + model.pt) or training run directory")
+    p.add_argument("--epoch", type=int, default=None, help="epoch of a training run directory (default: its latest)")
     p.add_argument("--split", default="val", choices=["train", "val", "test"])
     p.add_argument("--tiled", action="store_true", help="full-segment tiled prediction")
     p.add_argument("--out", default=None, help="output directory (default: out/<ckpt name>)")
@@ -51,7 +54,7 @@ def main(argv: list[str] | None = None) -> Path:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    config, state_dict = load_checkpoint(args.ckpt_dir)
+    config, state_dict = load_checkpoint(args.ckpt_dir, epoch=args.epoch)
     if args.data_dir:
         config.datamodule.dataset_cfg.data_dir = args.data_dir
     dm_cfg, ds = config.datamodule, config.datamodule.dataset_cfg

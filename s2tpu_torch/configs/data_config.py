@@ -16,6 +16,10 @@ from pathlib import Path
 from s2tpu_torch.configs import cnes_labels, osm_labels
 from s2tpu_torch.configs.paths import DATA_DIR
 
+# The AOI names of the JAX package's ``AOIs`` (their boxes serve acquisition,
+# which is not ported); the training CLI takes one of them.
+AOI_NAMES: tuple[str, ...] = ("vie", "test", "at", "small", "fr", "fr-lyon", "fr-test")
+
 BANDS: list[str] = ["B02", "B03", "B04", "B8A", "B11", "B12"]  # 10/20 m bands used by Prithvi-HLS
 # Every Sentinel-2 L2A surface-reflectance band (L2A has no B10 — cirrus is
 # atmospherically corrected away). BASELINE config #3 trains on all 12.

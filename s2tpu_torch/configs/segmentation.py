@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import typing
 from dataclasses import dataclass, field
 
 import torch
@@ -234,14 +235,21 @@ class Config:
             self.num_classes = LABEL_MAPS[self.datamodule.dataset_cfg.label_map].num_classes
 
     def build_model(
-        self, dtype: torch.dtype | None = None, device: torch.device | str | None = None
+        self,
+        dtype: torch.dtype | None = None,
+        device: torch.device | str | None = None,
+        param_dtype: torch.dtype | None = None,
+        generator: torch.Generator | None = None,
     ) -> torch.nn.Module:
         """Instantiate the torch module for ``model_name`` on ``device``
         (``resolve_device``: the card unless ``"cpu"`` is asked for).
 
-        ``dtype`` is the compute dtype (defaults to ``train.compute_dtype``):
-        conv and dense weights are held in it; BatchNorm and the classifier
-        stay float32 (efficientnet_unet.EfficientNetUNet).
+        ``dtype`` is the compute dtype (defaults to ``train.compute_dtype``).
+        Conv and dense weights are held in ``param_dtype`` (default: the
+        compute dtype, as serving holds them; the trainer asks for f32) and
+        cast to the compute dtype where used; BatchNorm and the classifier
+        stay float32 (efficientnet_unet.EfficientNetUNet). ``generator``
+        seeds the initialisation.
         """
         assert self.num_classes is not None
         if dtype is None:
@@ -259,7 +267,9 @@ class Config:
                 num_classes=self.num_classes,
                 class_distribution=self.train.class_distribution,
             )
-            return EfficientNetUNet(config, dtype=dtype, device=resolve_device(device))
+            return EfficientNetUNet(
+                config, dtype=dtype, device=resolve_device(device), generator=generator, param_dtype=param_dtype
+            )
         if name == ModelName.FC_PRITHVI_BACKBONE.value:
             raise NotImplementedError("fc-prithvi-backbone is not ported to s2tpu_torch yet")
         raise ValueError(f"Unknown model: {self.model_name}")
@@ -283,6 +293,33 @@ def base_config(model_name: ModelName | str, aoi: str = "fr", label_map: str = "
         ),
         train=TrainConfig(),
     )
+
+
+RunType = typing.Literal["train", "debug", "overfit"]
+
+
+def apply_linear_lr_scaling(config: Config, reference_bs: int = 32) -> Config:
+    """Treat ``train.lr`` as the base LR at ``reference_bs`` samples per step
+    and scale it linearly to ``datamodule.batch_size``, the global batch
+    (``s2tpu/configs/segmentation.py:313-335``)."""
+    config.train.lr = config.train.lr * config.datamodule.batch_size / reference_bs
+    return config
+
+
+def set_run_type(config: Config, run_type: RunType) -> Config:
+    """The JAX package's run-type presets (``--type tune`` is not ported)."""
+    if run_type == "debug":
+        config.train.num_devices = 1
+        config.datamodule.batch_size = 1
+        config.train.compute_dtype = "float32"
+        config.train.tags.append("debug")
+    elif run_type == "overfit":
+        config.train.overfit_batches = 1
+        config.datamodule.augment = False
+        config.train.tags.append("overfit")
+    elif run_type != "train":
+        raise ValueError(f"Unknown run type {run_type!r}")
+    return config
 
 
 def config_to_dict(config: Config) -> dict:

@@ -1,4 +1,5 @@
-"""Input normalization (the port's counterpart of ``s2tpu/data/augment.py::normalize``).
+"""Input normalization and the model-input layout (the port's counterparts of
+``s2tpu/data/augment.py::normalize`` and ``SegmentationTrainer._model_input``).
 
 The JAX package's optional space-to-depth packing is a TPU lane layout and
 has no counterpart here.
@@ -17,3 +18,15 @@ def normalize(
     x = images.to(torch.float32)
     x = (x - mean.to(torch.float32)) / std.to(torch.float32)
     return x.to(dtype)
+
+
+def model_input(x: torch.Tensor, stack_time_into_channels: bool = False) -> torch.Tensor:
+    """Normalized (B, H, W, C) stays as it is; (B, T, H, W, C) folds its frames
+    into channels, frame-major, when ``stack_time_into_channels`` is set
+    (``s2tpu/train/trainer.py:283-295``, the UNet's multi-temporal input)."""
+    if x.dim() == 5:
+        if not stack_time_into_channels:
+            raise ValueError("(B, T, H, W, C) input needs stack_time_into_channels")
+        b, t, h, w, c = x.shape
+        return x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
+    return x

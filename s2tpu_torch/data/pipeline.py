@@ -1,0 +1,222 @@
+"""Input pipeline: split wiring, host batching and device prefetch (the port of ``s2tpu/data/pipeline.py``).
+
+    host thread:  GeoTIFF read -> random/center crop + flips (numpy slices)
+    prefetch:     pinned host memory -> non-blocking copy to the device
+    device:       normalize (in the trainer's step)
+
+The same ``shuffle_seed`` gives the same split, epoch order, crops and
+flips as the JAX package's Datamodule. Eval batches are padded to a fixed
+batch size with a validity mask, as the JAX package pads them. Only the
+GeoTIFF source is ported; flips happen on the host (``host_flips``).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import typing
+
+import numpy as np
+import torch
+
+from s2tpu_torch.configs.segmentation import DatamoduleConfig
+from s2tpu_torch.data import statistics
+from s2tpu_torch.data.dataset import SegmentSource, TiffSource, train_val_test_split
+
+
+class HostBatch(typing.NamedTuple):
+    images: np.ndarray  # (B, crop, crop, C) int16
+    labels: np.ndarray  # (B, crop, crop) int32
+    mask: np.ndarray  # (B,) bool; False entries are padding
+
+
+class DeviceBatch(typing.NamedTuple):
+    images: torch.Tensor  # (B, crop, crop, C) int16
+    labels: torch.Tensor  # (B, crop, crop) int32
+    mask: torch.Tensor  # (B,) bool
+
+
+def epoch_rng(seed, epoch: int, overfit_batches: int) -> np.random.Generator:
+    """Per-epoch generator; the overfit preset pins one seed across epochs so
+    both sample order and crops are identical every epoch."""
+    return np.random.default_rng(seed if overfit_batches > 0 else (seed, epoch))
+
+
+def sample_epoch_order(
+    rng: np.random.Generator,
+    train_idx: np.ndarray,
+    sample_weights: np.ndarray | None,
+    batch_size: int,
+    overfit_batches: int,
+) -> tuple[np.ndarray, int]:
+    """One epoch's sample order: shuffled, or weighted-with-replacement when
+    per-sample weights exist; returns (order, number of drop-last batches)."""
+    if sample_weights is not None:
+        w = sample_weights[train_idx]
+        order = rng.choice(train_idx, size=len(train_idx), replace=True, p=w / w.sum())
+    else:
+        order = rng.permutation(train_idx)
+    n_batches = len(order) // batch_size
+    if overfit_batches > 0:
+        n_batches = min(overfit_batches, max(n_batches, 1))
+        order = np.concatenate([order] * max(1, batch_size * n_batches // max(len(order), 1) + 1))
+    return order, n_batches
+
+
+class Datamodule:
+    """Sources, splits, statistics and batch iterators for one config
+    (single process: the JAX package's multi-host slicing is not ported)."""
+
+    def __init__(self, cfg: DatamoduleConfig, source: SegmentSource | None = None) -> None:
+        self.cfg = cfg
+        ds = cfg.dataset_cfg
+        self.source = (
+            source if source is not None
+            else TiffSource(ds.aoi, ds.label_map, ds.data_dir, n_time_frames=ds.n_time_frames)
+        )
+        self.train_idx, self.val_idx, self.test_idx = train_val_test_split(
+            len(self.source), cfg.data_split, seed=cfg.shuffle_seed
+        )
+        self._mean_std: tuple[np.ndarray, np.ndarray] | None = None
+        self._sample_weights: np.ndarray | None = None
+        if cfg.class_distribution is not None:
+            self._sample_weights = statistics.get_sample_weights(
+                self.source, np.asarray(cfg.class_distribution), ignore_zero_label=True
+            )
+
+    # -- statistics ---------------------------------------------------------
+    def mean_std(self) -> tuple[np.ndarray, np.ndarray]:
+        if self._mean_std is None:
+            stats = statistics.calculate_mean_std(self.source)
+            self._mean_std = (np.asarray(stats["mean"], np.float32), np.asarray(stats["std"], np.float32))
+        return self._mean_std
+
+    def set_mean_std(self, mean: np.ndarray, std: np.ndarray) -> None:
+        self._mean_std = (np.asarray(mean, np.float32), np.asarray(std, np.float32))
+
+    # -- batching -----------------------------------------------------------
+    def _sample_hw(self) -> tuple[int, int]:
+        s = self.source[0]
+        return s.x.shape[-3], s.x.shape[-2]
+
+    def _gather_crops(
+        self,
+        indices: np.ndarray,
+        ys: np.ndarray,
+        xs: np.ndarray,
+        flip_h: np.ndarray | None = None,
+        flip_v: np.ndarray | None = None,
+    ) -> HostBatch:
+        crop = self.cfg.random_crop_size
+        n = len(indices)
+        first = self.source[int(indices[0])]
+        c = first.x.shape[-1]
+        lead = first.x.shape[:-3]  # multi-temporal samples are (T, H, W, C)
+        images = np.empty((n, *lead, crop, crop, c), dtype=np.int16)
+        labels = np.empty((n, crop, crop), dtype=np.int32)
+        for k, (i, y0, x0) in enumerate(zip(indices, ys, xs)):
+            s = self.source[int(i)]
+            img = s.x[..., y0 : y0 + crop, x0 : x0 + crop, :]
+            lbl = s.y[y0 : y0 + crop, x0 : x0 + crop]
+            if flip_h is not None and flip_h[k]:
+                img, lbl = img[..., :, ::-1, :], lbl[:, ::-1]
+            if flip_v is not None and flip_v[k]:
+                img, lbl = img[..., ::-1, :, :], lbl[::-1, :]
+            images[k] = img
+            labels[k] = lbl
+        return HostBatch(images, labels, np.ones(n, dtype=bool))
+
+    def train_batches(self, epoch: int, overfit_batches: int = 0) -> typing.Iterator[HostBatch]:
+        """One epoch of shuffled, randomly cropped and flipped, drop-last
+        train batches (``s2tpu/data/pipeline.py:169-207``, host flips)."""
+        bs = self.cfg.batch_size
+        rng = epoch_rng(self.cfg.shuffle_seed, epoch, overfit_batches)
+        order, n_batches = sample_epoch_order(rng, self.train_idx, self._sample_weights, bs, overfit_batches)
+        hw = self._sample_hw()
+        random_aug = self.cfg.augment and overfit_batches == 0
+        for b in range(n_batches):
+            idx = order[b * bs : (b + 1) * bs]
+            flip_h = flip_v = None
+            if random_aug:
+                ys = rng.integers(0, hw[0] - self.cfg.random_crop_size + 1, size=bs)
+                xs = rng.integers(0, hw[1] - self.cfg.random_crop_size + 1, size=bs)
+                if self.cfg.host_flips:
+                    flip_h = rng.random(bs) < self.cfg.random_horizontal_flip_p
+                    flip_v = rng.random(bs) < self.cfg.random_vertical_flip_p
+            else:
+                ys = np.full(bs, (hw[0] - self.cfg.random_crop_size) // 2)
+                xs = np.full(bs, (hw[1] - self.cfg.random_crop_size) // 2)
+            yield self._gather_crops(idx, ys, xs, flip_h=flip_h, flip_v=flip_v)
+
+    def eval_batches(self, split: str = "val") -> typing.Iterator[HostBatch]:
+        """Center-cropped eval batches, padded to a fixed batch size."""
+        bs = self.cfg.batch_size * self.cfg.val_batch_size_multiplier
+        indices = {"val": self.val_idx, "test": self.test_idx, "train": self.train_idx}[split]
+        hw = self._sample_hw()
+        y0 = (hw[0] - self.cfg.random_crop_size) // 2
+        x0 = (hw[1] - self.cfg.random_crop_size) // 2
+        for b in range(0, len(indices), bs):
+            idx = indices[b : b + bs]
+            batch = self._gather_crops(idx, np.full(len(idx), y0), np.full(len(idx), x0))
+            if len(idx) < bs:
+                pad = bs - len(idx)
+                batch = HostBatch(
+                    np.concatenate([batch.images, np.zeros((pad, *batch.images.shape[1:]), batch.images.dtype)]),
+                    np.concatenate([batch.labels, np.zeros((pad, *batch.labels.shape[1:]), batch.labels.dtype)]),
+                    np.concatenate([batch.mask, np.zeros(pad, dtype=bool)]),
+                )
+            yield batch
+
+
+def prefetch_to_device(
+    iterator: typing.Iterator[HostBatch], device: torch.device, depth: int = 2
+) -> typing.Iterator[DeviceBatch]:
+    """Background-thread host-to-device pipeline (``s2tpu/data/pipeline.py:244-283``).
+
+    A producer thread pins each batch and starts non-blocking copies on a
+    stream of its own (on the card), so the copies overlap the consumer's
+    compute; the consumer waits on that stream's event before it uses a
+    batch. Producer exceptions are re-raised in the consumer instead of
+    silently truncating the epoch. Labels arrive as int32.
+    """
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = object()
+    error: list[BaseException] = []
+    on_card = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if on_card else None
+
+    def to_device(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory().to(device, non_blocking=True) if on_card else t
+
+    def produce() -> None:
+        try:
+            for batch in iterator:
+                if on_card:
+                    with torch.cuda.stream(copy_stream):
+                        out = DeviceBatch(*(to_device(a) for a in batch))
+                        event = torch.cuda.Event()
+                        event.record(copy_stream)
+                else:
+                    out, event = DeviceBatch(*(to_device(a) for a in batch)), None
+                q.put((out, event))
+        except BaseException as e:  # noqa: BLE001 - relayed to the consumer
+            error.append(e)
+        finally:
+            q.put(stop)
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    while True:
+        item = q.get()
+        if item is stop:
+            thread.join()
+            if error:
+                raise error[0]
+            return
+        batch, event = item
+        if event is not None:
+            torch.cuda.current_stream(device).wait_event(event)
+            for t in batch:
+                t.record_stream(torch.cuda.current_stream(device))
+        yield batch

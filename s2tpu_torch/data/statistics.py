@@ -1,5 +1,5 @@
-"""Dataset statistics: streaming per-band mean/std (the port's copy of
-``s2tpu/data/statistics.py``'s Welford pass and its ``mean_std.json`` IO)."""
+"""Dataset statistics: streaming per-band mean/std, class distribution and
+sample weights (the port's copy of ``s2tpu/data/statistics.py``)."""
 
 from __future__ import annotations
 
@@ -56,3 +56,44 @@ def calculate_mean_std(source: SegmentSource, save_path: str | Path | None = Non
 def load_mean_std(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
     stats = json.loads(Path(path).read_text())
     return np.asarray(stats["mean"], np.float32), np.asarray(stats["std"], np.float32)
+
+
+def get_class_probabilities(
+    source: SegmentSource,
+    num_classes: int,
+    ignore_zero_label: bool,
+    max_samples: int = 2500,
+    seed: int = 0,
+) -> np.ndarray:
+    """Label-frequency distribution over a random subsample of segments."""
+    rng = np.random.default_rng(seed)
+    n = len(source)
+    idxs = rng.choice(n, size=min(max_samples, n), replace=False)
+    counts = np.zeros(num_classes, dtype=np.int64)
+    for i in idxs:
+        counts += np.bincount(np.asarray(source[int(i)].y).ravel(), minlength=num_classes)[:num_classes]
+    if ignore_zero_label:
+        counts[0] = 0
+    total = counts.sum()
+    return counts / total if total > 0 else np.full(num_classes, 1.0 / num_classes)
+
+
+def get_sample_weights(
+    source: SegmentSource,
+    class_distribution: np.ndarray,
+    ignore_zero_label: bool = False,
+) -> np.ndarray:
+    """Weighted-sampling weights: deviation of each sample's local class mix
+    from the global distribution (rare-class-rich samples get drawn more)."""
+    global_dist = np.asarray(class_distribution, dtype=np.float64)
+    k = len(global_dist)
+    weights = np.empty(len(source), dtype=np.float64)
+    for i in range(len(source)):
+        local = np.bincount(np.asarray(source[i].y).ravel(), minlength=k)[:k].astype(np.float64)
+        if ignore_zero_label:
+            local[0] = 0
+        s = local.sum()
+        local = local / s if s > 0 else local
+        weights[i] = np.abs(local - global_dist).sum()
+    total = weights.sum()
+    return (weights / total if total > 0 else np.full(len(source), 1.0 / len(source))).astype(np.float32)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from s2tpu_torch.data.augment import normalize
+from s2tpu_torch.data.augment import model_input, normalize
 
 
 class Predictor:
@@ -36,9 +36,4 @@ class Predictor:
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             x = normalize(images.to(self.device), self.mean, self.std, dtype=self.compute_dtype)
-            if x.dim() == 5:
-                if not self.stack_time_into_channels:
-                    raise ValueError("(B, T, H, W, C) input needs stack_time_into_channels")
-                b, t, h, w, c = x.shape
-                x = x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
-            return self.model(x).to(torch.float32)
+            return self.model(model_input(x, self.stack_time_into_channels)).to(torch.float32)

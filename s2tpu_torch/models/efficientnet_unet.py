@@ -21,8 +21,13 @@ its unused ``encoder.fc.*`` loads with ``strict=True``.
 
 Numerics that differ from torch's defaults, taken from the JAX model:
 XLA SAME padding (asymmetric at stride 2), encoder BatchNorm eps 1e-3 and
-decoder eps 1e-5, BatchNorm from running statistics (inference only here;
-drop-connect and dropout belong to training).
+decoder eps 1e-5. In eval mode BatchNorm runs from its running statistics;
+in train mode it has flax semantics (f32 statistics as E[x^2] - E[x]^2
+clipped at 0, running statistics updated with the biased batch variance at
+the flax decay: encoder 0.99, decoder 0.9), and residual MBConv blocks apply
+per-sample drop-connect at ``drop_connect_rate * i / n``. Weights are cast to
+the compute dtype where they are used, as flax does, so they may be stored
+in f32 (training) or in the compute dtype (serving).
 """
 
 from __future__ import annotations
@@ -121,6 +126,7 @@ class EfficientNetUNetConfig:
     depth_coefficient: float | None = None
     concat_input: bool = True
     decoder_bn_momentum: float = 0.9
+    # When set, every BatchNorm (encoder and decoder) uses this EMA decay.
     bn_momentum_override: float | None = None
 
     def __post_init__(self) -> None:
@@ -143,11 +149,40 @@ class EfficientNetUNetConfig:
         w, d, _ = self.scaling
         return build_block_specs(w, d, self.depth_divisor, self.min_depth)
 
+    @property
+    def enc_bn_momentum(self) -> float:
+        """Encoder BatchNorm EMA decay (flax ``momentum``; torch's is 1 - it)."""
+        return self.bn_momentum if self.bn_momentum_override is None else self.bn_momentum_override
+
+    @property
+    def dec_bn_momentum(self) -> float:
+        """Decoder BatchNorm EMA decay (flax ``momentum``; torch's is 1 - it)."""
+        return self.decoder_bn_momentum if self.bn_momentum_override is None else self.bn_momentum_override
+
 
 # ---------------------------------------------------------------------------
 # Layers (each subclasses the torch module whose parameters it holds, so the
-# state-dict names and shapes are the reference's)
+# state-dict names and shapes are the reference's). Each casts its weights
+# to the dtype of its input, the compute dtype, as flax casts to ``dtype``.
 # ---------------------------------------------------------------------------
+def _as(p: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor | None:
+    return None if p is None else p.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """Stride-1 conv with symmetric padding (the decoder's 3x3 SAME convs)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, _as(self.weight, x), _as(self.bias, x), self.stride, self.padding)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """The decoder's k2 s2 transpose conv."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, _as(self.weight, x), _as(self.bias, x), self.stride)
+
+
 class Conv2dSame(nn.Conv2d):
     """Conv with XLA's SAME padding, which is asymmetric at stride 2 on even
     sizes (the k3 s2 stem pads (0, 1); torch's ``padding=1`` would pad (1, 1))."""
@@ -156,7 +191,7 @@ class Conv2dSame(nn.Conv2d):
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         ph = same_padding(x.shape[2], kh, sh)
         pw = same_padding(x.shape[3], kw, sw)
-        return F.conv2d(F.pad(x, (*pw, *ph)), self.weight, self.bias, self.stride)
+        return F.conv2d(F.pad(x, (*pw, *ph)), _as(self.weight, x), _as(self.bias, x), self.stride)
 
 
 class Conv1x1(nn.Conv2d):
@@ -167,33 +202,59 @@ class Conv1x1(nn.Conv2d):
         super().__init__(cin, cout, 1, bias=bias, **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.permute(0, 2, 3, 1), self.weight.flatten(1), self.bias)
+        y = F.linear(x.permute(0, 2, 3, 1), _as(self.weight.flatten(1), x), _as(self.bias, x))
         return y.permute(0, 3, 1, 2)
 
 
 class DepthwiseConv(nn.Conv2d):
     """Depthwise conv (weight (C, 1, k, k)) through ``ops.depthwise_conv``:
-    stride 1 runs the CUDA kernel on the card."""
+    stride 1 runs the CUDA kernels on the card, forward and backward."""
 
     def __init__(self, channels: int, kernel_size: int, stride: int, **factory) -> None:
         super().__init__(channels, channels, kernel_size, stride=stride, groups=channels, bias=False, **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight[:, 0].permute(1, 2, 0).contiguous()  # (k, k, C)
+        w = _as(self.weight[:, 0].permute(1, 2, 0), x).contiguous()  # (k, k, C)
         y = depthwise_conv2d(x.permute(0, 2, 3, 1).contiguous(), w, self.stride[0])
         return y.permute(0, 3, 1, 2)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Inference BatchNorm from running statistics: scale and shift are folded
-    in f32, then applied in the activation dtype."""
+    """BatchNorm with the JAX model's semantics; ``decay`` is flax's momentum
+    (torch's ``momentum`` is 1 - decay).
+
+    Eval: from running statistics, scale and shift folded in f32, then
+    applied in the activation dtype. Train (flax ``nn.BatchNorm``): batch
+    statistics in f32 as E[x^2] - E[x]^2 clipped at 0, normalization in f32
+    cast back to the activation dtype, and running statistics updated as
+    ``decay * running + (1 - decay) * batch`` with the biased variance.
+    """
+
+    def __init__(self, num_features: int, eps: float, decay: float) -> None:
+        super().__init__(num_features, eps=eps, momentum=1.0 - decay)
+        self.decay = decay
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("s2tpu_torch serves only: BatchNorm runs from running statistics")
+            xf = x.to(torch.float32)
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
+                self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
+                self.num_batches_tracked.add_(1)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+            return y.to(x.dtype)
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def drop_connect_mask(batch: int, keep: float, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """Per-sample keep mask (B, 1, 1, 1) bool: uniform < keep, the draw of
+    ``jax.random.bernoulli`` in the JAX model, from an explicit generator."""
+    return torch.rand((batch, 1, 1, 1), generator=generator, device=device) < keep
 
 
 class GlobalAvgPool(nn.Module):
@@ -202,16 +263,18 @@ class GlobalAvgPool(nn.Module):
 
 
 class MBConv(nn.Module):
-    """Mobile inverted bottleneck: expand -> depthwise -> SE -> project."""
+    """Mobile inverted bottleneck: expand -> depthwise -> SE -> project, with
+    per-sample drop-connect on the residual branch in train mode."""
 
-    def __init__(self, spec: BlockSpec, bn_eps: float, **factory) -> None:
+    def __init__(self, spec: BlockSpec, bn_eps: float, bn_decay: float, drop_rate: float, **factory) -> None:
         super().__init__()
         s = spec
         mid = s.in_filters * s.expand_ratio
+        bn = lambda n: BatchNorm(n, eps=bn_eps, decay=bn_decay)  # noqa: E731
         layers: list[nn.Module] = []
         if s.expand_ratio != 1:
-            layers += [Conv1x1(s.in_filters, mid, bias=False, **factory), BatchNorm(mid, eps=bn_eps), nn.SiLU()]
-        layers += [DepthwiseConv(mid, s.kernel_size, s.stride, **factory), BatchNorm(mid, eps=bn_eps), nn.SiLU()]
+            layers += [Conv1x1(s.in_filters, mid, bias=False, **factory), bn(mid), nn.SiLU()]
+        layers += [DepthwiseConv(mid, s.kernel_size, s.stride, **factory), bn(mid), nn.SiLU()]
         self.stem = nn.Sequential(*layers)
         self.squeeze_excitation = None
         if 0 < s.se_ratio <= 1:
@@ -223,17 +286,23 @@ class MBConv(nn.Module):
                 Conv1x1(squeezed, mid, bias=True, **factory),
                 nn.Sigmoid(),
             )
-        self.final_layer = nn.Sequential(
-            Conv1x1(mid, s.out_filters, bias=False, **factory), BatchNorm(s.out_filters, eps=bn_eps)
-        )
+        self.final_layer = nn.Sequential(Conv1x1(mid, s.out_filters, bias=False, **factory), bn(s.out_filters))
         self.residual = s.skip and s.stride == 1 and s.in_filters == s.out_filters
+        self.drop_rate = drop_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         y = self.stem(x)
         if self.squeeze_excitation is not None:
             y = y * self.squeeze_excitation(y)
         y = self.final_layer(y)
-        return y + x if self.residual else y
+        if not self.residual:
+            return y
+        if self.training and self.drop_rate > 0.0:
+            if generator is None:
+                raise ValueError("train-mode drop-connect draws from an explicit torch.Generator: pass generator=")
+            keep = 1.0 - self.drop_rate
+            y = y / keep * drop_connect_mask(y.shape[0], keep, generator, y.device).to(y.dtype)
+        return y + x
 
 
 class EfficientNetEncoder(nn.Module):
@@ -242,19 +311,20 @@ class EfficientNetEncoder(nn.Module):
     def __init__(self, config: EfficientNetUNetConfig, **factory) -> None:
         super().__init__()
         w, _, _ = config.scaling
-        eps = config.bn_epsilon
+        eps, decay = config.bn_epsilon, config.enc_bn_momentum
         self.specs = config.block_specs
         stem_filters = round_filters(32, w, config.depth_divisor, config.min_depth)
         self.head_filters = round_filters(1280, w, config.depth_divisor, config.min_depth)
         self.stem = nn.Sequential(
             Conv2dSame(config.in_channels, stem_filters, 3, stride=2, bias=False, **factory),
-            BatchNorm(stem_filters, eps=eps),
+            BatchNorm(stem_filters, eps=eps, decay=decay),
             nn.SiLU(),
         )
-        self.blocks = nn.ModuleList(MBConv(s, eps, **factory) for s in self.specs)
+        n, rate = len(self.specs), config.drop_connect_rate or 0.0
+        self.blocks = nn.ModuleList(MBConv(s, eps, decay, rate * i / n, **factory) for i, s in enumerate(self.specs))
         self.conv_head = nn.Sequential(
             Conv1x1(self.specs[-1].out_filters, self.head_filters, bias=False, **factory),
-            BatchNorm(self.head_filters, eps=eps),
+            BatchNorm(self.head_filters, eps=eps, decay=decay),
             nn.SiLU(),
         )
 
@@ -270,7 +340,7 @@ class EfficientNetEncoder(nn.Module):
                 out.append(s.out_filters)
         return list(reversed(out))
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> list[torch.Tensor]:
         """-> [1/32 conv_head, 1/16, 1/8, 1/4, 1/2]: deepest first."""
         x = self.stem(x)
         skips: list[torch.Tensor] = []
@@ -278,20 +348,20 @@ class EfficientNetEncoder(nn.Module):
         for i, (block, spec) in enumerate(zip(self.blocks, self.specs)):
             if spec.stride == 2:
                 reduction *= 2
-            x = block(x)
+            x = block(x, generator)
             # first block output at each resolution above 1/32
             if (i == 0 or spec.stride == 2) and reduction < 32:
                 skips.insert(0, x)
         return [self.conv_head(x), *skips]
 
 
-def _double_conv(cin: int, features: int, **factory) -> nn.Sequential:
+def _double_conv(cin: int, features: int, decay: float, **factory) -> nn.Sequential:
     return nn.Sequential(
-        nn.Conv2d(cin, features, 3, padding=1, **factory),
-        BatchNorm(features, eps=DECODER_BN_EPS),
+        Conv2d(cin, features, 3, padding=1, **factory),
+        BatchNorm(features, eps=DECODER_BN_EPS, decay=decay),
         nn.ReLU(),
-        nn.Conv2d(features, features, 3, padding=1, **factory),
-        BatchNorm(features, eps=DECODER_BN_EPS),
+        Conv2d(features, features, 3, padding=1, **factory),
+        BatchNorm(features, eps=DECODER_BN_EPS, decay=decay),
         nn.ReLU(),
     )
 
@@ -299,11 +369,14 @@ def _double_conv(cin: int, features: int, **factory) -> nn.Sequential:
 class EfficientNetUNet(nn.Module):
     """U-Net over the EfficientNet encoder: (B, H, W, C) -> (B, H, W, K) f32 logits.
 
-    Conv and dense weights are held in ``dtype`` (the compute dtype);
-    BatchNorm parameters, running statistics and the classifier stay f32.
-    Parameters are initialised on the CPU from ``generator`` (the JAX
-    model's initialisers: truncated-normal fan-out variance scaling, class-
-    prior classifier bias), then moved to ``device``.
+    ``dtype`` is the compute dtype. Conv and dense weights are held in
+    ``param_dtype`` (default: ``dtype``, which serving uses; training keeps
+    them in f32) and cast to ``dtype`` where they are used; BatchNorm
+    parameters, running statistics and the classifier stay f32. Parameters
+    are initialised on the CPU from ``generator`` (the JAX model's
+    initialisers: truncated-normal fan-out variance scaling, class-prior
+    classifier bias), then moved to ``device``. The module starts in eval
+    mode; in train mode ``forward`` takes the drop-connect generator.
     """
 
     def __init__(
@@ -312,28 +385,30 @@ class EfficientNetUNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: torch.device | str = "cpu",
         generator: torch.Generator | None = None,
+        param_dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.config = config
         self.dtype = dtype
         self.encoder = EfficientNetEncoder(config)
+        decay = config.dec_bn_momentum
         cin = self.encoder.head_filters
         self.up_convs = nn.ModuleList()
         self.double_convs = nn.ModuleList()
         for feats, skip in zip(UP_FEATURES, self.encoder.skip_filters):
-            self.up_convs.append(nn.ConvTranspose2d(cin, feats, 2, stride=2))
-            self.double_convs.append(_double_conv(feats + skip, feats))
+            self.up_convs.append(ConvTranspose2d(cin, feats, 2, stride=2))
+            self.double_convs.append(_double_conv(feats + skip, feats, decay))
             cin = feats
         self.input_up_conv = self.input_double_conv = None
         if config.concat_input:
-            self.input_up_conv = nn.ConvTranspose2d(cin, 32, 2, stride=2)
-            self.input_double_conv = _double_conv(32 + config.in_channels, 32)
+            self.input_up_conv = ConvTranspose2d(cin, 32, 2, stride=2)
+            self.input_double_conv = _double_conv(32 + config.in_channels, 32, decay)
             cin = 32
         self.out_conv1x1 = Conv1x1(cin, config.num_classes, bias=True)
         self._init_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and m is not self.out_conv1x1:
-                m.to(dtype)
+                m.to(param_dtype or dtype)
         self.to(device=device, memory_format=torch.channels_last)
         self.eval()
 
@@ -354,9 +429,11 @@ class EfficientNetUNet(nn.Module):
             bias = self.out_conv1x1.bias
             bias.copy_(torch.log(d[1] / d[0]).expand_as(bias) if d.shape[0] == 2 else torch.log(d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, H, W, C) -> (B, H, W, K) f32 logits; ``generator`` draws the
+        train-mode drop-connect masks (on the device of ``x``)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        features = self.encoder(x)
+        features = self.encoder(x, generator)
         y = features[0]
         for up, double_conv, skip in zip(self.up_convs, self.double_convs, features[1:]):
             y = double_conv(torch.cat([up(y), skip], dim=1))

@@ -8,7 +8,9 @@ object with a plain C interface, for ``sm_90a`` (Hopper):
 The object lands in ``ops/build/`` under a name keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. ``-Xptxas -v`` output (registers, shared memory, spills) is kept
-beside it in a ``.log`` file. Nothing here runs at import time.
+beside it in a ``.log`` file. Nothing here runs at import time. Libraries
+build independently: :func:`load_libraries` runs one nvcc per library, all
+at once.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -28,7 +31,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _libraries: dict[str, ctypes.CDLL] = {}
 
 
@@ -62,6 +66,8 @@ def build_log(name: str, sources: list[str]) -> str:
 def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     """Compile ``sources`` (relative to ``csrc/``) if needed, then load them once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libraries.get(name)
         if lib is not None:
             return lib
@@ -78,3 +84,11 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         _libraries[name] = lib
         return lib
+
+
+def load_libraries(libraries: dict[str, list[str]]) -> dict[str, ctypes.CDLL]:
+    """:func:`load_library` for every ``name -> sources`` entry, the builds
+    running concurrently (one nvcc process each); any failure raises."""
+    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
+        futures = {name: pool.submit(load_library, name, srcs) for name, srcs in libraries.items()}
+        return {name: f.result() for name, f in futures.items()}

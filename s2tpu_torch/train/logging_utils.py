@@ -1,0 +1,27 @@
+"""Run logging: the per-run JSONL scalars file (the port of ``s2tpu/train/logging_utils.py::RunLogger``).
+
+Scalars land in ``<log_dir>/<run>.metrics.jsonl`` and the run's config in
+``<log_dir>/<run>.config.json``, as the JAX package writes them without
+wandb. wandb is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+
+class RunLogger:
+    def __init__(self, run_name: str, log_dir: str | Path, config: dict | None = None) -> None:
+        self.run_name = run_name
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.jsonl_path = self.log_dir / f"{run_name}.metrics.jsonl"
+        if config is not None:
+            (self.log_dir / f"{run_name}.config.json").write_text(json.dumps(config, default=str, indent=2))
+
+    def log_scalars(self, scalars: dict[str, float], step: int) -> None:
+        record = {"step": step, "time": time.time(), **{k: float(v) for k, v in scalars.items()}}
+        with self.jsonl_path.open("a") as f:
+            f.write(json.dumps(record) + "\n")

@@ -1,0 +1,190 @@
+"""Loss zoo: masked/weighted CE, focal, soft-dice, combined (the port of ``s2tpu/train/losses.py``).
+
+The same four loss types over (B, H, W, K) channel-last logits, with
+``ignore_index = 0`` under ``masked_loss``, the ``w = 1 - p`` class weights
+and ``batch_mask`` for padded eval batches. Without label smoothing, CE and
+focal (alone or inside ``dice_focal``) run the fused kernels of
+``ops/fused_ce.py`` (#3 forward, #4 backward on the card); ``batch_mask``
+multiplies their per-pixel outputs before the sums, with the denominators of
+the JAX losses. Label smoothing is a case the JAX kernel does not take
+either, so it uses the plain per-pixel CE below: a dispatch on the config,
+not a fallback on failure.
+
+Masks are applied as selects (``torch.where``), as XLA compiles the JAX
+losses' products with 0/1 masks: an ignored pixel never passes a NaN (focal's
+(1-pt)^(gamma-1) at pt = 1 when gamma < 1) into its gradient.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+import torch.nn.functional as F
+
+from s2tpu_torch.ops.fused_ce import fused_ce_per_pixel
+
+
+def _one_hot_smoothed(labels: torch.Tensor, num_classes: int, label_smoothing: float) -> torch.Tensor:
+    oh = F.one_hot(labels.long(), num_classes).to(torch.float32)
+    if label_smoothing > 0.0:
+        oh = oh * (1.0 - label_smoothing) + label_smoothing / num_classes
+    return oh
+
+
+def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0) -> torch.Tensor:
+    """Unreduced CE over channel-last logits; (..., K) x (...) -> (...)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    target = _one_hot_smoothed(labels, logits.shape[-1], label_smoothing)
+    return -(target * logp).sum(dim=-1)
+
+
+def _valid_mask(labels: torch.Tensor, ignore_index: int | None, batch_mask: torch.Tensor | None) -> torch.Tensor:
+    """Per-pixel bool mask: not the ignore index, and in a real (unpadded) row."""
+    valid = torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+    if ignore_index is not None:
+        valid = valid & (labels != ignore_index)
+    if batch_mask is not None:
+        valid = valid & batch_mask.reshape((-1,) + (1,) * (labels.ndim - 1)).bool()
+    return valid
+
+
+def _pixel_mask(labels: torch.Tensor, batch_mask: torch.Tensor) -> torch.Tensor:
+    """``batch_mask`` (B,) broadcast to every pixel, flattened like the kernels' outputs."""
+    shape = (-1,) + (1,) * (labels.ndim - 1)
+    return batch_mask.to(torch.float32).reshape(shape).expand(labels.shape).reshape(-1)
+
+
+def _labels_int32(labels: torch.Tensor) -> torch.Tensor:
+    return labels if labels.dtype == torch.int32 else labels.to(torch.int32)
+
+
+def cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    class_weights: torch.Tensor | None = None,
+    ignore_index: int | None = None,
+    label_smoothing: float = 0.0,
+    batch_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """torch.nn.CrossEntropyLoss-equivalent weighted masked mean
+    (``s2tpu/train/losses.py:55-70``)."""
+    if label_smoothing == 0.0:
+        k = logits.shape[-1]
+        cw = class_weights if class_weights is not None else torch.ones(k, dtype=torch.float32, device=logits.device)
+        loss, weight = fused_ce_per_pixel(logits, _labels_int32(labels), cw, ignore_index, None)
+        if batch_mask is not None:
+            m = _pixel_mask(labels, batch_mask)
+            loss, weight = loss * m, weight * m
+        return loss.sum() / weight.sum().clamp_min(1e-12)
+    ce = _per_pixel_ce(logits, labels, label_smoothing)
+    valid = _valid_mask(labels, ignore_index, batch_mask)
+    w = class_weights.to(torch.float32)[labels.long()] if class_weights is not None else torch.ones_like(ce)
+    w = torch.where(valid, w, 0.0)
+    return (ce * w).sum() / w.sum().clamp_min(1e-12)
+
+
+def focal_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    alpha: torch.Tensor,
+    gamma: float,
+    ignore_index: int | None = None,
+    label_smoothing: float = 0.0,
+    batch_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """alpha_y (1-pt)^gamma ce, mean over ALL pixels (``s2tpu/train/losses.py:73-94``);
+    with ``batch_mask``, over the pixels of the real rows."""
+    if batch_mask is not None:
+        denom = (batch_mask.to(torch.float32).sum() * labels[0].numel()).clamp_min(1e-12)
+    else:
+        denom = labels.numel()
+    if label_smoothing == 0.0:
+        loss, _ = fused_ce_per_pixel(logits, _labels_int32(labels), alpha, ignore_index, gamma)
+        if batch_mask is not None:
+            loss = loss * _pixel_mask(labels, batch_mask)
+        return loss.sum() / denom
+    ce = _per_pixel_ce(logits, labels, label_smoothing)
+    ce = torch.where(_valid_mask(labels, ignore_index, batch_mask), ce, 0.0)
+    pt = torch.exp(-ce)
+    focal = alpha.to(torch.float32)[labels.long()] * (1.0 - pt) ** gamma * ce
+    return focal.sum() / denom
+
+
+def dice_loss(
+    logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-8, batch_mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Multiclass soft-dice: 1 - mean per-sample dice coefficient (``:104-122``)."""
+    num_classes = logits.shape[-1]
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    target = F.one_hot(labels.long(), num_classes).to(torch.float32)
+    dims = tuple(range(1, probs.ndim))
+    intersection = (probs * target).sum(dims)
+    union = (probs + target).sum(dims)
+    per_sample = 1.0 - (2.0 * intersection + eps) / (union + eps)
+    if batch_mask is not None:
+        m = batch_mask.to(torch.float32)
+        return (per_sample * m).sum() / m.sum().clamp_min(1e-12)
+    return per_sample.mean()
+
+
+class LossOutput(typing.NamedTuple):
+    total: torch.Tensor
+    components: dict[str, torch.Tensor]
+
+
+LossFn = typing.Callable[..., LossOutput]
+
+
+def class_weights_from_distribution(
+    class_distribution: typing.Sequence[float], num_classes: int, masked_loss: bool
+) -> torch.Tensor:
+    """``w_c = 1 - p_c`` for real classes; the masked background keeps its raw
+    distribution value (``s2tpu/train/losses.py:147-157``)."""
+    cw = torch.as_tensor(class_distribution, dtype=torch.float32)
+    skip = int(masked_loss)
+    weights = torch.cat([cw[:skip], 1.0 - cw[skip:]])
+    if weights.shape[0] != num_classes:
+        raise ValueError(f"class_distribution has {weights.shape[0]} classes, the model {num_classes}")
+    return weights
+
+
+def make_loss_fn(
+    loss_type: str,
+    num_classes: int,
+    masked_loss: bool,
+    weighted_loss: bool = False,
+    class_distribution: typing.Sequence[float] | None = None,
+    label_smoothing: float = 0.0,
+    focal_gamma: float | None = 2.0,
+    dice_eps: float | None = 1e-8,
+    dice_weight: float | None = 0.5,
+    focal_weight: float | None = 0.5,
+    device: torch.device | str = "cpu",
+) -> LossFn:
+    """Factory mirroring ``s2tpu/train/losses.py::make_loss_fn`` (``:133-182``);
+    the class weights live on ``device``."""
+    if loss_type not in ("ce", "focal", "dice", "dice_focal"):
+        raise ValueError(f"Unknown loss type {loss_type!r}")
+    ignore_index = 0 if masked_loss else None
+    class_weights = None
+    if weighted_loss:
+        if class_distribution is None:
+            raise ValueError("weighted_loss requires class_distribution")
+        class_weights = class_weights_from_distribution(class_distribution, num_classes, masked_loss).to(device)
+    alpha = class_weights if class_weights is not None else torch.ones(num_classes, dtype=torch.float32, device=device)
+
+    def fn(logits: torch.Tensor, labels: torch.Tensor, batch_mask: torch.Tensor | None = None) -> LossOutput:
+        if loss_type == "ce":
+            return LossOutput(cross_entropy(logits, labels, class_weights, ignore_index, label_smoothing, batch_mask), {})
+        if loss_type == "focal":
+            return LossOutput(
+                focal_loss(logits, labels, alpha, focal_gamma, ignore_index, label_smoothing, batch_mask), {}
+            )
+        if loss_type == "dice":
+            return LossOutput(dice_loss(logits, labels, dice_eps, batch_mask), {})
+        d = dice_weight * dice_loss(logits, labels, dice_eps, batch_mask)
+        f = focal_weight * focal_loss(logits, labels, alpha, focal_gamma, ignore_index, label_smoothing, batch_mask)
+        return LossOutput(d + f, {"dice": d, "focal": f})
+
+    return fn

@@ -1,8 +1,11 @@
-"""Logging helper (the port's copy of ``get_logger`` from the JAX package)."""
+"""Logging and run-name helpers (the port's copies of ``get_logger`` and
+``get_unique_run_name`` from the JAX package's ``s2tpu/utils.py``)."""
 
 from __future__ import annotations
 
 import logging
+import random
+import string
 from datetime import datetime
 
 from s2tpu_torch.configs.paths import LOG_DIR
@@ -29,3 +32,13 @@ def get_logger(name: str, log_level: int = logging.INFO, to_file: bool = True) -
         except OSError:
             pass  # read-only filesystem: console-only
     return logger
+
+
+def get_unique_run_name(name: str | None = None, postfix: str | None = None) -> str:
+    """``[name_]<6 random upper-case letters or digits>[_postfix]``."""
+    run = "".join(random.choices(string.ascii_uppercase + string.digits, k=6))
+    if postfix is not None:
+        run = f"{run}_{postfix}"
+    if name is not None:
+        run = f"{name}_{run}"
+    return run

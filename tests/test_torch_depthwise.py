@@ -51,17 +51,28 @@ def test_same_padding_is_xla_same(size, k, stride, pad):
 
 
 def test_cpu_path_does_not_touch_kernel_loader(monkeypatch):
-    from s2tpu_torch.ops import _build
+    """Every kernel wrapper of the port, forward and backward, takes its plain
+    version on CPU tensors: nothing is built or loaded, no launch counted."""
+    from s2tpu_torch.ops import _build, fused_ce
 
     def refuse(*_args, **_kwargs):
-        raise AssertionError("the CPU path must not build or load the CUDA kernel")
+        raise AssertionError("the CPU path must not build or load a CUDA kernel")
 
     monkeypatch.setattr(_build, "load_library", refuse)
-    monkeypatch.setattr(dw, "_kernel_fn", None)
-    before = dw.LAUNCHES
+    monkeypatch.setattr(dw, "_kernel_fns", {})
+    monkeypatch.setattr(fused_ce, "_kernel_fns", {})
+    counters = lambda: (dw.LAUNCHES, dw.DX_LAUNCHES, dw.DW_LAUNCHES, fused_ce.FWD_LAUNCHES, fused_ce.BWD_LAUNCHES)  # noqa: E731
+    before = counters()
     x, w = _inputs(3, (1, 5, 4, 6), 3)
-    dw.depthwise_conv2d_s1(torch.from_numpy(x), torch.from_numpy(w))
-    assert dw.LAUNCHES == before
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    dw.depthwise_conv2d_s1(xt.detach(), wt.detach())
+    dw.depthwise_conv2d(xt, wt, stride=1).sum().backward()  # input gradient + filter gradient
+    logits = torch.from_numpy(x[..., :4].copy()).requires_grad_()
+    labels = torch.zeros(1, 5, 4, dtype=torch.int32)
+    loss, _ = fused_ce.fused_ce_per_pixel(logits, labels, torch.ones(4), 0, 2.0)
+    loss.sum().backward()
+    assert xt.grad is not None and wt.grad is not None and logits.grad is not None
+    assert counters() == before
 
 
 @pytest.mark.parametrize(
@@ -76,8 +87,11 @@ def test_cpu_path_does_not_touch_kernel_loader(monkeypatch):
     ],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(x, w, err):
+    """The forward and the input-gradient wrappers (kernel #1 both) check alike."""
     with pytest.raises(err):
         dw.depthwise_conv2d_s1(x, w)
+    with pytest.raises(err):
+        dw.depthwise_conv2d_s1_input_grad(x, w)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,141 @@
+"""s2tpu_torch depthwise conv gradients vs ``jax.grad`` through the JAX package's Pallas kernels.
+
+The JAX side runs ``s2tpu.ops.depthwise_conv.depthwise_conv2d_s1`` in
+interpret mode, so its custom VJP runs the Pallas filter-gradient kernel
+(``_dw_kernel``) and the flipped-filter forward. On the CPU the port's
+wrappers take their plain versions; the CUDA kernels are held against those
+by the ``cuda``-marked tests on a card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from s2tpu.ops.depthwise_conv import depthwise_conv2d_s1 as jax_depthwise_s1
+from s2tpu_torch.ops import depthwise_conv as dw
+
+# f32 sums of the same products in another order (2*9*7 = 126 terms per
+# filter tap, 25 taps per output): agreement to a few f32 ulps of the
+# largest value.
+RTOL = 1e-5
+
+
+def _case(seed: int, k: int, c: int, hw: tuple[int, int] = (9, 7)):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, *hw, c)).astype(np.float32)  # ragged: odd, non-square H x W
+    w = rng.normal(size=(k, k, c)).astype(np.float32)
+    g = rng.normal(size=(2, *hw, c)).astype(np.float32)
+    return x, w, g
+
+
+def _jax_grads(x, w, g):
+    def f(x, w):
+        return (jax_depthwise_s1(x, w, True) * g).sum()
+
+    dx, dw_ = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    return np.asarray(dx), np.asarray(dw_)
+
+
+def _close(ours: np.ndarray, ref: np.ndarray) -> None:
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=RTOL * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("c", [24, 130])  # below one Pallas lane tile / across tiles
+def test_plain_grad_weight_matches_pallas_vjp(k, c):
+    x, w, g = _case(k * 100 + c, k, c)
+    _, jdw = _jax_grads(x, w, g)
+    ours = dw.depthwise_conv2d_s1_grad_weight_reference(torch.from_numpy(x), torch.from_numpy(g), k)
+    assert ours.dtype == torch.float32
+    _close(ours.numpy(), jdw)
+    # the CPU branch of the wrapper is the plain version
+    _close(dw.depthwise_conv2d_s1_grad_weight(torch.from_numpy(x), torch.from_numpy(g), k).numpy(), jdw)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("c", [24, 130])
+def test_function_grads_match_pallas_vjp(k, c):
+    x, w, g = _case(k * 10 + c, k, c)
+    jdx, jdw = _jax_grads(x, w, g)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    (dw.DepthwiseConv2dS1.apply(xt, wt) * torch.from_numpy(g)).sum().backward()
+    _close(xt.grad.numpy(), jdx)
+    _close(wt.grad.numpy(), jdw)
+
+
+def test_cotangent_through_a_permute_is_made_contiguous():
+    """The model's cotangents arrive through NHWC <-> channels-last permutes;
+    the backward gives the same gradients as for a contiguous cotangent."""
+    x, w, g = _case(5, 3, 12)
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    g_nchw = torch.from_numpy(g).permute(0, 3, 1, 2).contiguous()
+    (dw.depthwise_conv2d(xt, wt, stride=1).permute(0, 3, 1, 2) * g_nchw).sum().backward()
+    jdx, jdw = _jax_grads(x, w, g)
+    _close(xt.grad.numpy(), jdx)
+    _close(wt.grad.numpy(), jdw)
+
+
+def test_reference_function_gradcheck_f64():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 4, 3, dtype=torch.float64, generator=gen, requires_grad=True)
+    w = torch.randn(3, 3, 3, dtype=torch.float64, generator=gen, requires_grad=True)
+    assert torch.autograd.gradcheck(dw.DepthwiseConv2dS1Reference.apply, (x, w))
+
+
+def test_gradients_are_cast_to_the_input_dtype():
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 6, 5, 4, generator=gen).to(torch.bfloat16).requires_grad_()
+    w = torch.randn(3, 3, 4, generator=gen).to(torch.bfloat16).requires_grad_()
+    dw.DepthwiseConv2dS1.apply(x, w).float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "x,g,k,err",
+    [
+        (torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 2), 3, ValueError),  # shape mismatch
+        (torch.zeros(4, 4, 3), torch.zeros(4, 4, 3), 3, ValueError),  # rank
+        (torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3), 0, ValueError),  # k
+        (torch.zeros(1, 4, 4, 3, dtype=torch.float64), torch.zeros(1, 4, 4, 3, dtype=torch.float64), 3, TypeError),
+        (torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 3, dtype=torch.bfloat16), 3, TypeError),
+        (torch.zeros(1, 3, 4, 4).permute(0, 2, 3, 1), torch.zeros(1, 4, 4, 3), 3, ValueError),  # not NHWC
+    ],
+)
+def test_grad_weight_wrapper_rejects_what_the_kernel_does_not_take(x, g, k, err):
+    with pytest.raises(err):
+        dw.depthwise_conv2d_s1_grad_weight(x, g, k)
+
+
+def test_input_grad_rejects_even_k():
+    with pytest.raises(ValueError, match="odd k"):
+        dw.depthwise_conv2d_s1_input_grad(torch.zeros(1, 4, 4, 3), torch.zeros(2, 2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,c,h,w", [(3, 48, 112, 112), (5, 1056, 14, 14), (3, 3072, 7, 7), (5, 130, 13, 11)])
+def test_cuda_backward_kernels_match_plain(dtype, k, c, h, w):
+    """Input gradient (kernel #1, flipped filter): the forward's arithmetic,
+    so exact to the final rounding. Filter gradient (kernel #2): f32 sums of
+    the same products in another order, within 1e-4 x sum|g||x| per tap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, wt, g = (torch.from_numpy(a).to("cuda", dtype) for a in _case(c + k, k, c, (h, w)))
+    before = (dw.DX_LAUNCHES, dw.DW_LAUNCHES)
+    dx = dw.depthwise_conv2d_s1_input_grad(g, wt)
+    dwk = dw.depthwise_conv2d_s1_grad_weight(x, g, k)
+    torch.cuda.synchronize()
+    assert (dw.DX_LAUNCHES, dw.DW_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    dx_ref = dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)).float()
+    dx_err = (dx.float() - dx_ref).abs()
+    if dtype == torch.float32:
+        assert float(dx_err.max()) <= 1e-6 * float(dx_ref.abs().max())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(dx_ref.abs().clamp_min(2.0**-126))) - 7)
+        assert bool((dx_err <= ulp).all())
+    magnitude = dw.depthwise_conv2d_s1_grad_weight_reference(x.abs(), g.abs(), k)
+    assert bool(((dwk - dw.depthwise_conv2d_s1_grad_weight_reference(x, g, k)).abs() <= 1e-4 * magnitude).all())
