@@ -1,4 +1,4 @@
-"""Drive s2tpu_torch's serving and training paths on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving, training and MAE pretraining paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -7,8 +7,9 @@ It imports nothing of JAX or of the JAX package ``s2tpu``. Phases, in order;
 any failure raises and the script exits non-zero without printing a result:
 
 1. Device: card name, count, and ``nvidia-smi`` name + power limit.
-2. Build: the three kernel libraries (depthwise forward/input gradient,
-   depthwise filter gradient, fused CE/focal), one nvcc each for sm_90a from
+2. Build: the five kernel libraries (depthwise forward/input gradient,
+   depthwise filter gradient, fused CE/focal, fused dense attention forward
+   and backward, streaming attention), one nvcc each for sm_90a from
    ``s2tpu_torch/ops/csrc``, all started together (ptxas registers / shared
    memory / spills printed per library).
 3. Kernel vs plain, serving shapes: ``depthwise_conv2d_s1`` against
@@ -39,7 +40,26 @@ any failure raises and the script exits non-zero without printing a result:
 7. One train step in f32 on the card (TF32 off) against the CPU, same
    weights and batch, drop-connect off: loss, BatchNorm running statistics
    and the gradients of fixed layers.
-8. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then the last
+8. Kernel vs plain, attention shapes: fused dense attention forward (#8)
+   and backward (#9) at the Prithvi T=1 decoder (64, 197, 16 heads, Dh 32),
+   the T=3 encoder (16, 148, 12, 64) and a ragged L = 129; streaming
+   attention (#5) at the T=3 decoder (16, 589, 16, 32) and L = 513, on
+   strided views of one qkv projection; bf16 and f32, beside
+   ``F.scaled_dot_product_attention`` on head-major copies as the yardstick.
+9. MAE slice, T=1: Prithvi-100M pretrained from scratch through
+   ``s2tpu_torch.cli.train_mae --type pretrain`` (bf16, batch 64, 224^2) on
+   an unlabeled synthetic AOI for 2 epochs of 2 steps, each followed by an
+   eval pass and a checkpoint; exact launch counts of #8/#9/#5, losses
+   finite, every parameter moved and f32, one more epoch through
+   ``--resume-from``; then the warm step's time, images/s, peak memory and
+   profile.
+10. MAE slice, T=3: ``MAETrainer`` at the published three-frame geometry
+   (batch 16) for 2 steps and 1 eval batch: the encoder through #8/#9, the
+   decoder (L = 589) through #5; exact launch counts, finite losses.
+11. One Prithvi-100M MAE train step in f32 on the card (TF32 off) against
+   the CPU, same weights, input and masking noise: loss and the gradients of
+   fixed tensors (the first decoder block's through #9).
+12. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then the last
    line ``{"ok": true, "device": {...}}``.
 """
 
@@ -65,6 +85,7 @@ BATCH = 8  # tiles per model call, the CLI's default
 TRAIN_BATCH = 32  # BASELINE.json config #2's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, NVIDIA data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores, NVIDIA data sheet
 SPIN_CYCLES_PER_S = 2.0e9  # at or above the H100's top SM clock: the spin lasts at least as asked
 # Distinct stride-1 depthwise shapes (k, C, H=W) of B5 at 224^2 and how many
 # of the 35 layers of one forward run at each.
@@ -99,13 +120,45 @@ F32_STEP_BATCH, F32_STEP_CROP = 4, 128
 F32_STEP_SENSITIVITY_FACTOR = 10.0
 F32_STEP_FLOOR = {"loss": 1e-5, "running_stats": 1e-4, "grad": 1e-4}
 F32_STEP_GRAD_CEILING = 0.2  # a tolerance above this would check nothing
+# Attention kernels at the Prithvi MAE shapes (B, L, heads, Dh) -> what they are.
+# #8/#9 (fused dense): the T=1 decoder at batch 64 (the main path), the T=3
+# encoder at batch 16, a ragged L, and the longest L the fused route sends at
+# the decoder's and the encoder's width (fused_fits_vmem). #5 (streaming): the T=3 decoder at
+# batch 16 (its main path) and a ragged L.
+DENSE_ATTENTION_SHAPES = {
+    (64, 197, 16, 32): "T=1 decoder", (16, 148, 12, 64): "T=3 encoder", (16, 129, 16, 32): "ragged",
+    (4, 544, 16, 32): "route edge, D=512", (4, 439, 12, 64): "route edge, D=768",
+}
+FLASH_ATTENTION_SHAPES = {(16, 589, 16, 32): "T=3 decoder", (16, 513, 16, 32): "ragged"}
+# Kernel vs plain: |err| <= ATTN_RTOL x the same sums over absolute values,
+# per element. f32: sums of up to L <= 1024 products in another order
+# (worst case L x 2^-24 = 6e-5 of the sum of |terms|) and expf/division to an
+# ulp. bf16: p (or ds) is rounded to bf16 on both sides, so a rounding flip
+# moves a term by 2^-8 of itself, and the output's own bf16 rounding may
+# flip by one ulp (<= 2^-7 relative): 2^-8 + 2^-7 < 2^-6.
+ATTN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+# MAE slice, T=1: BASELINE.json config #5 (batch 64, 224^2, mask 0.75, bf16)
+# on 160 unlabeled segments of 256^2: 128 train (2 steps of 64 per epoch) and
+# 32 val (one padded eval batch of 128 per epoch).
+MAE_BATCH, MAE_SEGMENTS, MAE_SEGMENT_SIZE, MAE_EPOCHS = 64, 160, 256, 2
+# MAE slice, T=3 (the published three-frame geometry), batch 16: 40 segments
+# give 32 train (2 steps) and 8 val (one eval batch of 32).
+MAE_T3_BATCH, MAE_T3_SEGMENTS, MAE_T3_FRAMES = 16, 40, 3
+# Card f32 vs CPU f32 MAE step (Prithvi-100M, T=1, batch 4): calibrated on the
+# CPU's own movement under a 1e-7 perturbation, as the B5 step is; a ViT with
+# LayerNorm is far better conditioned than train-mode BatchNorm, so the
+# floors usually decide.
+MAE_F32_BATCH = 4
+MAE_F32_FLOOR = {"loss": 1e-5, "grad": 1e-4}
+MAE_F32_GRADS = ("patch_embed.proj.weight", "blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.qkv.weight",
+                 "decoder_pred.weight")
 
 
 # Device kernels by kind, matched on name fragments in this order (the
 # port's kernels first, then cuDNN/cuBLAS convolutions and matrix products).
 KERNEL_KINDS = {
-    "port kernels": ("depthwise_s1_", "fused_ce_"),
-    "conv/gemm": ("xmma", "gemm", "cutlass", "cudnn", "conv", "nchwToNhwc", "nhwcToNchw"),
+    "port kernels": ("depthwise_s1_", "fused_ce_", "attn_dense_", "flash_attn_"),
+    "conv/gemm": ("xmma", "gemm", "nvjet", "cutlass", "cudnn", "conv", "nchwToNhwc", "nhwcToNchw"),
     "optimizer": ("multi_tensor_apply",),
     "reductions": ("reduce_kernel",),
     "copies": ("Memcpy", "Memset", "copy_kernel", "cat_"),
@@ -163,12 +216,14 @@ def b5_stride1_shapes() -> dict[tuple[int, int, int], int]:
 
 def kernel_libraries() -> dict[str, list[str]]:
     """Every kernel library of the port: name -> sources under ops/csrc."""
-    from s2tpu_torch.ops import depthwise_conv as dw, fused_ce
+    from s2tpu_torch.ops import depthwise_conv as dw, flash_attention as fa, fused_ce
 
     return {
         "depthwise_conv": dw.SOURCES,
         "depthwise_grad_weight": dw.GRAD_WEIGHT_SOURCES,
         "fused_ce": fused_ce.SOURCES,
+        "fused_attention_dense": fa.FUSED_SOURCES,
+        "flash_attention": fa.FLASH_SOURCES,
     }
 
 
@@ -190,7 +245,8 @@ def phase_build() -> None:
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
         log(
             f"ptxas -v {name}: {len(regs)} kernel instantiations, registers {min(regs)}..{max(regs)} per thread, "
-            f"static smem up to {max(smem, default=0)} bytes, {spills} bytes spilled; "
+            f"static smem up to {max(smem, default=0)} bytes (dynamic shared memory is sized per launch, "
+            f"budgets in the source notes), {spills} bytes spilled; "
             f"-> {_build.library_path(name, sources).relative_to(REPO)}"
         )
     log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libraries)} libraries concurrently in {seconds:.1f} s")
@@ -213,10 +269,11 @@ def depthwise_error(out: torch.Tensor, ref: torch.Tensor, what: str) -> torch.Te
     return err
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     """(least ms, what bounds it): the larger of bytes over the HBM rate and
-    f32 operations over the f32 (non-tensor-core) peak."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    operations over the card's peak for their type (default f32 outside the
+    tensor cores)."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -617,18 +674,21 @@ def phase_slice(work: Path) -> int:
 
 
 def reset_launch_counts() -> None:
-    from s2tpu_torch.ops import depthwise_conv as dw, fused_ce
+    from s2tpu_torch.ops import depthwise_conv as dw, flash_attention as fa, fused_ce
 
     dw.LAUNCHES = dw.DX_LAUNCHES = dw.DW_LAUNCHES = 0
     fused_ce.FWD_LAUNCHES = fused_ce.BWD_LAUNCHES = 0
+    fa.FUSED_FWD_LAUNCHES = fa.FUSED_BWD_LAUNCHES = fa.FLASH_FWD_LAUNCHES = 0
 
 
 def launch_counts() -> dict[str, int]:
-    from s2tpu_torch.ops import depthwise_conv as dw, fused_ce
+    from s2tpu_torch.ops import depthwise_conv as dw, flash_attention as fa, fused_ce
 
     return {
         "depthwise_fwd": dw.LAUNCHES, "depthwise_dx": dw.DX_LAUNCHES, "depthwise_dw": dw.DW_LAUNCHES,
         "fused_ce_fwd": fused_ce.FWD_LAUNCHES, "fused_ce_bwd": fused_ce.BWD_LAUNCHES,
+        "attn_fused_fwd": fa.FUSED_FWD_LAUNCHES, "attn_fused_bwd": fa.FUSED_BWD_LAUNCHES,
+        "attn_flash_fwd": fa.FLASH_FWD_LAUNCHES,
     }
 
 
@@ -688,6 +748,7 @@ def phase_train(work: Path) -> dict:
         expected = {
             "depthwise_fwd": per * (steps + eval_batches), "depthwise_dx": per * steps, "depthwise_dw": per * steps,
             "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
+            "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_flash_fwd": 0,
         }
         if launches != expected:
             raise AssertionError(f"training path launches {launches} != expected {expected}")
@@ -825,6 +886,384 @@ def phase_f32_step() -> None:
     log(f"f32 train step card vs cpu: loss {card['loss']:.6f} vs {cpu['loss']:.6f}, in {time.perf_counter() - t0:.1f} s")
 
 
+def attention_error(out: torch.Tensor, ref: torch.Tensor, magnitude: torch.Tensor, what: str) -> float:
+    """max |kernel - plain|; raises beyond ATTN_RTOL[dtype] x the same sums
+    over absolute values, element by element."""
+    err = (out.float() - ref.float()).abs()
+    tol = ATTN_RTOL[out.dtype] * magnitude
+    if not bool((err <= tol).all()):
+        worst = int((err - tol).argmax())
+        raise AssertionError(
+            f"{what} disagrees with its plain version: max err {float(err.max()):.3g}, worst element err "
+            f"{float(err.flatten()[worst]):.3g} > tolerance {float(tol.flatten()[worst]):.3g}"
+        )
+    return float(err.max())
+
+
+def dense_attention_magnitudes(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, heads: int):
+    """Per element, the sums #8 (o) and #9 (dq, dk, dv) form, over absolute
+    values: the scale their rounding errors are measured against."""
+    from s2tpu_torch.ops.flash_attention import _heads, _merge_heads, _probs, _split_heads
+
+    scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // heads)
+    q, k, v = (t.float() for t in _split_heads(qkv, heads))
+    p = _probs(q, k, scale)
+    pc = p.to(qkv.dtype).float()
+    ado, ao = _heads(dout, heads).float().abs(), _heads(out, heads).float().abs()
+    m_ds = p * (ado @ v.abs().transpose(-1, -2) + (ado * ao).sum(-1, keepdim=True)) * scale
+    m_out = _merge_heads(pc @ v.abs())
+    m_dqkv = torch.cat([_merge_heads(t) for t in (m_ds @ k.abs(), m_ds.transpose(-1, -2) @ q.abs(),
+                                                 pc.transpose(-1, -2) @ ado)], dim=-1)
+    return m_out, m_dqkv
+
+
+def check_dense_attention(shape: tuple, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """#8 and #9 vs their plain versions on one shape; times in ms."""
+    from s2tpu_torch.ops import flash_attention as fa
+    from s2tpu_torch.ops.flash_attention import _heads, _split_heads
+
+    b, l, h, dh = shape
+    d = h * dh
+    qkv = torch.randn(b, l, 3 * d, generator=gen).to("cuda", dtype)
+    dout = torch.randn(b, l, d, generator=gen).to("cuda", dtype)
+    what = f"B={b} L={l} H={h} Dh={dh} {str(dtype).split('.')[1]}"
+    out = fa.fused_attention_dense_forward(qkv, h)
+    ref = fa.fused_attention_dense_forward_reference(qkv, h)
+    dqkv = fa.fused_attention_dense_backward(qkv, out, dout, h)
+    dref = fa.fused_attention_dense_backward_reference(qkv, out, dout, h)
+    torch.cuda.synchronize()
+    m_out, m_dqkv = dense_attention_magnitudes(qkv, out, dout, h)
+    t = {
+        "fwd_max_abs_err": attention_error(out, ref, m_out, f"fused attention forward at {what}"),
+        "bwd_max_abs_err": attention_error(dqkv, dref, m_dqkv, f"fused attention backward at {what}"),
+    }
+    again = fa.fused_attention_dense_backward(qkv, out, dout, h)
+    if not torch.equal(again, dqkv):
+        raise AssertionError(f"fused attention backward at {what} is not deterministic")
+    # The yardstick: SDPA on head-major copies made beforehand, forward and autograd backward.
+    qh, kh, vh = (x.contiguous().requires_grad_() for x in _split_heads(qkv, h))
+    gh = _heads(dout, h).contiguous()
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+    t["fwd_ms"] = cuda_ms(lambda: fa.fused_attention_dense_forward(qkv, h))
+    t["fwd_plain_ms"] = cuda_ms(lambda: fa.fused_attention_dense_forward_reference(qkv, h), iters=5, warmup=1)
+    with torch.no_grad():
+        t["fwd_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    t["bwd_ms"] = cuda_ms(lambda: fa.fused_attention_dense_backward(qkv, out, dout, h))
+    t["bwd_plain_ms"] = cuda_ms(lambda: fa.fused_attention_dense_backward_reference(qkv, out, dout, h), iters=5, warmup=1)
+    t["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True))
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    size = qkv.element_size() * b * l * d
+    flops = 2 * b * h * l * l * dh  # one (L x L x Dh) product
+    t["fwd_bound_ms"], t["fwd_bound_by"] = bound(4 * size, 2 * flops, rate)  # qkv in, o out; s and p v
+    t["bwd_bound_ms"], t["bwd_bound_by"] = bound(8 * size, 5 * flops, rate)  # qkv, o, do in, dqkv out; s, dv, dp, dq, dk
+    return t
+
+
+def check_flash_attention(shape: tuple, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """#5 vs its plain version on strided views of one qkv projection; times in ms."""
+    from s2tpu_torch.ops import flash_attention as fa
+
+    b, l, h, dh = shape
+    qkv = torch.randn(b, l, 3 * h * dh, generator=gen).to("cuda", dtype)
+    q, k, v = qkv.reshape(b, l, 3, h, dh).unbind(2)  # the views Attention hands over
+    what = f"B={b} L={l} H={h} Dh={dh} {str(dtype).split('.')[1]}"
+    out = fa.flash_attention_forward(q, k, v)
+    ref = fa.flash_attention_forward_reference(q, k, v)
+    torch.cuda.synchronize()
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    p = torch.softmax(qf @ kf.transpose(-1, -2) / math.sqrt(dh), dim=-1)
+    magnitude = (p @ vf.abs()).transpose(1, 2)
+    t = {"max_abs_err": attention_error(out, ref, magnitude, f"flash attention at {what}")}
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t["ms"] = cuda_ms(lambda: fa.flash_attention_forward(q, k, v))
+    t["plain_ms"] = cuda_ms(lambda: fa.flash_attention_forward_reference(q, k, v), iters=5, warmup=1)
+    t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    # f32 operations whatever the input type: the kernel upcasts, as the TPU kernel does.
+    t["bound_ms"], t["bound_by"] = bound(4 * qkv.element_size() * b * l * h * dh, 4 * b * h * l * l * dh)
+    return t
+
+
+def phase_attention_kernels() -> dict:
+    """#8/#9 and #5 vs their plain versions at the Prithvi shapes, bf16 and
+    f32. Returns the main path's (bf16) times and the largest errors."""
+    log(
+        f"attention tolerance: |kernel - plain| <= {ATTN_RTOL[torch.float32]:g} (f32) / 2^-6 (bf16) x the same sums "
+        "over absolute values, per element (f32: sums in another order over <= 1024 terms; bf16: a rounding flip "
+        "of p or ds, 2^-8, plus the output's own rounding, 2^-7)"
+    )
+    gen = torch.Generator().manual_seed(SEED + 4)
+    dense, flash = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for shape, what in DENSE_ATTENTION_SHAPES.items():
+            t = check_dense_attention(shape, dtype, gen)
+            dense[(shape, dtype)] = t
+            log(
+                f"fused attention {name:8s} B={shape[0]} L={shape[1]} H={shape[2]} Dh={shape[3]} ({what}): "
+                f"fwd_ms={t['fwd_ms']:.4f} fwd_plain_ms={t['fwd_plain_ms']:.4f} fwd_library_ms={t['fwd_library_ms']:.4f} "
+                f"fwd_bound_ms={t['fwd_bound_ms']:.4f} ({t['fwd_bound_by']}) | bwd_ms={t['bwd_ms']:.4f} "
+                f"bwd_plain_ms={t['bwd_plain_ms']:.4f} bwd_library_ms={t['bwd_library_ms']:.4f} "
+                f"bwd_bound_ms={t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}) | max_abs_err fwd={t['fwd_max_abs_err']:.3g} "
+                f"bwd={t['bwd_max_abs_err']:.3g}"
+            )
+        for shape, what in FLASH_ATTENTION_SHAPES.items():
+            t = check_flash_attention(shape, dtype, gen)
+            flash[(shape, dtype)] = t
+            log(
+                f"flash attention {name:8s} B={shape[0]} L={shape[1]} H={shape[2]} Dh={shape[3]} ({what}): "
+                f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+                f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) share_of_bound={t['bound_ms'] / t['ms']:.3f} "
+                f"max_abs_err={t['max_abs_err']:.3g}"
+            )
+    main_dense = dense[(next(iter(DENSE_ATTENTION_SHAPES)), torch.bfloat16)]
+    main_flash = flash[(next(iter(FLASH_ATTENTION_SHAPES)), torch.bfloat16)]
+    return {
+        "dense": {**main_dense, "fwd_max_abs_err": max(t["fwd_max_abs_err"] for t in dense.values()),
+                  "bwd_max_abs_err": max(t["bwd_max_abs_err"] for t in dense.values())},
+        "flash": {**main_flash, "max_abs_err": max(t["max_abs_err"] for t in flash.values())},
+    }
+
+
+def mae_expected_launches(model_config, steps: int, eval_batches: int, mask_ratio: float) -> dict[str, int]:
+    """Launches of #8/#9/#5 on an MAE run: each block's attention takes its
+    route once per forward; the fused backward once per train step."""
+    from s2tpu_torch.ops.flash_attention import attention_route
+
+    mc = model_config
+    enc = attention_route(int(mc.num_patches * (1 - mask_ratio)) + 1, mc.embed_dim, mc.num_heads, mc.attention_impl)
+    dec = attention_route(mc.num_patches + 1, mc.decoder_embed_dim, mc.decoder_num_heads, mc.attention_impl)
+    per = {route: mc.depth * (enc == route) + mc.decoder_depth * (dec == route) for route in ("fused", "flash")}
+    return {
+        "depthwise_fwd": 0, "depthwise_dx": 0, "depthwise_dw": 0, "fused_ce_fwd": 0, "fused_ce_bwd": 0,
+        "attn_fused_fwd": per["fused"] * (steps + eval_batches), "attn_fused_bwd": per["fused"] * steps,
+        "attn_flash_fwd": per["flash"] * (steps + eval_batches),
+    }
+
+
+def time_mae_steps(label: str, trainer, images: torch.Tensor, n_timed: int = 5) -> dict:
+    """Warm train steps on one device batch: ms/step, images/s, peak memory, profile."""
+    trainer.train_step(images)  # warm-up: cuBLAS heuristics, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        trainer.train_step(images)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    peak = torch.cuda.max_memory_allocated()
+    log(
+        f"{label} (warm, mean of {n_timed}): ms_per_step={step_s * 1e3:.3f} "
+        f"images_per_s={images.shape[0] / step_s:.2f} peak_mem_bytes={peak}"
+    )
+    t0 = time.perf_counter()
+    trainer.train_step(images)
+    torch.cuda.synchronize()
+    busy = profile_device(label, lambda: trainer.train_step(images), time.perf_counter() - t0)
+    return {"ms_per_step": step_s * 1e3, "peak_mem_bytes": peak, "busy_share": busy}
+
+
+def unlabeled_fixture(data_dir: Path, n_segments: int, n_time: int = 1):
+    """A synthetic AOI of sentinel rasters only (the label rasters removed)."""
+    from s2tpu_torch.data.dataset import make_synthetic_fixture
+
+    dirs = make_synthetic_fixture(
+        data_dir, aoi="small", n_segments=n_segments, n_time=n_time, size=(MAE_SEGMENT_SIZE, MAE_SEGMENT_SIZE)
+    )
+    shutil.rmtree(dirs.label)
+    return dirs
+
+
+def phase_mae(work: Path) -> dict:
+    """Pretrain Prithvi-100M (T=1) through the MAE CLI on the card, check it,
+    resume it, then time warm steps. Returns the path's launch counts."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager, load_mae_checkpoint
+    from s2tpu_torch.cli.train_mae import build_datamodule, build_parser, config_from_args, main as mae_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.models.prithvi_mae import PrithviMAE
+    from s2tpu_torch.train.mae_trainer import MAETrainer, default_model_config
+
+    data_dir = work / "mae_data"
+    t0 = time.perf_counter()
+    unlabeled_fixture(data_dir, MAE_SEGMENTS)
+    log(f"mae setup: {MAE_SEGMENTS} unlabeled segments {MAE_SEGMENT_SIZE}x{MAE_SEGMENT_SIZE}x6 in {time.perf_counter() - t0:.1f} s")
+    name = f"chip-smoke-mae-{os.getpid()}"
+    argv = [
+        "small", "--type", "pretrain", "--from-scratch", "--compute-dtype", "bfloat16", "--bs", str(MAE_BATCH),
+        "--wandb", "--epochs", str(MAE_EPOCHS), "--log-interval", "1", "--data-dir", str(data_dir), "--name", name,
+        "--seed", str(SEED),
+    ]
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        history = mae_main(argv)  # the main path
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = launch_counts()
+        (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
+        step_losses = [
+            rec["train/loss_step"] for rec in map(json.loads, (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open())
+            if "train/loss_step" in rec
+        ]
+        config, state = load_mae_checkpoint(run_dir)
+        n_train = int(config.datamodule.data_split[0] * MAE_SEGMENTS)
+        n_val = int(config.datamodule.data_split[1] * MAE_SEGMENTS)
+        steps = MAE_EPOCHS * (n_train // MAE_BATCH)
+        eval_batches = MAE_EPOCHS * math.ceil(n_val / (MAE_BATCH * config.datamodule.val_batch_size_multiplier))
+        mc = default_model_config(config)
+        expected = mae_expected_launches(mc, steps, eval_batches, config.model.mask_ratio)
+        # the T=1 geometry: encoder L = 50 (plain), decoder L = 197 (fused)
+        if (expected["attn_fused_fwd"], expected["attn_fused_bwd"], expected["attn_flash_fwd"]) != (
+            8 * (steps + eval_batches), 8 * steps, 0
+        ):
+            raise AssertionError(f"T=1 route changed: {expected}")
+        if launches != expected:
+            raise AssertionError(f"MAE path launches {launches} != expected {expected}")
+        losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
+        if len(step_losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"MAE losses not finite or missing: steps {step_losses}, history {history}")
+        init_model = PrithviMAE(mc, generator=torch.Generator().manual_seed(SEED))
+        init = init_model.state_dict()
+        params = [k for k, _ in init_model.named_parameters()]
+        unmoved = [k for k in params if torch.equal(init[k], state[k])]
+        if unmoved or any(state[k].dtype != torch.float32 for k in params):
+            raise AssertionError(f"parameters not moved or not f32: {unmoved[:5]} ({len(unmoved)} of {len(params)})")
+        resumed = mae_main(argv + ["--epochs", str(MAE_EPOCHS + 1), "--resume-from", str(run_dir)])
+        resumed_step = CheckpointManager(run_dir).restore(MAE_EPOCHS)["step"]
+        if [r["epoch"] for r in resumed] != [MAE_EPOCHS] or resumed_step != steps + steps // MAE_EPOCHS:
+            raise AssertionError(f"resume: epochs {[r['epoch'] for r in resumed]}, step {resumed_step}")
+        log(
+            f"mae cli T=1 (Prithvi-100M, pretrain, bf16 compute, f32 params, batch {MAE_BATCH}, 224^2, mask "
+            f"{config.model.mask_ratio}): {MAE_EPOCHS} epochs, {steps} steps, {eval_batches} eval batches in "
+            f"{cli_s:.3f} s end to end; step losses {[round(v, 5) for v in step_losses]}; val loss "
+            f"{[round(r['val/loss'], 5) for r in history]}; launches {launches} = expected; {len(params)} parameter "
+            f"tensors all moved, f32; resumed to epoch {MAE_EPOCHS} (step {resumed_step})"
+        )
+        cfg = config_from_args(build_parser().parse_args(argv))
+        trainer = MAETrainer(cfg, build_datamodule(cfg), device="cuda")
+        images = torch.from_numpy(next(trainer.dm.train_batches(0)).images).cuda()
+        timing = time_mae_steps(f"mae step T=1 (bf16, batch {MAE_BATCH}, 224^2)", trainer, images)
+        return {"launches": launches, **timing}
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}_*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+            f.unlink(missing_ok=True)
+
+
+def phase_mae_t3(work: Path) -> dict:
+    """MAETrainer at the published three-frame geometry: encoder through
+    #8/#9, decoder (L = 589) through #5. Returns the launch counts."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+    from s2tpu_torch.configs import mae as mae_cfg
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    data_dir = work / "mae_t3_data"
+    unlabeled_fixture(data_dir, MAE_T3_SEGMENTS, n_time=MAE_T3_FRAMES)
+    config = mae_cfg.pretrain(mae_cfg.base_config("small"))
+    config.model.num_frames = config.datamodule.dataset_cfg.n_time_frames = MAE_T3_FRAMES
+    config.datamodule.dataset_cfg.data_dir = str(data_dir)
+    config.datamodule.batch_size = MAE_T3_BATCH
+    config.train.compute_dtype = "bfloat16"
+    config.train.seed = SEED
+    trainer = MAETrainer(config, build_datamodule(config), device="cuda")
+    mc = trainer.model_config
+    n_train = int(config.datamodule.data_split[0] * MAE_T3_SEGMENTS)
+    n_val = int(config.datamodule.data_split[1] * MAE_T3_SEGMENTS)
+    steps, eval_batches = n_train // MAE_T3_BATCH, math.ceil(n_val / (MAE_T3_BATCH * 2))
+    expected = mae_expected_launches(mc, steps, eval_batches, config.model.mask_ratio)
+    if (expected["attn_fused_fwd"], expected["attn_fused_bwd"], expected["attn_flash_fwd"]) != (
+        12 * (steps + eval_batches), 12 * steps, 8 * (steps + eval_batches)
+    ):
+        raise AssertionError(f"T=3 route changed: {expected}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(epochs=1)  # the T=3 path
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches != expected:
+        raise AssertionError(f"T=3 MAE launches {launches} != expected {expected}")
+    losses = [history[0]["train/loss"], history[0]["val/loss"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"T=3 MAE losses not finite: {history}")
+    log(
+        f"mae T=3 (Prithvi-100M, {MAE_T3_FRAMES} frames, bf16, batch {MAE_T3_BATCH}, encoder L="
+        f"{int(mc.num_patches * 0.25) + 1}, decoder L={mc.num_patches + 1}): {steps} steps and {eval_batches} eval "
+        f"batch in {fit_s:.3f} s; train loss {losses[0]:.5f}, val loss {losses[1]:.5f}; launches {launches} = expected"
+    )
+    images = torch.from_numpy(next(trainer.dm.train_batches(0)).images).cuda()
+    timing = time_mae_steps(f"mae step T=3 (bf16, batch {MAE_T3_BATCH}, 224^2)", trainer, images, n_timed=3)
+    return {"launches": launches, **timing}
+
+
+def phase_mae_f32_step() -> None:
+    """One Prithvi-100M MAE train step in f32 on the card (TF32 off) and on
+    the CPU, same weights, input and masking noise; raises beyond the
+    calibrated tolerances."""
+    from s2tpu_torch.configs import mae as mae_cfg
+    from s2tpu_torch.models.prithvi_mae import PrithviMAE
+    from s2tpu_torch.train.mae_trainer import default_model_config
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = default_model_config(mae_cfg.pretrain(mae_cfg.base_config("small")))
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(MAE_F32_BATCH, 1, 224, 224, 6)).astype(np.float32))
+    noise = torch.from_numpy(rng.random((MAE_F32_BATCH, mc.num_patches)).astype(np.float32))
+    init = PrithviMAE(mc, generator=torch.Generator().manual_seed(SEED)).state_dict()
+
+    def step(device: str, eps: float = 0.0) -> dict:
+        model = PrithviMAE(mc, generator=torch.Generator().manual_seed(SEED))
+        model.load_state_dict(init, strict=True)
+        model.to(device)
+        xd = x.to(device)
+        if eps:
+            gen = torch.Generator().manual_seed(SEED + 5)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1.0 + eps * torch.randn(p.shape, generator=gen).to(device))
+            xd = xd * (1.0 + eps * torch.randn(x.shape, generator=gen).to(device))
+        model.train()
+        loss, _, _ = model(xd, mask_ratio=0.75, noise=noise.to(device))
+        loss.backward()
+        named = dict(model.named_parameters())
+        return {"loss": float(loss.detach()), "grads": {n: named[n].grad.detach().cpu() for n in MAE_F32_GRADS}}
+
+    def distance(a: dict, ref: dict) -> dict:
+        return {
+            "loss": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
+            **{f"grad {n}": float((a["grads"][n] - t).norm() / t.norm()) for n, t in ref["grads"].items()},
+        }
+
+    t0 = time.perf_counter()
+    cpu = step("cpu")
+    sensitivity = distance(step("cpu", eps=1e-7), cpu)
+    reset_launch_counts()
+    card = step("cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if (counts["attn_fused_fwd"], counts["attn_fused_bwd"]) != (mc.decoder_depth, mc.decoder_depth):
+        raise AssertionError(f"the f32 card step did not run the f32 fused kernels per decoder block: {counts}")
+    diff = distance(card, cpu)
+    failures = []
+    for key, d in diff.items():
+        floor = MAE_F32_FLOOR["grad" if key.startswith("grad") else key]
+        tol = max(F32_STEP_SENSITIVITY_FACTOR * sensitivity[key], floor)
+        if key.startswith("grad") and tol > F32_STEP_GRAD_CEILING:
+            failures.append(f"{key}: tolerance {tol:.3g} too loose to check anything")
+        if not d <= tol:
+            failures.append(f"{key}: card vs cpu {d:.3g} > {tol:.3g}")
+        log(
+            f"f32 mae step card vs cpu (Prithvi-100M T=1, batch {MAE_F32_BATCH}): {key}: {d:.3g} "
+            f"(cpu moved {sensitivity[key]:.3g} under a 1e-7 perturbation; limit {tol:.3g})"
+        )
+    if failures:
+        raise AssertionError("card vs CPU f32 MAE step: " + "; ".join(failures))
+    log(f"f32 mae step card vs cpu: loss {card['loss']:.6f} vs {cpu['loss']:.6f}, in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -849,14 +1288,18 @@ def main() -> int:
     dw_times = timed("kernels (serving shapes)", phase_kernels)
     bwd_times = timed("kernels (depthwise backward)", phase_train_kernels)
     ce_times = timed("kernels (fused CE)", phase_fused_ce)
+    attn_times = timed("kernels (attention)", phase_attention_kernels)
     work = REPO / "out" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
         serve_launches = timed("serving slice", phase_slice, work)
         train = timed("training slice", phase_train, work)
+        mae = timed("MAE slice T=1", phase_mae, work)
+        mae_t3 = timed("MAE slice T=3", phase_mae_t3, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timed("f32 train step card vs cpu", phase_f32_step)
+    timed("f32 MAE step card vs cpu", phase_mae_f32_step)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     launches = train["launches"]
@@ -923,6 +1366,47 @@ def main() -> int:
             "library_ms": ce_times["bwd_library_ms"],
             "ce_ms": ce_times["ce_bwd_ms"],
             "ce_library_ms": ce_times["ce_bwd_library_ms"],
+        },
+        {
+            "name": "fused_attention_dense_forward",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/fused_attention_dense.cu",
+            "replaces": "s2tpu/ops/flash_attention.py:324",
+            "launches": mae["launches"]["attn_fused_fwd"],
+            "max_abs_err": attn_times["dense"]["fwd_max_abs_err"],
+            "ms": attn_times["dense"]["fwd_ms"],
+            "plain_ms": attn_times["dense"]["fwd_plain_ms"],
+            "bound_ms": attn_times["dense"]["fwd_bound_ms"],
+            "bound_by": attn_times["dense"]["fwd_bound_by"],
+            "library_ms": attn_times["dense"]["fwd_library_ms"],
+            "t3_launches": mae_t3["launches"]["attn_fused_fwd"],
+        },
+        {
+            "name": "fused_attention_dense_backward",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/fused_attention_dense.cu",
+            "replaces": "s2tpu/ops/flash_attention.py:352",
+            "launches": mae["launches"]["attn_fused_bwd"],
+            "max_abs_err": attn_times["dense"]["bwd_max_abs_err"],
+            "ms": attn_times["dense"]["bwd_ms"],
+            "plain_ms": attn_times["dense"]["bwd_plain_ms"],
+            "bound_ms": attn_times["dense"]["bwd_bound_ms"],
+            "bound_by": attn_times["dense"]["bwd_bound_by"],
+            "library_ms": attn_times["dense"]["bwd_library_ms"],
+            "t3_launches": mae_t3["launches"]["attn_fused_bwd"],
+        },
+        {
+            "name": "flash_attention_forward",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "s2tpu/ops/flash_attention.py:36",
+            "launches": mae_t3["launches"]["attn_flash_fwd"],
+            "max_abs_err": attn_times["flash"]["max_abs_err"],
+            "ms": attn_times["flash"]["ms"],
+            "plain_ms": attn_times["flash"]["plain_ms"],
+            "bound_ms": attn_times["flash"]["bound_ms"],
+            "bound_by": attn_times["flash"]["bound_by"],
+            "library_ms": attn_times["flash"]["library_ms"],
         },
     ]
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""JAX EfficientNet-UNet weights -> the port's state dict.
+"""JAX EfficientNet-UNet and Prithvi MAE weights -> the port's state dicts.
 
 The port's own copy of the export mapping in
 ``s2tpu/checkpoint/convert_torch.py`` (``export_reference_unet_state_dict``
@@ -18,8 +18,12 @@ weight/bias + running_mean/running_var.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
+
+PRITHVI_WEIGHTS_FILE = "Prithvi_100M.pt"
 
 
 def _f32(x) -> np.ndarray:
@@ -96,3 +100,74 @@ def unet_state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch
     out["out_conv1x1.weight"] = _dense_to_conv1x1(params["classifier"]["kernel"])
     out["out_conv1x1.bias"] = _f32(params["classifier"]["bias"])
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}  # owned, contiguous copies
+
+
+# ---------------------------------------------------------------------------
+# Prithvi MAE
+# ---------------------------------------------------------------------------
+def _linear(p: dict, out: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = np.ascontiguousarray(_f32(p["kernel"]).T)  # (I, O) -> (O, I)
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _layernorm(p: dict, out: dict, prefix: str) -> None:
+    out[f"{prefix}.weight"] = _f32(p["scale"])
+    out[f"{prefix}.bias"] = _f32(p["bias"])
+
+
+def _vit_block(p: dict, out: dict, prefix: str) -> None:
+    _layernorm(p["norm1"], out, f"{prefix}.norm1")
+    _layernorm(p["norm2"], out, f"{prefix}.norm2")
+    _linear(p["attn"]["qkv"], out, f"{prefix}.attn.qkv")
+    _linear(p["attn"]["proj"], out, f"{prefix}.attn.proj")
+    _linear(p["mlp_fc1"], out, f"{prefix}.mlp.fc1")
+    _linear(p["mlp_fc2"], out, f"{prefix}.mlp.fc2")
+
+
+def prithvi_state_dict_from_jax(params: dict, config) -> dict[str, torch.Tensor]:
+    """Flax ``PrithviMAE`` params (nested dicts of numpy arrays) -> the
+    published ``Prithvi_100M.pt`` layout, which the port's ``PrithviMAE``
+    loads with ``strict=True``.
+
+    The port's copy of ``export_prithvi_state_dict`` and its helpers
+    (``s2tpu/checkpoint/convert_torch.py:402-445``, ``:500-557``): dense
+    kernels transpose, the patch projection (tub·p·q·C, D) becomes the
+    Conv3d weight (D, C, tub, p, q), and the fixed sincos tables are
+    regenerated into ``pos_embed`` / ``decoder_pos_embed`` as the published
+    checkpoint carries them. ``config`` is the port's ``PrithviConfig`` (or
+    any object with the same geometry fields).
+    """
+    from s2tpu_torch.models.prithvi_mae import sincos_3d
+
+    cfg = config
+    out: dict[str, np.ndarray] = {"cls_token": _f32(params["cls_token"])}
+    k = _f32(params["patch_proj"]["kernel"])
+    w = k.reshape(cfg.tubelet_size, cfg.patch_size, cfg.patch_size, cfg.in_chans, k.shape[1])
+    out["patch_embed.proj.weight"] = np.ascontiguousarray(w.transpose(4, 3, 0, 1, 2))
+    out["patch_embed.proj.bias"] = _f32(params["patch_proj"]["bias"])
+    out["pos_embed"] = sincos_3d(cfg.embed_dim, cfg.grid_size, cls_token=True)[None]
+    _layernorm(params["encoder_norm"], out, "norm")
+    for i in range(sum(1 for key in params if key.startswith("block_"))):
+        _vit_block(params[f"block_{i}"], out, f"blocks.{i}")
+    if "decoder_embed" in params:
+        _linear(params["decoder_embed"], out, "decoder_embed")
+        out["mask_token"] = _f32(params["mask_token"])
+        out["decoder_pos_embed"] = sincos_3d(cfg.decoder_embed_dim, cfg.grid_size, cls_token=True)[None]
+        _layernorm(params["decoder_norm"], out, "decoder_norm")
+        _linear(params["decoder_pred"], out, "decoder_pred")
+        for i in range(sum(1 for key in params if key.startswith("decoder_block_"))):
+            _vit_block(params[f"decoder_block_{i}"], out, f"decoder_blocks.{i}")
+    return {key: torch.from_numpy(np.array(v)) for key, v in out.items()}
+
+
+def load_prithvi_weights(model: torch.nn.Module, path: str | Path | None = None) -> None:
+    """Load a state dict in the published ``Prithvi_100M.pt`` layout into a
+    port ``PrithviMAE`` (default path: ``weights/Prithvi_100M.pt``). Raises
+    FileNotFoundError when the file is absent; position tables of another
+    grid are ignored by the model's loader."""
+    from s2tpu_torch.configs.paths import WEIGHTS_DIR
+
+    path = Path(path) if path is not None else WEIGHTS_DIR / PRITHVI_WEIGHTS_FILE
+    if not path.exists():
+        raise FileNotFoundError(str(path))
+    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)

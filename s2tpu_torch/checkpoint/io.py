@@ -9,8 +9,11 @@ A training run directory holds ``config.json`` and one ``epoch_<n>/`` per
 kept epoch with ``model.pt``, ``optimizer.pt`` and ``state.json`` (the
 optimizer step and the epoch's scalar metrics). :class:`CheckpointManager`
 keeps the ``keep`` best epochs by its monitor and mode plus the latest, as
-``s2tpu/checkpoint/orbax_io.py`` retains best and last.
-:func:`load_checkpoint` reads either layout, the latest epoch by default.
+``s2tpu/checkpoint/orbax_io.py`` retains best and last. An MAE run directory
+has the same layout with an ``MAEConfig`` in ``config.json`` and the
+Prithvi MAE's state dict (published layout) in ``model.pt``.
+:func:`load_checkpoint` reads either segmentation layout and
+:func:`load_mae_checkpoint` an MAE run, the latest epoch by default.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from s2tpu_torch.configs.mae import MAEConfig
+from s2tpu_torch.configs.mae import config_from_dict as mae_config_from_dict
 from s2tpu_torch.configs.segmentation import Config, config_from_dict, config_to_dict
 
 CONFIG_FILE = "config.json"
@@ -55,9 +60,9 @@ def epochs_in(run_dir: str | Path) -> list[int]:
     )
 
 
-def load_checkpoint(ckpt_dir: str | Path, epoch: int | None = None) -> tuple[Config, dict[str, torch.Tensor]]:
-    """-> (config, CPU state dict) of a serving checkpoint, or of a training
-    run directory's ``epoch`` (default: its latest)."""
+def _load_config_and_weights(ckpt_dir: str | Path, epoch: int | None) -> tuple[dict, dict[str, torch.Tensor]]:
+    """-> (config dict, CPU state dict) of a serving checkpoint, or of a
+    training run directory's ``epoch`` (default: its latest)."""
     ckpt_dir = Path(ckpt_dir)
     config_path = ckpt_dir / CONFIG_FILE
     if epoch is None and (ckpt_dir / WEIGHTS_FILE).exists():
@@ -71,9 +76,22 @@ def load_checkpoint(ckpt_dir: str | Path, epoch: int | None = None) -> tuple[Con
         weights_path = ckpt_dir / f"{EPOCH_PREFIX}{epoch}" / WEIGHTS_FILE
     if not config_path.exists() or not weights_path.exists():
         raise FileNotFoundError(f"{ckpt_dir} lacks {CONFIG_FILE} or {weights_path.name}")
-    config = config_from_dict(json.loads(config_path.read_text()))
     state_dict = torch.load(weights_path, map_location="cpu", weights_only=True)
-    return config, state_dict
+    return json.loads(config_path.read_text()), state_dict
+
+
+def load_checkpoint(ckpt_dir: str | Path, epoch: int | None = None) -> tuple[Config, dict[str, torch.Tensor]]:
+    """-> (segmentation config, CPU state dict) of a serving checkpoint, or of
+    a training run directory's ``epoch`` (default: its latest)."""
+    config, state_dict = _load_config_and_weights(ckpt_dir, epoch)
+    return config_from_dict(config), state_dict
+
+
+def load_mae_checkpoint(run_dir: str | Path, epoch: int | None = None) -> tuple[MAEConfig, dict[str, torch.Tensor]]:
+    """-> (MAE config, CPU state dict in the published Prithvi layout) of an
+    MAE run directory's ``epoch`` (default: its latest)."""
+    config, state_dict = _load_config_and_weights(run_dir, epoch)
+    return mae_config_from_dict(config), state_dict
 
 
 class CheckpointManager:

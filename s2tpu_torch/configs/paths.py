@@ -1,5 +1,6 @@
 """On-disk layout: data, log, checkpoint and output roots (the port's copy of
-``s2tpu/configs/paths.py``). The root is overridable via ``S2TPU_ROOT``."""
+``s2tpu/configs/paths.py``), with the pretrained-weights directory. The root is
+overridable via ``S2TPU_ROOT``."""
 
 from __future__ import annotations
 
@@ -11,3 +12,4 @@ DATA_DIR: Path = ROOT_DIR / "data"
 LOG_DIR: Path = ROOT_DIR / "logs"
 CKPT_DIR: Path = ROOT_DIR / "ckpts"
 OUT_DIR: Path = ROOT_DIR / "out"
+WEIGHTS_DIR: Path = ROOT_DIR / "weights"

@@ -7,7 +7,11 @@
 The same ``shuffle_seed`` gives the same split, epoch order, crops and
 flips as the JAX package's Datamodule. Eval batches are padded to a fixed
 batch size with a validity mask, as the JAX package pads them. Only the
-GeoTIFF source is ported; flips happen on the host (``host_flips``).
+GeoTIFF source is ported; flips happen on the host (``host_flips``). The MAE
+trainer takes these batches as they are (unlabeled sources give zero
+labels): where the JAX MAE path flips on the host and again on the device,
+the port flips once, which gives crops of the same distribution (the XOR of
+two fair coins is a fair coin).
 """
 
 from __future__ import annotations

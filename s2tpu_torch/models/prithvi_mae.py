@@ -1,0 +1,381 @@
+"""Prithvi-100M ViT masked autoencoder in PyTorch: the port of ``s2tpu/models/prithvi_mae.py``.
+
+The published NASA/IBM Prithvi-100M MAE: fixed 3D sincos position tables
+(6/6/4 sixteenths of the width for w/h/t), tubelet patch embedding as a
+patchify + one dense product, per-sample argsort-of-noise masking with a
+static keep count, a pre-norm ViT encoder and decoder, and the MSE of the
+masked patches. Inputs are (B, T, H, W, C), channel-last, as in JAX.
+
+Module and parameter names are the published checkpoint's
+(``patch_embed.proj``, ``cls_token``, ``blocks.{i}.norm1`` / ``.attn.qkv`` /
+``.attn.proj`` / ``.norm2`` / ``.mlp.fc1`` / ``.mlp.fc2``, ``norm``,
+``decoder_embed``, ``mask_token``, ``decoder_blocks.{i}.*``,
+``decoder_norm``, ``decoder_pred``), so ``Prithvi_100M.pt`` and the JAX
+package's ``export_prithvi_state_dict`` load with ``strict=True``. The
+position tables are fixed buffers outside the state dict; an incoming
+``pos_embed`` / ``decoder_pos_embed`` is checked against them when its grid
+matches and ignored when it does not, as the reference's weight surgery
+regenerates them.
+
+Numerics follow flax: parameters are stored in f32 and cast to the compute
+dtype where they are used; LayerNorm takes f32 statistics as
+E[x²] - E[x]² (clipped at 0) with eps 1e-5 and returns the compute dtype;
+GELU is exact (erf). Attention takes the JAX model's route
+(:func:`s2tpu_torch.ops.flash_attention.attention_route`): the fused
+kernels #8/#9 where the fused route holds, the streaming kernel #5 for long
+sequences, plain attention below 128 tokens. Tensor- and context-parallel
+forms wait for multi-GPU.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from s2tpu_torch.ops.flash_attention import (
+    attention_route,
+    dot_product_attention,
+    flash_attention,
+    fused_attention_dense,
+)
+from s2tpu_torch.train.losses import mae_reconstruction_loss
+
+LECUN_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to (-2, 2)
+
+
+# ---------------------------------------------------------------------------
+# sincos position embeddings (numpy, computed once)
+# ---------------------------------------------------------------------------
+def sincos_1d(embed_dim: int, positions: np.ndarray) -> np.ndarray:
+    """(M,) positions -> (M, embed_dim) [sin | cos] embedding."""
+    assert embed_dim % 2 == 0
+    omega = 1.0 / 10000 ** (np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0))
+    angles = np.outer(positions.reshape(-1).astype(np.float64), omega)
+    return np.concatenate([np.sin(angles), np.cos(angles)], axis=1)
+
+
+def sincos_3d(embed_dim: int, grid_size: tuple[int, int, int], cls_token: bool = False) -> np.ndarray:
+    """3D (t, h, w) sincos table, (t·h·w [+1], embed_dim) f32: widths split
+    6/6/4 sixteenths for w/h/t, tiled in token order (t, h, w)."""
+    assert embed_dim % 16 == 0
+    t, h, w = grid_size
+    dim_w = dim_h = embed_dim // 16 * 6
+    dim_t = embed_dim // 16 * 4
+    emb_w = np.tile(sincos_1d(dim_w, np.arange(w)), (t * h, 1))
+    emb_h = np.tile(np.repeat(sincos_1d(dim_h, np.arange(h)), w, axis=0), (t, 1))
+    emb_t = np.repeat(sincos_1d(dim_t, np.arange(t)), h * w, axis=0)
+    pos = np.concatenate([emb_w, emb_h, emb_t], axis=1)
+    if cls_token:
+        pos = np.concatenate([np.zeros((1, embed_dim)), pos], axis=0)
+    return pos.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class PrithviConfig:
+    """The JAX model's config without its mesh-axis fields (tensor, data and
+    context parallelism wait for multi-GPU)."""
+
+    img_size: int = 224
+    patch_size: int = 16
+    num_frames: int = 1
+    tubelet_size: int = 1
+    in_chans: int = 6
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    decoder_embed_dim: int = 512
+    decoder_depth: int = 8
+    decoder_num_heads: int = 16
+    mlp_ratio: float = 4.0
+    norm_pix_loss: bool = False
+    layer_norm_eps: float = 1e-5
+    attention_impl: str = "xla"  # "xla" (plain), "flash" or "fused"
+
+    @property
+    def grid_size(self) -> tuple[int, int, int]:
+        return (self.num_frames // self.tubelet_size, self.img_size // self.patch_size, self.img_size // self.patch_size)
+
+    @property
+    def num_patches(self) -> int:
+        t, h, w = self.grid_size
+        return t * h * w
+
+    @property
+    def patch_dim(self) -> int:
+        return self.tubelet_size * self.patch_size * self.patch_size * self.in_chans
+
+    @staticmethod
+    def from_model_args(args: dict, **overrides) -> "PrithviConfig":
+        """From the published config's ``model_args`` (``utils.load_prithvi_model_args``)."""
+        merged = {**args, **overrides}
+        keys = ("img_size", "patch_size", "num_frames", "tubelet_size", "in_chans", "embed_dim", "depth",
+                "num_heads", "decoder_embed_dim", "decoder_depth", "decoder_num_heads")
+        return PrithviConfig(**{k: merged[k] for k in keys})
+
+
+# ---------------------------------------------------------------------------
+# patchify / unpatchify
+# ---------------------------------------------------------------------------
+def patchify(imgs: torch.Tensor, patch: int, tubelet: int) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, L, tub·p·p·C), tokens in (t, h, w) order, each
+    token's features in (tub, p, q, c) order (channel fastest)."""
+    b, t, h, w, c = imgs.shape
+    gt, gh, gw = t // tubelet, h // patch, w // patch
+    x = imgs.reshape(b, gt, tubelet, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)  # b gt gh gw tub p q c
+    return x.reshape(b, gt * gh * gw, tubelet * patch * patch * c)
+
+
+def unpatchify(tokens: torch.Tensor, grid: tuple[int, int, int], patch: int, tubelet: int, channels: int) -> torch.Tensor:
+    """(B, L, tub·p·p·C) -> (B, T, H, W, C), the inverse of :func:`patchify`."""
+    b = tokens.shape[0]
+    gt, gh, gw = grid
+    x = tokens.reshape(b, gt, gh, gw, tubelet, patch, patch, channels)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)  # b gt tub gh p gw q c
+    return x.reshape(b, gt * tubelet, gh * patch, gw * patch, channels)
+
+
+# ---------------------------------------------------------------------------
+# layers (parameters in f32, cast to the input's dtype where used)
+# ---------------------------------------------------------------------------
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``lecun_normal`` on a (out, in) weight: truncated normal, variance 1/fan_in."""
+    std = math.sqrt(1.0 / weight.shape[1]) / LECUN_TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Linear(nn.Linear):
+    """``nn.Dense`` with flax's default init (lecun normal, zero bias); the
+    weight and bias are cast to the input's dtype."""
+
+    def __init__(self, cin: int, cout: int, generator: torch.Generator) -> None:
+        super().__init__(cin, cout)
+        with torch.no_grad():
+            _lecun_normal_(self.weight, generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``LayerNorm``: f32 mean and E[x²] - E[x]² (clipped at 0),
+    ``(x - mean) · (rsqrt(var + eps) · scale) + bias`` in f32, returned in
+    the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with the JAX model's route (``:226-291``):
+    ``qkv`` and ``proj`` are plain dense layers and the kernels read the
+    ``(B, L, 3D)`` projection in place."""
+
+    def __init__(self, dim: int, num_heads: int, impl: str, generator: torch.Generator) -> None:
+        super().__init__()
+        self.dim, self.num_heads, self.impl = dim, num_heads, impl
+        self.qkv = Linear(dim, 3 * dim, generator)
+        self.proj = Linear(dim, dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, _ = x.shape
+        qkv = self.qkv(x)
+        route = attention_route(l, self.dim, self.num_heads, self.impl)
+        if route == "fused":
+            return self.proj(fused_attention_dense(qkv, self.num_heads))
+        q, k, v = qkv.reshape(b, l, 3, self.num_heads, self.dim // self.num_heads).unbind(2)
+        out = flash_attention(q, k, v) if route == "flash" else dot_product_attention(q, k, v)
+        return self.proj(out.reshape(b, l, self.dim))
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, generator: torch.Generator) -> None:
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, generator)
+        self.fc2 = Linear(hidden, dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+class Block(nn.Module):
+    """Pre-norm ViT block: LN - attention - residual, LN - MLP - residual."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, impl: str, eps: float,
+                 generator: torch.Generator) -> None:
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=eps)
+        self.attn = Attention(dim, num_heads, impl, generator)
+        self.norm2 = LayerNorm(dim, eps=eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class PatchEmbed(nn.Module):
+    """Tubelet patch embedding held as the published Conv3d weight
+    (D, C, tub, p, p) and applied as patchify + one dense product (stride
+    equals kernel, so the two agree)."""
+
+    def __init__(self, cfg: PrithviConfig, generator: torch.Generator) -> None:
+        super().__init__()
+        self.patch, self.tubelet = cfg.patch_size, cfg.tubelet_size
+        shape = (cfg.embed_dim, cfg.in_chans, cfg.tubelet_size, cfg.patch_size, cfg.patch_size)
+        self.proj = nn.Conv3d(cfg.in_chans, cfg.embed_dim, shape[2:], stride=shape[2:])
+        with torch.no_grad():
+            # flax xavier_uniform on the (tub·p·p·C, D) dense kernel
+            bound = math.sqrt(6.0 / (cfg.patch_dim + cfg.embed_dim))
+            self.proj.weight.uniform_(-bound, bound, generator=generator)
+            self.proj.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.proj.weight.permute(0, 2, 3, 4, 1).reshape(self.proj.weight.shape[0], -1)  # (D, tub·p·p·C)
+        return F.linear(patchify(x, self.patch, self.tubelet), w.to(x.dtype), self.proj.bias.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# masking
+# ---------------------------------------------------------------------------
+def random_masking(
+    x: torch.Tensor, mask_ratio: float, noise: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-sample shuffle-keep masking with a static keep count from the
+    (B, L) uniform ``noise`` (the JAX model draws it with
+    ``jax.random.uniform``). Returns (x_kept (B, L_keep, D), mask (B, L) in
+    x's dtype with 1 = removed, ids_restore (B, L))."""
+    b, l, d = x.shape
+    len_keep = int(l * (1 - mask_ratio))
+    ids_shuffle = torch.argsort(noise, dim=1, stable=True)
+    ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
+    ids_keep = ids_shuffle[:, :len_keep]
+    x_kept = torch.gather(x, 1, ids_keep[:, :, None].expand(b, len_keep, d))
+    mask = torch.ones((b, l), dtype=x.dtype, device=x.device)
+    mask[:, :len_keep] = 0
+    return x_kept, torch.gather(mask, 1, ids_restore), ids_restore
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+class PrithviMAE(nn.Module):
+    """Masked autoencoder over (B, T, H, W, C) frames.
+
+    ``dtype`` is the compute dtype; parameters are f32 (``generator`` seeds
+    flax's initializers: xavier uniform for the patch projection, lecun
+    normal for the other dense layers, normal(0.02) for the cls and mask
+    tokens, zero biases) and live on ``device``.
+    """
+
+    POS_KEYS = ("pos_embed", "decoder_pos_embed")
+
+    def __init__(
+        self,
+        config: PrithviConfig,
+        dtype: torch.dtype = torch.float32,
+        device: torch.device | str = "cpu",
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        cfg = self.config = config
+        self.dtype = dtype
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        impl, eps = cfg.attention_impl, cfg.layer_norm_eps
+        self.patch_embed = PatchEmbed(cfg, gen)
+        self.cls_token = nn.Parameter(0.02 * torch.randn((1, 1, cfg.embed_dim), generator=gen))
+        self.blocks = nn.ModuleList(
+            Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, impl, eps, gen) for _ in range(cfg.depth)
+        )
+        self.norm = LayerNorm(cfg.embed_dim, eps=eps)
+        self.decoder_embed = Linear(cfg.embed_dim, cfg.decoder_embed_dim, gen)
+        self.mask_token = nn.Parameter(0.02 * torch.randn((1, 1, cfg.decoder_embed_dim), generator=gen))
+        self.decoder_blocks = nn.ModuleList(
+            Block(cfg.decoder_embed_dim, cfg.decoder_num_heads, cfg.mlp_ratio, impl, eps, gen)
+            for _ in range(cfg.decoder_depth)
+        )
+        self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=eps)
+        self.decoder_pred = Linear(cfg.decoder_embed_dim, cfg.patch_dim, gen)
+        for key, width in zip(self.POS_KEYS, (cfg.embed_dim, cfg.decoder_embed_dim)):
+            table = torch.from_numpy(sincos_3d(width, cfg.grid_size, cls_token=True))[None]
+            self.register_buffer(key, table, persistent=False)
+        self.to(device)
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """``nn.Module.load_state_dict`` after taking out the fixed position
+        tables: one whose shape matches this grid must equal the table here
+        (to 1e-5); one of another grid is ignored."""
+        state_dict = dict(state_dict)
+        for key in self.POS_KEYS:
+            incoming = state_dict.pop(key, None)
+            ours = getattr(self, key)
+            if incoming is not None and tuple(incoming.shape) == tuple(ours.shape):
+                diff = float((torch.as_tensor(incoming).float().cpu() - ours.cpu()).abs().max())
+                if diff > 1e-5:
+                    raise ValueError(f"{key} is not the fixed sincos table of this grid (max |diff| {diff})")
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
+    def encoder_pre(self, imgs: torch.Tensor, mask_ratio: float = 0.0, noise: torch.Tensor | None = None):
+        """Patch embedding, position table, masking and the cls token."""
+        x = self.patch_embed(imgs.to(self.dtype))
+        x = x + self.pos_embed[:, 1:, :].to(x.dtype)
+        b, l, _ = x.shape
+        if mask_ratio > 0.0:
+            if noise is None:
+                raise ValueError("mask_ratio > 0 needs the (B, L) masking noise")
+            x, mask, ids_restore = random_masking(x, mask_ratio, noise)
+        else:
+            mask = torch.zeros((b, l), dtype=x.dtype, device=x.device)
+            ids_restore = torch.arange(l, device=x.device).expand(b, l)
+        cls = (self.cls_token + self.pos_embed[:, :1, :]).to(x.dtype)
+        x = torch.cat([cls.expand(b, 1, x.shape[-1]), x], dim=1)
+        return x, mask, ids_restore
+
+    def forward_encoder(self, imgs: torch.Tensor, mask_ratio: float = 0.0, noise: torch.Tensor | None = None):
+        """(B, T, H, W, C) -> (tokens (B, 1 + L_keep, D), mask, ids_restore)."""
+        x, mask, ids_restore = self.encoder_pre(imgs, mask_ratio, noise)
+        for block in self.blocks:
+            x = block(x)
+        return self.norm(x), mask, ids_restore
+
+    def decoder_pre(self, tokens: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
+        """Decoder embedding, mask tokens put back in place, position table."""
+        x = self.decoder_embed(tokens)
+        b, _, d = x.shape
+        l = ids_restore.shape[1]
+        mask_tokens = self.mask_token.to(x.dtype).expand(b, l + 1 - x.shape[1], d)
+        full = torch.cat([x[:, 1:, :], mask_tokens], dim=1)
+        full = torch.gather(full, 1, ids_restore[:, :, None].expand(b, l, d))
+        x = torch.cat([x[:, :1, :], full], dim=1)
+        return x + self.decoder_pos_embed.to(x.dtype)
+
+    def decoder_post(self, x: torch.Tensor) -> torch.Tensor:
+        """Final LayerNorm and pixel projection, the cls token dropped."""
+        return self.decoder_pred(self.decoder_norm(x))[:, 1:, :]
+
+    def forward_decoder(self, tokens: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
+        x = self.decoder_pre(tokens, ids_restore)
+        for block in self.decoder_blocks:
+            x = block(x)
+        return self.decoder_post(x)
+
+    def forward(self, imgs: torch.Tensor, mask_ratio: float = 0.75, noise: torch.Tensor | None = None):
+        """Full MAE pass -> (loss, pred (B, L, patch_dim), mask (B, L))."""
+        cfg = self.config
+        latent, mask, ids_restore = self.forward_encoder(imgs, mask_ratio, noise)
+        pred = self.forward_decoder(latent, ids_restore)
+        target = patchify(imgs, cfg.patch_size, cfg.tubelet_size)
+        return mae_reconstruction_loss(pred, target, mask, norm_pix=cfg.norm_pix_loss), pred, mask

@@ -1,0 +1,964 @@
+// Fused whole-row attention on the raw Dense output, forward and backward,
+// for Hopper (sm_90a).
+//
+// Input qkv (B, L, 3D) row-major as nn.Linear(D, 3D) emits it: along the
+// last axis the q block, then k, then v, each D = H * Dh wide with the heads
+// contiguous. Head h of token i reads q at [i, h*Dh + d], k at
+// [i, D + h*Dh + d] and v at [i, 2D + h*Dh + d]: the layout is read in
+// place, with no transpose or copy to head-major. T is the input type
+// (bf16 or f32); every product reads T values (exact in f32) and
+// accumulates in f32.
+//
+// Forward, per (b, h):
+//   s  = (q k^T) * scale                        f32, scale = 1/sqrt(Dh)
+//   p  = exp(s - rowmax s) / rowsum(exp(...))   f32
+//   o  = round_T(round_T(p) v)                  p rounded to T, f32 sums
+// Backward, with the saved forward output o and the cotangent do (B, L, D):
+//   recompute s and p as above; pc = round_T(p)
+//   dv = pc^T do,  dp = do v^T (f32),  delta = rowsum(f32(do) f32(o))
+//   ds = round_T(p * (dp - delta) * scale)      p is the f32 p
+//   dq = ds k,  dk = ds^T q                     f32 sums, each rounded to T
+// written into dqkv (B, L, 3D) at the same offsets as q, k, v.
+//
+// Replaces the TPU kernels s2tpu/ops/flash_attention.py::_fused_fwd_dense_kernel
+// (launched from _fused_fwd_dense; its _paired variant computes the same
+// output) and ::_fused_bwd_dense_kernel (launched from _fused_bwd_dense).
+// Those run one program per batch element with the whole (L, L) score
+// matrix of each head in VMEM. Hopper blocks have at most 227 KB of shared
+// memory and run in no order, so the work is cut differently, and by the
+// input type:
+//
+// * bf16 (the training path): every product on the tensor cores,
+//   mma.sync.m16n8k16 with bf16 operands and f32 accumulation, which is the
+//   TPU kernel's rounding (bf16 products are exact in f32). The forward
+//   block owns (b, h, 64 query rows), one warp per 16 rows, and passes over
+//   the keys twice: first each row's max and sum, then p = exp(s - m) / l in
+//   f32, rounded to bf16 straight into the A operand of p v. No score rows
+//   leave the registers; shared memory holds q, one k tile and one v^T tile.
+// * f32: exact f32 products, which the tensor cores do not offer (TF32
+//   would round the operands), as register-blocked f32 FMAs on the CUDA
+//   cores. The forward block owns (b, h, 32 query rows) and keeps their f32
+//   score rows in shared memory (131 KB at L = 1024) for the softmax.
+// * Backward, both types, FlashAttention-2 split, no atomics: a statistics
+//   pass (the forward's first half) writes each row's max m, sum l and
+//   delta to an f32 scratch; then one block per (b, h, 64 keys) loops over
+//   every 64-row query tile and accumulates dk and dv in registers, and one
+//   block per (b, h, 64 query rows) loops over every key tile and
+//   accumulates dq. Each sum runs in a fixed order: the same bits on every
+//   run. Every score is formed by the same operations in all three kernels
+//   of a type, so the backward recomputes the forward's p bit for bit.
+//
+// Shared memory per block at Dh = 64: bf16 forward 27,648 bytes, dk/dv
+// 56,064, dq 37,632, none growing with L; f32 forward 156,160 at L = 1024,
+// dk/dv 100,608, dq 83,968.
+//
+// Bound: for the T = 1 Prithvi decoder (B = 64, L = 197, H = 16, Dh = 32,
+// bf16) the least time is set by bytes (qkv in, o out: 15.4 us forward;
+// qkv, o, do in, dqkv out: 30.8 us backward) against 5.1 / 12.9 us of
+// tensor-core operations. In f32 the operations bound it (67 TFLOP/s:
+// 76 / 190 us). What keeps these kernels from their bound: scores are
+// recomputed (twice in the forward, three times in the backward: 8
+// products of L^2 Dh where 5 are needed), each (b, h) re-reads its k and v
+// from L2 once per query tile, and each tile is copied to shared memory and
+// then used, with no copy in flight behind the products (no cp.async / TMA
+// pipeline).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kMaxLen = 1024;  // the longest sequence the fused route sends
+constexpr int kRows = 32;      // query rows per forward / statistics block
+constexpr int kTile = 64;      // keys per streamed tile; rows and keys per backward tile
+constexpr int kTileLd = kTile + 1;
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Dims {
+  int B, L, H, D;  // D = H * Dh
+  float scale;
+};
+
+// ---------------------------------------------------------------------------
+// f32 inputs: exact f32 products on the CUDA cores.
+// ---------------------------------------------------------------------------
+
+// Rows [r0, r0 + rows) of one (b, h) slice of a (B, L, ld) tensor, starting
+// at column `col`, into smem[r][d] (row stride DH + 1); rows past L read as
+// zeros.
+template <int DH>
+__device__ __forceinline__ void load_rows(float* smem, const float* base, int ld, int col, int r0, int rows,
+                                          int L) {
+  for (int idx = threadIdx.x; idx < rows * DH; idx += kThreads) {
+    const int r = idx / DH, d = idx % DH, row = r0 + r;
+    smem[r * (DH + 1) + d] = row < L ? base[(size_t)row * ld + col + d] : 0.f;
+  }
+}
+
+// The same rows transposed, into smem[d][r] (row stride kTileLd).
+template <int DH>
+__device__ __forceinline__ void load_rows_t(float* smem, const float* base, int ld, int col, int r0, int L) {
+  for (int idx = threadIdx.x; idx < kTile * DH; idx += kThreads) {
+    const int r = idx / DH, d = idx % DH, row = r0 + r;
+    smem[d * kTileLd + r] = row < L ? base[(size_t)row * ld + col + d] : 0.f;
+  }
+}
+
+// Forward (STATS = false) and the backward's statistics pass (STATS = true).
+// grid (ceil(L / 32), H, B). Shared: scores [32][ldS], q [32][DH + 1],
+// tile max(DH x kTileLd, kTile x (DH + 1)).
+template <int DH, bool STATS>
+__global__ void __launch_bounds__(kThreads) attn_dense_fwd_kernel(const float* __restrict__ qkv,
+                                                                  float* __restrict__ out,
+                                                                  const float* __restrict__ o_saved,
+                                                                  const float* __restrict__ dout,
+                                                                  float* __restrict__ stats, Dims dims) {
+  extern __shared__ float smem[];
+  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (L + kTile - 1) / kTile;
+  const int ldS = n_tiles * kTile + 1;
+  float* S = smem;
+  float* Qs = S + kRows * ldS;
+  float* buf = Qs + kRows * (DH + 1);
+  const float* base = qkv + (size_t)b * L * ld;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+
+  load_rows<DH>(Qs, base, ld, h * DH, q0, kRows, L);
+
+  // 1. scores: thread (ty, tx) owns rows ty, ty + 16 and columns tx + 16 j.
+  for (int t = 0; t < n_tiles; ++t) {
+    __syncthreads();
+    load_rows_t<DH>(buf, base, ld, D + h * DH, t * kTile, L);
+    __syncthreads();
+    float acc[2][4] = {};
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      const float a0 = Qs[ty * (DH + 1) + d], a1 = Qs[(ty + 16) * (DH + 1) + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float kv = buf[d * kTileLd + tx + 16 * j];
+        acc[0][j] = fmaf(a0, kv, acc[0][j]);
+        acc[1][j] = fmaf(a1, kv, acc[1][j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      S[ty * ldS + t * kTile + tx + 16 * j] = acc[0][j] * dims.scale;
+      S[(ty + 16) * ldS + t * kTile + tx + 16 * j] = acc[1][j] * dims.scale;
+    }
+  }
+  __syncthreads();
+
+  // 2. softmax rows in f32: warp w owns rows w, w + 8, w + 16, w + 24.
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    float* row = S + r * ldS;
+    float m = -INFINITY;
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    const int qi = q0 + r;
+    if constexpr (STATS) {
+      float delta = 0.f;  // rowsum(do * o) in f32
+      if (qi < L) {
+        const size_t off = ((size_t)b * L + qi) * D + h * DH;
+        for (int d = lane; d < DH; d += 32) delta += dout[off + d] * o_saved[off + d];
+      }
+      delta = warp_sum(delta);
+      if (lane == 0 && qi < L) {
+        const size_t n = (size_t)dims.B * dims.H * L, i = ((size_t)b * dims.H + h) * L + qi;
+        stats[i] = m;
+        stats[n + i] = l;
+        stats[2 * n + i] = delta;
+      }
+    } else {
+      for (int j = lane; j < L; j += 32) row[j] /= l;
+    }
+  }
+  if constexpr (STATS) return;
+
+  // 3. o = pc v: thread (ty, tx) owns rows ty, ty + 16 and d = tx + 16 j.
+  constexpr int NJ = DH / 16;
+  float acc[2][NJ] = {};
+  for (int t = 0; t < n_tiles; ++t) {
+    __syncthreads();
+    load_rows<DH>(buf, base, ld, 2 * D + h * DH, t * kTile, kTile, L);
+    __syncthreads();
+    const int nk = min(kTile, L - t * kTile);
+    for (int c = 0; c < nk; ++c) {
+      const float p0 = S[ty * ldS + t * kTile + c], p1 = S[(ty + 16) * ldS + t * kTile + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float v = buf[c * (DH + 1) + tx + 16 * j];
+        acc[0][j] = fmaf(p0, v, acc[0][j]);
+        acc[1][j] = fmaf(p1, v, acc[1][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= L) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) out[((size_t)b * L + qi) * D + h * DH + tx + 16 * j] = acc[i][j];
+  }
+}
+
+// Scores, probabilities and ds of one 64 x 64 (query, key) tile, for the
+// thread's 4 x 4 entries (rows ty + 16 i, keys tx + 16 j); writes pc (when
+// Pc is given) and ds into shared memory. Qs/dOs [64][DH + 1] rows, Kt/Vt
+// [DH][kTileLd] keys; m/l/delta the rows' statistics.
+template <int DH>
+__device__ __forceinline__ void tile_ds(const float* Qs, const float* dOs, const float* Kt, const float* Vt,
+                                        const float* m, const float* l, const float* delta, float* Pc,
+                                        float* dS, int q0, int k0, int L, float scale) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll 4
+  for (int d = 0; d < DH; ++d) {
+    float a[4], g[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = Qs[(ty + 16 * i) * (DH + 1) + d];
+      g[i] = dOs[(ty + 16 * i) * (DH + 1) + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float kv = Kt[d * kTileLd + tx + 16 * j], vv = Vt[d * kTileLd + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = fmaf(a[i], kv, s[i][j]);
+        dp[i][j] = fmaf(g[i], vv, dp[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      float p = 0.f, ds = 0.f;
+      if (q0 + r < L && k0 + c < L) {
+        // __fmul_rn: s * scale rounds before the subtraction, as the
+        // forward's stored score does (no contraction into an fma).
+        p = expf(__fmul_rn(s[i][j], scale) - m[r]) / l[r];
+        ds = p * (dp[i][j] - delta[r]) * scale;
+      }
+      if (Pc != nullptr) Pc[r * kTileLd + c] = p;
+      dS[r * kTileLd + c] = ds;
+    }
+  }
+}
+
+// The rows' statistics from the scratch written by the statistics pass
+// (m, l, delta); rows past L get m = 0, l = 1, delta = 0.
+__device__ __forceinline__ void load_stats(float* m, float* l, float* delta, const float* stats, Dims dims,
+                                           int b, int h, int r0) {
+  const size_t n = (size_t)dims.B * dims.H * dims.L;
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const int row = r0 + r;
+    const bool ok = row < dims.L;
+    const size_t i = ((size_t)b * dims.H + h) * dims.L + row;
+    m[r] = ok ? stats[i] : 0.f;
+    l[r] = ok ? stats[n + i] : 1.f;
+    delta[r] = ok ? stats[2 * n + i] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv: grid (ceil(L / 64), H, B); one block per 64 keys, looping over all
+// query tiles in order.
+// ---------------------------------------------------------------------------
+template <int DH>
+__global__ void __launch_bounds__(kThreads) attn_dense_dkdv_kernel(const float* __restrict__ qkv,
+                                                                   const float* __restrict__ dout,
+                                                                   const float* __restrict__ stats,
+                                                                   float* __restrict__ dqkv, Dims dims) {
+  extern __shared__ float smem[];
+  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* Kt = smem;
+  float* Vt = Kt + DH * kTileLd;
+  float* Qs = Vt + DH * kTileLd;
+  float* dOs = Qs + kTile * (DH + 1);
+  float* Pc = dOs + kTile * (DH + 1);
+  float* dS = Pc + kTile * kTileLd;
+  float* m = dS + kTile * kTileLd;
+  float* l = m + kTile;
+  float* delta = l + kTile;
+  const float* base = qkv + (size_t)b * L * ld;
+  const float* dbase = dout + (size_t)b * L * D;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  constexpr int NJ = DH / 16;
+
+  load_rows_t<DH>(Kt, base, ld, D + h * DH, k0, L);
+  load_rows_t<DH>(Vt, base, ld, 2 * D + h * DH, k0, L);
+  float dk[4][NJ] = {}, dv[4][NJ] = {};
+  for (int q0 = 0; q0 < L; q0 += kTile) {
+    __syncthreads();
+    load_rows<DH>(Qs, base, ld, h * DH, q0, kTile, L);
+    load_rows<DH>(dOs, dbase, D, h * DH, q0, kTile, L);
+    load_stats(m, l, delta, stats, dims, b, h, q0);
+    __syncthreads();
+    tile_ds<DH>(Qs, dOs, Kt, Vt, m, l, delta, Pc, dS, q0, k0, L, dims.scale);
+    __syncthreads();
+    const int nq = min(kTile, L - q0);
+    for (int r = 0; r < nq; ++r) {
+      float pc[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pc[i] = Pc[r * kTileLd + ty + 16 * i];
+        ds[i] = dS[r * kTileLd + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float g = dOs[r * (DH + 1) + tx + 16 * j], q = Qs[r * (DH + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv[i][j] = fmaf(pc[i], g, dv[i][j]);
+          dk[i][j] = fmaf(ds[i], q, dk[i][j]);
+        }
+      }
+    }
+  }
+  float* obase = dqkv + (size_t)b * L * ld;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= L) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int d = tx + 16 * j;
+      obase[(size_t)key * ld + D + h * DH + d] = dk[i][j];
+      obase[(size_t)key * ld + 2 * D + h * DH + d] = dv[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: grid (ceil(L / 64), H, B); one block per 64 query rows, looping over
+// all key tiles in order.
+// ---------------------------------------------------------------------------
+template <int DH>
+__global__ void __launch_bounds__(kThreads) attn_dense_dq_kernel(const float* __restrict__ qkv,
+                                                                 const float* __restrict__ dout,
+                                                                 const float* __restrict__ stats,
+                                                                 float* __restrict__ dqkv, Dims dims) {
+  extern __shared__ float smem[];
+  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* Kt = smem;
+  float* Vt = Kt + DH * kTileLd;
+  float* Qs = Vt + DH * kTileLd;
+  float* dOs = Qs + kTile * (DH + 1);
+  float* dS = dOs + kTile * (DH + 1);
+  float* m = dS + kTile * kTileLd;
+  float* l = m + kTile;
+  float* delta = l + kTile;
+  const float* base = qkv + (size_t)b * L * ld;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  constexpr int NJ = DH / 16;
+
+  load_rows<DH>(Qs, base, ld, h * DH, q0, kTile, L);
+  load_rows<DH>(dOs, dout + (size_t)b * L * D, D, h * DH, q0, kTile, L);
+  load_stats(m, l, delta, stats, dims, b, h, q0);
+  float dq[4][NJ] = {};
+  for (int k0 = 0; k0 < L; k0 += kTile) {
+    __syncthreads();
+    load_rows_t<DH>(Kt, base, ld, D + h * DH, k0, L);
+    load_rows_t<DH>(Vt, base, ld, 2 * D + h * DH, k0, L);
+    __syncthreads();
+    tile_ds<DH>(Qs, dOs, Kt, Vt, m, l, delta, nullptr, dS, q0, k0, L, dims.scale);
+    __syncthreads();
+    const int nk = min(kTile, L - k0);
+    for (int c = 0; c < nk; ++c) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dS[(ty + 16 * i) * kTileLd + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float kv = Kt[(tx + 16 * j) * kTileLd + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dq[i][j] = fmaf(ds[i], kv, dq[i][j]);
+      }
+    }
+  }
+  float* obase = dqkv + (size_t)b * L * ld;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= L) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) obase[(size_t)qi * ld + h * DH + tx + 16 * j] = dq[i][j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 inputs: the same algorithm with every product on the tensor cores,
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulation (exact products
+// of bf16 values summed in f32, as the TPU kernel's MXU dots). Shared tiles
+// are bf16 and row-major as the tensors are; the operands a product needs
+// transposed (v for p v, q and do for dk and dv, pc and ds for dv and dk, k
+// for dq) come through ldmatrix.trans. Blocks are 4 warps.
+// ---------------------------------------------------------------------------
+typedef __nv_bfloat16 bf16;
+constexpr int kMmaThreads = 128;
+constexpr int kLdT = kTile + 8;  // bf16 row stride of a 64-wide tile: 8 rows of a fragment hit 8 bank groups
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// c += a b over one 16 x 8 x 16 tile.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of rows r0..r0+15, columns c0..c0+15 of X (row-major, ld).
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* x, int ld, int r0, int c0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = x + (r0 + (lane >> 2)) * ld + c0 + 2 * (lane & 3);
+  a[0] = *reinterpret_cast<const uint32_t*>(p);
+  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
+  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
+}
+
+// The B fragment of Y^T for columns n0..n0+7 (rows of Y) and k0..k0+15.
+__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* y, int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = y + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  b[0] = *reinterpret_cast<const uint32_t*>(p);
+  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+}
+
+// Transposed operands through ldmatrix.trans, from row-major tiles whose rows
+// start 16-byte aligned. The A fragment of X^T for rows m0..m0+15 (columns of
+// X) and k0..k0+15 (rows of X):
+__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const bf16* x, int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+  const bf16* p = x + (k0 + (lane & 7) + 8 * (i >> 1)) * ld + m0 + 8 * (i & 1);
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// The B fragment of Z itself (Z row-major with k along its rows) for rows
+// k0..k0+15 and columns n0..n0+7.
+__device__ __forceinline__ void frag_b_t(uint32_t (&b)[2], const bf16* z, int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = z + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0;
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// Rows [r0, r0 + rows) x DH columns from `col` of a (.., ld) bf16 tensor into
+// s[r][d] (row stride lds), rows past L as zeros; 16-byte copies (ld, col and
+// lds are multiples of 8 elements).
+template <int DH>
+__device__ __forceinline__ void copy_rows(bf16* s, int lds, const bf16* g, int ld, int col, int r0, int rows,
+                                          int L) {
+  for (int idx = threadIdx.x; idx < rows * (DH / 8); idx += kMmaThreads) {
+    const int r = idx / (DH / 8), w = idx % (DH / 8), row = r0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < L) v = *reinterpret_cast<const uint4*>(g + (size_t)row * ld + col + 8 * w);
+    *reinterpret_cast<uint4*>(s + r * lds + 8 * w) = v;
+  }
+}
+
+// Scores of one 16-row x 64-key tile: s[j] is the C fragment of keys 8j..8j+7,
+// (q k^T) for rows r0.. of Q and the 64 rows of K, unscaled.
+template <int DH>
+__device__ __forceinline__ void mma_scores(float (&s)[8][4], const bf16* Q, const bf16* K, int r0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    uint32_t a[4];
+    frag_a(a, Q, DH + 8, r0, 16 * ks);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t b[2];
+      frag_b(b, K, DH + 8, 8 * j, 16 * ks);
+      mma_bf16(s[j], a, b);
+    }
+  }
+}
+
+// Forward (STATS = false) and the statistics pass (STATS = true), bf16.
+// grid (ceil(L / 64), H, B); warp w owns query rows 16 w.. of the block's 64.
+// Two passes over the keys, with no score rows in shared memory: the first
+// finds each row's max m and sum l (the sum rescaled as the max grows, a
+// reordering of the same f32 sum), the second recomputes each score tile,
+// forms p = exp(s - m) / l in f32, rounds it to bf16 straight into the A
+// operand of p v, and accumulates o in f32. The statistics pass is the
+// first pass plus delta. Shared: q, k, v [64][DH + 8]: 27,648 bytes at
+// Dh = 64, independent of L.
+template <int DH, bool STATS>
+__global__ void __launch_bounds__(kMmaThreads) attn_dense_fwd_mma_kernel(const bf16* __restrict__ qkv,
+                                                                          bf16* __restrict__ out,
+                                                                          const bf16* __restrict__ o_saved,
+                                                                          const bf16* __restrict__ dout,
+                                                                          float* __restrict__ stats, Dims dims) {
+  extern __shared__ float smem[];
+  constexpr int LD = DH + 8;
+  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kTile * LD;
+  bf16* Vs = Ks + kTile * LD;
+  const bf16* base = qkv + (size_t)b * L * ld;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  copy_rows<DH>(Qs, LD, base, ld, h * DH, q0, kTile, L);
+  // 1. row max and sum; this thread's rows are 16 w + g (i = 0) and + 8 (i = 1),
+  //    shared with the 3 other lanes of its quad.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int k0 = 0; k0 < L; k0 += kTile) {
+    __syncthreads();
+    copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
+    __syncthreads();
+    float s[8][4];
+    mma_scores<DH>(s, Qs, Ks, 16 * warp);
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[jj][e] = k0 + 8 * jj + 2 * t + (e & 1) < L ? s[jj][e] * dims.scale : -INFINITY;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[jj][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      const float m_new = fmaxf(m[i], tmax[i]);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) sum += expf(s[jj][2 * i] - m_new) + expf(s[jj][2 * i + 1] - m_new);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[i] = l[i] * expf(m[i] - m_new) + sum;
+      m[i] = m_new;
+    }
+  }
+  if constexpr (STATS) {
+    const size_t n = (size_t)dims.B * dims.H * L;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + 16 * warp + g + 8 * i;
+      if (t == 0 && qi < L) {
+        const size_t idx = ((size_t)b * dims.H + h) * L + qi;
+        stats[idx] = m[i];
+        stats[n + idx] = l[i];
+      }
+    }
+    const int qi = q0 + threadIdx.x;
+    if (threadIdx.x < kTile && qi < L) {  // delta = rowsum(do * o) in f32
+      const size_t off = ((size_t)b * L + qi) * D + h * DH;
+      float delta = 0.f;
+      for (int d = 0; d < DH; ++d) delta += __bfloat162float(dout[off + d]) * __bfloat162float(o_saved[off + d]);
+      stats[2 * n + ((size_t)b * dims.H + h) * L + qi] = delta;
+    }
+    return;
+  }
+
+  // 2. o = round(p) v, p recomputed per key tile.
+  constexpr int NJ = DH / 8;
+  float o[NJ][4] = {};
+  for (int k0 = 0; k0 < L; k0 += kTile) {
+    __syncthreads();
+    copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
+    copy_rows<DH>(Vs, LD, base, ld, 2 * D + h * DH, k0, kTile, L);
+    __syncthreads();
+    float s[8][4];
+    mma_scores<DH>(s, Qs, Ks, 16 * warp);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[jj][e] = k0 + 8 * jj + 2 * t + (e & 1) < L
+                       ? expf(__fmul_rn(s[jj][e], dims.scale) - m[e >> 1]) / l[e >> 1] : 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      const uint32_t a[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]), pack_bf16(s[2 * ks][2], s[2 * ks][3]),
+                             pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+                             pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+#pragma unroll
+      for (int jd = 0; jd < NJ; ++jd) {
+        uint32_t bv[2];
+        frag_b_t(bv, Vs, LD, 16 * ks, 8 * jd);
+        mma_bf16(o[jd], a, bv);
+      }
+    }
+  }
+#pragma unroll
+  for (int jd = 0; jd < NJ; ++jd)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + 16 * warp + g + 8 * i;
+      if (qi < L)
+        *reinterpret_cast<uint32_t*>(out + ((size_t)b * L + qi) * D + h * DH + 8 * jd + 2 * t) =
+            pack_bf16(o[jd][2 * i], o[jd][2 * i + 1]);
+    }
+}
+
+// In place: the C fragments s -> p and dp -> ds of rows r0.. x keys 0..63 of
+// the tile at (q0, k0), zero outside L x L; the statistics m, l, delta are
+// indexed by the row in the tile.
+__device__ __forceinline__ void mma_probs(float (&s)[8][4], float (&dp)[8][4], const float* m, const float* l,
+                                          const float* delta, int r0, int q0, int k0, int L, float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+      float pv = 0.f, dv = 0.f;
+      if (q0 + r < L && k0 + c < L) {
+        pv = expf(__fmul_rn(s[j][e], scale) - m[r]) / l[r];
+        dv = round_bf16(pv * (dp[j][e] - delta[r]) * scale);
+      }
+      s[j][e] = pv;
+      dp[j][e] = dv;
+    }
+}
+
+// dk, dv (bf16): grid (ceil(L / 64), H, B), one block per 64 keys looping over
+// every query tile in order. Shared: k, v, q, do [64][DH + 8], pc and ds
+// [64][kLdT] (query rows x keys): 56,064 bytes at Dh = 64.
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads) attn_dense_dkdv_mma_kernel(const bf16* __restrict__ qkv,
+                                                                           const bf16* __restrict__ dout,
+                                                                           const float* __restrict__ stats,
+                                                                           bf16* __restrict__ dqkv, Dims dims) {
+  extern __shared__ float smem[];
+  constexpr int LD = DH + 8, NJ = DH / 8;
+  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* m = smem;
+  float* l = m + kTile;
+  float* delta = l + kTile;
+  bf16* Ks = reinterpret_cast<bf16*>(delta + kTile);
+  bf16* Vs = Ks + kTile * LD;
+  bf16* Qs = Vs + kTile * LD;
+  bf16* dOs = Qs + kTile * LD;
+  bf16* Pc = dOs + kTile * LD;
+  bf16* dS = Pc + kTile * kLdT;
+  const bf16* base = qkv + (size_t)b * L * ld;
+  const bf16* dbase = dout + (size_t)b * L * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
+  copy_rows<DH>(Vs, LD, base, ld, 2 * D + h * DH, k0, kTile, L);
+  float dk[NJ][4] = {}, dv[NJ][4] = {};
+  for (int q0 = 0; q0 < L; q0 += kTile) {
+    __syncthreads();
+    copy_rows<DH>(Qs, LD, base, ld, h * DH, q0, kTile, L);
+    copy_rows<DH>(dOs, LD, dbase, D, h * DH, q0, kTile, L);
+    if (threadIdx.x < kTile) {
+      const size_t n = (size_t)dims.B * dims.H * L;
+      const int row = q0 + threadIdx.x;
+      const size_t i = ((size_t)b * dims.H + h) * L + row;
+      m[threadIdx.x] = row < L ? stats[i] : 0.f;
+      l[threadIdx.x] = row < L ? stats[n + i] : 1.f;
+      delta[threadIdx.x] = row < L ? stats[2 * n + i] : 0.f;
+    }
+    __syncthreads();
+    {
+      // warp w: query rows 16 w.. against the block's 64 keys
+      float p[8][4], ds[8][4];
+      mma_scores<DH>(p, Qs, Ks, 16 * warp);
+      mma_scores<DH>(ds, dOs, Vs, 16 * warp);
+      mma_probs(p, ds, m, l, delta, 16 * warp, q0, k0, L, dims.scale);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int off = (16 * warp + g + 8 * i) * kLdT + 8 * j + 2 * t;
+          *reinterpret_cast<uint32_t*>(Pc + off) = pack_bf16(p[j][2 * i], p[j][2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(dS + off) = pack_bf16(ds[j][2 * i], ds[j][2 * i + 1]);
+        }
+    }
+    __syncthreads();
+    // warp w: keys 16 w.., dv += pc^T do, dk += ds^T q over the tile's 64 rows
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      uint32_t ap[4], as[4];
+      frag_a_t(ap, Pc, kLdT, 16 * warp, 16 * ks);
+      frag_a_t(as, dS, kLdT, 16 * warp, 16 * ks);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bo[2], bq[2];
+        frag_b_t(bo, dOs, LD, 16 * ks, 8 * j);
+        frag_b_t(bq, Qs, LD, 16 * ks, 8 * j);
+        mma_bf16(dv[j], ap, bo);
+        mma_bf16(dk[j], as, bq);
+      }
+    }
+  }
+  bf16* obase = dqkv + (size_t)b * L * ld;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 16 * warp + g + 8 * e;
+      if (key >= L) continue;
+      const size_t off = (size_t)key * ld + h * DH + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(obase + off + D) = pack_bf16(dk[j][2 * e], dk[j][2 * e + 1]);
+      *reinterpret_cast<uint32_t*>(obase + off + 2 * D) = pack_bf16(dv[j][2 * e], dv[j][2 * e + 1]);
+    }
+}
+
+// dq (bf16): grid (ceil(L / 64), H, B), one block per 64 query rows looping
+// over every key tile in order; ds stays in registers as the A operand of
+// ds k. Shared: q, do, k, v [64][DH + 8]: 37,632 bytes at Dh = 64.
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads) attn_dense_dq_mma_kernel(const bf16* __restrict__ qkv,
+                                                                         const bf16* __restrict__ dout,
+                                                                         const float* __restrict__ stats,
+                                                                         bf16* __restrict__ dqkv, Dims dims) {
+  extern __shared__ float smem[];
+  constexpr int LD = DH + 8, NJ = DH / 8;
+  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  float* m = smem;
+  float* l = m + kTile;
+  float* delta = l + kTile;
+  bf16* Qs = reinterpret_cast<bf16*>(delta + kTile);
+  bf16* dOs = Qs + kTile * LD;
+  bf16* Ks = dOs + kTile * LD;
+  bf16* Vs = Ks + kTile * LD;
+  const bf16* base = qkv + (size_t)b * L * ld;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  copy_rows<DH>(Qs, LD, base, ld, h * DH, q0, kTile, L);
+  copy_rows<DH>(dOs, LD, dout + (size_t)b * L * D, D, h * DH, q0, kTile, L);
+  if (threadIdx.x < kTile) {
+    const size_t n = (size_t)dims.B * dims.H * L;
+    const int row = q0 + threadIdx.x;
+    const size_t i = ((size_t)b * dims.H + h) * L + row;
+    m[threadIdx.x] = row < L ? stats[i] : 0.f;
+    l[threadIdx.x] = row < L ? stats[n + i] : 1.f;
+    delta[threadIdx.x] = row < L ? stats[2 * n + i] : 0.f;
+  }
+  float dq[NJ][4] = {};
+  for (int k0 = 0; k0 < L; k0 += kTile) {
+    __syncthreads();
+    copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
+    copy_rows<DH>(Vs, LD, base, ld, 2 * D + h * DH, k0, kTile, L);
+    __syncthreads();
+    float p[8][4], ds[8][4];
+    mma_scores<DH>(p, Qs, Ks, 16 * warp);
+    mma_scores<DH>(ds, dOs, Vs, 16 * warp);
+    mma_probs(p, ds, m, l, delta, 16 * warp, q0, k0, L, dims.scale);
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      // the C fragments of keys 16 ks.. are the A fragment of ds for this k step
+      const uint32_t a[4] = {pack_bf16(ds[2 * ks][0], ds[2 * ks][1]), pack_bf16(ds[2 * ks][2], ds[2 * ks][3]),
+                             pack_bf16(ds[2 * ks + 1][0], ds[2 * ks + 1][1]),
+                             pack_bf16(ds[2 * ks + 1][2], ds[2 * ks + 1][3])};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bk[2];
+        frag_b_t(bk, Ks, LD, 16 * ks, 8 * j);
+        mma_bf16(dq[j], a, bk);
+      }
+    }
+  }
+  bf16* obase = dqkv + (size_t)b * L * ld;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qi = q0 + 16 * warp + g + 8 * e;
+      if (qi < L)
+        *reinterpret_cast<uint32_t*>(obase + (size_t)qi * ld + h * DH + 8 * j + 2 * t) =
+            pack_bf16(dq[j][2 * e], dq[j][2 * e + 1]);
+    }
+}
+
+template <int DH>
+size_t fwd_smem(int L) {
+  const int n_tiles = (L + kTile - 1) / kTile;
+  const int tile = DH * kTileLd > kTile * (DH + 1) ? DH * kTileLd : kTile * (DH + 1);
+  return sizeof(float) * ((size_t)kRows * (n_tiles * kTile + 1) + kRows * (DH + 1) + tile);
+}
+
+template <int DH>
+constexpr size_t dkdv_smem() {
+  return sizeof(float) * (2 * DH * kTileLd + 2 * kTile * (DH + 1) + 2 * kTile * kTileLd + 3 * kTile);
+}
+
+template <int DH>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * DH * kTileLd + 2 * kTile * (DH + 1) + kTile * kTileLd + 3 * kTile);
+}
+
+// Raise the kernel's dynamic shared-memory limit to what this launch needs.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int DH>
+cudaError_t forward(const void* qkv, void* out, Dims dims, cudaStream_t s) {
+  const dim3 grid((dims.L + kRows - 1) / kRows, dims.H, dims.B);
+  const size_t smem = fwd_smem<DH>(dims.L);
+  auto kernel = attn_dense_fwd_kernel<DH, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(static_cast<const float*>(qkv), static_cast<float*>(out), nullptr, nullptr,
+                                      nullptr, dims);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t backward(const void* qkv, const void* o, const void* dout, void* dqkv, void* stats, Dims dims,
+                     cudaStream_t s) {
+  const float* q = static_cast<const float*>(qkv);
+  const float* g = static_cast<const float*>(dout);
+  float* st = static_cast<float*>(stats);
+  float* dq = static_cast<float*>(dqkv);
+  const size_t smem0 = fwd_smem<DH>(dims.L);
+  auto k0 = attn_dense_fwd_kernel<DH, true>;
+  cudaError_t err = allow_smem(k0, smem0);
+  if (err != cudaSuccess) return err;
+  k0<<<dim3((dims.L + kRows - 1) / kRows, dims.H, dims.B), kThreads, smem0, s>>>(
+      q, nullptr, static_cast<const float*>(o), g, st, dims);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid((dims.L + kTile - 1) / kTile, dims.H, dims.B);
+  auto k1 = attn_dense_dkdv_kernel<DH>;
+  if ((err = allow_smem(k1, dkdv_smem<DH>())) != cudaSuccess) return err;
+  k1<<<grid, kThreads, dkdv_smem<DH>(), s>>>(q, g, st, dq, dims);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  auto k2 = attn_dense_dq_kernel<DH>;
+  if ((err = allow_smem(k2, dq_smem<DH>())) != cudaSuccess) return err;
+  k2<<<grid, kThreads, dq_smem<DH>(), s>>>(q, g, st, dq, dims);
+  return cudaGetLastError();
+}
+
+template <int DH>
+constexpr size_t fwd_mma_smem() {
+  return sizeof(bf16) * 3 * kTile * (DH + 8);
+}
+
+template <int DH>
+constexpr size_t dkdv_mma_smem() {
+  return sizeof(float) * 3 * kTile + sizeof(bf16) * (4 * kTile * (DH + 8) + 2 * kTile * kLdT);
+}
+
+template <int DH>
+constexpr size_t dq_mma_smem() {
+  return sizeof(float) * 3 * kTile + sizeof(bf16) * 4 * kTile * (DH + 8);
+}
+
+template <int DH>
+cudaError_t forward_mma(const void* qkv, void* out, Dims dims, cudaStream_t s) {
+  const size_t smem = fwd_mma_smem<DH>();
+  auto kernel = attn_dense_fwd_mma_kernel<DH, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, smem, s>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), nullptr, nullptr, nullptr, dims);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t backward_mma(const void* qkv, const void* o, const void* dout, void* dqkv, void* stats, Dims dims,
+                         cudaStream_t s) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* g = static_cast<const bf16*>(dout);
+  float* st = static_cast<float*>(stats);
+  bf16* dq = static_cast<bf16*>(dqkv);
+  const size_t smem0 = fwd_mma_smem<DH>();
+  auto k0 = attn_dense_fwd_mma_kernel<DH, true>;
+  cudaError_t err = allow_smem(k0, smem0);
+  if (err != cudaSuccess) return err;
+  k0<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, smem0, s>>>(
+      q, nullptr, static_cast<const bf16*>(o), g, st, dims);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid((dims.L + kTile - 1) / kTile, dims.H, dims.B);
+  auto k1 = attn_dense_dkdv_mma_kernel<DH>;
+  if ((err = allow_smem(k1, dkdv_mma_smem<DH>())) != cudaSuccess) return err;
+  k1<<<grid, kMmaThreads, dkdv_mma_smem<DH>(), s>>>(q, g, st, dq, dims);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  auto k2 = attn_dense_dq_mma_kernel<DH>;
+  if ((err = allow_smem(k2, dq_mma_smem<DH>())) != cudaSuccess) return err;
+  k2<<<grid, kMmaThreads, dq_mma_smem<DH>(), s>>>(q, g, st, dq, dims);
+  return cudaGetLastError();
+}
+
+Dims make_dims(int B, int L, int H, int Dh) {
+  return Dims{B, L, H, H * Dh, 1.0f};
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes. qkv (B, L, 3 H Dh) and out / o /
+// dout (B, L, H Dh) contiguous, dtype 0 = f32, 1 = bf16; Dh 32 or 64;
+// 1 <= L <= 1024. `scale` is 1/sqrt(Dh) as an f32. The backward writes
+// dqkv (B, L, 3 H Dh) and uses `stats`, an f32 scratch of 3 B H L values.
+// Each launches on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success); cudaErrorInvalidValue for a shape or
+// type it does not take. The caller validates and allocates.
+extern "C" int s2_fused_attention_dense_fwd(const void* qkv, void* out, int B, int L, int H, int Dh, float scale,
+                                            int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (L < 1 || L > kMaxLen || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  Dims dims = make_dims(B, L, H, Dh);
+  dims.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && Dh == 32) return (int)forward<32>(qkv, out, dims, s);
+  if (dtype == 0 && Dh == 64) return (int)forward<64>(qkv, out, dims, s);
+  if (dtype == 1 && Dh == 32) return (int)forward_mma<32>(qkv, out, dims, s);
+  if (dtype == 1 && Dh == 64) return (int)forward_mma<64>(qkv, out, dims, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int s2_fused_attention_dense_bwd(const void* qkv, const void* o, const void* dout, void* dqkv,
+                                            void* stats, int B, int L, int H, int Dh, float scale, int dtype,
+                                            int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (L < 1 || L > kMaxLen || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  Dims dims = make_dims(B, L, H, Dh);
+  dims.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && Dh == 32) return (int)backward<32>(qkv, o, dout, dqkv, stats, dims, s);
+  if (dtype == 0 && Dh == 64) return (int)backward<64>(qkv, o, dout, dqkv, stats, dims, s);
+  if (dtype == 1 && Dh == 32) return (int)backward_mma<32>(qkv, o, dout, dqkv, stats, dims, s);
+  if (dtype == 1 && Dh == 64) return (int)backward_mma<64>(qkv, o, dout, dqkv, stats, dims, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,387 @@
+"""Attention for the Prithvi ViT: hand-written CUDA kernels for the fused
+dense route (forward and backward) and the streaming flash route (forward).
+
+The port of ``s2tpu/ops/flash_attention.py``. Three functions reach a
+kernel on the card:
+
+- :func:`fused_attention_dense` ``(B, L, 3D) -> (B, L, D)``: whole-row
+  attention on the raw ``nn.Linear(D, 3D)`` output, the head split done in
+  the kernel (``csrc/fused_attention_dense.cu``, replacing the TPU kernels
+  ``_fused_fwd_dense_kernel`` and ``_fused_bwd_dense_kernel``). Its autograd
+  backward is a kernel too, with the JAX custom VJP's residuals (``qkv``
+  and the output).
+- :func:`flash_attention` ``(B, L, H, Dh) x 3 -> (B, L, H, Dh)``: streaming
+  online-softmax attention in f32 (``csrc/flash_attention.cu``, replacing
+  ``_flash_kernel``). Its backward differentiates the plain attention
+  (:func:`reference_attention`) with torch autograd, as the JAX package's
+  custom VJP differentiates ``_reference_attention``: the TPU package has
+  no backward kernel for it either.
+- :func:`dot_product_attention`: plain torch with the semantics of
+  ``jax.nn.dot_product_attention``, the route below ``FUSED_MIN_LEN``.
+
+The route (:func:`attention_route`) is the JAX model's
+(``s2tpu/models/prithvi_mae.py:240-291``), with the same constants and the
+same ``fused_fits_vmem`` arithmetic: the TPU's scoped-VMEM budget decides
+which shapes take the fused kernels, so a configuration runs the same
+kernels on both machines. Each kernel has a plain PyTorch version beside it
+that follows its algorithm and casts; the wrappers use it for CPU tensors
+only. On a CUDA tensor a wrapper launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+# Launches of the CUDA kernels (#8 fused forward, #9 fused backward, #5
+# flash forward); a run sets them to 0 and reads them. Only the CUDA
+# branches of the wrappers add to them.
+FUSED_FWD_LAUNCHES = 0
+FUSED_BWD_LAUNCHES = 0
+FLASH_FWD_LAUNCHES = 0
+
+FUSED_SOURCES = ["fused_attention_dense.cu"]
+FLASH_SOURCES = ["flash_attention.cu"]
+KERNEL_HEAD_DIMS = (32, 64)  # head widths the kernels are built for
+
+DEFAULT_BLOCK_K = 128  # the TPU flash kernel's key block; the plain version streams the same tiles
+NEG_INF = -1e30
+FUSED_MAX_LEN = 1024  # beyond this the fused score rows stop fitting
+FUSED_MIN_LEN = 128  # below this the plain attention is already cheap
+FLASH_MIN_LEN = 512  # the streaming route takes sequences from here on
+SCOPED_VMEM_LIMIT = 16 * 1024 * 1024  # the TPU budget fused_fits_vmem is stated in
+
+
+def fused_fits_vmem(l: int, dim: int, num_heads: int) -> bool:  # noqa: ARG001
+    """The JAX package's budget test (``s2tpu/ops/flash_attention.py:180-196``):
+    the fused backward's footprint, ``32·L·D`` bytes of blocks plus
+    ``18·L²`` of score-shaped scratch, within 85 % of a 16 MiB TPU budget.
+    The port keeps it as the route's rule, not as a limit of its kernels."""
+    blocks = 32 * l * dim
+    scratch = 18 * l * l
+    return blocks + scratch <= int(SCOPED_VMEM_LIMIT * 0.85)
+
+
+def attention_route(l: int, dim: int, num_heads: int, impl: str = "fused") -> str:
+    """Which attention ``Attention`` runs at sequence length ``l``: "fused"
+    (kernels #8/#9), "flash" (kernel #5) or "plain", as the JAX model
+    chooses (``prithvi_mae.py:240-287``)."""
+    if impl == "fused" and FUSED_MIN_LEN <= l <= FUSED_MAX_LEN and fused_fits_vmem(l, dim, num_heads):
+        return "fused"
+    if impl in ("fused", "flash") and l >= FLASH_MIN_LEN:
+        return "flash"
+    return "plain"
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _split_heads(x: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, L, 3D) -> q, k, v, each (B, H, L, Dh) views."""
+    b, l, c3 = x.shape
+    dh = c3 // 3 // num_heads
+    parts = x.reshape(b, l, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    return parts[0], parts[1], parts[2]
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, D) -> (B, H, L, Dh) view."""
+    b, l, d = x.shape
+    return x.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, Dh) -> (B, L, H·Dh)."""
+    b, h, l, dh = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * dh)
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """f32 softmax of ``(q kᵀ)·scale`` over (B, H, L, Dh) operands: the
+    products of input-type values, summed in f32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def _check_dense(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
+    """-> (B, L, D, Dh); raises on what the fused functions do not take."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % num_heads:
+        raise ValueError(f"expected qkv (B, L, 3D) with D divisible by {num_heads} heads, got {tuple(qkv.shape)}")
+    b, l, c3 = qkv.shape
+    return b, l, c3 // 3, c3 // 3 // num_heads
+
+
+def fused_attention_dense_forward_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch #8: ``(B, L, 3D) -> (B, L, D)`` as
+    ``_fused_fwd_dense_kernel`` computes it (``flash_attention.py:324-349``):
+    f32 scores of input-type operands times 1/√Dh, f32 softmax, the
+    probabilities rounded to the input type, f32 sums of ``p·v``, the
+    output in the input type."""
+    _, _, _, dh = _check_dense(qkv, num_heads)
+    q, k, v = _split_heads(qkv, num_heads)
+    p = _probs(q, k, 1.0 / math.sqrt(dh))
+    o = torch.matmul(p.to(qkv.dtype).float(), v.float()).to(qkv.dtype)
+    return _merge_heads(o)
+
+
+def fused_attention_dense_backward_reference(
+    qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, num_heads: int
+) -> torch.Tensor:
+    """Plain PyTorch #9: ``dqkv (B, L, 3D)`` from the saved ``qkv``, the
+    forward output ``out`` and its cotangent ``dout``, as
+    ``_fused_bwd_dense_kernel`` computes it (``flash_attention.py:352-389``)."""
+    _, _, _, dh = _check_dense(qkv, num_heads)
+    scale = 1.0 / math.sqrt(dh)
+    q, k, v = _split_heads(qkv, num_heads)
+    o, do = _heads(out, num_heads).float(), _heads(dout, num_heads).float()
+    p = _probs(q, k, scale)
+    dv = torch.matmul(p.to(qkv.dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
+
+
+def flash_attention_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch #5 on (B, L, H, Dh): ``_flash_kernel``'s online softmax
+    (``flash_attention.py:36-72``), f32 throughout, q scaled before the
+    product, ``DEFAULT_BLOCK_K`` keys at a time. The short last block stands
+    for the TPU kernel's padded keys, which it masks to exp(-1e30 - m) = 0."""
+    l, dh = q.shape[1], q.shape[-1]
+    qf = q.float().transpose(1, 2) * (1.0 / math.sqrt(dh))
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    m = torch.full((*qf.shape[:-1], 1), NEG_INF, dtype=torch.float32, device=q.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, l, DEFAULT_BLOCK_K):
+        s = torch.matmul(qf, kf[:, :, k0 : k0 + DEFAULT_BLOCK_K].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        den = den * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, vf[:, :, k0 : k0 + DEFAULT_BLOCK_K])
+        m = m_new
+    return (acc / den.clamp_min(1e-30)).to(q.dtype).transpose(1, 2)
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``_reference_attention`` (``flash_attention.py:113-118``) on
+    (B, L, H, Dh): f32 scores divided by √Dh, softmax, f32 ``p·v``, cast to
+    q's type. The flash route's backward differentiates this."""
+    d = q.shape[-1]
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) / (d**0.5)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhlm,bmhd->blhd", p, v.float()).to(q.dtype)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.dot_product_attention(q, k, v)`` on (B, L, H, Dh) in plain
+    torch (JAX 0.9 ``_dot_product_attention_core``): scores summed in f32
+    from input-type operands, times 1/√Dh, f32 softmax, probabilities cast
+    to v's type, f32 sums of ``p·v`` in v's type. Differentiable by autograd."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _probs(q.transpose(1, 2), k.transpose(1, 2), scale).to(v.dtype)
+    o = torch.matmul(p.float(), v.transpose(1, 2).float()).to(v.dtype)
+    return o.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+_kernel_fns: dict[str, object] = {}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel(name: str):
+    """The built library's C entry point ``s2_<name>`` (nvcc at first use)."""
+    fn = _kernel_fns.get(name)
+    if fn is None:
+        from s2tpu_torch.ops._build import load_library
+
+        if name.startswith("flash"):
+            fn = load_library("flash_attention", FLASH_SOURCES).s2_flash_attention_fwd
+            fn.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            )
+        else:
+            lib = load_library("fused_attention_dense", FUSED_SOURCES)
+            fn = getattr(lib, f"s2_{name}")
+            n_ptr = 2 if name.endswith("fwd") else 5
+            fn.argtypes = (
+                [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            )
+        fn.restype = ctypes.c_int
+        _kernel_fns[name] = fn
+    return fn
+
+
+def _check_cuda(t: torch.Tensor, what: str) -> int:
+    """The kernels' dtype code of a CUDA tensor; raises on anything else."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {t.dtype}")
+    return _DTYPE_CODES[t.dtype]
+
+
+def _check_fused_kernel_shape(l: int, d: int, dh: int, num_heads: int) -> None:
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the fused attention kernels take head width {KERNEL_HEAD_DIMS}, got {dh}")
+    if not (FUSED_MIN_LEN <= l <= FUSED_MAX_LEN and fused_fits_vmem(l, d, num_heads)):
+        raise ValueError(
+            f"L={l}, D={d} is outside the fused route ({FUSED_MIN_LEN} <= L <= {FUSED_MAX_LEN} "
+            "and fused_fits_vmem); use flash_attention"
+        )
+
+
+def _stream(t: torch.Tensor) -> tuple[int, int]:
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fused_attention_dense_forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``(B, L, 3D) -> (B, L, D)`` fused attention, no autograd.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_fwd_dense`` (``:449-470``,
+    TPU kernel ``_fused_fwd_dense_kernel`` ``:324``). A CUDA tensor goes
+    through kernel #8, launched on the current stream without
+    synchronising; it must be contiguous, f32 or bf16, with Dh 32 or 64 and
+    a length on the fused route. A CPU tensor goes through the plain version."""
+    global FUSED_FWD_LAUNCHES
+    b, l, d, dh = _check_dense(qkv, num_heads)
+    if qkv.device.type == "cpu":
+        return fused_attention_dense_forward_reference(qkv, num_heads)
+    code = _check_cuda(qkv, "fused_attention_dense")
+    _check_fused_kernel_shape(l, d, dh, num_heads)
+    if not qkv.is_contiguous():
+        raise ValueError("fused_attention_dense reads qkv in place: pass a contiguous (B, L, 3D) tensor")
+    out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
+    err = _kernel("fused_attention_dense_fwd")(
+        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, dh, 1.0 / math.sqrt(dh), code, *_stream(qkv)
+    )
+    if err != 0:
+        raise RuntimeError(f"fused attention forward kernel launch failed with CUDA error {err}")
+    FUSED_FWD_LAUNCHES += 1
+    return out
+
+
+def fused_attention_dense_backward(
+    qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, num_heads: int
+) -> torch.Tensor:
+    """``dqkv (B, L, 3D)`` of :func:`fused_attention_dense` from its saved
+    ``qkv``, its output ``out`` and the output's cotangent ``dout``.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_dense`` (``:473-488``,
+    TPU kernel ``_fused_bwd_dense_kernel`` ``:352``). A CUDA tensor goes
+    through kernel #9 (a statistics pass, then dk/dv and dq blocks, no
+    atomics), launched on the current stream without synchronising; a CPU
+    tensor through the plain version."""
+    global FUSED_BWD_LAUNCHES
+    b, l, d, dh = _check_dense(qkv, num_heads)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (b, l, d) or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name} must be {(b, l, d)} {qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype}")
+    if qkv.device.type == "cpu":
+        return fused_attention_dense_backward_reference(qkv, out, dout, num_heads)
+    code = _check_cuda(qkv, "fused_attention_dense backward")
+    _check_fused_kernel_shape(l, d, dh, num_heads)
+    qkv, out, dout = qkv.contiguous(), out.contiguous(), dout.contiguous()
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, b, num_heads, l), dtype=torch.float32, device=qkv.device)
+    err = _kernel("fused_attention_dense_bwd")(
+        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        b, l, num_heads, dh, 1.0 / math.sqrt(dh), code, *_stream(qkv),
+    )
+    if err != 0:
+        raise RuntimeError(f"fused attention backward kernel launch failed with CUDA error {err}")
+    FUSED_BWD_LAUNCHES += 1
+    return dqkv
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, Dh) q, k, v -> (B, L, H, Dh) streaming attention, no autograd.
+
+    Ports ``s2tpu/ops/flash_attention.py::_flash_forward`` (``:85-110``, TPU
+    kernel ``_flash_kernel`` ``:36``). A CUDA tensor goes through kernel #5,
+    launched on the current stream without synchronising; q, k and v may be
+    strided views (the last axis contiguous), f32 or bf16, Dh 32 or 64. A
+    CPU tensor goes through the plain version."""
+    global FLASH_FWD_LAUNCHES
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"expected q, k, v of one (B, L, H, Dh) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
+        raise ValueError("q, k and v must share a dtype and a device")
+    if q.device.type == "cpu":
+        return flash_attention_forward_reference(q, k, v)
+    code = _check_cuda(q, "flash_attention")
+    b, l, h, dh = q.shape
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash attention kernel takes head width {KERNEL_HEAD_DIMS}, got {dh}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention needs q, k, v with a contiguous last axis")
+    out = torch.empty((b, l, h, dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1), t.stride(2))]
+    err = _kernel("flash_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        b, l, h, dh, 1.0 / math.sqrt(dh), code, *_stream(q),
+    )
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed with CUDA error {err}")
+    FLASH_FWD_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# differentiable ops
+# ---------------------------------------------------------------------------
+class FusedAttentionDense(torch.autograd.Function):
+    """The JAX custom VJP ``fused_attention_dense`` (``:434-491``): forward
+    kernel #8, backward kernel #9; saves ``qkv`` and the output."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        out = fused_attention_dense_forward(qkv, num_heads)
+        ctx.save_for_backward(qkv, out)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out = ctx.saved_tensors
+        return fused_attention_dense_backward(qkv, out, dout.to(qkv.dtype), ctx.num_heads), None
+
+
+class FlashAttention(torch.autograd.Function):
+    """The JAX custom VJP ``flash_attention`` (``:121-146``): forward kernel
+    #5; backward differentiates :func:`reference_attention` (recomputed)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = reference_attention(*leaves)
+            return torch.autograd.grad(out, leaves, g)
+
+
+def fused_attention_dense(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Fused attention on the raw ``(B, L, 3D)`` qkv projection -> (B, L, D)."""
+    return FusedAttentionDense.apply(qkv, num_heads)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Streaming attention, (B, L, H, Dh) q, k, v -> (B, L, H, Dh)."""
+    return FlashAttention.apply(q, k, v)

@@ -13,6 +13,8 @@ not a fallback on failure.
 Masks are applied as selects (``torch.where``), as XLA compiles the JAX
 losses' products with 0/1 masks: an ignored pixel never passes a NaN (focal's
 (1-pt)^(gamma-1) at pt = 1 when gamma < 1) into its gradient.
+
+The MAE pretraining loss (:func:`mae_reconstruction_loss`) is plain torch.
 """
 
 from __future__ import annotations
@@ -188,3 +190,30 @@ def make_loss_fn(
         return LossOutput(d + f, {"dice": d, "focal": f})
 
     return fn
+
+
+def mae_reconstruction_loss(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    mask: torch.Tensor,
+    norm_pix: bool = False,
+    sample_weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """MAE loss (``s2tpu/train/losses.py:185-210``): the per-patch MSE in f32,
+    averaged over the masked (removed) patches only.
+
+    pred/target (B, L, D) patch pixels; mask (B, L) with 1 = masked;
+    ``norm_pix`` standardizes each target patch (biased variance, eps 1e-6).
+    ``sample_weights`` (B,) 0/1 drops rows (padded eval entries) from the
+    numerator and the denominator alike.
+    """
+    target, pred = target.float(), pred.float()
+    if norm_pix:
+        mean = target.mean(dim=-1, keepdim=True)
+        var = target.var(dim=-1, keepdim=True, unbiased=False)
+        target = (target - mean) / torch.sqrt(var + 1e-6)
+    per_patch = ((pred - target) ** 2).mean(dim=-1)
+    mask = mask.float()
+    if sample_weights is not None:
+        mask = mask * sample_weights.float()[:, None]
+    return (per_patch * mask).sum() / mask.sum().clamp_min(1e-12)

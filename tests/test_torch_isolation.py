@@ -1,4 +1,5 @@
-"""s2tpu_torch stands alone: no JAX and nothing of s2tpu, and the card by default."""
+"""s2tpu_torch stands alone: no JAX, nothing of s2tpu, no yaml or matplotlib (the card
+lacks them), and the card by default."""
 
 import os
 import subprocess
@@ -15,7 +16,7 @@ REPO = Path(__file__).resolve().parents[1]
 _PROBE = r"""
 import importlib, pkgutil, sys
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "s2tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "s2tpu", "yaml", "matplotlib")
 
 def forbidden(name):
     return name.split(".")[0] in FORBIDDEN
@@ -47,7 +48,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_s2tpu():
         env={**os.environ, "PYTHONPATH": str(REPO)},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 38  # every module was imported, the training slice's too
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 43  # every module was imported, the MAE slice's too
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):
@@ -67,3 +68,17 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([str(tmp_path / "missing")])
+
+
+def test_prithvi_constants_equal_the_jax_package_yaml():
+    """The port keeps Prithvi's published model args and normalization as
+    Python constants (the card has no YAML reader); they are the file's."""
+    import yaml
+
+    from s2tpu_torch import utils
+
+    published = yaml.safe_load((REPO / "s2tpu" / "configs" / "prithvi_config.yaml").read_text())
+    assert utils.load_prithvi_model_args() == published["model_args"]
+    assert utils.load_prithvi_model_args(num_frames=1) == {**published["model_args"], "num_frames": 1}
+    mean, std = utils.load_prithvi_mean_std()
+    assert mean == published["train_params"]["data_mean"] and std == published["train_params"]["data_std"]

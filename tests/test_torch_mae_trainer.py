@@ -1,0 +1,263 @@
+"""The Prithvi MAE pretraining slice as a whole: s2tpu_torch's MAETrainer and CLI vs the JAX package's.
+
+A tiny Prithvi MAE (the route's plain and fused paths; f32 on the CPU)
+whose Flax parameters are carried into the port; both trainers see the same
+int16 crops (augmentation off) and the same masking noise (the JAX step's
+key, drawn in the test and handed to the port).
+
+Tolerances: the loss to 1e-5 relative (f32, sums in other orders). Adam's
+first update is lr · g'/(|g'| + eps) with g' = g + wd·p, so each parameter
+moves by about lr in the direction of g': the updated parameters agree to
+1e-3·lr wherever |g'| is well above f32 rounding of g (1e-6 here), and the
+few entries with |g'| below that may differ by at most 2·lr.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from s2tpu.configs import mae as jax_mae_cfg
+from s2tpu.configs.segmentation import DatamoduleConfig as JaxDatamoduleConfig
+from s2tpu.configs.segmentation import DatasetConfig as JaxDatasetConfig
+from s2tpu.data.dataset import TiffSource as JaxTiffSource
+from s2tpu.data.pipeline import Datamodule as JaxDatamodule
+from s2tpu.models.prithvi_mae import PrithviConfig as JaxPrithviConfig
+from s2tpu.parallel import mesh as mesh_lib
+from s2tpu.train.mae_trainer import MAETrainer as JaxMAETrainer
+from s2tpu_torch.checkpoint import io
+from s2tpu_torch.checkpoint.convert import prithvi_state_dict_from_jax
+from s2tpu_torch.configs import mae as mae_cfg
+from s2tpu_torch.configs.segmentation import DatamoduleConfig, DatasetConfig
+from s2tpu_torch.data.dataset import TiffSource
+from s2tpu_torch.data.pipeline import Datamodule
+from s2tpu_torch.models.prithvi_mae import PrithviConfig
+from s2tpu_torch.train import mae_trainer
+from s2tpu_torch.train.mae_trainer import MAETrainer
+
+# Encoder L = 16·0.5 + 1 = 9 (plain), decoder L = 17 (plain); a second
+# geometry at 64² / patch 4 reaches the fused route (L = 129 and 257).
+TINY = dict(img_size=32, patch_size=8, num_frames=1, tubelet_size=1, in_chans=6, embed_dim=64, depth=2,
+            num_heads=4, decoder_embed_dim=48, decoder_depth=1, decoder_num_heads=4, attention_impl="fused")
+LR = 1e-3
+
+
+def _configs(fixture_dir, crop: int, batch: int):
+    out = []
+    for lib in (jax_mae_cfg, mae_cfg):
+        c = lib.base_config(aoi="small")
+        c.datamodule.dataset_cfg.data_dir = str(fixture_dir)
+        c.datamodule.batch_size = batch
+        c.datamodule.random_crop_size = crop
+        c.datamodule.data_split = (0.5, 0.5, 0.0)
+        c.datamodule.augment = False
+        c.model.mask_ratio = 0.5
+        c.train.from_scratch = True
+        c.train.lr = LR
+        out.append(c)
+    return out
+
+
+def _datamodules(fixture_dir, crop: int, batch: int):
+    jdm = JaxDatamodule(
+        JaxDatamoduleConfig(
+            dataset_cfg=JaxDatasetConfig(aoi="small", label_map="osm-multiclass", data_dir=str(fixture_dir)),
+            batch_size=batch, data_split=(0.5, 0.5, 0.0), random_crop_size=crop, augment=False,
+        ),
+        source=JaxTiffSource("small", "osm-multiclass", data_dir=fixture_dir, require_labels=False),
+    )
+    dm = Datamodule(
+        DatamoduleConfig(
+            dataset_cfg=DatasetConfig(aoi="small", label_map="osm-multiclass", data_dir=str(fixture_dir)),
+            batch_size=batch, data_split=(0.5, 0.5, 0.0), random_crop_size=crop, augment=False,
+        ),
+        source=TiffSource("small", "osm-multiclass", data_dir=fixture_dir, require_labels=False),
+    )
+    return jdm, dm
+
+
+def _trainers(fixture_dir, geometry: dict):
+    crop = geometry["img_size"]
+    jc, pc = _configs(fixture_dir, crop, batch=2)
+    jdm, dm = _datamodules(fixture_dir, crop, batch=2)
+    jt = JaxMAETrainer(jc, jdm, mesh=mesh_lib.make_mesh(1), model_config=JaxPrithviConfig(**geometry))
+    pt = MAETrainer(pc, dm, model_config=PrithviConfig(**geometry), device="cpu")
+    pt.model.load_state_dict(prithvi_state_dict_from_jax(jax.device_get(jt.state.params), pt.model_config), strict=True)
+    return jt, pt
+
+
+@pytest.mark.parametrize("geometry", [TINY, dict(TINY, img_size=64, patch_size=4)], ids=["plain", "fused"])
+def test_one_train_step_equals_the_jax_trainer(fixture_dir, geometry):
+    jt, pt = _trainers(fixture_dir, geometry)
+    params0 = jax.device_get(jt.state.params)
+    batch = next(jt.dm.train_batches(0))
+    assert np.array_equal(batch.images, next(pt.dm.train_batches(0)).images)  # same crops on both sides
+    # The JAX step's masking noise: fold the step into the base key, split, draw.
+    _, mask_key = jax.random.split(jax.random.fold_in(jt.base_rng, 0))
+    noise = np.array(jax.random.uniform(mask_key, (2, pt.model_config.num_patches)))
+
+    state, jm = jt.train_step(jt.state, jnp.asarray(batch.images), jt.base_rng)
+    m = pt.train_step(torch.from_numpy(batch.images), noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    assert pt.step == 1
+
+    before = prithvi_state_dict_from_jax(params0, pt.model_config)
+    after_jax = prithvi_state_dict_from_jax(jax.device_get(state.params), pt.model_config)
+    for name, p in pt.model.named_parameters():
+        ours = (p.detach() - before[name]) / LR
+        theirs = (after_jax[name] - before[name]) / LR
+        g = p.grad + 0.05 * before[name]  # g' of coupled L2 (wd 0.05)
+        clear = g.abs() > 1e-6
+        assert float(torch.where(clear, ours - theirs, 0.0).abs().max()) <= 1e-3, name
+        assert float((ours - theirs).abs().max()) <= 2.0 + 1e-3, name
+
+
+def test_eval_loss_leaves_out_padded_rows(fixture_dir, monkeypatch):
+    jt, pt = _trainers(fixture_dir, TINY)
+    batch = next(jt.dm.eval_batches("val"))  # 3 val segments in a padded batch of 4
+    assert batch.mask.tolist() == [True, True, True, False]
+    # The JAX eval step masks with its base key for every batch.
+    noise = np.array(jax.random.uniform(jt.base_rng, (4, pt.model_config.num_patches)))
+    monkeypatch.setattr(pt, "_noise", lambda b, seed: torch.from_numpy(noise[:b]))
+    jm = jt.eval_step(jt.state, jnp.asarray(batch.images), jnp.asarray(batch.mask, jnp.float32), jt.base_rng)
+    m = pt.eval_step(torch.from_numpy(batch.images), torch.from_numpy(batch.mask))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m["weight"]), 0.75)
+    valid = pt.eval_step(torch.from_numpy(batch.images[:3]), torch.ones(3, dtype=torch.bool))
+    np.testing.assert_allclose(float(m["loss"]), float(valid["loss"]), rtol=1e-6)
+    assert pt.run_eval_epoch("val")["loss"] == pytest.approx(float(m["loss"]), rel=1e-6)
+    rec = pt.reconstruct(batch.images[:1])
+    assert rec.shape == (1, 1, 32, 32, 6) and np.isfinite(rec).all()
+
+
+def _tiny_model_config(config):
+    """The CLI's model at test size: Prithvi's geometry rules, tiny widths."""
+    return PrithviConfig(**dict(TINY, num_frames=config.model.num_frames, img_size=config.datamodule.random_crop_size))
+
+
+def test_cli_trains_checkpoints_and_resumes_on_cpu(fixture_dir, tmp_path, monkeypatch):
+    from s2tpu_torch.cli.train_mae import main
+    from s2tpu_torch.configs import paths
+
+    monkeypatch.setattr(mae_trainer, "default_model_config", _tiny_model_config)
+    monkeypatch.setattr(paths, "CKPT_DIR", tmp_path / "ckpts")
+    monkeypatch.setattr(paths, "LOG_DIR", tmp_path / "logs")
+    argv = ["small", "--type", "pretrain", "--from-scratch", "--bs", "2", "--crop", "32", "--epochs", "2",
+            "--log-interval", "1", "--compute-dtype", "float32", "--data-dir", str(fixture_dir), "--name", "t",
+            "--wandb", "--device", "cpu"]
+    history = main(argv)
+    assert [r["epoch"] for r in history] == [0, 1]
+    assert all(np.isfinite(r["train/loss"]) and np.isfinite(r["val/loss"]) for r in history)
+    # the pretrain rule at the preset's batch of 64 (--bs changes the batch after the preset, as in JAX)
+    assert history[0]["train/lr"] == pytest.approx(1.5e-4 * 64 / 256)
+    (run_dir,) = (tmp_path / "ckpts" / "prithvi-mae-finetune").glob("t_*")
+    config, state = io.load_mae_checkpoint(run_dir)
+    assert config.datamodule.batch_size == 2 and config.train.watch_interval == 0
+    assert "patch_embed.proj.weight" in state and all(v.dtype == torch.float32 for v in state.values())
+    steps = [json.loads(line) for line in (tmp_path / "logs" / "runs" / f"{run_dir.name}.metrics.jsonl").open()]
+    assert sum("train/loss_step" in s for s in steps) == 4  # 4 train segments (of 6, split 0.8) / bs 2, 2 epochs
+
+    resumed = main(argv + ["--epochs", "3", "--resume-from", str(run_dir)])
+    assert [r["epoch"] for r in resumed] == [2]
+    assert io.CheckpointManager(run_dir).restore(2)["step"] == 6
+
+
+def test_cli_num_frames_reaches_the_source_and_the_model(tmp_path, monkeypatch):
+    from s2tpu_torch.cli.train_mae import main
+    from s2tpu_torch.configs import paths
+    from s2tpu_torch.data.dataset import make_synthetic_fixture
+
+    make_synthetic_fixture(tmp_path / "data", n_segments=5, n_time=2, size=(48, 48))
+    monkeypatch.setattr(mae_trainer, "default_model_config", _tiny_model_config)
+    monkeypatch.setattr(paths, "CKPT_DIR", tmp_path / "ckpts")
+    monkeypatch.setattr(paths, "LOG_DIR", tmp_path / "logs")
+    seen = []
+    step = MAETrainer.train_step
+    monkeypatch.setattr(MAETrainer, "train_step", lambda self, images, noise=None: seen.append(tuple(images.shape)) or step(self, images, noise))
+    history = main(["small", "--type", "pretrain", "--from-scratch", "--bs", "2", "--crop", "32", "--epochs", "1",
+                    "--num-frames", "2", "--compute-dtype", "float32", "--data-dir", str(tmp_path / "data"),
+                    "--wandb", "--device", "cpu"])
+    assert seen == [(2, 2, 32, 32, 6)] * 2 and np.isfinite(history[0]["train/loss"])
+    (run_dir,) = (tmp_path / "ckpts" / "prithvi-mae-finetune").glob("*")
+    config, _ = io.load_mae_checkpoint(run_dir)
+    assert config.model.num_frames == 2 and config.datamodule.dataset_cfg.n_time_frames == 2
+
+
+def test_cli_config_matches_the_jax_cli(tmp_path):
+    """The flags both CLIs take build the same config tree, but for what the
+    port records of itself: one device and no norm watching."""
+    from s2tpu.cli.train_mae import build_parser as jax_parser
+    from s2tpu.cli.train_mae import config_from_args as jax_config_from_args
+    from s2tpu_torch.cli.train_mae import build_parser, config_from_args
+
+    argv = ["fr", "--type", "pretrain", "--from-scratch", "--bs", "16", "--lr", "3e-4", "--epochs", "7",
+            "--log-interval", "5", "--num-frames", "3", "--crop", "128", "--bands", "all12", "--mask-ratio", "0.6",
+            "--name", "x", "--wandb", "--tags", "a", "b", "--compute-dtype", "bfloat16", "--data-dir",
+            str(tmp_path), "--seed", "7", "--auto-resume"]
+    theirs = dataclasses.asdict(jax_config_from_args(jax_parser().parse_args(argv)))
+    ours = dataclasses.asdict(config_from_args(build_parser().parse_args(argv)))
+    theirs["train"].update(num_devices=1, watch_interval=0)
+    assert ours == theirs
+    parsed = config_from_args(build_parser().parse_args(argv))
+    assert mae_cfg.config_from_dict(json.loads(json.dumps(dataclasses.asdict(parsed)))) == parsed
+
+
+def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
+    from s2tpu_torch.cli.train_mae import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["small", "--from-scratch", "--data-dir", str(fixture_dir)])
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--remat"], ["--ema-decay", "0.99"], ["--grad-accum", "2"], ["--pp", "2"], ["--device-corpus"],
+     ["--steps-per-dispatch", "4"], ["--num-devices", "4"]],
+)
+def test_cli_refuses_flags_of_unported_features(flags, capsys):
+    from s2tpu_torch.cli.train_mae import main
+
+    with pytest.raises(SystemExit):
+        main(["small", *flags, "--device", "cpu"])
+    assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "section,field,value",
+    [("train", "grad_accum_steps", 2), ("train", "remat", True), ("train", "ema_decay", 0.99),
+     ("train", "param_dtype", "bfloat16"), ("train", "device_corpus", True), ("train", "steps_per_dispatch", 2),
+     ("model", "pipeline_stages", 2)],
+)
+def test_trainer_refuses_unported_config(section, field, value):
+    c = mae_cfg.base_config("small")
+    setattr(getattr(c, section), field, value)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        MAETrainer(c, datamodule=None, device="cpu")
+
+
+def test_trainer_refuses_norm_watching_with_a_run_logger(tmp_path):
+    from s2tpu_torch.train.logging_utils import RunLogger
+
+    c = mae_cfg.base_config("small")
+    with pytest.raises(NotImplementedError, match="watch_interval"):
+        MAETrainer(c, datamodule=None, run_logger=RunLogger("r", tmp_path), device="cpu")
+
+
+def test_finetune_without_published_weights_warns_and_keeps_random_init(fixture_dir, tmp_path, monkeypatch, caplog):
+    from s2tpu_torch.configs import paths
+
+    monkeypatch.setattr(paths, "WEIGHTS_DIR", tmp_path / "weights")
+    _, pc = _configs(fixture_dir, 32, 2)
+    pc.train.from_scratch = False
+    _, dm = _datamodules(fixture_dir, 32, 2)
+    with caplog.at_level("WARNING"):
+        t = MAETrainer(pc, dm, model_config=PrithviConfig(**TINY), device="cpu")
+    assert "Pretrained Prithvi weights unavailable" in caplog.text
+    ref = MAETrainer(pc, dm, model_config=PrithviConfig(**TINY), device="cpu")
+    for (n, a), (_, b) in zip(t.model.state_dict().items(), ref.model.state_dict().items()):
+        assert torch.equal(a, b), n  # the seeded random init
