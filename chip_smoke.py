@@ -1,4 +1,4 @@
-"""Drive s2tpu_torch's serving, training and MAE pretraining paths on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving, training and MAE pretraining paths (dense and tensor-parallel) on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ any failure raises and the script exits non-zero without printing a result:
 
 1. Device: card name, count, and ``nvidia-smi`` name + power limit.
 2. Build: the five kernel libraries (depthwise forward/input gradient,
-   depthwise filter gradient, fused CE/focal, fused dense attention forward
-   and backward, streaming attention), one nvcc each for sm_90a from
+   depthwise filter gradient, fused CE/focal, fused attention forward and
+   backward on the dense and head-major layouts, streaming attention), one
+   nvcc each for sm_90a from
    ``s2tpu_torch/ops/csrc``, all started together (ptxas registers / shared
    memory / spills printed per library).
 3. Kernel vs plain, serving shapes: ``depthwise_conv2d_s1`` against
@@ -42,10 +43,11 @@ any failure raises and the script exits non-zero without printing a result:
    and the gradients of fixed layers.
 8. Kernel vs plain, attention shapes: fused dense attention forward (#8)
    and backward (#9) at the Prithvi T=1 decoder (64, 197, 16 heads, Dh 32),
-   the T=3 encoder (16, 148, 12, 64) and a ragged L = 129; streaming
-   attention (#5) at the T=3 decoder (16, 589, 16, 32) and L = 513, on
-   strided views of one qkv projection; bf16 and f32, beside
-   ``F.scaled_dot_product_attention`` on head-major copies as the yardstick.
+   the T=3 encoder (16, 148, 12, 64), a ragged L = 129 and the route's
+   edges; the same on the head-major layout (#6/#7) plus its longest L =
+   1024; streaming attention (#5) at the T=3 decoder (16, 589, 16, 32) and
+   L = 513, on strided views of one qkv projection; bf16 and f32, beside
+   ``F.scaled_dot_product_attention`` on head-major tensors as the yardstick.
 9. MAE slice, T=1: Prithvi-100M pretrained from scratch through
    ``s2tpu_torch.cli.train_mae --type pretrain`` (bf16, batch 64, 224^2) on
    an unlabeled synthetic AOI for 2 epochs of 2 steps, each followed by an
@@ -56,15 +58,27 @@ any failure raises and the script exits non-zero without printing a result:
 10. MAE slice, T=3: ``MAETrainer`` at the published three-frame geometry
    (batch 16) for 2 steps and 1 eval batch: the encoder through #8/#9, the
    decoder (L = 589) through #5; exact launch counts, finite losses.
-11. One Prithvi-100M MAE train step in f32 on the card (TF32 off) against
+11. Tensor-parallel MAE slices, in a one-rank NCCL process group (file://
+   store in the work directory, loopback bootstrap) and a (1, 1)
+   ``make_mesh``: ``MAETrainer(mesh=..., model_config=tp_axis="model")`` on
+   phase 9's data at batch 64 for 2 steps and 1 eval batch (the decoder
+   through #6/#7, exact launches, #8/#9/#5 unused), its checkpoint loaded by
+   the dense ``PrithviMAE`` with strict=True, every parameter moved and
+   f32, the warm step timed and profiled beside phase 9's; then on phase
+   10's data at T=3 (encoder #6/#7, decoder #5); then one f32 step of the
+   tensor-parallel Prithvi-100M on the card (TF32 off) against the CPU. The
+   group is destroyed at the end of the phase.
+12. One Prithvi-100M MAE train step in f32 on the card (TF32 off) against
    the CPU, same weights, input and masking noise: loss and the gradients of
    fixed tensors (the first decoder block's through #9).
-12. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then the last
-   line ``{"ok": true, "device": {...}}``.
+13. Result: a ``kernels`` JSON line (nine kernels), the ``nvidia-smi``
+   line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -129,6 +143,9 @@ DENSE_ATTENTION_SHAPES = {
     (64, 197, 16, 32): "T=1 decoder", (16, 148, 12, 64): "T=3 encoder", (16, 129, 16, 32): "ragged",
     (4, 544, 16, 32): "route edge, D=512", (4, 439, 12, 64): "route edge, D=768",
 }
+# #6/#7 (fused head-major, the tensor-parallel path): the same shapes and the
+# longest L the wrapper takes (JAX's fused_attention_qkv takes any L <= 1024).
+QKV_ATTENTION_SHAPES = {**DENSE_ATTENTION_SHAPES, (2, 1024, 16, 32): "longest L"}
 FLASH_ATTENTION_SHAPES = {(16, 589, 16, 32): "T=3 decoder", (16, 513, 16, 32): "ragged"}
 # Kernel vs plain: |err| <= ATTN_RTOL x the same sums over absolute values,
 # per element. f32: sums of up to L <= 1024 products in another order
@@ -157,7 +174,7 @@ MAE_F32_GRADS = ("patch_embed.proj.weight", "blocks.0.attn.qkv.weight", "decoder
 # Device kernels by kind, matched on name fragments in this order (the
 # port's kernels first, then cuDNN/cuBLAS convolutions and matrix products).
 KERNEL_KINDS = {
-    "port kernels": ("depthwise_s1_", "fused_ce_", "attn_dense_", "flash_attn_"),
+    "port kernels": ("depthwise_s1_", "fused_ce_", "attn_fused_", "flash_attn_"),
     "conv/gemm": ("xmma", "gemm", "nvjet", "cutlass", "cudnn", "conv", "nchwToNhwc", "nhwcToNchw"),
     "optimizer": ("multi_tensor_apply",),
     "reductions": ("reduce_kernel",),
@@ -560,6 +577,9 @@ def profile_device(label: str, run, wall_s: float) -> float | None:
         kind = next((k for k, marks in KERNEL_KINDS.items() if any(m in name for m in marks)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
     log(f"{label} profile by kind (ms): " + " ".join(f"{k}={v:.3f}" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU), key=lambda e: -e.self_cpu_time_total)
+    log(f"{label} profile host ops by self time (ms, calls): " + "; ".join(
+        f"{e.key[:48]} {e.self_cpu_time_total / 1e3:.3f} x{e.count}" for e in host[:8]))
     return total / (wall_s * 1e3)
 
 
@@ -679,6 +699,7 @@ def reset_launch_counts() -> None:
     dw.LAUNCHES = dw.DX_LAUNCHES = dw.DW_LAUNCHES = 0
     fused_ce.FWD_LAUNCHES = fused_ce.BWD_LAUNCHES = 0
     fa.FUSED_FWD_LAUNCHES = fa.FUSED_BWD_LAUNCHES = fa.FLASH_FWD_LAUNCHES = 0
+    fa.FUSED_QKV_FWD_LAUNCHES = fa.FUSED_QKV_BWD_LAUNCHES = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -688,6 +709,7 @@ def launch_counts() -> dict[str, int]:
         "depthwise_fwd": dw.LAUNCHES, "depthwise_dx": dw.DX_LAUNCHES, "depthwise_dw": dw.DW_LAUNCHES,
         "fused_ce_fwd": fused_ce.FWD_LAUNCHES, "fused_ce_bwd": fused_ce.BWD_LAUNCHES,
         "attn_fused_fwd": fa.FUSED_FWD_LAUNCHES, "attn_fused_bwd": fa.FUSED_BWD_LAUNCHES,
+        "attn_fused_qkv_fwd": fa.FUSED_QKV_FWD_LAUNCHES, "attn_fused_qkv_bwd": fa.FUSED_QKV_BWD_LAUNCHES,
         "attn_flash_fwd": fa.FLASH_FWD_LAUNCHES,
     }
 
@@ -748,7 +770,8 @@ def phase_train(work: Path) -> dict:
         expected = {
             "depthwise_fwd": per * (steps + eval_batches), "depthwise_dx": per * steps, "depthwise_dw": per * steps,
             "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
-            "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_flash_fwd": 0,
+            "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
+            "attn_flash_fwd": 0,
         }
         if launches != expected:
             raise AssertionError(f"training path launches {launches} != expected {expected}")
@@ -900,21 +923,38 @@ def attention_error(out: torch.Tensor, ref: torch.Tensor, magnitude: torch.Tenso
     return float(err.max())
 
 
-def dense_attention_magnitudes(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, heads: int):
-    """Per element, the sums #8 (o) and #9 (dq, dk, dv) form, over absolute
-    values: the scale their rounding errors are measured against."""
-    from s2tpu_torch.ops.flash_attention import _heads, _merge_heads, _probs, _split_heads
+def attention_magnitudes(q, k, v, out, dout):
+    """Per element of (B, H, L, Dh) operands, the sums the fused kernels form
+    (o; dq, dk, dv), over absolute values: the scale their rounding errors
+    are measured against."""
+    from s2tpu_torch.ops.flash_attention import _probs
 
-    scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // heads)
-    q, k, v = (t.float() for t in _split_heads(qkv, heads))
+    scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, scale)
-    pc = p.to(qkv.dtype).float()
-    ado, ao = _heads(dout, heads).float().abs(), _heads(out, heads).float().abs()
-    m_ds = p * (ado @ v.abs().transpose(-1, -2) + (ado * ao).sum(-1, keepdim=True)) * scale
-    m_out = _merge_heads(pc @ v.abs())
-    m_dqkv = torch.cat([_merge_heads(t) for t in (m_ds @ k.abs(), m_ds.transpose(-1, -2) @ q.abs(),
-                                                 pc.transpose(-1, -2) @ ado)], dim=-1)
-    return m_out, m_dqkv
+    pc = p.to(q.dtype).float()
+    q, k, v = (t.float().abs() for t in (q, k, v))
+    ado, ao = dout.float().abs(), out.float().abs()
+    m_ds = p * (ado @ v.transpose(-1, -2) + (ado * ao).sum(-1, keepdim=True)) * scale
+    return pc @ v, (m_ds @ k, m_ds.transpose(-1, -2) @ q, pc.transpose(-1, -2) @ ado)
+
+
+def dense_attention_magnitudes(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, heads: int):
+    """:func:`attention_magnitudes` of #8 (o) and #9 (dqkv) on the dense layout."""
+    from s2tpu_torch.ops.flash_attention import _heads, _merge_heads, _split_heads
+
+    m_out, m_grads = attention_magnitudes(*_split_heads(qkv, heads), _heads(out, heads), _heads(dout, heads))
+    return _merge_heads(m_out), torch.cat([_merge_heads(t) for t in m_grads], dim=-1)
+
+
+def attention_bounds(t: dict, b: int, l: int, h: int, dh: int, dtype: torch.dtype) -> None:
+    """The fused kernels' least times into ``t``: each of qkv, o, do read and
+    dqkv written once at the HBM rate, or 2 (forward) / 5 (backward)
+    B·H·L²·Dh products at the card's peak for the type; the larger."""
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    size = torch.tensor([], dtype=dtype).element_size() * b * l * h * dh
+    flops = 2 * b * h * l * l * dh  # one (L x L x Dh) product
+    t["fwd_bound_ms"], t["fwd_bound_by"] = bound(4 * size, 2 * flops, rate)  # qkv in, o out; s and p v
+    t["bwd_bound_ms"], t["bwd_bound_by"] = bound(8 * size, 5 * flops, rate)  # qkv, o, do in, dqkv out; s, dv, dp, dq, dk
 
 
 def check_dense_attention(shape: tuple, dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -951,12 +991,53 @@ def check_dense_attention(shape: tuple, dtype: torch.dtype, gen: torch.Generator
     t["bwd_ms"] = cuda_ms(lambda: fa.fused_attention_dense_backward(qkv, out, dout, h))
     t["bwd_plain_ms"] = cuda_ms(lambda: fa.fused_attention_dense_backward_reference(qkv, out, dout, h), iters=5, warmup=1)
     t["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True))
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    size = qkv.element_size() * b * l * d
-    flops = 2 * b * h * l * l * dh  # one (L x L x Dh) product
-    t["fwd_bound_ms"], t["fwd_bound_by"] = bound(4 * size, 2 * flops, rate)  # qkv in, o out; s and p v
-    t["bwd_bound_ms"], t["bwd_bound_by"] = bound(8 * size, 5 * flops, rate)  # qkv, o, do in, dqkv out; s, dv, dp, dq, dk
+    attention_bounds(t, b, l, h, dh, dtype)
     return t
+
+
+def check_qkv_attention(shape: tuple, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """#6 and #7 vs their plain versions on one shape of the head-major
+    layout; times in ms, SDPA on the same head-major q, k, v beside them."""
+    from s2tpu_torch.ops import flash_attention as fa
+
+    b, l, h, dh = shape
+    qkv = torch.randn(3, b, h, l, dh, generator=gen).to("cuda", dtype)
+    dout = torch.randn(b, h, l, dh, generator=gen).to("cuda", dtype)
+    what = f"head-major B={b} L={l} H={h} Dh={dh} {str(dtype).split('.')[1]}"
+    out = fa.fused_attention_qkv_forward(qkv)
+    ref = fa.fused_attention_qkv_forward_reference(qkv)
+    dqkv = fa.fused_attention_qkv_backward(qkv, out, dout)
+    dref = fa.fused_attention_qkv_backward_reference(qkv, out, dout)
+    torch.cuda.synchronize()
+    m_out, m_grads = attention_magnitudes(*qkv.unbind(0), out, dout)
+    t = {
+        "fwd_max_abs_err": attention_error(out, ref, m_out, f"fused attention forward at {what}"),
+        "bwd_max_abs_err": attention_error(dqkv, dref, torch.stack(m_grads), f"fused attention backward at {what}"),
+    }
+    if not torch.equal(fa.fused_attention_qkv_backward(qkv, out, dout), dqkv):
+        raise AssertionError(f"fused attention backward at {what} is not deterministic")
+    qh, kh, vh = (x.clone().requires_grad_() for x in qkv.unbind(0))
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+    t["fwd_ms"] = cuda_ms(lambda: fa.fused_attention_qkv_forward(qkv))
+    t["fwd_plain_ms"] = cuda_ms(lambda: fa.fused_attention_qkv_forward_reference(qkv), iters=5, warmup=1)
+    with torch.no_grad():
+        t["fwd_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(*qkv.unbind(0)))
+    t["bwd_ms"] = cuda_ms(lambda: fa.fused_attention_qkv_backward(qkv, out, dout))
+    t["bwd_plain_ms"] = cuda_ms(lambda: fa.fused_attention_qkv_backward_reference(qkv, out, dout), iters=5, warmup=1)
+    t["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dout, retain_graph=True))
+    attention_bounds(t, b, l, h, dh, dtype)
+    return t
+
+
+def log_fused_times(kind: str, name: str, shape: tuple, what: str, t: dict) -> None:
+    log(
+        f"{kind} {name:8s} B={shape[0]} L={shape[1]} H={shape[2]} Dh={shape[3]} ({what}): "
+        f"fwd_ms={t['fwd_ms']:.4f} fwd_plain_ms={t['fwd_plain_ms']:.4f} fwd_library_ms={t['fwd_library_ms']:.4f} "
+        f"fwd_bound_ms={t['fwd_bound_ms']:.4f} ({t['fwd_bound_by']}) | bwd_ms={t['bwd_ms']:.4f} "
+        f"bwd_plain_ms={t['bwd_plain_ms']:.4f} bwd_library_ms={t['bwd_library_ms']:.4f} "
+        f"bwd_bound_ms={t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}) | max_abs_err fwd={t['fwd_max_abs_err']:.3g} "
+        f"bwd={t['bwd_max_abs_err']:.3g}"
+    )
 
 
 def check_flash_attention(shape: tuple, dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -992,20 +1073,15 @@ def phase_attention_kernels() -> dict:
         "of p or ds, 2^-8, plus the output's own rounding, 2^-7)"
     )
     gen = torch.Generator().manual_seed(SEED + 4)
-    dense, flash = {}, {}
+    dense, qkv, flash = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         for shape, what in DENSE_ATTENTION_SHAPES.items():
-            t = check_dense_attention(shape, dtype, gen)
-            dense[(shape, dtype)] = t
-            log(
-                f"fused attention {name:8s} B={shape[0]} L={shape[1]} H={shape[2]} Dh={shape[3]} ({what}): "
-                f"fwd_ms={t['fwd_ms']:.4f} fwd_plain_ms={t['fwd_plain_ms']:.4f} fwd_library_ms={t['fwd_library_ms']:.4f} "
-                f"fwd_bound_ms={t['fwd_bound_ms']:.4f} ({t['fwd_bound_by']}) | bwd_ms={t['bwd_ms']:.4f} "
-                f"bwd_plain_ms={t['bwd_plain_ms']:.4f} bwd_library_ms={t['bwd_library_ms']:.4f} "
-                f"bwd_bound_ms={t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}) | max_abs_err fwd={t['fwd_max_abs_err']:.3g} "
-                f"bwd={t['bwd_max_abs_err']:.3g}"
-            )
+            dense[(shape, dtype)] = t = check_dense_attention(shape, dtype, gen)
+            log_fused_times("fused attention", name, shape, what, t)
+        for shape, what in QKV_ATTENTION_SHAPES.items():
+            qkv[(shape, dtype)] = t = check_qkv_attention(shape, dtype, gen)
+            log_fused_times("fused attention head-major", name, shape, what, t)
         for shape, what in FLASH_ATTENTION_SHAPES.items():
             t = check_flash_attention(shape, dtype, gen)
             flash[(shape, dtype)] = t
@@ -1015,29 +1091,38 @@ def phase_attention_kernels() -> dict:
                 f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}) share_of_bound={t['bound_ms'] / t['ms']:.3f} "
                 f"max_abs_err={t['max_abs_err']:.3g}"
             )
-    main_dense = dense[(next(iter(DENSE_ATTENTION_SHAPES)), torch.bfloat16)]
+    def main_shape(times: dict, shapes: dict) -> dict:  # the T=1 decoder in bf16, the largest errors
+        return {**times[(next(iter(shapes)), torch.bfloat16)],
+                "fwd_max_abs_err": max(t["fwd_max_abs_err"] for t in times.values()),
+                "bwd_max_abs_err": max(t["bwd_max_abs_err"] for t in times.values())}
+
     main_flash = flash[(next(iter(FLASH_ATTENTION_SHAPES)), torch.bfloat16)]
     return {
-        "dense": {**main_dense, "fwd_max_abs_err": max(t["fwd_max_abs_err"] for t in dense.values()),
-                  "bwd_max_abs_err": max(t["bwd_max_abs_err"] for t in dense.values())},
+        "dense": main_shape(dense, DENSE_ATTENTION_SHAPES),
+        "qkv": main_shape(qkv, QKV_ATTENTION_SHAPES),
         "flash": {**main_flash, "max_abs_err": max(t["max_abs_err"] for t in flash.values())},
     }
 
 
 def mae_expected_launches(model_config, steps: int, eval_batches: int, mask_ratio: float) -> dict[str, int]:
-    """Launches of #8/#9/#5 on an MAE run: each block's attention takes its
-    route once per forward; the fused backward once per train step."""
+    """Launches of the attention kernels on an MAE run: each block's
+    attention takes its route once per forward, the fused backward once per
+    train step; the fused route is #8/#9 in the dense form and #6/#7 in the
+    tensor-parallel form."""
     from s2tpu_torch.ops.flash_attention import attention_route
 
     mc = model_config
     enc = attention_route(int(mc.num_patches * (1 - mask_ratio)) + 1, mc.embed_dim, mc.num_heads, mc.attention_impl)
     dec = attention_route(mc.num_patches + 1, mc.decoder_embed_dim, mc.decoder_num_heads, mc.attention_impl)
     per = {route: mc.depth * (enc == route) + mc.decoder_depth * (dec == route) for route in ("fused", "flash")}
-    return {
+    fused = "attn_fused_qkv" if mc.tp_axis is not None else "attn_fused"
+    out = {
         "depthwise_fwd": 0, "depthwise_dx": 0, "depthwise_dw": 0, "fused_ce_fwd": 0, "fused_ce_bwd": 0,
-        "attn_fused_fwd": per["fused"] * (steps + eval_batches), "attn_fused_bwd": per["fused"] * steps,
+        "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
         "attn_flash_fwd": per["flash"] * (steps + eval_batches),
     }
+    out[f"{fused}_fwd"], out[f"{fused}_bwd"] = per["fused"] * (steps + eval_batches), per["fused"] * steps
+    return out
 
 
 def time_mae_steps(label: str, trainer, images: torch.Tensor, n_timed: int = 5) -> dict:
@@ -1073,13 +1158,35 @@ def unlabeled_fixture(data_dir: Path, n_segments: int, n_time: int = 1):
     return dirs
 
 
+def mae_argv(data_dir: Path, name: str) -> list[str]:
+    """The MAE CLI's arguments of the T=1 slice (phase 9)."""
+    return [
+        "small", "--type", "pretrain", "--from-scratch", "--compute-dtype", "bfloat16", "--bs", str(MAE_BATCH),
+        "--wandb", "--epochs", str(MAE_EPOCHS), "--log-interval", "1", "--data-dir", str(data_dir), "--name", name,
+        "--seed", str(SEED),
+    ]
+
+
+def check_moved_f32(model_config, state: dict) -> int:
+    """Every parameter of ``state`` moved from the seeded init and is f32;
+    returns the parameter count."""
+    from s2tpu_torch.models.prithvi_mae import PrithviMAE
+
+    init_model = PrithviMAE(model_config, generator=torch.Generator().manual_seed(SEED))
+    init = init_model.state_dict()
+    params = [k for k, _ in init_model.named_parameters()]
+    unmoved = [k for k in params if torch.equal(init[k], state[k].cpu())]
+    if unmoved or any(state[k].dtype != torch.float32 for k in params):
+        raise AssertionError(f"parameters not moved or not f32: {unmoved[:5]} ({len(unmoved)} of {len(params)})")
+    return len(params)
+
+
 def phase_mae(work: Path) -> dict:
     """Pretrain Prithvi-100M (T=1) through the MAE CLI on the card, check it,
     resume it, then time warm steps. Returns the path's launch counts."""
     from s2tpu_torch.checkpoint.io import CheckpointManager, load_mae_checkpoint
     from s2tpu_torch.cli.train_mae import build_datamodule, build_parser, config_from_args, main as mae_main
     from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
-    from s2tpu_torch.models.prithvi_mae import PrithviMAE
     from s2tpu_torch.train.mae_trainer import MAETrainer, default_model_config
 
     data_dir = work / "mae_data"
@@ -1087,11 +1194,7 @@ def phase_mae(work: Path) -> dict:
     unlabeled_fixture(data_dir, MAE_SEGMENTS)
     log(f"mae setup: {MAE_SEGMENTS} unlabeled segments {MAE_SEGMENT_SIZE}x{MAE_SEGMENT_SIZE}x6 in {time.perf_counter() - t0:.1f} s")
     name = f"chip-smoke-mae-{os.getpid()}"
-    argv = [
-        "small", "--type", "pretrain", "--from-scratch", "--compute-dtype", "bfloat16", "--bs", str(MAE_BATCH),
-        "--wandb", "--epochs", str(MAE_EPOCHS), "--log-interval", "1", "--data-dir", str(data_dir), "--name", name,
-        "--seed", str(SEED),
-    ]
+    argv = mae_argv(data_dir, name)
     try:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1122,12 +1225,7 @@ def phase_mae(work: Path) -> dict:
         losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
         if len(step_losses) != steps or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"MAE losses not finite or missing: steps {step_losses}, history {history}")
-        init_model = PrithviMAE(mc, generator=torch.Generator().manual_seed(SEED))
-        init = init_model.state_dict()
-        params = [k for k, _ in init_model.named_parameters()]
-        unmoved = [k for k in params if torch.equal(init[k], state[k])]
-        if unmoved or any(state[k].dtype != torch.float32 for k in params):
-            raise AssertionError(f"parameters not moved or not f32: {unmoved[:5]} ({len(unmoved)} of {len(params)})")
+        n_params = check_moved_f32(mc, state)
         resumed = mae_main(argv + ["--epochs", str(MAE_EPOCHS + 1), "--resume-from", str(run_dir)])
         resumed_step = CheckpointManager(run_dir).restore(MAE_EPOCHS)["step"]
         if [r["epoch"] for r in resumed] != [MAE_EPOCHS] or resumed_step != steps + steps // MAE_EPOCHS:
@@ -1136,7 +1234,7 @@ def phase_mae(work: Path) -> dict:
             f"mae cli T=1 (Prithvi-100M, pretrain, bf16 compute, f32 params, batch {MAE_BATCH}, 224^2, mask "
             f"{config.model.mask_ratio}): {MAE_EPOCHS} epochs, {steps} steps, {eval_batches} eval batches in "
             f"{cli_s:.3f} s end to end; step losses {[round(v, 5) for v in step_losses]}; val loss "
-            f"{[round(r['val/loss'], 5) for r in history]}; launches {launches} = expected; {len(params)} parameter "
+            f"{[round(r['val/loss'], 5) for r in history]}; launches {launches} = expected; {n_params} parameter "
             f"tensors all moved, f32; resumed to epoch {MAE_EPOCHS} (step {resumed_step})"
         )
         cfg = config_from_args(build_parser().parse_args(argv))
@@ -1151,21 +1249,28 @@ def phase_mae(work: Path) -> dict:
             f.unlink(missing_ok=True)
 
 
-def phase_mae_t3(work: Path) -> dict:
-    """MAETrainer at the published three-frame geometry: encoder through
-    #8/#9, decoder (L = 589) through #5. Returns the launch counts."""
-    from s2tpu_torch.cli.train_mae import build_datamodule
+def t3_config(data_dir: Path):
+    """The MAE config of the T=3 slice (phase 10): three frames, batch 16, bf16."""
     from s2tpu_torch.configs import mae as mae_cfg
-    from s2tpu_torch.train.mae_trainer import MAETrainer
 
-    data_dir = work / "mae_t3_data"
-    unlabeled_fixture(data_dir, MAE_T3_SEGMENTS, n_time=MAE_T3_FRAMES)
     config = mae_cfg.pretrain(mae_cfg.base_config("small"))
     config.model.num_frames = config.datamodule.dataset_cfg.n_time_frames = MAE_T3_FRAMES
     config.datamodule.dataset_cfg.data_dir = str(data_dir)
     config.datamodule.batch_size = MAE_T3_BATCH
     config.train.compute_dtype = "bfloat16"
     config.train.seed = SEED
+    return config
+
+
+def phase_mae_t3(work: Path) -> dict:
+    """MAETrainer at the published three-frame geometry: encoder through
+    #8/#9, decoder (L = 589) through #5. Returns the launch counts."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    data_dir = work / "mae_t3_data"
+    unlabeled_fixture(data_dir, MAE_T3_SEGMENTS, n_time=MAE_T3_FRAMES)
+    config = t3_config(data_dir)
     trainer = MAETrainer(config, build_datamodule(config), device="cuda")
     mc = trainer.model_config
     n_train = int(config.datamodule.data_split[0] * MAE_T3_SEGMENTS)
@@ -1198,24 +1303,143 @@ def phase_mae_t3(work: Path) -> dict:
     return {"launches": launches, **timing}
 
 
-def phase_mae_f32_step() -> None:
+@contextlib.contextmanager
+def one_rank_mesh(work: Path):
+    """A one-rank NCCL process group (file:// store under ``work``,
+    bootstrap on the loopback interface) and its (1, 1) ('data', 'model')
+    mesh on the card; the group is destroyed on exit."""
+    import torch.distributed as dist
+
+    from s2tpu_torch.parallel.mesh import make_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    work.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{work / 'pg'}", world_size=1, rank=0)
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mae_tp(work: Path, mesh, dense: dict) -> dict:
+    """The tensor-parallel MAE slice at T=1 on phase 9's data: 2 steps and 1
+    eval batch through ``MAETrainer`` on ``mesh``, a checkpoint the dense
+    model loads, then the warm step beside phase 9's (``dense``)."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+    from s2tpu_torch.cli.train_mae import build_datamodule, build_parser, config_from_args
+    from s2tpu_torch.models.prithvi_mae import PrithviMAE
+    from s2tpu_torch.parallel.mesh import MODEL_AXIS
+    from s2tpu_torch.train.mae_trainer import MAETrainer, default_model_config
+
+    cfg = config_from_args(build_parser().parse_args(mae_argv(work / "mae_data", "chip-smoke-mae-tp")))
+    dense_mc = default_model_config(cfg)
+    mc = dataclasses.replace(dense_mc, tp_axis=MODEL_AXIS)
+    ckpt = CheckpointManager(work / "mae_tp_ckpt")
+    trainer = MAETrainer(cfg, build_datamodule(cfg), mesh=mesh, model_config=mc, checkpoint_manager=ckpt)
+    n_train = int(cfg.datamodule.data_split[0] * MAE_SEGMENTS)
+    n_val = int(cfg.datamodule.data_split[1] * MAE_SEGMENTS)
+    steps = n_train // MAE_BATCH
+    eval_batches = math.ceil(n_val / (MAE_BATCH * cfg.datamodule.val_batch_size_multiplier))
+    expected = mae_expected_launches(mc, steps, eval_batches, cfg.model.mask_ratio)
+    if (expected["attn_fused_qkv_fwd"], expected["attn_fused_qkv_bwd"]) != (8 * (steps + eval_batches), 8 * steps):
+        raise AssertionError(f"tensor-parallel T=1 route changed: {expected}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(epochs=1)  # the tensor-parallel main path
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches != expected:
+        raise AssertionError(f"tensor-parallel MAE launches {launches} != expected {expected}")
+    losses = [history[0]["train/loss"], history[0]["val/loss"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"tensor-parallel MAE losses not finite: {history}")
+    state = ckpt.restore(0)["model"]
+    PrithviMAE(dense_mc).load_state_dict(state, strict=True)  # the published layout, as the dense model's
+    n_params = check_moved_f32(mc, state)
+    log(
+        f"mae tensor-parallel T=1 (Prithvi-100M, model axis 1, bf16, batch {MAE_BATCH}): {steps} steps and "
+        f"{eval_batches} eval batch in {fit_s:.3f} s; train loss {losses[0]:.5f}, val loss {losses[1]:.5f}; "
+        f"launches {launches} = expected; {n_params} parameter tensors all moved, f32; checkpoint loaded by the "
+        "dense PrithviMAE (strict)"
+    )
+    images = torch.from_numpy(next(trainer.dm.train_batches(0)).images).cuda()
+    timing = time_mae_steps(f"mae step tensor-parallel T=1 (bf16, batch {MAE_BATCH}, 224^2)", trainer, images)
+    log(
+        f"mae step T=1, tensor-parallel vs dense (phase 9, same card): ms_per_step {timing['ms_per_step']:.3f} vs "
+        f"{dense['ms_per_step']:.3f} ({timing['ms_per_step'] / dense['ms_per_step']:.3f}x); peak_mem_bytes "
+        f"{timing['peak_mem_bytes']} vs {dense['peak_mem_bytes']}"
+    )
+    return {"launches": launches, **timing}
+
+
+def phase_mae_tp_t3(work: Path, mesh) -> dict:
+    """The tensor-parallel MAE slice at T=3 on phase 10's data: the encoder
+    (L = 148) through #6/#7, the decoder (L = 589) through #5 on the dense
+    projections; 2 steps and 1 eval batch, exact launches, finite losses."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+    from s2tpu_torch.parallel.mesh import MODEL_AXIS
+    from s2tpu_torch.train.mae_trainer import MAETrainer, default_model_config
+
+    config = t3_config(work / "mae_t3_data")
+    mc = dataclasses.replace(default_model_config(config), tp_axis=MODEL_AXIS)
+    trainer = MAETrainer(config, build_datamodule(config), mesh=mesh, model_config=mc)
+    n_train = int(config.datamodule.data_split[0] * MAE_T3_SEGMENTS)
+    n_val = int(config.datamodule.data_split[1] * MAE_T3_SEGMENTS)
+    steps, eval_batches = n_train // MAE_T3_BATCH, math.ceil(n_val / (MAE_T3_BATCH * 2))
+    expected = mae_expected_launches(mc, steps, eval_batches, config.model.mask_ratio)
+    if (expected["attn_fused_qkv_fwd"], expected["attn_fused_qkv_bwd"], expected["attn_flash_fwd"]) != (
+        12 * (steps + eval_batches), 12 * steps, 8 * (steps + eval_batches)
+    ):
+        raise AssertionError(f"tensor-parallel T=3 route changed: {expected}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit(epochs=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches != expected:
+        raise AssertionError(f"tensor-parallel T=3 MAE launches {launches} != expected {expected}")
+    losses = [history[0]["train/loss"], history[0]["val/loss"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"tensor-parallel T=3 MAE losses not finite: {history}")
+    log(
+        f"mae tensor-parallel T=3 (Prithvi-100M, {MAE_T3_FRAMES} frames, model axis 1, bf16, batch {MAE_T3_BATCH}): "
+        f"{steps} steps and {eval_batches} eval batch in {fit_s:.3f} s; train loss {losses[0]:.5f}, val loss "
+        f"{losses[1]:.5f}; launches {launches} = expected"
+    )
+    images = torch.from_numpy(next(trainer.dm.train_batches(0)).images).cuda()
+    timing = time_mae_steps(f"mae step tensor-parallel T=3 (bf16, batch {MAE_T3_BATCH}, 224^2)", trainer, images,
+                            n_timed=3)
+    return {"launches": launches, **timing}
+
+
+def phase_mae_f32_step(mesh=None) -> None:
     """One Prithvi-100M MAE train step in f32 on the card (TF32 off) and on
     the CPU, same weights, input and masking noise; raises beyond the
-    calibrated tolerances."""
+    calibrated tolerances. With ``mesh``, the tensor-parallel form: over the
+    mesh's model group on the card, with no group on the CPU."""
     from s2tpu_torch.configs import mae as mae_cfg
     from s2tpu_torch.models.prithvi_mae import PrithviMAE
+    from s2tpu_torch.parallel.mesh import MODEL_AXIS
     from s2tpu_torch.train.mae_trainer import default_model_config
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mc = default_model_config(mae_cfg.pretrain(mae_cfg.base_config("small")))
+    if mesh is not None:
+        mc = dataclasses.replace(mc, tp_axis=MODEL_AXIS)
+    form = "tensor-parallel " if mesh is not None else ""
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.normal(size=(MAE_F32_BATCH, 1, 224, 224, 6)).astype(np.float32))
     noise = torch.from_numpy(rng.random((MAE_F32_BATCH, mc.num_patches)).astype(np.float32))
     init = PrithviMAE(mc, generator=torch.Generator().manual_seed(SEED)).state_dict()
 
     def step(device: str, eps: float = 0.0) -> dict:
-        model = PrithviMAE(mc, generator=torch.Generator().manual_seed(SEED))
+        group = mesh.get_group(MODEL_AXIS) if mesh is not None and device == "cuda" else None
+        model = PrithviMAE(mc, generator=torch.Generator().manual_seed(SEED), tp_group=group)
         model.load_state_dict(init, strict=True)
         model.to(device)
         xd = x.to(device)
@@ -1244,8 +1468,10 @@ def phase_mae_f32_step() -> None:
     card = step("cuda")
     torch.cuda.synchronize()
     counts = launch_counts()
-    if (counts["attn_fused_fwd"], counts["attn_fused_bwd"]) != (mc.decoder_depth, mc.decoder_depth):
-        raise AssertionError(f"the f32 card step did not run the f32 fused kernels per decoder block: {counts}")
+    fused, other = ("attn_fused_qkv", "attn_fused") if mesh is not None else ("attn_fused", "attn_fused_qkv")
+    per_block = (mc.decoder_depth, mc.decoder_depth, 0, 0)
+    if (counts[f"{fused}_fwd"], counts[f"{fused}_bwd"], counts[f"{other}_fwd"], counts[f"{other}_bwd"]) != per_block:
+        raise AssertionError(f"the f32 {form}card step did not run the f32 fused kernels per decoder block: {counts}")
     diff = distance(card, cpu)
     failures = []
     for key, d in diff.items():
@@ -1256,12 +1482,12 @@ def phase_mae_f32_step() -> None:
         if not d <= tol:
             failures.append(f"{key}: card vs cpu {d:.3g} > {tol:.3g}")
         log(
-            f"f32 mae step card vs cpu (Prithvi-100M T=1, batch {MAE_F32_BATCH}): {key}: {d:.3g} "
+            f"f32 {form}mae step card vs cpu (Prithvi-100M T=1, batch {MAE_F32_BATCH}): {key}: {d:.3g} "
             f"(cpu moved {sensitivity[key]:.3g} under a 1e-7 perturbation; limit {tol:.3g})"
         )
     if failures:
-        raise AssertionError("card vs CPU f32 MAE step: " + "; ".join(failures))
-    log(f"f32 mae step card vs cpu: loss {card['loss']:.6f} vs {cpu['loss']:.6f}, in {time.perf_counter() - t0:.1f} s")
+        raise AssertionError(f"card vs CPU f32 {form}MAE step: " + "; ".join(failures))
+    log(f"f32 {form}mae step card vs cpu: loss {card['loss']:.6f} vs {cpu['loss']:.6f}, in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1296,6 +1522,10 @@ def main() -> int:
         train = timed("training slice", phase_train, work)
         mae = timed("MAE slice T=1", phase_mae, work)
         mae_t3 = timed("MAE slice T=3", phase_mae_t3, work)
+        with one_rank_mesh(work) as mesh:
+            tp = timed("tensor-parallel MAE slice T=1", phase_mae_tp, work, mesh, mae)
+            tp_t3 = timed("tensor-parallel MAE slice T=3", phase_mae_tp_t3, work, mesh)
+            timed("f32 tensor-parallel MAE step card vs cpu", phase_mae_f32_step, mesh)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timed("f32 train step card vs cpu", phase_f32_step)
@@ -1368,6 +1598,34 @@ def main() -> int:
             "ce_library_ms": ce_times["ce_bwd_library_ms"],
         },
         {
+            "name": "fused_attention_qkv_forward",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/fused_attention_dense.cu",
+            "replaces": "s2tpu/ops/flash_attention.py:199",
+            "launches": tp["launches"]["attn_fused_qkv_fwd"],
+            "max_abs_err": attn_times["qkv"]["fwd_max_abs_err"],
+            "ms": attn_times["qkv"]["fwd_ms"],
+            "plain_ms": attn_times["qkv"]["fwd_plain_ms"],
+            "bound_ms": attn_times["qkv"]["fwd_bound_ms"],
+            "bound_by": attn_times["qkv"]["fwd_bound_by"],
+            "library_ms": attn_times["qkv"]["fwd_library_ms"],
+            "t3_launches": tp_t3["launches"]["attn_fused_qkv_fwd"],
+        },
+        {
+            "name": "fused_attention_qkv_backward",
+            "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/fused_attention_dense.cu",
+            "replaces": "s2tpu/ops/flash_attention.py:223",
+            "launches": tp["launches"]["attn_fused_qkv_bwd"],
+            "max_abs_err": attn_times["qkv"]["bwd_max_abs_err"],
+            "ms": attn_times["qkv"]["bwd_ms"],
+            "plain_ms": attn_times["qkv"]["bwd_plain_ms"],
+            "bound_ms": attn_times["qkv"]["bwd_bound_ms"],
+            "bound_by": attn_times["qkv"]["bwd_bound_by"],
+            "library_ms": attn_times["qkv"]["bwd_library_ms"],
+            "t3_launches": tp_t3["launches"]["attn_fused_qkv_bwd"],
+        },
+        {
             "name": "fused_attention_dense_forward",
             "route": "cuda",
             "source": "s2tpu_torch/ops/csrc/fused_attention_dense.cu",
@@ -1409,6 +1667,8 @@ def main() -> int:
             "library_ms": attn_times["flash"]["library_ms"],
         },
     ]
+    if len(kernels) != 9:
+        raise AssertionError(f"the kernels line lists {len(kernels)} kernels, not the nine of the port")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

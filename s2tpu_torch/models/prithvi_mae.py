@@ -23,8 +23,18 @@ E[x²] - E[x]² (clipped at 0) with eps 1e-5 and returns the compute dtype;
 GELU is exact (erf). Attention takes the JAX model's route
 (:func:`s2tpu_torch.ops.flash_attention.attention_route`): the fused
 kernels #8/#9 where the fused route holds, the streaming kernel #5 for long
-sequences, plain attention below 128 tokens. Tensor- and context-parallel
-forms wait for multi-GPU.
+sequences, plain attention below 128 tokens.
+
+``PrithviConfig(tp_axis=...)`` builds the tensor-parallel form
+(``prithvi_mae.py:264-291``): the q/k/v projection writes the head-major
+(3, B, H, L, Dh) layout (:class:`QKVEinsum`) that the fused kernels #6/#7
+read, and the output projection contracts (H, Dh) jointly
+(:class:`ProjEinsum`). Given the mesh's 'model' process group of n ranks,
+rank r runs heads [r·H/n, (r+1)·H/n) and MLP hidden columns
+[r·4D/n, (r+1)·4D/n) from its slices of the replicated parameters, with
+Megatron's pair of collectives around each block half. The parameter names
+and shapes are the dense model's, so the two load each other's state
+dicts. Context parallelism (``cp_axis``) is not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -42,6 +53,7 @@ from s2tpu_torch.ops.flash_attention import (
     dot_product_attention,
     flash_attention,
     fused_attention_dense,
+    fused_attention_qkv,
 )
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 
@@ -80,8 +92,11 @@ def sincos_3d(embed_dim: int, grid_size: tuple[int, int, int], cls_token: bool =
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class PrithviConfig:
-    """The JAX model's config without its mesh-axis fields (tensor, data and
-    context parallelism wait for multi-GPU)."""
+    """The JAX model's config. ``tp_axis`` names the mesh axis the heads and
+    MLP hidden are split over (None: the dense form). ``dp_axis`` names the
+    batch axis; the port holds the batch on one rank of the 'data' axis and
+    takes no other value (ROADMAP A16). ``cp_axis`` (context parallelism) is
+    not ported and must stay None."""
 
     img_size: int = 224
     patch_size: int = 16
@@ -98,6 +113,9 @@ class PrithviConfig:
     norm_pix_loss: bool = False
     layer_norm_eps: float = 1e-5
     attention_impl: str = "xla"  # "xla" (plain), "flash" or "fused"
+    tp_axis: str | None = None
+    dp_axis: str | None = "data"
+    cp_axis: str | None = None
 
     @property
     def grid_size(self) -> tuple[int, int, int]:
@@ -211,16 +229,175 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism over a process group (None: one rank, no collectives)
+# ---------------------------------------------------------------------------
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: identity forward, the gradient summed over the group
+    backward (each rank's gradient covers only the work of its shard)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: the ranks' partial sums all-reduced forward, identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def _shard(n_items: int, group, what: str) -> slice:
+    """This rank's contiguous share of ``n_items`` over ``group``."""
+    rank, size = (dist.get_rank(group), dist.get_world_size(group)) if group is not None else (0, 1)
+    if n_items % size:
+        raise ValueError(f"{n_items} {what} do not split over a model axis of {size} ranks")
+    per = n_items // size
+    return slice(rank * per, (rank + 1) * per)
+
+
+class QKVEinsum(Linear):
+    """``_QKVEinsum`` (``prithvi_mae.py:182-205``): the q/k/v projection
+    straight into the head-major (3, B, H, L, Dh) layout, bias broadcast
+    after the product. Its parameters are ``nn.Linear(dim, 3·dim)``'s
+    (names, shapes, flax init). Over ``group`` this rank projects only its
+    heads, from its rows of the replicated weight; the weight's gradient is
+    summed over the group."""
+
+    def __init__(self, dim: int, num_heads: int, generator: torch.Generator, group=None) -> None:
+        super().__init__(dim, 3 * dim, generator)
+        self.num_heads, self.group = num_heads, group
+        self.heads = _shard(num_heads, group, "heads")
+
+    def _local(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """This rank's (3, H_r, Dh, D) weight and (3, H_r, Dh) bias in ``dtype``."""
+        d = self.in_features
+        w = copy_to_group(self.weight, self.group).view(3, self.num_heads, d // self.num_heads, d)[:, self.heads]
+        b = copy_to_group(self.bias, self.group).view(3, self.num_heads, -1)[:, self.heads]
+        return w.to(dtype), b.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, D) -> contiguous (3, B, H_r, L, Dh)."""
+        w, b = self._local(x.dtype)
+        return (torch.einsum("bli,phdi->pbhld", x, w) + b[:, None, :, None, :]).contiguous()
+
+    def dense(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, D) -> (B, L, 3·H_r·Dh), the dense layout of this rank's heads."""
+        w, b = self._local(x.dtype)
+        return F.linear(x, w.reshape(-1, self.in_features), b.reshape(-1))
+
+
+class ProjEinsum(Linear):
+    """``_ProjEinsum`` (``prithvi_mae.py:208-223``): the output projection
+    contracting (H, Dh) jointly, from the head-major (B, H, L, Dh) layout,
+    with ``nn.Linear(dim, dim)``'s parameters. Over ``group`` this rank
+    contracts its heads' columns; the partial products are summed over the
+    group and the bias is added once, after the sum."""
+
+    def __init__(self, dim: int, num_heads: int, generator: torch.Generator, group=None) -> None:
+        super().__init__(dim, dim, generator)
+        self.num_heads, self.group = num_heads, group
+        self.heads = _shard(num_heads, group, "heads")
+
+    def _local(self, dtype: torch.dtype) -> torch.Tensor:
+        """This rank's (D, H_r, Dh) weight columns in ``dtype``."""
+        d = self.in_features
+        return copy_to_group(self.weight, self.group).view(d, self.num_heads, -1)[:, self.heads].to(dtype)
+
+    def forward(self, x_bhld: torch.Tensor) -> torch.Tensor:
+        """(B, H_r, L, Dh) -> (B, L, D)."""
+        partial = torch.einsum("bhld,ohd->blo", x_bhld, self._local(x_bhld.dtype))
+        return reduce_from_group(partial, self.group) + self.bias.to(x_bhld.dtype)
+
+    def dense(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, H_r·Dh) -> (B, L, D)."""
+        partial = F.linear(x, self._local(x.dtype).reshape(self.out_features, -1))
+        return reduce_from_group(partial, self.group) + self.bias.to(x.dtype)
+
+
+class TensorParallelAttention(nn.Module):
+    """``Attention`` with ``tp_axis`` set (``prithvi_mae.py:264-291``): the
+    fused route through :class:`QKVEinsum`, kernels #6/#7 and
+    :class:`ProjEinsum`; the other routes project densely, as the JAX
+    model does, over this rank's heads."""
+
+    def __init__(self, dim: int, num_heads: int, impl: str, generator: torch.Generator, group=None) -> None:
+        super().__init__()
+        self.dim, self.num_heads, self.impl, self.group = dim, num_heads, impl, group
+        self.qkv = QKVEinsum(dim, num_heads, generator, group)
+        self.proj = ProjEinsum(dim, num_heads, generator, group)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, _ = x.shape
+        x = copy_to_group(x, self.group)
+        route = attention_route(l, self.dim, self.num_heads, self.impl)
+        if route == "fused":
+            return self.proj(fused_attention_qkv(self.qkv(x)))
+        q, k, v = self.qkv.dense(x).reshape(b, l, 3, -1, self.dim // self.num_heads).unbind(2)
+        out = flash_attention(q, k, v) if route == "flash" else dot_product_attention(q, k, v)
+        return self.proj.dense(out.reshape(b, l, -1))
+
+
+class TensorParallelMlp(Mlp):
+    """The MLP with its hidden columns split over ``group``: this rank's
+    rows of fc1 and columns of fc2, the partial outputs summed over the
+    group, fc2's bias added once after the sum."""
+
+    def __init__(self, dim: int, hidden: int, generator: torch.Generator, group=None) -> None:
+        super().__init__(dim, hidden, generator)
+        self.group = group
+        self.cols = _shard(hidden, group, "MLP hidden units")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_group(x, self.group)
+        w1 = copy_to_group(self.fc1.weight, self.group)[self.cols].to(x.dtype)
+        b1 = copy_to_group(self.fc1.bias, self.group)[self.cols].to(x.dtype)
+        w2 = copy_to_group(self.fc2.weight, self.group)[:, self.cols].to(x.dtype)
+        partial = F.linear(F.gelu(F.linear(x, w1, b1), approximate="none"), w2)
+        return reduce_from_group(partial, self.group) + self.fc2.bias.to(x.dtype)
+
+
 class Block(nn.Module):
-    """Pre-norm ViT block: LN - attention - residual, LN - MLP - residual."""
+    """Pre-norm ViT block: LN - attention - residual, LN - MLP - residual;
+    the tensor-parallel form over ``group`` when ``tensor_parallel``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, impl: str, eps: float,
-                 generator: torch.Generator) -> None:
+                 generator: torch.Generator, tensor_parallel: bool = False, group=None) -> None:
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=eps)
-        self.attn = Attention(dim, num_heads, impl, generator)
+        if tensor_parallel:
+            self.attn = TensorParallelAttention(dim, num_heads, impl, generator, group)
+        else:
+            self.attn = Attention(dim, num_heads, impl, generator)
         self.norm2 = LayerNorm(dim, eps=eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
+        if tensor_parallel:
+            self.mlp = TensorParallelMlp(dim, int(dim * mlp_ratio), generator, group)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -278,7 +455,11 @@ class PrithviMAE(nn.Module):
     ``dtype`` is the compute dtype; parameters are f32 (``generator`` seeds
     flax's initializers: xavier uniform for the patch projection, lecun
     normal for the other dense layers, normal(0.02) for the cls and mask
-    tokens, zero biases) and live on ``device``.
+    tokens, zero biases) and live on ``device``. With ``config.tp_axis``
+    the blocks take the tensor-parallel form over ``tp_group`` (the mesh's
+    'model' process group; None runs every head on this process, with no
+    collectives). The same seed gives the dense and tensor-parallel models
+    the same parameters.
     """
 
     POS_KEYS = ("pos_embed", "decoder_pos_embed")
@@ -289,22 +470,33 @@ class PrithviMAE(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: torch.device | str = "cpu",
         generator: torch.Generator | None = None,
+        tp_group=None,
     ) -> None:
         super().__init__()
         cfg = self.config = config
+        if cfg.cp_axis is not None:
+            raise NotImplementedError("context parallelism (cp_axis) is not ported to s2tpu_torch yet (ROADMAP A16)")
+        if cfg.dp_axis != "data":
+            raise NotImplementedError(
+                f"dp_axis={cfg.dp_axis!r}: the batch stays on one rank of the 'data' axis; another batch axis "
+                "is not ported to s2tpu_torch yet (ROADMAP A16)"
+            )
+        if tp_group is not None and cfg.tp_axis is None:
+            raise ValueError("a tensor-parallel process group needs PrithviConfig(tp_axis=...)")
         self.dtype = dtype
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         impl, eps = cfg.attention_impl, cfg.layer_norm_eps
+        tp = dict(tensor_parallel=cfg.tp_axis is not None, group=tp_group)
         self.patch_embed = PatchEmbed(cfg, gen)
         self.cls_token = nn.Parameter(0.02 * torch.randn((1, 1, cfg.embed_dim), generator=gen))
         self.blocks = nn.ModuleList(
-            Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, impl, eps, gen) for _ in range(cfg.depth)
+            Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, impl, eps, gen, **tp) for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(cfg.embed_dim, eps=eps)
         self.decoder_embed = Linear(cfg.embed_dim, cfg.decoder_embed_dim, gen)
         self.mask_token = nn.Parameter(0.02 * torch.randn((1, 1, cfg.decoder_embed_dim), generator=gen))
         self.decoder_blocks = nn.ModuleList(
-            Block(cfg.decoder_embed_dim, cfg.decoder_num_heads, cfg.mlp_ratio, impl, eps, gen)
+            Block(cfg.decoder_embed_dim, cfg.decoder_num_heads, cfg.mlp_ratio, impl, eps, gen, **tp)
             for _ in range(cfg.decoder_depth)
         )
         self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=eps)

@@ -1,32 +1,38 @@
-// Fused whole-row attention on the raw Dense output, forward and backward,
-// for Hopper (sm_90a).
+// Fused whole-row attention, forward and backward, for Hopper (sm_90a), on
+// two layouts of the packed q, k, v (a Layout descriptor: element strides,
+// the last axis contiguous; both are read in place, with no transpose):
 //
-// Input qkv (B, L, 3D) row-major as nn.Linear(D, 3D) emits it: along the
-// last axis the q block, then k, then v, each D = H * Dh wide with the heads
-// contiguous. Head h of token i reads q at [i, h*Dh + d], k at
-// [i, D + h*Dh + d] and v at [i, 2D + h*Dh + d]: the layout is read in
-// place, with no transpose or copy to head-major. T is the input type
-// (bf16 or f32); every product reads T values (exact in f32) and
-// accumulates in f32.
+// * dense: qkv (B, L, 3D) row-major as nn.Linear(D, 3D) emits it: along the
+//   last axis the q block, then k, then v, each D = H * Dh wide with the
+//   heads contiguous. Head h of token i reads q at [i, h*Dh + d], k at
+//   [i, D + h*Dh + d] and v at [i, 2D + h*Dh + d]; out, o, dout (B, L, D).
+// * head-major: qkv (3, B, H, L, Dh), q, k, v at [0|1|2, b, h, i, d], as the
+//   tensor-parallel einsum writes it; out, o, dout (B, H, L, Dh).
+//
+// dqkv has the layout of qkv. T is the input type (bf16 or f32); every
+// product reads T values (exact in f32) and accumulates in f32.
 //
 // Forward, per (b, h):
 //   s  = (q k^T) * scale                        f32, scale = 1/sqrt(Dh)
 //   p  = exp(s - rowmax s) / rowsum(exp(...))   f32
 //   o  = round_T(round_T(p) v)                  p rounded to T, f32 sums
-// Backward, with the saved forward output o and the cotangent do (B, L, D):
+// Backward, with the saved forward output o and the cotangent do (the
+// layout of out):
 //   recompute s and p as above; pc = round_T(p)
 //   dv = pc^T do,  dp = do v^T (f32),  delta = rowsum(f32(do) f32(o))
 //   ds = round_T(p * (dp - delta) * scale)      p is the f32 p
 //   dq = ds k,  dk = ds^T q                     f32 sums, each rounded to T
-// written into dqkv (B, L, 3D) at the same offsets as q, k, v.
+// written into dqkv at the offsets of q, k, v.
 //
 // Replaces the TPU kernels s2tpu/ops/flash_attention.py::_fused_fwd_dense_kernel
 // (launched from _fused_fwd_dense; its _paired variant computes the same
-// output) and ::_fused_bwd_dense_kernel (launched from _fused_bwd_dense).
-// Those run one program per batch element with the whole (L, L) score
-// matrix of each head in VMEM. Hopper blocks have at most 227 KB of shared
-// memory and run in no order, so the work is cut differently, and by the
-// input type:
+// output) and ::_fused_bwd_dense_kernel (launched from _fused_bwd_dense) on
+// the dense layout, and ::_fused_fwd_kernel (_fused_fwd_qkv) and
+// ::_fused_bwd_kernel (_fused_bwd_qkv) on the head-major layout: the same
+// math, the same kernels, other strides. Those run one program per batch
+// element with the whole (L, L) score matrix of each head in VMEM. Hopper
+// blocks have at most 227 KB of shared memory and run in no order, so the
+// work is cut differently, and by the input type:
 //
 // * bf16 (the training path): every product on the tensor cores,
 //   mma.sync.m16n8k16 with bf16 operands and f32 accumulation, which is the
@@ -52,9 +58,10 @@
 // 56,064, dq 37,632, none growing with L; f32 forward 156,160 at L = 1024,
 // dk/dv 100,608, dq 83,968.
 //
-// Bound: for the T = 1 Prithvi decoder (B = 64, L = 197, H = 16, Dh = 32,
-// bf16) the least time is set by bytes (qkv in, o out: 15.4 us forward;
-// qkv, o, do in, dqkv out: 30.8 us backward) against 5.1 / 12.9 us of
+// Bound (either layout: the same bytes): for the T = 1 Prithvi decoder
+// (B = 64, L = 197, H = 16, Dh = 32, bf16) the least time is set by bytes
+// (qkv in, o out: 15.4 us forward; qkv, o, do in, dqkv out: 30.8 us
+// backward) against 5.1 / 12.9 us of
 // tensor-core operations. In f32 the operations bound it (67 TFLOP/s:
 // 76 / 190 us). What keeps these kernels from their bound: scores are
 // recomputed (twice in the forward, three times in the backward: 8
@@ -86,18 +93,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Where the kernels find a (b, h) slice, in elements: row i of part p (0 q,
+// 1 k, 2 v) of head h of batch element b starts at
+// b * batch + (p * part + h * head + i * row), with the head's Dh values
+// contiguous from there. qkv and dqkv share one layout, out / o / dout the
+// other (part unused). Only the batch stride is 64-bit: the entry points take
+// tensors of fewer than 2^31 elements, so every other offset fits an int,
+// and a kernel keeps one 64-bit base pointer live, not one per part.
+struct Layout {
+  long long batch;
+  int part, head, row;
+};
+
 struct Dims {
-  int B, L, H, D;  // D = H * Dh
+  int B, L, H;
   float scale;
+  Layout qkv, o;
 };
 
 // ---------------------------------------------------------------------------
 // f32 inputs: exact f32 products on the CUDA cores.
 // ---------------------------------------------------------------------------
 
-// Rows [r0, r0 + rows) of one (b, h) slice of a (B, L, ld) tensor, starting
-// at column `col`, into smem[r][d] (row stride DH + 1); rows past L read as
-// zeros.
+// Rows [r0, r0 + rows) of one (b, h) slice, row i at base + i * ld + col,
+// into smem[r][d] (row stride DH + 1); rows past L read as zeros.
 template <int DH>
 __device__ __forceinline__ void load_rows(float* smem, const float* base, int ld, int col, int r0, int rows,
                                           int L) {
@@ -120,28 +139,29 @@ __device__ __forceinline__ void load_rows_t(float* smem, const float* base, int 
 // grid (ceil(L / 32), H, B). Shared: scores [32][ldS], q [32][DH + 1],
 // tile max(DH x kTileLd, kTile x (DH + 1)).
 template <int DH, bool STATS>
-__global__ void __launch_bounds__(kThreads) attn_dense_fwd_kernel(const float* __restrict__ qkv,
+__global__ void __launch_bounds__(kThreads) attn_fused_fwd_kernel(const float* __restrict__ qkv,
                                                                   float* __restrict__ out,
                                                                   const float* __restrict__ o_saved,
                                                                   const float* __restrict__ dout,
                                                                   float* __restrict__ stats, Dims dims) {
   extern __shared__ float smem[];
-  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
   const int n_tiles = (L + kTile - 1) / kTile;
   const int ldS = n_tiles * kTile + 1;
   float* S = smem;
   float* Qs = S + kRows * ldS;
   float* buf = Qs + kRows * (DH + 1);
-  const float* base = qkv + (size_t)b * L * ld;
+  const float* base = qkv + (size_t)b * dims.qkv.batch;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
-  load_rows<DH>(Qs, base, ld, h * DH, q0, kRows, L);
+  load_rows<DH>(Qs, base, ld, hq, q0, kRows, L);
 
   // 1. scores: thread (ty, tx) owns rows ty, ty + 16 and columns tx + 16 j.
   for (int t = 0; t < n_tiles; ++t) {
     __syncthreads();
-    load_rows_t<DH>(buf, base, ld, D + h * DH, t * kTile, L);
+    load_rows_t<DH>(buf, base, ld, P + hq, t * kTile, L);
     __syncthreads();
     float acc[2][4] = {};
 #pragma unroll 8
@@ -180,7 +200,7 @@ __global__ void __launch_bounds__(kThreads) attn_dense_fwd_kernel(const float* _
     if constexpr (STATS) {
       float delta = 0.f;  // rowsum(do * o) in f32
       if (qi < L) {
-        const size_t off = ((size_t)b * L + qi) * D + h * DH;
+        const size_t off = (size_t)b * dims.o.batch + (qi * dims.o.row + h * dims.o.head);
         for (int d = lane; d < DH; d += 32) delta += dout[off + d] * o_saved[off + d];
       }
       delta = warp_sum(delta);
@@ -201,7 +221,7 @@ __global__ void __launch_bounds__(kThreads) attn_dense_fwd_kernel(const float* _
   float acc[2][NJ] = {};
   for (int t = 0; t < n_tiles; ++t) {
     __syncthreads();
-    load_rows<DH>(buf, base, ld, 2 * D + h * DH, t * kTile, kTile, L);
+    load_rows<DH>(buf, base, ld, 2 * P + hq, t * kTile, kTile, L);
     __syncthreads();
     const int nk = min(kTile, L - t * kTile);
     for (int c = 0; c < nk; ++c) {
@@ -218,8 +238,9 @@ __global__ void __launch_bounds__(kThreads) attn_dense_fwd_kernel(const float* _
   for (int i = 0; i < 2; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= L) continue;
+    const size_t off = (size_t)b * dims.o.batch + (qi * dims.o.row + h * dims.o.head);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) out[((size_t)b * L + qi) * D + h * DH + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < NJ; ++j) out[off + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -290,13 +311,14 @@ __device__ __forceinline__ void load_stats(float* m, float* l, float* delta, con
 // query tiles in order.
 // ---------------------------------------------------------------------------
 template <int DH>
-__global__ void __launch_bounds__(kThreads) attn_dense_dkdv_kernel(const float* __restrict__ qkv,
+__global__ void __launch_bounds__(kThreads) attn_fused_dkdv_kernel(const float* __restrict__ qkv,
                                                                    const float* __restrict__ dout,
                                                                    const float* __restrict__ stats,
                                                                    float* __restrict__ dqkv, Dims dims) {
   extern __shared__ float smem[];
-  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
   float* Kt = smem;
   float* Vt = Kt + DH * kTileLd;
   float* Qs = Vt + DH * kTileLd;
@@ -306,18 +328,18 @@ __global__ void __launch_bounds__(kThreads) attn_dense_dkdv_kernel(const float* 
   float* m = dS + kTile * kTileLd;
   float* l = m + kTile;
   float* delta = l + kTile;
-  const float* base = qkv + (size_t)b * L * ld;
-  const float* dbase = dout + (size_t)b * L * D;
+  const float* base = qkv + (size_t)b * dims.qkv.batch;
+  const float* dbase = dout + (size_t)b * dims.o.batch;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   constexpr int NJ = DH / 16;
 
-  load_rows_t<DH>(Kt, base, ld, D + h * DH, k0, L);
-  load_rows_t<DH>(Vt, base, ld, 2 * D + h * DH, k0, L);
+  load_rows_t<DH>(Kt, base, ld, P + hq, k0, L);
+  load_rows_t<DH>(Vt, base, ld, 2 * P + hq, k0, L);
   float dk[4][NJ] = {}, dv[4][NJ] = {};
   for (int q0 = 0; q0 < L; q0 += kTile) {
     __syncthreads();
-    load_rows<DH>(Qs, base, ld, h * DH, q0, kTile, L);
-    load_rows<DH>(dOs, dbase, D, h * DH, q0, kTile, L);
+    load_rows<DH>(Qs, base, ld, hq, q0, kTile, L);
+    load_rows<DH>(dOs, dbase, dims.o.row, h * dims.o.head, q0, kTile, L);
     load_stats(m, l, delta, stats, dims, b, h, q0);
     __syncthreads();
     tile_ds<DH>(Qs, dOs, Kt, Vt, m, l, delta, Pc, dS, q0, k0, L, dims.scale);
@@ -341,7 +363,7 @@ __global__ void __launch_bounds__(kThreads) attn_dense_dkdv_kernel(const float* 
       }
     }
   }
-  float* obase = dqkv + (size_t)b * L * ld;
+  float* obase = dqkv + (size_t)b * dims.qkv.batch;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 16 * i;
@@ -349,8 +371,8 @@ __global__ void __launch_bounds__(kThreads) attn_dense_dkdv_kernel(const float* 
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      obase[(size_t)key * ld + D + h * DH + d] = dk[i][j];
-      obase[(size_t)key * ld + 2 * D + h * DH + d] = dv[i][j];
+      obase[(size_t)key * ld + P + hq + d] = dk[i][j];
+      obase[(size_t)key * ld + 2 * P + hq + d] = dv[i][j];
     }
   }
 }
@@ -360,13 +382,14 @@ __global__ void __launch_bounds__(kThreads) attn_dense_dkdv_kernel(const float* 
 // all key tiles in order.
 // ---------------------------------------------------------------------------
 template <int DH>
-__global__ void __launch_bounds__(kThreads) attn_dense_dq_kernel(const float* __restrict__ qkv,
+__global__ void __launch_bounds__(kThreads) attn_fused_dq_kernel(const float* __restrict__ qkv,
                                                                  const float* __restrict__ dout,
                                                                  const float* __restrict__ stats,
                                                                  float* __restrict__ dqkv, Dims dims) {
   extern __shared__ float smem[];
-  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
   float* Kt = smem;
   float* Vt = Kt + DH * kTileLd;
   float* Qs = Vt + DH * kTileLd;
@@ -375,18 +398,18 @@ __global__ void __launch_bounds__(kThreads) attn_dense_dq_kernel(const float* __
   float* m = dS + kTile * kTileLd;
   float* l = m + kTile;
   float* delta = l + kTile;
-  const float* base = qkv + (size_t)b * L * ld;
+  const float* base = qkv + (size_t)b * dims.qkv.batch;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   constexpr int NJ = DH / 16;
 
-  load_rows<DH>(Qs, base, ld, h * DH, q0, kTile, L);
-  load_rows<DH>(dOs, dout + (size_t)b * L * D, D, h * DH, q0, kTile, L);
+  load_rows<DH>(Qs, base, ld, hq, q0, kTile, L);
+  load_rows<DH>(dOs, dout + (size_t)b * dims.o.batch, dims.o.row, h * dims.o.head, q0, kTile, L);
   load_stats(m, l, delta, stats, dims, b, h, q0);
   float dq[4][NJ] = {};
   for (int k0 = 0; k0 < L; k0 += kTile) {
     __syncthreads();
-    load_rows_t<DH>(Kt, base, ld, D + h * DH, k0, L);
-    load_rows_t<DH>(Vt, base, ld, 2 * D + h * DH, k0, L);
+    load_rows_t<DH>(Kt, base, ld, P + hq, k0, L);
+    load_rows_t<DH>(Vt, base, ld, 2 * P + hq, k0, L);
     __syncthreads();
     tile_ds<DH>(Qs, dOs, Kt, Vt, m, l, delta, nullptr, dS, q0, k0, L, dims.scale);
     __syncthreads();
@@ -403,13 +426,13 @@ __global__ void __launch_bounds__(kThreads) attn_dense_dq_kernel(const float* __
       }
     }
   }
-  float* obase = dqkv + (size_t)b * L * ld;
+  float* obase = dqkv + (size_t)b * dims.qkv.batch;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= L) continue;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) obase[(size_t)qi * ld + h * DH + tx + 16 * j] = dq[i][j];
+    for (int j = 0; j < NJ; ++j) obase[(size_t)qi * ld + hq + tx + 16 * j] = dq[i][j];
   }
 }
 
@@ -523,30 +546,33 @@ __device__ __forceinline__ void mma_scores(float (&s)[8][4], const bf16* Q, cons
 // forms p = exp(s - m) / l in f32, rounds it to bf16 straight into the A
 // operand of p v, and accumulates o in f32. The statistics pass is the
 // first pass plus delta. Shared: q, k, v [64][DH + 8]: 27,648 bytes at
-// Dh = 64, independent of L.
+// Dh = 64, independent of L. Registers, not shared memory, set how many
+// blocks an SM holds, so the bound asks for 5 (Dh = 32, <= 96 registers) and
+// 4 (Dh = 64, <= 128): left free, ptxas has taken 106 at Dh = 32, one block
+// fewer per SM and 12 % slower at the T = 1 decoder (chip_smoke, H100).
 template <int DH, bool STATS>
-__global__ void __launch_bounds__(kMmaThreads) attn_dense_fwd_mma_kernel(const bf16* __restrict__ qkv,
-                                                                          bf16* __restrict__ out,
-                                                                          const bf16* __restrict__ o_saved,
-                                                                          const bf16* __restrict__ dout,
-                                                                          float* __restrict__ stats, Dims dims) {
+__global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
+    attn_fused_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                              const bf16* __restrict__ o_saved, const bf16* __restrict__ dout,
+                              float* __restrict__ stats, Dims dims) {
   extern __shared__ float smem[];
   constexpr int LD = DH + 8;
-  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kTile * LD;
   bf16* Vs = Ks + kTile * LD;
-  const bf16* base = qkv + (size_t)b * L * ld;
+  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
-  copy_rows<DH>(Qs, LD, base, ld, h * DH, q0, kTile, L);
+  copy_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
   // 1. row max and sum; this thread's rows are 16 w + g (i = 0) and + 8 (i = 1),
   //    shared with the 3 other lanes of its quad.
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < L; k0 += kTile) {
     __syncthreads();
-    copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
+    copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
     __syncthreads();
     float s[8][4];
     mma_scores<DH>(s, Qs, Ks, 16 * warp);
@@ -585,7 +611,7 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_fwd_mma_kernel(const b
     }
     const int qi = q0 + threadIdx.x;
     if (threadIdx.x < kTile && qi < L) {  // delta = rowsum(do * o) in f32
-      const size_t off = ((size_t)b * L + qi) * D + h * DH;
+      const size_t off = (size_t)b * dims.o.batch + (qi * dims.o.row + h * dims.o.head);
       float delta = 0.f;
       for (int d = 0; d < DH; ++d) delta += __bfloat162float(dout[off + d]) * __bfloat162float(o_saved[off + d]);
       stats[2 * n + ((size_t)b * dims.H + h) * L + qi] = delta;
@@ -598,8 +624,8 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_fwd_mma_kernel(const b
   float o[NJ][4] = {};
   for (int k0 = 0; k0 < L; k0 += kTile) {
     __syncthreads();
-    copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
-    copy_rows<DH>(Vs, LD, base, ld, 2 * D + h * DH, k0, kTile, L);
+    copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
+    copy_rows<DH>(Vs, LD, base, ld, 2 * P + hq, k0, kTile, L);
     __syncthreads();
     float s[8][4];
     mma_scores<DH>(s, Qs, Ks, 16 * warp);
@@ -628,8 +654,8 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_fwd_mma_kernel(const b
     for (int i = 0; i < 2; ++i) {
       const int qi = q0 + 16 * warp + g + 8 * i;
       if (qi < L)
-        *reinterpret_cast<uint32_t*>(out + ((size_t)b * L + qi) * D + h * DH + 8 * jd + 2 * t) =
-            pack_bf16(o[jd][2 * i], o[jd][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(out + (size_t)b * dims.o.batch + (qi * dims.o.row + h * dims.o.head) + 8 * jd +
+                                     2 * t) = pack_bf16(o[jd][2 * i], o[jd][2 * i + 1]);
     }
 }
 
@@ -658,14 +684,15 @@ __device__ __forceinline__ void mma_probs(float (&s)[8][4], float (&dp)[8][4], c
 // every query tile in order. Shared: k, v, q, do [64][DH + 8], pc and ds
 // [64][kLdT] (query rows x keys): 56,064 bytes at Dh = 64.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads) attn_dense_dkdv_mma_kernel(const bf16* __restrict__ qkv,
+__global__ void __launch_bounds__(kMmaThreads) attn_fused_dkdv_mma_kernel(const bf16* __restrict__ qkv,
                                                                            const bf16* __restrict__ dout,
                                                                            const float* __restrict__ stats,
                                                                            bf16* __restrict__ dqkv, Dims dims) {
   extern __shared__ float smem[];
   constexpr int LD = DH + 8, NJ = DH / 8;
-  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
   float* m = smem;
   float* l = m + kTile;
   float* delta = l + kTile;
@@ -675,17 +702,17 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_dkdv_mma_kernel(const 
   bf16* dOs = Qs + kTile * LD;
   bf16* Pc = dOs + kTile * LD;
   bf16* dS = Pc + kTile * kLdT;
-  const bf16* base = qkv + (size_t)b * L * ld;
-  const bf16* dbase = dout + (size_t)b * L * D;
+  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
+  const bf16* dbase = dout + (size_t)b * dims.o.batch;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
-  copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
-  copy_rows<DH>(Vs, LD, base, ld, 2 * D + h * DH, k0, kTile, L);
+  copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
+  copy_rows<DH>(Vs, LD, base, ld, 2 * P + hq, k0, kTile, L);
   float dk[NJ][4] = {}, dv[NJ][4] = {};
   for (int q0 = 0; q0 < L; q0 += kTile) {
     __syncthreads();
-    copy_rows<DH>(Qs, LD, base, ld, h * DH, q0, kTile, L);
-    copy_rows<DH>(dOs, LD, dbase, D, h * DH, q0, kTile, L);
+    copy_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
+    copy_rows<DH>(dOs, LD, dbase, dims.o.row, h * dims.o.head, q0, kTile, L);
     if (threadIdx.x < kTile) {
       const size_t n = (size_t)dims.B * dims.H * L;
       const int row = q0 + threadIdx.x;
@@ -727,16 +754,16 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_dkdv_mma_kernel(const 
       }
     }
   }
-  bf16* obase = dqkv + (size_t)b * L * ld;
+  bf16* obase = dqkv + (size_t)b * dims.qkv.batch;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int key = k0 + 16 * warp + g + 8 * e;
       if (key >= L) continue;
-      const size_t off = (size_t)key * ld + h * DH + 8 * j + 2 * t;
-      *reinterpret_cast<uint32_t*>(obase + off + D) = pack_bf16(dk[j][2 * e], dk[j][2 * e + 1]);
-      *reinterpret_cast<uint32_t*>(obase + off + 2 * D) = pack_bf16(dv[j][2 * e], dv[j][2 * e + 1]);
+      const size_t off = (size_t)key * ld + hq + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(obase + off + P) = pack_bf16(dk[j][2 * e], dk[j][2 * e + 1]);
+      *reinterpret_cast<uint32_t*>(obase + off + 2 * P) = pack_bf16(dv[j][2 * e], dv[j][2 * e + 1]);
     }
 }
 
@@ -744,14 +771,15 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_dkdv_mma_kernel(const 
 // over every key tile in order; ds stays in registers as the A operand of
 // ds k. Shared: q, do, k, v [64][DH + 8]: 37,632 bytes at Dh = 64.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads) attn_dense_dq_mma_kernel(const bf16* __restrict__ qkv,
+__global__ void __launch_bounds__(kMmaThreads) attn_fused_dq_mma_kernel(const bf16* __restrict__ qkv,
                                                                          const bf16* __restrict__ dout,
                                                                          const float* __restrict__ stats,
                                                                          bf16* __restrict__ dqkv, Dims dims) {
   extern __shared__ float smem[];
   constexpr int LD = DH + 8, NJ = DH / 8;
-  const int L = dims.L, D = dims.D, ld = 3 * D;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
   float* m = smem;
   float* l = m + kTile;
   float* delta = l + kTile;
@@ -759,11 +787,11 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_dq_mma_kernel(const bf
   bf16* dOs = Qs + kTile * LD;
   bf16* Ks = dOs + kTile * LD;
   bf16* Vs = Ks + kTile * LD;
-  const bf16* base = qkv + (size_t)b * L * ld;
+  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
-  copy_rows<DH>(Qs, LD, base, ld, h * DH, q0, kTile, L);
-  copy_rows<DH>(dOs, LD, dout + (size_t)b * L * D, D, h * DH, q0, kTile, L);
+  copy_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
+  copy_rows<DH>(dOs, LD, dout + (size_t)b * dims.o.batch, dims.o.row, h * dims.o.head, q0, kTile, L);
   if (threadIdx.x < kTile) {
     const size_t n = (size_t)dims.B * dims.H * L;
     const int row = q0 + threadIdx.x;
@@ -775,8 +803,8 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_dq_mma_kernel(const bf
   float dq[NJ][4] = {};
   for (int k0 = 0; k0 < L; k0 += kTile) {
     __syncthreads();
-    copy_rows<DH>(Ks, LD, base, ld, D + h * DH, k0, kTile, L);
-    copy_rows<DH>(Vs, LD, base, ld, 2 * D + h * DH, k0, kTile, L);
+    copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
+    copy_rows<DH>(Vs, LD, base, ld, 2 * P + hq, k0, kTile, L);
     __syncthreads();
     float p[8][4], ds[8][4];
     mma_scores<DH>(p, Qs, Ks, 16 * warp);
@@ -796,14 +824,14 @@ __global__ void __launch_bounds__(kMmaThreads) attn_dense_dq_mma_kernel(const bf
       }
     }
   }
-  bf16* obase = dqkv + (size_t)b * L * ld;
+  bf16* obase = dqkv + (size_t)b * dims.qkv.batch;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int qi = q0 + 16 * warp + g + 8 * e;
       if (qi < L)
-        *reinterpret_cast<uint32_t*>(obase + (size_t)qi * ld + h * DH + 8 * j + 2 * t) =
+        *reinterpret_cast<uint32_t*>(obase + (size_t)qi * ld + hq + 8 * j + 2 * t) =
             pack_bf16(dq[j][2 * e], dq[j][2 * e + 1]);
     }
 }
@@ -835,7 +863,7 @@ template <int DH>
 cudaError_t forward(const void* qkv, void* out, Dims dims, cudaStream_t s) {
   const dim3 grid((dims.L + kRows - 1) / kRows, dims.H, dims.B);
   const size_t smem = fwd_smem<DH>(dims.L);
-  auto kernel = attn_dense_fwd_kernel<DH, false>;
+  auto kernel = attn_fused_fwd_kernel<DH, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, s>>>(static_cast<const float*>(qkv), static_cast<float*>(out), nullptr, nullptr,
@@ -851,18 +879,18 @@ cudaError_t backward(const void* qkv, const void* o, const void* dout, void* dqk
   float* st = static_cast<float*>(stats);
   float* dq = static_cast<float*>(dqkv);
   const size_t smem0 = fwd_smem<DH>(dims.L);
-  auto k0 = attn_dense_fwd_kernel<DH, true>;
+  auto k0 = attn_fused_fwd_kernel<DH, true>;
   cudaError_t err = allow_smem(k0, smem0);
   if (err != cudaSuccess) return err;
   k0<<<dim3((dims.L + kRows - 1) / kRows, dims.H, dims.B), kThreads, smem0, s>>>(
       q, nullptr, static_cast<const float*>(o), g, st, dims);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid((dims.L + kTile - 1) / kTile, dims.H, dims.B);
-  auto k1 = attn_dense_dkdv_kernel<DH>;
+  auto k1 = attn_fused_dkdv_kernel<DH>;
   if ((err = allow_smem(k1, dkdv_smem<DH>())) != cudaSuccess) return err;
   k1<<<grid, kThreads, dkdv_smem<DH>(), s>>>(q, g, st, dq, dims);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto k2 = attn_dense_dq_kernel<DH>;
+  auto k2 = attn_fused_dq_kernel<DH>;
   if ((err = allow_smem(k2, dq_smem<DH>())) != cudaSuccess) return err;
   k2<<<grid, kThreads, dq_smem<DH>(), s>>>(q, g, st, dq, dims);
   return cudaGetLastError();
@@ -886,7 +914,7 @@ constexpr size_t dq_mma_smem() {
 template <int DH>
 cudaError_t forward_mma(const void* qkv, void* out, Dims dims, cudaStream_t s) {
   const size_t smem = fwd_mma_smem<DH>();
-  auto kernel = attn_dense_fwd_mma_kernel<DH, false>;
+  auto kernel = attn_fused_fwd_mma_kernel<DH, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, smem, s>>>(
@@ -902,43 +930,52 @@ cudaError_t backward_mma(const void* qkv, const void* o, const void* dout, void*
   float* st = static_cast<float*>(stats);
   bf16* dq = static_cast<bf16*>(dqkv);
   const size_t smem0 = fwd_mma_smem<DH>();
-  auto k0 = attn_dense_fwd_mma_kernel<DH, true>;
+  auto k0 = attn_fused_fwd_mma_kernel<DH, true>;
   cudaError_t err = allow_smem(k0, smem0);
   if (err != cudaSuccess) return err;
   k0<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, smem0, s>>>(
       q, nullptr, static_cast<const bf16*>(o), g, st, dims);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid((dims.L + kTile - 1) / kTile, dims.H, dims.B);
-  auto k1 = attn_dense_dkdv_mma_kernel<DH>;
+  auto k1 = attn_fused_dkdv_mma_kernel<DH>;
   if ((err = allow_smem(k1, dkdv_mma_smem<DH>())) != cudaSuccess) return err;
   k1<<<grid, kMmaThreads, dkdv_mma_smem<DH>(), s>>>(q, g, st, dq, dims);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto k2 = attn_dense_dq_mma_kernel<DH>;
+  auto k2 = attn_fused_dq_mma_kernel<DH>;
   if ((err = allow_smem(k2, dq_mma_smem<DH>())) != cudaSuccess) return err;
   k2<<<grid, kMmaThreads, dq_mma_smem<DH>(), s>>>(q, g, st, dq, dims);
   return cudaGetLastError();
 }
 
-Dims make_dims(int B, int L, int H, int Dh) {
-  return Dims{B, L, H, H * Dh, 1.0f};
+// The two layouts the entry points take (see the top of the file): qkv
+// then out / o / dout strides.
+struct Layouts {
+  Layout qkv, o;
+};
+
+Layouts dense_layout(int L, int H, int Dh) {
+  const int D = H * Dh;
+  return Layouts{{(long long)L * 3 * D, D, Dh, 3 * D}, {(long long)L * D, 0, Dh, D}};
 }
 
-}  // namespace
+Layouts head_major_layout(int B, int L, int H, int Dh) {
+  const int head = L * Dh;
+  const int part = (int)((long long)B * H * head);  // valid_shape bounds it below 2^31 / 3
+  return Layouts{{(long long)H * head, part, head, Dh}, {(long long)H * head, 0, head, Dh}};
+}
 
-// Plain C entry points, bound with ctypes. qkv (B, L, 3 H Dh) and out / o /
-// dout (B, L, H Dh) contiguous, dtype 0 = f32, 1 = bf16; Dh 32 or 64;
-// 1 <= L <= 1024. `scale` is 1/sqrt(Dh) as an f32. The backward writes
-// dqkv (B, L, 3 H Dh) and uses `stats`, an f32 scratch of 3 B H L values.
-// Each launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success); cudaErrorInvalidValue for a shape or
-// type it does not take. The caller validates and allocates.
-extern "C" int s2_fused_attention_dense_fwd(const void* qkv, void* out, int B, int L, int H, int Dh, float scale,
-                                            int dtype, int device, void* stream) {
+// Shapes the kernels take: 1 <= L <= 1024, and qkv below 2^31 elements, so
+// every offset but the batch stride fits an int.
+bool valid_shape(int B, int L, int H, int Dh) {
+  return L >= 1 && L <= kMaxLen && B >= 1 && H >= 1 && 3LL * B * H * L * Dh < (1LL << 31);
+}
+
+int launch_forward(const void* qkv, void* out, int B, int L, int H, int Dh, float scale, int dtype, int device,
+                   void* stream, Layouts y) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (L < 1 || L > kMaxLen || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  Dims dims = make_dims(B, L, H, Dh);
-  dims.scale = scale;
+  if (!valid_shape(B, L, H, Dh)) return (int)cudaErrorInvalidValue;
+  const Dims dims{B, L, H, scale, y.qkv, y.o};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && Dh == 32) return (int)forward<32>(qkv, out, dims, s);
   if (dtype == 0 && Dh == 64) return (int)forward<64>(qkv, out, dims, s);
@@ -947,18 +984,52 @@ extern "C" int s2_fused_attention_dense_fwd(const void* qkv, void* out, int B, i
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int s2_fused_attention_dense_bwd(const void* qkv, const void* o, const void* dout, void* dqkv,
-                                            void* stats, int B, int L, int H, int Dh, float scale, int dtype,
-                                            int device, void* stream) {
+int launch_backward(const void* qkv, const void* o, const void* dout, void* dqkv, void* stats, int B, int L, int H,
+                    int Dh, float scale, int dtype, int device, void* stream, Layouts y) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (L < 1 || L > kMaxLen || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  Dims dims = make_dims(B, L, H, Dh);
-  dims.scale = scale;
+  if (!valid_shape(B, L, H, Dh)) return (int)cudaErrorInvalidValue;
+  const Dims dims{B, L, H, scale, y.qkv, y.o};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && Dh == 32) return (int)backward<32>(qkv, o, dout, dqkv, stats, dims, s);
   if (dtype == 0 && Dh == 64) return (int)backward<64>(qkv, o, dout, dqkv, stats, dims, s);
   if (dtype == 1 && Dh == 32) return (int)backward_mma<32>(qkv, o, dout, dqkv, stats, dims, s);
   if (dtype == 1 && Dh == 64) return (int)backward_mma<64>(qkv, o, dout, dqkv, stats, dims, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes: the dense layout (#8/#9: qkv
+// (B, L, 3 H Dh), out / o / dout (B, L, H Dh)) and the head-major one
+// (#6/#7: qkv (3, B, H, L, Dh), out / o / dout (B, H, L, Dh)), every tensor
+// contiguous and 16-byte aligned, dtype 0 = f32, 1 = bf16; Dh 32 or 64;
+// 1 <= L <= 1024; qkv below 2^31 elements. `scale` is 1/sqrt(Dh) as an f32.
+// The backward writes dqkv (the layout of qkv) and uses `stats`, an f32
+// scratch of 3 B H L values.
+// Each launches on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success); cudaErrorInvalidValue for a shape or
+// type it does not take. The caller validates and allocates.
+extern "C" int s2_fused_attention_dense_fwd(const void* qkv, void* out, int B, int L, int H, int Dh, float scale,
+                                            int dtype, int device, void* stream) {
+  return launch_forward(qkv, out, B, L, H, Dh, scale, dtype, device, stream, dense_layout(L, H, Dh));
+}
+
+extern "C" int s2_fused_attention_dense_bwd(const void* qkv, const void* o, const void* dout, void* dqkv,
+                                            void* stats, int B, int L, int H, int Dh, float scale, int dtype,
+                                            int device, void* stream) {
+  return launch_backward(qkv, o, dout, dqkv, stats, B, L, H, Dh, scale, dtype, device, stream,
+                         dense_layout(L, H, Dh));
+}
+
+extern "C" int s2_fused_attention_qkv_fwd(const void* qkv, void* out, int B, int L, int H, int Dh, float scale,
+                                          int dtype, int device, void* stream) {
+  return launch_forward(qkv, out, B, L, H, Dh, scale, dtype, device, stream, head_major_layout(B, L, H, Dh));
+}
+
+extern "C" int s2_fused_attention_qkv_bwd(const void* qkv, const void* o, const void* dout, void* dqkv,
+                                          void* stats, int B, int L, int H, int Dh, float scale, int dtype,
+                                          int device, void* stream) {
+  return launch_backward(qkv, o, dout, dqkv, stats, B, L, H, Dh, scale, dtype, device, stream,
+                         head_major_layout(B, L, H, Dh));
 }

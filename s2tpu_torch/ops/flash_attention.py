@@ -1,7 +1,8 @@
 """Attention for the Prithvi ViT: hand-written CUDA kernels for the fused
-dense route (forward and backward) and the streaming flash route (forward).
+route (forward and backward, dense and head-major layouts) and the
+streaming flash route (forward).
 
-The port of ``s2tpu/ops/flash_attention.py``. Three functions reach a
+The port of ``s2tpu/ops/flash_attention.py``. Four functions reach a
 kernel on the card:
 
 - :func:`fused_attention_dense` ``(B, L, 3D) -> (B, L, D)``: whole-row
@@ -10,6 +11,11 @@ kernel on the card:
   ``_fused_fwd_dense_kernel`` and ``_fused_bwd_dense_kernel``). Its autograd
   backward is a kernel too, with the JAX custom VJP's residuals (``qkv``
   and the output).
+- :func:`fused_attention_qkv` ``(3, B, H, L, Dh) -> (B, H, L, Dh)``: the
+  same attention on the packed head-major layout the tensor-parallel
+  projection writes (the same CUDA kernels with other strides, replacing
+  ``_fused_fwd_kernel`` and ``_fused_bwd_kernel``), with
+  :func:`fused_attention_bhld` and :func:`fused_attention` on top.
 - :func:`flash_attention` ``(B, L, H, Dh) x 3 -> (B, L, H, Dh)``: streaming
   online-softmax attention in f32 (``csrc/flash_attention.cu``, replacing
   ``_flash_kernel``). Its backward differentiates the plain attention
@@ -35,11 +41,13 @@ import math
 
 import torch
 
-# Launches of the CUDA kernels (#8 fused forward, #9 fused backward, #5
-# flash forward); a run sets them to 0 and reads them. Only the CUDA
-# branches of the wrappers add to them.
+# Launches of the CUDA kernels (#8/#9 fused forward/backward on the dense
+# layout, #6/#7 on the head-major layout, #5 flash forward); a run sets them
+# to 0 and reads them. Only the CUDA branches of the wrappers add to them.
 FUSED_FWD_LAUNCHES = 0
 FUSED_BWD_LAUNCHES = 0
+FUSED_QKV_FWD_LAUNCHES = 0
+FUSED_QKV_BWD_LAUNCHES = 0
 FLASH_FWD_LAUNCHES = 0
 
 FUSED_SOURCES = ["fused_attention_dense.cu"]
@@ -66,8 +74,8 @@ def fused_fits_vmem(l: int, dim: int, num_heads: int) -> bool:  # noqa: ARG001
 
 def attention_route(l: int, dim: int, num_heads: int, impl: str = "fused") -> str:
     """Which attention ``Attention`` runs at sequence length ``l``: "fused"
-    (kernels #8/#9), "flash" (kernel #5) or "plain", as the JAX model
-    chooses (``prithvi_mae.py:240-287``)."""
+    (kernels #8/#9, or #6/#7 in the tensor-parallel form), "flash" (kernel
+    #5) or "plain", as the JAX model chooses (``prithvi_mae.py:240-287``)."""
     if impl == "fused" and FUSED_MIN_LEN <= l <= FUSED_MAX_LEN and fused_fits_vmem(l, dim, num_heads):
         return "fused"
     if impl in ("fused", "flash") and l >= FLASH_MIN_LEN:
@@ -114,17 +122,46 @@ def _check_dense(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]
     return b, l, c3 // 3, c3 // 3 // num_heads
 
 
-def fused_attention_dense_forward_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Plain PyTorch #8: ``(B, L, 3D) -> (B, L, D)`` as
-    ``_fused_fwd_dense_kernel`` computes it (``flash_attention.py:324-349``):
+def _check_qkv(qkv: torch.Tensor) -> tuple[int, int, int, int]:
+    """-> (B, H, L, Dh) of a packed head-major qkv; raises on what
+    :func:`fused_attention_qkv` does not take (JAX asserts L <= FUSED_MAX_LEN)."""
+    if qkv.dim() != 5 or qkv.shape[0] != 3:
+        raise ValueError(f"expected qkv (3, B, H, L, Dh), got {tuple(qkv.shape)}")
+    _, b, h, l, dh = qkv.shape
+    if not 1 <= l <= FUSED_MAX_LEN:
+        raise ValueError(f"fused_attention_qkv takes 1 <= L <= {FUSED_MAX_LEN}, got L={l}; use flash_attention")
+    return b, h, l, dh
+
+
+def _attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The fused kernels' forward on (B, H, L, Dh) operands of one type:
     f32 scores of input-type operands times 1/√Dh, f32 softmax, the
     probabilities rounded to the input type, f32 sums of ``p·v``, the
     output in the input type."""
-    _, _, _, dh = _check_dense(qkv, num_heads)
-    q, k, v = _split_heads(qkv, num_heads)
-    p = _probs(q, k, 1.0 / math.sqrt(dh))
-    o = torch.matmul(p.to(qkv.dtype).float(), v.float()).to(qkv.dtype)
-    return _merge_heads(o)
+    p = _probs(q, k, 1.0 / math.sqrt(q.shape[-1]))
+    return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def _attention_backward(q, k, v, out, dout) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused kernels' backward on (B, H, L, Dh) operands: p recomputed,
+    ``dv = pcᵀ·do``, ``dp = do·vᵀ``, ``δ = rowsum(do∘o)``,
+    ``ds = round(p(dp − δ)·scale)``, ``dq = ds·k``, ``dk = dsᵀ·q``; f32
+    sums, returned in f32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, do = out.float(), dout.float()
+    p = _probs(q, k, scale)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    return torch.matmul(ds, k.float()), torch.matmul(ds.transpose(-1, -2), q.float()), dv
+
+
+def fused_attention_dense_forward_reference(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch #8: ``(B, L, 3D) -> (B, L, D)`` as
+    ``_fused_fwd_dense_kernel`` computes it (``flash_attention.py:324-349``)."""
+    _check_dense(qkv, num_heads)
+    return _merge_heads(_attention_forward(*_split_heads(qkv, num_heads)))
 
 
 def fused_attention_dense_backward_reference(
@@ -133,18 +170,25 @@ def fused_attention_dense_backward_reference(
     """Plain PyTorch #9: ``dqkv (B, L, 3D)`` from the saved ``qkv``, the
     forward output ``out`` and its cotangent ``dout``, as
     ``_fused_bwd_dense_kernel`` computes it (``flash_attention.py:352-389``)."""
-    _, _, _, dh = _check_dense(qkv, num_heads)
-    scale = 1.0 / math.sqrt(dh)
-    q, k, v = _split_heads(qkv, num_heads)
-    o, do = _heads(out, num_heads).float(), _heads(dout, num_heads).float()
-    p = _probs(q, k, scale)
-    dv = torch.matmul(p.to(qkv.dtype).float().transpose(-1, -2), do)
-    dp = torch.matmul(do, v.float().transpose(-1, -2))
-    delta = (do * o).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - delta) * scale).to(qkv.dtype).float()
-    dq = torch.matmul(ds, k.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
-    return torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(qkv.dtype)
+    _check_dense(qkv, num_heads)
+    grads = _attention_backward(*_split_heads(qkv, num_heads), _heads(out, num_heads), _heads(dout, num_heads))
+    return torch.cat([_merge_heads(t) for t in grads], dim=-1).to(qkv.dtype)
+
+
+def fused_attention_qkv_forward_reference(qkv: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch #6: ``(3, B, H, L, Dh) -> (B, H, L, Dh)`` as
+    ``_fused_fwd_kernel`` computes it (``flash_attention.py:199-220``), cast
+    for cast as #8."""
+    _check_qkv(qkv)
+    return _attention_forward(*qkv.unbind(0))
+
+
+def fused_attention_qkv_backward_reference(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch #7: ``dqkv (3, B, H, L, Dh)`` from the saved ``qkv``,
+    the forward output ``out`` and its cotangent ``dout`` (both (B, H, L,
+    Dh)), as ``_fused_bwd_kernel`` computes it (``flash_attention.py:223-262``)."""
+    _check_qkv(qkv)
+    return torch.stack(_attention_backward(*qkv.unbind(0), out, dout)).to(qkv.dtype)
 
 
 def flash_attention_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -231,14 +275,27 @@ def _check_cuda(t: torch.Tensor, what: str) -> int:
     return _DTYPE_CODES[t.dtype]
 
 
-def _check_fused_kernel_shape(l: int, d: int, dh: int, num_heads: int) -> None:
+def _check_head_dim(dh: int) -> None:
     if dh not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the fused attention kernels take head width {KERNEL_HEAD_DIMS}, got {dh}")
+
+
+def _check_fused_kernel_shape(l: int, d: int, dh: int, num_heads: int) -> None:
+    _check_head_dim(dh)
     if not (FUSED_MIN_LEN <= l <= FUSED_MAX_LEN and fused_fits_vmem(l, d, num_heads)):
         raise ValueError(
             f"L={l}, D={d} is outside the fused route ({FUSED_MIN_LEN} <= L <= {FUSED_MAX_LEN} "
             "and fused_fits_vmem); use flash_attention"
         )
+
+
+def _check_kernel_tensors(what: str, qkv: torch.Tensor, *others: torch.Tensor) -> None:
+    """The fused kernels copy rows 16 bytes at a time from each tensor's
+    start, and address every tensor but the batch axis with 32-bit offsets."""
+    if qkv.numel() >= 2**31:
+        raise ValueError(f"{what} takes qkv of fewer than 2^31 elements, got {qkv.numel()}")
+    if any(t.data_ptr() % 16 for t in (qkv, *others)):
+        raise ValueError(f"{what} needs 16-byte aligned tensors (a view at an odd offset? pass a copy)")
 
 
 def _stream(t: torch.Tensor) -> tuple[int, int]:
@@ -261,6 +318,7 @@ def fused_attention_dense_forward(qkv: torch.Tensor, num_heads: int) -> torch.Te
     _check_fused_kernel_shape(l, d, dh, num_heads)
     if not qkv.is_contiguous():
         raise ValueError("fused_attention_dense reads qkv in place: pass a contiguous (B, L, 3D) tensor")
+    _check_kernel_tensors("fused_attention_dense", qkv)
     out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
     err = _kernel("fused_attention_dense_fwd")(
         qkv.data_ptr(), out.data_ptr(), b, l, num_heads, dh, 1.0 / math.sqrt(dh), code, *_stream(qkv)
@@ -292,6 +350,7 @@ def fused_attention_dense_backward(
     code = _check_cuda(qkv, "fused_attention_dense backward")
     _check_fused_kernel_shape(l, d, dh, num_heads)
     qkv, out, dout = qkv.contiguous(), out.contiguous(), dout.contiguous()
+    _check_kernel_tensors("fused_attention_dense backward", qkv, out, dout)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, b, num_heads, l), dtype=torch.float32, device=qkv.device)
     err = _kernel("fused_attention_dense_bwd")(
@@ -301,6 +360,70 @@ def fused_attention_dense_backward(
     if err != 0:
         raise RuntimeError(f"fused attention backward kernel launch failed with CUDA error {err}")
     FUSED_BWD_LAUNCHES += 1
+    return dqkv
+
+
+def fused_attention_qkv_forward(qkv: torch.Tensor) -> torch.Tensor:
+    """``(3, B, H, L, Dh) -> (B, H, L, Dh)`` fused attention, no autograd.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_fwd_qkv`` (``:287-301``,
+    TPU kernel ``_fused_fwd_kernel`` ``:199``). A CUDA tensor goes through
+    kernel #6 (the #8 kernels on head-major strides), launched on the
+    current stream without synchronising; it must be contiguous, f32 or
+    bf16, with Dh 32 or 64. Any 1 <= L <= FUSED_MAX_LEN runs, on or off the
+    fused route, as in JAX. A CPU tensor goes through the plain version."""
+    global FUSED_QKV_FWD_LAUNCHES
+    b, h, l, dh = _check_qkv(qkv)
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_forward_reference(qkv)
+    code = _check_cuda(qkv, "fused_attention_qkv")
+    _check_head_dim(dh)
+    if not qkv.is_contiguous():
+        raise ValueError("fused_attention_qkv reads qkv in place: pass a contiguous (3, B, H, L, Dh) tensor")
+    _check_kernel_tensors("fused_attention_qkv", qkv)
+    out = torch.empty((b, h, l, dh), dtype=qkv.dtype, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    err = _kernel("fused_attention_qkv_fwd")(
+        qkv.data_ptr(), out.data_ptr(), b, l, h, dh, 1.0 / math.sqrt(dh), code, *_stream(qkv)
+    )
+    if err != 0:
+        raise RuntimeError(f"fused attention (head-major) forward kernel launch failed with CUDA error {err}")
+    FUSED_QKV_FWD_LAUNCHES += 1
+    return out
+
+
+def fused_attention_qkv_backward(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``dqkv (3, B, H, L, Dh)`` of :func:`fused_attention_qkv` from its saved
+    ``qkv``, its output ``out`` and the output's cotangent ``dout``.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_qkv`` (``:304-318``,
+    TPU kernel ``_fused_bwd_kernel`` ``:223``). A CUDA tensor goes through
+    kernel #7 (the #9 kernels on head-major strides: a statistics pass, then
+    dk/dv and dq blocks, no atomics), launched on the current stream without
+    synchronising; a CPU tensor through the plain version."""
+    global FUSED_QKV_BWD_LAUNCHES
+    b, h, l, dh = _check_qkv(qkv)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (b, h, l, dh) or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name} must be {(b, h, l, dh)} {qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype}")
+    if qkv.device.type == "cpu":
+        return fused_attention_qkv_backward_reference(qkv, out, dout)
+    code = _check_cuda(qkv, "fused_attention_qkv backward")
+    _check_head_dim(dh)
+    qkv, out, dout = qkv.contiguous(), out.contiguous(), dout.contiguous()
+    _check_kernel_tensors("fused_attention_qkv backward", qkv, out, dout)
+    dqkv = torch.empty_like(qkv)
+    if dqkv.numel() == 0:
+        return dqkv
+    stats = torch.empty((3, b, h, l), dtype=torch.float32, device=qkv.device)
+    err = _kernel("fused_attention_qkv_bwd")(
+        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        b, l, h, dh, 1.0 / math.sqrt(dh), code, *_stream(qkv),
+    )
+    if err != 0:
+        raise RuntimeError(f"fused attention (head-major) backward kernel launch failed with CUDA error {err}")
+    FUSED_QKV_BWD_LAUNCHES += 1
     return dqkv
 
 
@@ -359,6 +482,23 @@ class FusedAttentionDense(torch.autograd.Function):
         return fused_attention_dense_backward(qkv, out, dout.to(qkv.dtype), ctx.num_heads), None
 
 
+class FusedAttentionQKV(torch.autograd.Function):
+    """The JAX custom VJP ``fused_attention_qkv`` (``:273-321``): forward
+    kernel #6, backward kernel #7; saves ``qkv`` and the output, the JAX
+    residuals (``:301``)."""
+
+    @staticmethod
+    def forward(ctx, qkv):
+        out = fused_attention_qkv_forward(qkv)
+        ctx.save_for_backward(qkv, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out = ctx.saved_tensors
+        return fused_attention_qkv_backward(qkv, out, dout.to(qkv.dtype))
+
+
 class FlashAttention(torch.autograd.Function):
     """The JAX custom VJP ``flash_attention`` (``:121-146``): forward kernel
     #5; backward differentiates :func:`reference_attention` (recomputed)."""
@@ -385,3 +525,20 @@ def fused_attention_dense(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Streaming attention, (B, L, H, Dh) q, k, v -> (B, L, H, Dh)."""
     return FlashAttention.apply(q, k, v)
+
+
+def fused_attention_qkv(qkv: torch.Tensor) -> torch.Tensor:
+    """Fused attention on a packed head-major ``(3, B, H, L, Dh)`` qkv ->
+    (B, H, L, Dh), L <= FUSED_MAX_LEN."""
+    return FusedAttentionQKV.apply(qkv)
+
+
+def fused_attention_bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, Dh) q, k, v -> (B, H, L, Dh) through :func:`fused_attention_qkv`."""
+    return fused_attention_qkv(torch.stack([q, k, v]))
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, Dh) q, k, v -> (B, L, H, Dh) through :func:`fused_attention_qkv`."""
+    out = fused_attention_bhld(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    return out.transpose(1, 2)

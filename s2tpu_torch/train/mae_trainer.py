@@ -18,12 +18,23 @@ and no augment key.
 
 ``from_scratch=False`` loads ``weights/Prithvi_100M.pt`` (published layout)
 when present and otherwise warns and keeps the random init, as the JAX
-trainer does. Not ported, and refused where the config asks for them:
+trainer does.
+
+With a ``mesh`` (``s2tpu_torch.parallel.mesh.make_mesh``) one trainer runs
+in each process of the mesh's group, on the rank's device: a model config
+with ``tp_axis`` splits the heads and MLP hidden over the 'model' group
+(``PrithviConfig(tp_axis=MODEL_AXIS)``, as the JAX trainer takes it), the
+parameters start as rank 0's, every rank sees the same batches (the same
+shuffle seed) and draws the same masking noise (the same generator seed),
+and only rank 0 logs and writes checkpoints. The data axis holds one rank.
+
+Not ported, and refused where the config asks for them:
 bf16 parameter storage with an f32 master, remat, gradient accumulation,
 parameter EMA, pipeline stages, the device corpus and fused multi-step
-dispatch, and grad/param-norm watching (``watch_interval > 0`` with a run
-logger). SIGTERM preemption and the per-epoch reconstruction image are not
-ported and have no config switch.
+dispatch, grad/param-norm watching (``watch_interval > 0`` with a run
+logger), a data axis above one rank and context parallelism (``cp_axis``).
+SIGTERM preemption and the per-epoch reconstruction image are not ported
+and have no config switch.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s2tpu_torch import resolve_device
 from s2tpu_torch.configs.data_config import BANDS, parse_bands
@@ -41,6 +53,7 @@ from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES
 from s2tpu_torch.data.augment import normalize
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.prithvi_mae import PrithviConfig, PrithviMAE, patchify, unpatchify
+from s2tpu_torch.parallel.mesh import DATA_AXIS, mesh_device, replicate_module
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 from s2tpu_torch.train.train_state import make_optimizer
 from s2tpu_torch.utils import get_logger, get_unique_run_name, load_prithvi_mean_std, load_prithvi_model_args
@@ -48,9 +61,13 @@ from s2tpu_torch.utils import get_logger, get_unique_run_name, load_prithvi_mean
 logger = get_logger(__name__)
 
 
-def _refuse_unported(config: MAEConfig, run_logger) -> None:
+def _refuse_unported(config: MAEConfig, run_logger, mesh=None, model_config: PrithviConfig | None = None) -> None:
     t, m = config.train, config.model
     unported = {
+        "a data axis above 1 (DDP/FSDP2, ROADMAP A16)": (
+            mesh is not None and mesh.shape[mesh.mesh_dim_names.index(DATA_AXIS)] > 1
+        ),
+        "cp_axis (context parallelism)": model_config is not None and model_config.cp_axis is not None,
         "param_dtype='bfloat16' (f32 master)": t.param_dtype != "float32",
         "remat": t.remat,
         "grad_accum_steps > 1": t.grad_accum_steps > 1,
@@ -82,33 +99,42 @@ def default_model_config(config: MAEConfig) -> PrithviConfig:
 
 class MAETrainer:
     """Trains a Prithvi MAE on ``datamodule``'s unlabeled crops on one device
-    (``resolve_device``: the card unless ``device="cpu"``)."""
+    (``resolve_device``: the card unless ``device="cpu"``), or on this
+    rank's device of ``mesh`` (``mesh_device``: the card ``make_mesh``
+    bound the process to)."""
 
     def __init__(
         self,
         config: MAEConfig,
         datamodule: Datamodule,
+        mesh=None,
         model_config: PrithviConfig | None = None,
         run_logger=None,
         checkpoint_manager=None,
         device: torch.device | str | None = None,
     ) -> None:
-        _refuse_unported(config, run_logger)
+        _refuse_unported(config, run_logger, mesh, model_config)
         self.config = config
         self.dm = datamodule
-        self.device = resolve_device(device)
-        self.run_logger = run_logger
+        self.mesh = mesh
+        self.is_main = mesh is None or dist.get_rank() == 0
+        self.device = resolve_device(device) if device is not None or mesh is None else mesh_device(mesh)
+        self.run_logger = run_logger if self.is_main else None
         self.ckpt = checkpoint_manager
         t = config.train
         self.mask_ratio = config.model.mask_ratio
         self.compute_dtype = COMPUTE_DTYPES[t.compute_dtype]
         self.model_config = model_config if model_config is not None else default_model_config(config)
+        tp_axis = self.model_config.tp_axis
         self.model = PrithviMAE(
             self.model_config, dtype=self.compute_dtype, device=self.device,
             generator=torch.Generator().manual_seed(t.seed),
+            tp_group=mesh.get_group(tp_axis) if mesh is not None and tp_axis is not None else None,
         )
         if not t.from_scratch:
             self._load_pretrained()
+        if mesh is not None:
+            replicate_module(self.model, mesh)
         if parse_bands(config.datamodule.dataset_cfg.bands) == list(BANDS):
             mean, std = load_prithvi_mean_std()  # the published Prithvi normalization
         else:
@@ -234,7 +260,8 @@ class MAETrainer:
         self.model.load_state_dict(restored["model"], strict=True)
         self.optimizer.load_state_dict(restored["optimizer"])
         self.step = restored["step"]
-        logger.info(f"Resumed MAE training from epoch {latest} (step {self.step})")
+        if self.is_main:
+            logger.info(f"Resumed MAE training from epoch {latest} (step {self.step})")
         return latest + 1
 
     def fit(self, epochs: int | None = None, start_epoch: int = 0) -> list[dict]:
@@ -255,6 +282,8 @@ class MAETrainer:
                 **{f"val/{k}": v for k, v in va.items()},
             }
             history.append(record)
+            if not self.is_main:
+                continue
             logger.info(
                 f"mae epoch {epoch}: train loss {tr.get('loss', float('nan')):.4f} | "
                 f"val loss {va.get('loss', float('nan')):.4f} | {tr.get('images_per_sec', 0):.1f} img/s"
