@@ -1,8 +1,12 @@
 """Drive s2tpu_torch's serving, training and MAE pretraining paths (dense and tensor-parallel) on one NVIDIA card and hold its kernels against their plain versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase below
+    python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
+``--attention`` uses only the attention wrappers' interfaces, so a copy of
+this script run from the root of an older checkout times that checkout's
+attention kernels beside this one's.
 It imports nothing of JAX or of the JAX package ``s2tpu``. Phases, in order;
 any failure raises and the script exits non-zero without printing a result:
 
@@ -48,6 +52,9 @@ any failure raises and the script exits non-zero without printing a result:
    1024; streaming attention (#5) at the T=3 decoder (16, 589, 16, 32) and
    L = 513, on strided views of one qkv projection; bf16 and f32, beside
    ``F.scaled_dot_product_attention`` on head-major tensors as the yardstick.
+   Then #5 at the tile edges (L = 1, 63, 64, 65), the bf16 wrapper's refusal
+   of a misaligned view, and each launch's device time of #9, #7 (the T=1
+   decoder) and #5 (the T=3 decoder) from ``torch.profiler``.
 9. MAE slice, T=1: Prithvi-100M pretrained from scratch through
    ``s2tpu_torch.cli.train_mae --type pretrain`` (bf16, batch 64, 224^2) on
    an unlabeled synthetic AOI for 2 epochs of 2 steps, each followed by an
@@ -266,7 +273,28 @@ def phase_build() -> None:
             f"budgets in the source notes), {spills} bytes spilled; "
             f"-> {_build.library_path(name, sources).relative_to(REPO)}"
         )
+        if "attention" in name:
+            for kernel, line in ptxas_kernels(report):
+                log(f"ptxas -v {name}: {kernel}: {line}")
     log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libraries)} libraries concurrently in {seconds:.1f} s")
+
+
+def ptxas_kernels(report: str) -> list[tuple[str, str]]:
+    """(kernel with its template arguments, ptxas's spill + register line)
+    for each instantiation in a ``-Xptxas -v`` report."""
+    found, kernel, spill = [], None, ""
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?((?:flash_)?attn_\w+?_kernel)I(\w+?)EEv", line)
+        if entry:
+            dtype = ["bf16"] if "__nv_bfloat16" in entry.group(2) else ["f32"] if entry.group(2)[0] == "f" else []
+            kernel = f"{entry.group(1)}<{','.join(dtype + re.findall(r'L[ib](\d+)', entry.group(2)))}>"
+            spill = ""
+        elif kernel and "bytes spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif kernel and "Used" in line and "registers" in line:
+            found.append((kernel, f"{spill}; {line.split(':', 1)[-1].strip()}"))
+            kernel = None
+    return found
 
 
 def depthwise_error(out: torch.Tensor, ref: torch.Tensor, what: str) -> torch.Tensor:
@@ -1059,9 +1087,86 @@ def check_flash_attention(shape: tuple, dtype: torch.dtype, gen: torch.Generator
     t["ms"] = cuda_ms(lambda: fa.flash_attention_forward(q, k, v))
     t["plain_ms"] = cuda_ms(lambda: fa.flash_attention_forward_reference(q, k, v), iters=5, warmup=1)
     t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    # f32 operations whatever the input type: the kernel upcasts, as the TPU kernel does.
-    t["bound_ms"], t["bound_by"] = bound(4 * qkv.element_size() * b * l * h * dh, 4 * b * h * l * l * dh)
+    # q, k, v in and o out once; two B·H·L²·Dh products (s and p·v) at the card's rate for
+    # the kernel's products: bf16 on the tensor cores, f32 on the CUDA cores.
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t["bound_ms"], t["bound_by"] = bound(4 * qkv.element_size() * b * l * h * dh, 4 * b * h * l * l * dh, rate)
     return t
+
+
+def check_flash_edges(gen: torch.Generator) -> None:
+    """#5 against its plain version at the tile edges (L = 1, 63, 64, 65), both
+    head widths and types; the bf16 wrapper refuses a view that is not
+    16-byte aligned."""
+    from s2tpu_torch.ops import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for l in (1, 63, 64, 65):
+            for h, dh in ((4, 32), (3, 64)):
+                qkv = torch.randn(2, l, 3 * h * dh, generator=gen).to("cuda", dtype)
+                q, k, v = qkv.reshape(2, l, 3, h, dh).unbind(2)
+                out = fa.flash_attention_forward(q, k, v)
+                ref = fa.flash_attention_forward_reference(q, k, v)
+                torch.cuda.synchronize()
+                qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+                p = torch.softmax(qf @ kf.transpose(-1, -2) / math.sqrt(dh), dim=-1)
+                what = f"B=2 L={l} H={h} Dh={dh} {str(dtype).split('.')[1]}"
+                attention_error(out, ref, (p @ vf.abs()).transpose(1, 2), f"flash attention at {what}")
+    flat = torch.zeros(600 * 2 * 32 + 1, dtype=torch.bfloat16, device="cuda")
+    q = flat[1:].view(1, 600, 2, 32)  # starts 2 bytes past an aligned address
+    try:
+        fa.flash_attention_forward(q, q, q)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash attention (bf16) took a view that is not 16-byte aligned")
+    log("flash attention tile edges: L = 1, 63, 64, 65 x Dh 32, 64 x bf16, f32 within tolerance; "
+        "a misaligned bf16 view refused")
+
+
+def attention_launch_breakdown() -> None:
+    """Device time of each launch of #9 and #7 (the T=1 decoder) and #5 (the T=3
+    decoder), bf16, by kernel name (torch.profiler over 10 calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from s2tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    b, l, h, dh = next(iter(DENSE_ATTENTION_SHAPES))
+    qkv = torch.randn(b, l, 3 * h * dh, generator=gen).to("cuda", torch.bfloat16)
+    dout = torch.randn(b, l, h * dh, generator=gen).to("cuda", torch.bfloat16)
+    out = fa.fused_attention_dense_forward(qkv, h)
+    qkv_hm = torch.randn(3, b, h, l, dh, generator=gen).to("cuda", torch.bfloat16)
+    dout_hm = torch.randn(b, h, l, dh, generator=gen).to("cuda", torch.bfloat16)
+    out_hm = fa.fused_attention_qkv_forward(qkv_hm)
+    fb, fl, fh, fdh = next(iter(FLASH_ATTENTION_SHAPES))
+    fqkv = torch.randn(fb, fl, 3 * fh * fdh, generator=gen).to("cuda", torch.bfloat16)
+    fq, fk, fv = fqkv.reshape(fb, fl, 3, fh, fdh).unbind(2)
+    cases = {
+        f"#9 backward B={b} L={l} H={h} Dh={dh}": lambda: fa.fused_attention_dense_backward(qkv, out, dout, h),
+        f"#7 backward B={b} L={l} H={h} Dh={dh}": lambda: fa.fused_attention_qkv_backward(qkv_hm, out_hm, dout_hm),
+        f"#5 forward B={fb} L={fl} H={fh} Dh={fdh}": lambda: fa.flash_attention_forward(fq, fk, fv),
+    }
+    for label, fn in cases.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        total = sum(e.self_device_time_total for e in kernels) / 10 / 1e3
+        if total == 0.0:
+            log(f"launch breakdown {label}: the profiler recorded no device time (not measured)")
+            continue
+        parts = "; ".join(
+            f"{e.key[:60]} x{e.count // 10} {e.self_device_time_total / 10 / 1e3:.4f} ms "
+            f"({e.self_device_time_total / 10 / 1e3 / total:.0%})"
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+        )
+        log(f"launch breakdown {label}: {total:.4f} ms per call of device time: {parts}")
 
 
 def phase_attention_kernels() -> dict:
@@ -1102,6 +1207,21 @@ def phase_attention_kernels() -> dict:
         "qkv": main_shape(qkv, QKV_ATTENTION_SHAPES),
         "flash": {**main_flash, "max_abs_err": max(t["max_abs_err"] for t in flash.values())},
     }
+
+
+def attention_only() -> int:
+    """``--attention``: the build, the attention kernels against their plain
+    versions with their times, and each launch's device time; no slices and
+    no result lines. Uses only the wrappers' interfaces, so a copy of this
+    script run from the root of an older checkout measures that checkout's
+    kernels (parent and change alternated in one call)."""
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; torch {torch.__version__}")
+    t0 = time.perf_counter()
+    phase_build()
+    phase_attention_kernels()
+    attention_launch_breakdown()
+    log(f"attention only: {time.perf_counter() - t0:.1f} s")
+    return 0
 
 
 def mae_expected_launches(model_config, steps: int, eval_batches: int, mask_ratio: float) -> dict[str, int]:
@@ -1490,7 +1610,10 @@ def phase_mae_f32_step(mesh=None) -> None:
     log(f"f32 {form}mae step card vs cpu: loss {card['loss']:.6f} vs {cpu['loss']:.6f}, in {time.perf_counter() - t0:.1f} s")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--attention"]):
+        print("usage: python3 chip_smoke.py [--attention]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1499,6 +1622,8 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 1
+    if argv:
+        return attention_only()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi()
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1515,6 +1640,8 @@ def main() -> int:
     bwd_times = timed("kernels (depthwise backward)", phase_train_kernels)
     ce_times = timed("kernels (fused CE)", phase_fused_ce)
     attn_times = timed("kernels (attention)", phase_attention_kernels)
+    timed("attention tile edges", check_flash_edges, torch.Generator().manual_seed(SEED + 6))
+    timed("attention launch breakdown", attention_launch_breakdown)
     work = REPO / "out" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
@@ -1676,4 +1803,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,8 +6,8 @@ object with a plain C interface, for ``sm_90a`` (Hopper):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC ...
 
 The object lands in ``ops/build/`` under a name keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. ``-Xptxas -v`` output (registers, shared memory, spills) is kept
+sources, the headers of ``csrc/`` and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. ``-Xptxas -v`` output (registers, shared memory, spills) is kept
 beside it in a ``.log`` file. Nothing here runs at import time. Libraries
 build independently: :func:`load_libraries` runs one nvcc per library, all
 at once.
@@ -48,10 +48,16 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+HEADER_SUFFIXES = (".cuh", ".h")
+
+
 def library_path(name: str, sources: list[str]) -> Path:
-    """Build output for ``name``: ``build/lib<name>_<hash of sources + flags>.so``."""
+    """Build output for ``name``: ``build/lib<name>_<hash>.so``, the hash
+    over the flags, the sources and every header in ``csrc/`` (a source may
+    include any of them, so an edited header rebuilds every library)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC_DIR.iterdir() if p.suffix in HEADER_SUFFIXES)
+    for src in [*sources, *headers]:
         digest.update(src.encode())
         digest.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"

@@ -45,18 +45,24 @@
 //   would round the operands), as register-blocked f32 FMAs on the CUDA
 //   cores. The forward block owns (b, h, 32 query rows) and keeps their f32
 //   score rows in shared memory (131 KB at L = 1024) for the softmax.
-// * Backward, both types, FlashAttention-2 split, no atomics: a statistics
-//   pass (the forward's first half) writes each row's max m, sum l and
-//   delta to an f32 scratch; then one block per (b, h, 64 keys) loops over
-//   every 64-row query tile and accumulates dk and dv in registers, and one
-//   block per (b, h, 64 query rows) loops over every key tile and
-//   accumulates dq. Each sum runs in a fixed order: the same bits on every
-//   run. Every score is formed by the same operations in all three kernels
-//   of a type, so the backward recomputes the forward's p bit for bit.
+// * Backward, both types, FlashAttention-2 split, no atomics; each sum runs
+//   in a fixed order, so every run gives the same bits.
+//   - bf16, two launches: one block per (b, h, 64 query rows) forms delta,
+//     sweeps the keys once for each row's max and sum, writes (m, 1/l,
+//     delta) to an f32 scratch and sweeps them again for dq; then one block
+//     per (b, h, 64 keys) streams the query tiles with their statistics and
+//     accumulates dk and dv. Streamed tiles are double-buffered through
+//     cp.async; q / do (launch 1) and k / v (launch 2) stay in registers as
+//     mma operands, and the score tiles never leave them.
+//   - f32, three launches: a statistics pass (the forward's first half)
+//     writes each row's max m, sum l and delta; then dk/dv blocks and dq
+//     blocks as above, with every tile copied synchronously. Every score is
+//     formed by the same operations in all three kernels, so the backward
+//     recomputes the forward's p bit for bit.
 //
-// Shared memory per block at Dh = 64: bf16 forward 27,648 bytes, dk/dv
-// 56,064, dq 37,632, none growing with L; f32 forward 156,160 at L = 1024,
-// dk/dv 100,608, dq 83,968.
+// Shared memory per block at Dh = 64: bf16 forward 27,648 bytes, backward
+// dq 55,552 and dk/dv 56,832, none growing with L; f32 forward 156,160 at
+// L = 1024, dk/dv 100,608, dq 83,968.
 //
 // Bound (either layout: the same bytes): for the T = 1 Prithvi decoder
 // (B = 64, L = 197, H = 16, Dh = 32, bf16) the least time is set by bytes
@@ -64,16 +70,13 @@
 // backward) against 5.1 / 12.9 us of
 // tensor-core operations. In f32 the operations bound it (67 TFLOP/s:
 // 76 / 190 us). What keeps these kernels from their bound: scores are
-// recomputed (twice in the forward, three times in the backward: 8
-// products of L^2 Dh where 5 are needed), each (b, h) re-reads its k and v
-// from L2 once per query tile, and each tile is copied to shared memory and
-// then used, with no copy in flight behind the products (no cp.async / TMA
-// pipeline).
+// recomputed (twice in the forward; in the backward 8 products of L^2 Dh
+// where 5 are needed: q k^T three times, do v^T twice), each (b, h) re-reads
+// its k and v from L2 once per query tile, and the forward and the f32
+// backward copy each tile to shared memory and then use it, with no copy in
+// flight behind the products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -439,122 +442,26 @@ __global__ void __launch_bounds__(kThreads) attn_fused_dq_kernel(const float* __
 // ---------------------------------------------------------------------------
 // bf16 inputs: the same algorithm with every product on the tensor cores,
 // mma.sync.m16n8k16 with bf16 operands and f32 accumulation (exact products
-// of bf16 values summed in f32, as the TPU kernel's MXU dots). Shared tiles
-// are bf16 and row-major as the tensors are; the operands a product needs
-// transposed (v for p v, q and do for dk and dv, pc and ds for dv and dk, k
-// for dq) come through ldmatrix.trans. Blocks are 4 warps.
+// of bf16 values summed in f32, as the TPU kernel's MXU dots), through the
+// helpers of attention_mma.cuh. Shared tiles are bf16 and row-major as the
+// tensors are; the operands a product needs transposed come through
+// ldmatrix.trans. Blocks are 4 warps.
 // ---------------------------------------------------------------------------
-typedef __nv_bfloat16 bf16;
-constexpr int kMmaThreads = 128;
-constexpr int kLdT = kTile + 8;  // bf16 row stride of a 64-wide tile: 8 rows of a fragment hit 8 bank groups
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-
-// c += a b over one 16 x 8 x 16 tile.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The A fragment of rows r0..r0+15, columns c0..c0+15 of X (row-major, ld).
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* x, int ld, int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = x + (r0 + (lane >> 2)) * ld + c0 + 2 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// The B fragment of Y^T for columns n0..n0+7 (rows of Y) and k0..k0+15.
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* y, int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = y + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// Transposed operands through ldmatrix.trans, from row-major tiles whose rows
-// start 16-byte aligned. The A fragment of X^T for rows m0..m0+15 (columns of
-// X) and k0..k0+15 (rows of X):
-__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const bf16* x, int ld, int m0, int k0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  const bf16* p = x + (k0 + (lane & 7) + 8 * (i >> 1)) * ld + m0 + 8 * (i & 1);
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// The B fragment of Z itself (Z row-major with k along its rows) for rows
-// k0..k0+15 and columns n0..n0+7.
-__device__ __forceinline__ void frag_b_t(uint32_t (&b)[2], const bf16* z, int ld, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = z + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + n0;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
-
-// Rows [r0, r0 + rows) x DH columns from `col` of a (.., ld) bf16 tensor into
-// s[r][d] (row stride lds), rows past L as zeros; 16-byte copies (ld, col and
-// lds are multiples of 8 elements).
+// Forward, bf16. grid (ceil(L / 64), H, B); warp w owns query rows 16 w.. of
+// the block's 64. Two passes over the keys, with no score rows in shared
+// memory: the first finds each row's max m and sum l (the sum rescaled as
+// the max grows, a reordering of the same f32 sum), the second recomputes
+// each score tile, forms p = exp(s - m) / l in f32, rounds it to bf16
+// straight into the A operand of p v, and accumulates o in f32. Shared: q,
+// k, v [64][DH + 8]: 27,648 bytes at Dh = 64, independent of L. Registers,
+// not shared memory, set how many blocks an SM holds, so the bound asks for
+// 5 (Dh = 32, <= 96 registers) and 4 (Dh = 64, <= 128): left free, ptxas has
+// taken 106 at Dh = 32, one block fewer per SM and 12 % slower at the T = 1
+// decoder (chip_smoke, H100).
 template <int DH>
-__device__ __forceinline__ void copy_rows(bf16* s, int lds, const bf16* g, int ld, int col, int r0, int rows,
-                                          int L) {
-  for (int idx = threadIdx.x; idx < rows * (DH / 8); idx += kMmaThreads) {
-    const int r = idx / (DH / 8), w = idx % (DH / 8), row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L) v = *reinterpret_cast<const uint4*>(g + (size_t)row * ld + col + 8 * w);
-    *reinterpret_cast<uint4*>(s + r * lds + 8 * w) = v;
-  }
-}
-
-// Scores of one 16-row x 64-key tile: s[j] is the C fragment of keys 8j..8j+7,
-// (q k^T) for rows r0.. of Q and the 64 rows of K, unscaled.
-template <int DH>
-__device__ __forceinline__ void mma_scores(float (&s)[8][4], const bf16* Q, const bf16* K, int r0) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
-    uint32_t a[4];
-    frag_a(a, Q, DH + 8, r0, 16 * ks);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b[2];
-      frag_b(b, K, DH + 8, 8 * j, 16 * ks);
-      mma_bf16(s[j], a, b);
-    }
-  }
-}
-
-// Forward (STATS = false) and the statistics pass (STATS = true), bf16.
-// grid (ceil(L / 64), H, B); warp w owns query rows 16 w.. of the block's 64.
-// Two passes over the keys, with no score rows in shared memory: the first
-// finds each row's max m and sum l (the sum rescaled as the max grows, a
-// reordering of the same f32 sum), the second recomputes each score tile,
-// forms p = exp(s - m) / l in f32, rounds it to bf16 straight into the A
-// operand of p v, and accumulates o in f32. The statistics pass is the
-// first pass plus delta. Shared: q, k, v [64][DH + 8]: 27,648 bytes at
-// Dh = 64, independent of L. Registers, not shared memory, set how many
-// blocks an SM holds, so the bound asks for 5 (Dh = 32, <= 96 registers) and
-// 4 (Dh = 64, <= 128): left free, ptxas has taken 106 at Dh = 32, one block
-// fewer per SM and 12 % slower at the T = 1 decoder (chip_smoke, H100).
-template <int DH, bool STATS>
 __global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
-    attn_fused_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                              const bf16* __restrict__ o_saved, const bf16* __restrict__ dout,
-                              float* __restrict__ stats, Dims dims) {
+    attn_fused_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, Dims dims) {
   extern __shared__ float smem[];
   constexpr int LD = DH + 8;
   const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
@@ -598,26 +505,6 @@ __global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
       m[i] = m_new;
     }
   }
-  if constexpr (STATS) {
-    const size_t n = (size_t)dims.B * dims.H * L;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qi = q0 + 16 * warp + g + 8 * i;
-      if (t == 0 && qi < L) {
-        const size_t idx = ((size_t)b * dims.H + h) * L + qi;
-        stats[idx] = m[i];
-        stats[n + idx] = l[i];
-      }
-    }
-    const int qi = q0 + threadIdx.x;
-    if (threadIdx.x < kTile && qi < L) {  // delta = rowsum(do * o) in f32
-      const size_t off = (size_t)b * dims.o.batch + (qi * dims.o.row + h * dims.o.head);
-      float delta = 0.f;
-      for (int d = 0; d < DH; ++d) delta += __bfloat162float(dout[off + d]) * __bfloat162float(o_saved[off + d]);
-      stats[2 * n + ((size_t)b * dims.H + h) * L + qi] = delta;
-    }
-    return;
-  }
 
   // 2. o = round(p) v, p recomputed per key tile.
   constexpr int NJ = DH / 8;
@@ -637,9 +524,8 @@ __global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
                        ? expf(__fmul_rn(s[jj][e], dims.scale) - m[e >> 1]) / l[e >> 1] : 0.f;
 #pragma unroll
     for (int ks = 0; ks < kTile / 16; ++ks) {
-      const uint32_t a[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]), pack_bf16(s[2 * ks][2], s[2 * ks][3]),
-                             pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                             pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+      uint32_t a[4];
+      c_to_a(a, s[2 * ks], s[2 * ks + 1]);
 #pragma unroll
       for (int jd = 0; jd < NJ; ++jd) {
         uint32_t bv[2];
@@ -659,180 +545,306 @@ __global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
     }
 }
 
-// In place: the C fragments s -> p and dp -> ds of rows r0.. x keys 0..63 of
-// the tile at (q0, k0), zero outside L x L; the statistics m, l, delta are
-// indexed by the row in the tile.
-__device__ __forceinline__ void mma_probs(float (&s)[8][4], float (&dp)[8][4], const float* m, const float* l,
-                                          const float* delta, int r0, int q0, int k0, int L, float scale) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-      float pv = 0.f, dv = 0.f;
-      if (q0 + r < L && k0 + c < L) {
-        pv = expf(__fmul_rn(s[j][e], scale) - m[r]) / l[r];
-        dv = round_bf16(pv * (dp[j][e] - delta[r]) * scale);
-      }
-      s[j][e] = pv;
-      dp[j][e] = dv;
-    }
+// Backward, bf16: two launches, FlashAttention-2's split, no atomics. Both
+// form p from a score s (the f32 sum of bf16 products, unscaled) and the
+// row's statistics by this one formula, c = scale log2(e), mc the row's max
+// of s c and linv 1 / its sum of exp2(s c - mc). Launch 1 computes the
+// statistics and writes them; launch 2 reads them. Both sum the same exact
+// products in the same k-steps (q k^T in launch 1, k q^T in launch 2, one
+// operand order each); nothing depends on the two giving the same bits, and
+// each launch's sums run in a fixed order, so a repeat gives the same dqkv.
+__device__ __forceinline__ float bwd_prob(float s, float c, float mc, float linv) {
+  return exp2f(__fmaf_rn(s, c, -mc)) * linv;
 }
 
-// dk, dv (bf16): grid (ceil(L / 64), H, B), one block per 64 keys looping over
-// every query tile in order. Shared: k, v, q, do [64][DH + 8], pc and ds
-// [64][kLdT] (query rows x keys): 56,064 bytes at Dh = 64.
+// Backward launch 1 of 2, bf16: dq and the rows' statistics. grid
+// (ceil(L / 64), H, B); warp w owns query rows 16 w.. of the block's 64 (this
+// thread rows 16 w + g and + 8, with its quad). The q and do tiles are
+// copied once (cp.async) and held as A fragments in registers; while they
+// copy, delta = rowsum(do o) of the block's rows is formed from 16-byte loads,
+// DH / 8 lanes a row and a shuffle tree. The keys are swept twice, each tile
+// double-buffered through cp.async (the next one's copy in flight behind the
+// products): first k alone, for each row's max and sum (online, in log2
+// units), written with delta to `stats` as (mc, 1/l, delta); then k and v,
+// 16 keys at a time: s = q k^T, dp = do v^T, p, ds = round(p (dp - delta)
+// scale) straight into the A operand of dq += ds k. Per-row values live in
+// registers. Shared: q, do and two stages of k and v [64][DH + 8] bf16 and
+// delta [64] f32: 55,552 bytes at Dh = 64.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads) attn_fused_dkdv_mma_kernel(const bf16* __restrict__ qkv,
-                                                                           const bf16* __restrict__ dout,
-                                                                           const float* __restrict__ stats,
-                                                                           bf16* __restrict__ dqkv, Dims dims) {
-  extern __shared__ float smem[];
-  constexpr int LD = DH + 8, NJ = DH / 8;
-  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hq = h * dims.qkv.head;
-  float* m = smem;
-  float* l = m + kTile;
-  float* delta = l + kTile;
-  bf16* Ks = reinterpret_cast<bf16*>(delta + kTile);
-  bf16* Vs = Ks + kTile * LD;
-  bf16* Qs = Vs + kTile * LD;
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Pc = dOs + kTile * LD;
-  bf16* dS = Pc + kTile * kLdT;
-  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
-  const bf16* dbase = dout + (size_t)b * dims.o.batch;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-
-  copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
-  copy_rows<DH>(Vs, LD, base, ld, 2 * P + hq, k0, kTile, L);
-  float dk[NJ][4] = {}, dv[NJ][4] = {};
-  for (int q0 = 0; q0 < L; q0 += kTile) {
-    __syncthreads();
-    copy_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
-    copy_rows<DH>(dOs, LD, dbase, dims.o.row, h * dims.o.head, q0, kTile, L);
-    if (threadIdx.x < kTile) {
-      const size_t n = (size_t)dims.B * dims.H * L;
-      const int row = q0 + threadIdx.x;
-      const size_t i = ((size_t)b * dims.H + h) * L + row;
-      m[threadIdx.x] = row < L ? stats[i] : 0.f;
-      l[threadIdx.x] = row < L ? stats[n + i] : 1.f;
-      delta[threadIdx.x] = row < L ? stats[2 * n + i] : 0.f;
-    }
-    __syncthreads();
-    {
-      // warp w: query rows 16 w.. against the block's 64 keys
-      float p[8][4], ds[8][4];
-      mma_scores<DH>(p, Qs, Ks, 16 * warp);
-      mma_scores<DH>(ds, dOs, Vs, 16 * warp);
-      mma_probs(p, ds, m, l, delta, 16 * warp, q0, k0, L, dims.scale);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int off = (16 * warp + g + 8 * i) * kLdT + 8 * j + 2 * t;
-          *reinterpret_cast<uint32_t*>(Pc + off) = pack_bf16(p[j][2 * i], p[j][2 * i + 1]);
-          *reinterpret_cast<uint32_t*>(dS + off) = pack_bf16(ds[j][2 * i], ds[j][2 * i + 1]);
-        }
-    }
-    __syncthreads();
-    // warp w: keys 16 w.., dv += pc^T do, dk += ds^T q over the tile's 64 rows
-#pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      uint32_t ap[4], as[4];
-      frag_a_t(ap, Pc, kLdT, 16 * warp, 16 * ks);
-      frag_a_t(as, dS, kLdT, 16 * warp, 16 * ks);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t bo[2], bq[2];
-        frag_b_t(bo, dOs, LD, 16 * ks, 8 * j);
-        frag_b_t(bq, Qs, LD, 16 * ks, 8 * j);
-        mma_bf16(dv[j], ap, bo);
-        mma_bf16(dk[j], as, bq);
-      }
-    }
-  }
-  bf16* obase = dqkv + (size_t)b * dims.qkv.batch;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = k0 + 16 * warp + g + 8 * e;
-      if (key >= L) continue;
-      const size_t off = (size_t)key * ld + hq + 8 * j + 2 * t;
-      *reinterpret_cast<uint32_t*>(obase + off + P) = pack_bf16(dk[j][2 * e], dk[j][2 * e + 1]);
-      *reinterpret_cast<uint32_t*>(obase + off + 2 * P) = pack_bf16(dv[j][2 * e], dv[j][2 * e + 1]);
-    }
-}
-
-// dq (bf16): grid (ceil(L / 64), H, B), one block per 64 query rows looping
-// over every key tile in order; ds stays in registers as the A operand of
-// ds k. Shared: q, do, k, v [64][DH + 8]: 37,632 bytes at Dh = 64.
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads) attn_fused_dq_mma_kernel(const bf16* __restrict__ qkv,
-                                                                         const bf16* __restrict__ dout,
-                                                                         const float* __restrict__ stats,
-                                                                         bf16* __restrict__ dqkv, Dims dims) {
-  extern __shared__ float smem[];
-  constexpr int LD = DH + 8, NJ = DH / 8;
+__global__ void __launch_bounds__(kMmaThreads, 4)
+    attn_fused_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ o_saved,
+                             const bf16* __restrict__ dout, float* __restrict__ stats, bf16* __restrict__ dqkv,
+                             Dims dims) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = DH + 8, NK = DH / 16, NJ = DH / 8, CH = DH / 8, TILE = kTile * LD;
   const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int hq = h * dims.qkv.head;
-  float* m = smem;
-  float* l = m + kTile;
-  float* delta = l + kTile;
-  bf16* Qs = reinterpret_cast<bf16*>(delta + kTile);
-  bf16* dOs = Qs + kTile * LD;
-  bf16* Ks = dOs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + TILE;
+  bf16* Ks = dOs + TILE;     // two stages
+  bf16* Vs = Ks + 2 * TILE;  // two stages
+  float* delta_s = reinterpret_cast<float*>(Vs + 2 * TILE);
   const bf16* base = qkv + (size_t)b * dims.qkv.batch;
+  const size_t ooff = (size_t)b * dims.o.batch + h * dims.o.head;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_tiles = (L + kTile - 1) / kTile, n_steps = 2 * n_tiles;
+  const float scale = dims.scale, c = scale * kLog2e;
 
-  copy_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
-  copy_rows<DH>(dOs, LD, dout + (size_t)b * dims.o.batch, dims.o.row, h * dims.o.head, q0, kTile, L);
-  if (threadIdx.x < kTile) {
-    const size_t n = (size_t)dims.B * dims.H * L;
-    const int row = q0 + threadIdx.x;
-    const size_t i = ((size_t)b * dims.H + h) * L + row;
-    m[threadIdx.x] = row < L ? stats[i] : 0.f;
-    l[threadIdx.x] = row < L ? stats[n + i] : 1.f;
-    delta[threadIdx.x] = row < L ? stats[2 * n + i] : 0.f;
-  }
-  float dq[NJ][4] = {};
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
-    copy_rows<DH>(Vs, LD, base, ld, 2 * P + hq, k0, kTile, L);
-    __syncthreads();
-    float p[8][4], ds[8][4];
-    mma_scores<DH>(p, Qs, Ks, 16 * warp);
-    mma_scores<DH>(ds, dOs, Vs, 16 * warp);
-    mma_probs(p, ds, m, l, delta, 16 * warp, q0, k0, L, dims.scale);
+  // Step j < n_tiles copies key tile j (statistics), step n_tiles + j key
+  // and value tile j (dq), into stage j & 1; always one commit group.
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int k0 = (step < n_tiles ? step : step - n_tiles) * kTile, stage = step & 1;
+      cp_async_rows<DH>(Ks + stage * TILE, LD, base, ld, P + hq, k0, kTile, L);
+      if (step >= n_tiles) cp_async_rows<DH>(Vs + stage * TILE, LD, base, ld, 2 * P + hq, k0, kTile, L);
+    }
+    cp_async_commit();
+  };
+  cp_async_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
+  cp_async_rows<DH>(dOs, LD, dout + ooff, dims.o.row, 0, q0, kTile, L);
+  load_step(0);
+
+  for (int idx = threadIdx.x; idx < kTile * CH; idx += kMmaThreads) {
+    const int r = idx / CH, w = idx % CH, row = q0 + r;
+    float part = 0.f;
+    if (row < L) {
+      const size_t off = ooff + (size_t)row * dims.o.row + 8 * w;
+      const uint4 x = *reinterpret_cast<const uint4*>(dout + off);
+      const uint4 y = *reinterpret_cast<const uint4*>(o_saved + off);
+      const __nv_bfloat162* xa = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ya = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      // the C fragments of keys 16 ks.. are the A fragment of ds for this k step
-      const uint32_t a[4] = {pack_bf16(ds[2 * ks][0], ds[2 * ks][1]), pack_bf16(ds[2 * ks][2], ds[2 * ks][3]),
-                             pack_bf16(ds[2 * ks + 1][0], ds[2 * ks + 1][1]),
-                             pack_bf16(ds[2 * ks + 1][2], ds[2 * ks + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t bk[2];
-        frag_b_t(bk, Ks, LD, 16 * ks, 8 * j);
-        mma_bf16(dq[j], a, bk);
+      for (int e = 0; e < 4; ++e) {
+        const float2 u = __bfloat1622float2(xa[e]), v = __bfloat1622float2(ya[e]);
+        part += u.x * v.x + u.y * v.y;
       }
     }
+#pragma unroll
+    for (int off = CH / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (w == 0) delta_s[r] = part;
+  }
+
+  uint32_t qa[NK][4], da[NK][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, linv[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float dq[NJ][4] = {};
+  for (int step = 0; step < n_steps; ++step) {
+    load_step(step + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const int stage = step & 1;
+    const bf16* K = Ks + stage * TILE;
+    if (step == 0) {
+#pragma unroll
+      for (int ks = 0; ks < NK; ++ks) {
+        frag_a(qa[ks], Qs, LD, 16 * warp, 16 * ks);
+        frag_a(da[ks], dOs, LD, 16 * warp, 16 * ks);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) delta[i] = delta_s[16 * warp + g + 8 * i];
+    }
+    if (step < n_tiles) {
+      const int k0 = step * kTile;
+      float s[8][4];
+      mma_scores_reg<DH, 8>(s, qa, K, 0);
+      if (k0 + kTile > L) {  // the ragged last tile: keys >= L out of the max and the sum
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * t + (e & 1) >= L) s[j][e] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i] * c);  // in log2 units
+        l[i] *= exp2f(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(__fmaf_rn(s[j][e], c, -m[e >> 1]));
+      if (step == n_tiles - 1) {
+        const size_t n = (size_t)dims.B * dims.H * L;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+          linv[i] = 1.f / l[i];
+          const int qi = q0 + 16 * warp + g + 8 * i;
+          if (t == 0 && qi < L) {
+            const size_t idx = ((size_t)b * dims.H + h) * L + qi;
+            stats[idx] = m[i];
+            stats[n + idx] = linv[i];
+            stats[2 * n + idx] = delta[i];
+          }
+        }
+      }
+    } else {
+      const bf16* V = Vs + stage * TILE;
+      const int k0 = (step - n_tiles) * kTile;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        float s[2][4], ds[2][4];
+        mma_scores_reg<DH, 2>(s, qa, K, 16 * kk);
+        mma_scores_reg<DH, 2>(ds, da, V, 16 * kk);
+        const bool ragged = k0 + 16 * kk + 16 > L;  // keys >= L: p = 0 (their k rows are zeros anyway)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const bool out = ragged && k0 + 16 * kk + 8 * j + 2 * t + (e & 1) >= L;
+            const float p = out ? 0.f : bwd_prob(s[j][e], c, m[i], linv[i]);
+            ds[j][e] = p * (ds[j][e] - delta[i]) * scale;
+          }
+        uint32_t a[4];
+        c_to_a(a, ds[0], ds[1]);
+#pragma unroll
+        for (int jd = 0; jd < NJ; ++jd) {
+          uint32_t bk[2];
+          frag_b_t(bk, K, LD, 16 * kk, 8 * jd);
+          mma_bf16(dq[jd], a, bk);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next step's copy
   }
   bf16* obase = dqkv + (size_t)b * dims.qkv.batch;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j)
+  for (int jd = 0; jd < NJ; ++jd)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int qi = q0 + 16 * warp + g + 8 * e;
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + 16 * warp + g + 8 * i;
       if (qi < L)
-        *reinterpret_cast<uint32_t*>(obase + (size_t)qi * ld + hq + 8 * j + 2 * t) =
-            pack_bf16(dq[j][2 * e], dq[j][2 * e + 1]);
+        *reinterpret_cast<uint32_t*>(obase + (size_t)qi * ld + hq + 8 * jd + 2 * t) =
+            pack_bf16(dq[jd][2 * i], dq[jd][2 * i + 1]);
+    }
+}
+
+// Backward launch 2 of 2, bf16: dk and dv. grid (ceil(L / 64), H, B); warp w
+// owns keys 16 w.. of the block's 64 (this thread keys 16 w + g and + 8),
+// their k and v rows held as A fragments in registers. The query tiles,
+// their do tiles and their rows' statistics stream through two cp.async
+// stages. Per 16 queries the warp forms the transposed tiles s^T = k q^T and
+// dp^T = v do^T, then p^T and ds^T by launch 1's formula, and feeds them,
+// rounded to bf16, straight into the A operands of dv += pc^T do and
+// dk += ds^T q: no score tile goes through shared memory. Query rows past L
+// read as zeros with 1/l = 0, so their p is 0. Shared: k, v and two stages
+// of q and do [64][DH + 8] bf16 and of the statistics [3][64] f32: 56,832
+// bytes at Dh = 64.
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 4 : 3)
+    attn_fused_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                               const float* __restrict__ stats, bf16* __restrict__ dqkv, Dims dims) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = DH + 8, NK = DH / 16, NJ = DH / 8, TILE = kTile * LD;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;       // two stages
+  bf16* dOs = Qs + 2 * TILE;  // two stages
+  float* St = reinterpret_cast<float*>(dOs + 2 * TILE);  // two stages of (mc, 1/l, delta) x 64 rows
+  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
+  const bf16* dbase = dout + (size_t)b * dims.o.batch + h * dims.o.head;
+  const size_t n = (size_t)dims.B * dims.H * L;
+  const float* srow = stats + ((size_t)b * dims.H + h) * L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_tiles = (L + kTile - 1) / kTile;
+  const float scale = dims.scale, c = scale * kLog2e;
+
+  // Query tile j and its statistics into stage j & 1; always one commit group.
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      const int q0 = j * kTile, stage = j & 1;
+      cp_async_rows<DH>(Qs + stage * TILE, LD, base, ld, hq, q0, kTile, L);
+      cp_async_rows<DH>(dOs + stage * TILE, LD, dbase, dims.o.row, 0, q0, kTile, L);
+      for (int idx = threadIdx.x; idx < 3 * kTile; idx += kMmaThreads) {
+        const int part = idx / kTile, r = idx % kTile;
+        const bool ok = q0 + r < L;
+        cp_async4(St + (3 * stage + part) * kTile + r, ok ? srow + part * n + q0 + r : srow, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  cp_async_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
+  cp_async_rows<DH>(Vs, LD, base, ld, 2 * P + hq, k0, kTile, L);
+  load_tile(0);
+
+  uint32_t ka[NK][4], va[NK][4];
+  float dk[NJ][4] = {}, dv[NJ][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    load_tile(it + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < NK; ++ks) {
+        frag_a(ka[ks], Ks, LD, 16 * warp, 16 * ks);
+        frag_a(va[ks], Vs, LD, 16 * warp, 16 * ks);
+      }
+    }
+    const int stage = it & 1;
+    const bf16* Q = Qs + stage * TILE;
+    const bf16* dO = dOs + stage * TILE;
+    const float* mrow = St + 3 * stage * kTile;
+    const float* lrow = mrow + kTile;
+    const float* drow = lrow + kTile;
+#pragma unroll
+    for (int kq = 0; kq < kTile / 16; ++kq) {
+      float s[2][4], ds[2][4];
+      mma_scores_reg<DH, 2>(s, ka, Q, 16 * kq);
+      mma_scores_reg<DH, 2>(ds, va, dO, 16 * kq);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = 16 * kq + 8 * j + 2 * t;  // this lane's queries col, col + 1
+        const float2 mc = *reinterpret_cast<const float2*>(mrow + col);
+        const float2 li = *reinterpret_cast<const float2*>(lrow + col);
+        const float2 de = *reinterpret_cast<const float2*>(drow + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool y = e & 1;
+          const float p = bwd_prob(s[j][e], c, y ? mc.y : mc.x, y ? li.y : li.x);
+          s[j][e] = p;
+          ds[j][e] = p * (ds[j][e] - (y ? de.y : de.x)) * scale;
+        }
+      }
+      uint32_t ap[4], as[4];
+      c_to_a(ap, s[0], s[1]);
+      c_to_a(as, ds[0], ds[1]);
+#pragma unroll
+      for (int jd = 0; jd < NJ; jd += 2) {
+        uint32_t bo[2][2], bq[2][2];
+        frag_b_t_x2(bo, dO, LD, 16 * kq, 8 * jd);
+        frag_b_t_x2(bq, Q, LD, 16 * kq, 8 * jd);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          mma_bf16(dv[jd + x], ap, bo[x]);
+          mma_bf16(dk[jd + x], as, bq[x]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's copy
+  }
+  bf16* obase = dqkv + (size_t)b * dims.qkv.batch;
+#pragma unroll
+  for (int jd = 0; jd < NJ; ++jd)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = k0 + 16 * warp + g + 8 * i;
+      if (key >= L) continue;
+      const size_t off = (size_t)key * ld + hq + 8 * jd + 2 * t;
+      *reinterpret_cast<uint32_t*>(obase + off + P) = pack_bf16(dk[jd][2 * i], dk[jd][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(obase + off + 2 * P) = pack_bf16(dv[jd][2 * i], dv[jd][2 * i + 1]);
     }
 }
 
@@ -902,26 +914,27 @@ constexpr size_t fwd_mma_smem() {
 }
 
 template <int DH>
-constexpr size_t dkdv_mma_smem() {
-  return sizeof(float) * 3 * kTile + sizeof(bf16) * (4 * kTile * (DH + 8) + 2 * kTile * kLdT);
+constexpr size_t bwd_dq_smem() {
+  return sizeof(bf16) * 6 * kTile * (DH + 8) + sizeof(float) * kTile;
 }
 
 template <int DH>
-constexpr size_t dq_mma_smem() {
-  return sizeof(float) * 3 * kTile + sizeof(bf16) * 4 * kTile * (DH + 8);
+constexpr size_t bwd_dkdv_smem() {
+  return sizeof(bf16) * 6 * kTile * (DH + 8) + sizeof(float) * 6 * kTile;
 }
 
 template <int DH>
 cudaError_t forward_mma(const void* qkv, void* out, Dims dims, cudaStream_t s) {
   const size_t smem = fwd_mma_smem<DH>();
-  auto kernel = attn_fused_fwd_mma_kernel<DH, false>;
+  auto kernel = attn_fused_fwd_mma_kernel<DH>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), nullptr, nullptr, nullptr, dims);
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), dims);
   return cudaGetLastError();
 }
 
+// Two launches on one stream: dq with the statistics, then dk and dv.
 template <int DH>
 cudaError_t backward_mma(const void* qkv, const void* o, const void* dout, void* dqkv, void* stats, Dims dims,
                          cudaStream_t s) {
@@ -929,21 +942,15 @@ cudaError_t backward_mma(const void* qkv, const void* o, const void* dout, void*
   const bf16* g = static_cast<const bf16*>(dout);
   float* st = static_cast<float*>(stats);
   bf16* dq = static_cast<bf16*>(dqkv);
-  const size_t smem0 = fwd_mma_smem<DH>();
-  auto k0 = attn_fused_fwd_mma_kernel<DH, true>;
-  cudaError_t err = allow_smem(k0, smem0);
-  if (err != cudaSuccess) return err;
-  k0<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, smem0, s>>>(
-      q, nullptr, static_cast<const bf16*>(o), g, st, dims);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid((dims.L + kTile - 1) / kTile, dims.H, dims.B);
-  auto k1 = attn_fused_dkdv_mma_kernel<DH>;
-  if ((err = allow_smem(k1, dkdv_mma_smem<DH>())) != cudaSuccess) return err;
-  k1<<<grid, kMmaThreads, dkdv_mma_smem<DH>(), s>>>(q, g, st, dq, dims);
+  auto k1 = attn_fused_bwd_dq_kernel<DH>;
+  cudaError_t err = allow_smem(k1, bwd_dq_smem<DH>());
+  if (err != cudaSuccess) return err;
+  k1<<<grid, kMmaThreads, bwd_dq_smem<DH>(), s>>>(q, static_cast<const bf16*>(o), g, st, dq, dims);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto k2 = attn_fused_dq_mma_kernel<DH>;
-  if ((err = allow_smem(k2, dq_mma_smem<DH>())) != cudaSuccess) return err;
-  k2<<<grid, kMmaThreads, dq_mma_smem<DH>(), s>>>(q, g, st, dq, dims);
+  auto k2 = attn_fused_bwd_dkdv_kernel<DH>;
+  if ((err = allow_smem(k2, bwd_dkdv_smem<DH>())) != cudaSuccess) return err;
+  k2<<<grid, kMmaThreads, bwd_dkdv_smem<DH>(), s>>>(q, g, st, dq, dims);
   return cudaGetLastError();
 }
 

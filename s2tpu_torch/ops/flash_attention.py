@@ -17,8 +17,9 @@ kernel on the card:
   ``_fused_fwd_kernel`` and ``_fused_bwd_kernel``), with
   :func:`fused_attention_bhld` and :func:`fused_attention` on top.
 - :func:`flash_attention` ``(B, L, H, Dh) x 3 -> (B, L, H, Dh)``: streaming
-  online-softmax attention in f32 (``csrc/flash_attention.cu``, replacing
-  ``_flash_kernel``). Its backward differentiates the plain attention
+  online-softmax attention with f32 statistics and sums
+  (``csrc/flash_attention.cu``, replacing ``_flash_kernel``). Its backward
+  differentiates the plain attention
   (:func:`reference_attention`) with torch autograd, as the JAX package's
   custom VJP differentiates ``_reference_attention``: the TPU package has
   no backward kernel for it either.
@@ -337,9 +338,10 @@ def fused_attention_dense_backward(
 
     Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_dense`` (``:473-488``,
     TPU kernel ``_fused_bwd_dense_kernel`` ``:352``). A CUDA tensor goes
-    through kernel #9 (a statistics pass, then dk/dv and dq blocks, no
-    atomics), launched on the current stream without synchronising; a CPU
-    tensor through the plain version."""
+    through kernel #9 (bf16: dq blocks that also write the rows'
+    statistics, then dk/dv blocks; f32: a statistics pass, then dk/dv and
+    dq blocks; no atomics), launched on the current stream without
+    synchronising; a CPU tensor through the plain version."""
     global FUSED_BWD_LAUNCHES
     b, l, d, dh = _check_dense(qkv, num_heads)
     for name, t in (("out", out), ("dout", dout)):
@@ -399,9 +401,9 @@ def fused_attention_qkv_backward(qkv: torch.Tensor, out: torch.Tensor, dout: tor
 
     Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_qkv`` (``:304-318``,
     TPU kernel ``_fused_bwd_kernel`` ``:223``). A CUDA tensor goes through
-    kernel #7 (the #9 kernels on head-major strides: a statistics pass, then
-    dk/dv and dq blocks, no atomics), launched on the current stream without
-    synchronising; a CPU tensor through the plain version."""
+    kernel #7 (the #9 kernels on head-major strides, no atomics), launched
+    on the current stream without synchronising; a CPU tensor through the
+    plain version."""
     global FUSED_QKV_BWD_LAUNCHES
     b, h, l, dh = _check_qkv(qkv)
     for name, t in (("out", out), ("dout", dout)):
@@ -433,8 +435,11 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     Ports ``s2tpu/ops/flash_attention.py::_flash_forward`` (``:85-110``, TPU
     kernel ``_flash_kernel`` ``:36``). A CUDA tensor goes through kernel #5,
     launched on the current stream without synchronising; q, k and v may be
-    strided views (the last axis contiguous), f32 or bf16, Dh 32 or 64. A
-    CPU tensor goes through the plain version."""
+    strided views (the last axis contiguous), f32 or bf16, Dh 32 or 64. The
+    bf16 kernel copies rows 16 bytes at a time: each view must start 16-byte
+    aligned, with batch, token and head strides that are multiples of 8
+    elements (the views of one (B, L, 3D) projection that Attention hands
+    over are). A CPU tensor goes through the plain version."""
     global FLASH_FWD_LAUNCHES
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"expected q, k, v of one (B, L, H, Dh) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -448,6 +453,11 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
         raise ValueError(f"the flash attention kernel takes head width {KERNEL_HEAD_DIMS}, got {dh}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs q, k, v with a contiguous last axis")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention (bf16) needs q, k, v starting 16-byte aligned with batch, token and head strides "
+            "that are multiples of 8 elements (pass copies)"
+        )
     out = torch.empty((b, l, h, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

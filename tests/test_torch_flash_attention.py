@@ -233,3 +233,46 @@ def test_kernels_match_plain_versions_on_the_card(dtype):
     torch.testing.assert_close(
         tfa.flash_attention_forward(q, k, v).float(), tfa.flash_attention_forward_reference(q, k, v).float(), rtol=0, atol=atol
     )
+
+
+# #5 at its tile edges and at the T=3 decoder's lengths, on views of one projection.
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 513, 589])
+def test_flash_bf16_kernel_matches_plain_version_on_the_card(l):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    gen = torch.Generator().manual_seed(l)
+    qkv = torch.randn(2, l, 3 * 4 * 32, generator=gen).to("cuda", torch.bfloat16)
+    q, k, v = qkv.reshape(2, l, 3, 4, 32).unbind(2)
+    before = tfa.FLASH_FWD_LAUNCHES
+    out = tfa.flash_attention_forward(q, k, v)
+    assert tfa.FLASH_FWD_LAUNCHES == before + 1
+    ref = tfa.flash_attention_forward_reference(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_wrapper_raises_on_a_misaligned_view():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    flat = torch.zeros(600 * 2 * 32 + 1, dtype=torch.bfloat16, device="cuda")
+    q = flat[1:].view(1, 600, 2, 32)  # 2 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention_forward(q, q, q)
+
+
+# 783 is the longest L the dense route takes at D = 128 (fused_fits_vmem); the
+# head-major wrapper's 1024 is in tests/test_torch_fused_qkv.py.
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [129, 197, 783])
+def test_dense_backward_kernel_matches_plain_version_and_repeats_on_the_card(l):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    gen = torch.Generator().manual_seed(l)
+    qkv = torch.randn(2, l, 3 * 4 * 32, generator=gen).to("cuda", torch.bfloat16)
+    dout = torch.randn(2, l, 4 * 32, generator=gen).to("cuda", torch.bfloat16)
+    out = tfa.fused_attention_dense_forward(qkv, 4)
+    dqkv = tfa.fused_attention_dense_backward(qkv, out, dout, 4)
+    ref = tfa.fused_attention_dense_backward_reference(qkv, out, dout, 4)
+    torch.testing.assert_close(dqkv.float(), ref.float(), rtol=2.0**-6, atol=BF16_ATOL)
+    assert torch.equal(tfa.fused_attention_dense_backward(qkv, out, dout, 4), dqkv)

@@ -173,3 +173,18 @@ def test_qkv_kernels_match_plain_versions_on_the_card(dtype, l):
     ref = tfa.fused_attention_qkv_backward_reference(qkv, out, dout)
     torch.testing.assert_close(dqkv.float(), ref.float(), rtol=2.0**-6, atol=atol)
     assert (tfa.FUSED_QKV_FWD_LAUNCHES, tfa.FUSED_QKV_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [129, 197, 1024])
+def test_qkv_backward_kernel_repeats_bit_for_bit_on_the_card(l):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    gen = torch.Generator().manual_seed(l)
+    qkv = torch.randn(3, 2, 4, l, 32, generator=gen).to("cuda", torch.bfloat16)
+    dout = torch.randn(2, 4, l, 32, generator=gen).to("cuda", torch.bfloat16)
+    out = tfa.fused_attention_qkv_forward(qkv)
+    dqkv = tfa.fused_attention_qkv_backward(qkv, out, dout)
+    ref = tfa.fused_attention_qkv_backward_reference(qkv, out, dout)
+    torch.testing.assert_close(dqkv.float(), ref.float(), rtol=2.0**-6, atol=BF16_ATOL)
+    assert torch.equal(tfa.fused_attention_qkv_backward(qkv, out, dout), dqkv)
