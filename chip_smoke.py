@@ -53,7 +53,10 @@ any failure raises and the script exits non-zero without printing a result:
    L = 513, on strided views of one qkv projection; bf16 and f32, beside
    ``F.scaled_dot_product_attention`` on head-major tensors as the yardstick.
    Then #5 at the tile edges (L = 1, 63, 64, 65), the bf16 wrapper's refusal
-   of a misaligned view, and each launch's device time of #9, #7 (the T=1
+   of a misaligned view, #6 and #8 at the tile edges (head-major L = 1, 15,
+   16, 17, 63, 64, 65, 129, 148, 197, 256, 257, 1024; dense L = 128, 129,
+   148, 197, 256, 257, 783; Dh 32 and 64) with bit-equal repeats and exact
+   launch counts, and each launch's device time of #8, #6, #9, #7 (the T=1
    decoder) and #5 (the T=3 decoder) from ``torch.profiler``.
 9. MAE slice, T=1: Prithvi-100M pretrained from scratch through
    ``s2tpu_torch.cli.train_mae --type pretrain`` (bf16, batch 64, 224^2) on
@@ -78,8 +81,9 @@ any failure raises and the script exits non-zero without printing a result:
 12. One Prithvi-100M MAE train step in f32 on the card (TF32 off) against
    the CPU, same weights, input and masking noise: loss and the gradients of
    fixed tensors (the first decoder block's through #9).
-13. Result: a ``kernels`` JSON line (nine kernels), the ``nvidia-smi``
-   line, then the last line ``{"ok": true, "device": {...}}``.
+13. Result: a ``kernels`` JSON line (nine kernels; #8 and #6 with their bf16
+   kernels' registers and spill bytes from ``-Xptxas -v``), the
+   ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -154,6 +158,13 @@ DENSE_ATTENTION_SHAPES = {
 # longest L the wrapper takes (JAX's fused_attention_qkv takes any L <= 1024).
 QKV_ATTENTION_SHAPES = {**DENSE_ATTENTION_SHAPES, (2, 1024, 16, 32): "longest L"}
 FLASH_ATTENTION_SHAPES = {(16, 589, 16, 32): "T=3 decoder", (16, 513, 16, 32): "ragged"}
+# #6/#8's tile edges: one past, at and one short of the 16-key groups and 64-
+# and 128-row blocks the bf16 forward cuts its work to, the main path's L,
+# both sides of the last L with k and v resident (256), and the longest each
+# wrapper takes; at D = 128 (4 heads of 32 or 2 of 64). The dense wrapper
+# takes only the fused route's L >= 128.
+QKV_EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 129, 148, 197, 256, 257, 1024)
+DENSE_EDGE_LENGTHS = (128, 129, 148, 197, 256, 257, 783)
 # Kernel vs plain: |err| <= ATTN_RTOL x the same sums over absolute values,
 # per element. f32: sums of up to L <= 1024 products in another order
 # (worst case L x 2^-24 = 6e-5 of the sum of |terms|) and expf/division to an
@@ -251,7 +262,9 @@ def kernel_libraries() -> dict[str, list[str]]:
     }
 
 
-def phase_build() -> None:
+def phase_build() -> dict[str, str]:
+    """Build every library from the checkout's sources; returns each attention
+    kernel instantiation's ptxas line (spills; registers)."""
     from s2tpu_torch.ops import _build
 
     libraries = kernel_libraries()
@@ -262,6 +275,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load_libraries(libraries)  # one nvcc per library, all at once
     seconds = time.perf_counter() - t0
+    attention = {}
     for name, sources in libraries.items():
         report = _build.build_log(name, sources)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
@@ -276,7 +290,24 @@ def phase_build() -> None:
         if "attention" in name:
             for kernel, line in ptxas_kernels(report):
                 log(f"ptxas -v {name}: {kernel}: {line}")
+                attention[kernel] = line
     log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libraries)} libraries concurrently in {seconds:.1f} s")
+    return attention
+
+
+def forward_ptxas(attention: dict[str, str]) -> dict:
+    """Registers and spill-store bytes of the bf16 fused forward's two kernels
+    (#8/#6: k and v resident for L <= 256, streamed beyond) per head width,
+    from :func:`phase_build`'s ptxas lines."""
+    out = {}
+    for kernel in ("attn_fused_fwd_mma_resident_kernel", "attn_fused_fwd_mma_kernel"):
+        for dh in (32, 64):
+            line = attention[f"{kernel}<{dh}>"]
+            out[f"{kernel}<{dh}>"] = {
+                "registers": int(re.search(r"Used (\d+) registers", line).group(1)),
+                "spill_bytes": int(re.search(r"(\d+) bytes spill stores", line).group(1)),
+            }
+    return {"ptxas": out}
 
 
 def ptxas_kernels(report: str) -> list[tuple[str, str]]:
@@ -1124,9 +1155,43 @@ def check_flash_edges(gen: torch.Generator) -> None:
         "a misaligned bf16 view refused")
 
 
+def check_fused_edges(gen: torch.Generator) -> None:
+    """#6 and #8 against their plain versions at the tile edges
+    (QKV_EDGE_LENGTHS, DENSE_EDGE_LENGTHS), Dh 32 and 64, bf16 and f32: within
+    ATTN_RTOL of the sums over |p||v|, a repeat bit for bit, one launch a call."""
+    from s2tpu_torch.ops import flash_attention as fa
+
+    def check(what: str, run, ref, q, k, v, counter: str) -> None:
+        before = getattr(fa, counter)
+        out = run()
+        again = run()
+        torch.cuda.synchronize()
+        if getattr(fa, counter) != before + 2:
+            raise AssertionError(f"{what}: {getattr(fa, counter) - before} launches for 2 calls")
+        if not torch.equal(again, out):
+            raise AssertionError(f"{what} is not deterministic")
+        pc = fa._probs(q, k, 1.0 / math.sqrt(q.shape[-1])).to(q.dtype).float()
+        attention_error(out, ref, pc @ v.float().abs(), what)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for h, dh in ((4, 32), (2, 64)):
+            for l in QKV_EDGE_LENGTHS:
+                qkv = torch.randn(3, 2, h, l, dh, generator=gen).to("cuda", dtype)
+                check(f"#6 head-major L={l} Dh={dh} {name}", lambda: fa.fused_attention_qkv_forward(qkv),
+                      fa.fused_attention_qkv_forward_reference(qkv), *qkv.unbind(0), "FUSED_QKV_FWD_LAUNCHES")
+            for l in DENSE_EDGE_LENGTHS:
+                qkv = torch.randn(2, l, 3 * h * dh, generator=gen).to("cuda", dtype)
+                out_heads = fa._heads(fa.fused_attention_dense_forward_reference(qkv, h), h)
+                check(f"#8 dense L={l} Dh={dh} {name}", lambda: fa._heads(fa.fused_attention_dense_forward(qkv, h), h),
+                      out_heads, *fa._split_heads(qkv, h), "FUSED_FWD_LAUNCHES")
+    log(f"fused attention forward tile edges: #6 L = {QKV_EDGE_LENGTHS}, #8 L = {DENSE_EDGE_LENGTHS} x Dh 32, 64 x "
+        "bf16, f32 within tolerance, repeats bit-equal, one launch a call")
+
+
 def attention_launch_breakdown() -> None:
-    """Device time of each launch of #9 and #7 (the T=1 decoder) and #5 (the T=3
-    decoder), bf16, by kernel name (torch.profiler over 10 calls)."""
+    """Device time of each launch of #8, #6, #9 and #7 (the T=1 decoder) and #5
+    (the T=3 decoder), bf16, by kernel name (torch.profiler over 10 calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1144,6 +1209,8 @@ def attention_launch_breakdown() -> None:
     fqkv = torch.randn(fb, fl, 3 * fh * fdh, generator=gen).to("cuda", torch.bfloat16)
     fq, fk, fv = fqkv.reshape(fb, fl, 3, fh, fdh).unbind(2)
     cases = {
+        f"#8 forward B={b} L={l} H={h} Dh={dh}": lambda: fa.fused_attention_dense_forward(qkv, h),
+        f"#6 forward B={b} L={l} H={h} Dh={dh}": lambda: fa.fused_attention_qkv_forward(qkv_hm),
         f"#9 backward B={b} L={l} H={h} Dh={dh}": lambda: fa.fused_attention_dense_backward(qkv, out, dout, h),
         f"#7 backward B={b} L={l} H={h} Dh={dh}": lambda: fa.fused_attention_qkv_backward(qkv_hm, out_hm, dout_hm),
         f"#5 forward B={fb} L={fl} H={fh} Dh={fdh}": lambda: fa.flash_attention_forward(fq, fk, fv),
@@ -1219,6 +1286,7 @@ def attention_only() -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_attention_kernels()
+    check_fused_edges(torch.Generator().manual_seed(SEED + 7))
     attention_launch_breakdown()
     log(f"attention only: {time.perf_counter() - t0:.1f} s")
     return 0
@@ -1635,12 +1703,13 @@ def main(argv: list[str]) -> int:
         return result
 
     t_start = time.perf_counter()
-    timed("build", phase_build)
+    fwd_ptxas = forward_ptxas(timed("build", phase_build))
     dw_times = timed("kernels (serving shapes)", phase_kernels)
     bwd_times = timed("kernels (depthwise backward)", phase_train_kernels)
     ce_times = timed("kernels (fused CE)", phase_fused_ce)
     attn_times = timed("kernels (attention)", phase_attention_kernels)
     timed("attention tile edges", check_flash_edges, torch.Generator().manual_seed(SEED + 6))
+    timed("fused attention forward tile edges", check_fused_edges, torch.Generator().manual_seed(SEED + 7))
     timed("attention launch breakdown", attention_launch_breakdown)
     work = REPO / "out" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -1737,6 +1806,7 @@ def main(argv: list[str]) -> int:
             "bound_by": attn_times["qkv"]["fwd_bound_by"],
             "library_ms": attn_times["qkv"]["fwd_library_ms"],
             "t3_launches": tp_t3["launches"]["attn_fused_qkv_fwd"],
+            **fwd_ptxas,
         },
         {
             "name": "fused_attention_qkv_backward",
@@ -1765,6 +1835,7 @@ def main(argv: list[str]) -> int:
             "bound_by": attn_times["dense"]["fwd_bound_by"],
             "library_ms": attn_times["dense"]["fwd_library_ms"],
             "t3_launches": mae_t3["launches"]["attn_fused_fwd"],
+            **fwd_ptxas,
         },
         {
             "name": "fused_attention_dense_backward",

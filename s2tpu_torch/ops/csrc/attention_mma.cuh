@@ -1,8 +1,8 @@
 // Tensor-core building blocks shared by the bf16 attention kernels
 // (flash_attention.cu: #5; fused_attention_dense.cu: #6-#9): mma.sync
 // m16n8k16 with bf16 operands and f32 accumulation, the fragment loads that
-// feed it from row-major shared tiles, and row copies into shared memory,
-// synchronous or through cp.async. Blocks are kMmaThreads = 4 warps; every
+// feed it from row-major shared tiles, and row copies into shared memory
+// through cp.async. Blocks are kMmaThreads = 4 warps; every
 // row copy is a 16-byte piece, so rows start 16-byte aligned in global and
 // shared memory (row strides and column offsets multiples of 8 elements).
 
@@ -67,14 +67,6 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* x, int ld, 
   a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
 }
 
-// The B fragment of Y^T for columns n0..n0+7 (rows of Y) and k0..k0+15.
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* y, int ld, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = y + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
 // The B fragment of Z itself (Z row-major with k along its rows, rows
 // starting 16-byte aligned) through ldmatrix.trans, for rows k0..k0+15 and
 // columns n0..n0+7.
@@ -87,8 +79,9 @@ __device__ __forceinline__ void frag_b_t(uint32_t (&b)[2], const bf16* z, int ld
                : "r"(addr));
 }
 
-// Two B fragments in one ldmatrix.x4: b[0] and b[1] as frag_b gives them for
-// n0 and n0 + 8 (rows n0..n0+15 of Y, starting 16-byte aligned).
+// Two B fragments of Y^T in one ldmatrix.x4: b[0] for columns n0..n0+7 (rows
+// of Y), b[1] for n0+8..n0+15, both over k0..k0+15 (rows of Y starting
+// 16-byte aligned).
 __device__ __forceinline__ void frag_b_x2(uint32_t (&b)[2][2], const bf16* y, int ld, int n0, int k0) {
   const int lane = threadIdx.x & 31, i = lane >> 3;
   const bf16* p = y + (n0 + (lane & 7) + 8 * (i >> 1)) * ld + k0 + 8 * (i & 1);
@@ -107,20 +100,6 @@ __device__ __forceinline__ void frag_b_t_x2(uint32_t (&b)[2][2], const bf16* z, 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(b[0][0]), "=r"(b[0][1]), "=r"(b[1][0]), "=r"(b[1][1])
                : "r"(addr));
-}
-
-// Rows [r0, r0 + rows) x DH columns from `col` of a (.., ld) bf16 tensor into
-// s[r][d] (row stride lds), rows past L as zeros; 16-byte copies (ld, col and
-// lds are multiples of 8 elements).
-template <int DH>
-__device__ __forceinline__ void copy_rows(bf16* s, int lds, const bf16* g, int ld, int col, int r0, int rows,
-                                          int L) {
-  for (int idx = threadIdx.x; idx < rows * (DH / 8); idx += kMmaThreads) {
-    const int r = idx / (DH / 8), w = idx % (DH / 8), row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L) v = *reinterpret_cast<const uint4*>(g + (size_t)row * ld + col + 8 * w);
-    *reinterpret_cast<uint4*>(s + r * lds + 8 * w) = v;
-  }
 }
 
 // Asynchronous copies (cp.async, sm_80+): the copy runs while the threads go
@@ -144,8 +123,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// copy_rows through cp.async: the copies stay in flight until the caller
-// commits and waits.
+// Rows [r0, r0 + rows) x DH columns from `col` of a (.., ld) bf16 tensor into
+// s[r][d] (row stride lds), rows past L as zeros, in 16-byte cp.async copies
+// (ld, col and lds are multiples of 8 elements) that stay in flight until
+// the caller commits and waits.
 template <int DH>
 __device__ __forceinline__ void cp_async_rows(bf16* s, int lds, const bf16* g, int ld, int col, int r0, int rows,
                                               int L) {
@@ -156,28 +137,9 @@ __device__ __forceinline__ void cp_async_rows(bf16* s, int lds, const bf16* g, i
   }
 }
 
-// Scores of one 16-row x 64-key tile: s[j] is the C fragment of keys 8j..8j+7,
-// (q k^T) for rows r0.. of Q and the 64 rows of K, unscaled.
-template <int DH>
-__device__ __forceinline__ void mma_scores(float (&s)[8][4], const bf16* Q, const bf16* K, int r0) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
-    uint32_t a[4];
-    frag_a(a, Q, DH + 8, r0, 16 * ks);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b[2];
-      frag_b(b, K, DH + 8, 8 * j, 16 * ks);
-      mma_bf16(s[j], a, b);
-    }
-  }
-}
-
-// The same scores with the 16 rows' A fragments already in registers
-// (a[ks] for columns 16 ks..), against N8 (even) groups of 8 rows of K from
-// row n0: s[j] is the C fragment of keys n0 + 8j...
+// Scores (q k^T, unscaled) of 16 query rows whose A fragments are in
+// registers (a[ks] for columns 16 ks..) against N8 (even) groups of 8 rows of
+// K from row n0: s[j] is the C fragment of keys n0 + 8j...
 template <int DH, int N8>
 __device__ __forceinline__ void mma_scores_reg(float (&s)[N8][4], const uint32_t (&a)[DH / 16][4], const bf16* K,
                                                int n0) {

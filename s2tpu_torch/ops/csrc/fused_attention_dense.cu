@@ -36,11 +36,16 @@
 //
 // * bf16 (the training path): every product on the tensor cores,
 //   mma.sync.m16n8k16 with bf16 operands and f32 accumulation, which is the
-//   TPU kernel's rounding (bf16 products are exact in f32). The forward
-//   block owns (b, h, 64 query rows), one warp per 16 rows, and passes over
-//   the keys twice: first each row's max and sum, then p = exp(s - m) / l in
-//   f32, rounded to bf16 straight into the A operand of p v. No score rows
-//   leave the registers; shared memory holds q, one k tile and one v^T tile.
+//   TPU kernel's rounding (bf16 products are exact in f32). In the forward
+//   each warp owns 16 query rows at a time, their q in registers, and passes
+//   over the keys twice: first each row's max and sum, then p = exp(s - m) /
+//   l in f32 (as exp2 of one FMA in log2 units, times 1/l), rounded to bf16
+//   straight into the A operand of p v. No score rows leave the registers.
+//   For L <= 256 a block owns (b, h, 128 query rows) with the whole of k and
+//   v resident in shared memory, as the TPU kernel holds a whole sequence;
+//   for longer L a block owns (b, h, 64 query rows) and k and v stream
+//   through two cp.async stages. The ragged edges are cut to 16 rows and 16
+//   keys.
 // * f32: exact f32 products, which the tensor cores do not offer (TF32
 //   would round the operands), as register-blocked f32 FMAs on the CUDA
 //   cores. The forward block owns (b, h, 32 query rows) and keeps their f32
@@ -60,9 +65,10 @@
 //     formed by the same operations in all three kernels, so the backward
 //     recomputes the forward's p bit for bit.
 //
-// Shared memory per block at Dh = 64: bf16 forward 27,648 bytes, backward
-// dq 55,552 and dk/dv 56,832, none growing with L; f32 forward 156,160 at
-// L = 1024, dk/dv 100,608, dq 83,968.
+// Shared memory per block at Dh = 64: bf16 forward 46,080 bytes at L = 148
+// (k and v resident; at most 73,728, at L = 256) and 46,080 streamed (L >
+// 256), backward dq 55,552 and dk/dv 56,832, none growing with L; f32
+// forward 156,160 at L = 1024, dk/dv 100,608, dq 83,968.
 //
 // Bound (either layout: the same bytes): for the T = 1 Prithvi decoder
 // (B = 64, L = 197, H = 16, Dh = 32, bf16) the least time is set by bytes
@@ -70,11 +76,16 @@
 // backward) against 5.1 / 12.9 us of
 // tensor-core operations. In f32 the operations bound it (67 TFLOP/s:
 // 76 / 190 us). What keeps these kernels from their bound: scores are
-// recomputed (twice in the forward; in the backward 8 products of L^2 Dh
-// where 5 are needed: q k^T three times, do v^T twice), each (b, h) re-reads
-// its k and v from L2 once per query tile, and the forward and the f32
-// backward copy each tile to shared memory and then use it, with no copy in
-// flight behind the products.
+// recomputed (the forward forms 3 products of L^2 Dh where 2 are needed,
+// and an exp2 per score in each of its two sweeps; the backward 8 where 5
+// are needed: q k^T three times, do v^T twice), each (b, h) re-reads its k
+// and v from L2 once per query tile, and the f32 kernels copy each tile to
+// shared memory and then use it, with no copy in flight behind the
+// products. The bf16 kernels keep the next tile's copy in flight (or, in the
+// forward at L <= 256, copy k and v once with one barrier), and the bf16
+// forward cuts the ragged tiles to 16-key groups and 16-row slices: at
+// L = 197 it forms 208 x 208 scores per (b, h) where whole 64-tiles would
+// form 256 x 256.
 
 #include "attention_mma.cuh"
 
@@ -448,114 +459,265 @@ __global__ void __launch_bounds__(kThreads) attn_fused_dq_kernel(const float* __
 // ldmatrix.trans. Blocks are 4 warps.
 // ---------------------------------------------------------------------------
 
-// Forward, bf16. grid (ceil(L / 64), H, B); warp w owns query rows 16 w.. of
-// the block's 64. Two passes over the keys, with no score rows in shared
-// memory: the first finds each row's max m and sum l (the sum rescaled as
-// the max grows, a reordering of the same f32 sum), the second recomputes
-// each score tile, forms p = exp(s - m) / l in f32, rounds it to bf16
-// straight into the A operand of p v, and accumulates o in f32. Shared: q,
-// k, v [64][DH + 8]: 27,648 bytes at Dh = 64, independent of L. Registers,
-// not shared memory, set how many blocks an SM holds, so the bound asks for
-// 5 (Dh = 32, <= 96 registers) and 4 (Dh = 64, <= 128): left free, ptxas has
-// taken 106 at Dh = 32, one block fewer per SM and 12 % slower at the T = 1
-// decoder (chip_smoke, H100).
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
-    attn_fused_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, Dims dims) {
-  extern __shared__ float smem[];
-  constexpr int LD = DH + 8;
-  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int hq = h * dims.qkv.head;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kTile * LD;
-  bf16* Vs = Ks + kTile * LD;
-  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+// Every bf16 kernel of this file forms p from a score s (the f32 sum of bf16
+// products, unscaled) and its row's statistics by this one formula, in log2
+// units: c = scale log2(e), mc the row's max of s c and linv 1 / its sum of
+// exp2(s c - mc). One FMA, one exp2f and one multiply per score, no division.
+__device__ __forceinline__ float bwd_prob(float s, float c, float mc, float linv) {
+  return exp2f(__fmaf_rn(s, c, -mc)) * linv;
+}
 
-  copy_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
-  // 1. row max and sum; this thread's rows are 16 w + g (i = 0) and + 8 (i = 1),
-  //    shared with the 3 other lanes of its quad.
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
-    __syncthreads();
-    float s[8][4];
-    mma_scores<DH>(s, Qs, Ks, 16 * warp);
-    float tmax[2] = {-INFINITY, -INFINITY};
+// The bf16 forward, two kernels on one set of steps. Warp w of a block owns
+// 16 query rows at a time (this thread rows r0 + g and + 8, with its quad),
+// their q held as A fragments in registers. Two sweeps over the keys,
+// because the TPU kernel rounds the normalised p to bf16 before p v: each
+// row's max and sum must be known before the first product. Sweep 1
+// (fwd_stats_chunk) takes k alone, 64 keys at a time: the scores, their max,
+// one rescale of the row's sum, then the sum of exp2(s c - mc) (a reordering
+// of the same f32 sum). Sweep 2 (fwd_pv_group) takes k and v, 16 keys at a
+// time: s = q k^T, p by bwd_prob, rounded to bf16 straight into the A
+// operand of o += p v. No score leaves the registers. The ragged edges are
+// cut to 16 keys and 16 rows: the last chunk runs only the 16-key groups
+// that hold a key below L and masks only the group that straddles L (its
+// zero rows past L would give exp2(-mc), which overflows for mc < -128); a
+// 16-row slice wholly at or past L is never computed. Rows and keys past L
+// are zero-filled by cp.async.
+//
+// Registers set how many blocks an SM holds, so both kernels ask for 5
+// (Dh = 32, <= 96 registers) and 4 (Dh = 64, <= 128): left free, ptxas has
+// taken 106 at Dh = 32, one block fewer per SM and 12 % slower at the T = 1
+// decoder (chip_smoke, H100). What bounds them then is instruction issue and
+// latency, not bytes: three L^2 Dh products on mma.sync where two are
+// needed, and two exp2f per score.
+
+// Sweep 1 over one chunk of up to 64 keys from key k0 (row 0 of K): folds
+// the chunk into this thread's rows' max m (of s c) and its share l of their
+// sums of exp2(s c - m).
+template <int DH>
+__device__ __forceinline__ void fwd_stats_chunk(float (&m)[2], float (&l)[2], const uint32_t (&qa)[DH / 16][4],
+                                                const bf16* K, int k0, int L, float c) {
+  constexpr int G = kTile / 16;
+  const int t = threadIdx.x & 3;
+  const int groups = min(G, (L - k0 + 15) / 16);  // 16-key groups with a key below L
+  float s[G][2][4], mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+  for (int kk = 0; kk < G; ++kk) {
+    if (kk >= groups) continue;
+    mma_scores_reg<DH, 2>(s[kk], qa, K, 16 * kk);
+    const int key0 = k0 + 16 * kk + 2 * t;
+    const bool ragged = k0 + 16 * kk + 16 > L;  // the group that straddles L
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[jj][e] = k0 + 8 * jj + 2 * t + (e & 1) < L ? s[jj][e] * dims.scale : -INFINITY;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[jj][e]);
+        if (ragged && key0 + 8 * j + (e & 1) >= L) s[kk][j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[kk][j][e]);
       }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m[i], tmax[i]);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) sum += expf(s[jj][2 * i] - m_new) + expf(s[jj][2 * i + 1] - m_new);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[i] = l[i] * expf(m[i] - m_new) + sum;
-      m[i] = m_new;
-    }
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * c);
+    l[i] *= exp2f(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int kk = 0; kk < G; ++kk) {
+    if (kk >= groups) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(__fmaf_rn(s[kk][j][e], c, -m[e >> 1]));
+  }
+}
 
-  // 2. o = round(p) v, p recomputed per key tile.
-  constexpr int NJ = DH / 8;
-  float o[NJ][4] = {};
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    copy_rows<DH>(Ks, LD, base, ld, P + hq, k0, kTile, L);
-    copy_rows<DH>(Vs, LD, base, ld, 2 * P + hq, k0, kTile, L);
-    __syncthreads();
-    float s[8][4];
-    mma_scores<DH>(s, Qs, Ks, 16 * warp);
+// 1 / each row's sum, from the quad's shares.
+__device__ __forceinline__ void fwd_linv(float (&linv)[2], float (&l)[2]) {
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[jj][e] = k0 + 8 * jj + 2 * t + (e & 1) < L
-                       ? expf(__fmul_rn(s[jj][e], dims.scale) - m[e >> 1]) / l[e >> 1] : 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * ks], s[2 * ks + 1]);
-#pragma unroll
-      for (int jd = 0; jd < NJ; ++jd) {
-        uint32_t bv[2];
-        frag_b_t(bv, Vs, LD, 16 * ks, 8 * jd);
-        mma_bf16(o[jd], a, bv);
-      }
-    }
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    linv[i] = 1.f / l[i];
   }
+}
+
+// Sweep 2 over one group of 16 keys from key k0 (row 0 of K and V):
+// o += round(p) v.
+template <int DH>
+__device__ __forceinline__ void fwd_pv_group(float (&o)[DH / 8][4], const uint32_t (&qa)[DH / 16][4], const bf16* K,
+                                             const bf16* V, int k0, int L, float c, const float (&m)[2],
+                                             const float (&linv)[2]) {
+  const int t = threadIdx.x & 3;
+  float s[2][4];
+  mma_scores_reg<DH, 2>(s, qa, K, 0);
+  const bool ragged = k0 + 16 > L;  // the group that straddles L
 #pragma unroll
-  for (int jd = 0; jd < NJ; ++jd)
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      s[j][e] = ragged && k0 + 8 * j + 2 * t + (e & 1) >= L ? 0.f : bwd_prob(s[j][e], c, m[i], linv[i]);
+    }
+  uint32_t a[4];
+  c_to_a(a, s[0], s[1]);
+#pragma unroll
+  for (int jd = 0; jd < DH / 8; jd += 2) {
+    uint32_t bv[2][2];
+    frag_b_t_x2(bv, V, DH + 8, 0, 8 * jd);
+    mma_bf16(o[jd], a, bv[0]);
+    mma_bf16(o[jd + 1], a, bv[1]);
+  }
+}
+
+// This thread's rows r0 + g and + 8 of o, those below L, rounded to bf16.
+template <int DH>
+__device__ __forceinline__ void fwd_store(bf16* out, const float (&o)[DH / 8][4], const Dims& dims, int b, int h,
+                                          int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int jd = 0; jd < DH / 8; ++jd)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int qi = q0 + 16 * warp + g + 8 * i;
-      if (qi < L)
+      const int qi = r0 + g + 8 * i;
+      if (qi < dims.L)
         *reinterpret_cast<uint32_t*>(out + (size_t)b * dims.o.batch + (qi * dims.o.row + h * dims.o.head) + 8 * jd +
                                      2 * t) = pack_bf16(o[jd][2 * i], o[jd][2 * i + 1]);
     }
 }
 
+// Forward, bf16, L <= kResidentLen (the T = 1 decoder's 197, the T = 3
+// encoder's 148): the TPU kernel's own cut, k and v of the (b, h) resident
+// in shared memory. grid (ceil(L / 128), H, B): a block owns 8 slices of 16
+// query rows and copies the whole of k and v once (cp.async, zero rows up to
+// a multiple of 16), with one barrier; then each warp takes its 2 slices one
+// after the other, reading its q fragments from global memory, with no
+// further barrier. Shared: k and v, [L rounded up to 16][DH + 8] bf16 each:
+// 33,280 bytes at L = 197, Dh = 32 (5 blocks an SM: 166,400), 46,080 at
+// L = 148, Dh = 64 (4: 184,320), at most 73,728 (L = 256, Dh = 64: 3 blocks
+// an SM). Against the tiled kernel below at L <= 256, no tile barriers and
+// k read from L2 once instead of twice: 17 % faster at the T = 1 decoder
+// (chip_smoke --attention, H100).
+constexpr int kResidentLen = 256;
+constexpr int kResidentSlices = 8;  // 16-row query slices per block
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
+    attn_fused_fwd_mma_resident_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, Dims dims) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = DH + 8, NK = DH / 16;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part, Lp = (L + 15) & ~15;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + Lp * LD;
+  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float c = dims.scale * kLog2e;
+  cp_async_rows<DH>(Ks, LD, base, ld, P + hq, 0, Lp, L);
+  cp_async_rows<DH>(Vs, LD, base, ld, 2 * P + hq, 0, Lp, L);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int first = blockIdx.x * kResidentSlices, last = min(first + kResidentSlices, Lp / 16);
+  for (int slice = first + warp; slice < last; slice += kMmaThreads / 32) {
+    const int r0 = 16 * slice;
+    uint32_t qa[NK][4];  // frag_a's layout, rows past L as zeros
+#pragma unroll
+    for (int ks = 0; ks < NK; ++ks)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int row = r0 + g + 8 * (x & 1), col = 16 * ks + 2 * t + 8 * (x >> 1);
+        qa[ks][x] = row < L ? *reinterpret_cast<const uint32_t*>(base + (size_t)row * ld + hq + col) : 0u;
+      }
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, linv[2];
+    for (int k0 = 0; k0 < L; k0 += kTile) fwd_stats_chunk<DH>(m, l, qa, Ks + k0 * LD, k0, L, c);
+    fwd_linv(linv, l);
+    float o[DH / 8][4] = {};
+    for (int k0 = 0; k0 < L; k0 += 16) fwd_pv_group<DH>(o, qa, Ks + k0 * LD, Vs + k0 * LD, k0, L, c, m, linv);
+    fwd_store<DH>(out, o, dims, b, h, r0);
+  }
+}
+
+// Forward, bf16, kResidentLen < L <= 1024 (the route's long edges). grid
+// (ceil(L / 64), H, B); warp w owns query rows 16 w.. of the block's 64. k
+// and v stream through shared memory in 64-key tiles, each double-buffered
+// through cp.async, the next tile's copy in flight behind the products (q
+// and the first k tile copy together); a barrier pair per tile. A warp
+// whose 16 rows all lie at or past L takes part in the copies and barriers
+// and in nothing else. Shared: q and two stages of k and v, [64][DH + 8]
+// bf16 each: 25,600 bytes at Dh = 32 and 46,080 at Dh = 64, independent of
+// L (5 and 4 blocks an SM: 128,000 and 184,320 bytes).
+template <int DH>
+__global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 5 : 4)
+    attn_fused_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, Dims dims) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = DH + 8, NK = DH / 16, TILE = kTile * LD;
+  const int L = dims.L, ld = dims.qkv.row, P = dims.qkv.part;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int hq = h * dims.qkv.head;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + TILE;      // two stages
+  bf16* Vs = Ks + 2 * TILE;  // two stages
+  const bf16* base = qkv + (size_t)b * dims.qkv.batch;
+  const int warp = threadIdx.x >> 5;
+  const int n_tiles = (L + kTile - 1) / kTile, n_steps = 2 * n_tiles;
+  const float c = dims.scale * kLog2e;
+  const bool active = q0 + 16 * warp < L;  // this warp owns a row below L
+
+  // Step j < n_tiles copies key tile j (sweep 1), step n_tiles + j key and
+  // value tile j (sweep 2), into stage j & 1; always one commit group.
+  auto load_step = [&](int step) {
+    if (step < n_steps) {
+      const int k0 = (step < n_tiles ? step : step - n_tiles) * kTile, stage = step & 1;
+      cp_async_rows<DH>(Ks + stage * TILE, LD, base, ld, P + hq, k0, kTile, L);
+      if (step >= n_tiles) cp_async_rows<DH>(Vs + stage * TILE, LD, base, ld, 2 * P + hq, k0, kTile, L);
+    }
+    cp_async_commit();
+  };
+  cp_async_rows<DH>(Qs, LD, base, ld, hq, q0, kTile, L);
+  load_step(0);
+
+  uint32_t qa[NK][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, linv[2];
+  for (int step = 0; step < n_tiles; ++step) {
+    load_step(step + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      if (step == 0) {
+#pragma unroll
+        for (int ks = 0; ks < NK; ++ks) frag_a(qa[ks], Qs, LD, 16 * warp, 16 * ks);
+      }
+      fwd_stats_chunk<DH>(m, l, qa, Ks + (step & 1) * TILE, step * kTile, L, c);
+    }
+    __syncthreads();  // this stage is refilled by the next step's copy
+  }
+  fwd_linv(linv, l);
+
+  float o[DH / 8][4] = {};
+  for (int step = n_tiles; step < n_steps; ++step) {
+    load_step(step + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      const int stage = step & 1, k0 = (step - n_tiles) * kTile, groups = min(kTile / 16, (L - k0 + 15) / 16);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        if (kk < groups)
+          fwd_pv_group<DH>(o, qa, Ks + stage * TILE + 16 * kk * LD, Vs + stage * TILE + 16 * kk * LD, k0 + 16 * kk,
+                           L, c, m, linv);
+    }
+    __syncthreads();  // this stage is refilled by the next step's copy
+  }
+  if (active) fwd_store<DH>(out, o, dims, b, h, q0 + 16 * warp);
+}
+
 // Backward, bf16: two launches, FlashAttention-2's split, no atomics. Both
-// form p from a score s (the f32 sum of bf16 products, unscaled) and the
-// row's statistics by this one formula, c = scale log2(e), mc the row's max
-// of s c and linv 1 / its sum of exp2(s c - mc). Launch 1 computes the
-// statistics and writes them; launch 2 reads them. Both sum the same exact
+// form p by bwd_prob. Launch 1 computes each row's statistics (mc, 1/l) and
+// writes them; launch 2 reads them. Both sum the same exact
 // products in the same k-steps (q k^T in launch 1, k q^T in launch 2, one
 // operand order each); nothing depends on the two giving the same bits, and
 // each launch's sums run in a fixed order, so a repeat gives the same dqkv.
-__device__ __forceinline__ float bwd_prob(float s, float c, float mc, float linv) {
-  return exp2f(__fmaf_rn(s, c, -mc)) * linv;
-}
 
 // Backward launch 1 of 2, bf16: dq and the rows' statistics. grid
 // (ceil(L / 64), H, B); warp w owns query rows 16 w.. of the block's 64 (this
@@ -910,7 +1072,12 @@ cudaError_t backward(const void* qkv, const void* o, const void* dout, void* dqk
 
 template <int DH>
 constexpr size_t fwd_mma_smem() {
-  return sizeof(bf16) * 3 * kTile * (DH + 8);
+  return sizeof(bf16) * 5 * kTile * (DH + 8);
+}
+
+template <int DH>
+constexpr size_t fwd_resident_smem(int L) {
+  return sizeof(bf16) * 2 * ((L + 15) & ~15) * (DH + 8);
 }
 
 template <int DH>
@@ -923,14 +1090,22 @@ constexpr size_t bwd_dkdv_smem() {
   return sizeof(bf16) * 6 * kTile * (DH + 8) + sizeof(float) * 6 * kTile;
 }
 
+// One launch: k and v resident for L <= kResidentLen, else streamed.
 template <int DH>
 cudaError_t forward_mma(const void* qkv, void* out, Dims dims, cudaStream_t s) {
-  const size_t smem = fwd_mma_smem<DH>();
+  const bf16* in = static_cast<const bf16*>(qkv);
+  bf16* o = static_cast<bf16*>(out);
+  cudaError_t err;
+  if (dims.L <= kResidentLen) {
+    auto kernel = attn_fused_fwd_mma_resident_kernel<DH>;
+    if ((err = allow_smem(kernel, fwd_resident_smem<DH>(kResidentLen))) != cudaSuccess) return err;
+    const int blocks = (dims.L + 16 * kResidentSlices - 1) / (16 * kResidentSlices);
+    kernel<<<dim3(blocks, dims.H, dims.B), kMmaThreads, fwd_resident_smem<DH>(dims.L), s>>>(in, o, dims);
+    return cudaGetLastError();
+  }
   auto kernel = attn_fused_fwd_mma_kernel<DH>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), dims);
+  if ((err = allow_smem(kernel, fwd_mma_smem<DH>())) != cudaSuccess) return err;
+  kernel<<<dim3((dims.L + kTile - 1) / kTile, dims.H, dims.B), kMmaThreads, fwd_mma_smem<DH>(), s>>>(in, o, dims);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """s2tpu_torch depthwise conv vs the JAX package's (Pallas interpret mode / lax).
 
 On the CPU the port's wrapper takes its plain version; the CUDA kernel is
-checked against that plain version by the ``cuda``-marked test on a card.
+checked against that plain version on a card by
+``tests/test_torch_cuda_kernels.py``.
 """
 
 import jax.numpy as jnp
@@ -92,28 +93,3 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(x, w, err):
         dw.depthwise_conv2d_s1(x, w)
     with pytest.raises(err):
         dw.depthwise_conv2d_s1_input_grad(x, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,c,h,w", [(3, 48, 112, 112), (5, 384, 28, 28), (3, 1824, 7, 7), (5, 130, 13, 11), (2, 7, 9, 6)])
-def test_cuda_kernel_matches_plain(dtype, k, c, h, w):
-    """Kernel vs plain version on the card: the kernel issues the same
-    uncontracted f32 multiplies and adds in the same order, so f32 agrees to
-    rounding of the final cast and bf16 to one bf16 ulp."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    x, wt = _inputs(c + k, (2, h, w, c), k)
-    xc = torch.from_numpy(x).to("cuda", dtype)
-    wc = torch.from_numpy(wt).to("cuda", dtype)
-    before = dw.LAUNCHES
-    out = dw.depthwise_conv2d_s1(xc, wc)
-    torch.cuda.synchronize()
-    assert dw.LAUNCHES == before + 1
-    ref = dw.depthwise_conv2d_s1_reference(xc, wc).to(torch.float32)
-    err = (out.to(torch.float32) - ref).abs()
-    if dtype == torch.float32:
-        assert float(err.max()) <= 1e-5 * float(ref.abs().max())
-    else:
-        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
-        assert bool((err <= ulp).all())

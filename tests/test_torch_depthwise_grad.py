@@ -4,7 +4,7 @@ The JAX side runs ``s2tpu.ops.depthwise_conv.depthwise_conv2d_s1`` in
 interpret mode, so its custom VJP runs the Pallas filter-gradient kernel
 (``_dw_kernel``) and the flipped-filter forward. On the CPU the port's
 wrappers take their plain versions; the CUDA kernels are held against those
-by the ``cuda``-marked tests on a card.
+on a card by ``tests/test_torch_cuda_kernels.py``.
 """
 
 import jax
@@ -113,29 +113,3 @@ def test_grad_weight_wrapper_rejects_what_the_kernel_does_not_take(x, g, k, err)
 def test_input_grad_rejects_even_k():
     with pytest.raises(ValueError, match="odd k"):
         dw.depthwise_conv2d_s1_input_grad(torch.zeros(1, 4, 4, 3), torch.zeros(2, 2, 3))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,c,h,w", [(3, 48, 112, 112), (5, 1056, 14, 14), (3, 3072, 7, 7), (5, 130, 13, 11)])
-def test_cuda_backward_kernels_match_plain(dtype, k, c, h, w):
-    """Input gradient (kernel #1, flipped filter): the forward's arithmetic,
-    so exact to the final rounding. Filter gradient (kernel #2): f32 sums of
-    the same products in another order, within 1e-4 x sum|g||x| per tap."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    x, wt, g = (torch.from_numpy(a).to("cuda", dtype) for a in _case(c + k, k, c, (h, w)))
-    before = (dw.DX_LAUNCHES, dw.DW_LAUNCHES)
-    dx = dw.depthwise_conv2d_s1_input_grad(g, wt)
-    dwk = dw.depthwise_conv2d_s1_grad_weight(x, g, k)
-    torch.cuda.synchronize()
-    assert (dw.DX_LAUNCHES, dw.DW_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    dx_ref = dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)).float()
-    dx_err = (dx.float() - dx_ref).abs()
-    if dtype == torch.float32:
-        assert float(dx_err.max()) <= 1e-6 * float(dx_ref.abs().max())
-    else:
-        ulp = torch.exp2(torch.floor(torch.log2(dx_ref.abs().clamp_min(2.0**-126))) - 7)
-        assert bool((dx_err <= ulp).all())
-    magnitude = dw.depthwise_conv2d_s1_grad_weight_reference(x.abs(), g.abs(), k)
-    assert bool(((dwk - dw.depthwise_conv2d_s1_grad_weight_reference(x, g, k)).abs() <= 1e-4 * magnitude).all())

@@ -3,9 +3,10 @@
 The plain versions of kernels #8/#9 (fused dense attention, forward and
 backward) and #5 (streaming attention) against the JAX functions run in
 Pallas interpret mode, with numpy inputs from a seed; the route constants
-and ``fused_fits_vmem`` against JAX's; the CUDA wrappers' refusals. The
-kernels themselves run only on the card (``cuda`` marker; chip_smoke.py
-holds them against these plain versions at the Prithvi shapes).
+and ``fused_fits_vmem`` against JAX's; the wrappers' refusals. The kernels
+themselves run only on the card: ``tests/test_torch_cuda_kernels.py`` (no
+JAX, so it runs there) and chip_smoke.py hold them against these plain
+versions.
 
 Tolerances, f32: those of tests/test_ops.py for the same functions against
 XLA attention (rtol 2e-4 / atol 2e-5 forward, 1e-3 / 1e-4 gradients). bf16:
@@ -175,104 +176,3 @@ def test_cpu_wrappers_never_count_launches():
     q = torch.randn(1, 520, 2, 32, requires_grad=True)
     tfa.flash_attention(q, q, q).sum().backward()
     assert (tfa.FUSED_FWD_LAUNCHES, tfa.FUSED_BWD_LAUNCHES, tfa.FLASH_FWD_LAUNCHES) == before
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "args,match",
-    [
-        ((1, 127, 2, 32, torch.bfloat16), "outside the fused route"),
-        ((1, 785, 16, 32, torch.bfloat16), "outside the fused route"),
-        ((1, 197, 4, 16, torch.bfloat16), "head width"),
-        ((1, 197, 2, 32, torch.float16), "float32 or bfloat16"),
-    ],
-)
-def test_fused_cuda_wrapper_raises_on_unsupported(args, match):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    b, l, h, dh, dtype = args
-    with pytest.raises((ValueError, TypeError), match=match):
-        tfa.fused_attention_dense_forward(torch.zeros(b, l, 3 * h * dh, dtype=dtype, device="cuda"), h)
-
-
-@pytest.mark.cuda
-def test_fused_cuda_wrapper_raises_on_non_contiguous_qkv():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    qkv = torch.zeros(1, 197, 2 * 3 * 64, device="cuda")[..., ::2]
-    with pytest.raises(ValueError, match="contiguous"):
-        tfa.fused_attention_dense_forward(qkv, 2)
-
-
-@pytest.mark.cuda
-def test_flash_cuda_wrapper_raises_on_unsupported():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    with pytest.raises(ValueError, match="head width"):
-        tfa.flash_attention_forward(*(torch.zeros(1, 600, 2, 48, device="cuda") for _ in range(3)))
-    with pytest.raises(ValueError, match="contiguous last axis"):
-        q = torch.zeros(1, 600, 2, 64, device="cuda")[..., ::2]
-        tfa.flash_attention_forward(q, q, q)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain_versions_on_the_card(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    gen = torch.Generator().manual_seed(0)
-    qkv = torch.randn(2, 197, 3 * 4 * 32, generator=gen).to("cuda", dtype)
-    dout = torch.randn(2, 197, 4 * 32, generator=gen).to("cuda", dtype)
-    atol = 1e-4 if dtype == torch.float32 else BF16_ATOL
-    out = tfa.fused_attention_dense_forward(qkv, 4)
-    torch.testing.assert_close(out.float(), tfa.fused_attention_dense_forward_reference(qkv, 4).float(), rtol=0, atol=atol)
-    dqkv = tfa.fused_attention_dense_backward(qkv, out, dout, 4)
-    ref = tfa.fused_attention_dense_backward_reference(qkv, out, dout, 4)
-    torch.testing.assert_close(dqkv.float(), ref.float(), rtol=2.0**-6, atol=atol)
-    q, k, v = qkv.reshape(2, 197, 3, 4, 32).unbind(2)
-    torch.testing.assert_close(
-        tfa.flash_attention_forward(q, k, v).float(), tfa.flash_attention_forward_reference(q, k, v).float(), rtol=0, atol=atol
-    )
-
-
-# #5 at its tile edges and at the T=3 decoder's lengths, on views of one projection.
-@pytest.mark.cuda
-@pytest.mark.parametrize("l", [1, 63, 64, 65, 513, 589])
-def test_flash_bf16_kernel_matches_plain_version_on_the_card(l):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    gen = torch.Generator().manual_seed(l)
-    qkv = torch.randn(2, l, 3 * 4 * 32, generator=gen).to("cuda", torch.bfloat16)
-    q, k, v = qkv.reshape(2, l, 3, 4, 32).unbind(2)
-    before = tfa.FLASH_FWD_LAUNCHES
-    out = tfa.flash_attention_forward(q, k, v)
-    assert tfa.FLASH_FWD_LAUNCHES == before + 1
-    ref = tfa.flash_attention_forward_reference(q, k, v)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=BF16_ATOL)
-
-
-@pytest.mark.cuda
-def test_flash_bf16_wrapper_raises_on_a_misaligned_view():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    flat = torch.zeros(600 * 2 * 32 + 1, dtype=torch.bfloat16, device="cuda")
-    q = flat[1:].view(1, 600, 2, 32)  # 2 bytes past an aligned start
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tfa.flash_attention_forward(q, q, q)
-
-
-# 783 is the longest L the dense route takes at D = 128 (fused_fits_vmem); the
-# head-major wrapper's 1024 is in tests/test_torch_fused_qkv.py.
-@pytest.mark.cuda
-@pytest.mark.parametrize("l", [129, 197, 783])
-def test_dense_backward_kernel_matches_plain_version_and_repeats_on_the_card(l):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    gen = torch.Generator().manual_seed(l)
-    qkv = torch.randn(2, l, 3 * 4 * 32, generator=gen).to("cuda", torch.bfloat16)
-    dout = torch.randn(2, l, 4 * 32, generator=gen).to("cuda", torch.bfloat16)
-    out = tfa.fused_attention_dense_forward(qkv, 4)
-    dqkv = tfa.fused_attention_dense_backward(qkv, out, dout, 4)
-    ref = tfa.fused_attention_dense_backward_reference(qkv, out, dout, 4)
-    torch.testing.assert_close(dqkv.float(), ref.float(), rtol=2.0**-6, atol=BF16_ATOL)
-    assert torch.equal(tfa.fused_attention_dense_backward(qkv, out, dout, 4), dqkv)

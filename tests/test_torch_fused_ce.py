@@ -3,7 +3,7 @@
 The per-pixel loss and weight, the reductions and the gradients (through the
 JAX custom VJP's Pallas backward kernel) are held against the port's plain
 versions, which its wrappers take on the CPU. The CUDA kernels are held
-against those by the ``cuda``-marked test on a card.
+against those on a card by ``tests/test_torch_cuda_kernels.py``.
 """
 
 import jax
@@ -131,27 +131,3 @@ def test_fused_ce_wrappers_reject_what_the_kernels_do_not_take(logits, labels, c
         fused_ce.fused_ce_forward(logits, labels, cw)
     with pytest.raises(err):
         fused_ce.fused_ce_backward(logits, labels, cw, torch.ones(labels.numel()))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [2, 4, 24])
-@pytest.mark.parametrize("gamma", [None, 2.0])
-@pytest.mark.parametrize("ignore", [None, 0])
-def test_cuda_kernels_match_plain(k, gamma, ignore):
-    """The same f32 formula in the same order with CUDA's expf/logf/powf:
-    agreement to a few ulps of |lse|; the weights exactly."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    logits, labels, cw, g = (torch.from_numpy(a).cuda() for a in _case(k, k, shape=(3, 37, 41)))
-    before = (fused_ce.FWD_LAUNCHES, fused_ce.BWD_LAUNCHES)
-    loss, weight = fused_ce.fused_ce_forward(logits, labels, cw, ignore, gamma)
-    dl = fused_ce.fused_ce_backward(logits, labels, cw, g, ignore, gamma)
-    torch.cuda.synchronize()
-    assert (fused_ce.FWD_LAUNCHES, fused_ce.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    n = labels.numel()
-    loss_ref, weight_ref = fused_ce.fused_ce_forward_reference(logits.reshape(n, k), labels.reshape(n), cw, ignore, gamma)
-    dl_ref = fused_ce.fused_ce_backward_reference(logits.reshape(n, k), labels.reshape(n), cw, g, ignore, gamma)
-    scale = 1.0 + float(logits.abs().max())
-    assert torch.equal(weight, weight_ref)
-    assert bool(((loss - loss_ref).abs() <= 1e-5 * loss_ref.abs() + 2e-6 * scale).all())
-    assert bool(((dl.reshape(n, k) - dl_ref).abs() <= 1e-5 * dl_ref.abs() + 2e-6 * scale).all())

@@ -4,9 +4,9 @@ The plain versions of kernels #6/#7 against ``fused_attention_qkv`` run in
 Pallas interpret mode (its forward, its ``jax.vjp`` and ``_fused_bwd_qkv``
 itself), with numpy inputs from a seed; the convenience wrappers
 ``fused_attention_bhld`` and ``fused_attention`` against JAX's; the
-wrappers' refusals. The CUDA kernels run only on the card (``cuda`` marker;
-chip_smoke.py holds them against these plain versions at the Prithvi
-shapes).
+wrappers' refusals. The CUDA kernels run only on the card:
+``tests/test_torch_cuda_kernels.py`` (no JAX, so it runs there) and
+chip_smoke.py hold them against these plain versions.
 
 Tolerances, f32: those of tests/test_ops.py for the same functions against
 XLA attention (rtol 2e-4 / atol 2e-5 forward, 1e-3 / 1e-4 gradients). bf16:
@@ -141,50 +141,3 @@ def test_backward_wrapper_rejects_mismatched_residuals():
         tfa.fused_attention_qkv_backward(qkv, torch.zeros(1, 2, 130, 64), torch.zeros(1, 2, 130, 32))
     with pytest.raises(ValueError, match="dout must be"):
         tfa.fused_attention_qkv_backward(qkv, torch.zeros(1, 2, 130, 32), torch.zeros(1, 2, 130, 32).bfloat16())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "args,match",
-    [((1, 197, 4, 16, torch.bfloat16), "head width"), ((1, 197, 2, 32, torch.float16), "float32 or bfloat16")],
-)
-def test_qkv_cuda_wrapper_raises_on_unsupported(args, match):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    b, l, h, dh, dtype = args
-    with pytest.raises((ValueError, TypeError), match=match):
-        tfa.fused_attention_qkv_forward(torch.zeros(3, b, h, l, dh, dtype=dtype, device="cuda"))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("l", [197, 40, 1024])
-def test_qkv_kernels_match_plain_versions_on_the_card(dtype, l):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    gen = torch.Generator().manual_seed(0)
-    qkv = torch.randn(3, 2, 4, l, 32, generator=gen).to("cuda", dtype)
-    dout = torch.randn(2, 4, l, 32, generator=gen).to("cuda", dtype)
-    atol = 1e-4 if dtype == torch.float32 else BF16_ATOL
-    before = (tfa.FUSED_QKV_FWD_LAUNCHES, tfa.FUSED_QKV_BWD_LAUNCHES)
-    out = tfa.fused_attention_qkv_forward(qkv)
-    torch.testing.assert_close(out.float(), tfa.fused_attention_qkv_forward_reference(qkv).float(), rtol=0, atol=atol)
-    dqkv = tfa.fused_attention_qkv_backward(qkv, out, dout)
-    ref = tfa.fused_attention_qkv_backward_reference(qkv, out, dout)
-    torch.testing.assert_close(dqkv.float(), ref.float(), rtol=2.0**-6, atol=atol)
-    assert (tfa.FUSED_QKV_FWD_LAUNCHES, tfa.FUSED_QKV_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("l", [129, 197, 1024])
-def test_qkv_backward_kernel_repeats_bit_for_bit_on_the_card(l):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    gen = torch.Generator().manual_seed(l)
-    qkv = torch.randn(3, 2, 4, l, 32, generator=gen).to("cuda", torch.bfloat16)
-    dout = torch.randn(2, 4, l, 32, generator=gen).to("cuda", torch.bfloat16)
-    out = tfa.fused_attention_qkv_forward(qkv)
-    dqkv = tfa.fused_attention_qkv_backward(qkv, out, dout)
-    ref = tfa.fused_attention_qkv_backward_reference(qkv, out, dout)
-    torch.testing.assert_close(dqkv.float(), ref.float(), rtol=2.0**-6, atol=BF16_ATOL)
-    assert torch.equal(tfa.fused_attention_qkv_backward(qkv, out, dout), dqkv)

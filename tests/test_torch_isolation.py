@@ -51,6 +51,24 @@ def test_port_and_chip_smoke_import_no_jax_and_no_s2tpu():
     assert int(proc.stdout.strip().splitlines()[-1]) >= 45  # every module was imported, s2tpu_torch.parallel's too
 
 
+@pytest.mark.parametrize("name", ["test_torch_cuda_kernels", "test_torch_multi_card"])
+def test_card_test_files_import_no_jax_and_no_s2tpu(name):
+    """The files whose ``cuda`` tests run on a card without JAX, under
+    ``pytest --noconftest -m cuda``, import neither JAX nor the JAX package."""
+    probe = _PROBE.split("import s2tpu_torch\n")[0] + (
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location({name!r}, 'tests/{name}.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "leaked = sorted(m for m in sys.modules if forbidden(m))\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_resolve_device_defaults_to_cuda(monkeypatch):
     from s2tpu_torch import resolve_device
 
