@@ -2,11 +2,16 @@
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
+    python3 chip_smoke.py --depthwise    # phases 1, 2 (depthwise only), 3 and 4's depthwise part
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
-``--attention`` uses only the attention wrappers' interfaces, so a copy of
-this script run from the root of an older checkout times that checkout's
-attention kernels beside this one's.
+``--attention`` and ``--depthwise`` use only the kernel wrappers' public
+interfaces, so a copy of this script run from the root of an older checkout
+times that checkout's kernels beside this one's. ``--depthwise`` also times
+the forward at batch 32 (with the input gradient, kernel #1's whole cost in
+a train step) and profiles one ``DepthwiseConv2dS1`` forward and backward at
+B5's two largest k = 5 shapes: launches per call, device ms per launch and
+host time per call.
 It imports nothing of JAX or of the JAX package ``s2tpu``. Phases, in order;
 any failure raises and the script exits non-zero without printing a result:
 
@@ -16,7 +21,8 @@ any failure raises and the script exits non-zero without printing a result:
    backward on the dense and head-major layouts, streaming attention), one
    nvcc each for sm_90a from
    ``s2tpu_torch/ops/csrc``, all started together (ptxas registers / shared
-   memory / spills printed per library).
+   memory / spills printed per library; each depthwise and attention
+   kernel instantiation's registers and spills).
 3. Kernel vs plain, serving shapes: ``depthwise_conv2d_s1`` against
    ``depthwise_conv2d_s1_reference`` at every distinct stride-1 shape of
    EfficientNet-UNet-B5 at 224^2, batch 8, plus a ragged shape, in bf16 and
@@ -28,7 +34,11 @@ any failure raises and the script exits non-zero without printing a result:
    cuDNN's ``convolution_backward``; the fused CE/focal forward (#3) and
    backward (#4) at N = 32 * 224^2 pixels, K = 4, CE and focal, with and
    without ``ignore_index=0``, non-uniform class weights and cotangent,
-   beside ``F.cross_entropy`` for the CE mode.
+   beside ``F.cross_entropy`` for the CE mode. Then one bf16
+   ``DepthwiseConv2dS1`` forward and backward at B5's two largest k = 5
+   shapes under ``torch.profiler``: exactly 4 device launches a call (#1
+   forward, #1 input gradient, #2, the cast of the filter gradient; no flip
+   copy, no sum of partials).
 5. Serving slice: B5 (full width and depth, seeded random weights, random
    BatchNorm statistics) saved as a port checkpoint and served through
    ``s2tpu_torch.cli.infer --tiled`` in bf16 over a synthetic 512^2 AOI;
@@ -81,8 +91,8 @@ any failure raises and the script exits non-zero without printing a result:
 12. One Prithvi-100M MAE train step in f32 on the card (TF32 off) against
    the CPU, same weights, input and masking noise: loss and the gradients of
    fixed tensors (the first decoder block's through #9).
-13. Result: a ``kernels`` JSON line (nine kernels; #8 and #6 with their bf16
-   kernels' registers and spill bytes from ``-Xptxas -v``), the
+13. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
+   their bf16 kernels' registers and spill bytes from ``-Xptxas -v``), the
    ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -262,12 +272,13 @@ def kernel_libraries() -> dict[str, list[str]]:
     }
 
 
-def phase_build() -> dict[str, str]:
-    """Build every library from the checkout's sources; returns each attention
-    kernel instantiation's ptxas line (spills; registers)."""
+def phase_build(only: tuple[str, ...] = ()) -> dict[str, str]:
+    """Build every library (or those named in ``only``) from the checkout's
+    sources; returns each depthwise and attention kernel instantiation's
+    ptxas line (spills; registers)."""
     from s2tpu_torch.ops import _build
 
-    libraries = kernel_libraries()
+    libraries = {name: srcs for name, srcs in kernel_libraries().items() if not only or name in only}
     for name, sources in libraries.items():
         so = _build.library_path(name, sources)
         for stale in (so, so.with_suffix(".log")):
@@ -275,7 +286,7 @@ def phase_build() -> dict[str, str]:
     t0 = time.perf_counter()
     _build.load_libraries(libraries)  # one nvcc per library, all at once
     seconds = time.perf_counter() - t0
-    attention = {}
+    ptxas = {}
     for name, sources in libraries.items():
         report = _build.build_log(name, sources)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
@@ -287,12 +298,25 @@ def phase_build() -> dict[str, str]:
             f"budgets in the source notes), {spills} bytes spilled; "
             f"-> {_build.library_path(name, sources).relative_to(REPO)}"
         )
-        if "attention" in name:
-            for kernel, line in ptxas_kernels(report):
-                log(f"ptxas -v {name}: {kernel}: {line}")
-                attention[kernel] = line
+        for kernel, line in ptxas_kernels(report):
+            log(f"ptxas -v {name}: {kernel}: {line}")
+            ptxas[kernel] = line
     log(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libraries)} libraries concurrently in {seconds:.1f} s")
-    return attention
+    return ptxas
+
+
+def depthwise_ptxas(kernels: dict[str, str], name: str) -> dict:
+    """Registers and spill-store bytes of a depthwise kernel's bf16
+    instantiations with channel pairs (the B5 path) at k = 3 and 5, from
+    :func:`phase_build`'s ptxas lines."""
+    out = {}
+    for k in (3, 5):
+        line = kernels[f"{name}<bf16,2,{k}>"]
+        out[f"{name}<bf16,2,{k}>"] = {
+            "registers": int(re.search(r"Used (\d+) registers", line).group(1)),
+            "spill_bytes": int(re.search(r"(\d+) bytes spill stores", line).group(1)),
+        }
+    return {"ptxas": out}
 
 
 def forward_ptxas(attention: dict[str, str]) -> dict:
@@ -312,10 +336,14 @@ def forward_ptxas(attention: dict[str, str]) -> dict:
 
 def ptxas_kernels(report: str) -> list[tuple[str, str]]:
     """(kernel with its template arguments, ptxas's spill + register line)
-    for each instantiation in a ``-Xptxas -v`` report."""
+    for each attention or depthwise instantiation in a ``-Xptxas -v``
+    report (depthwise: dtype, channels per thread, k; k = 0 is the runtime-k
+    forward)."""
     found, kernel, spill = [], None, ""
     for line in report.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?((?:flash_)?attn_\w+?_kernel)I(\w+?)EEv", line)
+        entry = re.search(
+            r"Compiling entry function '\w*?((?:flash_)?attn_\w+?_kernel|depthwise_s1_(?:fwd|dw))I(\w+?)EEv", line
+        )
         if entry:
             dtype = ["bf16"] if "__nv_bfloat16" in entry.group(2) else ["f32"] if entry.group(2)[0] == "f" else []
             kernel = f"{entry.group(1)}<{','.join(dtype + re.findall(r'L[ib](\d+)', entry.group(2)))}>"
@@ -353,11 +381,11 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S) -> 
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_kernel(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
+def check_kernel(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.Generator, batch: int = BATCH) -> dict:
     """Kernel vs plain on one shape; raises on disagreement. Returns times in ms."""
     from s2tpu_torch.ops import depthwise_conv as dw
 
-    x = torch.randn(BATCH, h, w, c, generator=gen).to("cuda", dtype)
+    x = torch.randn(batch, h, w, c, generator=gen).to("cuda", dtype)
     wt = torch.randn(k, k, c, generator=gen).to("cuda", dtype)
     out = dw.depthwise_conv2d_s1(x, wt)
     ref = dw.depthwise_conv2d_s1_reference(x, wt)
@@ -377,7 +405,9 @@ def check_kernel(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.
     return times
 
 
-def phase_kernels() -> dict:
+def phase_kernels(batch: int = BATCH) -> dict:
+    """Kernel #1 vs its plain version at every B5 stride-1 shape and the
+    ragged one, bf16 and f32; totals over one B5 forward (bf16) at ``batch``."""
     shapes = b5_stride1_shapes()
     if shapes != B5_STRIDE1_SHAPES or sum(shapes.values()) != 35:
         raise AssertionError(f"B5 stride-1 depthwise shapes changed: {shapes}")
@@ -392,12 +422,12 @@ def phase_kernels() -> dict:
     cases = [((k, c, h, h), n) for (k, c, h), n in shapes.items()] + [(RAGGED, 0)]
     for dtype in (torch.bfloat16, torch.float32):
         for (k, c, h, w), n in cases:
-            t = check_kernel(k, c, h, w, dtype, gen)
+            t = check_kernel(k, c, h, w, dtype, gen, batch)
             max_err = max(max_err, t["max_abs_err"])
             if n and dtype == torch.bfloat16:
                 bound_by.add(t["bound_by"])
             log(
-                f"depthwise {str(dtype).split('.')[1]:8s} k={k} C={c:4d} {h:3d}x{w:<3d} B={BATCH}: "
+                f"depthwise {str(dtype).split('.')[1]:8s} k={k} C={c:4d} {h:3d}x{w:<3d} B={batch}: "
                 f"kernel_ms={t['kernel_ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
                 f"mb_moved={t['mb_moved']:.2f} bound_ms={t['bound_ms']:.4f} share_of_bound={t['bound_ms'] / t['kernel_ms']:.3f} "
                 f"launches_per_B5_forward={n} max_abs_err={t['max_abs_err']:.3g}"
@@ -408,7 +438,7 @@ def phase_kernels() -> dict:
                 totals["library_ms"] += n * t["library_ms"]
                 totals["bound_ms"] += n * t["bound_ms"]
     log(
-        "depthwise per B5 forward (35 layers, bf16, batch 8): "
+        f"depthwise per B5 forward (35 layers, bf16, batch {batch}): "
         + " ".join(f"{key}={val:.4f}" for key, val in totals.items())
     )
     return {**totals, "max_abs_err": max_err, "bound_by": "/".join(sorted(bound_by))}
@@ -428,10 +458,12 @@ def check_train_kernels(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen:
     dx_err = depthwise_error(dx, dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)), f"depthwise input gradient at {what}")
     dwk = dw.depthwise_conv2d_s1_grad_weight(x, g, k)
     dw_ref = dw.depthwise_conv2d_s1_grad_weight_reference(x, g, k)
-    # f32 sums of the same products in another order (per-thread runs, a
-    # block reduction, then the slices): the error of a sum of n terms is at
-    # most ~(chain length) x 2^-24 x sum|terms|, and the kernel's longest
-    # chain is ~1e3 terms, so |err| <= 1e-4 x sum_{b,y,x}|g||x_pad| per tap.
+    # f32 sums of the same products in another order (a thread's walk over
+    # its rows, the combine of the row splits, then the partials in two
+    # ordered levels): the error of a sum is at most (chain length) x 2^-24 x
+    # sum|terms|, and the kernel's plan keeps the longest chain under 1600
+    # terms (dw._grad_weight_chain: 65-416 at B5's shapes, at 4-5 resident
+    # blocks a SM), so |err| <= 1e-4 x sum_{b,y,x}|g||x_pad| per tap.
     magnitude = dw.depthwise_conv2d_s1_grad_weight_reference(x.abs(), g.abs(), k)
     torch.cuda.synchronize()
     dw_err = (dwk - dw_ref).abs()
@@ -1276,6 +1308,82 @@ def phase_attention_kernels() -> dict:
     }
 
 
+def depthwise_launch_breakdown(expected_launches: int | None = None) -> None:
+    """One ``DepthwiseConv2dS1`` forward and backward (``autograd.grad``, so
+    no gradient accumulates) at B5's two largest k = 5 shapes, batch 32,
+    bf16, under ``torch.profiler`` over 10 calls: device kernels per call
+    with their ms per launch, and the host time of the autograd nodes per
+    call (self and with their children). Raises if the profiler records no
+    device time, or if a call launches other than ``expected_launches``
+    kernels where that is given (the full run; ``--depthwise`` also profiles
+    older checkouts, which launch more)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from s2tpu_torch.ops import depthwise_conv as dw
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    k5 = sorted(((c * h * h, (k, c, h)) for (k, c, h) in B5_STRIDE1_SHAPES if k == 5), reverse=True)
+    for _, (k, c, h) in k5[:2]:
+        x = torch.randn(TRAIN_BATCH, h, h, c, generator=gen).to("cuda", torch.bfloat16).requires_grad_()
+        wt = torch.randn(k, k, c, generator=gen).to("cuda", torch.bfloat16).requires_grad_()
+        g = torch.randn(TRAIN_BATCH, h, h, c, generator=gen).to("cuda", torch.bfloat16)
+
+        def call():
+            return torch.autograd.grad(dw.DepthwiseConv2dS1.apply(x, wt), (x, wt), g)
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.count]
+        total = sum(e.self_device_time_total for e in kernels) / 10 / 1e3
+        label = f"depthwise fwd+bwd k={k} C={c} {h}x{h} B={TRAIN_BATCH} bf16"
+        if total == 0.0:
+            raise AssertionError(f"launch breakdown {label}: the profiler recorded no device time")
+        parts = "; ".join(
+            f"{e.key[:60]} x{e.count / 10:g} {e.self_device_time_total / max(e.count, 1) / 1e3:.4f} ms/launch"
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+        )
+        launches = sum(e.count for e in kernels) / 10
+        log(f"launch breakdown {label}: {launches:g} launches, {total:.4f} ms of device time per call: {parts}")
+        if expected_launches is not None and launches != expected_launches:
+            raise AssertionError(f"launch breakdown {label}: {launches:g} launches a call, not {expected_launches}")
+        for e in events:
+            if e.device_type == DeviceType.CPU and "DepthwiseConv2dS1" in e.key:
+                log(f"host time {label}: {e.key} x{e.count / 10:g} per call, self {e.self_cpu_time_total / e.count / 1e3:.4f} "
+                    f"ms, with children {e.cpu_time_total / e.count / 1e3:.4f} ms per call")
+
+
+def depthwise_only() -> int:
+    """``--depthwise``: the two depthwise libraries' build, kernel #1 against
+    its plain version at batch 8 and 32, kernels #1 (input gradient) and #2
+    at batch 32, each beside cuDNN, the per-step totals and the launch
+    breakdown; no slices and no result lines. Uses only the wrappers' public
+    interfaces, so a copy of this script run from the root of an older
+    checkout measures that checkout's kernels (parent and change alternated
+    in one call)."""
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; torch {torch.__version__}")
+    t0 = time.perf_counter()
+    phase_build(only=("depthwise_conv", "depthwise_grad_weight"))
+    fwd = phase_kernels()
+    fwd32 = phase_kernels(TRAIN_BATCH)
+    bwd = phase_train_kernels()
+    log(
+        f"depthwise per B5 train step (bf16, batch {TRAIN_BATCH}): #1 forward {fwd32['ms']:.4f} + input gradient "
+        f"{bwd['dx_ms']:.4f} = {fwd32['ms'] + bwd['dx_ms']:.4f} ms (cuDNN {fwd32['library_ms'] + bwd['dx_library_ms']:.4f}); "
+        f"#2 {bwd['dw_ms']:.4f} ms (cuDNN {bwd['dw_library_ms']:.4f}); per B5 forward (batch {BATCH}) #1 {fwd['ms']:.4f} "
+        f"ms (cuDNN {fwd['library_ms']:.4f})"
+    )
+    depthwise_launch_breakdown()
+    log(f"depthwise only: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def attention_only() -> int:
     """``--attention``: the build, the attention kernels against their plain
     versions with their times, and each launch's device time; no slices and
@@ -1679,8 +1787,8 @@ def phase_mae_f32_step(mesh=None) -> None:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--attention"]):
-        print("usage: python3 chip_smoke.py [--attention]", file=sys.stderr)
+    if argv not in ([], ["--attention"], ["--depthwise"]):
+        print("usage: python3 chip_smoke.py [--attention | --depthwise]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1691,7 +1799,7 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 1
     if argv:
-        return attention_only()
+        return attention_only() if argv == ["--attention"] else depthwise_only()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi()
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1703,9 +1811,11 @@ def main(argv: list[str]) -> int:
         return result
 
     t_start = time.perf_counter()
-    fwd_ptxas = forward_ptxas(timed("build", phase_build))
+    ptxas = timed("build", phase_build)
+    fwd_ptxas = forward_ptxas(ptxas)
     dw_times = timed("kernels (serving shapes)", phase_kernels)
     bwd_times = timed("kernels (depthwise backward)", phase_train_kernels)
+    timed("depthwise launch breakdown", depthwise_launch_breakdown, 4)
     ce_times = timed("kernels (fused CE)", phase_fused_ce)
     attn_times = timed("kernels (attention)", phase_attention_kernels)
     timed("attention tile edges", check_flash_edges, torch.Generator().manual_seed(SEED + 6))
@@ -1749,6 +1859,7 @@ def main(argv: list[str]) -> int:
             "dx_plain_ms": bwd_times["dx_plain_ms"],
             "dx_bound_ms": bwd_times["dx_bound_ms"],
             "dx_library_ms": bwd_times["dx_library_ms"],
+            **depthwise_ptxas(ptxas, "depthwise_s1_fwd"),
         },
         {
             "name": "depthwise_conv2d_s1_grad_weight",
@@ -1762,6 +1873,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": bwd_times["dw_bound_ms"],
             "bound_by": bwd_times["dw_bound_by"],
             "library_ms": bwd_times["dw_library_ms"],
+            **depthwise_ptxas(ptxas, "depthwise_s1_dw"),
         },
         {
             "name": "fused_ce_forward",

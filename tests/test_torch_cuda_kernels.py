@@ -18,6 +18,8 @@ the output's own rounding by 2^-7), or ``ATTN_RTOL`` x the sums over
 |p||v| element by element for the fused forward at its tile edges.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,166 @@ def test_cuda_backward_kernels_match_plain(dtype, k, c, h, w):
         assert _within_bf16_ulp(dx, dx_ref)
     magnitude = dw.depthwise_conv2d_s1_grad_weight_reference(x.abs(), g.abs(), k)
     assert bool(((dwk - dw.depthwise_conv2d_s1_grad_weight_reference(x, g, k)).abs() <= 1e-4 * magnitude).all())
+
+
+def _depthwise_case(seed: int, shape: tuple[int, int, int, int], k: int, dtype: torch.dtype):
+    """x, w, g on the card: x and g of ``shape`` (B, H, W, C), w (k, k, C)."""
+    rng = np.random.default_rng(seed)
+    x, g = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype) for _ in range(2))
+    w = torch.from_numpy(rng.normal(size=(k, k, shape[-1])).astype(np.float32)).to("cuda", dtype)
+    return x, w, g
+
+
+def _assert_conv_matches(out: torch.Tensor, ref: torch.Tensor) -> None:
+    """Kernel #1 against its plain version: the same uncontracted f32
+    multiplies and adds in the same order, so equal to the last bit of f32
+    (<= 1e-6 x max|plain|) or within one bf16 ulp."""
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    ref = ref.float()
+    if out.dtype == torch.float32:
+        assert float((out - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    else:
+        assert _within_bf16_ulp(out, ref)
+
+
+def _assert_grad_weight_matches(dwk: torch.Tensor, x: torch.Tensor, g: torch.Tensor, k: int) -> None:
+    """Kernel #2 against its plain version: f32 sums in another order, within
+    1e-4 x sum|g||x_pad| per tap (chains of < 1600 additions)."""
+    torch.cuda.synchronize()
+    assert dwk.shape == (k, k, x.shape[-1]) and dwk.dtype == torch.float32
+    magnitude = dw.depthwise_conv2d_s1_grad_weight_reference(x.abs(), g.abs(), k)
+    assert bool(((dwk - dw.depthwise_conv2d_s1_grad_weight_reference(x, g, k)).abs() <= 1e-4 * magnitude).all())
+
+
+# (H, W) at the kernels' tile edges: 1, kernel #1's 2 x 4 thread patches and
+# its 8 x 8 / 4 x 16 / 2 x 28 block tiles one short, at and one past, and
+# kernel #2's 28- and 32-column tiles either side.
+DEPTHWISE_EDGE_HW = [(1, 1), (1, 5), (5, 1), (2, 4), (3, 3), (4, 8), (7, 7), (8, 8), (9, 9), (4, 15), (4, 16),
+                     (4, 17), (2, 27), (2, 28), (2, 29), (3, 32), (3, 33), (2, 57)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", DEPTHWISE_EDGE_HW)
+def test_depthwise_kernels_match_plain_at_tile_edges(dtype, h, w):
+    """#1 (forward and flipped input gradient) and #2 at the tile edges, with
+    66 channels: a full 64-channel tile and a narrow one."""
+    x, wt, g = _depthwise_case(h * 100 + w, (2, h, w, 66), 5, dtype)
+    _assert_conv_matches(dw.depthwise_conv2d_s1(x, wt), dw.depthwise_conv2d_s1_reference(x, wt))
+    _assert_conv_matches(dw.depthwise_conv2d_s1_input_grad(g, wt), dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)))
+    _assert_grad_weight_matches(dw.depthwise_conv2d_s1_grad_weight(x, g, 5), x, g, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 2, 3, 7, 24, 60, 63, 64, 65, 130])
+def test_depthwise_kernels_match_plain_at_channel_edges(dtype, c):
+    """C = 1, odd C (one channel a thread, 2-byte copies in bf16), C not a
+    multiple of the 16-byte piece (60, 130: 4- or 8-byte copies), and the
+    64-channel tile either side."""
+    x, wt, g = _depthwise_case(c, (2, 9, 7, c), 3, dtype)
+    _assert_conv_matches(dw.depthwise_conv2d_s1(x, wt), dw.depthwise_conv2d_s1_reference(x, wt))
+    _assert_conv_matches(dw.depthwise_conv2d_s1_input_grad(g, wt), dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)))
+    _assert_grad_weight_matches(dw.depthwise_conv2d_s1_grad_weight(x, g, 3), x, g, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", range(1, dw._MAX_K + 1))
+def test_forward_kernel_takes_every_k(dtype, k):
+    """k = 1..7 unrolled with the weights in registers, 8..13 at run time;
+    batch 1; the flipped input gradient for odd k."""
+    x, wt, g = _depthwise_case(k, (1, 11, 10, 34), k, dtype)
+    _assert_conv_matches(dw.depthwise_conv2d_s1(x, wt), dw.depthwise_conv2d_s1_reference(x, wt))
+    if k % 2:
+        _assert_conv_matches(dw.depthwise_conv2d_s1_input_grad(g, wt), dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("shape", [(1, 13, 11, 48), (1, 40, 33, 7), (3, 5, 70, 130)])
+def test_grad_weight_kernel_takes_every_k(dtype, k, shape):
+    """Every k of kernel #2, batch 1 included, odd and even C, one and
+    several column tiles."""
+    x, _, g = _depthwise_case(k * 10 + shape[-1], shape, k, dtype)
+    _assert_grad_weight_matches(dw.depthwise_conv2d_s1_grad_weight(x, g, k), x, g, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_depthwise_kernels_take_views_off_the_16_byte_boundary(dtype, offset):
+    """Contiguous views that start 1 or 2 elements into their storage: the
+    wrappers copy in narrower pieces, with the same results as on aligned
+    copies of the same values."""
+    x0, wt, g0 = _depthwise_case(offset, (2, 9, 7, 64), 3, dtype)
+    x = torch.empty(offset + x0.numel(), dtype=dtype, device="cuda")[offset:].view(x0.shape)
+    g = torch.empty(offset + g0.numel(), dtype=dtype, device="cuda")[offset:].view(g0.shape)
+    x.copy_(x0)
+    g.copy_(g0)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert torch.equal(dw.depthwise_conv2d_s1(x, wt), dw.depthwise_conv2d_s1(x0, wt))
+    assert torch.equal(dw.depthwise_conv2d_s1_input_grad(g, wt), dw.depthwise_conv2d_s1_input_grad(g0, wt))
+    _assert_conv_matches(dw.depthwise_conv2d_s1(x, wt), dw.depthwise_conv2d_s1_reference(x0, wt))
+    _assert_grad_weight_matches(dw.depthwise_conv2d_s1_grad_weight(x, g, 3), x0, g0, 3)
+
+
+@pytest.mark.parametrize("shape,k", [((32, 14, 14, 1056), 5), ((32, 7, 7, 1824), 5), ((8, 112, 112, 24), 3),
+                                     ((2, 13, 11, 130), 5), ((1, 3, 5, 7), 3)])
+def test_grad_weight_kernel_repeats_bit_for_bit(shape, k):
+    """The partials are added in slice order by whichever block arrives last,
+    so repeats give the same bits; calls at other shapes in between leave
+    the ticket counters ready."""
+    x, _, g = _depthwise_case(7, shape, k, torch.bfloat16)
+    first = dw.depthwise_conv2d_s1_grad_weight(x, g, k)
+    xo, _, go = _depthwise_case(8, (2, 9, 7, 66), 3, torch.bfloat16)
+    dw.depthwise_conv2d_s1_grad_weight(xo, go, 3)
+    assert torch.equal(dw.depthwise_conv2d_s1_grad_weight(x, g, k), first)
+    assert torch.equal(dw.depthwise_conv2d_s1_grad_weight(x, g, k), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
+def test_input_gradient_flips_the_filter_by_index(dtype, k):
+    """The input gradient equals the forward of the flipped filter copy, bit
+    for bit, and launches kernel #1 once as an input gradient."""
+    _, wt, g = _depthwise_case(k, (2, 14, 14, 96), k, dtype)
+    before = (dw.LAUNCHES, dw.DX_LAUNCHES)
+    dx = dw.depthwise_conv2d_s1_input_grad(g, wt)
+    torch.cuda.synchronize()
+    assert (dw.LAUNCHES, dw.DX_LAUNCHES) == (before[0], before[1] + 1)
+    assert torch.equal(dx, dw.depthwise_conv2d_s1(g, wt.flip(0, 1).contiguous()))
+
+
+def test_depthwise_launch_counts_per_call():
+    """One launch a wrapper call, counted once in its own counter; a forward
+    and backward of DepthwiseConv2dS1 in f32 runs exactly three kernels on
+    the card (#1 forward, #1 input gradient, #2), no flip copy and no
+    reduction of partials."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, wt, g = _depthwise_case(3, (8, 14, 14, 1056), 5, torch.float32)
+    counts = lambda: (dw.LAUNCHES, dw.DX_LAUNCHES, dw.DW_LAUNCHES)  # noqa: E731
+    before = counts()
+    dw.depthwise_conv2d_s1(x, wt)
+    assert counts() == (before[0] + 1, before[1], before[2])
+    dw.depthwise_conv2d_s1_input_grad(g, wt)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2])
+    dw.depthwise_conv2d_s1_grad_weight(x, g, 5)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    xr, wr = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    torch.autograd.grad(dw.DepthwiseConv2dS1.apply(xr, wr), (xr, wr), g)  # warm
+    torch.cuda.synchronize()
+    before = counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dx, dwk = torch.autograd.grad(dw.DepthwiseConv2dS1.apply(xr, wr), (xr, wr), g)
+        torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    _assert_conv_matches(dx, dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)))
+    _assert_grad_weight_matches(dwk, x, g, 5)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        pytest.skip("the profiler recorded no device activity (CUPTI tracing unavailable): kernels not listed")
+    names = sorted(re.sub(r".*(depthwise_s1_(?:fwd|dw)).*", r"\1", e.name) for e in kernels)
+    assert names == ["depthwise_s1_dw", "depthwise_s1_fwd", "depthwise_s1_fwd"], names
 
 
 # ---------------------------------------------------------------------------

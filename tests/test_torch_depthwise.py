@@ -5,6 +5,10 @@ checked against that plain version on a card by
 ``tests/test_torch_cuda_kernels.py``.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,3 +97,83 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(x, w, err):
         dw.depthwise_conv2d_s1(x, w)
     with pytest.raises(err):
         dw.depthwise_conv2d_s1_input_grad(x, w)
+
+
+# Kernel #1's tile plan: B5's stride-1 shapes, the ragged shape and the edges.
+FORWARD_PLAN_SHAPES = [
+    (112, 112, 48), (112, 112, 24), (56, 56, 240), (28, 28, 384), (14, 14, 768), (14, 14, 1056), (7, 7, 1824),
+    (7, 7, 3072), (13, 11, 130), (1, 1, 1), (1, 9, 7), (9, 1, 64), (3, 4, 65), (5, 33, 6), (224, 1024, 2),
+]
+
+
+@pytest.mark.parametrize("h,w,c", FORWARD_PLAN_SHAPES)
+@pytest.mark.parametrize("k,elem", [(3, 2), (5, 2), (dw._MAX_K, 4)])
+def test_forward_plan_fits_the_kernel(h, w, c, k, elem):
+    """At most 256 threads of TG channel groups (<= one warp's 32 lanes) x PX
+    x PY patches of 2 x 4 outputs, at least one thread per copy piece of a
+    pixel (<= TC), no patch wholly outside the map but for that, and two halo
+    tiles and the output tile within the card's 227 KiB of shared memory
+    (the plan's 112 KiB at B5's k and dtype)."""
+    vec, tg = dw._channel_groups(c)
+    plan_tg, px, py = dw._forward_plan(h, w, c, k, elem)
+    assert plan_tg == tg <= 32 and tg * vec <= c
+    assert tg * vec <= tg * px * py <= dw._MAX_THREADS
+    assert px <= -(-w // 4) and (py <= -(-h // 2) or px * py == vec)
+    limit = 112 * 1024 if k <= 5 else 227 * 1024
+    assert dw._forward_shared_bytes(tg * vec, px, py, k, elem) <= limit
+
+
+def test_forward_plan_covers_the_7x7_and_14x14_maps_in_one_tile_across():
+    """The deep B5 layers: one block covers a 7^2 map (8 x 8 outputs) or a
+    14-wide row band (4 x 16), with 64 channels in the warp's lanes."""
+    assert dw._forward_plan(7, 7, 1824, 5, 2) == (32, 2, 4)
+    assert dw._forward_plan(14, 14, 1056, 5, 2) == (32, 4, 2)
+
+
+@pytest.mark.parametrize(
+    "c,dtype,offset,piece",
+    [
+        (64, torch.bfloat16, 0, 16), (24, torch.bfloat16, 0, 16), (130, torch.bfloat16, 0, 4),
+        (7, torch.bfloat16, 0, 2), (64, torch.bfloat16, 1, 2), (64, torch.bfloat16, 2, 4),
+        (64, torch.float32, 0, 16), (130, torch.float32, 0, 8), (7, torch.float32, 0, 4),
+        (64, torch.float32, 1, 4), (64, torch.float32, 2, 8),
+    ],
+)
+def test_piece_bytes_is_the_widest_copy_the_channels_and_addresses_allow(c, dtype, offset, piece):
+    """16-byte copies where C * elem and the address allow; narrower pieces
+    for C = 130 (bf16 pairs), odd C and views that start off a boundary."""
+    base = torch.zeros(offset + 2 * 3 * c, dtype=dtype)
+    x = base[offset:].view(2, 3, c)
+    assert x.is_contiguous()
+    out = torch.empty_like(x)
+    assert dw._piece_bytes(c, x, out) == piece
+
+
+def test_tile_constants_are_read_from_the_header_the_kernels_include():
+    """The tile shape is set once, in csrc/depthwise_tiles.h: the wrapper's
+    plans read it from there, both CUDA sources include it (through
+    depthwise_common.cuh) and use its names instead of their own numbers."""
+    csrc = Path(dw.__file__).resolve().parent / "csrc"
+    assert dw._TILES == {"DW_MAX_THREADS": 256, "DW_FWD_RY": 2, "DW_FWD_RX": 4, "DW_GRAD_STAGES": 2}
+    assert (dw._MAX_THREADS, dw._FWD_PATCH, dw._DW_STAGES) == (256, (2, 4), 2)
+    assert '#include "depthwise_tiles.h"' in (csrc / "depthwise_common.cuh").read_text()
+    for source, names in (("depthwise_conv.cu", ("DW_MAX_THREADS", "DW_FWD_RY", "DW_FWD_RX")),
+                          ("depthwise_grad_weight.cu", ("DW_MAX_THREADS", "DW_GRAD_STAGES"))):
+        text = (csrc / source).read_text()
+        assert '#include "depthwise_common.cuh"' in text
+        assert all(name in text for name in names), source
+        assert "__launch_bounds__(DW_MAX_THREADS)" in text
+
+
+@pytest.mark.parametrize("name", sorted(dw._ENTRY_POINTS))
+def test_bindings_match_the_c_entry_points(name):
+    """Each ctypes binding declares as many arguments as its C entry point
+    takes, pointers where the source has pointers."""
+    library, sources, symbol, argtypes = dw._ENTRY_POINTS[name]
+    text = "".join((Path(dw.__file__).resolve().parent / "csrc" / src).read_text() for src in sources)
+    signature = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert signature is not None, symbol
+    params = [p.strip() for p in signature[1].split(",")]
+    assert len(params) == len(argtypes), (symbol, params)
+    for param, argtype in zip(params, argtypes):
+        assert ("*" in param) == (argtype is not ctypes.c_int), (symbol, param, argtype)

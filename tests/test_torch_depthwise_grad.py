@@ -113,3 +113,60 @@ def test_grad_weight_wrapper_rejects_what_the_kernel_does_not_take(x, g, k, err)
 def test_input_grad_rejects_even_k():
     with pytest.raises(ValueError, match="odd k"):
         dw.depthwise_conv2d_s1_input_grad(torch.zeros(1, 4, 4, 3), torch.zeros(2, 2, 3))
+
+
+# Kernel #2's plan at B5's stride-1 shapes (batch 32), the ragged shape and edges.
+B5_TRAIN_SHAPES = [
+    (32, 112, 112, 48, 3), (32, 112, 112, 24, 3), (32, 56, 56, 240, 3), (32, 28, 28, 384, 5),
+    (32, 14, 14, 768, 3), (32, 14, 14, 768, 5), (32, 14, 14, 1056, 5), (32, 7, 7, 1824, 5),
+    (32, 7, 7, 1824, 3), (32, 7, 7, 3072, 3), (32, 13, 11, 130, 5),
+]
+EDGE_SHAPES = [(1, 1, 1, 1, 3), (1, 1, 1, 1, 7), (2, 9, 7, 1, 1), (1, 33, 65, 5, 7), (4, 3, 2, 9, 1),
+               (1, 2, 70, 3, 5), (1000, 7, 7, 3072, 3), (64, 224, 224, 16, 3)]
+
+
+# Blocks an H100 (132 SMs) holds at once of kernel #2 at B5's shapes: 4-5 a
+# SM, by its registers and threads; the card's own figure comes from the
+# occupancy API at run time.
+H100_BLOCKS = [4 * 132, 5 * 132]
+
+
+@pytest.mark.parametrize("b,h,w,c,k", B5_TRAIN_SHAPES + EDGE_SHAPES)
+@pytest.mark.parametrize("elem", [2, 4])
+def test_grad_weight_plan_fits_the_kernel(b, h, w, c, k, elem):
+    """At most 256 threads (TG groups x k tap rows x S splits) and at least
+    a pixel's copy pieces; slices of a multiple of RC = S R2 rows that cover
+    B*H with none empty; column tiles of <= 32; a block's shared memory
+    within the plan's 96 KiB; the block is the same whatever the grid."""
+    vec, tg = dw._channel_groups(c)
+    for target in H100_BLOCKS:
+        plan_tg, s, r2, wt, n_slices, rows_per_slice = dw._grad_weight_plan(b, h, w, c, k, elem, target)
+        assert (plan_tg, s, r2, wt) == dw._grad_weight_tile(w, c, k, elem)
+        assert plan_tg == tg and tg * vec <= tg * k * s <= dw._MAX_THREADS
+        assert wt <= 32 and -(-w // wt) * wt - w < wt
+        rows = b * h
+        assert n_slices * rows_per_slice >= rows > (n_slices - 1) * rows_per_slice
+        assert rows_per_slice % (s * r2) == 0 or n_slices == 1
+        assert dw._grad_weight_shared_bytes(tg * vec, s, r2, wt, k, elem) <= dw._DW_SHARED_BYTES
+
+
+@pytest.mark.parametrize("b,h,w,c,k", B5_TRAIN_SHAPES)
+def test_grad_weight_plan_fills_the_card_and_bounds_the_sums(b, h, w, c, k):
+    """Every B5 layer gets 1.5 blocks per SM of an H100 (132 SMs) or more and
+    about the blocks it aims for, from rows at 112^2 and from channels at
+    7^2, and no f32 result sums more than 1600 terms in a chain (1600 x
+    2^-24 < 1e-4, the card gate's bound)."""
+    vec, tg = dw._channel_groups(c)
+    for target in H100_BLOCKS:
+        _, _, _, wt, n_slices, _ = dw._grad_weight_plan(b, h, w, c, k, 2, target)
+        blocks = n_slices * -(-w // wt) * -(-c // (tg * vec))
+        assert 1.5 * 132 <= blocks <= target + 32
+        assert dw._grad_weight_chain(b, h, w, c, k, 2, target) <= 1600
+
+
+@pytest.mark.parametrize("target", [1, 132, 4 * 132, 32 * 132])
+def test_grad_weight_chain_stays_under_the_gate_for_any_grid(target):
+    """The chain bound holds at every grid the occupancy API can ask for (1
+    to 32 blocks a SM), at the largest B5 maps and a long batch."""
+    for b, h, w, c, k in [(32, 112, 112, 24, 3), (64, 224, 224, 16, 3), (1000, 7, 7, 3072, 3)]:
+        assert dw._grad_weight_chain(b, h, w, c, k, 2, target) <= 1600
