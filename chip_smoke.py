@@ -1,4 +1,4 @@
-"""Drive s2tpu_torch's serving, training and MAE pretraining paths (dense and tensor-parallel) on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving, training, fc-prithvi finetuning and MAE pretraining paths (dense and tensor-parallel) on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
@@ -57,10 +57,12 @@ any failure raises and the script exits non-zero without printing a result:
    and the gradients of fixed layers.
 8. Kernel vs plain, attention shapes: fused dense attention forward (#8)
    and backward (#9) at the Prithvi T=1 decoder (64, 197, 16 heads, Dh 32),
-   the T=3 encoder (16, 148, 12, 64), a ragged L = 129 and the route's
-   edges; the same on the head-major layout (#6/#7) plus its longest L =
-   1024; streaming attention (#5) at the T=3 decoder (16, 589, 16, 32) and
-   L = 513, on strided views of one qkv projection; bf16 and f32, beside
+   the T=3 encoder (16, 148, 12, 64), a ragged L = 129, the route's edges
+   and fc-prithvi's encoder at T=1 (32, 197, 12, 64); the same on the
+   head-major layout (#6/#7) plus its longest L = 1024; streaming attention
+   (#5) at the T=3 decoder (16, 589, 16, 32), L = 513 and fc-prithvi's
+   encoder at T=3 (8, 589, 12, 64), on strided views of one qkv
+   projection; bf16 and f32, beside
    ``F.scaled_dot_product_attention`` on head-major tensors as the yardstick.
    Then #5 at the tile edges (L = 1, 63, 64, 65), the bf16 wrapper's refusal
    of a misaligned view, #6 and #8 at the tile edges (head-major L = 1, 15,
@@ -91,8 +93,30 @@ any failure raises and the script exits non-zero without printing a result:
 12. One Prithvi-100M MAE train step in f32 on the card (TF32 off) against
    the CPU, same weights, input and masking noise: loss and the gradients of
    fixed tensors (the first decoder block's through #9).
-13. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
-   their bf16 kernels' registers and spill bytes from ``-Xptxas -v``), the
+13. fc-prithvi slice, T=1 (after phase 6, on its labelled data):
+   BASELINE.json config #4, Prithvi-100M segmentation, finetuned through
+   ``s2tpu_torch.cli.train_segmentation ... fc-prithvi-backbone`` (bf16,
+   batch 32, 224^2, 2 epochs x 2 steps) from the encoder of a seeded
+   Prithvi-100M written as a port MAE run (``--backbone-ckpt``), frozen in
+   epoch 0 and unfrozen from epoch 1 at a tenth of the learning rate: exact
+   launches (#8 12 per forward, #9 12 per unfrozen step, #3/#4 per step and
+   eval batch), the backbone equal to the MAE encoder bit for bit after
+   epoch 0 and moved after epoch 1, the neck and head moved, one more epoch
+   through ``--resume-from`` (across the transition), the run served by
+   ``cli.infer --tiled`` on phase 5's 512^2 segments with exact #8
+   launches; then warm frozen and unfrozen steps timed (ms, images/s,
+   TFLOP/s of the step's counted products) and profiled.
+14. fc-prithvi slice, T=3: ``SegmentationTrainer`` at three frames (batch 8,
+   the neck 2304 wide), one frozen and one unfrozen step: the encoder (L =
+   589) through #5 only, 12 launches a forward; then a warm unfrozen step.
+15. One frozen and one unfrozen fc-prithvi train step (Prithvi-100M, batch 2,
+   224^2) in f32 on the card (TF32 off, dropout off) against the CPU: loss,
+   the head's BatchNorm statistics and the gradients of fixed tensors
+   (the backbone's through #9 when unfrozen).
+16. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
+   their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
+   #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
+   launches, and #8, #9, #5 with their times at fc-prithvi's shapes), the
    ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -163,11 +187,16 @@ F32_STEP_GRAD_CEILING = 0.2  # a tolerance above this would check nothing
 DENSE_ATTENTION_SHAPES = {
     (64, 197, 16, 32): "T=1 decoder", (16, 148, 12, 64): "T=3 encoder", (16, 129, 16, 32): "ragged",
     (4, 544, 16, 32): "route edge, D=512", (4, 439, 12, 64): "route edge, D=768",
+    (32, 197, 12, 64): "fc-prithvi encoder T=1",
 }
+FC_DENSE_SHAPE = (32, 197, 12, 64)  # fc-prithvi's encoder at T=1, batch 32: every token, #8/#9
 # #6/#7 (fused head-major, the tensor-parallel path): the same shapes and the
 # longest L the wrapper takes (JAX's fused_attention_qkv takes any L <= 1024).
 QKV_ATTENTION_SHAPES = {**DENSE_ATTENTION_SHAPES, (2, 1024, 16, 32): "longest L"}
-FLASH_ATTENTION_SHAPES = {(16, 589, 16, 32): "T=3 decoder", (16, 513, 16, 32): "ragged"}
+FLASH_ATTENTION_SHAPES = {
+    (16, 589, 16, 32): "T=3 decoder", (16, 513, 16, 32): "ragged", (8, 589, 12, 64): "fc-prithvi encoder T=3",
+}
+FC_FLASH_SHAPE = (8, 589, 12, 64)  # fc-prithvi's encoder at T=3, batch 8: L = 589 is past the fused budget
 # #6/#8's tile edges: one past, at and one short of the 16-key groups and 64-
 # and 128-row blocks the bf16 forward cuts its work to, the main path's L,
 # both sides of the last L with k and v resident (256), and the longest each
@@ -197,6 +226,26 @@ MAE_F32_BATCH = 4
 MAE_F32_FLOOR = {"loss": 1e-5, "grad": 1e-4}
 MAE_F32_GRADS = ("patch_embed.proj.weight", "blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.qkv.weight",
                  "decoder_pred.weight")
+# fc-prithvi slice, T=1: BASELINE.json config #4 (Prithvi-100M segmentation,
+# batch 32, 224^2, bf16) trained through the CLI on the training slice's 80
+# labelled segments (2 steps and 1 eval batch a epoch), frozen in epoch 0 and
+# unfrozen from epoch 1 at a tenth of the learning rate, from the encoder of a
+# seeded Prithvi-100M written as a port MAE run; served on the serving slice's
+# 512^2 segments (its 6 train-split segments, 54 tiles of 224^2).
+FC_BATCH, FC_EPOCHS, FC_UNFREEZE_AT, FC_LR_SCALE = 32, 2, 1, 0.1
+FC_DEPTH = 12  # encoder blocks: one attention launch each per forward (and backward once unfrozen)
+# fc-prithvi slice, T=3: the neck is 3 x 768 = 2304 wide; batch 8 over 10
+# segments of three frames (8 train).
+FC_T3_BATCH, FC_T3_SEGMENTS, FC_T3_FRAMES = 8, 10, 3
+# Card f32 vs CPU f32 fc-prithvi steps (Prithvi-100M, T=1, batch 2, 224^2 so
+# that the card runs #8): calibrated on the CPU's own movement under a 1e-7
+# perturbation, as the B5 and MAE steps are.
+FC_F32_BATCH = 2
+FC_F32_FLOOR = {"loss": 1e-5, "running_stats": 1e-4, "grad": 1e-4}
+FC_F32_HEAD_GRADS = ("head.net.4.weight", "head.net.0.weight", "neck.feature_pyramid_net.7.weight",
+                     "neck.feature_pyramid_net.0.weight")
+FC_F32_BACKBONE_GRADS = ("backbone.blocks.11.attn.qkv.weight", "backbone.blocks.0.attn.qkv.weight",
+                         "backbone.patch_embed.proj.weight")
 
 
 # Device kernels by kind, matched on name fragments in this order (the
@@ -903,25 +952,8 @@ def phase_train(work: Path) -> dict:
         trainer = SegmentationTrainer(cfg, dm, device="cuda")
         host = next(dm.train_batches(0))
         images, labels = torch.from_numpy(host.images).cuda(), torch.from_numpy(host.labels).cuda()
-        trainer.train_step(images, labels)  # warm-up: cuDNN heuristics, allocator
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        n_timed = 3
-        t0 = time.perf_counter()
-        for _ in range(n_timed):
-            trainer.train_step(images, labels)
-        torch.cuda.synchronize()
-        step_s = (time.perf_counter() - t0) / n_timed
-        peak = torch.cuda.max_memory_allocated()
-        log(
-            f"train step (warm, B5 bf16, batch {TRAIN_BATCH}, 224^2, mean of {n_timed}): ms_per_step={step_s * 1e3:.3f} "
-            f"images_per_s={TRAIN_BATCH / step_s:.2f} peak_mem_bytes={peak}"
-        )
-        t0 = time.perf_counter()
-        trainer.train_step(images, labels)
-        torch.cuda.synchronize()
-        busy = profile_device("train step (bf16)", lambda: trainer.train_step(images, labels), time.perf_counter() - t0)
-        return {"launches": launches, "ms_per_step": step_s * 1e3, "peak_mem_bytes": peak, "busy_share": busy}
+        timing = time_seg_steps(f"train step (B5 bf16, batch {TRAIN_BATCH}, 224^2)", trainer, images, labels)
+        return {"launches": launches, **timing}
     finally:
         for d in CKPT_DIR.glob(f"*/{name}_*"):
             shutil.rmtree(d, ignore_errors=True)
@@ -1305,6 +1337,8 @@ def phase_attention_kernels() -> dict:
         "dense": main_shape(dense, DENSE_ATTENTION_SHAPES),
         "qkv": main_shape(qkv, QKV_ATTENTION_SHAPES),
         "flash": {**main_flash, "max_abs_err": max(t["max_abs_err"] for t in flash.values())},
+        "dense_fc": dense[(FC_DENSE_SHAPE, torch.bfloat16)],
+        "flash_fc": flash[(FC_FLASH_SHAPE, torch.bfloat16)],
     }
 
 
@@ -1786,6 +1820,383 @@ def phase_mae_f32_step(mesh=None) -> None:
     log(f"f32 {form}mae step card vs cpu: loss {card['loss']:.6f} vs {cpu['loss']:.6f}, in {time.perf_counter() - t0:.1f} s")
 
 
+def fc_prithvi_flops(mc, batch: int) -> dict[str, float]:
+    """Products of one fc-prithvi train step by part (multiply-adds x 2):
+    the encoder's dense layers and attention, the neck's four k2 s2
+    transpose convs and the head's 3x3 conv and classifier, forward; the
+    backward of the neck and head (input and weight gradients, the neck's
+    first input gradient excepted) and, once unfrozen, of the encoder."""
+    bb = mc.backbone
+    l, d, g = bb.num_patches + 1, bb.embed_dim, mc.patch_height
+    c = mc.output_embed_dim
+    block = 2 * l * d * (3 * d + d + 2 * int(bb.mlp_ratio * d)) + 4 * l * l * d
+    encoder = batch * (bb.depth * block + 2 * bb.num_patches * bb.patch_dim * d)
+    neck_parts = [batch * 2 * (g * 2 ** (i + 1)) ** 2 * c * c for i in range(4)]
+    hw = (16 * g) ** 2
+    head = batch * (2 * hw * 9 * c * mc.fcn_out_channels + 2 * hw * mc.fcn_out_channels * mc.num_classes)
+    neck_head_bwd = 2 * (sum(neck_parts) + head) - neck_parts[0]
+    return {
+        "encoder_fwd": encoder, "neck_fwd": sum(neck_parts), "head_fwd": head,
+        "frozen_step": encoder + sum(neck_parts) + head + neck_head_bwd,
+        "unfrozen_step": encoder + sum(neck_parts) + head + neck_head_bwd + 2 * encoder,
+    }
+
+
+def write_mae_run(run_dir: Path, model_config, seed: int) -> dict[str, torch.Tensor]:
+    """A seeded Prithvi MAE written as a port MAE run directory (epoch 0, as
+    ``cli.train_mae`` writes it); returns its state dict on the CPU."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+    from s2tpu_torch.configs import mae as mae_cfg
+    from s2tpu_torch.models.prithvi_mae import PrithviMAE
+
+    mae = PrithviMAE(model_config, generator=torch.Generator().manual_seed(seed))
+    config = mae_cfg.pretrain(mae_cfg.base_config("small"))
+    ckpt = CheckpointManager(run_dir, config_dict=dataclasses.asdict(config))
+    ckpt.save_epoch(0, mae, torch.optim.Adam(mae.parameters()), 0)
+    return mae.state_dict()
+
+
+def time_seg_steps(label: str, trainer, images: torch.Tensor, labels: torch.Tensor, flops: float | None = None,
+                   n_timed: int = 3) -> dict:
+    """Warm segmentation train steps on one device batch: ms/step, images/s,
+    TFLOP/s of ``flops`` a step (where counted), peak memory, then one
+    profiled step."""
+    trainer.train_step(images, labels)  # warm-up: cuDNN heuristics, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        trainer.train_step(images, labels)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    peak = torch.cuda.max_memory_allocated()
+    rate = "" if flops is None else (
+        f"step_tflop={flops / 1e12:.3f} tflop_per_s={flops / step_s / 1e12:.1f} "
+        f"(share of the bf16 dense peak {flops / step_s / BF16_FLOPS_PER_S:.3f}) "
+    )
+    log(
+        f"{label} (warm, mean of {n_timed}): ms_per_step={step_s * 1e3:.3f} images_per_s="
+        f"{images.shape[0] / step_s:.2f} {rate}peak_mem_bytes={peak}"
+    )
+    t0 = time.perf_counter()
+    trainer.train_step(images, labels)
+    torch.cuda.synchronize()
+    busy = profile_device(label, lambda: trainer.train_step(images, labels), time.perf_counter() - t0)
+    return {"ms_per_step": step_s * 1e3, "peak_mem_bytes": peak, "busy_share": busy}
+
+
+def fc_argv(data_dir: Path, mae_dir: Path, name: str) -> list[str]:
+    """The training CLI's arguments of the fc-prithvi slice (T=1)."""
+    return [
+        "small", "osm-multiclass", "fc-prithvi-backbone", "--bs", str(FC_BATCH), "--crop", "224", "--compute-dtype",
+        "bfloat16", "--epochs", str(FC_EPOCHS), "--log-interval", "1", "--data-dir", str(data_dir), "--name", name,
+        "--seed", str(SEED), "--backbone-ckpt", str(mae_dir), "--unfreeze-at-epoch", str(FC_UNFREEZE_AT),
+        "--unfreeze-lr-scale", str(FC_LR_SCALE),
+    ]
+
+
+def phase_fc_prithvi(work: Path) -> dict:
+    """Finetune Prithvi-100M for segmentation (T=1) through the training CLI
+    on the card, frozen then unfrozen, from a seeded MAE run; check it,
+    resume it across the transition, serve it, then time warm frozen and
+    unfrozen steps. Returns the path's launch counts and timings."""
+    from s2tpu_torch.checkpoint import io
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args, main as train_main
+    from s2tpu_torch.configs import mae as mae_cfg
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.configs.segmentation import fc_prithvi_config
+    from s2tpu_torch.data.dataset import TiffSource, train_val_test_split
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.data.statistics import load_mean_std
+    from s2tpu_torch.geo.tiff import read_geotiff
+    from s2tpu_torch.infer.tiled import tile_coords
+    from s2tpu_torch.train.mae_trainer import default_model_config
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    data_dir, serve_dir, mae_dir, out = work / "train_data", work / "data", work / "fc_mae", work / "fc_preds"
+    t0 = time.perf_counter()
+    mae_state = write_mae_run(mae_dir, default_model_config(mae_cfg.pretrain(mae_cfg.base_config("small"))), SEED + 8)
+    encoder = [k for k in mae_state if not (k.startswith("decoder") or k == "mask_token")]
+    log(f"fc-prithvi setup: seeded Prithvi-100M MAE run written in {time.perf_counter() - t0:.1f} s")
+    name = f"chip-smoke-fc-{os.getpid()}"
+    argv = fc_argv(data_dir, mae_dir, name)
+    # The backbone at each epoch's checkpoint, copied before the manager
+    # keeps only the best and the latest epoch.
+    saved: dict[int, dict[str, torch.Tensor]] = {}
+    save_epoch = io.CheckpointManager.save_epoch
+
+    def recording_save(self, epoch, model, *args, **kwargs):
+        saved[epoch] = {k: v.detach().cpu().clone() for k, v in model.backbone.state_dict().items()}
+        return save_epoch(self, epoch, model, *args, **kwargs)
+
+    try:
+        io.CheckpointManager.save_epoch = recording_save
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            history = train_main(argv)  # the main path
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = launch_counts()
+        finally:
+            io.CheckpointManager.save_epoch = save_epoch
+        (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
+        step_losses = [
+            rec["train/loss_step"] for rec in map(json.loads, (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open())
+            if "train/loss_step" in rec
+        ]
+        config, state = io.load_checkpoint(run_dir)
+        n_train = int(config.datamodule.data_split[0] * TRAIN_SEGMENTS)
+        n_val = int(config.datamodule.data_split[1] * TRAIN_SEGMENTS)
+        per_epoch = n_train // FC_BATCH
+        steps, unfrozen_steps = FC_EPOCHS * per_epoch, (FC_EPOCHS - FC_UNFREEZE_AT) * per_epoch
+        eval_batches = FC_EPOCHS * math.ceil(n_val / (FC_BATCH * config.datamodule.val_batch_size_multiplier))
+        expected = {
+            "depthwise_fwd": 0, "depthwise_dx": 0, "depthwise_dw": 0,
+            "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
+            "attn_fused_fwd": FC_DEPTH * (steps + eval_batches), "attn_fused_bwd": FC_DEPTH * unfrozen_steps,
+            "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0, "attn_flash_fwd": 0,
+        }
+        if launches != expected:
+            raise AssertionError(f"fc-prithvi path launches {launches} != expected {expected}")
+        losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
+        if len(step_losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"fc-prithvi losses not finite or missing: steps {step_losses}, history {history}")
+        lrs = [r["train/lr"] for r in history]
+        if not math.isclose(lrs[FC_UNFREEZE_AT], FC_LR_SCALE * lrs[0], rel_tol=1e-6):
+            raise AssertionError(f"learning rates {lrs}: the unfreeze scale {FC_LR_SCALE} was not applied")
+        # The backbone: the MAE's encoder bit for bit while frozen, moved once unfrozen.
+        if sorted(saved) != list(range(FC_EPOCHS)):
+            raise AssertionError(f"checkpoints written for epochs {sorted(saved)}")
+        frozen_changed = [k for k in encoder if not torch.equal(saved[0][k], mae_state[k])]
+        unmoved = [k for k in encoder if torch.equal(saved[FC_EPOCHS - 1][k], mae_state[k])]
+        if frozen_changed or unmoved:
+            raise AssertionError(f"backbone: changed while frozen {frozen_changed[:3]}, unmoved once unfrozen "
+                                 f"{unmoved[:3]} ({len(unmoved)} of {len(encoder)})")
+        init = config.build_model(dtype=torch.bfloat16, device="cpu", param_dtype=torch.float32,
+                                  generator=torch.Generator().manual_seed(SEED)).state_dict()
+        head = [k for k in init if k.startswith(("neck.", "head.")) and "running" not in k and "num_batches" not in k]
+        unmoved_head = [k for k in head if torch.equal(init[k], state[k])]
+        if unmoved_head or any(state[k].dtype != torch.float32 for k in head):
+            raise AssertionError(f"neck/head not moved or not f32: {unmoved_head[:5]}")
+        # Resume from the last checkpoint (after the transition: the backbone
+        # unfreezes before the optimizer of every parameter loads).
+        resumed = train_main(argv + ["--epochs", str(FC_EPOCHS + 1), "--resume-from", str(run_dir)])
+        resumed_step = io.CheckpointManager(run_dir).restore(FC_EPOCHS)["step"]
+        if [r["epoch"] for r in resumed] != [FC_EPOCHS] or resumed_step != steps + per_epoch or not math.isclose(
+            resumed[0]["train/lr"], lrs[-1], rel_tol=1e-6
+        ):
+            raise AssertionError(f"resume: epochs {[r['epoch'] for r in resumed]}, step {resumed_step}, lr {resumed}")
+        log(
+            f"fc-prithvi cli T=1 (Prithvi-100M segmentation, bf16 compute, f32 params, batch {FC_BATCH}, 224^2, "
+            f"backbone from an MAE run, unfrozen at epoch {FC_UNFREEZE_AT} at lr x{FC_LR_SCALE}): {FC_EPOCHS} epochs, "
+            f"{steps} steps ({unfrozen_steps} unfrozen), {eval_batches} eval batches in {cli_s:.3f} s end to end; "
+            f"step losses {[round(v, 5) for v in step_losses]}; val loss {[round(r['val/loss'], 5) for r in history]}; "
+            f"lr {lrs}; launches {launches} = expected; backbone = the MAE encoder bit for bit after epoch 0, all "
+            f"{len(encoder)} tensors moved after epoch {FC_EPOCHS - 1}; {len(head)} neck/head tensors moved, f32; "
+            f"resumed across the transition to epoch {FC_EPOCHS} (step {resumed_step})"
+        )
+
+        # Serve the run directory: the serving slice's segments of the train split, tiled.
+        src = TiffSource("small", "osm-multiclass", serve_dir)
+        seg_idx = train_val_test_split(len(src), config.datamodule.data_split, seed=0)[0]
+        groups = [seg_idx[g : g + 4] for g in range(0, len(seg_idx), 4)]  # cli.infer's SEGMENTS_PER_CALL
+        n_tiles = sum(len(tile_coords(len(g), 512, 512, 224, 192)) for g in groups)
+        n_batches = sum(math.ceil(len(tile_coords(len(g), 512, 512, 224, 192)) / BATCH) for g in groups)
+        argv_serve = [str(run_dir), "--tiled", "--split", "train", "--out", str(out), "--data-dir", str(serve_dir)]
+        infer_main(argv_serve)  # warm-up: cuDNN heuristics, allocator
+        shutil.rmtree(out)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        infer_main(argv_serve)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve = launch_counts()
+        if serve["attn_fused_fwd"] != FC_DEPTH * n_batches or sum(serve.values()) != serve["attn_fused_fwd"]:
+            raise AssertionError(f"fc-prithvi serving launches {serve} != {FC_DEPTH} x {n_batches} batches of #8")
+        preds = sorted(out.glob("pred_*.tif"))
+        if len(preds) != len(seg_idx):
+            raise AssertionError(f"{len(preds)} class maps for {len(seg_idx)} segments")
+        for p in preds:
+            data, _ = read_geotiff(p)
+            if data.shape != (1, 512, 512) or data.max() >= config.num_classes:
+                raise AssertionError(f"{p.name}: shape {data.shape}, max {data.max()}")
+        log(
+            f"fc-prithvi serve (cli.infer --tiled, bf16): {len(seg_idx)} segments 512^2, {n_tiles} tiles, "
+            f"{n_batches} batches of <= {BATCH} in {serve_s:.3f} s end to end (tiles_per_s={n_tiles / serve_s:.2f}); "
+            f"#8 launches {serve['attn_fused_fwd']} = {FC_DEPTH} x {n_batches}"
+        )
+
+        # Warm steps, frozen then unfrozen, on one device batch.
+        cfg = config_from_args(build_parser().parse_args(argv))
+        cfg.train.class_distribution = config.train.class_distribution
+        ds = cfg.datamodule.dataset_cfg
+        dm = Datamodule(cfg.datamodule, source=TiffSource(ds.aoi, ds.label_map, ds.data_dir))
+        dm.set_mean_std(*load_mean_std(dm.source.data_dirs.base_path / "mean_std.json"))
+        trainer = SegmentationTrainer(cfg, dm, device="cuda")
+        host = next(dm.train_batches(0))
+        images, labels = torch.from_numpy(host.images).cuda(), torch.from_numpy(host.labels).cuda()
+        flops = fc_prithvi_flops(fc_prithvi_config(cfg), FC_BATCH)
+        log(f"fc-prithvi step products (TFLOP, batch {FC_BATCH}, 224^2): " + " ".join(
+            f"{k}={v / 1e12:.3f}" for k, v in flops.items()))
+        frozen = time_seg_steps(f"fc-prithvi step frozen (bf16, batch {FC_BATCH}, 224^2)", trainer, images, labels,
+                                flops["frozen_step"])
+        trainer.unfreeze_backbone()
+        unfrozen = time_seg_steps(f"fc-prithvi step unfrozen (bf16, batch {FC_BATCH}, 224^2)", trainer, images,
+                                  labels, flops["unfrozen_step"])
+        return {"launches": launches, "serve_launches": serve, "frozen": frozen, "unfrozen": unfrozen}
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}_*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+            f.unlink(missing_ok=True)
+
+
+def phase_fc_prithvi_t3(work: Path) -> dict:
+    """fc-prithvi at three frames through SegmentationTrainer (full width,
+    224^2, batch 8, the neck 2304 wide): one frozen and one unfrozen step.
+    The encoder (L = 589, past the fused budget) runs #5 in every forward;
+    the unfrozen backward differentiates the plain attention in f32."""
+    from s2tpu_torch.configs.segmentation import base_config, fc_prithvi_config
+    from s2tpu_torch.data.dataset import make_synthetic_fixture
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.ops.flash_attention import attention_route
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    data_dir = work / "fc_t3_data"
+    make_synthetic_fixture(data_dir, aoi="small", label_map="osm-multiclass", n_segments=FC_T3_SEGMENTS,
+                           n_time=FC_T3_FRAMES, size=(224, 224))
+    config = base_config("fc-prithvi-backbone", aoi="small", label_map="osm-multiclass")
+    config.datamodule.dataset_cfg.data_dir = str(data_dir)
+    config.datamodule.dataset_cfg.n_time_frames = FC_T3_FRAMES
+    config.datamodule.batch_size = FC_T3_BATCH
+    config.train.seed = SEED
+    config.train.class_distribution = [0.1, 0.3, 0.4, 0.2]
+    mc = fc_prithvi_config(config)
+    bb = mc.backbone
+    if attention_route(bb.num_patches + 1, bb.embed_dim, bb.num_heads, bb.attention_impl) != "flash":
+        raise AssertionError("fc-prithvi T=3: the encoder does not take the streaming route")
+    trainer = SegmentationTrainer(config, Datamodule(config.datamodule), device="cuda")
+    host = next(trainer.dm.train_batches(0))
+    images, labels = torch.from_numpy(host.images).cuda(), torch.from_numpy(host.labels).cuda()
+    if tuple(images.shape) != (FC_T3_BATCH, FC_T3_FRAMES, 224, 224, 6):
+        raise AssertionError(f"T=3 batch of shape {tuple(images.shape)}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    frozen = trainer.train_step(images, labels)
+    trainer.unfreeze_backbone()
+    unfrozen = trainer.train_step(images, labels)
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    launches = launch_counts()
+    expected = {
+        "depthwise_fwd": 0, "depthwise_dx": 0, "depthwise_dw": 0, "fused_ce_fwd": 2, "fused_ce_bwd": 2,
+        "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
+        "attn_flash_fwd": 2 * FC_DEPTH,
+    }
+    if launches != expected:
+        raise AssertionError(f"fc-prithvi T=3 launches {launches} != expected {expected}")
+    losses = [float(frozen["loss"]), float(unfrozen["loss"])]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"fc-prithvi T=3 losses not finite: {losses}")
+    log(
+        f"fc-prithvi T=3 (Prithvi-100M segmentation, {FC_T3_FRAMES} frames, neck {mc.output_embed_dim} wide, bf16, "
+        f"batch {FC_T3_BATCH}, encoder L={bb.num_patches + 1}): one frozen and one unfrozen step in {steps_s:.3f} s "
+        f"(cold); losses {[round(v, 5) for v in losses]}; launches {launches} = expected"
+    )
+    flops = fc_prithvi_flops(mc, FC_T3_BATCH)
+    timing = time_seg_steps(f"fc-prithvi step T=3 unfrozen (bf16, batch {FC_T3_BATCH}, 224^2)", trainer, images,
+                            labels, flops["unfrozen_step"], n_timed=2)
+    return {"launches": launches, **timing}
+
+
+def phase_fc_prithvi_f32_step() -> None:
+    """One frozen and one unfrozen fc-prithvi train step (Prithvi-100M, T=1,
+    batch 2, 224^2) in f32 on the card (TF32 off, dropout off) against the
+    CPU, same weights and batch; raises beyond the calibrated tolerances.
+    The CPU runs the unfrozen step (its loss, statistics and neck/head
+    gradients are the frozen step's too: the same arithmetic) and the same
+    step perturbed by 1e-7."""
+    from s2tpu_torch.configs.segmentation import base_config, fc_prithvi_config
+    from s2tpu_torch.models.prithvi_seg import PrithviSegmentationNet
+    from s2tpu_torch.train.losses import make_loss_fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = base_config("fc-prithvi-backbone", aoi="small", label_map="osm-multiclass")
+    mc = fc_prithvi_config(config)
+    rng = np.random.default_rng(SEED)
+    b = FC_F32_BATCH
+    x = torch.from_numpy(rng.normal(size=(b, 1, 224, 224, 6)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 4, size=(b, 224, 224)).astype(np.int32))
+    init = PrithviSegmentationNet(mc, generator=torch.Generator().manual_seed(SEED)).state_dict()
+
+    def step(device: str, frozen: bool, eps: float = 0.0) -> dict:
+        model = PrithviSegmentationNet(dataclasses.replace(mc, frozen_backbone=frozen, fcn_dropout=0.0))
+        model.load_state_dict(init, strict=True)
+        model.to(device)
+        xd = x.to(device)
+        if eps:
+            gen = torch.Generator().manual_seed(SEED + 9)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1.0 + eps * torch.randn(p.shape, generator=gen).to(device))
+            xd = xd * (1.0 + eps * torch.randn(x.shape, generator=gen).to(device))
+        loss_fn = make_loss_fn("ce", 4, masked_loss=True, device=device)
+        model.train()
+        loss = loss_fn(model(xd), y.to(device)).total
+        loss.backward()
+        named = dict(model.named_parameters())
+        grads = FC_F32_HEAD_GRADS + (() if frozen else FC_F32_BACKBONE_GRADS)
+        return {
+            "loss": float(loss.detach()),
+            "stats": {n: t.detach().cpu() for n, t in model.named_buffers() if "running" in n},
+            "grads": {n: named[n].grad.detach().cpu() for n in grads},
+        }
+
+    def distance(a: dict, ref: dict) -> dict:
+        return {
+            "loss": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "running_stats": max(float(((a["stats"][n] - t).abs() / t.abs().clamp_min(1.0)).max())
+                                 for n, t in ref["stats"].items()),
+            **{f"grad {n}": float((g - ref["grads"][n]).norm() / ref["grads"][n].norm()) for n, g in a["grads"].items()},
+        }
+
+    t0 = time.perf_counter()
+    cpu = step("cpu", frozen=False)
+    sensitivity = distance(step("cpu", frozen=False, eps=1e-7), cpu)
+    failures = []
+    for frozen in (True, False):
+        reset_launch_counts()
+        card = step("cuda", frozen)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = (FC_DEPTH, 0 if frozen else FC_DEPTH, 1, 1)
+        got = (counts["attn_fused_fwd"], counts["attn_fused_bwd"], counts["fused_ce_fwd"], counts["fused_ce_bwd"])
+        if got != want:
+            raise AssertionError(f"the f32 fc-prithvi card step (frozen={frozen}) launched {counts}, not #8/#9/#3/#4 {want}")
+        form = "frozen" if frozen else "unfrozen"
+        for key, d in distance(card, cpu).items():
+            floor = FC_F32_FLOOR["grad" if key.startswith("grad") else key]
+            tol = max(F32_STEP_SENSITIVITY_FACTOR * sensitivity[key], floor)
+            if key.startswith("grad") and tol > F32_STEP_GRAD_CEILING:
+                failures.append(f"{form} {key}: tolerance {tol:.3g} too loose to check anything")
+            if not d <= tol:
+                failures.append(f"{form} {key}: card vs cpu {d:.3g} > {tol:.3g}")
+            log(
+                f"f32 fc-prithvi step {form} card vs cpu (Prithvi-100M T=1, batch {b}, 224^2): {key}: {d:.3g} "
+                f"(cpu moved {sensitivity[key]:.3g} under a 1e-7 perturbation; limit {tol:.3g})"
+            )
+        log(f"f32 fc-prithvi step {form}: loss {card['loss']:.6f} vs cpu {cpu['loss']:.6f}")
+    if failures:
+        raise AssertionError("card vs CPU f32 fc-prithvi step: " + "; ".join(failures))
+    log(f"f32 fc-prithvi steps card vs cpu: within tolerance, in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--attention"], ["--depthwise"]):
         print("usage: python3 chip_smoke.py [--attention | --depthwise]", file=sys.stderr)
@@ -1826,6 +2237,8 @@ def main(argv: list[str]) -> int:
     try:
         serve_launches = timed("serving slice", phase_slice, work)
         train = timed("training slice", phase_train, work)
+        fc = timed("fc-prithvi slice T=1", phase_fc_prithvi, work)
+        fc_t3 = timed("fc-prithvi slice T=3", phase_fc_prithvi_t3, work)
         mae = timed("MAE slice T=1", phase_mae, work)
         mae_t3 = timed("MAE slice T=3", phase_mae_t3, work)
         with one_rank_mesh(work) as mesh:
@@ -1836,6 +2249,7 @@ def main(argv: list[str]) -> int:
         shutil.rmtree(work, ignore_errors=True)
     timed("f32 train step card vs cpu", phase_f32_step)
     timed("f32 MAE step card vs cpu", phase_mae_f32_step)
+    timed("f32 fc-prithvi step card vs cpu", phase_fc_prithvi_f32_step)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     launches = train["launches"]
@@ -1889,6 +2303,7 @@ def main(argv: list[str]) -> int:
             "library_ms": ce_times["fwd_library_ms"],
             "ce_ms": ce_times["ce_fwd_ms"],
             "ce_library_ms": ce_times["ce_fwd_library_ms"],
+            "fc_prithvi_launches": fc["launches"]["fused_ce_fwd"],
         },
         {
             "name": "fused_ce_backward",
@@ -1904,6 +2319,7 @@ def main(argv: list[str]) -> int:
             "library_ms": ce_times["bwd_library_ms"],
             "ce_ms": ce_times["ce_bwd_ms"],
             "ce_library_ms": ce_times["ce_bwd_library_ms"],
+            "fc_prithvi_launches": fc["launches"]["fused_ce_bwd"],
         },
         {
             "name": "fused_attention_qkv_forward",
@@ -1947,6 +2363,9 @@ def main(argv: list[str]) -> int:
             "bound_by": attn_times["dense"]["fwd_bound_by"],
             "library_ms": attn_times["dense"]["fwd_library_ms"],
             "t3_launches": mae_t3["launches"]["attn_fused_fwd"],
+            "fc_prithvi_launches": fc["launches"]["attn_fused_fwd"],
+            "fc_prithvi_serve_launches": fc["serve_launches"]["attn_fused_fwd"],
+            **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"fwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **fwd_ptxas,
         },
         {
@@ -1962,6 +2381,8 @@ def main(argv: list[str]) -> int:
             "bound_by": attn_times["dense"]["bwd_bound_by"],
             "library_ms": attn_times["dense"]["bwd_library_ms"],
             "t3_launches": mae_t3["launches"]["attn_fused_bwd"],
+            "fc_prithvi_launches": fc["launches"]["attn_fused_bwd"],
+            **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"bwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         },
         {
             "name": "flash_attention_forward",
@@ -1975,6 +2396,8 @@ def main(argv: list[str]) -> int:
             "bound_ms": attn_times["flash"]["bound_ms"],
             "bound_by": attn_times["flash"]["bound_by"],
             "library_ms": attn_times["flash"]["library_ms"],
+            "fc_prithvi_t3_launches": fc_t3["launches"]["attn_flash_fwd"],
+            **{f"fc_prithvi_t3_{k}": attn_times["flash_fc"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         },
     ]
     if len(kernels) != 9:

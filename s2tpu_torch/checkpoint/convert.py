@@ -1,13 +1,13 @@
-"""JAX EfficientNet-UNet and Prithvi MAE weights -> the port's state dicts.
+"""JAX EfficientNet-UNet, Prithvi MAE and Prithvi segmentation weights -> the port's state dicts.
 
 The port's own copy of the export mapping in
-``s2tpu/checkpoint/convert_torch.py`` (``export_reference_unet_state_dict``
-and its helpers). The port's module names are the reference PyTorch
-model's state-dict names, so the result loads into
-``s2tpu_torch.models.efficientnet_unet.EfficientNetUNet`` with
-``strict=True``. Inputs are the Flax ``params`` and ``batch_stats`` trees as
-nested dicts of numpy arrays; every mapping is a pure transpose, so values
-are bit-exact.
+``s2tpu/checkpoint/convert_torch.py`` (``export_reference_unet_state_dict``,
+``export_prithvi_state_dict``, ``export_reference_prithvi_seg_state_dict``
+and their helpers). The port's module names are the reference PyTorch
+models' state-dict names, so the results load into ``s2tpu_torch.models``
+with ``strict=True``. Inputs are the Flax ``params`` and ``batch_stats``
+trees as nested dicts of numpy arrays; every mapping is a pure transpose,
+so values are bit-exact.
 
 Layouts: Dense kernel (I, O) -> 1x1 conv (O, I, 1, 1); conv kernel
 (kh, kw, I, O) -> (O, I, kh, kw); depthwise (k, k, 1, C) -> (C, 1, k, k);
@@ -124,6 +124,22 @@ def _vit_block(p: dict, out: dict, prefix: str) -> None:
     _linear(p["mlp_fc2"], out, f"{prefix}.mlp.fc2")
 
 
+def _prithvi_encoder(params: dict, cfg, out: dict, prefix: str = "") -> None:
+    """The encoder's keys (cls token, patch projection as the Conv3d weight,
+    regenerated ``pos_embed``, final norm, blocks) under ``prefix``."""
+    from s2tpu_torch.models.prithvi_mae import sincos_3d
+
+    out[f"{prefix}cls_token"] = _f32(params["cls_token"])
+    k = _f32(params["patch_proj"]["kernel"])
+    w = k.reshape(cfg.tubelet_size, cfg.patch_size, cfg.patch_size, cfg.in_chans, k.shape[1])
+    out[f"{prefix}patch_embed.proj.weight"] = np.ascontiguousarray(w.transpose(4, 3, 0, 1, 2))
+    out[f"{prefix}patch_embed.proj.bias"] = _f32(params["patch_proj"]["bias"])
+    out[f"{prefix}pos_embed"] = sincos_3d(cfg.embed_dim, cfg.grid_size, cls_token=True)[None]
+    _layernorm(params["encoder_norm"], out, f"{prefix}norm")
+    for i in range(sum(1 for key in params if key.startswith("block_"))):
+        _vit_block(params[f"block_{i}"], out, f"{prefix}blocks.{i}")
+
+
 def prithvi_state_dict_from_jax(params: dict, config) -> dict[str, torch.Tensor]:
     """Flax ``PrithviMAE`` params (nested dicts of numpy arrays) -> the
     published ``Prithvi_100M.pt`` layout, which the port's ``PrithviMAE``
@@ -140,15 +156,8 @@ def prithvi_state_dict_from_jax(params: dict, config) -> dict[str, torch.Tensor]
     from s2tpu_torch.models.prithvi_mae import sincos_3d
 
     cfg = config
-    out: dict[str, np.ndarray] = {"cls_token": _f32(params["cls_token"])}
-    k = _f32(params["patch_proj"]["kernel"])
-    w = k.reshape(cfg.tubelet_size, cfg.patch_size, cfg.patch_size, cfg.in_chans, k.shape[1])
-    out["patch_embed.proj.weight"] = np.ascontiguousarray(w.transpose(4, 3, 0, 1, 2))
-    out["patch_embed.proj.bias"] = _f32(params["patch_proj"]["bias"])
-    out["pos_embed"] = sincos_3d(cfg.embed_dim, cfg.grid_size, cls_token=True)[None]
-    _layernorm(params["encoder_norm"], out, "norm")
-    for i in range(sum(1 for key in params if key.startswith("block_"))):
-        _vit_block(params[f"block_{i}"], out, f"blocks.{i}")
+    out: dict[str, np.ndarray] = {}
+    _prithvi_encoder(params, cfg, out)
     if "decoder_embed" in params:
         _linear(params["decoder_embed"], out, "decoder_embed")
         out["mask_token"] = _f32(params["mask_token"])
@@ -160,9 +169,49 @@ def prithvi_state_dict_from_jax(params: dict, config) -> dict[str, torch.Tensor]
     return {key: torch.from_numpy(np.array(v)) for key, v in out.items()}
 
 
-def load_prithvi_weights(model: torch.nn.Module, path: str | Path | None = None) -> None:
+def prithvi_seg_state_dict_from_jax(params: dict, batch_stats: dict, backbone_config) -> dict[str, torch.Tensor]:
+    """Flax ``PrithviSegmentationNet`` (params, batch_stats) -> the reference
+    ``PrithviSegmentationNet.state_dict()`` naming, which the port's
+    ``PrithviSegmentationNet`` loads with ``strict=True``.
+
+    The port's copy of ``export_reference_prithvi_seg_state_dict``
+    (``s2tpu/checkpoint/convert_torch.py:560-585``): the encoder-only
+    backbone with its regenerated ``backbone.pos_embed`` (``backbone_config``
+    gives the geometry), the neck's transpose convs un-mirrored (flax applies
+    them spatially flipped: a conversion without the flip loads but computes
+    something else), its LayerNorms, and the head's conv/BatchNorm pairs and
+    classifier.
+    """
+    out: dict[str, np.ndarray] = {}
+    _prithvi_encoder(params["backbone"], backbone_config, out, prefix="backbone.")
+    for ours, theirs in (("up0", 0), ("up1", 3), ("up2", 4), ("up3", 7)):
+        _convtrans(params["neck"][ours], out, f"neck.feature_pyramid_net.{theirs}")
+    for ours, theirs in (("ln0", 1), ("ln1", 5)):
+        _layernorm(params["neck"][ours], out, f"neck.feature_pyramid_net.{theirs}.ln")
+    head, head_stats = params["head"], batch_stats["head"]
+    n_convs = sum(1 for k in head if k.startswith("conv"))
+    for i in range(n_convs):
+        _conv_with_bias(head[f"conv{i}"], out, f"head.net.{3 * i}")
+        _bn(head[f"bn{i}"], head_stats[f"bn{i}"], out, f"head.net.{3 * i + 1}")
+    _conv_with_bias(head["classifier"], out, f"head.net.{3 * n_convs + 1}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def encoder_state_dict(state_dict: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A Prithvi MAE state dict in the published layout without its decoder
+    keys (``decoder_*``, ``mask_token``): what an encoder-only
+    ``PrithviMAE(decoder=False)`` loads."""
+    return {k: v for k, v in state_dict.items() if not (k.startswith("decoder") or k == "mask_token")}
+
+
+def load_prithvi_weights(
+    model: torch.nn.Module, path: str | Path | None = None, include_decoder: bool = True
+) -> None:
     """Load a state dict in the published ``Prithvi_100M.pt`` layout into a
-    port ``PrithviMAE`` (default path: ``weights/Prithvi_100M.pt``). Raises
+    port ``PrithviMAE`` (default path: ``weights/Prithvi_100M.pt``) with
+    ``strict=True``; ``include_decoder=False`` drops the decoder keys first,
+    for an encoder-only model (the JAX package's
+    ``load_prithvi_weights(..., include_decoder=False)``). Raises
     FileNotFoundError when the file is absent; position tables of another
     grid are ignored by the model's loader."""
     from s2tpu_torch.configs.paths import WEIGHTS_DIR
@@ -170,4 +219,7 @@ def load_prithvi_weights(model: torch.nn.Module, path: str | Path | None = None)
     path = Path(path) if path is not None else WEIGHTS_DIR / PRITHVI_WEIGHTS_FILE
     if not path.exists():
         raise FileNotFoundError(str(path))
-    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
+    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    if not include_decoder:
+        state_dict = encoder_state_dict(state_dict)
+    model.load_state_dict(state_dict, strict=True)

@@ -6,7 +6,8 @@ by ``s2tpu_torch.checkpoint.io.save_checkpoint`` (``config.json`` +
 ``s2tpu_torch.cli.train_segmentation`` (its latest epoch, or ``--epoch``),
 and writes the same files as the JAX CLI: ``pred_<seg>.tif``
 (georeferenced uint8 class maps) with ``--tiled``, else ``batch_<i>.npy``
-(center-crop logits). Runs on the card unless ``--device cpu``.
+(center-crop logits). Runs on the card unless ``--device cpu``. Tiles are
+the training crop; an fc-prithvi run's frames are cropped at the same place.
 
     python -m s2tpu_torch.cli.infer <ckpt_dir> [--split val] [--tiled] [--out DIR]
         [--data-dir DIR] [--device cuda|cpu] [--batch-size N] [--epoch N]
@@ -72,7 +73,7 @@ def main(argv: list[str] | None = None) -> Path:
     dtype = COMPUTE_DTYPES[config.train.compute_dtype]
     model = config.build_model(dtype=dtype, device=device)
     model.load_state_dict(state_dict, strict=True)
-    predictor = Predictor(model, mean, std, dtype, device, ds.stack_time_into_channels)
+    predictor = Predictor(model, mean, std, dtype, device, ds.stack_time_into_channels, ds.squeeze_time_dim)
 
     out_dir = Path(args.out) if args.out else OUT_DIR / Path(args.ckpt_dir).name
     writer = PredictionWriter(out_dir)

@@ -7,8 +7,15 @@ Trains on the card unless ``--device cpu``. Epoch checkpoints land in
 ``python -m s2tpu_torch.cli.infer <run dir>`` serves; scalars go to
 ``logs/runs/<run>.metrics.jsonl``. Only the flags of features the port has
 are accepted: mesh and sharding flags, remat, the device corpus, bf16
-parameter storage, EMA, BN recalibration, Prithvi and ``--type tune`` are
-not ported yet, and argparse refuses them.
+parameter storage, EMA, BN recalibration, ``--stack-time`` and ``--type
+tune`` are not ported yet, and argparse refuses them.
+
+fc-prithvi (BASELINE config #4) finetunes the Prithvi-100M encoder with a
+segmentation neck and head, frozen then unfrozen:
+
+    python -m s2tpu_torch.cli.train_segmentation <aoi> <labels> fc-prithvi-backbone --bs 32
+        [--backbone-ckpt <MAE run dir>] [--unfreeze-backbone | --unfreeze-at-epoch N
+        [--unfreeze-lr-scale S]] [--time-frames T]
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("aoi", choices=list(AOI_NAMES))
     p.add_argument("labels", choices=list(LABEL_MAPS))
-    p.add_argument("model", choices=[m.value for m in cfg_lib.ModelName if m.value.startswith("efficientnet-unet")])
+    p.add_argument("model", choices=[m.value for m in cfg_lib.ModelName])
     p.add_argument("--type", default="train", choices=["train", "debug", "overfit"])
     p.add_argument("--loss-type", default=None, choices=[t.value for t in cfg_lib.LossType])
     p.add_argument("--lr-scheduler", default=None, choices=[t.value for t in cfg_lib.LRSchedulerType])
@@ -60,12 +67,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="spectral band set: 'default' (6 Prithvi-HLS bands), 'all12', or a comma list ('B02,B03,B04')",
     )
     p.add_argument("--crop", type=int, default=None, help="training crop size (default 224)")
+    p.add_argument(
+        "--time-frames", type=int, default=None,
+        help="frames per sample; fc-prithvi takes them as tubelets (the UNet's --stack-time is not ported yet)",
+    )
     p.add_argument("--data-dir", default=None, help="override the data root")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--resume-from", default=None, help="run directory of a previous run: restore its latest epoch")
     p.add_argument(
         "--auto-resume", action="store_true",
         help="resume from this run's own directory when it holds a checkpoint; needs a stable --name",
+    )
+    p.add_argument(
+        "--backbone-ckpt", default=None,
+        help="fc-prithvi: initialize the backbone from the encoder of a port MAE run directory",
+    )
+    p.add_argument(
+        "--unfreeze-backbone", action="store_true",
+        help="fc-prithvi: train the ViT encoder too (default: frozen)",
+    )
+    p.add_argument(
+        "--unfreeze-at-epoch", type=int, default=None,
+        help="fc-prithvi two-phase finetune: frozen backbone until this epoch, then unfrozen (fresh optimizer "
+        "moments; params/BN/step carry over); resume-safe",
+    )
+    p.add_argument(
+        "--unfreeze-lr-scale", type=float, default=None,
+        help="LR multiplier applied at the unfreeze transition (full-network training usually wants ~0.1x)",
     )
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
@@ -80,6 +108,8 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
         from s2tpu_torch.configs.data_config import parse_bands
 
         dmc.dataset_cfg.bands = parse_bands(args.bands)
+    if args.time_frames:
+        dmc.dataset_cfg.n_time_frames = args.time_frames
     dmc.batch_size = args.bs or dmc.batch_size
     dmc.random_crop_size = args.crop or dmc.random_crop_size
     t.lr = args.lr or t.lr
@@ -90,6 +120,12 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
     t.tags.extend(args.tags)
     t.compute_dtype = args.compute_dtype or t.compute_dtype
     t.seed = args.seed if args.seed is not None else t.seed
+    t.backbone_ckpt = args.backbone_ckpt or t.backbone_ckpt
+    t.frozen_backbone = False if args.unfreeze_backbone else t.frozen_backbone
+    t.unfreeze_backbone_at_epoch = (
+        args.unfreeze_at_epoch if args.unfreeze_at_epoch is not None else t.unfreeze_backbone_at_epoch
+    )
+    t.unfreeze_lr_scale = args.unfreeze_lr_scale if args.unfreeze_lr_scale is not None else t.unfreeze_lr_scale
     t.weighted_loss = args.weighted_loss or t.weighted_loss
     t.focal_loss_gamma = args.focal_loss_gamma or t.focal_loss_gamma
     t.lr_scheduler_type = cfg_lib.LRSchedulerType(args.lr_scheduler) if args.lr_scheduler else t.lr_scheduler_type

@@ -248,8 +248,10 @@ class Config:
         Conv and dense weights are held in ``param_dtype`` (default: the
         compute dtype, as serving holds them; the trainer asks for f32) and
         cast to the compute dtype where used; BatchNorm and the classifier
-        stay float32 (efficientnet_unet.EfficientNetUNet). ``generator``
-        seeds the initialisation.
+        stay float32 (efficientnet_unet.EfficientNetUNet; the Prithvi
+        backbone's parameters are f32 too, prithvi_seg.PrithviSegmentationNet).
+        ``generator`` seeds the initialisation. fc-prithvi's geometry is
+        :func:`fc_prithvi_config`'s.
         """
         assert self.num_classes is not None
         if dtype is None:
@@ -271,11 +273,45 @@ class Config:
                 config, dtype=dtype, device=resolve_device(device), generator=generator, param_dtype=param_dtype
             )
         if name == ModelName.FC_PRITHVI_BACKBONE.value:
-            raise NotImplementedError("fc-prithvi-backbone is not ported to s2tpu_torch yet")
+            from s2tpu_torch import resolve_device
+            from s2tpu_torch.models.prithvi_seg import PrithviSegmentationNet
+
+            return PrithviSegmentationNet(
+                fc_prithvi_config(self), dtype=dtype, device=resolve_device(device), generator=generator,
+                param_dtype=param_dtype,
+            )
         raise ValueError(f"Unknown model: {self.model_name}")
 
 
 COMPUTE_DTYPES: dict[str, torch.dtype] = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def fc_prithvi_config(config: Config):
+    """fc-prithvi-backbone's ``PrithviSegmentationConfig`` for ``config``
+    (the JAX ``Config.build_model``'s, ``:263-288``): Prithvi-100M at the
+    run's frame count, band count and crop (the patch grid follows the crop;
+    the sincos tables regenerate for any /16 crop), the FCN head of one 3x3
+    conv of 256, dropout 0.1, frozen as ``train.frozen_backbone`` says. The
+    backbone takes the kernels' attention route ("fused")."""
+    from s2tpu_torch.models.prithvi_mae import PrithviConfig
+    from s2tpu_torch.models.prithvi_seg import PrithviSegmentationConfig
+
+    crop = config.datamodule.random_crop_size
+    assert crop % 16 == 0, f"fc-prithvi-backbone needs a /16 crop, got {crop}"
+    t = config.datamodule.dataset_cfg.n_time_frames
+    return PrithviSegmentationConfig(
+        num_frames=t,
+        num_classes=config.num_classes,
+        fcn_out_channels=256,
+        fcn_num_convs=1,
+        fcn_dropout=0.1,
+        frozen_backbone=config.train.frozen_backbone,
+        patch_height=crop // 16,
+        patch_width=crop // 16,
+        backbone=PrithviConfig(
+            num_frames=t, img_size=crop, in_chans=config.datamodule.dataset_cfg.in_channels, attention_impl="fused"
+        ),
+    )
 
 
 def base_config(model_name: ModelName | str, aoi: str = "fr", label_map: str = "cnes-multiclass") -> Config:

@@ -20,13 +20,21 @@ def normalize(
     return x.to(dtype)
 
 
-def model_input(x: torch.Tensor, stack_time_into_channels: bool = False) -> torch.Tensor:
-    """Normalized (B, H, W, C) stays as it is; (B, T, H, W, C) folds its frames
-    into channels, frame-major, when ``stack_time_into_channels`` is set
-    (``s2tpu/train/trainer.py:283-295``, the UNet's multi-temporal input)."""
-    if x.dim() == 5:
-        if not stack_time_into_channels:
-            raise ValueError("(B, T, H, W, C) input needs stack_time_into_channels")
+def model_input(
+    x: torch.Tensor, stack_time_into_channels: bool = False, squeeze_time_dim: bool = True
+) -> torch.Tensor:
+    """Normalized batch -> the model's input layout, as the JAX trainer's
+    ``_model_input`` (``s2tpu/train/trainer.py:283-295``): (B, T, H, W, C)
+    folds its frames into channels, frame-major, when
+    ``stack_time_into_channels`` is set (the UNet's multi-temporal input);
+    (B, H, W, C) gets T = 1 at axis 1 unless ``squeeze_time_dim`` (the ViT
+    takes frames); anything else stays as it is, but frames for a
+    ``squeeze_time_dim`` model, which are refused."""
+    if x.dim() == 5 and stack_time_into_channels:
         b, t, h, w, c = x.shape
         return x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * c)
+    if x.dim() == 5 and squeeze_time_dim:
+        raise ValueError("(B, T, H, W, C) input to a single-frame model needs stack_time_into_channels")
+    if x.dim() == 4 and not squeeze_time_dim:
+        return x[:, None]
     return x

@@ -50,7 +50,7 @@ def tiled_logits(
     """(N, H, W, C) or (N, T, H, W, C) rasters on the device -> (N, H, W, K) blended f32 logits.
 
     Multi-temporal stacks crop every frame at the same (y, x); ``predict``
-    folds T itself.
+    lays out T itself (folded into channels, or kept for the ViT).
     """
     n, h, w = images.shape[0], images.shape[-3], images.shape[-2]
     coords = tile_coords(n, h, w, tile, stride)

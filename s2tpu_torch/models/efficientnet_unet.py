@@ -251,6 +251,17 @@ class BatchNorm(nn.BatchNorm2d):
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
+@torch.no_grad()
+def conv_init_(m: nn.Conv2d | nn.ConvTranspose2d, generator: torch.Generator) -> None:
+    """flax ``variance_scaling(2.0, "fan_out", "truncated_normal")`` on a conv
+    or transpose-conv weight (fan_out = kh * kw * out_features in either
+    torch layout), zero bias."""
+    std = math.sqrt(2.0 / (m.out_channels * m.kernel_size[0] * m.kernel_size[1])) / 0.87962566103423978
+    nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+    if m.bias is not None:
+        nn.init.zeros_(m.bias)
+
+
 def drop_connect_mask(batch: int, keep: float, generator: torch.Generator, device: torch.device) -> torch.Tensor:
     """Per-sample keep mask (B, 1, 1, 1) bool: uniform < keep, the draw of
     ``jax.random.bernoulli`` in the JAX model, from an explicit generator."""
@@ -416,13 +427,7 @@ class EfficientNetUNet(nn.Module):
     def _init_parameters(self, generator: torch.Generator) -> None:
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                # flax variance_scaling(2.0, "fan_out", "truncated_normal"):
-                # fan_out = kh * kw * out_features in either torch layout.
-                out_features = m.out_channels
-                std = math.sqrt(2.0 / (out_features * m.kernel_size[0] * m.kernel_size[1])) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+                conv_init_(m, generator)
         dist = self.config.class_distribution
         if dist is not None:
             d = torch.tensor(dist, dtype=torch.float32) + 1e-6

@@ -459,7 +459,11 @@ class PrithviMAE(nn.Module):
     the blocks take the tensor-parallel form over ``tp_group`` (the mesh's
     'model' process group; None runs every head on this process, with no
     collectives). The same seed gives the dense and tensor-parallel models
-    the same parameters.
+    the same parameters. ``decoder=False`` builds the encoder alone (no
+    decoder modules, no ``decoder_pos_embed``), as the segmentation backbone
+    (``load_prithvi(no_decoder=True)`` in the reference, the parameters
+    ``forward_encoder`` touches in flax); its state dict is the published
+    layout's encoder keys.
     """
 
     POS_KEYS = ("pos_embed", "decoder_pos_embed")
@@ -471,6 +475,7 @@ class PrithviMAE(nn.Module):
         device: torch.device | str = "cpu",
         generator: torch.Generator | None = None,
         tp_group=None,
+        decoder: bool = True,
     ) -> None:
         super().__init__()
         cfg = self.config = config
@@ -493,32 +498,41 @@ class PrithviMAE(nn.Module):
             Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, impl, eps, gen, **tp) for _ in range(cfg.depth)
         )
         self.norm = LayerNorm(cfg.embed_dim, eps=eps)
-        self.decoder_embed = Linear(cfg.embed_dim, cfg.decoder_embed_dim, gen)
-        self.mask_token = nn.Parameter(0.02 * torch.randn((1, 1, cfg.decoder_embed_dim), generator=gen))
-        self.decoder_blocks = nn.ModuleList(
-            Block(cfg.decoder_embed_dim, cfg.decoder_num_heads, cfg.mlp_ratio, impl, eps, gen, **tp)
-            for _ in range(cfg.decoder_depth)
-        )
-        self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=eps)
-        self.decoder_pred = Linear(cfg.decoder_embed_dim, cfg.patch_dim, gen)
-        for key, width in zip(self.POS_KEYS, (cfg.embed_dim, cfg.decoder_embed_dim)):
+        self.has_decoder = decoder
+        if decoder:
+            self.decoder_embed = Linear(cfg.embed_dim, cfg.decoder_embed_dim, gen)
+            self.mask_token = nn.Parameter(0.02 * torch.randn((1, 1, cfg.decoder_embed_dim), generator=gen))
+            self.decoder_blocks = nn.ModuleList(
+                Block(cfg.decoder_embed_dim, cfg.decoder_num_heads, cfg.mlp_ratio, impl, eps, gen, **tp)
+                for _ in range(cfg.decoder_depth)
+            )
+            self.decoder_norm = LayerNorm(cfg.decoder_embed_dim, eps=eps)
+            self.decoder_pred = Linear(cfg.decoder_embed_dim, cfg.patch_dim, gen)
+        for key, width in zip(self._pos_keys(), (cfg.embed_dim, cfg.decoder_embed_dim)):
             table = torch.from_numpy(sincos_3d(width, cfg.grid_size, cls_token=True))[None]
             self.register_buffer(key, table, persistent=False)
         self.to(device)
 
-    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
-        """``nn.Module.load_state_dict`` after taking out the fixed position
-        tables: one whose shape matches this grid must equal the table here
-        (to 1e-5); one of another grid is ignored."""
+    def _pos_keys(self) -> tuple[str, ...]:
+        return self.POS_KEYS if self.has_decoder else self.POS_KEYS[:1]
+
+    def drop_position_tables(self, state_dict, prefix: str = "") -> dict:
+        """``state_dict`` without the fixed position tables (under ``prefix``):
+        one whose shape matches this grid must equal the table here (to
+        1e-5); one of another grid is ignored."""
         state_dict = dict(state_dict)
-        for key in self.POS_KEYS:
-            incoming = state_dict.pop(key, None)
+        for key in self._pos_keys():
+            incoming = state_dict.pop(prefix + key, None)
             ours = getattr(self, key)
             if incoming is not None and tuple(incoming.shape) == tuple(ours.shape):
                 diff = float((torch.as_tensor(incoming).float().cpu() - ours.cpu()).abs().max())
                 if diff > 1e-5:
                     raise ValueError(f"{key} is not the fixed sincos table of this grid (max |diff| {diff})")
-        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+        return state_dict
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """``nn.Module.load_state_dict`` after :meth:`drop_position_tables`."""
+        return super().load_state_dict(self.drop_position_tables(state_dict), strict=strict, assign=assign)
 
     def encoder_pre(self, imgs: torch.Tensor, mask_ratio: float = 0.0, noise: torch.Tensor | None = None):
         """Patch embedding, position table, masking and the cls token."""

@@ -9,12 +9,16 @@ the device; the host reads the loss only at ``log_interval`` and at epoch end.
 
 Ported: ``train_step``/``eval_step`` (``:451-570``), ``run_train_epoch``,
 ``run_eval_epoch``, ``_metric_exclude_index``, epoch-level
-``resume_from_checkpoint`` and ``fit`` (``:885-933``, ``:1086-1227``).
+``resume_from_checkpoint`` and ``fit`` (``:885-933``, ``:1086-1227``), and
+fc-prithvi's hooks: the pretrained backbone (``_load_prithvi_backbone``,
+``:369-436``), the frozen backbone kept out of the optimizer, and the
+frozen-then-unfrozen transition (``unfreeze_backbone``, ``_maybe_unfreeze``,
+``:636-709``).
 Not ported yet, and refused where the config asks for them: gradient
 accumulation, remat, bf16 parameter storage with an f32 master, parameter
 EMA, BN recalibration, the device corpus and device-side flips. Watch norms
-(``watch_interval``), SIGTERM preemption, the Prithvi unfreeze and epoch
-image logging are not ported and have no effect.
+(``watch_interval``), SIGTERM preemption and epoch image logging are not
+ported and have no effect.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import numpy as np
 import torch
 
 from s2tpu_torch import resolve_device
-from s2tpu_torch.configs.data_config import LABEL_MAPS
+from s2tpu_torch.configs.data_config import BANDS as PRITHVI_BANDS
+from s2tpu_torch.configs.data_config import LABEL_MAPS, parse_bands
 from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES, Config
 from s2tpu_torch.data.augment import model_input, normalize
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
@@ -74,10 +79,13 @@ class SegmentationTrainer:
         self.ckpt = checkpoint_manager
         t = config.train
         self.compute_dtype = COMPUTE_DTYPES[t.compute_dtype]
+        self.is_prithvi = config.model_name.value.startswith("fc-prithvi")
         self.model = config.build_model(
             dtype=self.compute_dtype, device=self.device, param_dtype=torch.float32,
             generator=torch.Generator().manual_seed(t.seed),
         )
+        if self.is_prithvi:
+            self._load_prithvi_backbone()
         mean, std = datamodule.mean_std()
         in_ch = config.datamodule.dataset_cfg.in_channels
         if len(mean) != in_ch:
@@ -116,13 +124,87 @@ class SegmentationTrainer:
         )
         self.optimizer = make_optimizer(self.model.parameters(), self.schedule(0), t.weight_decay, t.betas)
         self.step = 0  # optimizer updates applied so far
-        # Drop-connect masks are drawn on the device from this generator.
+        # Drop-connect (UNet) and dropout (fc-prithvi's head) masks are drawn
+        # on the device from this generator.
         self.drop_generator = torch.Generator(device=self.device).manual_seed(t.seed)
 
     # ------------------------------------------------------------------
+    def _load_prithvi_backbone(self) -> None:
+        """Pretrained weights into fc-prithvi's backbone: the encoder of a port
+        MAE run directory (``train.backbone_ckpt``, this system's own
+        pretrain -> finetune flow; decoder keys dropped, the encoder loaded
+        with strict=True) or the published ``weights/Prithvi_100M.pt``
+        (encoder only). Missing weights only warn, LOUDLY when the backbone
+        is frozen: a head fitted to a frozen random encoder is meaningless."""
+        from s2tpu_torch.checkpoint.convert import encoder_state_dict, load_prithvi_weights
+
+        backbone, frozen = self.model.backbone, self.model.frozen_backbone
+        if self.config.train.backbone_ckpt:
+            from s2tpu_torch.checkpoint.io import load_mae_checkpoint
+
+            _, state = load_mae_checkpoint(self.config.train.backbone_ckpt)
+            backbone.load_state_dict(encoder_state_dict(state), strict=True)
+            logger.info(f"Loaded MAE-pretrained backbone from {self.config.train.backbone_ckpt}")
+            return
+        bands = parse_bands(self.config.datamodule.dataset_cfg.bands)
+        if bands != list(PRITHVI_BANDS):
+            # The published patch embedding belongs to the six Prithvi-HLS
+            # bands: band identity, not count, decides.
+            msg = (
+                f"fc-prithvi with bands={bands}: the published Prithvi_100M.pt is trained on "
+                f"{list(PRITHVI_BANDS)} and cannot initialize this backbone; the encoder starts from random "
+                "init (pretrain with cli.train_mae on the same band set and pass --backbone-ckpt for a "
+                "matched encoder)."
+            )
+            logger.warning(msg + (" The backbone is FROZEN: unfreeze it or this head fits a random encoder."
+                                  if frozen else ""))
+            return
+        try:
+            load_prithvi_weights(backbone, include_decoder=False)
+            logger.info("Loaded pretrained Prithvi backbone weights")
+        except FileNotFoundError as e:
+            if frozen:
+                logger.warning(
+                    f"Prithvi weights unavailable ({e}) and the backbone is FROZEN: training would fit the "
+                    "head to a frozen RANDOM encoder, which is meaningless. Provide weights/Prithvi_100M.pt "
+                    "or unfreeze the backbone."
+                )
+            else:
+                logger.warning(f"Prithvi weights unavailable ({e}); backbone trains from random init")
+
+    def unfreeze_backbone(self) -> None:
+        """The frozen-then-unfrozen transition (BASELINE config #4): the
+        backbone trains from here on, with a fresh Adam over ALL parameters
+        (the frozen phase's has no moments for the backbone); parameters,
+        BatchNorm statistics and the step counter carry over, and
+        ``train.unfreeze_lr_scale`` multiplies the schedule from now on. A
+        no-op unless a frozen fc-prithvi is live."""
+        if not (self.is_prithvi and self.model.frozen_backbone):
+            return
+        logger.info(
+            f"Unfreezing Prithvi backbone: full-network training from step {self.step} "
+            "(fresh optimizer moments; params/BN/step carry over)"
+        )
+        t = self.config.train
+        t.frozen_backbone = False
+        self.model.set_frozen(False)
+        scale = t.unfreeze_lr_scale
+        if scale != 1.0:
+            base = self.schedule
+            self.schedule = lambda step, _base=base: _base(step) * scale
+        self.optimizer = make_optimizer(self.model.parameters(), self.schedule(self.step), t.weight_decay, t.betas)
+
+    def _maybe_unfreeze(self, epoch: int) -> None:
+        """The scheduled unfreeze on entering ``epoch`` (also on resuming into
+        a later epoch than the transition)."""
+        at = self.config.train.unfreeze_backbone_at_epoch
+        if at is not None and epoch >= at:
+            self.unfreeze_backbone()
+
     def _input(self, images: torch.Tensor) -> torch.Tensor:
         x = normalize(images, self.mean, self.std, dtype=self.compute_dtype)
-        return model_input(x, self.config.datamodule.dataset_cfg.stack_time_into_channels)
+        ds = self.config.datamodule.dataset_cfg
+        return model_input(x, ds.stack_time_into_channels, ds.squeeze_time_dim)
 
     def _ignore_index(self) -> int | None:
         return 0 if self.config.train.masked_loss else None
@@ -208,9 +290,12 @@ class SegmentationTrainer:
         if latest is None:
             return 0
         restored = self.ckpt.restore(latest)
+        self.step = restored["step"]
+        # A checkpoint written at the end of epoch e holds epoch e's
+        # optimizer: of every parameter once the backbone has unfrozen.
+        self._maybe_unfreeze(latest)
         self.model.load_state_dict(restored["model"], strict=True)
         self.optimizer.load_state_dict(restored["optimizer"])
-        self.step = restored["step"]
         logger.info(f"Resumed from checkpoint epoch {latest} (step {self.step})")
         return latest + 1
 
@@ -224,6 +309,7 @@ class SegmentationTrainer:
         history: list[dict] = []
         class_names = LABEL_MAPS[cfg.datamodule.dataset_cfg.label_map].class_names
         for epoch in range(start_epoch, max_epochs):
+            self._maybe_unfreeze(epoch)
             train_metrics = self.run_train_epoch(epoch)
             val_metrics = self.run_eval_epoch("val") if len(self.dm.val_idx) else {}
             record = {

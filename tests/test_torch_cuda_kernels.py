@@ -479,3 +479,41 @@ def test_fused_forward_launches_its_kernel_once_a_call(layout, dtype):
     assert getattr(tfa, counter) == before + 2
     pc = tfa._probs(q, k, 32**-0.5).to(dtype).float()
     assert bool(((out.float() - ref.float()).abs() <= ATTN_RTOL[dtype] * (pc @ v.float().abs())).all())
+
+
+# fc-prithvi (Prithvi-100M segmentation, full width, T=1, batch 2, 224^2) in
+# f32 with TF32 off: the card (kernel #8 in every block) against the same
+# module on the CPU (plain versions). Both sum in other orders through twelve
+# blocks, the neck and the head; measured on the CPU, a 1e-7 relative
+# perturbation of the weights moves the logits by 2.5e-6 of their scale, and
+# the bound leaves a wide margin over that.
+FC_PRITHVI_LOGITS_RTOL = 1e-3
+
+
+def test_fc_prithvi_forward_on_the_card_matches_the_cpu():
+    from s2tpu_torch.configs.segmentation import base_config
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        config = base_config("fc-prithvi-backbone", aoi="small", label_map="osm-multiclass")
+        gen = torch.Generator().manual_seed(3)
+        cpu = config.build_model(dtype=torch.float32, device="cpu", generator=gen)
+        with torch.no_grad():
+            bn = cpu.head.net[1]
+            bn.running_mean.copy_(0.1 * torch.randn(bn.num_features, generator=gen))
+            bn.running_var.copy_(0.5 + torch.rand(bn.num_features, generator=gen))
+        card = config.build_model(dtype=torch.float32, device="cuda")
+        card.load_state_dict(cpu.state_dict(), strict=True)
+        x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 1, 224, 224, 6)).astype(np.float32))
+        before = tfa.FUSED_FWD_LAUNCHES
+        with torch.no_grad():
+            got = card(x.cuda())
+            torch.cuda.synchronize()
+            assert tfa.FUSED_FWD_LAUNCHES == before + 12  # #8 in each of the twelve blocks
+            want = cpu(x)
+        assert got.shape == (2, 224, 224, config.num_classes) and torch.isfinite(got).all()
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= FC_PRITHVI_LOGITS_RTOL * max(1.0, scale)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32

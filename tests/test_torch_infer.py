@@ -131,8 +131,23 @@ def test_config_json_from_s2tpu_parses(tmp_path):
     config = cfg_lib.config_from_dict(json.loads(text))
     assert json.loads(json.dumps(cfg_lib.config_to_dict(config), default=str)) == json.loads(text)
     assert config.model_name.value == "efficientnet-unet-b5" and config.num_classes == jc.num_classes
-    with pytest.raises(NotImplementedError):
-        cfg_lib.base_config("fc-prithvi-backbone").build_model(device="cpu")
+
+
+def test_fc_prithvi_builds_on_the_cpu_with_an_encoder_only_backbone():
+    """Prithvi-100M's full widths (12 x 768, 12 heads) under the seg neck and
+    head; no decoder parameters; (B, T, H, W, C) in, (B, H, W, K) out."""
+    config = cfg_lib.base_config("fc-prithvi-backbone", aoi="small", label_map="osm-multiclass")
+    config.datamodule.random_crop_size = 32
+    model = config.build_model(dtype=torch.float32, device="cpu")
+    keys = list(model.state_dict())
+    assert "backbone.blocks.11.attn.qkv.weight" in keys and "backbone.pos_embed" not in keys
+    assert not any(k.startswith("backbone.decoder") or k == "backbone.mask_token" for k in keys)
+    assert model.backbone.blocks[0].attn.qkv.weight.shape == (3 * 768, 768)
+    assert model.neck.feature_pyramid_net[0].weight.shape == (768, 768, 2, 2)
+    assert all(not p.requires_grad for p in model.backbone.parameters())  # frozen by default
+    with torch.no_grad():
+        logits = model(torch.zeros(1, 1, 32, 32, 6))
+    assert logits.shape == (1, 32, 32, config.num_classes) and torch.isfinite(logits).all()
 
 
 def test_predictor_folds_time_into_channels_frame_major():
