@@ -1,4 +1,4 @@
-"""Drive s2tpu_torch's serving, training, fc-prithvi finetuning and MAE pretraining paths (dense and tensor-parallel) on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving, training (single- and multi-temporal), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel), MAE embedding and checkpoint migration paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
@@ -60,9 +60,11 @@ any failure raises and the script exits non-zero without printing a result:
    the T=3 encoder (16, 148, 12, 64), a ragged L = 129, the route's edges
    and fc-prithvi's encoder at T=1 (32, 197, 12, 64); the same on the
    head-major layout (#6/#7) plus its longest L = 1024; streaming attention
-   (#5) at the T=3 decoder (16, 589, 16, 32), L = 513 and fc-prithvi's
-   encoder at T=3 (8, 589, 12, 64), on strided views of one qkv
-   projection; bf16 and f32, beside
+   (#5) at the T=3 decoder (16, 589, 16, 32), L = 513, fc-prithvi's
+   encoder at T=3 (8, 589, 12, 64) and the embeddings' (32, 1025, 12, 64)
+   (whole 512^2 segments; the last 64-key tile holds one key) and (32, 589,
+   12, 64) (T=3), on strided views of one qkv projection; bf16 and f32,
+   beside
    ``F.scaled_dot_product_attention`` on head-major tensors as the yardstick.
    Then #5 at the tile edges (L = 1, 63, 64, 65), the bf16 wrapper's refusal
    of a misaligned view, #6 and #8 at the tile edges (head-major L = 1, 15,
@@ -113,17 +115,44 @@ any failure raises and the script exits non-zero without printing a result:
    224^2) in f32 on the card (TF32 off, dropout off) against the CPU: loss,
    the head's BatchNorm statistics and the gradients of fixed tensors
    (the backbone's through #9 when unfrozen).
-16. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
+16. Config #3 slice (after phase 6): BASELINE.json config #3, B5 on four
+   quarterly composites of all 12 bands folded into 48 channels, through
+   ``s2tpu_torch.cli.train_segmentation ... --time-frames 4 --stack-time
+   --bands all12`` (cnes-multiclass, focal + weighted, bf16, batch 32,
+   224^2, 2 epochs x 2 steps) on 80 synthetic CNES segments of 4 x 256^2 x
+   12: exact launches of #1-#4, finite losses, moved parameters; the run
+   served by ``cli.infer --tiled`` (exact #1 launches), exported by
+   ``cli.convert_weights export-unet`` and loaded back bit for bit; one
+   batch of stacked tiles in f32 on the card against the CPU; the warm step
+   timed and profiled.
+17. Embeddings slice (after phase 14): seeded Prithvi-100M MAE runs (bf16)
+   at T=1 and T=3 through ``cli.export_embeddings`` (batch 32) over 32
+   labelled segments of three 512^2 frames: crop 224 at T=1 (#8, 12
+   launches a batch), whole segments (``--crop 0``, L = 1025, #5) and crop
+   224 at T=3 (L = 589, #5), exact launches and segments/s; the forward
+   alone on a resident batch, timed and profiled; f32 on the card (TF32
+   off) against the CPU at 224^2 and 512^2; ``cli.probe_embeddings`` on the
+   card.
+18. Migration slice: a seeded full-width B5 and fc-prithvi saved as
+   reference Lightning ``.ckpt`` files, imported by ``cli.convert_weights
+   import-ckpt`` (weights bit for bit), served by ``cli.infer --tiled``
+   with exact #1 / #8 launches, and their f32 logits held against the
+   seeded models'.
+19. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
-   launches, and #8, #9, #5 with their times at fc-prithvi's shapes), the
-   ``nvidia-smi`` line, then the last line ``{"ok": true, "device": {...}}``.
+   launches, and #8, #9, #5 with their times at fc-prithvi's shapes; #1-#4
+   with their config #3 launches, #8 and #5 with their embedding launches,
+   #5 with its times at the embeddings' shapes, #1 and #8 with the
+   migration slice's serving launches), the ``nvidia-smi`` line, then the
+   last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -195,8 +224,12 @@ FC_DENSE_SHAPE = (32, 197, 12, 64)  # fc-prithvi's encoder at T=1, batch 32: eve
 QKV_ATTENTION_SHAPES = {**DENSE_ATTENTION_SHAPES, (2, 1024, 16, 32): "longest L"}
 FLASH_ATTENTION_SHAPES = {
     (16, 589, 16, 32): "T=3 decoder", (16, 513, 16, 32): "ragged", (8, 589, 12, 64): "fc-prithvi encoder T=3",
+    (32, 1025, 12, 64): "embeddings of whole 512^2 segments", (32, 589, 12, 64): "embeddings T=3",
 }
 FC_FLASH_SHAPE = (8, 589, 12, 64)  # fc-prithvi's encoder at T=3, batch 8: L = 589 is past the fused budget
+# The MAE encoder's embeddings at batch 32: whole 512^2 segments (--crop 0, L = 1025, the last 64-key tile
+# one key) and three frames at 224^2 (L = 589).
+EMBED_FLASH_SHAPE, EMBED_T3_FLASH_SHAPE = (32, 1025, 12, 64), (32, 589, 12, 64)
 # #6/#8's tile edges: one past, at and one short of the 16-key groups and 64-
 # and 128-row blocks the bf16 forward cuts its work to, the main path's L,
 # both sides of the last L with k and v resident (256), and the longest each
@@ -205,8 +238,8 @@ FC_FLASH_SHAPE = (8, 589, 12, 64)  # fc-prithvi's encoder at T=3, batch 8: L = 5
 QKV_EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 129, 148, 197, 256, 257, 1024)
 DENSE_EDGE_LENGTHS = (128, 129, 148, 197, 256, 257, 783)
 # Kernel vs plain: |err| <= ATTN_RTOL x the same sums over absolute values,
-# per element. f32: sums of up to L <= 1024 products in another order
-# (worst case L x 2^-24 = 6e-5 of the sum of |terms|) and expf/division to an
+# per element. f32: sums of up to L <= 1025 products in another order
+# (worst case L x 2^-24 = 6.1e-5 of the sum of |terms|) and expf/division to an
 # ulp. bf16: p (or ds) is rounded to bf16 on both sides, so a rounding flip
 # moves a term by 2^-8 of itself, and the output's own bf16 rounding may
 # flip by one ulp (<= 2^-7 relative): 2^-8 + 2^-7 < 2^-6.
@@ -246,6 +279,20 @@ FC_F32_HEAD_GRADS = ("head.net.4.weight", "head.net.0.weight", "neck.feature_pyr
                      "neck.feature_pyramid_net.0.weight")
 FC_F32_BACKBONE_GRADS = ("backbone.blocks.11.attn.qkv.weight", "backbone.blocks.0.attn.qkv.weight",
                          "backbone.patch_embed.proj.weight")
+# Config #3 (BASELINE.json: B5 on quarterly composites of all 12 L2A bands,
+# the frames folded into 48 channels, CNES France's 4 classes): the training
+# slice's 80 segments of 256^2 at 4 frames x 12 bands, so the same 2 steps of
+# 32 and 1 eval batch a epoch.
+CFG3_FRAMES, CFG3_BANDS = 4, 12
+# Embeddings: seeded Prithvi-100M MAE runs (bf16) over 32 labelled segments
+# of three 512^2 frames. At T=1 the source holds each frame as a segment (96:
+# three batches of 32), at T=3 each segment (one batch of 32).
+EMBED_BATCH, EMBED_SEGMENTS, EMBED_FRAMES, EMBED_SEGMENT_SIZE = 32, 32, 3, 512
+EMBED_DEPTH = 12  # encoder blocks: one attention launch each per batch
+# Card f32 (TF32 off) vs CPU f32 embeddings of the same encoder: f32 sums in
+# another order through 12 LayerNorm'd blocks, well conditioned (the MAE
+# step's loss agrees to ~1e-7); a wrong attention moves them by O(1).
+EMBED_F32_BATCH, EMBED_F32_RTOL = 2, 1e-3
 
 
 # Device kernels by kind, matched on name fragments in this order (the
@@ -723,6 +770,37 @@ def profile_device(label: str, run, wall_s: float) -> float | None:
     return total / (wall_s * 1e3)
 
 
+def check_f32_logits(label: str, config, state: dict, tiles: torch.Tensor, mean, std) -> None:
+    """One batch of raw tiles through ``config``'s model in f32 on the card
+    (TF32 off) and on the CPU, same weights, through ``Predictor`` (frames
+    stacked as the config says); raises beyond F32_LOGITS_RTOL x max(1,
+    max|logit|) or below F32_ARGMAX_AGREEMENT."""
+    from s2tpu_torch.infer.predict import Predictor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = config.datamodule.dataset_cfg
+    logits = {}
+    for device in ("cuda", "cpu"):
+        m = config.build_model(dtype=torch.float32, device=device)
+        m.load_state_dict(state, strict=True)
+        predictor = Predictor(m, mean, std, torch.float32, torch.device(device), ds.stack_time_into_channels,
+                              ds.squeeze_time_dim)
+        logits[device] = predictor(tiles).cpu()
+    card, cpu = logits["cuda"], logits["cpu"]
+    diff, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+    agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
+    if not (torch.isfinite(card).all() and card.shape == (len(tiles), 224, 224, config.num_classes)):
+        raise AssertionError(f"{label} card logits bad: shape {tuple(card.shape)}")
+    if diff > F32_LOGITS_RTOL * max(scale, 1.0) or agree < F32_ARGMAX_AGREEMENT:
+        raise AssertionError(f"{label} card vs CPU f32: max|diff| {diff} (max|logit| {scale}), argmax agreement {agree}")
+    log(
+        f"{label} f32 card vs cpu ({len(tiles)} tiles {tuple(tiles.shape)}): max_abs_diff={diff:.3g} max_abs_logit="
+        f"{scale:.3g} (limit {F32_LOGITS_RTOL} x max(1, max|logit|)), argmax_agreement={agree:.6f} "
+        f"(limit {F32_ARGMAX_AGREEMENT})"
+    )
+
+
 def phase_slice(work: Path) -> int:
     """Serve B5 through the tiled CLI on the card; returns the kernel's launches."""
     from s2tpu_torch.checkpoint.io import load_checkpoint, save_checkpoint
@@ -809,27 +887,9 @@ def phase_slice(work: Path) -> int:
     profile_device("slice (bf16 serve)", lambda: tiled_predict_many(predictor, images, config.num_classes), serve_s)
 
     # One batch of tiles: card f32 (TF32 off) vs CPU f32, same weights.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     tiles = torch.stack([torch.from_numpy(images[i, y : y + 224, x : x + 224]) for i, y, x in
                          tile_coords(n_seg, 512, 512, 224, 192)[:BATCH]])
-    logits = {}
-    for device in ("cuda", "cpu"):
-        m = loaded_cfg.build_model(dtype=torch.float32, device=device)
-        m.load_state_dict(state, strict=True)
-        logits[device] = Predictor(m, mean, std, torch.float32, torch.device(device))(tiles).cpu()
-    card, cpu = logits["cuda"], logits["cpu"]
-    diff = float((card - cpu).abs().max())
-    scale = float(cpu.abs().max())
-    agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
-    if not (torch.isfinite(card).all() and card.shape == (BATCH, 224, 224, config.num_classes)):
-        raise AssertionError(f"card logits bad: shape {tuple(card.shape)}")
-    if diff > F32_LOGITS_RTOL * max(scale, 1.0) or agree < F32_ARGMAX_AGREEMENT:
-        raise AssertionError(f"card vs CPU f32: max|diff| {diff} (max|logit| {scale}), argmax agreement {agree}")
-    log(
-        f"slice f32 card vs cpu ({BATCH} tiles): max_abs_diff={diff:.3g} max_abs_logit={scale:.3g} "
-        f"(limit {F32_LOGITS_RTOL} x max(1, max|logit|)), argmax_agreement={agree:.6f} (limit {F32_ARGMAX_AGREEMENT})"
-    )
+    check_f32_logits("slice", loaded_cfg, state, tiles, mean, std)
     return launches
 
 
@@ -890,10 +950,7 @@ def phase_train(work: Path) -> dict:
         cli_s = time.perf_counter() - t0
         launches = launch_counts()
         (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
-        step_losses = [
-            rec["train/loss_step"] for rec in map(json.loads, (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open())
-            if "train/loss_step" in rec
-        ]
+        step_losses = logged_step_losses(run_dir)
         config, state = load_checkpoint(run_dir)
 
         # Launches: every train step runs each stride-1 depthwise layer
@@ -1339,6 +1396,8 @@ def phase_attention_kernels() -> dict:
         "flash": {**main_flash, "max_abs_err": max(t["max_abs_err"] for t in flash.values())},
         "dense_fc": dense[(FC_DENSE_SHAPE, torch.bfloat16)],
         "flash_fc": flash[(FC_FLASH_SHAPE, torch.bfloat16)],
+        "flash_embed": flash[(EMBED_FLASH_SHAPE, torch.bfloat16)],
+        "flash_embed_t3": flash[(EMBED_T3_FLASH_SHAPE, torch.bfloat16)],
     }
 
 
@@ -1534,10 +1593,7 @@ def phase_mae(work: Path) -> dict:
         cli_s = time.perf_counter() - t0
         launches = launch_counts()
         (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
-        step_losses = [
-            rec["train/loss_step"] for rec in map(json.loads, (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open())
-            if "train/loss_step" in rec
-        ]
+        step_losses = logged_step_losses(run_dir)
         config, state = load_mae_checkpoint(run_dir)
         n_train = int(config.datamodule.data_split[0] * MAE_SEGMENTS)
         n_val = int(config.datamodule.data_split[1] * MAE_SEGMENTS)
@@ -1842,15 +1898,16 @@ def fc_prithvi_flops(mc, batch: int) -> dict[str, float]:
     }
 
 
-def write_mae_run(run_dir: Path, model_config, seed: int) -> dict[str, torch.Tensor]:
+def write_mae_run(run_dir: Path, model_config, seed: int, config=None) -> dict[str, torch.Tensor]:
     """A seeded Prithvi MAE written as a port MAE run directory (epoch 0, as
-    ``cli.train_mae`` writes it); returns its state dict on the CPU."""
+    ``cli.train_mae`` writes it) under ``config`` (default: the pretrain
+    preset on AOI "small"); returns its state dict on the CPU."""
     from s2tpu_torch.checkpoint.io import CheckpointManager
     from s2tpu_torch.configs import mae as mae_cfg
     from s2tpu_torch.models.prithvi_mae import PrithviMAE
 
     mae = PrithviMAE(model_config, generator=torch.Generator().manual_seed(seed))
-    config = mae_cfg.pretrain(mae_cfg.base_config("small"))
+    config = config if config is not None else mae_cfg.pretrain(mae_cfg.base_config("small"))
     ckpt = CheckpointManager(run_dir, config_dict=dataclasses.asdict(config))
     ckpt.save_epoch(0, mae, torch.optim.Adam(mae.parameters()), 0)
     return mae.state_dict()
@@ -1943,10 +2000,7 @@ def phase_fc_prithvi(work: Path) -> dict:
         finally:
             io.CheckpointManager.save_epoch = save_epoch
         (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
-        step_losses = [
-            rec["train/loss_step"] for rec in map(json.loads, (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open())
-            if "train/loss_step" in rec
-        ]
+        step_losses = logged_step_losses(run_dir)
         config, state = io.load_checkpoint(run_dir)
         n_train = int(config.datamodule.data_split[0] * TRAIN_SEGMENTS)
         n_val = int(config.datamodule.data_split[1] * TRAIN_SEGMENTS)
@@ -2004,7 +2058,7 @@ def phase_fc_prithvi(work: Path) -> dict:
         seg_idx = train_val_test_split(len(src), config.datamodule.data_split, seed=0)[0]
         groups = [seg_idx[g : g + 4] for g in range(0, len(seg_idx), 4)]  # cli.infer's SEGMENTS_PER_CALL
         n_tiles = sum(len(tile_coords(len(g), 512, 512, 224, 192)) for g in groups)
-        n_batches = sum(math.ceil(len(tile_coords(len(g), 512, 512, 224, 192)) / BATCH) for g in groups)
+        n_batches = serve_batches(len(seg_idx), 512)
         argv_serve = [str(run_dir), "--tiled", "--split", "train", "--out", str(out), "--data-dir", str(serve_dir)]
         infer_main(argv_serve)  # warm-up: cuDNN heuristics, allocator
         shutil.rmtree(out)
@@ -2197,6 +2251,387 @@ def phase_fc_prithvi_f32_step() -> None:
     log(f"f32 fc-prithvi steps card vs cpu: within tolerance, in {time.perf_counter() - t0:.1f} s")
 
 
+def logged_step_losses(run_dir: Path) -> list[float]:
+    """The per-step training losses a CLI run logged (``--log-interval 1``)."""
+    from s2tpu_torch.configs.paths import LOG_DIR
+
+    return [
+        rec["train/loss_step"] for rec in map(json.loads, (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open())
+        if "train/loss_step" in rec
+    ]
+
+
+def serve_batches(n_segments: int, size: int, tile: int = 224, stride: int = 192) -> int:
+    """Model batches of ``cli.infer --tiled`` over ``n_segments`` segments of
+    ``size``²: SEGMENTS_PER_CALL segments share a queue of BATCH tiles."""
+    from s2tpu_torch.cli.infer import SEGMENTS_PER_CALL
+    from s2tpu_torch.infer.tiled import tile_coords
+
+    groups = [min(SEGMENTS_PER_CALL, n_segments - g) for g in range(0, n_segments, SEGMENTS_PER_CALL)]
+    return sum(math.ceil(len(tile_coords(n, size, size, tile, stride)) / BATCH) for n in groups)
+
+
+def phase_config3(work: Path) -> dict:
+    """BASELINE config #3 through the training CLI on the card: B5 on four
+    quarterly composites of all 12 bands folded into 48 channels
+    (``--time-frames 4 --stack-time --bands all12``), CNES multiclass, focal
+    + weighted, batch 32, 224^2; exact launches, finite losses, moved
+    parameters; the run served tiled (every frame cropped at the same
+    place), exported to the reference names and loaded back bit for bit;
+    one batch of tiles in f32 on the card against the CPU; then warm steps
+    timed and profiled. Returns the launch counts and timings."""
+    from s2tpu_torch.checkpoint.io import load_checkpoint
+    from s2tpu_torch.cli.convert_weights import main as convert_main
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args, main as train_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.data.dataset import TiffSource, make_synthetic_fixture, train_val_test_split
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.data.statistics import load_mean_std
+    from s2tpu_torch.geo.tiff import read_geotiff
+    from s2tpu_torch.infer.embed import center_crop
+    from s2tpu_torch.models.efficientnet_unet import EfficientNetUNet, count_stride1_depthwise
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    data_dir, out = work / "cfg3_data", work / "cfg3_preds"
+    t0 = time.perf_counter()
+    make_synthetic_fixture(
+        data_dir, aoi="small", label_map="cnes-multiclass", n_segments=TRAIN_SEGMENTS, n_time=CFG3_FRAMES,
+        n_bands=CFG3_BANDS, size=(TRAIN_SEGMENT_SIZE, TRAIN_SEGMENT_SIZE),
+    )
+    log(f"config #3 setup: {TRAIN_SEGMENTS} segments of {CFG3_FRAMES} frames {TRAIN_SEGMENT_SIZE}x{TRAIN_SEGMENT_SIZE}"
+        f"x{CFG3_BANDS} in {time.perf_counter() - t0:.1f} s")
+    name = f"chip-smoke-cfg3-{os.getpid()}"
+    argv = [
+        "small", "cnes-multiclass", "efficientnet-unet-b5", "--time-frames", str(CFG3_FRAMES), "--stack-time",
+        "--bands", "all12", "--loss-type", "focal", "--weighted-loss", "--bs", str(TRAIN_BATCH), "--crop", "224",
+        "--compute-dtype", "bfloat16", "--epochs", str(TRAIN_EPOCHS), "--log-interval", "1", "--data-dir",
+        str(data_dir), "--name", name, "--seed", str(SEED),
+    ]
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        history = train_main(argv)  # the main path
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = launch_counts()
+        (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
+        step_losses = logged_step_losses(run_dir)
+        config, state = load_checkpoint(run_dir)
+        in_ch = CFG3_FRAMES * CFG3_BANDS
+        if state["encoder.stem.0.weight"].shape[1] != in_ch or not config.datamodule.dataset_cfg.stack_time_into_channels:
+            raise AssertionError(f"config #3 stem takes {state['encoder.stem.0.weight'].shape[1]} channels, not {in_ch}")
+
+        n_train = int(config.datamodule.data_split[0] * TRAIN_SEGMENTS)
+        n_val = int(config.datamodule.data_split[1] * TRAIN_SEGMENTS)
+        steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
+        eval_batches = TRAIN_EPOCHS * math.ceil(n_val / (TRAIN_BATCH * config.datamodule.val_batch_size_multiplier))
+        init_model = config.build_model(
+            dtype=torch.bfloat16, device="cpu", param_dtype=torch.float32, generator=torch.Generator().manual_seed(SEED)
+        )
+        per = count_stride1_depthwise(init_model.config)
+        expected = {
+            "depthwise_fwd": per * (steps + eval_batches), "depthwise_dx": per * steps, "depthwise_dw": per * steps,
+            "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
+            "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
+            "attn_flash_fwd": 0,
+        }
+        if launches != expected:
+            raise AssertionError(f"config #3 launches {launches} != expected {expected}")
+        losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
+        if len(step_losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"config #3 losses not finite or missing: steps {step_losses}, history {history}")
+        init = init_model.state_dict()
+        params = [k for k, _ in init_model.named_parameters()]
+        unmoved = [k for k in params if torch.equal(init[k], state[k].to(init[k].dtype))]
+        if unmoved or any(state[k].dtype != torch.float32 for k in params):
+            raise AssertionError(f"parameters not moved or not f32: {unmoved[:5]} ({len(unmoved)} of {len(params)})")
+        log(
+            f"config #3 cli (B5, {CFG3_FRAMES} frames x {CFG3_BANDS} bands stacked into {in_ch} channels, cnes-multiclass, "
+            f"bf16 compute, f32 params, focal + weighted, batch {TRAIN_BATCH}, 224^2): {TRAIN_EPOCHS} epochs, {steps} "
+            f"steps, {eval_batches} eval batches in {cli_s:.3f} s end to end; step losses "
+            f"{[round(v, 5) for v in step_losses]}; val loss {[round(r['val/loss'], 5) for r in history]}; launches "
+            f"{launches} = expected; {len(params)} parameter tensors all moved, f32"
+        )
+
+        # The run directory serves tiled: every frame cropped at the same place.
+        n_batches = serve_batches(n_val, TRAIN_SEGMENT_SIZE)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        infer_main([str(run_dir), "--tiled", "--out", str(out), "--data-dir", str(data_dir)])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve = launch_counts()
+        if serve["depthwise_fwd"] != per * n_batches or sum(serve.values()) != serve["depthwise_fwd"]:
+            raise AssertionError(f"config #3 serving launches {serve} != {per} x {n_batches} batches of #1")
+        preds = sorted(out.glob("pred_*.tif"))
+        if len(preds) != n_val:
+            raise AssertionError(f"{len(preds)} class maps for {n_val} val segments")
+        for p in preds:
+            data, _ = read_geotiff(p)
+            if data.shape != (1, TRAIN_SEGMENT_SIZE, TRAIN_SEGMENT_SIZE) or data.max() >= config.num_classes:
+                raise AssertionError(f"{p.name}: shape {data.shape}, max {data.max()}")
+
+        # Export to the reference names and load back bit for bit.
+        exported = convert_main(["export-unet", str(run_dir), "--out", str(work / "cfg3_unet.pt")])
+        fresh = EfficientNetUNet(init_model.config)
+        fresh.load_state_dict(torch.load(exported, weights_only=True), strict=True)
+        fresh_state = fresh.state_dict()
+        differ = [k for k in state if not torch.equal(fresh_state[k], state[k])]
+        if sorted(fresh_state) != sorted(state) or differ:
+            raise AssertionError(f"export-unet round trip differs: {differ[:5]}")
+        log(
+            f"config #3 serve (cli.infer --tiled, bf16): {n_val} segments {TRAIN_SEGMENT_SIZE}^2 x {CFG3_FRAMES} frames, "
+            f"{n_batches} batches of <= {BATCH} tiles in {serve_s:.3f} s end to end, #1 launches {serve['depthwise_fwd']} "
+            f"= {per} x {n_batches}, {len(preds)} class maps; export-unet -> strict load: {len(state)} tensors bit for bit"
+        )
+
+        # One batch of stacked tiles: card f32 (TF32 off) vs CPU f32, same weights.
+        ds = config.datamodule.dataset_cfg
+        source = TiffSource(ds.aoi, ds.label_map, data_dir, n_time_frames=ds.n_time_frames)
+        val_idx = train_val_test_split(len(source), config.datamodule.data_split, seed=config.datamodule.shuffle_seed)[1]
+        tiles = torch.from_numpy(np.stack([center_crop(source[int(i)].x, 224) for i in val_idx[:BATCH]]))
+        mean, std = load_mean_std(source.data_dirs.base_path / "mean_std.json")
+        check_f32_logits("config #3", config, state, tiles, mean, std)
+
+        # Warm train steps on one device batch: time, throughput, memory, profile.
+        cfg = config_from_args(build_parser().parse_args(argv))
+        cfg.train.class_distribution = config.train.class_distribution
+        ds = cfg.datamodule.dataset_cfg
+        dm = Datamodule(cfg.datamodule, source=TiffSource(ds.aoi, ds.label_map, ds.data_dir, n_time_frames=ds.n_time_frames))
+        dm.set_mean_std(mean, std)
+        trainer = SegmentationTrainer(cfg, dm, device="cuda")
+        t0 = time.perf_counter()
+        host = next(dm.train_batches(0))
+        log(f"config #3 host batch ({tuple(host.images.shape)} int16, {host.images.nbytes} bytes) read and cropped in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        images, labels = torch.from_numpy(host.images).cuda(), torch.from_numpy(host.labels).cuda()
+        timing = time_seg_steps(f"config #3 step (B5 {in_ch} ch, bf16, batch {TRAIN_BATCH}, 224^2)", trainer, images, labels)
+        return {"launches": launches, "serve_launches": serve, **timing}
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}_*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+            f.unlink(missing_ok=True)
+
+
+def embed_runs(work: Path, data_dir: Path) -> dict[int, Path]:
+    """Seeded Prithvi-100M MAE run directories (bf16, 224^2, data under
+    ``data_dir``) at T=1 and T=EMBED_FRAMES."""
+    from s2tpu_torch.configs import mae as mae_cfg
+    from s2tpu_torch.train.mae_trainer import default_model_config
+
+    runs = {}
+    for frames in (1, EMBED_FRAMES):
+        config = mae_cfg.pretrain(mae_cfg.base_config("small"))
+        config.model.num_frames = config.datamodule.dataset_cfg.n_time_frames = frames
+        config.datamodule.dataset_cfg.data_dir = str(data_dir)
+        config.train.compute_dtype = "bfloat16"
+        runs[frames] = work / f"embed_mae_t{frames}"
+        write_mae_run(runs[frames], default_model_config(config), SEED + 12 + frames, config)
+    return runs
+
+
+def phase_embeddings(work: Path) -> dict:
+    """The MAE encoder's embeddings through ``cli.export_embeddings`` on the
+    card (bf16, batch 32): crop 224 at T=1 (#8 at L = 197), whole 512^2
+    segments (``--crop 0``, #5 at L = 1025) and crop 224 at T=3 (#5 at L =
+    589), with exact launches and segments/s; the forward alone on one
+    resident batch, timed and profiled; one batch in f32 on the card against
+    the CPU (crop 224 and 512^2); then ``cli.probe_embeddings`` on the card.
+    Returns the launch counts and timings."""
+    from s2tpu_torch.checkpoint.io import load_mae_checkpoint
+    from s2tpu_torch.cli.export_embeddings import main as export_main
+    from s2tpu_torch.cli.probe_embeddings import main as probe_main
+    from s2tpu_torch.data.dataset import TiffSource, make_synthetic_fixture
+    from s2tpu_torch.infer.embed import center_crop, load_encoder, make_embed_fn
+    from s2tpu_torch.models.prithvi_mae import PrithviConfig
+    from s2tpu_torch.utils import load_prithvi_mean_std, load_prithvi_model_args
+
+    data_dir = work / "embed_data"
+    t0 = time.perf_counter()
+    make_synthetic_fixture(data_dir, aoi="small", label_map="osm-multiclass", n_segments=EMBED_SEGMENTS,
+                           n_time=EMBED_FRAMES, size=(EMBED_SEGMENT_SIZE, EMBED_SEGMENT_SIZE))
+    runs = embed_runs(work, data_dir)
+    log(f"embeddings setup: {EMBED_SEGMENTS} segments of {EMBED_FRAMES} frames {EMBED_SEGMENT_SIZE}^2, seeded "
+        f"Prithvi-100M MAE runs at T=1 and T={EMBED_FRAMES} in {time.perf_counter() - t0:.1f} s")
+    zero = {k: 0 for k in launch_counts()}
+    width = load_prithvi_model_args()["embed_dim"]
+    cases = {  # name: (frames, flags, the route's counter, L)
+        "crop224": (1, ["--crop", "224"], "attn_fused_fwd", 197),
+        "crop0": (1, ["--crop", "0"], "attn_flash_fwd", (EMBED_SEGMENT_SIZE // 16) ** 2 + 1),
+        "t3": (EMBED_FRAMES, ["--crop", "224"], "attn_flash_fwd", EMBED_FRAMES * 196 + 1),
+    }
+    result: dict = {}
+    for name, (frames, flags, counter, l) in cases.items():
+        n = len(TiffSource("small", "osm-multiclass", data_dir, require_labels=False, n_time_frames=frames))
+        batches = math.ceil(n / EMBED_BATCH)
+        argv = [str(runs[frames]), "--bs", str(EMBED_BATCH), "--out", str(work / f"embed_{name}.npz"), *flags]
+        export_main(argv)  # warm-up: cuBLAS heuristics, allocator
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = export_main(argv)  # the main path
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        launches = launch_counts()
+        expected = {**zero, counter: EMBED_DEPTH * batches}
+        if launches != expected:
+            raise AssertionError(f"embeddings {name}: launches {launches} != expected {expected}")
+        z = np.load(out)
+        emb, meta = z["embeddings"], json.loads(str(z["meta"]))
+        if emb.shape != (n, width) or not np.isfinite(emb).all() or len(z["segment_ids"]) != n:
+            raise AssertionError(f"embeddings {name}: shape {emb.shape}, finite {np.isfinite(emb).all()}")
+        log(
+            f"embeddings {name} (cli.export_embeddings, Prithvi-100M encoder, bf16, T={frames}, crop {meta['crop']}, "
+            f"L = {l}): {n} segments in {batches} batches of <= {EMBED_BATCH} in {export_s:.3f} s end to end "
+            f"(segments_per_s={n / export_s:.2f}); launches {launches} = expected"
+        )
+        result[name] = {"launches": launches, "segments_per_s": n / export_s, "npz": out}
+
+    # The forward alone on one resident batch: segments/s and profile, per crop.
+    mean, std = load_prithvi_mean_std()
+    _, state = load_mae_checkpoint(runs[1])
+    source = TiffSource("small", "osm-multiclass", data_dir, require_labels=False)
+    for name, crop in (("crop224", 224), ("crop0", EMBED_SEGMENT_SIZE)):
+        mc = dataclasses.replace(PrithviConfig.from_model_args(load_prithvi_model_args(), num_frames=1, img_size=crop),
+                                 attention_impl="fused")
+        embed = make_embed_fn(load_encoder(state, mc, torch.bfloat16, "cuda"), mean, std)
+        images = torch.from_numpy(np.stack([center_crop(source[i].x, crop) for i in range(EMBED_BATCH)])).cuda()
+        embed(images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            embed(images)
+        torch.cuda.synchronize()
+        call_s = (time.perf_counter() - t0) / 5
+        log(f"embeddings {name} forward (warm, mean of 5, batch {EMBED_BATCH} resident on the card): "
+            f"ms_per_batch={call_s * 1e3:.3f} segments_per_s={EMBED_BATCH / call_s:.2f}")
+        t0 = time.perf_counter()
+        embed(images)
+        torch.cuda.synchronize()
+        busy = profile_device(f"embeddings {name} forward", lambda: embed(images), time.perf_counter() - t0)
+        result[name].update(forward_ms=call_s * 1e3, busy_share=busy)
+
+    # Card f32 (TF32 off) vs CPU f32 on one batch, at crop 224 (#8) and on whole segments (#5).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for crop in (224, EMBED_SEGMENT_SIZE):
+        mc = dataclasses.replace(PrithviConfig.from_model_args(load_prithvi_model_args(), num_frames=1, img_size=crop),
+                                 attention_impl="fused")
+        raw = np.stack([center_crop(source[i].x, crop) for i in range(EMBED_F32_BATCH)])
+        tokens = {d: make_embed_fn(load_encoder(state, mc, torch.float32, d), mean, std, pool="tokens")(raw).cpu()
+                  for d in ("cuda", "cpu")}
+        diff, scale = float((tokens["cuda"] - tokens["cpu"]).abs().max()), float(tokens["cpu"].abs().max())
+        if not torch.isfinite(tokens["cuda"]).all() or diff > EMBED_F32_RTOL * max(scale, 1.0):
+            raise AssertionError(f"embeddings f32 card vs CPU at {crop}^2: max|diff| {diff} (max|token| {scale})")
+        log(f"embeddings f32 card vs cpu ({EMBED_F32_BATCH} segments at {crop}^2, every token): max_abs_diff={diff:.3g} "
+            f"max_abs_token={scale:.3g} (limit {EMBED_F32_RTOL} x max(1, max|token|))")
+
+    # The linear probe on the card over the crop-224 export.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        record = probe_main([str(result["crop224"]["npz"]), "--data-dir", str(data_dir)])
+    printed = json.loads(buf.getvalue().strip().splitlines()[-1])
+    keys = {"n_segments", "n_train", "n_eval", "num_classes", "train_acc", "eval_acc", "majority_baseline",
+            "final_loss", "embeddings", "int8"}
+    if printed != record or set(record) != keys or record["n_segments"] != EMBED_SEGMENTS * EMBED_FRAMES or not (
+        0.0 <= record["eval_acc"] <= 1.0 and math.isfinite(record["final_loss"])
+    ):
+        raise AssertionError(f"probe record {printed}")
+    log(f"embeddings probe (cli.probe_embeddings on the card): {json.dumps(record)}")
+    return result
+
+
+def phase_migration(work: Path) -> dict:
+    """Checkpoint migration on the card: a seeded full-width B5 and a seeded
+    fc-prithvi saved as reference Lightning ``.ckpt`` files (``net.``
+    prefixes), imported by ``cli.convert_weights import-ckpt`` (weights bit
+    for bit), served by ``cli.infer --tiled`` on the serving slice's 512^2
+    segments with exact launches, and their f32 logits (TF32 off) on one
+    batch of tiles held against the seeded models'. Returns the serving
+    launch counts by model."""
+    from s2tpu_torch.checkpoint.io import load_checkpoint
+    from s2tpu_torch.cli.convert_weights import main as convert_main
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.configs.segmentation import base_config
+    from s2tpu_torch.data.dataset import TiffSource, train_val_test_split
+    from s2tpu_torch.data.statistics import load_mean_std
+    from s2tpu_torch.infer.predict import Predictor
+    from s2tpu_torch.infer.tiled import tile_coords
+    from s2tpu_torch.models.efficientnet_unet import count_stride1_depthwise
+
+    serve_dir = work / "data"  # the serving slice's 512^2 segments and statistics
+    source = TiffSource("small", "osm-multiclass", serve_dir)
+    mean, std = load_mean_std(source.data_dirs.base_path / "mean_std.json")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {}
+    for model_name in ("efficientnet-unet-b5", "fc-prithvi-backbone"):
+        t0 = time.perf_counter()
+        config = base_config(model_name, aoi="small", label_map="osm-multiclass")
+        gen = torch.Generator().manual_seed(SEED + 20)
+        seeded = randomize_batch_stats_(
+            config.build_model(dtype=torch.float32, device="cpu", param_dtype=torch.float32, generator=gen), gen
+        )
+        ckpt = work / f"reference-{model_name}.ckpt"
+        torch.save({"state_dict": {f"net.{k}": v for k, v in seeded.state_dict().items()}, "epoch": 3}, ckpt)
+        run_dir = convert_main(["import-ckpt", str(ckpt), "--model", model_name, "--aoi", "small", "--labels",
+                                "osm-multiclass", "--out", str(work / f"imported-{model_name}")])
+        import_s = time.perf_counter() - t0
+        imported_config, state = load_checkpoint(run_dir)
+        seeded_state = seeded.state_dict()
+        differ = [k for k in seeded_state if not torch.equal(state[k], seeded_state[k])]
+        if sorted(state) != sorted(seeded_state) or differ:
+            raise AssertionError(f"import-ckpt {model_name}: weights differ from the .ckpt: {differ[:5]}")
+
+        split = imported_config.datamodule.data_split
+        seg_idx = train_val_test_split(len(source), split, seed=0)[0]
+        n_batches = serve_batches(len(seg_idx), 512)
+        out = work / f"imported-{model_name}-preds"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        infer_main([str(run_dir), "--tiled", "--split", "train", "--out", str(out), "--data-dir", str(serve_dir)])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if model_name.startswith("fc-prithvi"):
+            counter, per = "attn_fused_fwd", FC_DEPTH
+        else:
+            counter, per = "depthwise_fwd", count_stride1_depthwise(seeded.config)
+        if launches[counter] != per * n_batches or sum(launches.values()) != launches[counter]:
+            raise AssertionError(f"imported {model_name} serving launches {launches} != {per} x {n_batches} of {counter}")
+        if len(list(out.glob("pred_*.tif"))) != len(seg_idx):
+            raise AssertionError(f"imported {model_name}: class maps missing under {out}")
+
+        # f32 logits of the served run against the seeded model, one batch of tiles.
+        images = np.stack([source.read_with_geo(int(i))[0] for i in seg_idx])
+        tiles = torch.stack([torch.from_numpy(images[i, y : y + 224, x : x + 224]) for i, y, x in
+                             tile_coords(len(seg_idx), 512, 512, 224, 192)[:BATCH]])
+        ds = imported_config.datamodule.dataset_cfg
+        logits = []
+        for weights in (state, seeded_state):
+            m = imported_config.build_model(dtype=torch.float32, device="cuda")
+            m.load_state_dict(weights, strict=True)
+            predictor = Predictor(m, mean, std, torch.float32, torch.device("cuda"), ds.stack_time_into_channels,
+                                  ds.squeeze_time_dim)
+            logits.append(predictor(tiles).cpu())
+        diff, scale = float((logits[0] - logits[1]).abs().max()), float(logits[1].abs().max())
+        if not torch.isfinite(logits[0]).all() or diff > 1e-6 * max(scale, 1.0):
+            raise AssertionError(f"imported {model_name} logits differ from the seeded model's: {diff} (scale {scale})")
+        log(
+            f"migration {model_name}: reference .ckpt -> import-ckpt in {import_s:.1f} s ({len(state)} tensors bit for "
+            f"bit) -> cli.infer --tiled on the card: {len(seg_idx)} segments 512^2, {n_batches} batches in "
+            f"{serve_s:.3f} s, {counter} launches {launches[counter]} = {per} x {n_batches}; f32 logits vs the seeded "
+            f"model: max_abs_diff={diff:.3g} ({'bit-equal' if diff == 0.0 else 'within 1e-6 x scale'})"
+        )
+        result[model_name] = launches
+    return result
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--attention"], ["--depthwise"]):
         print("usage: python3 chip_smoke.py [--attention | --depthwise]", file=sys.stderr)
@@ -2237,8 +2672,11 @@ def main(argv: list[str]) -> int:
     try:
         serve_launches = timed("serving slice", phase_slice, work)
         train = timed("training slice", phase_train, work)
+        cfg3 = timed("config #3 slice", phase_config3, work)
         fc = timed("fc-prithvi slice T=1", phase_fc_prithvi, work)
         fc_t3 = timed("fc-prithvi slice T=3", phase_fc_prithvi_t3, work)
+        embeds = timed("embeddings slice", phase_embeddings, work)
+        migration = timed("migration slice", phase_migration, work)
         mae = timed("MAE slice T=1", phase_mae, work)
         mae_t3 = timed("MAE slice T=3", phase_mae_t3, work)
         with one_rank_mesh(work) as mesh:
@@ -2273,6 +2711,11 @@ def main(argv: list[str]) -> int:
             "dx_plain_ms": bwd_times["dx_plain_ms"],
             "dx_bound_ms": bwd_times["dx_bound_ms"],
             "dx_library_ms": bwd_times["dx_library_ms"],
+            # config #3 (48 channels stacked): the same depthwise shapes, behind a 48-channel stem
+            "cfg3_launches": cfg3["launches"]["depthwise_fwd"],
+            "cfg3_dx_launches": cfg3["launches"]["depthwise_dx"],
+            "cfg3_serve_launches": cfg3["serve_launches"]["depthwise_fwd"],
+            "migration_serve_launches": migration["efficientnet-unet-b5"]["depthwise_fwd"],
             **depthwise_ptxas(ptxas, "depthwise_s1_fwd"),
         },
         {
@@ -2287,6 +2730,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": bwd_times["dw_bound_ms"],
             "bound_by": bwd_times["dw_bound_by"],
             "library_ms": bwd_times["dw_library_ms"],
+            "cfg3_launches": cfg3["launches"]["depthwise_dw"],
             **depthwise_ptxas(ptxas, "depthwise_s1_dw"),
         },
         {
@@ -2304,6 +2748,7 @@ def main(argv: list[str]) -> int:
             "ce_ms": ce_times["ce_fwd_ms"],
             "ce_library_ms": ce_times["ce_fwd_library_ms"],
             "fc_prithvi_launches": fc["launches"]["fused_ce_fwd"],
+            "cfg3_launches": cfg3["launches"]["fused_ce_fwd"],
         },
         {
             "name": "fused_ce_backward",
@@ -2320,6 +2765,7 @@ def main(argv: list[str]) -> int:
             "ce_ms": ce_times["ce_bwd_ms"],
             "ce_library_ms": ce_times["ce_bwd_library_ms"],
             "fc_prithvi_launches": fc["launches"]["fused_ce_bwd"],
+            "cfg3_launches": cfg3["launches"]["fused_ce_bwd"],
         },
         {
             "name": "fused_attention_qkv_forward",
@@ -2365,6 +2811,9 @@ def main(argv: list[str]) -> int:
             "t3_launches": mae_t3["launches"]["attn_fused_fwd"],
             "fc_prithvi_launches": fc["launches"]["attn_fused_fwd"],
             "fc_prithvi_serve_launches": fc["serve_launches"]["attn_fused_fwd"],
+            # the embeddings at crop 224 run at fc-prithvi's T=1 shape (32, 197, 12, 64), forward only
+            "embed_launches": embeds["crop224"]["launches"]["attn_fused_fwd"],
+            "migration_serve_launches": migration["fc-prithvi-backbone"]["attn_fused_fwd"],
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"fwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **fwd_ptxas,
         },
@@ -2398,6 +2847,10 @@ def main(argv: list[str]) -> int:
             "library_ms": attn_times["flash"]["library_ms"],
             "fc_prithvi_t3_launches": fc_t3["launches"]["attn_flash_fwd"],
             **{f"fc_prithvi_t3_{k}": attn_times["flash_fc"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "embed_crop0_launches": embeds["crop0"]["launches"]["attn_flash_fwd"],
+            "embed_t3_launches": embeds["t3"]["launches"]["attn_flash_fwd"],
+            **{f"embed_{k}": attn_times["flash_embed"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **{f"embed_t3_{k}": attn_times["flash_embed_t3"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         },
     ]
     if len(kernels) != 9:

@@ -1,6 +1,6 @@
-"""JAX EfficientNet-UNet, Prithvi MAE and Prithvi segmentation weights -> the port's state dicts.
+"""Weight migration for the port: JAX (Flax) trees, reference PyTorch checkpoints and the published layouts.
 
-The port's own copy of the export mapping in
+JAX -> port: the port's own copy of the export mapping in
 ``s2tpu/checkpoint/convert_torch.py`` (``export_reference_unet_state_dict``,
 ``export_prithvi_state_dict``, ``export_reference_prithvi_seg_state_dict``
 and their helpers). The port's module names are the reference PyTorch
@@ -8,6 +8,15 @@ models' state-dict names, so the results load into ``s2tpu_torch.models``
 with ``strict=True``. Inputs are the Flax ``params`` and ``batch_stats``
 trees as nested dicts of numpy arrays; every mapping is a pure transpose,
 so values are bit-exact.
+
+Reference PyTorch -> port (the ingestion direction of ``convert_torch.py``):
+a Lightning ``.ckpt`` or a bare state dict of the reference models is the
+port's state dict once ``net.`` is stripped (:func:`reference_state_dict`);
+a lukemelas EfficientNet ImageNet checkpoint maps name by name onto the
+port's encoder (:func:`convert_efficientnet_state_dict`). Port -> the
+published layouts (:func:`with_position_tables`): the port's Prithvi state
+dicts with the fixed sincos position tables, which the port keeps outside
+them, put back.
 
 Layouts: Dense kernel (I, O) -> 1x1 conv (O, I, 1, 1); conv kernel
 (kh, kw, I, O) -> (O, I, kh, kw); depthwise (k, k, 1, C) -> (C, 1, k, k);
@@ -223,3 +232,109 @@ def load_prithvi_weights(
     if not include_decoder:
         state_dict = encoder_state_dict(state_dict)
     model.load_state_dict(state_dict, strict=True)
+
+
+# ---------------------------------------------------------------------------
+# reference PyTorch checkpoints -> the port
+# ---------------------------------------------------------------------------
+def reference_state_dict(checkpoint: dict) -> dict[str, torch.Tensor]:
+    """A reference checkpoint -> the port model's state dict.
+
+    Takes a Lightning ``.ckpt`` (``{"state_dict": {"net." + name: tensor}}``,
+    the reference SegmentationModule holding its model as ``self.net``) or a
+    bare module state dict, as ``load_reference_unet_weights`` /
+    ``load_reference_prithvi_seg_weights`` do
+    (``s2tpu/checkpoint/convert_torch.py:294-367``): ``net.`` is stripped,
+    and the reference UNet encoder's ImageNet head ``encoder.fc.*``, which
+    the UNet never runs and the port does not build, is dropped (the JAX
+    conversion skips it too). The reference and the port share names, so
+    nothing else changes. A Lightning checkpoint's other modules (keys
+    without ``net.``) are left out."""
+    sd = checkpoint.get("state_dict", checkpoint)
+    if any(k.startswith("net.") for k in sd):
+        sd = {k[4:]: v for k, v in sd.items() if k.startswith("net.")}
+    return {k: v for k, v in sd.items() if not k.startswith("encoder.fc.")}
+
+
+_LUKEMELAS_BN = ("weight", "bias", "running_mean", "running_var")
+
+
+def convert_efficientnet_state_dict(state_dict: dict, in_channels: int = 6) -> dict[str, torch.Tensor]:
+    """lukemelas EfficientNet-PyTorch (ImageNet) state dict -> the port's
+    encoder keys (``encoder.*``, the reference UNet's names), f32.
+
+    The port's copy of ``convert_efficientnet_state_dict``
+    (``s2tpu/checkpoint/convert_torch.py:156-198``) composed with the
+    export to the reference names: ``_conv_stem`` / ``_bn0`` ->
+    ``encoder.stem.{0,1}``; per block ``_expand_conv`` / ``_bn0`` ->
+    ``stem.{0,1}``, ``_depthwise_conv`` / ``_bn1`` -> ``stem.{3,4}``
+    (``stem.{0,1}`` without an expansion), ``_se_reduce`` / ``_se_expand`` ->
+    ``squeeze_excitation.{1,3}``, ``_project_conv`` / ``_bn2`` ->
+    ``final_layer.{0,1}``; ``_conv_head`` / ``_bn1`` -> ``encoder.conv_head.{0,1}``.
+    Both sides hold 1x1 and depthwise convs as (O, I, kh, kw), so values
+    are copied. The stem conv is skipped when its input channels differ
+    from ``in_channels`` (ImageNet is RGB, the input here 6 bands): it stays
+    at the model's init, as the reference's ``strict=False`` load leaves
+    it. The ImageNet ``_fc`` head and the BatchNorms' ``num_batches_tracked``
+    are never taken."""
+    sd = state_dict
+    out: dict[str, torch.Tensor] = {}
+
+    def take(src: str, dst: str) -> None:
+        out[dst] = sd[src].detach().to(torch.float32).contiguous().clone()
+
+    def bn(src: str, dst: str) -> None:
+        for field in _LUKEMELAS_BN:
+            take(f"{src}.{field}", f"{dst}.{field}")
+
+    if sd["_conv_stem.weight"].shape[1] == in_channels:
+        take("_conv_stem.weight", "encoder.stem.0.weight")
+    bn("_bn0", "encoder.stem.1")
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("_blocks.")})
+    for i in range(n_blocks):
+        src, dst = f"_blocks.{i}", f"encoder.blocks.{i}"
+        stem = 0
+        if f"{src}._expand_conv.weight" in sd:
+            take(f"{src}._expand_conv.weight", f"{dst}.stem.0.weight")
+            bn(f"{src}._bn0", f"{dst}.stem.1")
+            stem = 3
+        take(f"{src}._depthwise_conv.weight", f"{dst}.stem.{stem}.weight")
+        bn(f"{src}._bn1", f"{dst}.stem.{stem + 1}")
+        if f"{src}._se_reduce.weight" in sd:
+            for ours, theirs in (("_se_reduce", 1), ("_se_expand", 3)):
+                take(f"{src}.{ours}.weight", f"{dst}.squeeze_excitation.{theirs}.weight")
+                take(f"{src}.{ours}.bias", f"{dst}.squeeze_excitation.{theirs}.bias")
+        take(f"{src}._project_conv.weight", f"{dst}.final_layer.0.weight")
+        bn(f"{src}._bn2", f"{dst}.final_layer.1")
+    take("_conv_head.weight", "encoder.conv_head.0.weight")
+    bn("_bn1", "encoder.conv_head.1")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the port -> the published layouts (position tables put back)
+# ---------------------------------------------------------------------------
+def cpu_f32(state_dict: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """CPU copies of a state dict, floating tensors in f32 (the exports' type)."""
+    return {k: v.detach().cpu().to(torch.float32) if v.is_floating_point() else v.detach().cpu()
+            for k, v in state_dict.items()}
+
+
+def with_position_tables(state_dict: dict[str, torch.Tensor], config, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A port Prithvi state dict (``PrithviMAE``, or with ``prefix``
+    "backbone." a ``PrithviSegmentationNet``) -> the published layout, f32
+    on the CPU. The port keeps the fixed sincos tables outside its state
+    dicts (``PrithviMAE.drop_position_tables``), the published files carry
+    them: ``pos_embed`` (and ``decoder_pos_embed`` when the decoder is there)
+    is regenerated for ``config``'s grid with ``cls_token=True``, as
+    ``export_prithvi_state_dict`` and ``export_reference_prithvi_seg_state_dict``
+    (``s2tpu/checkpoint/convert_torch.py:528-585``) do."""
+    from s2tpu_torch.models.prithvi_mae import sincos_3d
+
+    out = cpu_f32(state_dict)
+    out[f"{prefix}pos_embed"] = torch.from_numpy(sincos_3d(config.embed_dim, config.grid_size, cls_token=True)[None])
+    if f"{prefix}decoder_embed.weight" in out:
+        out[f"{prefix}decoder_pos_embed"] = torch.from_numpy(
+            sincos_3d(config.decoder_embed_dim, config.grid_size, cls_token=True)[None]
+        )
+    return out

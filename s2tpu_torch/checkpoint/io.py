@@ -144,6 +144,12 @@ class CheckpointManager:
         epochs = epochs_in(self.directory)
         return epochs[-1] if epochs else None
 
+    def best_epoch(self) -> int | None:
+        """The kept epoch best by the monitor (the later of a tie), None when
+        no epoch records it (``s2tpu/checkpoint/orbax_io.py:68``)."""
+        scored = [e for e in epochs_in(self.directory) if math.isfinite(self._score(e))]
+        return min(scored, key=lambda e: (self._score(e), -e)) if scored else None
+
     def restore(self, epoch: int) -> dict:
         """-> {"model": state dict, "optimizer": state dict, "step": int} on the CPU."""
         d = self._epoch_dir(epoch)

@@ -7,8 +7,14 @@ Trains on the card unless ``--device cpu``. Epoch checkpoints land in
 ``python -m s2tpu_torch.cli.infer <run dir>`` serves; scalars go to
 ``logs/runs/<run>.metrics.jsonl``. Only the flags of features the port has
 are accepted: mesh and sharding flags, remat, the device corpus, bf16
-parameter storage, EMA, BN recalibration, ``--stack-time`` and ``--type
-tune`` are not ported yet, and argparse refuses them.
+parameter storage, EMA, BN recalibration and ``--type tune`` are not ported
+yet, and argparse refuses them.
+
+Multi-temporal B5 (BASELINE config #3) folds its frames into channels,
+frame-major, for the single-frame UNet (in_channels = T x bands):
+
+    python -m s2tpu_torch.cli.train_segmentation <aoi> cnes-multiclass efficientnet-unet-b5
+        --time-frames 4 --stack-time --bands all12 [--loss-type focal --weighted-loss --bs 32]
 
 fc-prithvi (BASELINE config #4) finetunes the Prithvi-100M encoder with a
 segmentation neck and head, frozen then unfrozen:
@@ -69,7 +75,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crop", type=int, default=None, help="training crop size (default 224)")
     p.add_argument(
         "--time-frames", type=int, default=None,
-        help="frames per sample; fc-prithvi takes them as tubelets (the UNet's --stack-time is not ported yet)",
+        help="frames per sample (quarterly composites: 4); fc-prithvi takes them as tubelets, the UNet needs "
+        "--stack-time",
+    )
+    p.add_argument(
+        "--stack-time", action="store_true",
+        help="fold the T axis into channels for single-frame models "
+        "(BASELINE config #3: B5 on quarterly composites, in_channels = T*bands)",
     )
     p.add_argument("--data-dir", default=None, help="override the data root")
     p.add_argument("--seed", type=int, default=None)
@@ -110,6 +122,8 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
         dmc.dataset_cfg.bands = parse_bands(args.bands)
     if args.time_frames:
         dmc.dataset_cfg.n_time_frames = args.time_frames
+    if args.stack_time:
+        dmc.dataset_cfg.stack_time_into_channels = True
     dmc.batch_size = args.bs or dmc.batch_size
     dmc.random_crop_size = args.crop or dmc.random_crop_size
     t.lr = args.lr or t.lr

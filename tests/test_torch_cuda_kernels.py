@@ -360,6 +360,26 @@ def test_flash_bf16_kernel_matches_plain_version_on_the_card(l):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=BF16_ATOL)
 
 
+# #5 at the embedding path's lengths, Dh 64: L = 1025 (whole 512² segments at
+# patch 16; the last 64-key tile holds one key) and 589 (three frames at
+# 224²). The last key's value row is 16, so a tail key dropped or counted
+# twice moves the output by up to ~0.5, far past either tolerance.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [589, 1025])
+def test_flash_kernel_matches_plain_version_at_the_embedding_lengths(l, dtype):
+    gen = torch.Generator().manual_seed(l)
+    qkv = torch.randn(2, l, 3 * 12 * 64, generator=gen)
+    qkv.view(2, l, 3, 12, 64)[:, -1, 2] = 16.0
+    qkv = qkv.to("cuda", dtype)
+    q, k, v = qkv.reshape(2, l, 3, 12, 64).unbind(2)
+    before = tfa.FLASH_FWD_LAUNCHES
+    out = tfa.flash_attention_forward(q, k, v)
+    assert tfa.FLASH_FWD_LAUNCHES == before + 1
+    ref = tfa.flash_attention_forward_reference(q, k, v)
+    atol = 1e-4 if dtype == torch.float32 else BF16_ATOL
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+
+
 def test_flash_bf16_wrapper_raises_on_a_misaligned_view():
     flat = torch.zeros(600 * 2 * 32 + 1, dtype=torch.bfloat16, device="cuda")
     q = flat[1:].view(1, 600, 2, 32)  # 2 bytes past an aligned start

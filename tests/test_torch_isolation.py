@@ -69,6 +69,27 @@ def test_card_test_files_import_no_jax_and_no_s2tpu(name):
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "s2tpu_torch.cli.train_segmentation", "s2tpu_torch.cli.convert_weights", "s2tpu_torch.cli.export_embeddings",
+    "s2tpu_torch.cli.probe_embeddings", "s2tpu_torch.infer.embed", "s2tpu_torch.checkpoint.convert",
+    "s2tpu_torch.checkpoint.io",
+])
+def test_migration_and_embedding_modules_import_no_jax_and_no_s2tpu(module):
+    """Each entry point of checkpoint migration, embeddings and stacked
+    multi-temporal training, imported alone in a fresh interpreter, pulls in
+    neither JAX nor the JAX package."""
+    probe = _PROBE.split("import s2tpu_torch\n")[0] + (
+        f"importlib.import_module({module!r})\n"
+        "leaked = sorted(m for m in sys.modules if forbidden(m))\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_resolve_device_defaults_to_cuda(monkeypatch):
     from s2tpu_torch import resolve_device
 
