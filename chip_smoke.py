@@ -1,8 +1,9 @@
-"""Drive s2tpu_torch's serving, training (single- and multi-temporal), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel), MAE embedding and checkpoint migration paths on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving, training (single- and multi-temporal, with the trainer extras), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding and checkpoint migration paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
     python3 chip_smoke.py --depthwise    # phases 1, 2 (depthwise only), 3 and 4's depthwise part
+    python3 chip_smoke.py --extras       # phases 2, 6, 19, 9 and 20 only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 ``--attention`` and ``--depthwise`` use only the kernel wrappers' public
@@ -138,13 +139,50 @@ any failure raises and the script exits non-zero without printing a result:
    import-ckpt`` (weights bit for bit), served by ``cli.infer --tiled``
    with exact #1 / #8 launches, and their f32 logits held against the
    seeded models'.
-19. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
+19. B5 trainer extras (phase A, after phase 6, on its data): config #2's
+   ``SegmentationTrainer`` (bf16, batch 32, 224^2). First its kernels at
+   the micro-batch's shapes against their plain versions: #1 (forward and
+   input gradient) and #2 at batch 16 at the 35 stride-1 shapes (bf16),
+   #3/#4 at N = 16 x 224^2. (a) Two micro-batches:
+   exact launches (35 #1 forwards, 35 input gradients, 35 #2, one #3 and
+   #4 a micro-batch), the warm step; in f32 on the card (TF32 off,
+   deterministic cuDNN, drop-connect off, batch 4, 128^2) the accum-2 step
+   against the same accumulation written out (loss, gradients, statistics,
+   updates), and, on a batch of two equal halves, against one accum-1 step:
+   gradients and updates with BatchNorm frozen, loss and running statistics
+   ((1+d) r1 - d r0) in train mode. (b) Remat against none with drop-connect on: loss,
+   gradients and statistics, each BatchNorm updated once, #1's forwards
+   70 against 35, the warm steps and their peak memory (remat's lower).
+   (c) The training CLI with ``--param-dtype bfloat16 --ema-decay 0.999
+   --watch-interval 1 --bn-recal 2`` (2 epochs x 2 steps): exact launches
+   (the recalibration's forwards included), bf16 parameters with f32
+   masters and the EMA in the checkpoint, the norms of every step in the
+   JSONL log, ``cli.infer --tiled`` serving the EMA weights with exact #1
+   launches; the warm step with bf16 parameters, the EMA and watching.
+   (d) The CLI (bf16 parameters and the EMA, 1 epoch of 2 steps) stopped
+   by a SIGTERM after step 1 and resumed with ``--auto-resume``, against
+   one uninterrupted run, deterministic cuDNN. A second plain warm step
+   closes the phase, to show the host's drift.
+20. MAE trainer extras (phase B, after phase 9, on its data): config #5's
+   ``MAETrainer`` (T=1, bf16, batch 64) with two micro-batches, remat, bf16
+   parameters with f32 masters, the EMA and watching: #8/#9 at the
+   micro-batch's shape (32, 197, 16, 32) against their plain versions; one
+   step's exact
+   #8/#9 launches (each decoder block's #8 twice a micro-batch), finite
+   loss and watch scalars, every master moved, the parameters bf16; the
+   warm step and peak memory with and without remat (remat's lower); a
+   SIGTERM after step 1 of ``fit`` and ``resume_from_checkpoint`` against
+   one uninterrupted run (deterministic cuDNN).
+21. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
    launches, and #8, #9, #5 with their times at fc-prithvi's shapes; #1-#4
    with their config #3 launches, #8 and #5 with their embedding launches,
    #5 with its times at the embeddings' shapes, #1 and #8 with the
-   migration slice's serving launches), the ``nvidia-smi`` line, then the
+   migration slice's serving launches; #1-#4 with phase A's launches in
+   one accum-2 step, one remat step and the extras' CLI run, #1 with its
+   serving's; #8/#9 with phase B's step; ``accum_*``: #1-#4 and #8/#9 at
+   the micro-batch's shapes), the ``nvidia-smi`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -293,6 +331,39 @@ EMBED_DEPTH = 12  # encoder blocks: one attention launch each per batch
 # another order through 12 LayerNorm'd blocks, well conditioned (the MAE
 # step's loss agrees to ~1e-7); a wrong attention moves them by O(1).
 EMBED_F32_BATCH, EMBED_F32_RTOL = 2, 1e-3
+
+# Phase A and B, the trainer extras: the CLI run's EMA decay and BN
+# recalibration batches; the preemption runs are one epoch of 2 steps.
+EXTRAS_EMA_DECAY, EXTRAS_BN_RECAL = 0.999, 2
+# (a) an f32 accum-2 step vs the same accumulation written out: the same
+# kernels on the same data in the same order (deterministic cuDNN), so loss,
+# gradients and statistics agree to the f32 rounding of sums in other orders;
+# Adam's first step moves an entry whose gradient is rounding noise (a bias
+# before BatchNorm) anywhere within 2 lr, so the updates together agree to
+# ACCUM_F32_UPDATE_RTOL in relative L2. Adam's first step is blind to the
+# gradient's scale, so the gradients are what hold the accumulation.
+ACCUM_F32_RTOL, ACCUM_F32_UPDATE_RTOL = 1e-5, 0.05
+# (a) an f32 accum-2 step vs an accum-1 step on a batch whose two halves are
+# the same images, so each micro-batch has the full batch's weighted loss.
+# With BatchNorm frozen (eval mode, running statistics) every image's path is
+# its own, and the accum-2 gradient (the mean of two equal ones) is the
+# accum-1 gradient up to f32 sums over 2 or 4 images in another order:
+# ACCUM1_GRAD_RTOL in relative L2. A lost micro-batch or a missing division
+# moves it by O(1). (Train-mode BatchNorm's backward amplifies f32 rounding
+# to ~1 % of the gradient, PERF.md, which would check nothing at this
+# precision.) In train mode, each running statistic, updated twice with the
+# same batch statistic s, is d (d r0 + (1-d) s) + (1-d) s = (1+d) r1 - d r0,
+# r1 accum 1's: to ACCUM_F32_RTOL; statistics not threaded through the
+# micro-batches miss it by (1-d) s.
+ACCUM1_GRAD_RTOL = 1e-4
+# (b) remat vs none: the recompute runs the same deterministic kernels on the
+# same inputs and masks; loss, gradients and statistics to REMAT_RTOL.
+REMAT_RTOL = 1e-5
+# (d) and phase B: the resumed run repeats the uninterrupted run's kernels on
+# the same data and masks (deterministic cuDNN): its final weights to
+# PREEMPT_TOL, in max |diff| / max |w| and in relative L2.
+PREEMPT_TOL = 1e-6
+CARD = "card not read"  # nvidia-smi's name and power limit, set by main
 
 
 # Device kernels by kind, matched on name fragments in this order (the
@@ -501,9 +572,9 @@ def check_kernel(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.
     return times
 
 
-def phase_kernels(batch: int = BATCH) -> dict:
+def phase_kernels(batch: int = BATCH, dtypes: tuple = (torch.bfloat16, torch.float32)) -> dict:
     """Kernel #1 vs its plain version at every B5 stride-1 shape and the
-    ragged one, bf16 and f32; totals over one B5 forward (bf16) at ``batch``."""
+    ragged one, in ``dtypes``; totals over one B5 forward (bf16) at ``batch``."""
     shapes = b5_stride1_shapes()
     if shapes != B5_STRIDE1_SHAPES or sum(shapes.values()) != 35:
         raise AssertionError(f"B5 stride-1 depthwise shapes changed: {shapes}")
@@ -516,7 +587,7 @@ def phase_kernels(batch: int = BATCH) -> dict:
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     max_err, bound_by = 0.0, set()
     cases = [((k, c, h, h), n) for (k, c, h), n in shapes.items()] + [(RAGGED, 0)]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for (k, c, h, w), n in cases:
             t = check_kernel(k, c, h, w, dtype, gen, batch)
             max_err = max(max_err, t["max_abs_err"])
@@ -540,16 +611,17 @@ def phase_kernels(batch: int = BATCH) -> dict:
     return {**totals, "max_abs_err": max_err, "bound_by": "/".join(sorted(bound_by))}
 
 
-def check_train_kernels(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.Generator) -> dict:
+def check_train_kernels(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen: torch.Generator,
+                        batch: int = TRAIN_BATCH) -> dict:
     """Depthwise input gradient (kernel #1, flipped filter) and filter
-    gradient (kernel #2) vs their plain versions at batch TRAIN_BATCH;
-    raises on disagreement. Returns times in ms."""
+    gradient (kernel #2, whose plan depends on the batch) vs their plain
+    versions at ``batch``; raises on disagreement. Returns times in ms."""
     from s2tpu_torch.ops import depthwise_conv as dw
 
-    x = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to("cuda", dtype)
-    g = torch.randn(TRAIN_BATCH, h, w, c, generator=gen).to("cuda", dtype)
+    x = torch.randn(batch, h, w, c, generator=gen).to("cuda", dtype)
+    g = torch.randn(batch, h, w, c, generator=gen).to("cuda", dtype)
     wt = torch.randn(k, k, c, generator=gen).to("cuda", dtype)
-    what = f"k={k} C={c} {h}x{w} B={TRAIN_BATCH} {dtype}"
+    what = f"k={k} C={c} {h}x{w} B={batch} {dtype}"
     dx = dw.depthwise_conv2d_s1_input_grad(g, wt)
     dx_err = depthwise_error(dx, dw.depthwise_conv2d_s1_reference(g, wt.flip(0, 1)), f"depthwise input gradient at {what}")
     dwk = dw.depthwise_conv2d_s1_grad_weight(x, g, k)
@@ -594,9 +666,10 @@ def check_train_kernels(k: int, c: int, h: int, w: int, dtype: torch.dtype, gen:
     return t
 
 
-def phase_train_kernels() -> dict:
+def phase_train_kernels(batch: int = TRAIN_BATCH, dtypes: tuple = (torch.bfloat16, torch.float32)) -> dict:
     """Kernels #1 (as input gradient) and #2 at every B5 stride-1 shape at
-    batch 32 and the ragged shape; totals over one B5 train step (bf16)."""
+    ``batch`` and the ragged shape, in ``dtypes``; totals over one B5 train
+    step's (bf16) backward pass at that batch."""
     log(
         "depthwise backward tolerance: input gradient as the forward (same arithmetic); filter gradient "
         "|err| <= 1e-4 x sum|g||x| per tap (f32 sums in another order)"
@@ -606,14 +679,14 @@ def phase_train_kernels() -> dict:
     totals = dict.fromkeys(keys, 0.0)
     max_err, dw_bound_by = {"dx": 0.0, "dw": 0.0}, set()
     cases = [((k, c, h, h), n) for (k, c, h), n in B5_STRIDE1_SHAPES.items()] + [(RAGGED, 0)]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         for (k, c, h, w), n in cases:
-            t = check_train_kernels(k, c, h, w, dtype, gen)
+            t = check_train_kernels(k, c, h, w, dtype, gen, batch)
             max_err = {key: max(val, t[f"{key}_max_abs_err"]) for key, val in max_err.items()}
             if n and dtype == torch.bfloat16:
                 dw_bound_by.add(t["dw_bound_by"])
             log(
-                f"depthwise backward {str(dtype).split('.')[1]:8s} k={k} C={c:4d} {h:3d}x{w:<3d} B={TRAIN_BATCH}: "
+                f"depthwise backward {str(dtype).split('.')[1]:8s} k={k} C={c:4d} {h:3d}x{w:<3d} B={batch}: "
                 f"dx_ms={t['dx_ms']:.4f} dx_plain_ms={t['dx_plain_ms']:.4f} dx_library_ms={t['dx_library_ms']:.4f} "
                 f"dx_bound_ms={t['dx_bound_ms']:.4f} | dw_ms={t['dw_ms']:.4f} dw_plain_ms={t['dw_plain_ms']:.4f} "
                 f"dw_library_ms={t['dw_library_ms']:.4f} dw_mb_moved={t['dw_mb_moved']:.2f} dw_bound_ms={t['dw_bound_ms']:.4f} "
@@ -624,7 +697,7 @@ def phase_train_kernels() -> dict:
                 for key in keys:
                     totals[key] += n * t[key]
     log(
-        f"depthwise backward per B5 train step (35 layers, bf16, batch {TRAIN_BATCH}): "
+        f"depthwise backward per B5 train step (35 layers, bf16, batch {batch}): "
         + " ".join(f"{key}={val:.4f}" for key, val in totals.items())
     )
     return {
@@ -633,10 +706,11 @@ def phase_train_kernels() -> dict:
     }
 
 
-def phase_fused_ce() -> dict:
-    """Kernels #3/#4 vs their plain versions at N = 32 * 224^2, K = 4, in
-    CE and focal mode, with and without ignore_index=0. Returns the times of
-    the training path's mode (focal, ignore 0, class weights)."""
+def phase_fused_ce(n: int = CE_PIXELS) -> dict:
+    """Kernels #3/#4 vs their plain versions at N = ``n`` pixels (default
+    32 * 224^2), K = 4, in CE and focal mode, with and without
+    ignore_index=0. Returns the times of the training path's mode (focal,
+    ignore 0, class weights)."""
     import torch.nn.functional as F
 
     from s2tpu_torch.ops import fused_ce
@@ -647,7 +721,7 @@ def phase_fused_ce() -> dict:
         "or two, and ce = lse - l_y cancels to an error of a few ulps of |lse|"
     )
     gen = torch.Generator().manual_seed(SEED + 2)
-    n, k = CE_PIXELS, CE_CLASSES
+    k = CE_CLASSES
     logits = (3.0 * torch.randn(n, k, generator=gen)).cuda()
     labels = torch.randint(0, k, (n,), generator=gen, dtype=torch.int32).cuda()
     cw = torch.tensor([0.05, 0.7, 0.5, 0.75], device="cuda")  # non-uniform, the masked class raw
@@ -914,6 +988,15 @@ def launch_counts() -> dict[str, int]:
     }
 
 
+def train_argv(data_dir: Path, name: str, epochs: int = TRAIN_EPOCHS) -> list[str]:
+    """The training CLI's arguments of the training slice (phase 6): config #2."""
+    return [
+        "small", "osm-multiclass", "efficientnet-unet-b5", "--loss-type", "focal", "--weighted-loss",
+        "--bs", str(TRAIN_BATCH), "--crop", "224", "--compute-dtype", "bfloat16", "--epochs", str(epochs),
+        "--log-interval", "1", "--data-dir", str(data_dir), "--name", name, "--seed", str(SEED),
+    ]
+
+
 def phase_train(work: Path) -> dict:
     """Train B5 through the training CLI on the card, check it, serve its
     checkpoint, then time warm train steps. Returns the path's launch counts."""
@@ -936,11 +1019,7 @@ def phase_train(work: Path) -> dict:
     )
     log(f"train setup: {TRAIN_SEGMENTS} segments {TRAIN_SEGMENT_SIZE}x{TRAIN_SEGMENT_SIZE}x6 in {time.perf_counter() - t0:.1f} s")
     name = f"chip-smoke-{os.getpid()}"
-    argv = [
-        "small", "osm-multiclass", "efficientnet-unet-b5", "--loss-type", "focal", "--weighted-loss",
-        "--bs", str(TRAIN_BATCH), "--crop", "224", "--compute-dtype", "bfloat16", "--epochs", str(TRAIN_EPOCHS),
-        "--log-interval", "1", "--data-dir", str(data_dir), "--name", name, "--seed", str(SEED),
-    ]
+    argv = train_argv(data_dir, name)
     try:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1016,6 +1095,533 @@ def phase_train(work: Path) -> dict:
             shutil.rmtree(d, ignore_errors=True)
         for f in (LOG_DIR / "runs").glob(f"{name}_*"):
             f.unlink(missing_ok=True)
+
+
+def launch_dict(**counts: int) -> dict[str, int]:
+    """A full launch-count dict: ``counts``, every other kernel 0."""
+    out = dict.fromkeys(launch_counts(), 0)
+    out.update(counts)
+    return out
+
+
+def step_launches(trainer, *batch) -> tuple[dict, dict]:
+    """One train step with every count set to 0 just before it: (its
+    launches, its outputs)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    m = trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    return launch_counts(), m
+
+
+@contextlib.contextmanager
+def sigterm_after_first_step(cls):
+    """Inside the block, ``cls.train_step`` raises a real SIGTERM after its
+    first call (the handler ``fit`` installs then stops the run)."""
+    import signal
+
+    step, calls = cls.train_step, []
+
+    def wrapped(self, *args, **kwargs):
+        out = step(self, *args, **kwargs)
+        calls.append(1)
+        if len(calls) == 1:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    cls.train_step = wrapped
+    try:
+        yield
+    finally:
+        cls.train_step = step
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def state_distance(ours: dict, ref: dict) -> tuple[float, float]:
+    """(max |diff| / max |ref|, relative L2 of the difference) over the
+    floating tensors of two state dicts."""
+    diff2 = ref2 = 0.0
+    worst = 0.0
+    for name, t in ref.items():
+        if not t.is_floating_point():
+            continue
+        d = (ours[name].detach().double() - t.detach().double()).cpu()
+        diff2 += float(d.square().sum())
+        ref2 += float(t.detach().double().square().sum())
+        worst = max(worst, float(d.abs().max()) / max(float(t.detach().abs().max()), 1e-30))
+    return worst, math.sqrt(diff2 / max(ref2, 1e-30))
+
+
+def seg_extras_trainer(data_dir: Path, argv_extra: tuple = (), run_logger=None, **train):
+    """Config #2's SegmentationTrainer on the training slice's data (phase
+    6), with the extra CLI flags ``argv_extra`` and config fields ``train``."""
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
+    from s2tpu_torch.data import statistics
+    from s2tpu_torch.data.dataset import TiffSource
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    cfg = config_from_args(build_parser().parse_args([*train_argv(data_dir, "extras"), *argv_extra]))
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    ds = cfg.datamodule.dataset_cfg
+    source = TiffSource(ds.aoi, ds.label_map, ds.data_dir)
+    cfg.train.class_distribution = statistics.get_class_probabilities(
+        source, num_classes=cfg.num_classes, ignore_zero_label=cfg.train.masked_loss
+    ).tolist()
+    dm = Datamodule(cfg.datamodule, source=source)
+    dm.set_mean_std(*statistics.load_mean_std(source.data_dirs.base_path / "mean_std.json"))
+    return SegmentationTrainer(cfg, dm, run_logger=run_logger, device="cuda")
+
+
+def seg_device_batch(trainer) -> tuple[torch.Tensor, torch.Tensor]:
+    host = next(trainer.dm.train_batches(0))
+    return torch.from_numpy(host.images).cuda(), torch.from_numpy(host.labels).cuda()
+
+
+def seg_step_launches(per: int, micro: int, fwd_per_micro: int | None = None) -> dict[str, int]:
+    """One B5 train step's launches in ``micro`` micro-batches: #1 forward
+    (``fwd_per_micro`` each; ``per`` without remat) and input gradient, #2
+    and #3/#4 once each a micro-batch."""
+    return launch_dict(
+        depthwise_fwd=(fwd_per_micro or per) * micro, depthwise_dx=per * micro, depthwise_dw=per * micro,
+        fused_ce_fwd=micro, fused_ce_bwd=micro,
+    )
+
+
+@contextlib.contextmanager
+def frozen_batch_norm(model: torch.nn.Module):
+    """Inside the block, ``model.train()`` leaves every BatchNorm in eval
+    mode: normalized by its running statistics, which stay as they are."""
+    from s2tpu_torch.models.efficientnet_unet import BatchNorm
+
+    train = model.train
+
+    def train_frozen(mode: bool = True):
+        train(mode)
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.eval()
+        return model
+
+    model.train = train_frozen
+    try:
+        yield
+    finally:
+        del model.train
+
+
+def check_accum_f32(data_dir: Path) -> dict:
+    """(a) in f32 on the card (TF32 off, deterministic cuDNN), drop-connect
+    off, B5 at batch F32_STEP_BATCH and F32_STEP_CROP^2: one accum-2 step
+    against the same accumulation written out here (an accum-1 trainer's two
+    half-batch forward and backward passes, autograd summing the gradients in
+    f32, halved, one Adam step), and, on a batch of two equal halves,
+    against one accum-1 step: the gradients and updates with BatchNorm
+    frozen, the loss and running statistics with it in train mode; raises
+    beyond the tolerances. Returns the distances."""
+    from s2tpu_torch.models.efficientnet_unet import BatchNorm, MBConv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = ("--bs", str(F32_STEP_BATCH), "--crop", str(F32_STEP_CROP), "--compute-dtype", "float32")
+    trainers = {name: seg_extras_trainer(data_dir, small, grad_accum_steps=int(name[-1]))
+                for name in ("accum2", "written1", "twin2", "twin1", "frozen2", "frozen1")}
+    for t in trainers.values():
+        for m in t.model.modules():
+            if isinstance(m, MBConv):
+                m.drop_rate = 0.0
+    images, labels = seg_device_batch(trainers["accum2"])
+    half = F32_STEP_BATCH // 2
+    twins = torch.cat([images[:half]] * 2), torch.cat([labels[:half]] * 2)
+    init = {n: p.detach().clone() for n, p in trainers["accum2"].model.named_parameters()}
+    r0 = {n: b.detach().clone() for n, b in trainers["twin1"].model.named_buffers() if "running" in n}
+    out = {}
+    with deterministic_cudnn():
+        out["accum2"] = trainers["accum2"].train_step(images, labels)
+        for name in ("twin2", "twin1"):
+            out[name] = trainers[name].train_step(*twins)
+        for name in ("frozen2", "frozen1"):
+            with frozen_batch_norm(trainers[name].model):
+                out[name] = trainers[name].train_step(*twins)
+        t = trainers["written1"]
+        t.model.train()
+        for group in t.optimizer.param_groups:
+            group["lr"] = t.schedule(0)
+        losses = []
+        for x, y in zip(images.chunk(2), labels.chunk(2)):
+            loss = t.loss_fn(t.model(t._input(x), generator=t.drop_generator), y).total
+            loss.backward()
+            losses.append(float(loss.detach()))
+        with torch.no_grad():
+            for p in t.model.parameters():
+                p.grad /= 2
+        t.optimizer.step()
+    model = {name: t.model for name, t in trainers.items()}
+
+    def grads(name: str) -> dict:
+        return {n: p.grad.detach() for n, p in model[name].named_parameters()}
+
+    def updates(name: str) -> dict:
+        return {n: p.detach() - init[n] for n, p in model[name].named_parameters()}
+
+    def rel(a, b) -> float:
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    stats = dict(model["written1"].named_buffers())
+    written = {
+        "loss": rel(out["accum2"]["loss"], sum(losses) / 2),
+        "grads": state_distance(grads("accum2"), grads("written1"))[1],
+        "running_stats": max(float(((b - stats[n]).abs() / stats[n].abs().clamp_min(1.0)).max())
+                             for n, b in model["accum2"].named_buffers() if "running" in n),
+        "updates": state_distance(updates("accum2"), updates("written1"))[1],
+    }
+    decay = {f"{n}.running_{s}": m.decay for n, m in model["twin1"].named_modules() if isinstance(m, BatchNorm)
+             for s in ("mean", "var")}
+    r1 = dict(model["twin1"].named_buffers())
+    accum1 = {
+        "loss": rel(out["twin2"]["loss"], out["twin1"]["loss"]),
+        "running_stats": max(
+            float(((b - ((1 + decay[n]) * r1[n] - decay[n] * r0[n])).abs() / r1[n].abs().clamp_min(1.0)).max())
+            for n, b in model["twin2"].named_buffers() if "running" in n
+        ),
+        "frozen_loss": rel(out["frozen2"]["loss"], out["frozen1"]["loss"]),
+        "frozen_grads": state_distance(grads("frozen2"), grads("frozen1"))[1],
+        "frozen_updates": state_distance(updates("frozen2"), updates("frozen1"))[1],
+    }
+    frozen_stats = all(torch.equal(b, r0[n]) for name in ("frozen2", "frozen1")
+                       for n, b in model[name].named_buffers() if "running" in n)
+    limits = {
+        "written": {"loss": ACCUM_F32_RTOL, "grads": ACCUM_F32_RTOL, "running_stats": ACCUM_F32_RTOL,
+                    "updates": ACCUM_F32_UPDATE_RTOL},
+        "accum1": {"loss": ACCUM_F32_RTOL, "running_stats": ACCUM_F32_RTOL, "frozen_loss": ACCUM_F32_RTOL,
+                   "frozen_grads": ACCUM1_GRAD_RTOL, "frozen_updates": ACCUM_F32_UPDATE_RTOL},
+    }
+    log(
+        f"B5 extras (a) f32 card accum 2 (batch {F32_STEP_BATCH}, {F32_STEP_CROP}^2, TF32 off, deterministic cuDNN, "
+        f"{CARD}): vs the accumulation written out: " + ", ".join(f"{k} {v:.3g}" for k, v in written.items())
+        + f" (limits {limits['written']}); vs one accum-1 step on a batch of two equal halves (running stats vs "
+        f"(1+d) r1 - d r0; frozen_*: BatchNorm frozen): " + ", ".join(f"{k} {v:.3g}" for k, v in accum1.items())
+        + f" (limits {limits['accum1']}); frozen statistics untouched: {frozen_stats}"
+    )
+    failures = [f"{which} {k} {v:.3g}" for which, d in (("written", written), ("accum1", accum1))
+                for k, v in d.items() if not v <= limits[which][k]]
+    if int(out["twin2"]["cm"].sum()) != int(out["twin1"]["cm"].sum()):
+        failures.append("accum 2 and accum 1 confusion matrices count different pixels")
+    if not frozen_stats:
+        failures.append("a frozen BatchNorm moved its statistics")
+    if failures:
+        raise AssertionError("f32 accumulation on the card: " + "; ".join(failures))
+    return {"written": written, "accum1": accum1}
+
+
+def check_seg_preemption(data_dir: Path) -> dict:
+    """(d) the training CLI with bf16 parameters and an EMA, one epoch of
+    2 steps: stopped by a SIGTERM after step 1 and resumed by the same
+    command (``--auto-resume``), against one uninterrupted run, with
+    deterministic cuDNN; raises beyond PREEMPT_TOL."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+    from s2tpu_torch.cli.train_segmentation import main as train_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    name = f"chip-smoke-preempt-{os.getpid()}"
+    extras = ["--param-dtype", "bfloat16", "--ema-decay", str(EXTRAS_EMA_DECAY), "--auto-resume"]
+    try:
+        with deterministic_cudnn():
+            t0 = time.perf_counter()
+            train_main([*train_argv(data_dir, f"{name}-ref", epochs=1), *extras])
+            with sigterm_after_first_step(SegmentationTrainer):
+                stopped = train_main([*train_argv(data_dir, f"{name}-int", epochs=1), *extras])
+            (run,) = CKPT_DIR.glob(f"*/{name}-int_*")
+            ckpt = CheckpointManager(run)
+            marker = ckpt.restore_preempt() if ckpt.has_preempt() else {}
+            resumed = train_main([*train_argv(data_dir, f"{name}-int", epochs=1), *extras])
+            runs_s = time.perf_counter() - t0
+        (ref_run,) = CKPT_DIR.glob(f"*/{name}-ref_*")
+        ref, got = CheckpointManager(ref_run).restore(0), ckpt.restore(0)
+        if stopped != [] or (marker.get("batches_done"), marker.get("step")) != (1, 1) or ckpt.has_preempt():
+            raise AssertionError(f"preemption: history {stopped}, marker {marker}, still pending {ckpt.has_preempt()}")
+        if [r["epoch"] for r in resumed] != [0] or got["step"] != ref["step"]:
+            raise AssertionError(f"resume: {[r['epoch'] for r in resumed]}, step {got['step']} vs {ref['step']}")
+        distances = {part: state_distance(got[part], ref[part]) for part in ("model", "master", "ema")}
+        log(
+            f"B5 extras (d) SIGTERM after step 1 of 2, then --auto-resume (bf16 params, EMA, deterministic cuDNN, "
+            f"{CARD}): three runs in {runs_s:.1f} s; final weights vs the uninterrupted run (max |diff| / max |w|, "
+            f"relative L2): " + ", ".join(f"{k} {a:.3g} {b:.3g}" for k, (a, b) in distances.items())
+            + f" (limit {PREEMPT_TOL})"
+        )
+        if any(max(d) > PREEMPT_TOL for d in distances.values()):
+            raise AssertionError(f"preempted-and-resumed run differs: {distances}")
+        return {part: d for part, d in distances.items()}
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}-*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}-*"):
+            f.unlink(missing_ok=True)
+
+
+def check_extras_cli(data_dir: Path, per: int) -> dict:
+    """(c) the training CLI with ``--param-dtype bfloat16 --ema-decay
+    --watch-interval 1 --bn-recal``, TRAIN_EPOCHS epochs of 2 steps: exact
+    launches (the recalibration's forwards included), bf16 parameters and
+    f32 masters in the checkpoint, the norms of every step in the JSONL log;
+    then ``cli.infer --tiled`` serves the EMA weights with exact #1
+    launches. Returns the run's and the serving's launches."""
+    from s2tpu_torch.checkpoint import io as ckpt_io
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.cli.train_segmentation import main as train_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+
+    name = f"chip-smoke-extras-{os.getpid()}"
+    argv = [*train_argv(data_dir, name), "--param-dtype", "bfloat16", "--ema-decay", str(EXTRAS_EMA_DECAY),
+            "--watch-interval", "1", "--bn-recal", str(EXTRAS_BN_RECAL)]
+    load_checkpoint = ckpt_io.load_checkpoint
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        history = train_main(argv)  # the extras' CLI path
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = launch_counts()
+        (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
+        dmc = ckpt_io.load_checkpoint(run_dir)[0].datamodule
+        n_train, n_val = int(dmc.data_split[0] * TRAIN_SEGMENTS), int(dmc.data_split[1] * TRAIN_SEGMENTS)
+        steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
+        eval_batches = TRAIN_EPOCHS * math.ceil(n_val / (TRAIN_BATCH * dmc.val_batch_size_multiplier))
+        recal = TRAIN_EPOCHS * EXTRAS_BN_RECAL
+        expected = launch_dict(
+            depthwise_fwd=per * (steps + eval_batches + recal), depthwise_dx=per * steps, depthwise_dw=per * steps,
+            fused_ce_fwd=steps + eval_batches, fused_ce_bwd=steps,
+        )
+        if launches != expected:
+            raise AssertionError(f"extras CLI launches {launches} != expected {expected}")
+        restored = ckpt_io.CheckpointManager(run_dir).restore(TRAIN_EPOCHS - 1)
+        params = list(restored["master"])
+        if not (all(restored["model"][n].dtype == torch.bfloat16 for n in params)
+                and all(t.dtype == torch.float32 for t in (*restored["master"].values(), *restored["ema"].values()))):
+            raise AssertionError("the checkpoint's parameters are not bf16 or its master and EMA not f32")
+        logged = [json.loads(line) for line in (LOG_DIR / "runs" / f"{run_dir.name}.metrics.jsonl").open()]
+        watched = [rec for rec in logged if "grads/global_norm" in rec]
+        if [rec["step"] for rec in watched] != list(range(1, steps + 1)) or not all(
+            math.isfinite(v) for rec in watched for v in rec.values()
+        ):
+            raise AssertionError(f"watch scalars at steps {[rec['step'] for rec in watched]}, not every step")
+        if not all(math.isfinite(r[k]) for r in history for k in ("train/loss", "val/loss")):
+            raise AssertionError(f"extras CLI losses not finite: {history}")
+
+        served = []
+        ckpt_io.load_checkpoint = lambda *a, **kw: served.append(load_checkpoint(*a, **kw)) or served[-1]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        infer_main([str(run_dir), "--tiled", "--out", str(data_dir.parent / "extras_preds"), "--data-dir",
+                    str(data_dir)])
+        torch.cuda.synchronize()
+        serve_launches = launch_counts()
+        n_serve = serve_batches(n_val, TRAIN_SEGMENT_SIZE)
+        if serve_launches != launch_dict(depthwise_fwd=per * n_serve):
+            raise AssertionError(f"serving launches {serve_launches} != {per} x {n_serve} batches")
+        if not all(torch.equal(served[0][1][n], restored["ema"][n]) for n in params):
+            raise AssertionError("cli.infer did not serve the EMA weights")
+        log(
+            f"B5 extras (c) CLI --param-dtype bfloat16 --ema-decay {EXTRAS_EMA_DECAY} --watch-interval 1 --bn-recal "
+            f"{EXTRAS_BN_RECAL} ({CARD}): {steps} steps, {eval_batches} eval batches, {recal} recalibration batches "
+            f"in {cli_s:.3f} s; launches {launches} = expected; {len(params)} parameters bf16 with f32 masters and "
+            f"EMA; norms logged at steps {[rec['step'] for rec in watched]}; served the EMA weights through "
+            f"cli.infer --tiled with {serve_launches['depthwise_fwd']} = {per} x {n_serve} #1 launches"
+        )
+        return {"launches": launches, "serve_launches": serve_launches}
+    finally:
+        ckpt_io.load_checkpoint = load_checkpoint
+        for d in CKPT_DIR.glob(f"*/{name}_*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+            f.unlink(missing_ok=True)
+
+
+def check_seg_micro_batch_kernels() -> dict:
+    """Phase A's kernels at the shapes of its micro-batches (half of
+    TRAIN_BATCH), against their plain versions with phases 2-4's
+    tolerances: #1 forward and input gradient and #2 (whose plan depends on
+    the batch) at the 35 B5 stride-1 shapes in bf16, and #3/#4 at N =
+    (TRAIN_BATCH / 2) x 224^2. Returns their times and largest errors."""
+    batch = TRAIN_BATCH // 2
+    return {
+        "batch": batch,
+        "fwd": phase_kernels(batch, dtypes=(torch.bfloat16,)),
+        "bwd": phase_train_kernels(batch, dtypes=(torch.bfloat16,)),
+        "ce": phase_fused_ce(batch * 224 * 224),
+    }
+
+
+def phase_seg_extras(work: Path) -> dict:
+    """Phase A: config #2's trainer with the extras on phase 6's data:
+    (a) accumulation, (b) remat, (c) the CLI with bf16 parameters, an EMA,
+    watching and BN recalibration, (d) preemption; the warm step of each
+    beside the plain one. Returns launches and timings."""
+    from s2tpu_torch.models.efficientnet_unet import BatchNorm, count_stride1_depthwise
+    from s2tpu_torch.train.logging_utils import RunLogger
+
+    data_dir = work / "train_data"
+    out: dict = {"micro_kernels": check_seg_micro_batch_kernels()}
+    label = f"(B5 bf16, batch {TRAIN_BATCH}, 224^2, {CARD})"
+
+    # (a) accumulation: exact launches per micro-batch, then the warm step
+    accum = seg_extras_trainer(data_dir, grad_accum_steps=2)
+    per = count_stride1_depthwise(accum.model.config)
+    images, labels = seg_device_batch(accum)
+    launches, m = step_launches(accum, images, labels)
+    if launches != seg_step_launches(per, 2) or not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"accum-2 step launches {launches} != {seg_step_launches(per, 2)} or loss {m['loss']}")
+    log(f"B5 extras (a) accum 2: one step's launches {launches} = 2 micro-batches x ({per} + {per} + {per}, 1, 1)")
+    out["accum"] = {"launches": launches, **time_seg_steps(f"B5 extras (a) accum 2 step {label}", accum, images, labels)}
+    del accum
+    out["accum_f32"] = check_accum_f32(data_dir)
+
+    # (b) remat against none, same init, batch and drop-connect masks
+    with deterministic_cudnn():
+        plain, remat = seg_extras_trainer(data_dir), seg_extras_trainer(data_dir, remat=True)
+        off, m_off = step_launches(plain, images, labels)
+        on, m_on = step_launches(remat, images, labels)
+    if off != seg_step_launches(per, 1) or on != seg_step_launches(per, 1, fwd_per_micro=2 * per):
+        raise AssertionError(f"remat launches {on} / plain {off}: #1 forwards should grow by {per}")
+    bns = [m for m in remat.model.modules() if isinstance(m, BatchNorm)]
+    distances = {
+        "loss": abs(float(m_on["loss"]) - float(m_off["loss"])) / abs(float(m_off["loss"])),
+        "grads": state_distance({n: p.grad for n, p in remat.model.named_parameters()},
+                                {n: p.grad for n, p in plain.model.named_parameters()})[1],
+        "running_stats": state_distance(dict(remat.model.named_buffers()), dict(plain.model.named_buffers()))[1],
+    }
+    updated_once = all(int(bn.num_batches_tracked) == 1 for bn in bns)
+    log(
+        f"B5 extras (b) remat vs none, drop-connect on, deterministic cuDNN: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in distances.items()) + f" (limit {REMAT_RTOL} each); #1 forwards "
+        f"{on['depthwise_fwd']} vs {off['depthwise_fwd']}; {len(bns)} BatchNorms updated once: {updated_once}"
+    )
+    if any(v > REMAT_RTOL for v in distances.values()) or not updated_once:
+        raise AssertionError(f"remat differs from no remat: {distances}, BatchNorms updated once: {updated_once}")
+    out["plain"] = time_seg_steps(f"B5 extras plain step {label}", plain, images, labels)
+    out["remat"] = {"launches": on, **time_seg_steps(f"B5 extras (b) remat step {label}", remat, images, labels)}
+    if not out["remat"]["peak_mem_bytes"] < out["plain"]["peak_mem_bytes"]:
+        raise AssertionError(f"remat's peak {out['remat']['peak_mem_bytes']} not below {out['plain']['peak_mem_bytes']}")
+    log(f"B5 extras (b) peak_mem_bytes remat {out['remat']['peak_mem_bytes']} vs plain {out['plain']['peak_mem_bytes']}")
+    del plain, remat
+
+    # (c) the CLI with bf16 parameters, EMA, watching and recalibration; then its warm step
+    out["cli"] = check_extras_cli(data_dir, per)
+    extras = seg_extras_trainer(data_dir, ("--param-dtype", "bfloat16", "--ema-decay", str(EXTRAS_EMA_DECAY)),
+                                run_logger=RunLogger("chip-smoke-extras-timing", work / "logs"), watch_interval=1)
+    out["bf16_ema_watch"] = time_seg_steps(f"B5 extras (c) bf16 params + EMA + watch step {label}", extras, images,
+                                           labels)
+    del extras
+
+    # (d) preemption through the CLI; then the plain step again: the host's drift over the phase
+    out["preempt"] = check_seg_preemption(data_dir)
+    plain = seg_extras_trainer(data_dir)
+    out["plain_again"] = time_seg_steps(f"B5 extras plain step again {label}", plain, images, labels)
+    return out
+
+
+def mae_extras_trainer(data_dir: Path, run_logger=None, checkpoint_manager=None, **train):
+    """Config #5's MAETrainer (T=1, batch 64, bf16) on phase 9's data with
+    two micro-batches, remat, bf16 parameters, an EMA and watching at every
+    step (with a run logger); ``train`` overrides."""
+    from s2tpu_torch.cli.train_mae import build_datamodule, build_parser, config_from_args
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    cfg = config_from_args(build_parser().parse_args(mae_argv(data_dir, "extras")))
+    extras = dict(grad_accum_steps=2, remat=True, param_dtype="bfloat16", ema_decay=EXTRAS_EMA_DECAY,
+                  watch_interval=1)
+    for k, v in {**extras, **train}.items():
+        setattr(cfg.train, k, v)
+    return MAETrainer(cfg, build_datamodule(cfg), run_logger=run_logger, checkpoint_manager=checkpoint_manager,
+                      device="cuda")
+
+
+def phase_mae_extras(work: Path) -> dict:
+    """Phase B: config #5's MAETrainer with two micro-batches, remat, bf16
+    parameters, an EMA and watching: exact #8/#9 launches (each decoder
+    block's #8 twice a micro-batch), finite loss, moved masters; peak memory
+    and the warm step with and without remat; a SIGTERM after one step of
+    ``fit`` and a resume against one uninterrupted run. Returns launches and
+    timings."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+    from s2tpu_torch.train.logging_utils import RunLogger
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    data_dir = work / "mae_data"
+    label = f"(Prithvi-100M T=1, bf16, batch {MAE_BATCH}, 224^2, {CARD})"
+    # #8/#9 at the decoder's micro-batch shape, against their plain versions
+    b, l, h, dh = next(iter(DENSE_ATTENTION_SHAPES))
+    micro_shape = (b // 2, l, h, dh)
+    micro_attention = check_dense_attention(micro_shape, torch.bfloat16, torch.Generator().manual_seed(SEED + 30))
+    log_fused_times("fused attention", "bfloat16", micro_shape, "T=1 decoder, one of two micro-batches",
+                    micro_attention)
+    trainer = mae_extras_trainer(data_dir, run_logger=RunLogger("chip-smoke-mae-extras", work / "logs"))
+    mc = trainer.model_config
+    images = torch.from_numpy(next(trainer.dm.train_batches(0)).images).cuda()
+    init = {n: m.detach().clone() for n, m in trainer.master.master.items()}
+    launches, m = step_launches(trainer, images)
+    expected = launch_dict(attn_fused_fwd=mc.decoder_depth * 2 * 2, attn_fused_bwd=mc.decoder_depth * 2)
+    names, watch = m["watch"]
+    unmoved = [n for n, t in trainer.master.master.items() if torch.equal(t, init[n])]
+    if launches != expected or not math.isfinite(float(m["loss"])) or not bool(torch.isfinite(watch).all()):
+        raise AssertionError(f"MAE extras step: launches {launches} != {expected}, loss {m['loss']}")
+    if unmoved or {p.dtype for p in trainer.model.parameters()} != {torch.bfloat16}:
+        raise AssertionError(f"MAE extras: masters not moved {unmoved[:5]} or parameters not bf16")
+    log(
+        f"MAE extras (accum 2, remat, bf16 params + f32 master, EMA {EXTRAS_EMA_DECAY}, watch) {label}: one step's "
+        f"launches {launches} = {mc.decoder_depth} decoder blocks x 2 micro-batches x (2 #8 under remat, 1 #9); "
+        f"loss {float(m['loss']):.5f}; {len(unmoved) or 'no'} unmoved masters; {len(names)} watch scalars finite"
+    )
+    out = {"launches": launches, "micro_attention": micro_attention,
+           "remat": time_mae_steps(f"MAE extras step with remat {label}", trainer, images)}
+    del trainer
+    plain = mae_extras_trainer(data_dir, remat=False)
+    out["no_remat"] = time_mae_steps(f"MAE extras step without remat {label}", plain, images)
+    del plain
+    if not out["remat"]["peak_mem_bytes"] < out["no_remat"]["peak_mem_bytes"]:
+        raise AssertionError(f"MAE remat peak {out['remat']['peak_mem_bytes']} not below "
+                             f"{out['no_remat']['peak_mem_bytes']}")
+    log(f"MAE extras peak_mem_bytes remat {out['remat']['peak_mem_bytes']} vs none {out['no_remat']['peak_mem_bytes']}")
+
+    with deterministic_cudnn():
+        # only the preemption checkpoint is written: no epoch saves
+        quiet = dict(watch_interval=0, ckpt_every_n_epochs=10**6)
+        ref = mae_extras_trainer(data_dir, **quiet)
+        ref.fit(epochs=1)
+        with sigterm_after_first_step(MAETrainer):
+            stopped = mae_extras_trainer(data_dir, checkpoint_manager=CheckpointManager(work / "mae_int"), **quiet)
+            history = stopped.fit(epochs=1)
+        resumed = mae_extras_trainer(data_dir, checkpoint_manager=CheckpointManager(work / "mae_int"), **quiet)
+        start = resumed.resume_from_checkpoint()
+        resumed.fit(epochs=1, start_epoch=start)
+    if history != [] or stopped.step != 1 or (start, resumed.step) != (0, ref.step):
+        raise AssertionError(f"MAE preemption: history {history}, steps {stopped.step} / {resumed.step} vs {ref.step}")
+    distances = {
+        "params": state_distance(dict(resumed.model.named_parameters()), dict(ref.model.named_parameters())),
+        "master": state_distance(resumed.master.master, ref.master.master),
+        "ema": state_distance(resumed.ema.ema, ref.ema.ema),
+    }
+    log(
+        f"MAE extras SIGTERM after step 1 of {ref.step}, then resume (deterministic cuDNN, {CARD}): final weights vs "
+        "the uninterrupted run (max |diff| / max |w|, relative L2): "
+        + ", ".join(f"{k} {a:.3g} {b:.3g}" for k, (a, b) in distances.items()) + f" (limit {PREEMPT_TOL})"
+    )
+    if any(max(d) > PREEMPT_TOL for d in distances.values()):
+        raise AssertionError(f"MAE preempted-and-resumed run differs: {distances}")
+    out["preempt"] = distances
+    return out
 
 
 def phase_f32_step() -> None:
@@ -2632,9 +3238,41 @@ def phase_migration(work: Path) -> dict:
     return result
 
 
+def micro_batch_times(times: dict, prefix: str = "", err: str = "max_abs_err") -> dict:
+    """A kernel's entries at phase A's or B's micro-batch shape for the
+    kernels line: its times (``prefix`` picks one direction of a pair) and
+    largest error, as ``accum_*``."""
+    out = {f"accum_{k}": times[f"{prefix}{k}"] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    return {**out, "accum_max_abs_err": times[err]}
+
+
+def extras_launches(seg_extras: dict, kernel: str) -> dict[str, int]:
+    """A kernel's launches in phase A: one accum-2 step, one remat step and
+    the extras' CLI run."""
+    return {f"{part}_launches": seg_extras[part]["launches"][kernel] for part in ("accum", "remat", "cli")}
+
+
+def extras_only() -> int:
+    """``--extras``: the build, the training and MAE slices whose data the
+    extras run on, and phases A and B; no result lines."""
+    phase_build()
+    work = REPO / "out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        for name, fn in (("training slice", phase_train), ("B5 trainer extras", phase_seg_extras),
+                         ("MAE slice T=1", phase_mae), ("MAE trainer extras", phase_mae_extras)):
+            t0 = time.perf_counter()
+            fn(work)
+            log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--attention"], ["--depthwise"]):
-        print("usage: python3 chip_smoke.py [--attention | --depthwise]", file=sys.stderr)
+    global CARD
+    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"]):
+        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2644,10 +3282,11 @@ def main(argv: list[str]) -> int:
     except ImportError as exc:
         print(f"chip_smoke: run from the root of a checkout ({exc})", file=sys.stderr)
         return 1
+    CARD = nvidia_smi()
     if argv:
-        return attention_only() if argv == ["--attention"] else depthwise_only()
+        return {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only}[argv[0]]()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = nvidia_smi()
+    smi = CARD
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     def timed(phase: str, fn, *args):
@@ -2672,12 +3311,14 @@ def main(argv: list[str]) -> int:
     try:
         serve_launches = timed("serving slice", phase_slice, work)
         train = timed("training slice", phase_train, work)
+        seg_extras = timed("B5 trainer extras", phase_seg_extras, work)
         cfg3 = timed("config #3 slice", phase_config3, work)
         fc = timed("fc-prithvi slice T=1", phase_fc_prithvi, work)
         fc_t3 = timed("fc-prithvi slice T=3", phase_fc_prithvi_t3, work)
         embeds = timed("embeddings slice", phase_embeddings, work)
         migration = timed("migration slice", phase_migration, work)
         mae = timed("MAE slice T=1", phase_mae, work)
+        mae_extras = timed("MAE trainer extras", phase_mae_extras, work)
         mae_t3 = timed("MAE slice T=3", phase_mae_t3, work)
         with one_rank_mesh(work) as mesh:
             tp = timed("tensor-parallel MAE slice T=1", phase_mae_tp, work, mesh, mae)
@@ -2691,6 +3332,7 @@ def main(argv: list[str]) -> int:
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     launches = train["launches"]
+    micro = seg_extras["micro_kernels"]
     kernels = [
         {
             "name": "depthwise_conv2d_s1",
@@ -2716,6 +3358,15 @@ def main(argv: list[str]) -> int:
             "cfg3_dx_launches": cfg3["launches"]["depthwise_dx"],
             "cfg3_serve_launches": cfg3["serve_launches"]["depthwise_fwd"],
             "migration_serve_launches": migration["efficientnet-unet-b5"]["depthwise_fwd"],
+            # the trainer extras (phase A): one accum-2 step, one remat step, the extras' CLI run and its serving
+            **extras_launches(seg_extras, "depthwise_fwd"),
+            "extras_serve_launches": seg_extras["cli"]["serve_launches"]["depthwise_fwd"],
+            **{f"dx_{k}": v for k, v in extras_launches(seg_extras, "depthwise_dx").items()},
+            # at phase A's micro-batch (TRAIN_BATCH / 2): one B5 forward's 35 layers, and their input gradients
+            "accum_batch": micro["batch"],
+            **micro_batch_times(micro["fwd"]),
+            **{f"accum_dx_{k}": micro["bwd"][f"dx_{k}"] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "accum_dx_max_abs_err": micro["bwd"]["dx_max_abs_err"],
             **depthwise_ptxas(ptxas, "depthwise_s1_fwd"),
         },
         {
@@ -2731,6 +3382,9 @@ def main(argv: list[str]) -> int:
             "bound_by": bwd_times["dw_bound_by"],
             "library_ms": bwd_times["dw_library_ms"],
             "cfg3_launches": cfg3["launches"]["depthwise_dw"],
+            **extras_launches(seg_extras, "depthwise_dw"),
+            "accum_batch": micro["batch"],
+            **micro_batch_times(micro["bwd"], "dw_", "dw_max_abs_err"),
             **depthwise_ptxas(ptxas, "depthwise_s1_dw"),
         },
         {
@@ -2749,6 +3403,9 @@ def main(argv: list[str]) -> int:
             "ce_library_ms": ce_times["ce_fwd_library_ms"],
             "fc_prithvi_launches": fc["launches"]["fused_ce_fwd"],
             "cfg3_launches": cfg3["launches"]["fused_ce_fwd"],
+            **extras_launches(seg_extras, "fused_ce_fwd"),
+            "accum_pixels": micro["batch"] * 224 * 224,
+            **micro_batch_times(micro["ce"], "fwd_", "fwd_max_abs_err"),
         },
         {
             "name": "fused_ce_backward",
@@ -2766,6 +3423,9 @@ def main(argv: list[str]) -> int:
             "ce_library_ms": ce_times["ce_bwd_library_ms"],
             "fc_prithvi_launches": fc["launches"]["fused_ce_bwd"],
             "cfg3_launches": cfg3["launches"]["fused_ce_bwd"],
+            **extras_launches(seg_extras, "fused_ce_bwd"),
+            "accum_pixels": micro["batch"] * 224 * 224,
+            **micro_batch_times(micro["ce"], "bwd_", "bwd_max_abs_err"),
         },
         {
             "name": "fused_attention_qkv_forward",
@@ -2814,6 +3474,10 @@ def main(argv: list[str]) -> int:
             # the embeddings at crop 224 run at fc-prithvi's T=1 shape (32, 197, 12, 64), forward only
             "embed_launches": embeds["crop224"]["launches"]["attn_fused_fwd"],
             "migration_serve_launches": migration["fc-prithvi-backbone"]["attn_fused_fwd"],
+            # phase B: one MAE step with two micro-batches under remat
+            "extras_launches": mae_extras["launches"]["attn_fused_fwd"],
+            # at phase B's micro-batch: the decoder at MAE_BATCH / 2
+            **micro_batch_times(mae_extras["micro_attention"], "fwd_", "fwd_max_abs_err"),
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"fwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **fwd_ptxas,
         },
@@ -2831,6 +3495,8 @@ def main(argv: list[str]) -> int:
             "library_ms": attn_times["dense"]["bwd_library_ms"],
             "t3_launches": mae_t3["launches"]["attn_fused_bwd"],
             "fc_prithvi_launches": fc["launches"]["attn_fused_bwd"],
+            "extras_launches": mae_extras["launches"]["attn_fused_bwd"],
+            **micro_batch_times(mae_extras["micro_attention"], "bwd_", "bwd_max_abs_err"),
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"bwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         },
         {

@@ -6,14 +6,19 @@ dict, reference PyTorch naming). ``config.json`` is the same dict
 package's config parses here.
 
 A training run directory holds ``config.json`` and one ``epoch_<n>/`` per
-kept epoch with ``model.pt``, ``optimizer.pt`` and ``state.json`` (the
+kept epoch with ``model.pt``, ``optimizer.pt`` (Adam's state dict),
+``master.pt`` and ``ema.pt`` where the run keeps an f32 master or a
+parameter EMA (parameter name -> f32 tensor), and ``state.json`` (the
 optimizer step and the epoch's scalar metrics). :class:`CheckpointManager`
 keeps the ``keep`` best epochs by its monitor and mode plus the latest, as
-``s2tpu/checkpoint/orbax_io.py`` retains best and last. An MAE run directory
-has the same layout with an ``MAEConfig`` in ``config.json`` and the
-Prithvi MAE's state dict (published layout) in ``model.pt``.
-:func:`load_checkpoint` reads either segmentation layout and
-:func:`load_mae_checkpoint` an MAE run, the latest epoch by default.
+``s2tpu/checkpoint/orbax_io.py`` retains best and last. After a SIGTERM the
+trainers write the same files to ``preempt/``, whose ``state.json`` also
+records the interrupted epoch and its trained batches (``orbax_io.py:103-172``).
+An MAE run directory has the same layout with an ``MAEConfig`` in
+``config.json`` and the Prithvi MAE's state dict (published layout) in
+``model.pt``. :func:`load_checkpoint` reads either segmentation layout and
+:func:`load_mae_checkpoint` an MAE run, the latest epoch by default, with
+``ema=True`` the EMA in place of the parameters where the run kept one.
 """
 
 from __future__ import annotations
@@ -32,8 +37,11 @@ from s2tpu_torch.configs.segmentation import Config, config_from_dict, config_to
 CONFIG_FILE = "config.json"
 WEIGHTS_FILE = "model.pt"
 OPTIMIZER_FILE = "optimizer.pt"
+MASTER_FILE = "master.pt"
+EMA_FILE = "ema.pt"
 STATE_FILE = "state.json"
 EPOCH_PREFIX = "epoch_"
+PREEMPT_DIR = "preempt"
 
 
 def _cpu(state_dict: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -60,9 +68,13 @@ def epochs_in(run_dir: str | Path) -> list[int]:
     )
 
 
-def _load_config_and_weights(ckpt_dir: str | Path, epoch: int | None) -> tuple[dict, dict[str, torch.Tensor]]:
+def _load_config_and_weights(
+    ckpt_dir: str | Path, epoch: int | None, ema: bool = False
+) -> tuple[dict, dict[str, torch.Tensor]]:
     """-> (config dict, CPU state dict) of a serving checkpoint, or of a
-    training run directory's ``epoch`` (default: its latest)."""
+    training run directory's ``epoch`` (default: its latest); with ``ema``
+    and a run configured with ``train.ema_decay``, the f32 EMA replaces the
+    parameters (``s2tpu/cli/convert_weights.py:143-176``)."""
     ckpt_dir = Path(ckpt_dir)
     config_path = ckpt_dir / CONFIG_FILE
     if epoch is None and (ckpt_dir / WEIGHTS_FILE).exists():
@@ -77,20 +89,33 @@ def _load_config_and_weights(ckpt_dir: str | Path, epoch: int | None) -> tuple[d
     if not config_path.exists() or not weights_path.exists():
         raise FileNotFoundError(f"{ckpt_dir} lacks {CONFIG_FILE} or {weights_path.name}")
     state_dict = torch.load(weights_path, map_location="cpu", weights_only=True)
-    return json.loads(config_path.read_text()), state_dict
+    config = json.loads(config_path.read_text())
+    if ema and (config.get("train") or {}).get("ema_decay"):
+        ema_path = weights_path.parent / EMA_FILE
+        if not ema_path.exists():
+            raise FileNotFoundError(f"{ckpt_dir} was trained with ema_decay but {ema_path} is missing; "
+                                    "pass --no-ema for the raw weights")
+        state_dict = {**state_dict, **torch.load(ema_path, map_location="cpu", weights_only=True)}
+    return config, state_dict
 
 
-def load_checkpoint(ckpt_dir: str | Path, epoch: int | None = None) -> tuple[Config, dict[str, torch.Tensor]]:
+def load_checkpoint(
+    ckpt_dir: str | Path, epoch: int | None = None, ema: bool = False
+) -> tuple[Config, dict[str, torch.Tensor]]:
     """-> (segmentation config, CPU state dict) of a serving checkpoint, or of
-    a training run directory's ``epoch`` (default: its latest)."""
-    config, state_dict = _load_config_and_weights(ckpt_dir, epoch)
+    a training run directory's ``epoch`` (default: its latest); ``ema``: the
+    EMA's parameters where the run kept one."""
+    config, state_dict = _load_config_and_weights(ckpt_dir, epoch, ema)
     return config_from_dict(config), state_dict
 
 
-def load_mae_checkpoint(run_dir: str | Path, epoch: int | None = None) -> tuple[MAEConfig, dict[str, torch.Tensor]]:
+def load_mae_checkpoint(
+    run_dir: str | Path, epoch: int | None = None, ema: bool = False
+) -> tuple[MAEConfig, dict[str, torch.Tensor]]:
     """-> (MAE config, CPU state dict in the published Prithvi layout) of an
-    MAE run directory's ``epoch`` (default: its latest)."""
-    config, state_dict = _load_config_and_weights(run_dir, epoch)
+    MAE run directory's ``epoch`` (default: its latest); ``ema``: the EMA's
+    parameters where the run kept one."""
+    config, state_dict = _load_config_and_weights(run_dir, epoch, ema)
     return mae_config_from_dict(config), state_dict
 
 
@@ -123,17 +148,13 @@ class CheckpointManager:
 
     def save_epoch(
         self, epoch: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer, step: int,
-        metrics: dict | None = None,
+        metrics: dict | None = None, master: dict | None = None, ema: dict | None = None,
     ) -> None:
         """Write epoch ``epoch`` (``state.json`` last, so a partial write is
         never taken for a checkpoint), then drop epochs outside best + latest."""
-        d = self._epoch_dir(epoch)
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        torch.save(_cpu(model.state_dict()), d / WEIGHTS_FILE)
-        torch.save(optimizer.state_dict(), d / OPTIMIZER_FILE)
         scalars = {k: float(v) for k, v in (metrics or {}).items() if isinstance(v, (int, float))}
-        (d / STATE_FILE).write_text(json.dumps({"epoch": epoch, "step": step, "metrics": scalars}))
+        _write_state(self._epoch_dir(epoch), model, optimizer, master, ema,
+                     {"epoch": epoch, "step": step, "metrics": scalars})
         epochs = epochs_in(self.directory)
         kept = set(sorted(epochs, key=lambda e: (self._score(e), -e))[: self.keep]) | {epochs[-1]}
         for e in epochs:
@@ -151,12 +172,61 @@ class CheckpointManager:
         return min(scored, key=lambda e: (self._score(e), -e)) if scored else None
 
     def restore(self, epoch: int) -> dict:
-        """-> {"model": state dict, "optimizer": state dict, "step": int} on the CPU."""
+        """-> {"model", "optimizer", "master", "ema": state dicts (None where
+        not kept), "step": int} on the CPU."""
         d = self._epoch_dir(epoch)
         if not (d / STATE_FILE).exists():
             raise FileNotFoundError(f"no checkpoint for epoch {epoch} under {self.directory}")
-        return {
-            "model": torch.load(d / WEIGHTS_FILE, map_location="cpu", weights_only=True),
-            "optimizer": torch.load(d / OPTIMIZER_FILE, map_location="cpu", weights_only=True),
-            "step": json.loads((d / STATE_FILE).read_text())["step"],
-        }
+        return _read_state(d)
+
+    # -- preemption --------------------------------------------------------
+    def save_preempt(
+        self, epoch: int, batches_done: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+        step: int, master: dict | None = None, ema: dict | None = None,
+    ) -> None:
+        """The whole training state at a step boundary of ``epoch`` after
+        ``batches_done`` of its batches, outside the kept epochs."""
+        _write_state(self.directory / PREEMPT_DIR, model, optimizer, master, ema,
+                     {"epoch": epoch, "batches_done": batches_done, "step": step})
+
+    def has_preempt(self) -> bool:
+        return (self.directory / PREEMPT_DIR / STATE_FILE).exists()
+
+    def preempt_epoch(self) -> int:
+        """The interrupted epoch (the marker alone: the trainer matches its
+        optimizer to it before restoring)."""
+        return json.loads((self.directory / PREEMPT_DIR / STATE_FILE).read_text())["epoch"]
+
+    def restore_preempt(self) -> dict:
+        """``restore``'s dict for the preemption checkpoint, with its
+        "epoch" and "batches_done"."""
+        return _read_state(self.directory / PREEMPT_DIR)
+
+    def clear_preempt(self) -> None:
+        shutil.rmtree(self.directory / PREEMPT_DIR, ignore_errors=True)
+
+
+def _write_state(
+    d: Path, model: torch.nn.Module, optimizer: torch.optim.Optimizer, master: dict | None, ema: dict | None,
+    state: dict,
+) -> None:
+    """``d`` := the model, Adam, the master and EMA where kept, and
+    ``state.json`` last (a directory without it is no checkpoint)."""
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    torch.save(_cpu(model.state_dict()), d / WEIGHTS_FILE)
+    torch.save(optimizer.state_dict(), d / OPTIMIZER_FILE)
+    for name, part in ((MASTER_FILE, master), (EMA_FILE, ema)):
+        if part is not None:
+            torch.save(_cpu(part), d / name)
+    (d / STATE_FILE).write_text(json.dumps(state))
+
+
+def _read_state(d: Path) -> dict:
+    def load(name: str):
+        return torch.load(d / name, map_location="cpu", weights_only=True) if (d / name).exists() else None
+
+    return {
+        "model": load(WEIGHTS_FILE), "optimizer": load(OPTIMIZER_FILE), "master": load(MASTER_FILE),
+        "ema": load(EMA_FILE), **json.loads((d / STATE_FILE).read_text()),
+    }

@@ -27,12 +27,11 @@ A port run exports to the reference names (Prithvi with its position tables
 put back), for a PyTorch serving stack or for ``s2tpu``'s own importers:
 
     python -m s2tpu_torch.cli.convert_weights export-unet <run dir> --out F.pt [--epoch N] [--no-ema]
-    python -m s2tpu_torch.cli.convert_weights export-prithvi <MAE run dir> --out F.pt
-    python -m s2tpu_torch.cli.convert_weights export-prithvi-seg <run dir> --out F.pt
+    python -m s2tpu_torch.cli.convert_weights export-prithvi <MAE run dir> --out F.pt [--no-ema]
+    python -m s2tpu_torch.cli.convert_weights export-prithvi-seg <run dir> --out F.pt [--no-ema]
 
-The port's trainers keep no parameter EMA (ROADMAP item 15.4), so a port run
-exports its raw weights; ``--no-ema`` is accepted for the JAX CLI's command
-lines.
+A run trained with ``--ema-decay`` exports its EMA weights by default, the
+ones its validation and serving use; ``--no-ema`` exports the raw weights.
 """
 
 from __future__ import annotations
@@ -122,26 +121,17 @@ def import_reference_checkpoint(
     return Path(out)
 
 
-def _refuse_ema(config_dict: dict, use_ema: bool, run_dir: str) -> None:
-    if use_ema and (config_dict.get("train") or {}).get("ema_decay"):
-        raise NotImplementedError(
-            f"{run_dir} was configured with ema_decay, but the port keeps no parameter EMA (ROADMAP item 15.4): "
-            "pass --no-ema to export the raw weights"
-        )
-
-
 def export_unet_checkpoint(run_dir: str, out: str, epoch: int | None = None, use_ema: bool = True) -> Path:
     """A port EfficientNet-UNet run (its latest epoch, or ``epoch``) -> the
     reference ``EfficientnetUnet`` state dict, f32 (the port's names are the
-    reference's; the reference's unused ``encoder.fc`` is not in it)."""
+    reference's; the reference's unused ``encoder.fc`` is not in it); the
+    EMA's weights where the run kept one, unless not ``use_ema``."""
     from s2tpu_torch.checkpoint.convert import cpu_f32
     from s2tpu_torch.checkpoint.io import load_checkpoint
-    from s2tpu_torch.configs.segmentation import config_to_dict
 
-    config, state = load_checkpoint(run_dir, epoch=epoch)
+    config, state = load_checkpoint(run_dir, epoch=epoch, ema=use_ema)
     if not config.model_name.value.startswith("efficientnet-unet"):
         raise ValueError(f"export-unet needs an efficientnet-unet run, got {config.model_name.value}")
-    _refuse_ema(config_to_dict(config), use_ema, run_dir)
     return _save(cpu_f32(state), out, f"{run_dir} -> {out} (reference UNet layout)")
 
 
@@ -152,8 +142,7 @@ def export_prithvi_checkpoint(run_dir: str, out: str, epoch: int | None = None, 
     from s2tpu_torch.checkpoint.io import load_mae_checkpoint
     from s2tpu_torch.models.prithvi_mae import PrithviConfig
 
-    config, state = load_mae_checkpoint(run_dir, epoch=epoch)
-    _refuse_ema(dataclasses.asdict(config), use_ema, run_dir)
+    config, state = load_mae_checkpoint(run_dir, epoch=epoch, ema=use_ema)
     model_config = PrithviConfig.from_model_args(
         load_prithvi_model_args(), num_frames=config.model.num_frames, img_size=config.datamodule.random_crop_size
     )
@@ -165,12 +154,11 @@ def export_prithvi_seg_checkpoint(run_dir: str, out: str, epoch: int | None = No
     state dict, ``backbone.pos_embed`` regenerated for the run's geometry."""
     from s2tpu_torch.checkpoint.convert import with_position_tables
     from s2tpu_torch.checkpoint.io import load_checkpoint
-    from s2tpu_torch.configs.segmentation import config_to_dict, fc_prithvi_config
+    from s2tpu_torch.configs.segmentation import fc_prithvi_config
 
-    config, state = load_checkpoint(run_dir, epoch=epoch)
+    config, state = load_checkpoint(run_dir, epoch=epoch, ema=use_ema)
     if not config.model_name.value.startswith("fc-prithvi"):
         raise ValueError(f"export-prithvi-seg needs an fc-prithvi run, got {config.model_name.value}")
-    _refuse_ema(config_to_dict(config), use_ema, run_dir)
     backbone = fc_prithvi_config(config).backbone
     return _save(with_position_tables(state, backbone, prefix="backbone."), out,
                  f"{run_dir} -> {out} (reference seg-net layout)")
@@ -203,7 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epoch", type=int, default=None, help="export-*: checkpoint epoch (default latest)")
     p.add_argument(
         "--no-ema", action="store_true",
-        help="export-*: export the raw params (a port run has no EMA; a config with ema_decay needs this flag)",
+        help="export-*: export the raw params even when the run was trained with --ema-decay (default exports "
+        "the EMA, the weights its validation and serving use)",
     )
     return p
 

@@ -8,9 +8,11 @@ and writes the same files as the JAX CLI: ``pred_<seg>.tif``
 (georeferenced uint8 class maps) with ``--tiled``, else ``batch_<i>.npy``
 (center-crop logits). Runs on the card unless ``--device cpu``. Tiles are
 the training crop; an fc-prithvi run's frames are cropped at the same place.
+A run trained with ``--ema-decay`` serves its EMA weights, on which its
+validation ran, unless ``--no-ema`` asks for the raw ones.
 
     python -m s2tpu_torch.cli.infer <ckpt_dir> [--split val] [--tiled] [--out DIR]
-        [--data-dir DIR] [--device cuda|cpu] [--batch-size N] [--epoch N]
+        [--data-dir DIR] [--device cuda|cpu] [--batch-size N] [--epoch N] [--no-ema]
 """
 
 from __future__ import annotations
@@ -48,6 +50,11 @@ def main(argv: list[str] | None = None) -> Path:
     p.add_argument("--data-dir", default=None, help="data root overriding the config's")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument(
+        "--no-ema", action="store_true",
+        help="serve the raw weights of a run trained with --ema-decay (default: the EMA weights, which the val "
+        "metrics were measured on)",
+    )
+    p.add_argument(
         "--batch-size", type=int, default=None,
         help="tiles per model call with --tiled (default 8); crops per call otherwise "
         "(default: the config's eval batch)",
@@ -55,7 +62,9 @@ def main(argv: list[str] | None = None) -> Path:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    config, state_dict = load_checkpoint(args.ckpt_dir, epoch=args.epoch)
+    config, state_dict = load_checkpoint(args.ckpt_dir, epoch=args.epoch, ema=not args.no_ema)
+    if config.train.ema_decay and not args.no_ema:
+        logger.info(f"Serving EMA weights (decay {config.train.ema_decay})")
     if args.data_dir:
         config.datamodule.dataset_cfg.data_dir = args.data_dir
     dm_cfg, ds = config.datamodule, config.datamodule.dataset_cfg

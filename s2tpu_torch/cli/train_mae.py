@@ -8,10 +8,13 @@ sentinel rasters only (labels are not read), with ``--num-frames`` frames
 per sample: the source is built with the dataset config's
 ``n_time_frames``, which the JAX CLI leaves out. Epoch checkpoints land in
 ``ckpts/<project>/<run>/`` (or ``--resume-from``'s directory) and scalars in
-``logs/runs/<run>.metrics.jsonl``. The flags are the JAX CLI's; those whose
-feature is not ported (EMA, gradient accumulation, remat, pipeline
-parallelism, the device corpus and multi-step dispatch, more than one
-device) are refused with a message.
+``logs/runs/<run>.metrics.jsonl``, with the grad/param norms every
+``train.watch_interval`` steps. The flags are the JAX CLI's, ``--ema-decay``,
+``--grad-accum`` and ``--remat`` among them; those whose feature is not
+ported (pipeline parallelism, the device corpus and multi-step dispatch,
+more than one device) are refused with a message. A SIGTERM saves the state
+at the next step boundary; the same command with ``--auto-resume`` (or
+``--resume-from <run dir>``) continues the interrupted epoch exactly.
 """
 
 from __future__ import annotations
@@ -51,11 +54,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tags", nargs="+", default=[])
     p.add_argument("--num-devices", type=int, default=-1, help="1 (or -1): the port trains on one device")
     p.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"])
-    p.add_argument("--ema-decay", type=float, default=None, help="not ported")
+    p.add_argument(
+        "--ema-decay", type=float, default=None,
+        help="keep a parameter EMA; the val loss and the reconstruction use the averaged weights",
+    )
     p.add_argument("--data-dir", default=None)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--grad-accum", type=int, default=None, help="not ported beyond 1")
-    p.add_argument("--remat", action="store_true", help="not ported")
+    p.add_argument("--grad-accum", type=int, default=None, help="micro-batches per optimizer update")
+    p.add_argument("--remat", action="store_true", help="recompute each ViT block's activations in the backward pass")
     p.add_argument("--pp", type=int, default=None, metavar="STAGES", help="not ported beyond 1")
     p.add_argument("--pp-microbatches", type=int, default=None, help="not ported")
     p.add_argument("--device-corpus", action="store_true", help="not ported")
@@ -73,9 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args: argparse.Namespace) -> list[str]:
     """The flags in ``args`` that ask for a feature the port does not have."""
     asked = {
-        "--ema-decay": args.ema_decay is not None,
-        "--grad-accum > 1": (args.grad_accum or 1) > 1,
-        "--remat": args.remat,
         "--pp > 1": (args.pp or 1) > 1,
         "--pp-microbatches": args.pp_microbatches is not None,
         "--device-corpus": args.device_corpus,
@@ -105,10 +108,12 @@ def config_from_args(args: argparse.Namespace) -> mae_cfg.MAEConfig:
     t.max_epochs = args.epochs or t.max_epochs
     t.log_interval = args.log_interval or t.log_interval
     t.compute_dtype = args.compute_dtype or t.compute_dtype
+    t.ema_decay = args.ema_decay if args.ema_decay is not None else t.ema_decay
     t.use_wandb_logger = False if args.wandb else t.use_wandb_logger
     t.tags.extend(args.tags)
     t.seed = args.seed if args.seed is not None else t.seed
-    t.watch_interval = 0  # grad/param-norm watching is not ported; the config says so
+    t.grad_accum_steps = args.grad_accum or t.grad_accum_steps
+    t.remat = args.remat or t.remat
     if args.num_frames:
         config.model.num_frames = args.num_frames
         dmc.dataset_cfg.n_time_frames = args.num_frames

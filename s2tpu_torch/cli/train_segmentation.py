@@ -5,10 +5,15 @@
 Trains on the card unless ``--device cpu``. Epoch checkpoints land in
 ``ckpts/<project>/<run>/`` (or ``--resume-from``'s directory), which
 ``python -m s2tpu_torch.cli.infer <run dir>`` serves; scalars go to
-``logs/runs/<run>.metrics.jsonl``. Only the flags of features the port has
-are accepted: mesh and sharding flags, remat, the device corpus, bf16
-parameter storage, EMA, BN recalibration and ``--type tune`` are not ported
-yet, and argparse refuses them.
+``logs/runs/<run>.metrics.jsonl``, with the grad/param norms every
+``--watch-interval`` steps. Only the flags of features the port has are
+accepted: mesh and sharding flags, the device corpus and ``--type tune`` are
+not ported yet, and argparse refuses them. The trainer's extras take the JAX
+CLI's flags (``--remat``, ``--param-dtype bfloat16``, ``--ema-decay D``,
+``--watch-interval N``, ``--bn-recal N``); gradient accumulation is the
+config field ``train.grad_accum_steps``, as in the JAX CLI. A SIGTERM saves
+the state at the next step boundary; the same command with ``--auto-resume``
+(or ``--resume-from <run dir>``) continues the interrupted epoch exactly.
 
 Multi-temporal B5 (BASELINE config #3) folds its frames into channels,
 frame-major, for the single-frame UNet (in_channels = T x bands):
@@ -54,6 +59,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--epochs", type=int, default=None, help="number of epochs")
     p.add_argument("--log-interval", type=int, default=None)
+    p.add_argument(
+        "--watch-interval", type=int, default=None,
+        help="grad/param-norm logging every N steps (0 disables; default 30)",
+    )
+    p.add_argument(
+        "--bn-recal", type=int, default=None,
+        help="pool exact BN statistics over N train batches before each val pass (short runs: the 0.99 BN EMA "
+        "needs hundreds of steps to converge)",
+    )
     p.add_argument("--recompute-mean-std", action="store_true")
     p.add_argument("--focal-loss-gamma", type=float, default=None)
     p.add_argument("--weighted-loss", action="store_true")
@@ -67,7 +81,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--name", default=None, help="run-name prefix")
     p.add_argument("--wandb", action="store_true", help="disable wandb (the port logs to JSONL only)")
     p.add_argument("--tags", nargs="+", default=[])
+    p.add_argument("--remat", action="store_true", help="recompute each block's activations in the backward pass")
     p.add_argument("--compute-dtype", default=None, choices=list(cfg_lib.COMPUTE_DTYPES))
+    p.add_argument(
+        "--param-dtype", default=None, choices=["bfloat16", "float32"],
+        help="parameter storage dtype (bfloat16 keeps an f32 master for the optimizer)",
+    )
+    p.add_argument(
+        "--ema-decay", type=float, default=None,
+        help="keep a parameter EMA and run validation and serving on the averaged weights (typical 0.99-0.9999)",
+    )
     p.add_argument(
         "--bands", default=None,
         help="spectral band set: 'default' (6 Prithvi-HLS bands), 'all12', or a comma list ('B02,B03,B04')",
@@ -130,9 +153,14 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
     t.loss_type = cfg_lib.LossType(args.loss_type) if args.loss_type else t.loss_type
     t.max_epochs = args.epochs or t.max_epochs
     t.log_interval = args.log_interval or t.log_interval
+    t.watch_interval = args.watch_interval if args.watch_interval is not None else t.watch_interval
+    t.bn_recalibration_batches = args.bn_recal if args.bn_recal is not None else t.bn_recalibration_batches
+    t.remat = args.remat or t.remat
     t.use_wandb_logger = False if args.wandb else t.use_wandb_logger
     t.tags.extend(args.tags)
     t.compute_dtype = args.compute_dtype or t.compute_dtype
+    t.param_dtype = args.param_dtype or t.param_dtype
+    t.ema_decay = args.ema_decay if args.ema_decay is not None else t.ema_decay
     t.seed = args.seed if args.seed is not None else t.seed
     t.backbone_ckpt = args.backbone_ckpt or t.backbone_ckpt
     t.frozen_backbone = False if args.unfreeze_backbone else t.frozen_backbone

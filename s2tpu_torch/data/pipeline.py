@@ -130,9 +130,12 @@ class Datamodule:
             labels[k] = lbl
         return HostBatch(images, labels, np.ones(n, dtype=bool))
 
-    def train_batches(self, epoch: int, overfit_batches: int = 0) -> typing.Iterator[HostBatch]:
+    def train_batches(self, epoch: int, overfit_batches: int = 0, start: int = 0) -> typing.Iterator[HostBatch]:
         """One epoch of shuffled, randomly cropped and flipped, drop-last
-        train batches (``s2tpu/data/pipeline.py:169-207``, host flips)."""
+        train batches (``s2tpu/data/pipeline.py:169-207``, host flips).
+        ``start`` skips the first batches without reading their images: their
+        random draws are still made, so the rest of the stream is the same
+        (a preempted epoch's resume)."""
         bs = self.cfg.batch_size
         rng = epoch_rng(self.cfg.shuffle_seed, epoch, overfit_batches)
         order, n_batches = sample_epoch_order(rng, self.train_idx, self._sample_weights, bs, overfit_batches)
@@ -150,7 +153,8 @@ class Datamodule:
             else:
                 ys = np.full(bs, (hw[0] - self.cfg.random_crop_size) // 2)
                 xs = np.full(bs, (hw[1] - self.cfg.random_crop_size) // 2)
-            yield self._gather_crops(idx, ys, xs, flip_h=flip_h, flip_v=flip_v)
+            if b >= start:
+                yield self._gather_crops(idx, ys, xs, flip_h=flip_h, flip_v=flip_v)
 
     def eval_batches(self, split: str = "val") -> typing.Iterator[HostBatch]:
         """Center-cropped eval batches, padded to a fixed batch size."""
@@ -181,10 +185,12 @@ def prefetch_to_device(
     stream of its own (on the card), so the copies overlap the consumer's
     compute; the consumer waits on that stream's event before it uses a
     batch. Producer exceptions are re-raised in the consumer instead of
-    silently truncating the epoch. Labels arrive as int32.
+    silently truncating the epoch. A consumer that stops early (a
+    preempted epoch) stops the producer too. Labels arrive as int32.
     """
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = object()
+    closed = threading.Event()
     error: list[BaseException] = []
     on_card = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_card else None
@@ -204,6 +210,8 @@ def prefetch_to_device(
                 else:
                     out, event = DeviceBatch(*(to_device(a) for a in batch)), None
                 q.put((out, event))
+                if closed.is_set():
+                    return
         except BaseException as e:  # noqa: BLE001 - relayed to the consumer
             error.append(e)
         finally:
@@ -211,16 +219,24 @@ def prefetch_to_device(
 
     thread = threading.Thread(target=produce, daemon=True)
     thread.start()
-    while True:
-        item = q.get()
-        if item is stop:
-            thread.join()
-            if error:
-                raise error[0]
-            return
-        batch, event = item
-        if event is not None:
-            torch.cuda.current_stream(device).wait_event(event)
-            for t in batch:
-                t.record_stream(torch.cuda.current_stream(device))
-        yield batch
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                thread.join()
+                if error:
+                    raise error[0]
+                return
+            batch, event = item
+            if event is not None:
+                torch.cuda.current_stream(device).wait_event(event)
+                for t in batch:
+                    t.record_stream(torch.cuda.current_stream(device))
+            yield batch
+    finally:
+        closed.set()
+        while thread.is_alive():  # unblock a producer waiting on a full queue
+            try:
+                q.get(timeout=0.1)
+            except queue.Empty:
+                pass

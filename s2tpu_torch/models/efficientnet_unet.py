@@ -27,7 +27,11 @@ clipped at 0, running statistics updated with the biased batch variance at
 the flax decay: encoder 0.99, decoder 0.9), and residual MBConv blocks apply
 per-sample drop-connect at ``drop_connect_rate * i / n``. Weights are cast to
 the compute dtype where they are used, as flax does, so they may be stored
-in f32 (training) or in the compute dtype (serving).
+in f32 (training), bf16 (training with an f32 master) or in the compute
+dtype (serving). With ``remat`` set, a train-mode forward that records
+gradients runs each MBConv block and each decoder stage under
+``models.remat.checkpointed``: the drop-connect masks are drawn before the
+block, and BatchNorm leaves its running statistics alone in the recompute.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from s2tpu_torch.models.remat import checkpointed, recomputing
 from s2tpu_torch.ops.depthwise_conv import depthwise_conv2d, same_padding
 
 # (width_coefficient, depth_coefficient, resolution, dropout_rate) per version.
@@ -227,7 +232,9 @@ class BatchNorm(nn.BatchNorm2d):
     applied in the activation dtype. Train (flax ``nn.BatchNorm``): batch
     statistics in f32 as E[x^2] - E[x]^2 clipped at 0, normalization in f32
     cast back to the activation dtype, and running statistics updated as
-    ``decay * running + (1 - decay) * batch`` with the biased variance.
+    ``decay * running + (1 - decay) * batch`` with the biased variance,
+    except in a checkpointed block's recompute, which must not update them a
+    second time.
     """
 
     def __init__(self, num_features: int, eps: float, decay: float) -> None:
@@ -239,16 +246,20 @@ class BatchNorm(nn.BatchNorm2d):
             xf = x.to(torch.float32)
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
-                self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
-                self.num_batches_tracked.add_(1)
+            if not recomputing():
+                self._update_running(mean, var)
             mul = torch.rsqrt(var + self.eps) * self.weight
             y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
             return y.to(x.dtype)
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
+        self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
+        self.num_batches_tracked.add_(1)
 
 
 @torch.no_grad()
@@ -302,17 +313,27 @@ class MBConv(nn.Module):
         self.drop_rate = drop_rate
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.body(x, self.drop_mask(x, generator))
+
+    def drop_mask(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor | None:
+        """This block's train-mode drop-connect keep mask for input ``x``
+        (None where the block drops nothing)."""
+        if not (self.residual and self.training and self.drop_rate > 0.0):
+            return None
+        if generator is None:
+            raise ValueError("train-mode drop-connect draws from an explicit torch.Generator: pass generator=")
+        return drop_connect_mask(x.shape[0], 1.0 - self.drop_rate, generator, x.device)
+
+    def body(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """The block with its drop-connect mask given."""
         y = self.stem(x)
         if self.squeeze_excitation is not None:
             y = y * self.squeeze_excitation(y)
         y = self.final_layer(y)
         if not self.residual:
             return y
-        if self.training and self.drop_rate > 0.0:
-            if generator is None:
-                raise ValueError("train-mode drop-connect draws from an explicit torch.Generator: pass generator=")
-            keep = 1.0 - self.drop_rate
-            y = y / keep * drop_connect_mask(y.shape[0], keep, generator, y.device).to(y.dtype)
+        if mask is not None:
+            y = y / (1.0 - self.drop_rate) * mask.to(y.dtype)
         return y + x
 
 
@@ -351,15 +372,18 @@ class EfficientNetEncoder(nn.Module):
                 out.append(s.out_filters)
         return list(reversed(out))
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> list[torch.Tensor]:
-        """-> [1/32 conv_head, 1/16, 1/8, 1/4, 1/2]: deepest first."""
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, remat: bool = False
+    ) -> list[torch.Tensor]:
+        """-> [1/32 conv_head, 1/16, 1/8, 1/4, 1/2]: deepest first; ``remat``
+        checkpoints each block."""
         x = self.stem(x)
         skips: list[torch.Tensor] = []
         reduction = 2
         for i, (block, spec) in enumerate(zip(self.blocks, self.specs)):
             if spec.stride == 2:
                 reduction *= 2
-            x = block(x, generator)
+            x = checkpointed(block.body, x, block.drop_mask(x, generator)) if remat else block(x, generator)
             # first block output at each resolution above 1/32
             if (i == 0 or spec.stride == 2) and reduction < 32:
                 skips.insert(0, x)
@@ -377,6 +401,10 @@ def _double_conv(cin: int, features: int, decay: float, **factory) -> nn.Sequent
     )
 
 
+def _decoder_stage(y: torch.Tensor, skip: torch.Tensor, up: nn.Module, double_conv: nn.Module) -> torch.Tensor:
+    return double_conv(torch.cat([up(y), skip], dim=1))
+
+
 class EfficientNetUNet(nn.Module):
     """U-Net over the EfficientNet encoder: (B, H, W, C) -> (B, H, W, K) f32 logits.
 
@@ -388,6 +416,8 @@ class EfficientNetUNet(nn.Module):
     initialisers: truncated-normal fan-out variance scaling, class-prior
     classifier bias), then moved to ``device``. The module starts in eval
     mode; in train mode ``forward`` takes the drop-connect generator.
+    ``remat`` (off; the trainer sets it from ``train.remat``) checkpoints
+    each MBConv block and decoder stage of a forward that records gradients.
     """
 
     def __init__(
@@ -401,6 +431,7 @@ class EfficientNetUNet(nn.Module):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.remat = False
         self.encoder = EfficientNetEncoder(config)
         decay = config.dec_bn_momentum
         cin = self.encoder.head_filters
@@ -438,13 +469,16 @@ class EfficientNetUNet(nn.Module):
         """(B, H, W, C) -> (B, H, W, K) f32 logits; ``generator`` draws the
         train-mode drop-connect masks (on the device of ``x``)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        features = self.encoder(x, generator)
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        features = self.encoder(x, generator, remat)
         y = features[0]
-        for up, double_conv, skip in zip(self.up_convs, self.double_convs, features[1:]):
-            y = double_conv(torch.cat([up(y), skip], dim=1))
+        stages = list(zip(self.up_convs, self.double_convs, features[1:]))
         if self.input_up_conv is not None:
             # the input stage concatenates the normalized input itself
-            y = self.input_double_conv(torch.cat([self.input_up_conv(y), x], dim=1))
+            stages.append((self.input_up_conv, self.input_double_conv, x))
+        for up, double_conv, skip in stages:
+            args = (y, skip, up, double_conv)
+            y = checkpointed(_decoder_stage, *args) if remat else _decoder_stage(*args)
         logits = self.out_conv1x1(y.to(torch.float32))  # classifier in f32
         return logits.permute(0, 2, 3, 1)
 

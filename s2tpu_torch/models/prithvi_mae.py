@@ -48,6 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from s2tpu_torch.models.remat import checkpointed
 from s2tpu_torch.ops.flash_attention import (
     attention_route,
     dot_product_attention,
@@ -463,7 +464,9 @@ class PrithviMAE(nn.Module):
     decoder modules, no ``decoder_pos_embed``), as the segmentation backbone
     (``load_prithvi(no_decoder=True)`` in the reference, the parameters
     ``forward_encoder`` touches in flax); its state dict is the published
-    layout's encoder keys.
+    layout's encoder keys. ``remat`` (off; the trainers set it from
+    ``train.remat``) checkpoints each ViT block of a train-mode forward that
+    records gradients.
     """
 
     POS_KEYS = ("pos_embed", "decoder_pos_embed")
@@ -489,6 +492,7 @@ class PrithviMAE(nn.Module):
         if tp_group is not None and cfg.tp_axis is None:
             raise ValueError("a tensor-parallel process group needs PrithviConfig(tp_axis=...)")
         self.dtype = dtype
+        self.remat = False
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         impl, eps = cfg.attention_impl, cfg.layer_norm_eps
         tp = dict(tensor_parallel=cfg.tp_axis is not None, group=tp_group)
@@ -553,8 +557,7 @@ class PrithviMAE(nn.Module):
     def forward_encoder(self, imgs: torch.Tensor, mask_ratio: float = 0.0, noise: torch.Tensor | None = None):
         """(B, T, H, W, C) -> (tokens (B, 1 + L_keep, D), mask, ids_restore)."""
         x, mask, ids_restore = self.encoder_pre(imgs, mask_ratio, noise)
-        for block in self.blocks:
-            x = block(x)
+        x = self._run_blocks(self.blocks, x)
         return self.norm(x), mask, ids_restore
 
     def decoder_pre(self, tokens: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
@@ -574,9 +577,14 @@ class PrithviMAE(nn.Module):
 
     def forward_decoder(self, tokens: torch.Tensor, ids_restore: torch.Tensor) -> torch.Tensor:
         x = self.decoder_pre(tokens, ids_restore)
-        for block in self.decoder_blocks:
-            x = block(x)
+        x = self._run_blocks(self.decoder_blocks, x)
         return self.decoder_post(x)
+
+    def _run_blocks(self, blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        for block in blocks:
+            x = checkpointed(block, x) if remat else block(x)
+        return x
 
     def forward(self, imgs: torch.Tensor, mask_ratio: float = 0.75, noise: torch.Tensor | None = None):
         """Full MAE pass -> (loss, pred (B, L, patch_dim), mask (B, L))."""

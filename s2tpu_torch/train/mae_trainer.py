@@ -1,12 +1,20 @@
 """Prithvi MAE pretraining / finetuning trainer (the port of ``s2tpu/train/mae_trainer.py``).
 
 One train step normalizes the int16 crops on the device, draws the (B, L)
-masking noise from a device ``torch.Generator`` seeded from (seed, step) as
-the JAX step folds the step into its key, runs the Prithvi MAE in the
-compute dtype over f32 parameters (attention through the fused kernels
-#8/#9 or the streaming kernel #5 where the JAX route sends it), and applies
-Adam with coupled L2 at the constant configured learning rate (the MAE
-linear scaling rule is applied by the config presets). Evaluation recomputes
+masking noise from a device ``torch.Generator`` seeded from (seed, step,
+micro-batch) as the JAX step folds the step into its key, runs the Prithvi
+MAE in the compute dtype (attention through the fused kernels #8/#9 or the
+streaming kernel #5 where the JAX route sends it), and applies Adam with
+coupled L2 at the constant configured learning rate (the MAE linear scaling
+rule is applied by the config presets). The step's extras are the
+segmentation trainer's (``train.trainer``): ``grad_accum_steps``
+micro-batches with f32 gradient sums, ``remat`` of each ViT block,
+``param_dtype='bfloat16'`` with an f32 master, ``ema_decay`` (validation
+and the reconstruction on the average), and grad/param-norm watching every
+``watch_interval`` steps with a run logger (``mae_trainer.py:200-300``).
+``fit`` saves a preemption checkpoint at the step boundary after a SIGTERM,
+and ``resume_from_checkpoint`` continues that epoch exactly
+(``:381-528``, ``:545-633``). Evaluation recomputes
 the loss with padded rows left out of numerator and denominator, with the
 same masking noise for every batch (the JAX eval step reuses its base key).
 
@@ -28,19 +36,17 @@ parameters start as rank 0's, every rank sees the same batches (the same
 shuffle seed) and draws the same masking noise (the same generator seed),
 and only rank 0 logs and writes checkpoints. The data axis holds one rank.
 
-Not ported, and refused where the config asks for them:
-bf16 parameter storage with an f32 master, remat, gradient accumulation,
-parameter EMA, pipeline stages, the device corpus and fused multi-step
-dispatch, grad/param-norm watching (``watch_interval > 0`` with a run
-logger), a data axis above one rank and context parallelism (``cp_axis``).
-SIGTERM preemption and the per-epoch reconstruction image are not ported
-and have no config switch.
+Not ported, and refused where the config asks for them: pipeline stages,
+the device corpus and fused multi-step dispatch, a data axis above one rank
+and context parallelism (``cp_axis``). The per-epoch reconstruction image is
+not ported and has no config switch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import typing
 
 import numpy as np
 import torch
@@ -55,27 +61,23 @@ from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.prithvi_mae import PrithviConfig, PrithviMAE, patchify, unpatchify
 from s2tpu_torch.parallel.mesh import DATA_AXIS, mesh_device, replicate_module
 from s2tpu_torch.train.losses import mae_reconstruction_loss
-from s2tpu_torch.train.train_state import make_optimizer
-from s2tpu_torch.utils import get_logger, get_unique_run_name, load_prithvi_mean_std, load_prithvi_model_args
+from s2tpu_torch.train.train_state import accumulate_grads, draw_seed, make_optimizer
+from s2tpu_torch.train.base import TrainerBase
+from s2tpu_torch.utils import get_logger, load_prithvi_mean_std, load_prithvi_model_args
 
 logger = get_logger(__name__)
 
 
-def _refuse_unported(config: MAEConfig, run_logger, mesh=None, model_config: PrithviConfig | None = None) -> None:
+def _refuse_unported(config: MAEConfig, mesh=None, model_config: PrithviConfig | None = None) -> None:
     t, m = config.train, config.model
     unported = {
         "a data axis above 1 (DDP/FSDP2, ROADMAP A16)": (
             mesh is not None and mesh.shape[mesh.mesh_dim_names.index(DATA_AXIS)] > 1
         ),
         "cp_axis (context parallelism)": model_config is not None and model_config.cp_axis is not None,
-        "param_dtype='bfloat16' (f32 master)": t.param_dtype != "float32",
-        "remat": t.remat,
-        "grad_accum_steps > 1": t.grad_accum_steps > 1,
-        "ema_decay": t.ema_decay is not None,
         "pipeline_stages > 1": m.pipeline_stages > 1,
         "device_corpus": t.device_corpus or t.device_corpus_sharded,
         "steps_per_dispatch > 1": t.steps_per_dispatch > 1,
-        "watch_interval > 0 (grad/param norms)": run_logger is not None and t.watch_interval > 0,
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -97,7 +99,7 @@ def default_model_config(config: MAEConfig) -> PrithviConfig:
     )
 
 
-class MAETrainer:
+class MAETrainer(TrainerBase):
     """Trains a Prithvi MAE on ``datamodule``'s unlabeled crops on one device
     (``resolve_device``: the card unless ``device="cpu"``), or on this
     rank's device of ``mesh`` (``mesh_device``: the card ``make_mesh``
@@ -113,7 +115,7 @@ class MAETrainer:
         checkpoint_manager=None,
         device: torch.device | str | None = None,
     ) -> None:
-        _refuse_unported(config, run_logger, mesh, model_config)
+        _refuse_unported(config, mesh, model_config)
         self.config = config
         self.dm = datamodule
         self.mesh = mesh
@@ -148,8 +150,8 @@ class MAETrainer:
                 )
         self.mean = torch.as_tensor(np.asarray(mean, np.float32), device=self.device)
         self.std = torch.as_tensor(np.asarray(std, np.float32), device=self.device)
-        self.optimizer = make_optimizer(self.model.parameters(), t.lr, t.weight_decay, t.betas)
-        self.step = 0  # optimizer updates applied so far
+        self._init_params(t)
+        self.optimizer = make_optimizer(self.model.parameters(), t.lr, t.weight_decay, t.betas, self.master)
         self.noise_generator = torch.Generator(device=self.device)
 
     def _load_pretrained(self) -> None:
@@ -178,23 +180,34 @@ class MAETrainer:
         self.noise_generator.manual_seed(seed)
         return torch.rand((batch, self.model_config.num_patches), generator=self.noise_generator, device=self.device)
 
-    def train_step(self, images: torch.Tensor, noise: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-        """One optimizer update on a device batch; returns the device-side
-        loss (no host sync). ``noise`` (B, L) replaces the step's own draw."""
+    def train_step(self, images: torch.Tensor, noise: torch.Tensor | None = None) -> dict[str, typing.Any]:
+        """One optimizer update on a device batch, in ``grad_accum_steps``
+        micro-batches; returns the device-side loss (no host sync), and the
+        watch norms on a watched step. ``noise`` (B, L) replaces the step's
+        own draws (micro-batch i takes its i-th slice of rows)."""
+        t = self.config.train
+        accum = max(t.grad_accum_steps, 1)
+        if images.shape[0] % accum:
+            raise ValueError(f"batch {images.shape[0]} does not split into {accum} micro-batches")
         self.model.train()
-        x = self._input(images)
-        if noise is None:
-            noise = self._noise(x.shape[0], (self.config.train.seed << 32) + self.step)
-        loss, _, _ = self.model(x, mask_ratio=self.mask_ratio, noise=noise)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
-        return {"loss": loss.detach()}
+        self._zero_grads()
+        named = self._trainable()
+        grads, loss = None, 0.0
+        noises = noise.chunk(accum) if noise is not None else [None] * accum
+        for i, (micro, n) in enumerate(zip(images.chunk(accum), noises)):
+            x = self._input(micro)
+            if n is None:
+                n = self._noise(x.shape[0], draw_seed(t.seed, self.step, i))
+            loss_i, _, _ = self.model(x, mask_ratio=self.mask_ratio, noise=n)
+            loss_i.backward()
+            grads = accumulate_grads([p for _, p in named], grads)
+            loss = loss + loss_i.detach()
+        return {"loss": loss / accum, **self._update(named, grads, accum, self._watch_this_step())}
 
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor, batch_mask: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Loss of a padded eval batch, padded rows excluded from both sums."""
+        """Loss of a padded eval batch, padded rows excluded from both sums,
+        on the weights in the model (``eval_weights`` puts the EMA there)."""
         self.model.eval()
         x = self._input(images)
         _, pred, mask = self.model(x, mask_ratio=self.mask_ratio, noise=self._noise(x.shape[0], self.config.train.seed))
@@ -205,11 +218,12 @@ class MAETrainer:
 
     @torch.no_grad()
     def reconstruct(self, images) -> np.ndarray:
-        """Masked reconstruction of int16 crops back in pixel space,
-        (B, T, H, W, C) float32 denormalized."""
+        """Masked reconstruction of int16 crops back in pixel space by the
+        eval weights, (B, T, H, W, C) float32 denormalized."""
         self.model.eval()
         x = self._input(torch.as_tensor(np.asarray(images)).to(self.device))
-        _, pred, _ = self.model(x, mask_ratio=self.mask_ratio, noise=self._noise(x.shape[0], 1))
+        with self.eval_weights():
+            _, pred, _ = self.model(x, mask_ratio=self.mask_ratio, noise=self._noise(x.shape[0], 1))
         mc = self.model_config
         rec = unpatchify(pred, mc.grid_size, mc.patch_size, mc.tubelet_size, mc.in_chans).float()
         return (rec * self.std + self.mean).cpu().numpy()
@@ -217,79 +231,43 @@ class MAETrainer:
     # ------------------------------------------------------------------
     def run_train_epoch(self, epoch: int) -> dict:
         cfg = self.config
-        acc, n, images_seen = None, 0, 0
         t0 = time.time()
+        skip, self._skip_batches = self._skip_batches, 0
         batches = prefetch_to_device(
-            self.dm.train_batches(epoch, overfit_batches=cfg.train.overfit_batches),
+            self.dm.train_batches(epoch, overfit_batches=cfg.train.overfit_batches, start=skip),
             self.device, depth=cfg.datamodule.prefetch,
         )
-        for i, batch in enumerate(batches):
-            m = self.train_step(batch.images)
-            acc = m["loss"] if acc is None else acc + m["loss"]
-            n += 1
-            images_seen += batch.images.shape[0]
-            if self.run_logger is not None and (i + 1) % cfg.train.log_interval == 0:
-                self.run_logger.log_scalars({"train/loss_step": float(m["loss"])}, step=self.step)
-        if n == 0:
-            raise ValueError(
-                f"train epoch {epoch} produced ZERO batches: the train pool "
-                f"({len(self.dm.train_idx)} segments) is smaller than one batch "
-                f"({cfg.datamodule.batch_size}); reduce --bs or grow the dataset/split"
-            )
-        return {"loss": float(acc) / n, "images_per_sec": images_seen / max(time.time() - t0, 1e-9)}
+        outs, n, images_seen = self._train_loop(epoch, batches, lambda b: self.train_step(b.images), skip)
+        if n == 0:  # a resumed epoch whose batches were all trained
+            return {"loss": float("nan"), "images_per_sec": 0.0}
+        loss = float(torch.stack([m["loss"] for m in outs]).sum()) / n
+        return {"loss": loss, "images_per_sec": images_seen / max(time.time() - t0, 1e-9)}
 
     def run_eval_epoch(self, split: str = "val") -> dict:
         total, weight = 0.0, 0.0
-        for batch in prefetch_to_device(self.dm.eval_batches(split), self.device, depth=2):
-            m = self.eval_step(batch.images, batch.mask)
-            w = float(m["weight"])
-            total += float(m["loss"]) * w
-            weight += w
+        with self.eval_weights():
+            for batch in prefetch_to_device(self.dm.eval_batches(split), self.device, depth=2):
+                m = self.eval_step(batch.images, batch.mask)
+                w = float(m["weight"])
+                total += float(m["loss"]) * w
+                weight += w
         return {"loss": total / max(weight, 1e-9)} if weight else {}
 
-    def resume_from_checkpoint(self, epoch: int | None = None) -> int:
-        """Restore model, optimizer and step from the checkpoint manager's
-        ``epoch`` (default: its latest); returns the epoch to continue from,
-        0 when there is no checkpoint."""
-        if self.ckpt is None:
-            raise ValueError("resume requires a checkpoint manager")
-        latest = epoch if epoch is not None else self.ckpt.latest_epoch()
-        if latest is None:
-            return 0
-        restored = self.ckpt.restore(latest)
-        self.model.load_state_dict(restored["model"], strict=True)
-        self.optimizer.load_state_dict(restored["optimizer"])
-        self.step = restored["step"]
-        if self.is_main:
-            logger.info(f"Resumed MAE training from epoch {latest} (step {self.step})")
-        return latest + 1
-
-    def fit(self, epochs: int | None = None, start_epoch: int = 0) -> list[dict]:
+    def _end_epoch(self, epoch: int, tr: dict) -> dict:
+        """The val pass, the epoch's record and its logs (on the main rank)."""
         cfg = self.config
-        max_epochs = epochs if epochs is not None else cfg.train.max_epochs
-        if max_epochs <= 0:
-            raise ValueError("fit() needs an explicit positive epoch count")
-        if cfg.train.run_name is None:
-            cfg.train.run_name = get_unique_run_name(postfix=cfg.train.project_name)
-        history: list[dict] = []
-        for epoch in range(start_epoch, max_epochs):
-            tr = self.run_train_epoch(epoch)
-            va = self.run_eval_epoch("val") if len(self.dm.val_idx) else {}
-            record = {
-                "epoch": epoch,
-                "train/lr": float(cfg.train.lr),
-                **{f"train/{k}": v for k, v in tr.items()},
-                **{f"val/{k}": v for k, v in va.items()},
-            }
-            history.append(record)
-            if not self.is_main:
-                continue
+        va = self.run_eval_epoch("val") if len(self.dm.val_idx) else {}
+        record = {
+            "epoch": epoch,
+            "train/lr": float(cfg.train.lr),
+            **{f"train/{k}": v for k, v in tr.items()},
+            **{f"val/{k}": v for k, v in va.items()},
+        }
+        if self.is_main:
             logger.info(
                 f"mae epoch {epoch}: train loss {tr.get('loss', float('nan')):.4f} | "
                 f"val loss {va.get('loss', float('nan')):.4f} | {tr.get('images_per_sec', 0):.1f} img/s"
             )
-            if self.run_logger is not None:
-                self.run_logger.log_scalars({k: v for k, v in record.items() if k != "epoch"}, step=self.step)
-            if self.ckpt is not None and (epoch + 1) % cfg.train.ckpt_every_n_epochs == 0:
-                self.ckpt.save_epoch(epoch, self.model, self.optimizer, self.step, metrics=record)
-        return history
+        if self.run_logger is not None:
+            self.run_logger.log_scalars({k: v for k, v in record.items() if k != "epoch"}, step=self.step)
+        return record

@@ -1,29 +1,58 @@
 """Segmentation trainer: eager train/eval steps and the epoch loop (the port of ``s2tpu/train/trainer.py``).
 
 One train step normalizes the int16 crops on the device, runs the model in
-the compute dtype over f32 parameters, computes the loss (the fused CE/focal
-kernels on the card), back-propagates (the depthwise kernels' input and
-filter gradients on the card), and applies Adam with coupled L2 at the
-schedule's learning rate for that step. The confusion matrix accumulates on
-the device; the host reads the loss only at ``log_interval`` and at epoch end.
+the compute dtype, computes the loss (the fused CE/focal kernels on the
+card), back-propagates (the depthwise kernels' input and filter gradients on
+the card), and applies Adam with coupled L2 at the schedule's learning rate
+for that step. The confusion matrix accumulates on the device; the host
+reads the loss only at ``log_interval`` and at epoch end.
 
-Ported: ``train_step``/``eval_step`` (``:451-570``), ``run_train_epoch``,
-``run_eval_epoch``, ``_metric_exclude_index``, epoch-level
-``resume_from_checkpoint`` and ``fit`` (``:885-933``, ``:1086-1227``), and
-fc-prithvi's hooks: the pretrained backbone (``_load_prithvi_backbone``,
-``:369-436``), the frozen backbone kept out of the optimizer, and the
-frozen-then-unfrozen transition (``unfreeze_backbone``, ``_maybe_unfreeze``,
-``:636-709``).
-Not ported yet, and refused where the config asks for them: gradient
-accumulation, remat, bf16 parameter storage with an f32 master, parameter
-EMA, BN recalibration, the device corpus and device-side flips. Watch norms
-(``watch_interval``), SIGTERM preemption and epoch image logging are not
-ported and have no effect.
+The step's extras (``:451-541``), each a config field:
+
+- ``grad_accum_steps``: the batch runs as that many micro-batches in turn,
+  BatchNorm's running statistics threaded through them; their gradients are
+  summed in f32, divided by the count, and applied in one update.
+- ``remat``: each MBConv block and decoder stage (each ViT block of
+  fc-prithvi's backbone) is recomputed in the backward pass
+  (``models.remat``).
+- ``param_dtype='bfloat16'``: the parameters are stored in bf16 and Adam
+  walks their f32 masters (``train_state.F32Master``).
+- ``ema_decay``: an f32 average of the parameters after each update, which
+  validation, BatchNorm recalibration and checkpoints' serving use
+  (``train_state.ParamEMA``).
+- ``watch_interval``: with a run logger, every that many steps the global
+  and per-tensor norms of the gradients and new parameters, computed on the
+  device and read only then (``_watch_norms``, ``_maybe_log_watch``).
+- ``bn_recalibration_batches``: before each val pass, the running
+  statistics := exact statistics pooled over that many of epoch 0's train
+  batches, taken with the eval weights (``recalibrate_bn``).
+
+Drop-connect (UNet) and dropout (fc-prithvi's head) draw from a generator
+reseeded for every micro-batch from (seed, step, micro-batch), as the JAX
+step folds the step into its key, so a resumed run draws what the
+uninterrupted run would have. ``fit`` (``train.base.TrainerBase``, shared
+with the MAE trainer) installs a SIGTERM handler when a checkpoint manager is
+attached: at the next step boundary it saves the model, Adam, the master,
+the EMA, the step and how many batches of the epoch are done, and returns;
+``resume_from_checkpoint`` then re-enters that epoch and skips its trained
+prefix (``:75-146``, ``:885-933``).
+
+Also ported: ``train_step``/``eval_step``, ``run_train_epoch``,
+``run_eval_epoch``, ``_metric_exclude_index``, ``resume_from_checkpoint``
+and ``fit`` (``:1086-1227``), and fc-prithvi's hooks: the pretrained
+backbone (``_load_prithvi_backbone``, ``:369-436``), the frozen backbone
+kept out of the optimizer, and the frozen-then-unfrozen transition
+(``unfreeze_backbone``, ``_maybe_unfreeze``, ``:636-709``).
+Not ported yet, and refused where the config asks for them: the device
+corpus and device-side flips. Epoch image logging is not ported and has no
+config switch.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
+import typing
 
 import numpy as np
 import torch
@@ -34,11 +63,13 @@ from s2tpu_torch.configs.data_config import LABEL_MAPS, parse_bands
 from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES, Config
 from s2tpu_torch.data.augment import model_input, normalize
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
+from s2tpu_torch.models.efficientnet_unet import BatchNorm, EfficientNetUNet
 from s2tpu_torch.train import metrics as metrics_lib
 from s2tpu_torch.train.losses import make_loss_fn
 from s2tpu_torch.train.schedules import build_schedule
-from s2tpu_torch.train.train_state import make_optimizer
-from s2tpu_torch.utils import get_logger, get_unique_run_name
+from s2tpu_torch.train.base import TrainerBase
+from s2tpu_torch.train.train_state import accumulate_grads, draw_seed, make_optimizer
+from s2tpu_torch.utils import get_logger
 
 logger = get_logger(__name__)
 
@@ -46,11 +77,6 @@ logger = get_logger(__name__)
 def _refuse_unported(config: Config) -> None:
     t, dm = config.train, config.datamodule
     unported = {
-        "param_dtype='bfloat16' (f32 master)": t.param_dtype != "float32",
-        "remat": t.remat,
-        "grad_accum_steps > 1": t.grad_accum_steps > 1,
-        "ema_decay": t.ema_decay is not None,
-        "bn_recalibration_batches > 0": t.bn_recalibration_batches > 0,
         "device_corpus": t.device_corpus or t.device_corpus_sharded,
         "device-side flips (host_flips=False)": dm.augment and not dm.host_flips,
     }
@@ -59,9 +85,23 @@ def _refuse_unported(config: Config) -> None:
         raise NotImplementedError(f"not ported to s2tpu_torch yet: {', '.join(asked)}")
 
 
-class SegmentationTrainer:
+def pool_batch_stats(stats: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pool one BatchNorm's exact (mean, biased var) over equal-size batches
+    (``s2tpu/train/trainer.py:53-72``): E[x] is the mean of the batch means,
+    Var[x] = mean(var + mean^2) - E[x]^2, clipped at 0; in f64, returned in
+    the inputs' dtype."""
+    means = torch.stack([m.double() for m, _ in stats])
+    ex2 = torch.stack([v.double() + m.double() ** 2 for m, v in stats]).mean(0)
+    mean = means.mean(0)
+    dtype = stats[0][0].dtype
+    return mean.to(dtype), (ex2 - mean * mean).clamp_min(0.0).to(dtype)
+
+
+class SegmentationTrainer(TrainerBase):
     """Trains ``config``'s model on ``datamodule``'s batches on one device
     (``resolve_device``: the card unless ``device="cpu"``)."""
+
+    is_main = True
 
     def __init__(
         self,
@@ -122,11 +162,12 @@ class SegmentationTrainer:
             warmup_epochs=t.cosine_lr_sched_warmup_steps,
             gamma=t.cosine_lr_sched_gamma,
         )
-        self.optimizer = make_optimizer(self.model.parameters(), self.schedule(0), t.weight_decay, t.betas)
-        self.step = 0  # optimizer updates applied so far
+        self._init_params(t)
+        self.optimizer = make_optimizer(self.model.parameters(), self.schedule(0), t.weight_decay, t.betas,
+                                        self.master)
         # Drop-connect (UNet) and dropout (fc-prithvi's head) masks are drawn
-        # on the device from this generator.
-        self.drop_generator = torch.Generator(device=self.device).manual_seed(t.seed)
+        # on the device from this generator, reseeded for every micro-batch.
+        self.drop_generator = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------
     def _load_prithvi_backbone(self) -> None:
@@ -176,14 +217,15 @@ class SegmentationTrainer:
         """The frozen-then-unfrozen transition (BASELINE config #4): the
         backbone trains from here on, with a fresh Adam over ALL parameters
         (the frozen phase's has no moments for the backbone); parameters,
-        BatchNorm statistics and the step counter carry over, and
+        BatchNorm statistics, the step counter, the f32 master (exact, not
+        re-derived from the bf16 parameters) and the EMA carry over, and
         ``train.unfreeze_lr_scale`` multiplies the schedule from now on. A
         no-op unless a frozen fc-prithvi is live."""
         if not (self.is_prithvi and self.model.frozen_backbone):
             return
         logger.info(
             f"Unfreezing Prithvi backbone: full-network training from step {self.step} "
-            "(fresh optimizer moments; params/BN/step carry over)"
+            "(fresh optimizer moments; params/BN/step/master/EMA carry over)"
         )
         t = self.config.train
         t.frozen_backbone = False
@@ -192,7 +234,8 @@ class SegmentationTrainer:
         if scale != 1.0:
             base = self.schedule
             self.schedule = lambda step, _base=base: _base(step) * scale
-        self.optimizer = make_optimizer(self.model.parameters(), self.schedule(self.step), t.weight_decay, t.betas)
+        self.optimizer = make_optimizer(self.model.parameters(), self.schedule(self.step), t.weight_decay, t.betas,
+                                        self.master)
 
     def _maybe_unfreeze(self, epoch: int) -> None:
         """The scheduled unfreeze on entering ``epoch`` (also on resuming into
@@ -200,6 +243,8 @@ class SegmentationTrainer:
         at = self.config.train.unfreeze_backbone_at_epoch
         if at is not None and epoch >= at:
             self.unfreeze_backbone()
+
+    _enter_epoch = _before_restore = _maybe_unfreeze
 
     def _input(self, images: torch.Tensor) -> torch.Tensor:
         x = normalize(images, self.mean, self.std, dtype=self.compute_dtype)
@@ -209,28 +254,42 @@ class SegmentationTrainer:
     def _ignore_index(self) -> int | None:
         return 0 if self.config.train.masked_loss else None
 
-    def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
-        """One optimizer update on a device batch; returns the device-side
-        loss, confusion matrix and loss components (no host sync)."""
+    def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> dict[str, typing.Any]:
+        """One optimizer update on a device batch, in ``grad_accum_steps``
+        micro-batches; returns the device-side loss, confusion matrix and
+        loss components (no host sync), and the watch norms on a watched
+        step."""
+        t = self.config.train
+        accum = max(t.grad_accum_steps, 1)
+        if images.shape[0] % accum:
+            raise ValueError(f"batch {images.shape[0]} does not split into {accum} micro-batches")
         self.model.train()
         lr = self.schedule(self.step)  # optax reads the schedule at the update count
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        logits = self.model(self._input(images), generator=self.drop_generator)
-        out = self.loss_fn(logits, labels)
-        self.optimizer.zero_grad(set_to_none=True)
-        out.total.backward()
-        self.optimizer.step()
-        self.step += 1
-        with torch.no_grad():
-            cm = metrics_lib.confusion_matrix_update(
-                logits.argmax(-1), labels, self.config.num_classes, ignore_index=self._ignore_index()
-            )
-        return {"loss": out.total.detach(), "cm": cm, **{k: v.detach() for k, v in out.components.items()}}
+        self._zero_grads()
+        named = self._trainable()
+        grads, loss, cm, comps = None, 0.0, 0, {}
+        for i, (x, y) in enumerate(zip(images.chunk(accum), labels.chunk(accum))):
+            self.drop_generator.manual_seed(draw_seed(t.seed, self.step, i))
+            logits = self.model(self._input(x), generator=self.drop_generator)
+            out = self.loss_fn(logits, y)
+            out.total.backward()
+            grads = accumulate_grads([p for _, p in named], grads)
+            with torch.no_grad():
+                cm = cm + metrics_lib.confusion_matrix_update(
+                    logits.argmax(-1), y, self.config.num_classes, ignore_index=self._ignore_index()
+                )
+            loss = loss + out.total.detach()
+            comps = {k: comps.get(k, 0.0) + v.detach() for k, v in out.components.items()}
+        update = self._update(named, grads, accum, self._watch_this_step())
+        return {"loss": loss / accum, "cm": cm, **{k: v / accum for k, v in comps.items()}, **update}
 
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor, labels: torch.Tensor, batch_mask: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Loss and confusion matrix of a padded eval batch from running statistics."""
+        """Loss and confusion matrix of a padded eval batch from running
+        statistics, on the weights in the model (``eval_weights`` puts the
+        EMA there)."""
         self.model.eval()
         logits = self.model(self._input(images))
         out = self.loss_fn(logits, labels, batch_mask=batch_mask)
@@ -248,92 +307,91 @@ class SegmentationTrainer:
 
     def run_train_epoch(self, epoch: int) -> dict:
         cfg = self.config
-        acc_loss, acc_cm, n, images_seen = None, None, 0, 0
         t0 = time.time()
+        skip, self._skip_batches = self._skip_batches, 0
         batches = prefetch_to_device(
-            self.dm.train_batches(epoch, overfit_batches=cfg.train.overfit_batches),
+            self.dm.train_batches(epoch, overfit_batches=cfg.train.overfit_batches, start=skip),
             self.device, depth=cfg.datamodule.prefetch,
         )
-        for i, batch in enumerate(batches):
-            m = self.train_step(batch.images, batch.labels)
-            acc_loss = m["loss"] if acc_loss is None else acc_loss + m["loss"]
-            acc_cm = m["cm"] if acc_cm is None else acc_cm + m["cm"]
-            n += 1
-            images_seen += batch.images.shape[0]
-            if self.run_logger is not None and (i + 1) % cfg.train.log_interval == 0:
-                self.run_logger.log_scalars({"train/loss_step": float(m["loss"])}, step=self.step)
-        if n == 0:
-            raise ValueError(
-                f"train epoch {epoch} produced ZERO batches: the train pool "
-                f"({len(self.dm.train_idx)} segments) is smaller than one batch "
-                f"({cfg.datamodule.batch_size}); reduce --bs or grow the dataset/split"
-            )
-        out = metrics_lib.compute_metrics(acc_cm.cpu().numpy(), exclude_index=self._metric_exclude_index())
-        out["loss"] = float(acc_loss) / n
+        outs, n, images_seen = self._train_loop(epoch, batches, lambda b: self.train_step(b.images, b.labels), skip)
+        if n == 0:  # a resumed epoch whose batches were all trained
+            return {"loss": float("nan"), "images_per_sec": 0.0}
+        cm = torch.stack([m["cm"] for m in outs]).sum(0)
+        out = metrics_lib.compute_metrics(cm.cpu().numpy(), exclude_index=self._metric_exclude_index())
+        out["loss"] = float(torch.stack([m["loss"] for m in outs]).sum()) / n
         out["images_per_sec"] = images_seen / max(time.time() - t0, 1e-9)
         return out
 
     def run_eval_epoch(self, split: str = "val") -> dict:
         acc = metrics_lib.MetricAccumulator(self.config.num_classes, ignore_index=self._metric_exclude_index())
-        for batch in prefetch_to_device(self.dm.eval_batches(split), self.device, depth=2):
-            m = self.eval_step(batch.images, batch.labels, batch.mask)
-            acc.update(m["cm"].cpu().numpy(), float(m["loss"]))
+        with self.eval_weights():
+            for batch in prefetch_to_device(self.dm.eval_batches(split), self.device, depth=2):
+                m = self.eval_step(batch.images, batch.labels, batch.mask)
+                acc.update(m["cm"].cpu().numpy(), float(m["loss"]))
         return acc.compute()
 
-    def resume_from_checkpoint(self, epoch: int | None = None) -> int:
-        """Restore model, optimizer and step from the checkpoint manager's
-        ``epoch`` (default: its latest); returns the epoch to continue from,
-        0 when there is no checkpoint."""
-        if self.ckpt is None:
-            raise ValueError("resume requires a checkpoint manager")
-        latest = epoch if epoch is not None else self.ckpt.latest_epoch()
-        if latest is None:
-            return 0
-        restored = self.ckpt.restore(latest)
-        self.step = restored["step"]
-        # A checkpoint written at the end of epoch e holds epoch e's
-        # optimizer: of every parameter once the backbone has unfrozen.
-        self._maybe_unfreeze(latest)
-        self.model.load_state_dict(restored["model"], strict=True)
-        self.optimizer.load_state_dict(restored["optimizer"])
-        logger.info(f"Resumed from checkpoint epoch {latest} (step {self.step})")
-        return latest + 1
+    @torch.no_grad()
+    def recalibrate_bn(self, n_batches: int = 8) -> None:
+        """Every BatchNorm's running statistics := exact statistics pooled
+        over the first ``n_batches`` train batches of epoch 0's stream,
+        taken with the eval weights (``s2tpu/train/trainer.py:1052-1085``):
+        a train-mode forward per batch at momentum 0 (so the running
+        statistics become that batch's), drop-connect drawn from a fixed
+        seed, parameters untouched. Models without BatchNorm momentum (the
+        ViT) are skipped, as in the JAX package."""
+        if not isinstance(self.model, EfficientNetUNet):
+            logger.warning("recalibrate_bn: the model has no bn_momentum_override; skipping")
+            return
+        bns = [m for m in self.model.modules() if isinstance(m, BatchNorm)]
+        decays = [bn.decay for bn in bns]
+        stats: list[list[tuple[torch.Tensor, torch.Tensor]]] = [[] for _ in bns]
+        self.model.train()
+        try:
+            for bn in bns:
+                bn.decay = 0.0
+            with self.eval_weights():
+                host = itertools.islice(self.dm.train_batches(0), n_batches)
+                for batch in prefetch_to_device(host, self.device, depth=2):
+                    self.drop_generator.manual_seed(0)  # the JAX pass's fixed dropout key
+                    self.model(self._input(batch.images), generator=self.drop_generator)
+                    for s, bn in zip(stats, bns):
+                        s.append((bn.running_mean.clone(), bn.running_var.clone()))
+        finally:
+            for bn, decay in zip(bns, decays):
+                bn.decay = decay
+        if not stats[0]:
+            return
+        for bn, s in zip(bns, stats):
+            mean, var = pool_batch_stats(s)
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
 
-    def fit(self, epochs: int | None = None, start_epoch: int = 0) -> list[dict]:
+    def _end_epoch(self, epoch: int, train_metrics: dict) -> dict:
+        """BN recalibration, the val pass, the epoch's record and its logs."""
         cfg = self.config
-        max_epochs = epochs if epochs is not None else cfg.train.max_epochs
-        if max_epochs <= 0:
-            raise ValueError("fit() needs an explicit positive epoch count")
-        if cfg.train.run_name is None:
-            cfg.train.run_name = get_unique_run_name(postfix=cfg.train.project_name)
-        history: list[dict] = []
-        class_names = LABEL_MAPS[cfg.datamodule.dataset_cfg.label_map].class_names
-        for epoch in range(start_epoch, max_epochs):
-            self._maybe_unfreeze(epoch)
-            train_metrics = self.run_train_epoch(epoch)
-            val_metrics = self.run_eval_epoch("val") if len(self.dm.val_idx) else {}
-            record = {
-                "epoch": epoch,
-                "train/lr": float(self.schedule(self.step)),
-                **{f"train/{k}": v for k, v in train_metrics.items() if np.isscalar(v)},
-                **{f"val/{k}": v for k, v in val_metrics.items() if np.isscalar(v)},
-            }
-            pci = val_metrics.get("per_class_iou")
-            if pci is not None:
-                record.update({
-                    f"val/iou_{class_names[k] if k < len(class_names) else k}": float(v)
-                    for k, v in enumerate(np.asarray(pci, np.float64)) if np.isfinite(v)
-                })
-            history.append(record)
-            logger.info(
-                f"epoch {epoch}: train loss {train_metrics.get('loss', float('nan')):.4f} "
-                f"iou {train_metrics.get('iou', float('nan')):.4f} | "
-                f"val loss {val_metrics.get('loss', float('nan')):.4f} "
-                f"iou {val_metrics.get('iou', float('nan')):.4f} | "
-                f"{train_metrics.get('images_per_sec', 0):.1f} img/s"
-            )
-            if self.run_logger is not None:
-                self.run_logger.log_scalars({k: v for k, v in record.items() if k != "epoch"}, step=self.step)
-            if self.ckpt is not None and (epoch + 1) % cfg.train.ckpt_every_n_epochs == 0:
-                self.ckpt.save_epoch(epoch, self.model, self.optimizer, self.step, metrics=record)
-        return history
+        if cfg.train.bn_recalibration_batches > 0 and len(self.dm.val_idx):
+            self.recalibrate_bn(cfg.train.bn_recalibration_batches)
+        val_metrics = self.run_eval_epoch("val") if len(self.dm.val_idx) else {}
+        record = {
+            "epoch": epoch,
+            "train/lr": float(self.schedule(self.step)),
+            **{f"train/{k}": v for k, v in train_metrics.items() if np.isscalar(v)},
+            **{f"val/{k}": v for k, v in val_metrics.items() if np.isscalar(v)},
+        }
+        pci = val_metrics.get("per_class_iou")
+        if pci is not None:
+            class_names = LABEL_MAPS[cfg.datamodule.dataset_cfg.label_map].class_names
+            record.update({
+                f"val/iou_{class_names[k] if k < len(class_names) else k}": float(v)
+                for k, v in enumerate(np.asarray(pci, np.float64)) if np.isfinite(v)
+            })
+        logger.info(
+            f"epoch {epoch}: train loss {train_metrics.get('loss', float('nan')):.4f} "
+            f"iou {train_metrics.get('iou', float('nan')):.4f} | "
+            f"val loss {val_metrics.get('loss', float('nan')):.4f} "
+            f"iou {val_metrics.get('iou', float('nan')):.4f} | "
+            f"{train_metrics.get('images_per_sec', 0):.1f} img/s"
+        )
+        if self.run_logger is not None:
+            self.run_logger.log_scalars({k: v for k, v in record.items() if k != "epoch"}, step=self.step)
+        return record

@@ -293,9 +293,9 @@ def test_import_ckpt_serves_jax_logits_and_resumes(model_name, fixture_dir, tmp_
 
 
 # --------------------------------------------------------------- exports ----
-def _save_port_run(run_dir, config_dict: dict, model: torch.nn.Module):
+def _save_port_run(run_dir, config_dict: dict, model: torch.nn.Module, ema: dict | None = None):
     ckpt = io.CheckpointManager(run_dir, config_dict=config_dict)
-    ckpt.save_epoch(0, model, torch.optim.Adam([p for p in model.parameters() if p.requires_grad]), 0)
+    ckpt.save_epoch(0, model, torch.optim.Adam([p for p in model.parameters() if p.requires_grad]), 0, ema=ema)
     return run_dir
 
 
@@ -311,13 +311,15 @@ def test_export_unet_equals_the_jax_export(jax_b0, tmp_path):
     fresh = tu.EfficientNetUNet(tu.EfficientNetUNetConfig(version="b0", in_channels=6, num_classes=K))
     fresh.load_state_dict(exported, strict=True)
 
-    # A config with a parameter EMA: the port keeps none, so only --no-ema exports.
+    # A run with a parameter EMA exports the EMA's parameters (the running
+    # statistics stay the model's); --no-ema exports the raw weights.
     config.train.ema_decay = 0.99
-    ema_run = _save_port_run(tmp_path / "ema_run", dataclasses.asdict(config), model)
-    with pytest.raises(NotImplementedError, match="15.4"):
-        cw.main(["export-unet", str(ema_run), "--out", str(tmp_path / "ema.pt")])
-    cw.main(["export-unet", str(ema_run), "--out", str(tmp_path / "ema.pt"), "--no-ema", "--epoch", "0"])
-    _assert_state_dicts_equal(torch.load(tmp_path / "ema.pt", weights_only=True), exported)
+    ema = {n: 0.5 * p.detach() for n, p in model.named_parameters()}
+    ema_run = _save_port_run(tmp_path / "ema_run", dataclasses.asdict(config), model, ema=ema)
+    cw.main(["export-unet", str(ema_run), "--out", str(tmp_path / "ema.pt")])
+    _assert_state_dicts_equal(torch.load(tmp_path / "ema.pt", weights_only=True), {**exported, **ema})
+    cw.main(["export-unet", str(ema_run), "--out", str(tmp_path / "raw.pt"), "--no-ema", "--epoch", "0"])
+    _assert_state_dicts_equal(torch.load(tmp_path / "raw.pt", weights_only=True), exported)
 
 
 def _jax_tiny_mae(seed: int = 0, num_frames: int = 1):

@@ -156,7 +156,7 @@ def test_cli_trains_checkpoints_and_resumes_on_cpu(fixture_dir, tmp_path, monkey
     assert history[0]["train/lr"] == pytest.approx(1.5e-4 * 64 / 256)
     (run_dir,) = (tmp_path / "ckpts" / "prithvi-mae-finetune").glob("t_*")
     config, state = io.load_mae_checkpoint(run_dir)
-    assert config.datamodule.batch_size == 2 and config.train.watch_interval == 0
+    assert config.datamodule.batch_size == 2 and config.train.watch_interval == mae_cfg.MAETrainConfig().watch_interval
     assert "patch_embed.proj.weight" in state and all(v.dtype == torch.float32 for v in state.values())
     steps = [json.loads(line) for line in (tmp_path / "logs" / "runs" / f"{run_dir.name}.metrics.jsonl").open()]
     assert sum("train/loss_step" in s for s in steps) == 4  # 4 train segments (of 6, split 0.8) / bs 2, 2 epochs
@@ -189,7 +189,7 @@ def test_cli_num_frames_reaches_the_source_and_the_model(tmp_path, monkeypatch):
 
 def test_cli_config_matches_the_jax_cli(tmp_path):
     """The flags both CLIs take build the same config tree, but for what the
-    port records of itself: one device and no norm watching."""
+    port records of itself: one device."""
     from s2tpu.cli.train_mae import build_parser as jax_parser
     from s2tpu.cli.train_mae import config_from_args as jax_config_from_args
     from s2tpu_torch.cli.train_mae import build_parser, config_from_args
@@ -197,10 +197,10 @@ def test_cli_config_matches_the_jax_cli(tmp_path):
     argv = ["fr", "--type", "pretrain", "--from-scratch", "--bs", "16", "--lr", "3e-4", "--epochs", "7",
             "--log-interval", "5", "--num-frames", "3", "--crop", "128", "--bands", "all12", "--mask-ratio", "0.6",
             "--name", "x", "--wandb", "--tags", "a", "b", "--compute-dtype", "bfloat16", "--data-dir",
-            str(tmp_path), "--seed", "7", "--auto-resume"]
+            str(tmp_path), "--seed", "7", "--auto-resume", "--ema-decay", "0.999", "--grad-accum", "2", "--remat"]
     theirs = dataclasses.asdict(jax_config_from_args(jax_parser().parse_args(argv)))
     ours = dataclasses.asdict(config_from_args(build_parser().parse_args(argv)))
-    theirs["train"].update(num_devices=1, watch_interval=0)
+    theirs["train"].update(num_devices=1)
     assert ours == theirs
     parsed = config_from_args(build_parser().parse_args(argv))
     assert mae_cfg.config_from_dict(json.loads(json.dumps(dataclasses.asdict(parsed)))) == parsed
@@ -214,38 +214,88 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
         main(["small", "--from-scratch", "--data-dir", str(fixture_dir)])
 
 
+# The trainer extras' flags, refused until they were ported, now train: each
+# case runs the CLI for one epoch and finds its field in the run's config.
+PORTED_FLAGS = {"--remat": ("remat", True), "--ema-decay": ("ema_decay", 0.99), "--grad-accum": ("grad_accum_steps", 2)}
+
+
 @pytest.mark.parametrize(
     "flags",
     [["--remat"], ["--ema-decay", "0.99"], ["--grad-accum", "2"], ["--pp", "2"], ["--device-corpus"],
      ["--steps-per-dispatch", "4"], ["--num-devices", "4"]],
 )
-def test_cli_refuses_flags_of_unported_features(flags, capsys):
+def test_cli_refuses_flags_of_unported_features(flags, capsys, fixture_dir, tmp_path, monkeypatch):
     from s2tpu_torch.cli.train_mae import main
+    from s2tpu_torch.configs import paths
 
-    with pytest.raises(SystemExit):
-        main(["small", *flags, "--device", "cpu"])
-    assert "not ported" in capsys.readouterr().err
+    if flags[0] not in PORTED_FLAGS:
+        with pytest.raises(SystemExit):
+            main(["small", *flags, "--device", "cpu"])
+        assert "not ported" in capsys.readouterr().err
+        return
+    monkeypatch.setattr(mae_trainer, "default_model_config", _tiny_model_config)
+    monkeypatch.setattr(paths, "CKPT_DIR", tmp_path / "ckpts")
+    monkeypatch.setattr(paths, "LOG_DIR", tmp_path / "logs")
+    history = main(["small", "--type", "pretrain", "--from-scratch", "--bs", "2", "--crop", "32", "--epochs", "1",
+                    "--compute-dtype", "float32", "--data-dir", str(fixture_dir), "--wandb", "--device", "cpu", *flags])
+    assert np.isfinite(history[0]["train/loss"])
+    (run_dir,) = (tmp_path / "ckpts" / "prithvi-mae-finetune").glob("*")
+    field, value = PORTED_FLAGS[flags[0]]
+    assert getattr(io.load_mae_checkpoint(run_dir)[0].train, field) == value
 
 
+# The extras' config fields likewise train now (one step each, the feature
+# seen at work); the rest still refuse.
 @pytest.mark.parametrize(
     "section,field,value",
     [("train", "grad_accum_steps", 2), ("train", "remat", True), ("train", "ema_decay", 0.99),
      ("train", "param_dtype", "bfloat16"), ("train", "device_corpus", True), ("train", "steps_per_dispatch", 2),
      ("model", "pipeline_stages", 2)],
 )
-def test_trainer_refuses_unported_config(section, field, value):
+def test_trainer_refuses_unported_config(section, field, value, fixture_dir):
     c = mae_cfg.base_config("small")
     setattr(getattr(c, section), field, value)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MAETrainer(c, datamodule=None, device="cpu")
+    if field in ("device_corpus", "steps_per_dispatch", "pipeline_stages"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            MAETrainer(c, datamodule=None, device="cpu")
+        return
+    _, pc = _configs(fixture_dir, 32, 2)
+    setattr(pc.train, field, value)
+    _, dm = _datamodules(fixture_dir, 32, 2)
+    t = MAETrainer(pc, dm, model_config=PrithviConfig(**TINY), device="cpu")
+    before = {n: p.detach().float().clone() for n, p in t.model.named_parameters()}
+    m = t.train_step(torch.from_numpy(next(dm.train_batches(0)).images))
+    assert np.isfinite(float(m["loss"])) and t.step == 1
+    # every parameter moved (under bf16 storage its f32 master: an update of
+    # lr may be below a bf16 parameter's resolution)
+    after = t.master.master if t.master is not None else dict(t.model.named_parameters())
+    assert all(not torch.equal(before[n], a.detach().float()) for n, a in after.items())
+    if field == "remat":
+        assert t.model.remat
+    if field == "ema_decay":
+        assert t.ema is not None and t.ema.decay == value
+    if field == "param_dtype":
+        assert {p.dtype for p in t.model.parameters()} == {torch.bfloat16}
+        assert all(m.dtype == torch.float32 for m in t.master.master.values())
 
 
-def test_trainer_refuses_norm_watching_with_a_run_logger(tmp_path):
+def test_trainer_refuses_norm_watching_with_a_run_logger(fixture_dir, tmp_path):
+    """Norm watching, once refused with a run logger, now logs the global and
+    per-tensor norms every watch_interval steps (here every step)."""
     from s2tpu_torch.train.logging_utils import RunLogger
 
-    c = mae_cfg.base_config("small")
-    with pytest.raises(NotImplementedError, match="watch_interval"):
-        MAETrainer(c, datamodule=None, run_logger=RunLogger("r", tmp_path), device="cpu")
+    _, pc = _configs(fixture_dir, 32, 2)
+    pc.train.watch_interval = 1
+    _, dm = _datamodules(fixture_dir, 32, 2)
+    t = MAETrainer(pc, dm, model_config=PrithviConfig(**TINY), run_logger=RunLogger("r", tmp_path), device="cpu")
+    t.run_train_epoch(0)
+    t.run_train_epoch(1)
+    lines = [json.loads(line) for line in (tmp_path / "r.metrics.jsonl").read_text().splitlines()]
+    watched = [line for line in lines if "grads/global_norm" in line]
+    assert [line["step"] for line in watched] == [1, 2]  # 3 train segments: one step of 2 a epoch
+    names = [n for n, _ in t.model.named_parameters()]
+    assert all(f"grads/{n}" in watched[0] and f"params/{n}" in watched[0] for n in names)
+    assert all(np.isfinite(v) and v > 0 for v in watched[-1].values())
 
 
 def test_finetune_without_published_weights_warns_and_keeps_random_init(fixture_dir, tmp_path, monkeypatch, caplog):

@@ -65,7 +65,7 @@ def _trainer_parts(fixture_dir: str):
     config.model.mask_ratio = 0.5
     config.train.from_scratch = True
     config.train.lr = LR
-    config.train.watch_interval = 0  # norm watching is not ported; a run logger asks for it otherwise
+    config.train.watch_interval = 0  # norm watching off: the fit phases' run loggers record losses only
     dm = Datamodule(
         DatamoduleConfig(
             dataset_cfg=DatasetConfig(aoi="small", label_map="osm-multiclass", data_dir=fixture_dir),

@@ -153,8 +153,8 @@ def test_context_parallelism_and_a_data_axis_are_refused():
     with pytest.raises(NotImplementedError, match="not ported.*data axis"):
         MAETrainer(c, datamodule=None, mesh=_Mesh(2, 1), model_config=TP, device="cpu")
     with pytest.raises(NotImplementedError, match="data axis.*A16"):
-        _refuse_unported(c, None, _Mesh(4, 2), TP)
-    _refuse_unported(c, None, _Mesh(1, 4), TP)
+        _refuse_unported(c, _Mesh(4, 2), TP)
+    _refuse_unported(c, _Mesh(1, 4), TP)
     with pytest.raises(ValueError, match="tp_axis"):
         tm.PrithviMAE(DENSE, tp_group=object())
 

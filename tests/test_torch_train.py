@@ -231,7 +231,8 @@ def test_cli_config_matches_the_jax_cli(tmp_path):
         "4", "--cosine-lr-sched-cycle-mult", "2", "--cosine-lr-sched-max-lr", "1e-3", "--cosine-lr-sched-min-lr",
         "1e-6", "--cosine-lr-sched-warmup-steps", "1", "--cosine-lr-sched-gamma", "0.5", "--name", "x", "--wandb",
         "--tags", "a", "b", "--compute-dtype", "float32", "--bands", "all12", "--crop", "128", "--data-dir",
-        str(tmp_path), "--seed", "7", "--auto-resume",
+        str(tmp_path), "--seed", "7", "--auto-resume", "--remat", "--param-dtype", "bfloat16", "--ema-decay",
+        "0.99", "--watch-interval", "5", "--bn-recal", "3",
     ]
     theirs = dataclasses.asdict(jax_config_from_args(jax_parser().parse_args(argv)))
     ours = dataclasses.asdict(config_from_args(build_parser().parse_args(argv)))
@@ -247,20 +248,49 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
 
 
 def test_cli_refuses_flags_of_unported_features():
-    from s2tpu_torch.cli.train_segmentation import build_parser
+    """argparse refuses the flags of features the port lacks; the trainer
+    extras' flags (once refused here too) reach the config."""
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
 
-    for flag in (["--fsdp"], ["--remat"], ["--ema-decay", "0.99"], ["--type", "tune"], ["--num-devices", "4"]):
+    base = ["small", "osm-multiclass", "efficientnet-unet-b0"]
+    for flag in (["--fsdp"], ["--type", "tune"], ["--num-devices", "4"]):
         with pytest.raises(SystemExit):
-            build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flag])
+            build_parser().parse_args([*base, *flag])
+    t = config_from_args(build_parser().parse_args([*base, "--remat", "--ema-decay", "0.99"])).train
+    assert t.remat and t.ema_decay == 0.99
 
 
-@pytest.mark.parametrize("field,value", [("grad_accum_steps", 2), ("remat", True), ("ema_decay", 0.99),
-                                         ("param_dtype", "bfloat16"), ("bn_recalibration_batches", 4)])
-def test_trainer_refuses_unported_config(field, value):
-    c = cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass")
+# The trainer extras' fields, refused until they were ported, must now train
+# (each case holds its feature at work after one step); the device corpus
+# fields still refuse.
+EXTRA_FIELDS = [("grad_accum_steps", 2), ("remat", True), ("ema_decay", 0.99), ("param_dtype", "bfloat16"),
+                ("bn_recalibration_batches", 4), ("device_corpus", True), ("device_corpus_sharded", True)]
+
+
+@pytest.mark.parametrize("field,value", EXTRA_FIELDS)
+def test_trainer_refuses_unported_config(field, value, fixture_dir):
+    c = _configure(cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass"),
+                   fixture_dir, 1e-3)
     setattr(c.train, field, value)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SegmentationTrainer(c, datamodule=None, device="cpu")
+    if field.startswith("device_corpus"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            SegmentationTrainer(c, datamodule=None, device="cpu")
+        return
+    trainer = SegmentationTrainer(c, Datamodule(c.datamodule), device="cpu")
+    batch = next(trainer.dm.train_batches(0))
+    m = trainer.train_step(torch.from_numpy(batch.images), torch.from_numpy(batch.labels))
+    assert np.isfinite(float(m["loss"])) and trainer.step == 1
+    if field == "remat":
+        assert trainer.model.remat
+    if field == "ema_decay":
+        assert trainer.ema is not None and trainer.ema.decay == value
+    if field == "param_dtype":
+        assert {p.dtype for p in trainer.model.parameters()} == {torch.bfloat16}
+        assert trainer.master.master["out_conv1x1.weight"].dtype == torch.float32
+    if field == "bn_recalibration_batches":
+        before = trainer.model.encoder.stem[1].running_var.clone()
+        trainer.recalibrate_bn(value)
+        assert not torch.equal(before, trainer.model.encoder.stem[1].running_var)
 
 
 def test_checkpoint_manager_keeps_best_and_latest(tmp_path):
