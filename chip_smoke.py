@@ -1,9 +1,10 @@
-"""Drive s2tpu_torch's serving, training (single- and multi-temporal, with the trainer extras), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding and checkpoint migration paths on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving, training (single- and multi-temporal, with the trainer extras), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding, checkpoint migration and device-corpus (graphed step) paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
     python3 chip_smoke.py --depthwise    # phases 1, 2 (depthwise only), 3 and 4's depthwise part
     python3 chip_smoke.py --extras       # phases 2, 6, 19, 9 and 20 only, no result lines
+    python3 chip_smoke.py --corpus       # phases 2, 6 and 21 only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 ``--attention`` and ``--depthwise`` use only the kernel wrappers' public
@@ -173,7 +174,31 @@ any failure raises and the script exits non-zero without printing a result:
    warm step and peak memory with and without remat (remat's lower); a
    SIGTERM after step 1 of ``fit`` and ``resume_from_checkpoint`` against
    one uninterrupted run (deterministic cuDNN).
-21. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
+21. Corpus and graphed steps (phase C, after phase 20; (e) on phase 6's
+   data): (a) the "fr" AOI's size, 12,400 segments of 256^2 x 6 int16 with
+   uint8 labels from a seeded in-memory pool, uploaded once as a
+   ``DeviceCorpus`` (time and bytes) and given to every trainer the phase
+   builds; (b) config #2's trainer (bf16, batch 32, 224^2, focal +
+   weighted, device flips and drop-connect on): two corpus steps against
+   two streamed steps with ``host_flips=False``; (c) a window of four
+   graphed steps (``steps_per_dispatch=4``: one real step, the capture,
+   three replays) against four eager steps, for B5, B5 with bf16
+   parameters + master + EMA and config #5's MAE (Prithvi-100M T=1, batch
+   64, flips on the device), and an epoch of 6 batches in windows [4, 1, 1]
+   against 6 eager steps; each bit for bit (parameters, BatchNorm
+   statistics, Adam, masters, EMA, losses, confusion matrices; deterministic
+   cuDNN); (d) one replay and one eager step under ``torch.profiler``: #1
+   70, #2 35, #3 1, #4 1 launches a B5 step, #8 8 and #9 8 an MAE step, and
+   the host's launch API calls of each; (e) the training CLI with
+   ``--device-corpus --steps-per-dispatch 4`` (batch 8, 8 batches) stopped
+   by a SIGTERM in its first window and resumed by ``--auto-resume``: the
+   checkpoint equals the uninterrupted run's bit for bit; the MAE CLI in
+   corpus mode (one window); (f) ms per warm step, images/s, busy share,
+   device ms, host launch calls and peak bytes of B5 streamed, from the
+   corpus eager and graphed at K = 4 and 8, of accum 2 and remat graphed,
+   and of the MAE streamed and graphed, each run twice in mirrored order
+   (the first profiled).
+22. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
    launches, and #8, #9, #5 with their times at fc-prithvi's shapes; #1-#4
@@ -182,7 +207,8 @@ any failure raises and the script exits non-zero without printing a result:
    migration slice's serving launches; #1-#4 with phase A's launches in
    one accum-2 step, one remat step and the extras' CLI run, #1 with its
    serving's; #8/#9 with phase B's step; ``accum_*``: #1-#4 and #8/#9 at
-   the micro-batch's shapes), the ``nvidia-smi`` line, then the
+   the micro-batch's shapes; #1-#4, #8, #9 with phase C's CLI launches
+   and their launches in one replay), the ``nvidia-smi`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -363,6 +389,19 @@ REMAT_RTOL = 1e-5
 # the same data and masks (deterministic cuDNN): its final weights to
 # PREEMPT_TOL, in max |diff| / max |w| and in relative L2.
 PREEMPT_TOL = 1e-6
+# Phase C: the "fr" AOI's corpus (s2tpu/data/device_corpus.py:5-7: 12.4k
+# segments, ~9.7 GB of int16 at 256^2 x 6), made from a seeded pool of
+# segments in memory; K-step windows; (e) at a batch that gives its epoch
+# two windows on phase 6's data; the MAE CLI at a batch that gives one.
+CORPUS_SEGMENTS, CORPUS_SIZE, CORPUS_POOL, CORPUS_K = 12_400, 256, 64, 4
+PREEMPT_CORPUS_BATCH = 8
+MAE_CORPUS_BATCH, MAE_CORPUS_SEGMENTS = 8, 40
+# Kernel names in a profiler trace, by kernel number (#9's bf16 backward is
+# two launches a call: dq, then dk/dv).
+PORT_KERNEL_NAMES = {"#1": "depthwise_s1_fwd", "#2": "depthwise_s1_dw", "#3": "fused_ce_fwd", "#4": "fused_ce_bwd",
+                     "#8": "attn_fused_fwd", "#9": "attn_fused_bwd_dq", "#9 dk/dv": "attn_fused_bwd_dkdv"}
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+               "cudaMemcpyAsync", "cudaMemsetAsync")
 CARD = "card not read"  # nvidia-smi's name and power limit, set by main
 
 
@@ -1230,6 +1269,7 @@ def check_accum_f32(data_dir: Path) -> dict:
     frozen, the loss and running statistics with it in train mode; raises
     beyond the tolerances. Returns the distances."""
     from s2tpu_torch.models.efficientnet_unet import BatchNorm, MBConv
+    from s2tpu_torch.train.train_state import set_lr
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1255,11 +1295,10 @@ def check_accum_f32(data_dir: Path) -> dict:
                 out[name] = trainers[name].train_step(*twins)
         t = trainers["written1"]
         t.model.train()
-        for group in t.optimizer.param_groups:
-            group["lr"] = t.schedule(0)
+        set_lr(t.optimizer, t.schedule(0))
         losses = []
         for x, y in zip(images.chunk(2), labels.chunk(2)):
-            loss = t.loss_fn(t.model(t._input(x), generator=t.drop_generator), y).total
+            loss = t.loss_fn(t.model(t._input(x), generator=t.generators[0]), y).total
             loss.backward()
             losses.append(float(loss.detach()))
         with torch.no_grad():
@@ -3238,6 +3277,519 @@ def phase_migration(work: Path) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase C ----
+def pool_source(n: int):
+    """A seeded in-memory ``SegmentSource`` of ``n`` labelled segments of
+    CORPUS_SIZE^2 x 6 int16: views of a pool of CORPUS_POOL random segments,
+    segment i shifted by i // CORPUS_POOL so that no two are equal. Returns
+    the source, its per-band (mean, std) and the label frequencies of the
+    pool."""
+    from s2tpu_torch.data.dataset import Sample, SegmentSource
+
+    rng = np.random.default_rng(SEED + 40)
+    pool_x = rng.integers(200, 3800, size=(CORPUS_POOL, CORPUS_SIZE, CORPUS_SIZE, 6), dtype=np.int16)
+    pool_y = rng.integers(0, CE_CLASSES, size=(CORPUS_POOL, CORPUS_SIZE, CORPUS_SIZE), dtype=np.uint8)
+
+    class PoolSource(SegmentSource):
+        def __len__(self) -> int:
+            return n
+
+        def __getitem__(self, i: int) -> Sample:
+            return Sample(pool_x[i % CORPUS_POOL] + np.int16(i // CORPUS_POOL), pool_y[(7 * i) % CORPUS_POOL])
+
+    flat = pool_x.reshape(-1, 6).astype(np.float64)
+    mean_std = (flat.mean(0).astype(np.float32), flat.std(0).astype(np.float32))
+    return PoolSource(), mean_std, np.bincount(pool_y.ravel(), minlength=CE_CLASSES).astype(np.float64)
+
+
+@contextlib.contextmanager
+def shared_corpus(corpus):
+    """Inside the block, every trainer built takes ``corpus`` (uploaded once)
+    for its device corpus instead of uploading its source again."""
+    from s2tpu_torch.train import mae_trainer, trainer
+
+    saved = trainer.DeviceCorpus, mae_trainer.DeviceCorpus
+    trainer.DeviceCorpus = mae_trainer.DeviceCorpus = lambda source, device, with_labels=True: corpus
+    try:
+        yield
+    finally:
+        trainer.DeviceCorpus, mae_trainer.DeviceCorpus = saved
+
+
+def corpus_seg_trainer(work: Path, source, mean_std, counts, argv_extra: tuple = (), host_flips: bool = True,
+                       **train):
+    """Config #2's SegmentationTrainer (bf16, batch 32, 224^2, focal +
+    weighted) over ``source``, with the extra CLI flags and config fields."""
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    cfg = config_from_args(build_parser().parse_args([*train_argv(work, "corpus"), *argv_extra]))
+    p = counts.copy()
+    if cfg.train.masked_loss:
+        p[0] = 0.0
+    cfg.train.class_distribution = (p / p.sum()).tolist()
+    cfg.datamodule.host_flips = host_flips
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    dm = Datamodule(cfg.datamodule, source=source)
+    dm.set_mean_std(*mean_std)
+    return SegmentationTrainer(cfg, dm, device="cuda")
+
+
+def corpus_mae_trainer(work: Path, source, **train):
+    """Config #5's MAETrainer (Prithvi-100M, T=1, bf16, batch 64, 224^2) over
+    ``source``'s images."""
+    from s2tpu_torch.cli.train_mae import build_parser, config_from_args
+    from s2tpu_torch.configs.segmentation import DatamoduleConfig, DatasetConfig
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    cfg = config_from_args(build_parser().parse_args(mae_argv(work, "corpus")))
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    dmc = cfg.datamodule
+    dm = Datamodule(DatamoduleConfig(
+        dataset_cfg=DatasetConfig(aoi="small", label_map="osm-multiclass"), batch_size=dmc.batch_size,
+        data_split=dmc.data_split, augment=dmc.augment, random_crop_size=dmc.random_crop_size,
+        shuffle_seed=dmc.shuffle_seed,
+    ), source=source)
+    return MAETrainer(cfg, dm, device="cuda")
+
+
+def corpus_draws(trainer, n: int, epoch: int = 0) -> np.ndarray:
+    """The first ``n`` steps' (3, B) draws of ``epoch``'s corpus stream, as
+    the trainer's epoch loop makes them."""
+    from s2tpu_torch.data.device_corpus import sample_crop_batch
+    from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
+
+    dmc = trainer.config.datamodule
+    rng = epoch_rng(dmc.shuffle_seed, epoch, 0)
+    order, _ = sample_epoch_order(rng, trainer.dm.train_idx, trainer.dm._sample_weights, dmc.batch_size, 0)
+    return np.stack([np.stack(sample_crop_batch(rng, order, b, dmc.batch_size, trainer.corpus.hw,
+                                                dmc.random_crop_size, True)) for b in range(n)])
+
+
+def trainer_state(trainer) -> dict[str, torch.Tensor]:
+    """Everything a step changes: parameters, buffers (BatchNorm
+    statistics), Adam's state, the master, the EMA and the corpus epoch's
+    sums, by name."""
+    out = {f"model.{k}": v for k, v in trainer.model.state_dict().items()}
+    for i, st in enumerate(trainer.optimizer.state.values()):
+        out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    for part in ("master", "ema"):
+        if getattr(trainer, part) is not None:
+            out.update({f"{part}.{k}": v for k, v in getattr(trainer, part).state_dict().items()})
+    for k, v in (trainer._sums or {}).items():
+        out[f"sums.{k}"] = v
+    return out
+
+
+def bit_equal(what: str, ours: dict, ref: dict, skip: tuple = ()) -> int:
+    """Raises unless every tensor of ``ours`` equals ``ref``'s bit for bit
+    (names starting with ``skip`` left out); returns how many were held."""
+    names = [k for k in ref if not k.startswith(skip)]
+    if sorted(k for k in ours if not k.startswith(skip)) != sorted(names):
+        raise AssertionError(f"{what}: other tensors: {sorted(set(ours) ^ set(ref))[:5]}")
+    unequal = [k for k in names if not torch.equal(ours[k], ref[k])]
+    if unequal:
+        worst = max(float((ours[k].double() - ref[k].double()).abs().max()) for k in unequal)
+        raise AssertionError(f"{what}: {len(unequal)} of {len(names)} tensors differ (max |diff| {worst:.3g}), "
+                             f"first {unequal[:5]}")
+    return len(names)
+
+
+def device_profile(run) -> dict:
+    """One call of ``run`` under ``torch.profiler``: device ms, the port
+    kernels' launches by number (``PORT_KERNEL_NAMES``) and the host's
+    launch API calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))]
+    return {
+        "device_ms": sum(getattr(e, "self_device_time_total", 0.0) for e in kernels) / 1e3,
+        "kernels": sum(e.count for e in kernels),
+        "launches": {k: sum(e.count for e in kernels if frag in e.key) for k, frag in PORT_KERNEL_NAMES.items()},
+        "host_api": {e.key: e.count for e in events if e.device_type == DeviceType.CPU and e.key in LAUNCH_APIS},
+    }
+
+
+def time_run(label: str, run, steps: int, batch: int, one, profiled: bool = True) -> dict:
+    """Warm ``run`` (``steps`` train steps of ``batch`` images), then time it:
+    ms per step, images/s, peak bytes; and, when ``profiled``, from one step
+    (``one``) under ``torch.profiler`` its device ms and the busy share
+    (device ms over the wall ms of the same step unprofiled) and the host's
+    launch calls. One step warms (a graphed trainer's first captures its
+    graph)."""
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    peak = torch.cuda.max_memory_allocated()
+    if not profiled:  # a repeat: the wall clock and memory only
+        log(f"{label} ({CARD}): ms_per_step={step_s * 1e3:.3f} images_per_s={batch / step_s:.2f} "
+            f"peak_mem_bytes={peak} (repeat, not profiled)")
+        return {"ms_per_step": step_s * 1e3, "images_per_s": batch / step_s, "peak_mem_bytes": peak}
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(one)
+    if not prof["device_ms"]:  # the profiler at times records no device time: once more
+        prof = device_profile(one)
+    device_ms = prof["device_ms"]
+    host_calls = sum(prof["host_api"].values())
+    out = {"ms_per_step": step_s * 1e3, "images_per_s": batch / step_s, "device_ms_per_step": device_ms,
+           "busy_share": device_ms / wall_ms if device_ms else None, "peak_mem_bytes": peak,
+           "host_launch_calls_per_step": host_calls}
+    log(f"{label} ({CARD}): ms_per_step={out['ms_per_step']:.3f} images_per_s={out['images_per_s']:.2f} "
+        f"device_ms_per_step={device_ms:.3f} busy_share="
+        f"{'not measured' if out['busy_share'] is None else round(out['busy_share'], 3)} peak_mem_bytes={peak} "
+        f"host_launch_calls_per_step={host_calls}")
+    return out
+
+
+def windows(trainer, draws: np.ndarray, k: int):
+    """A callable that trains ``draws`` in windows of ``k`` steps."""
+    def run():
+        trainer.config.train.steps_per_dispatch = k
+        for i in range(0, len(draws), k):
+            trainer.train_window(draws[i:i + k])
+    return run
+
+
+@contextlib.contextmanager
+def sigterm_after_first_window(cls):
+    """Inside the block, ``cls.train_window`` raises a real SIGTERM after its
+    first call (the handler ``fit`` installs then stops the run at that
+    window's end)."""
+    import signal
+
+    window, calls = cls.train_window, []
+
+    def wrapped(self, *args, **kwargs):
+        out = window(self, *args, **kwargs)
+        calls.append(1)
+        if len(calls) == 1:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    cls.train_window = wrapped
+    try:
+        yield
+    finally:
+        cls.train_window = window
+
+
+def check_replay_launches(label: str, graphed, eager, draw: np.ndarray, expected: dict) -> dict:
+    """(d) one replay of ``graphed``'s step graph and one eager step of
+    ``eager`` on the same draw under ``torch.profiler``: each port kernel
+    launched exactly ``expected`` times in both; the host's launch API
+    calls of each logged."""
+    replay = device_profile(lambda: graphed.train_window(draw))
+    step = device_profile(lambda: eager.train_window(draw))
+    got = {k: v for k, v in replay["launches"].items() if k in expected}
+    if got != expected or {k: step["launches"][k] for k in expected} != expected:
+        raise AssertionError(f"{label}: launches per replay {replay['launches']}, per eager step "
+                             f"{step['launches']}, expected {expected}")
+    log(f"{label} (d) launches per step from torch.profiler: replay {got} = eager step = expected; device kernels "
+        f"{replay['kernels']} a replay, {step['kernels']} an eager step; host launch API calls: replay "
+        f"{replay['host_api']}, eager step {step['host_api']}")
+    return {"replay": replay["launches"], "replay_host_api": replay["host_api"], "eager_host_api": step["host_api"]}
+
+
+def check_corpus_cli(work: Path, per: int) -> dict:
+    """(e) the training CLI in corpus mode with 4-step windows (B5, bf16,
+    batch PREEMPT_CORPUS_BATCH on phase 6's data: one epoch of 8 batches),
+    with deterministic cuDNN: one uninterrupted run (the main path, its
+    launch counts read), one stopped by a SIGTERM in its first window, and
+    that one resumed by the same command (``--auto-resume``); the resumed
+    run's checkpoint equals the uninterrupted one's bit for bit. Returns the
+    main path's launches."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+    from s2tpu_torch.cli.train_segmentation import main as train_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    name = f"chip-smoke-corpus-{os.getpid()}"
+    # --watch-interval 0: watched norms are read every step, which turns windows off
+    extra = ["--bs", str(PREEMPT_CORPUS_BATCH), "--device-corpus", "--steps-per-dispatch", str(CORPUS_K),
+             "--watch-interval", "0", "--auto-resume"]
+    try:
+        with deterministic_cudnn():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            train_main([*train_argv(work / "train_data", f"{name}-ref", epochs=1), *extra])  # the main path
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            launches = launch_counts()
+            with sigterm_after_first_window(SegmentationTrainer):
+                stopped = train_main([*train_argv(work / "train_data", f"{name}-int", epochs=1), *extra])
+            (run,) = CKPT_DIR.glob(f"*/{name}-int_*")
+            ckpt = CheckpointManager(run)
+            marker = ckpt.restore_preempt() if ckpt.has_preempt() else {}
+            resumed = train_main([*train_argv(work / "train_data", f"{name}-int", epochs=1), *extra])
+        (ref_run,) = CKPT_DIR.glob(f"*/{name}-ref_*")
+        ref, got = CheckpointManager(ref_run).restore(0), ckpt.restore(0)
+        if stopped != [] or (marker.get("batches_done"), marker.get("step")) != (CORPUS_K, CORPUS_K) \
+                or ckpt.has_preempt():
+            raise AssertionError(f"corpus preemption: history {stopped}, marker batches_done "
+                                 f"{marker.get('batches_done')}, step {marker.get('step')}")
+        if [r["epoch"] for r in resumed] != [0] or got["step"] != ref["step"]:
+            raise AssertionError(f"corpus resume: {[r['epoch'] for r in resumed]}, step {got['step']} vs {ref['step']}")
+        held = bit_equal("(e) resumed vs uninterrupted model", got["model"], ref["model"])
+        adam = bit_equal("(e) resumed vs uninterrupted Adam",
+                         {f"{p}.{k}": v for p, st in got["optimizer"]["state"].items() for k, v in st.items()},
+                         {f"{p}.{k}": v for p, st in ref["optimizer"]["state"].items() for k, v in st.items()})
+        # Each trainer's counts move in its warm-up step and its capture only
+        # (a replay launches from the graph): two steps, then the eval batch.
+        expected = launch_dict(depthwise_fwd=2 * per + per, depthwise_dx=2 * per, depthwise_dw=2 * per,
+                               fused_ce_fwd=2 + 1, fused_ce_bwd=2)
+        if launches != expected:
+            raise AssertionError(f"corpus CLI launches {launches} != expected {expected}")
+        log(f"corpus (e) CLI --device-corpus --steps-per-dispatch {CORPUS_K} (B5 bf16, batch {PREEMPT_CORPUS_BATCH}, "
+            f"8 batches, deterministic cuDNN, {CARD}): the uninterrupted run in {ref_s:.1f} s, launch counts "
+            f"{launches} = warm-up + capture + 1 eval batch; SIGTERM in window 1 -> marker batches_done "
+            f"{marker['batches_done']}, step {marker['step']}; --auto-resume -> {held} model and {adam} Adam "
+            "tensors equal to the uninterrupted run's, bit for bit")
+        return launches
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}-*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}-*"):
+            f.unlink(missing_ok=True)
+
+
+def check_mae_corpus_cli(work: Path) -> dict:
+    """The MAE CLI in corpus mode with 4-step windows (Prithvi-100M, bf16,
+    batch MAE_CORPUS_BATCH, one epoch of 4 batches: one window) on a
+    synthetic unlabeled AOI: the main path, its launch counts read; finite
+    losses, the step count."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager, load_mae_checkpoint
+    from s2tpu_torch.cli.train_mae import main as mae_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.train.mae_trainer import default_model_config
+
+    data_dir = work / "corpus_mae_data"
+    unlabeled_fixture(data_dir, MAE_CORPUS_SEGMENTS)
+    name = f"chip-smoke-mae-corpus-{os.getpid()}"
+    argv = [*mae_argv(data_dir, name), "--epochs", "1", "--bs", str(MAE_CORPUS_BATCH), "--device-corpus",
+            "--steps-per-dispatch", str(CORPUS_K), "--watch-interval", "0"]
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        history = mae_main(argv)  # the main path
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = launch_counts()
+        (run_dir,) = CKPT_DIR.glob(f"*/{name}_*")
+        step = CheckpointManager(run_dir).restore(0)["step"]
+        n_train = int(0.8 * MAE_CORPUS_SEGMENTS)
+        if step != n_train // MAE_CORPUS_BATCH or not all(math.isfinite(r[k]) for r in history
+                                                           for k in ("train/loss", "val/loss")):
+            raise AssertionError(f"MAE corpus CLI: step {step}, history {history}")
+        # the warm-up step and the capture count, replays do not; then the eval batch
+        config, _ = load_mae_checkpoint(run_dir)
+        expected = mae_expected_launches(default_model_config(config), 2, 1, config.model.mask_ratio)
+        if launches != expected:
+            raise AssertionError(f"MAE corpus CLI launches {launches} != expected {expected}")
+        log(f"corpus MAE CLI --device-corpus --steps-per-dispatch {CORPUS_K} (Prithvi-100M T=1, bf16, batch "
+            f"{MAE_CORPUS_BATCH}, {step} steps in one window): {cli_s:.1f} s end to end; train loss "
+            f"{history[0]['train/loss']:.5f}, val loss {history[0]['val/loss']:.5f}; launch counts {launches} = "
+            "the warm-up step, the capture and the eval batch")
+        return launches
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}_*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+            f.unlink(missing_ok=True)
+
+
+def phase_corpus(work: Path) -> dict:
+    """Phase C: the device corpus and graphed steps (after phase 6, on its
+    data for (e)): (a) the "fr" AOI's corpus uploaded, (b) corpus steps
+    against streamed steps, (c) graphed windows against eager steps for B5,
+    B5 with bf16 parameters + master + EMA and the MAE, with the remainder,
+    (d) launches per replay, (e) preemption through the CLI, (f) times.
+    Returns launches and times."""
+    from s2tpu_torch.data.device_corpus import DeviceCorpus
+    from s2tpu_torch.models.efficientnet_unet import count_stride1_depthwise
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    out: dict = {}
+    label = f"(B5 bf16, batch {TRAIN_BATCH}, 224^2, focal + weighted)"
+    torch.cuda.reset_peak_memory_stats()
+    # (a) the corpus at a real size
+    t0 = time.perf_counter()
+    source, mean_std, counts = pool_source(CORPUS_SEGMENTS)
+    t1 = time.perf_counter()
+    corpus = DeviceCorpus(source, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t1
+    nbytes = sum(t.numel() * t.element_size() for t in (corpus.images, corpus.labels))
+    log(f"corpus (a) {CORPUS_SEGMENTS} segments {CORPUS_SIZE}^2 x 6 int16 + uint8 labels (the 'fr' AOI's size; "
+        f"seeded pool made in {t1 - t0:.1f} s): materialized and uploaded in {upload_s:.1f} s, "
+        f"{nbytes} bytes on the card")
+    out["corpus"] = {"bytes": nbytes, "upload_s": upload_s}
+
+    with shared_corpus(corpus):
+        make = lambda **kw: corpus_seg_trainer(work, source, mean_std, counts, **kw)  # noqa: E731
+        t_sub = time.perf_counter()
+        stream = make(host_flips=False)
+        eager, graphed = make(device_corpus=True), make(device_corpus=True, steps_per_dispatch=CORPUS_K)
+        draws = corpus_draws(eager, 40)
+        log(f"corpus: three B5 trainers built in {time.perf_counter() - t_sub:.1f} s")
+        t_sub = time.perf_counter()
+        # (b) corpus against stream: two steps, bit for bit
+        with deterministic_cudnn():
+            host = stream.dm.train_batches(0)
+            for j in range(2):
+                batch = next(host)
+                ms = stream.train_step(torch.from_numpy(batch.images).cuda(), torch.from_numpy(batch.labels).cuda())
+                mc = eager.train_window(draws[j:j + 1])
+                if not (torch.equal(ms["loss"], mc["loss"]) and torch.equal(ms["cm"], mc["cm"])):
+                    raise AssertionError(f"(b) step {j}: streamed loss {ms['loss']} vs corpus {mc['loss']}")
+            held = bit_equal("(b) corpus vs streamed", trainer_state(eager), trainer_state(stream), skip=("sums.",))
+            log(f"corpus (b) 2 corpus steps vs 2 streamed steps with host_flips=False {label}, device flips and "
+                f"drop-connect on, deterministic cuDNN: losses and confusion matrices equal, {held} tensors "
+                "(parameters, BatchNorm statistics, Adam) equal, bit for bit")
+            # (c) graphed window of K against eager steps, then the remainder
+            graphed.train_window(draws[:CORPUS_K])
+            eager.train_window(draws[2:CORPUS_K])
+            held = bit_equal("(c) B5 graphed vs eager", trainer_state(graphed), trainer_state(eager))
+            sizes: dict = {"eager": [], "graphed": []}
+            window = SegmentationTrainer.train_window
+            try:
+                SegmentationTrainer.train_window = lambda self, d: (
+                    sizes["graphed" if self is graphed else "eager"].append(len(d)) or window(self, d))
+                for t in (eager, graphed):
+                    t.config.train.overfit_batches = 6
+                    out.setdefault("remainder_loss", []).append(t.run_train_epoch(1)["loss"])
+            finally:
+                SegmentationTrainer.train_window = window
+                for t in (eager, graphed):
+                    t.config.train.overfit_batches = 0
+            rem = bit_equal("(c) B5 remainder, graphed vs eager", trainer_state(graphed), trainer_state(eager))
+            if sizes != {"eager": [1] * 6, "graphed": [CORPUS_K, 1, 1]} or out["remainder_loss"][0] != \
+                    out["remainder_loss"][1]:
+                raise AssertionError(f"(c) remainder windows {sizes}, losses {out['remainder_loss']}")
+            log(f"corpus (c) B5 {label}: a window of {CORPUS_K} graphed steps (capture + {CORPUS_K - 1} replays) vs "
+                f"eager steps: {held} tensors (parameters, BatchNorm statistics, Adam, epoch sums) equal; an "
+                f"epoch of 6 batches in windows {sizes['graphed']} vs 6 eager steps: {rem} tensors and the "
+                "epoch loss equal, bit for bit")
+            per = count_stride1_depthwise(eager.model.config)
+            out["b5_launches"] = check_replay_launches(
+                f"corpus B5 {label}", graphed, eager, draws[CORPUS_K:CORPUS_K + 1],
+                {"#1": 2 * per, "#2": per, "#3": 1, "#4": 1})
+        log(f"corpus (b), (c), (d) B5: {time.perf_counter() - t_sub:.1f} s")
+        t_sub = time.perf_counter()
+        out["peak_with_b5_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"corpus (a) peak device memory with the corpus and three B5 trainers (one step graph): "
+            f"{out['peak_with_b5_bytes']} bytes")
+        # (f) B5 times, each run twice in mirrored order; the graph captured again outside deterministic cuDNN
+        graphed._graph = None
+        images, labels = (torch.from_numpy(a).cuda() for a in next(stream.dm.train_batches(0))[:2])
+        cases = {
+            "streamed": (lambda: [stream.train_step(images, labels) for _ in range(4)], 4,
+                         lambda: stream.train_step(images, labels)),
+            "corpus eager": (windows(eager, draws[:4], 1), 4, windows(eager, draws[:1], 1)),
+            f"corpus graphed K={CORPUS_K}": (windows(graphed, draws[:8], CORPUS_K), 8,
+                                            windows(graphed, draws[:1], CORPUS_K)),
+            "corpus graphed K=8": (windows(graphed, draws[:8], 8), 8, windows(graphed, draws[:1], 8)),
+        }
+        times: dict = {}
+        for name in [*cases, *reversed(cases)]:
+            run, steps, one = cases[name]
+            first = name not in times  # the first run of a pair is profiled
+            times.setdefault(name, []).append(time_run(f"corpus (f) B5 {name} {label}", run, steps, TRAIN_BATCH,
+                                                       one, profiled=first))
+        log(f"corpus (f) B5 timings: {time.perf_counter() - t_sub:.1f} s")
+        out["times"] = times
+        del stream, eager, graphed, images, labels, cases, ms, mc, host
+        torch.cuda.empty_cache()
+
+        # (c) B5 with bf16 parameters, the f32 master and the EMA
+        t_sub = time.perf_counter()
+        with deterministic_cudnn():
+            extras = ("--param-dtype", "bfloat16", "--ema-decay", str(EXTRAS_EMA_DECAY))
+            eager = make(argv_extra=extras, device_corpus=True)
+            graphed = make(argv_extra=extras, device_corpus=True, steps_per_dispatch=CORPUS_K)
+            eager.train_window(draws[:CORPUS_K])
+            graphed.train_window(draws[:CORPUS_K])
+            held = bit_equal("(c) B5 bf16 + master + EMA graphed vs eager", trainer_state(graphed),
+                             trainer_state(eager))
+        log(f"corpus (c) B5 bf16 parameters + f32 master + EMA {EXTRAS_EMA_DECAY} {label}: a window of {CORPUS_K} "
+            f"graphed steps vs {CORPUS_K} eager steps: {held} tensors (with the masters and the EMA) equal, bit for "
+            "bit")
+        del eager, graphed
+        torch.cuda.empty_cache()
+        log(f"corpus (c) B5 bf16: {time.perf_counter() - t_sub:.1f} s")
+
+        # (f) the extras' device cost: accumulation and remat, graphed
+        t_sub = time.perf_counter()
+        accum = make(device_corpus=True, steps_per_dispatch=CORPUS_K, grad_accum_steps=2)
+        remat = make(device_corpus=True, steps_per_dispatch=CORPUS_K, remat=True)
+        extra_cases = {"accum 2": accum, "remat": remat}
+        for name in [*extra_cases, *reversed(extra_cases)]:
+            t, first = extra_cases[name], name not in times
+            times.setdefault(name, []).append(time_run(
+                f"corpus (f) B5 {name} graphed K={CORPUS_K} {label}", windows(t, draws[:CORPUS_K], CORPUS_K),
+                CORPUS_K, TRAIN_BATCH, windows(t, draws[:1], CORPUS_K), profiled=first))
+        del accum, remat, extra_cases, t
+        torch.cuda.empty_cache()
+        log(f"corpus (f) B5 extras: {time.perf_counter() - t_sub:.1f} s")
+        t_sub = time.perf_counter()
+
+        # (c), (d), (f) the MAE at T=1
+        mae_label = f"(Prithvi-100M T=1, bf16, batch {MAE_BATCH}, 224^2)"
+        with deterministic_cudnn():
+            eager = corpus_mae_trainer(work, source, device_corpus=True)
+            graphed = corpus_mae_trainer(work, source, device_corpus=True, steps_per_dispatch=CORPUS_K)
+            mdraws = corpus_draws(eager, 12)
+            eager.train_window(mdraws[:CORPUS_K])
+            graphed.train_window(mdraws[:CORPUS_K])
+            held = bit_equal("(c) MAE graphed vs eager", trainer_state(graphed), trainer_state(eager))
+            log(f"corpus (c) MAE {mae_label}, device flips on: a window of {CORPUS_K} graphed steps vs "
+                f"{CORPUS_K} eager steps: {held} tensors (parameters, Adam, epoch sums) equal, bit for bit")
+            mc = graphed.model_config
+            out["mae_launches"] = check_replay_launches(
+                f"corpus MAE {mae_label}", graphed, eager, mdraws[CORPUS_K:CORPUS_K + 1],
+                {"#8": mc.decoder_depth, "#9": mc.decoder_depth, "#9 dk/dv": mc.decoder_depth})
+        graphed._graph = None
+        mimages = torch.from_numpy(next(graphed.dm.train_batches(0)).images).cuda()
+        mae_cases = {
+            "streamed": (lambda: [graphed.train_step(mimages) for _ in range(4)], 4,
+                         lambda: graphed.train_step(mimages)),
+            f"corpus graphed K={CORPUS_K}": (windows(graphed, mdraws[:8], CORPUS_K), 8,
+                                            windows(graphed, mdraws[:1], CORPUS_K)),
+        }
+        for name in [*mae_cases, *reversed(mae_cases)]:
+            run, steps, one = mae_cases[name]
+            first = f"mae {name}" not in times
+            times.setdefault(f"mae {name}", []).append(
+                time_run(f"corpus (f) MAE {name} {mae_label}", run, steps, MAE_BATCH, one, profiled=first))
+        del eager, graphed, mimages, mae_cases, run, one
+        log(f"corpus MAE (c), (d), (f): {time.perf_counter() - t_sub:.1f} s")
+    del corpus, source, make
+    torch.cuda.empty_cache()
+
+    # (e) preemption through the CLI, and the MAE CLI in corpus mode
+    out["cli_launches"] = check_corpus_cli(work, per)
+    out["mae_cli_launches"] = check_mae_corpus_cli(work)
+    return out
+
+
 def micro_batch_times(times: dict, prefix: str = "", err: str = "max_abs_err") -> dict:
     """A kernel's entries at phase A's or B's micro-batch shape for the
     kernels line: its times (``prefix`` picks one direction of a pair) and
@@ -3269,10 +3821,34 @@ def extras_only() -> int:
     return 0
 
 
+def corpus_only() -> int:
+    """``--corpus``: the build, the training slice whose data phase C's CLI
+    runs use, and phase C; no result lines."""
+    phase_build()
+    work = REPO / "out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        for name, fn in (("training slice", phase_train), ("corpus and graphed steps", phase_corpus)):
+            t0 = time.perf_counter()
+            fn(work)
+            log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
+def corpus_entries(corpus: dict, part: str, kernel: str, key: str) -> dict:
+    """A kernel's entries from phase C for the kernels line: its launches in
+    the corpus CLI's main path (warm-up, capture, eval; replays launch from
+    the graph) and in one replay of the step graph (``torch.profiler``)."""
+    cli = "mae_cli_launches" if part == "mae_launches" else "cli_launches"
+    return {"corpus_launches": corpus[cli][key], "corpus_replay_launches": corpus[part]["replay"][kernel]}
+
+
 def main(argv: list[str]) -> int:
     global CARD
-    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"]):
-        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras]", file=sys.stderr)
+    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"], ["--corpus"]):
+        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras | --corpus]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3284,7 +3860,8 @@ def main(argv: list[str]) -> int:
         return 1
     CARD = nvidia_smi()
     if argv:
-        return {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only}[argv[0]]()
+        return {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
+                "--corpus": corpus_only}[argv[0]]()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = CARD
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3319,6 +3896,7 @@ def main(argv: list[str]) -> int:
         migration = timed("migration slice", phase_migration, work)
         mae = timed("MAE slice T=1", phase_mae, work)
         mae_extras = timed("MAE trainer extras", phase_mae_extras, work)
+        corpus = timed("corpus and graphed steps", phase_corpus, work)
         mae_t3 = timed("MAE slice T=3", phase_mae_t3, work)
         with one_rank_mesh(work) as mesh:
             tp = timed("tensor-parallel MAE slice T=1", phase_mae_tp, work, mesh, mae)
@@ -3368,6 +3946,7 @@ def main(argv: list[str]) -> int:
             **{f"accum_dx_{k}": micro["bwd"][f"dx_{k}"] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "accum_dx_max_abs_err": micro["bwd"]["dx_max_abs_err"],
             **depthwise_ptxas(ptxas, "depthwise_s1_fwd"),
+            **corpus_entries(corpus, "b5_launches", "#1", "depthwise_fwd"),
         },
         {
             "name": "depthwise_conv2d_s1_grad_weight",
@@ -3386,6 +3965,7 @@ def main(argv: list[str]) -> int:
             "accum_batch": micro["batch"],
             **micro_batch_times(micro["bwd"], "dw_", "dw_max_abs_err"),
             **depthwise_ptxas(ptxas, "depthwise_s1_dw"),
+            **corpus_entries(corpus, "b5_launches", "#2", "depthwise_dw"),
         },
         {
             "name": "fused_ce_forward",
@@ -3406,6 +3986,7 @@ def main(argv: list[str]) -> int:
             **extras_launches(seg_extras, "fused_ce_fwd"),
             "accum_pixels": micro["batch"] * 224 * 224,
             **micro_batch_times(micro["ce"], "fwd_", "fwd_max_abs_err"),
+            **corpus_entries(corpus, "b5_launches", "#3", "fused_ce_fwd"),
         },
         {
             "name": "fused_ce_backward",
@@ -3426,6 +4007,7 @@ def main(argv: list[str]) -> int:
             **extras_launches(seg_extras, "fused_ce_bwd"),
             "accum_pixels": micro["batch"] * 224 * 224,
             **micro_batch_times(micro["ce"], "bwd_", "bwd_max_abs_err"),
+            **corpus_entries(corpus, "b5_launches", "#4", "fused_ce_bwd"),
         },
         {
             "name": "fused_attention_qkv_forward",
@@ -3478,6 +4060,7 @@ def main(argv: list[str]) -> int:
             "extras_launches": mae_extras["launches"]["attn_fused_fwd"],
             # at phase B's micro-batch: the decoder at MAE_BATCH / 2
             **micro_batch_times(mae_extras["micro_attention"], "fwd_", "fwd_max_abs_err"),
+            **corpus_entries(corpus, "mae_launches", "#8", "attn_fused_fwd"),
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"fwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **fwd_ptxas,
         },
@@ -3497,6 +4080,7 @@ def main(argv: list[str]) -> int:
             "fc_prithvi_launches": fc["launches"]["attn_fused_bwd"],
             "extras_launches": mae_extras["launches"]["attn_fused_bwd"],
             **micro_batch_times(mae_extras["micro_attention"], "bwd_", "bwd_max_abs_err"),
+            **corpus_entries(corpus, "mae_launches", "#9", "attn_fused_bwd"),
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"bwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         },
         {

@@ -10,9 +10,13 @@ per sample: the source is built with the dataset config's
 ``ckpts/<project>/<run>/`` (or ``--resume-from``'s directory) and scalars in
 ``logs/runs/<run>.metrics.jsonl``, with the grad/param norms every
 ``train.watch_interval`` steps. The flags are the JAX CLI's, ``--ema-decay``,
-``--grad-accum`` and ``--remat`` among them; those whose feature is not
-ported (pipeline parallelism, the device corpus and multi-step dispatch,
-more than one device) are refused with a message. A SIGTERM saves the state
+``--grad-accum``, ``--remat``, ``--device-corpus`` and
+``--steps-per-dispatch`` among them (with the device corpus, N steps a
+window replay one CUDA graph of the whole step on the card), and the
+segmentation CLI's ``--watch-interval``, without which a run watches its
+norms every 30 steps and so trains one eager step a window; those whose
+feature is not ported (pipeline parallelism, the sharded corpus, more than
+one device) are refused with a message. A SIGTERM saves the state
 at the next step boundary; the same command with ``--auto-resume`` (or
 ``--resume-from <run dir>``) continues the interrupted epoch exactly.
 """
@@ -41,6 +45,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--log-interval", type=int, default=None)
+    p.add_argument(
+        "--watch-interval", type=int, default=None,
+        help="grad/param-norm logging every N steps (0 disables; default 30); a watched run trains one step a "
+        "window, so --steps-per-dispatch needs 0",
+    )
     p.add_argument("--num-frames", type=int, default=None)
     p.add_argument("--crop", type=int, default=None, help="training crop size (/16; default 224)")
     p.add_argument(
@@ -64,9 +73,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true", help="recompute each ViT block's activations in the backward pass")
     p.add_argument("--pp", type=int, default=None, metavar="STAGES", help="not ported beyond 1")
     p.add_argument("--pp-microbatches", type=int, default=None, help="not ported")
-    p.add_argument("--device-corpus", action="store_true", help="not ported")
-    p.add_argument("--device-corpus-sharded", action="store_true", help="not ported")
-    p.add_argument("--steps-per-dispatch", type=int, default=None, help="not ported beyond 1")
+    p.add_argument(
+        "--device-corpus", action="store_true", help="upload the corpus to the card once; crop and flip on the card"
+    )
+    p.add_argument("--device-corpus-sharded", action="store_true", help="not ported (a data axis, ROADMAP item 16)")
+    p.add_argument(
+        "--steps-per-dispatch", type=int, default=None,
+        help="device-corpus mode: N steps a window, each a replay of one CUDA graph of the whole step "
+        "(watched norms are read every step: with --watch-interval above 0, windows hold one eager step)",
+    )
     p.add_argument("--resume-from", default=None, help="run directory of a previous run: restore its latest epoch")
     p.add_argument(
         "--auto-resume", action="store_true",
@@ -81,9 +96,7 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     asked = {
         "--pp > 1": (args.pp or 1) > 1,
         "--pp-microbatches": args.pp_microbatches is not None,
-        "--device-corpus": args.device_corpus,
         "--device-corpus-sharded": args.device_corpus_sharded,
-        "--steps-per-dispatch > 1": (args.steps_per_dispatch or 1) > 1,
         "--num-devices other than 1": args.num_devices not in (-1, 1),
     }
     return [flag for flag, on in asked.items() if on]
@@ -107,6 +120,7 @@ def config_from_args(args: argparse.Namespace) -> mae_cfg.MAEConfig:
     t.lr = args.lr or t.lr
     t.max_epochs = args.epochs or t.max_epochs
     t.log_interval = args.log_interval or t.log_interval
+    t.watch_interval = args.watch_interval if args.watch_interval is not None else t.watch_interval
     t.compute_dtype = args.compute_dtype or t.compute_dtype
     t.ema_decay = args.ema_decay if args.ema_decay is not None else t.ema_decay
     t.use_wandb_logger = False if args.wandb else t.use_wandb_logger
@@ -114,6 +128,9 @@ def config_from_args(args: argparse.Namespace) -> mae_cfg.MAEConfig:
     t.seed = args.seed if args.seed is not None else t.seed
     t.grad_accum_steps = args.grad_accum or t.grad_accum_steps
     t.remat = args.remat or t.remat
+    t.device_corpus = args.device_corpus or args.device_corpus_sharded or t.device_corpus
+    t.device_corpus_sharded = args.device_corpus_sharded or t.device_corpus_sharded
+    t.steps_per_dispatch = args.steps_per_dispatch if args.steps_per_dispatch is not None else t.steps_per_dispatch
     if args.num_frames:
         config.model.num_frames = args.num_frames
         dmc.dataset_cfg.n_time_frames = args.num_frames

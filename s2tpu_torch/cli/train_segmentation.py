@@ -7,8 +7,12 @@ Trains on the card unless ``--device cpu``. Epoch checkpoints land in
 ``python -m s2tpu_torch.cli.infer <run dir>`` serves; scalars go to
 ``logs/runs/<run>.metrics.jsonl``, with the grad/param norms every
 ``--watch-interval`` steps. Only the flags of features the port has are
-accepted: mesh and sharding flags, the device corpus and ``--type tune`` are
-not ported yet, and argparse refuses them. The trainer's extras take the JAX
+accepted: mesh and sharding flags (``--num-devices``, ``--fsdp``,
+``--device-corpus-sharded``) and ``--type tune`` are not ported yet, and
+argparse refuses them. ``--device-corpus`` uploads the AOI to the card once
+and gathers each step's crops there; with it, ``--steps-per-dispatch N``
+replays one CUDA graph of the whole step N steps a window (on the CPU, with
+``--device cpu``, the same windows of eager steps). The trainer's extras take the JAX
 CLI's flags (``--remat``, ``--param-dtype bfloat16``, ``--ema-decay D``,
 ``--watch-interval N``, ``--bn-recal N``); gradient accumulation is the
 config field ``train.grad_accum_steps``, as in the JAX CLI. A SIGTERM saves
@@ -82,6 +86,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wandb", action="store_true", help="disable wandb (the port logs to JSONL only)")
     p.add_argument("--tags", nargs="+", default=[])
     p.add_argument("--remat", action="store_true", help="recompute each block's activations in the backward pass")
+    p.add_argument(
+        "--device-corpus", action="store_true",
+        help="upload the corpus to the card once; crop and flip on the card",
+    )
+    p.add_argument(
+        "--steps-per-dispatch", type=int, default=None,
+        help="device-corpus mode: N steps a window, each a replay of one CUDA graph of the whole step "
+        "(watched norms are read every step: with --watch-interval above 0, windows hold one eager step)",
+    )
     p.add_argument("--compute-dtype", default=None, choices=list(cfg_lib.COMPUTE_DTYPES))
     p.add_argument(
         "--param-dtype", default=None, choices=["bfloat16", "float32"],
@@ -156,6 +169,8 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
     t.watch_interval = args.watch_interval if args.watch_interval is not None else t.watch_interval
     t.bn_recalibration_batches = args.bn_recal if args.bn_recal is not None else t.bn_recalibration_batches
     t.remat = args.remat or t.remat
+    t.device_corpus = args.device_corpus or t.device_corpus
+    t.steps_per_dispatch = args.steps_per_dispatch if args.steps_per_dispatch is not None else t.steps_per_dispatch
     t.use_wandb_logger = False if args.wandb else t.use_wandb_logger
     t.tags.extend(args.tags)
     t.compute_dtype = args.compute_dtype or t.compute_dtype

@@ -72,10 +72,10 @@ class DatamoduleConfig:
     random_horizontal_flip_p: float = 0.5
     random_vertical_flip_p: float = 0.5
     random_crop_size: int = 224
-    # Apply the random H/V flips on the host during the crop gather (free:
-    # a reversed memcpy in the C++ gather / a numpy view, overlapped with
-    # device compute) instead of as select/reverse ops inside the XLA step.
-    # Ignored (flips stay on device) when train.device_corpus is set.
+    # Apply the random H/V flips on the host during the crop gather (numpy
+    # views, overlapped with device compute) instead of as selects inside
+    # the train step on the device (data/augment.random_flips). Ignored
+    # (flips stay on the device) when train.device_corpus is set.
     host_flips: bool = True
     class_distribution: list[float] | None = None  # enables weighted sampling
     prefetch: int = 2  # host->device prefetch depth
@@ -115,19 +115,17 @@ class TrainConfig:
     # False / "grouped" / "dense"). Layout-only — same params/checkpoints.
     packed_early_blocks: bool | str = False
     donate_state: bool = True  # donate train-state buffers to the jit'd step
-    # Upload the packed corpus to HBM once and crop on device — per step the
-    # host sends only index/offset vectors (see s2tpu/data/device_corpus.py).
+    # Upload the corpus to the card once and crop there: per step the host
+    # sends only index/offset vectors (data/device_corpus.py).
     device_corpus: bool = False
-    # Shard the corpus segment axis over the 'data' mesh (corpora beyond
-    # per-chip HBM): each device holds N/D segments and contributes B/D
-    # samples per step from its own shard; multi-host holds per-host blocks.
+    # Shard the corpus segment axis over a data mesh: not ported (refused;
+    # it needs ROADMAP item 16's data axis).
     device_corpus_sharded: bool = False
-    # Fuse N consecutive train steps into ONE XLA program (lax.scan over the
-    # donated state) in device-corpus mode, where per-step input is only the
-    # int32 index/offset vectors. Amortizes per-step host dispatch latency —
-    # the host wakes once per N optimizer steps. Semantics are bit-identical
-    # to N single steps (same per-step RNG fold on state.step). Ignored in
-    # host-streamed mode (each step needs a fresh host batch).
+    # In device-corpus mode, train N steps a window: on the card each step
+    # replays one CUDA graph of the whole step (train/graphs.py), so the
+    # host launches one graph where an eager step launches thousands.
+    # Bit-identical to N single steps. One step a window while the norms
+    # are watched (read every step); ignored in host-streamed mode.
     steps_per_dispatch: int = 1
     # When > 0, replace BN running statistics with exact statistics pooled
     # over this many train batches before each validation pass

@@ -1,6 +1,12 @@
-"""Input normalization and the model-input layout (the port's counterparts of
-``s2tpu/data/augment.py::normalize`` and ``SegmentationTrainer._model_input``).
+"""Device-side flips, input normalization and the model-input layout (the
+port's counterparts of ``s2tpu/data/augment.py`` and
+``SegmentationTrainer._model_input``).
 
+The flips draw from an explicit device generator that the trainer reseeds
+for every (seed, step, micro-batch), as the JAX step folds those into its
+augmentation key; the two frameworks' generators give other numbers from one
+seed, so the flips agree with the JAX package's only where the draws decide
+nothing (p = 0 and p = 1) or where the flags are given (:func:`apply_flips`).
 The JAX package's optional space-to-depth packing is a TPU lane layout and
 has no counterpart here.
 """
@@ -18,6 +24,48 @@ def normalize(
     x = images.to(torch.float32)
     x = (x - mean.to(torch.float32)) / std.to(torch.float32)
     return x.to(dtype)
+
+
+def apply_flips(
+    images: torch.Tensor, labels: torch.Tensor | None, flip_h: torch.Tensor, flip_v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Per-sample flips of (B, [T,] H, W, C) images and (B, H, W) labels by
+    the (B,) bool flags ``flip_h`` (left-right) and ``flip_v`` (up-down), as
+    ``torch.where`` selects between the flipped and unflipped tensors: no
+    shape depends on the flags. All frames of a sample flip together, and
+    its labels with them."""
+    shape = (images.shape[0],) + (1,) * (images.dim() - 1)
+    images = torch.where(flip_h.reshape(shape), images.flip(-2), images)
+    images = torch.where(flip_v.reshape(shape), images.flip(-3), images)
+    if labels is not None:
+        lshape = (labels.shape[0],) + (1,) * (labels.dim() - 1)
+        labels = torch.where(flip_h.reshape(lshape), labels.flip(-1), labels)
+        labels = torch.where(flip_v.reshape(lshape), labels.flip(-2), labels)
+    return images, labels
+
+
+def random_flips(
+    images: torch.Tensor, labels: torch.Tensor | None, generator: torch.Generator,
+    p_horizontal: float = 0.5, p_vertical: float = 0.5,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Flip each sample left-right with probability ``p_horizontal`` and
+    up-down with ``p_vertical`` (``s2tpu/data/augment.py:60-89``), the two
+    (B,) uniform draws taken from ``generator`` in one call on the images'
+    device."""
+    u = torch.rand((2, images.shape[0]), generator=generator, device=images.device)
+    return apply_flips(images, labels, u[0] < p_horizontal, u[1] < p_vertical)
+
+
+def augment_batch(
+    images: torch.Tensor, labels: torch.Tensor | None, generator: torch.Generator | None,
+    mean: torch.Tensor, std: torch.Tensor, p_horizontal: float = 0.5, p_vertical: float = 0.5,
+    dtype: torch.dtype = torch.bfloat16, train: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The device transform of a batch (``s2tpu/data/augment.py:92-107``):
+    flips when ``train``, then :func:`normalize`."""
+    if train:
+        images, labels = random_flips(images, labels, generator, p_horizontal, p_vertical)
+    return normalize(images, mean, std, dtype=dtype), labels
 
 
 def model_input(

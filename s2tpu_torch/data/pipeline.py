@@ -7,7 +7,9 @@
 The same ``shuffle_seed`` gives the same split, epoch order, crops and
 flips as the JAX package's Datamodule. Eval batches are padded to a fixed
 batch size with a validity mask, as the JAX package pads them. Only the
-GeoTIFF source is ported; flips happen on the host (``host_flips``). The MAE
+GeoTIFF source is ported. Flips happen on the host when ``host_flips`` is on;
+off, the stream draws none and the trainer flips on the device, taking the
+same draws as the device corpus (``data/device_corpus.py``). The MAE
 trainer takes these batches as they are (unlabeled sources give zero
 labels): where the JAX MAE path flips on the host and again on the device,
 the port flips once, which gives crops of the same distribution (the XOR of
@@ -132,7 +134,8 @@ class Datamodule:
 
     def train_batches(self, epoch: int, overfit_batches: int = 0, start: int = 0) -> typing.Iterator[HostBatch]:
         """One epoch of shuffled, randomly cropped and flipped, drop-last
-        train batches (``s2tpu/data/pipeline.py:169-207``, host flips).
+        train batches (``s2tpu/data/pipeline.py:169-207``; flipped here only
+        with ``host_flips``).
         ``start`` skips the first batches without reading their images: their
         random draws are still made, so the rest of the stream is the same
         (a preempted epoch's resume)."""

@@ -2,22 +2,48 @@
 
 ``TrainerBase`` holds the state around the optimizer that both trainers
 keep: the f32 master of bf16 parameters, the parameter EMA, the per-step
-update with its watch norms, the checkpoint state, the resume from an epoch
-or a pending preemption checkpoint, and ``fit``'s epoch loop with its SIGTERM
-handler. A subclass supplies the model, the optimizer, ``run_train_epoch``
-and ``_end_epoch``.
+update with its watch norms, the draw generators, the checkpoint state, the
+resume from an epoch or a pending preemption checkpoint, ``fit``'s epoch loop
+with its SIGTERM handler, and the device corpus's epoch of windows. A
+subclass supplies the model, the optimizer, the step (``_step`` and
+``_corpus_step``), ``run_train_epoch`` and ``_end_epoch``.
+
+The device corpus's epoch (``_run_corpus_epoch``, the port of
+``s2tpu/train/trainer.py:772-883`` and ``mae_trainer.py:381-488``) draws
+each step's segment indices and crop offsets on the host, exactly as the JAX
+loop does, and trains them in windows of ``steps_per_dispatch`` steps
+(``train_window``): the window's (K, 3, B) int32 draws go to the device in
+one copy. On the card, with K > 1, the whole step (gather, flips,
+normalization, forward, loss, backward, f32 gradient sums, Adam, the master
+write-back, the EMA and the epoch sums) is one CUDA graph
+(:class:`s2tpu_torch.train.graphs.StepGraph`), replayed once a step: the host
+writes the step's learning rate and the window's row into the graph's
+inputs and reseeds the step's generators, a handful of launches where an
+eager step makes thousands. The graph holds one step, not K: its capture
+costs the same at any K, and the remainder of an epoch (fewer than K
+batches, run as single steps as in the JAX loop) replays the same graph.
+Everything a graphed step computes is what the eager step computes, bit for
+bit. On the CPU the same windows run eager steps, as the caller asked for
+the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
 import signal
+import time
 import typing
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from s2tpu_torch.train.train_state import F32Master, ParamEMA, apply_update, watch_norms
+from s2tpu_torch.data.device_corpus import sample_crop_batch
+from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
+from s2tpu_torch.train.graphs import StepGraph
+from s2tpu_torch.train.train_state import (
+    F32Master, ParamEMA, apply_update, draw_seed, load_optimizer_state, set_lr, watch_norms,
+)
 from s2tpu_torch.utils import get_logger, get_unique_run_name
 
 logger = get_logger(__name__)
@@ -112,6 +138,14 @@ class TrainerBase:
         self.preempt_flag = False  # set by the SIGTERM handler (fit)
         self._skip_batches = 0  # batches of the resumed epoch already trained
         self._resumed_from_preempt = False  # this run consumed the preemption checkpoint
+        # Micro-batch i of every step draws (flips, drop-connect or dropout,
+        # masking noise) from generators[i], reseeded from (seed, step, i)
+        # before the step; one generator each, so that a CUDA graph of the
+        # step can hold every one of them.
+        self.generators = [torch.Generator(device=self.device) for _ in range(max(t.grad_accum_steps, 1))]
+        self._graph: StepGraph | None = None  # the captured corpus step; None until the first graphed window
+        self._sums: dict[str, torch.Tensor] | None = None  # the corpus epoch's device sums
+        self._window_logged = False  # the one log line when watching turns fusion off
 
     def _trainable(self) -> list[tuple[str, torch.nn.Parameter]]:
         return [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
@@ -121,15 +155,26 @@ class TrainerBase:
         for p in self.model.parameters():
             p.grad = None
 
+    def _learning_rate(self) -> float:
+        """The learning rate of the next update."""
+        return self.config.train.lr
+
+    def _begin_step(self) -> None:
+        """The host's part of the next step: its learning rate into the
+        optimizer and its generators reseeded from (seed, step, micro-batch)."""
+        set_lr(self.optimizer, self._learning_rate())
+        seed = self.config.train.seed
+        for i, g in enumerate(self.generators):
+            g.manual_seed(draw_seed(seed, self.step, i))
+
     def _update(self, named: list[tuple[str, torch.nn.Parameter]], grads: list[torch.Tensor], accum: int,
                 watch: bool) -> dict[str, typing.Any]:
         """Apply the mean of the summed micro-batch ``grads``; the watch norms
-        (names and device vector) when ``watch``."""
+        (names and device vector) when ``watch``. The caller counts the step."""
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
         params = [p for _, p in named]
         apply_update(self.optimizer, params, grads, self.master, self.ema)
-        self.step += 1
         if not watch:
             return {}
         return {"watch": watch_norms(dict(zip((n for n, _ in named), grads)), dict(self.model.named_parameters()))}
@@ -156,7 +201,8 @@ class TrainerBase:
 
     def _load(self, restored: dict) -> None:
         self.model.load_state_dict(restored["model"], strict=True)
-        self.optimizer.load_state_dict(restored["optimizer"])
+        load_optimizer_state(self.optimizer, restored["optimizer"])
+        self._graph = None  # Adam's state tensors are new: capture the step again
         for name, part in (("master", self.master), ("ema", self.ema)):
             if part is not None:
                 if restored.get(name) is None:
@@ -271,3 +317,103 @@ class TrainerBase:
                 f"({cfg.datamodule.batch_size}); reduce --bs or grow the dataset/split"
             )
         return outs, n, images_seen
+
+    # ------------------------------------------------------------------
+    # The device corpus: windows of steps, graphed on the card.
+    def _window_size(self) -> int:
+        """Steps a corpus window trains: ``steps_per_dispatch``, but 1 (said
+        once in the log) when the norms are watched, which are read each
+        step (``s2tpu/train/trainer.py:816-825``)."""
+        t = self.config.train
+        k = max(t.steps_per_dispatch, 1)
+        if k > 1 and self.run_logger is not None and t.watch_interval > 0:
+            if not self._window_logged:
+                logger.info("steps_per_dispatch > 1 disabled (watch logging reads the norms of every step)")
+                self._window_logged = True
+            return 1
+        return k
+
+    def _corpus_sum_shapes(self) -> dict[str, tuple[int, ...]]:
+        """The per-step outputs the corpus epoch sums, and their shapes."""
+        return {"loss": ()}
+
+    def _corpus_step(self, row: torch.Tensor) -> dict[str, typing.Any]:
+        """One step on the corpus crops of ``row`` ((3, B) int32 indices and
+        offsets on the device), its loss (and confusion matrix) added to the
+        epoch's device sums; capturable."""
+        raise NotImplementedError
+
+    def _add_to_sums(self, m: dict[str, typing.Any]) -> None:
+        for k, total in self._sums.items():
+            total.add_(m[k])
+
+    def train_window(self, draws: np.ndarray) -> dict[str, typing.Any] | None:
+        """Train one window of corpus steps: ``draws`` is (K, 3, B) int32, each
+        step's segment indices and row and column offsets, uploaded in one
+        copy. On the card, when the configured window is above one step,
+        every step replays the captured step graph (the first one captures
+        it); otherwise the steps run eagerly. Returns the last eager step's
+        outputs (None for graphed steps, whose outputs live in the graph)."""
+        if self._sums is None:
+            self._sums = {k: torch.zeros(shape, dtype=torch.float32, device=self.device)
+                          for k, shape in self._corpus_sum_shapes().items()}
+        rows = torch.from_numpy(np.ascontiguousarray(draws, dtype=np.int32))
+        if self.device.type == "cuda":  # from pinned memory: the copy does not wait for the stream
+            rows = rows.pin_memory().to(self.device, non_blocking=True)
+        graphed = self.device.type == "cuda" and self._window_size() > 1
+        m = None
+        for row in rows:
+            self._begin_step()
+            if graphed:
+                if self._graph is None:
+                    self._graph = StepGraph(self._corpus_step, row, self.generators)
+                else:
+                    self._graph.replay(row)
+            else:
+                m = self._corpus_step(row)
+                self._maybe_log_watch(m)
+            self.step += 1
+        return m
+
+    def _run_corpus_epoch(self, epoch: int, sample_weights: np.ndarray | None) -> tuple[int, dict, float]:
+        """One epoch from the device corpus: the JAX loop's draws (the epoch's
+        order, weighted when ``sample_weights``, then one
+        ``sample_crop_batch`` a step) in windows of ``_window_size()`` steps,
+        a remainder of fewer as single steps. A resumed epoch replays the
+        skipped prefix's draws without training on them. A SIGTERM stops it
+        at a window boundary. Returns the batches trained, the epoch's device
+        sums and its seconds."""
+        cfg = self.config
+        dmc = cfg.datamodule
+        bs, overfit, crop = dmc.batch_size, cfg.train.overfit_batches, dmc.random_crop_size
+        rng = epoch_rng(dmc.shuffle_seed, epoch, overfit)
+        order, n_batches = sample_epoch_order(rng, self.dm.train_idx, sample_weights, bs, overfit)
+        random_crop = dmc.augment and overfit == 0
+        if n_batches == 0:
+            raise ValueError(
+                f"train epoch {epoch} produced ZERO device-corpus batches: the train pool "
+                f"({len(self.dm.train_idx)} segments) is smaller than one batch ({bs}); "
+                "reduce --bs or grow the dataset/split"
+            )
+
+        def sample(b: int) -> np.ndarray:
+            return np.stack(sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop))
+
+        skip, self._skip_batches = self._skip_batches, 0
+        for b in range(min(skip, n_batches)):
+            sample(b)
+        k = self._window_size()
+        if self._sums is not None:
+            for total in self._sums.values():
+                total.zero_()
+        t0 = time.time()
+        b = skip
+        while b < n_batches:
+            take = k if b + k <= n_batches else 1
+            self.train_window(np.stack([sample(b + j) for j in range(take)]))
+            b += take
+            # b == n_batches: the epoch just finished; stopping there would
+            # resume into an epoch with no batch left.
+            if b < n_batches and preempt_requested(self):
+                raise PreemptionInterrupt(epoch, b)
+        return max(n_batches - skip, 0), self._sums, time.time() - t0

@@ -20,9 +20,15 @@ same masking noise for every batch (the JAX eval step reuses its base key).
 
 Flips: the JAX MAE path flips twice, on the host in the Datamodule
 (``host_flips``) and again on the device in ``augment_batch``. The XOR of two
-independent fair coins is a fair coin, so the port's single host flip per
-axis gives crops of the same distribution; there is no device augmentation
-and no augment key.
+independent fair coins is a fair coin, so on the streamed path the port's
+single host flip per axis gives crops of the same distribution, and the
+step does not flip. The device corpus (``train.device_corpus``,
+``:112-124``, ``:381-488``) has no host gather: its crops are gathered on the
+card and the step flips them there (``data.augment.random_flips``, drawn
+from the micro-batch's generator before its masking noise) when
+``datamodule.augment`` is on, as the JAX step does. ``steps_per_dispatch``
+steps at a time then run as replays of one CUDA graph of the whole step
+(``train.base``).
 
 ``from_scratch=False`` loads ``weights/Prithvi_100M.pt`` (published layout)
 when present and otherwise warns and keeps the random init, as the JAX
@@ -37,9 +43,10 @@ shuffle seed) and draws the same masking noise (the same generator seed),
 and only rank 0 logs and writes checkpoints. The data axis holds one rank.
 
 Not ported, and refused where the config asks for them: pipeline stages,
-the device corpus and fused multi-step dispatch, a data axis above one rank
-and context parallelism (``cp_axis``). The per-epoch reconstruction image is
-not ported and has no config switch.
+the sharded corpus, a data axis above one rank (a mesh's, or
+``num_devices`` other than 1 and -1 without a mesh) and context
+parallelism (``cp_axis``). The per-epoch reconstruction image is not
+ported and has no config switch.
 """
 
 from __future__ import annotations
@@ -56,12 +63,13 @@ from s2tpu_torch import resolve_device
 from s2tpu_torch.configs.data_config import BANDS, parse_bands
 from s2tpu_torch.configs.mae import MAEConfig
 from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES
-from s2tpu_torch.data.augment import normalize
+from s2tpu_torch.data.augment import normalize, random_flips
+from s2tpu_torch.data.device_corpus import DeviceCorpus
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.prithvi_mae import PrithviConfig, PrithviMAE, patchify, unpatchify
 from s2tpu_torch.parallel.mesh import DATA_AXIS, mesh_device, replicate_module
 from s2tpu_torch.train.losses import mae_reconstruction_loss
-from s2tpu_torch.train.train_state import accumulate_grads, draw_seed, make_optimizer
+from s2tpu_torch.train.train_state import accumulate_grads, make_optimizer
 from s2tpu_torch.train.base import TrainerBase
 from s2tpu_torch.utils import get_logger, load_prithvi_mean_std, load_prithvi_model_args
 
@@ -76,8 +84,10 @@ def _refuse_unported(config: MAEConfig, mesh=None, model_config: PrithviConfig |
         ),
         "cp_axis (context parallelism)": model_config is not None and model_config.cp_axis is not None,
         "pipeline_stages > 1": m.pipeline_stages > 1,
-        "device_corpus": t.device_corpus or t.device_corpus_sharded,
-        "steps_per_dispatch > 1": t.steps_per_dispatch > 1,
+        "device_corpus_sharded (a data axis, ROADMAP item 16)": t.device_corpus_sharded,
+        # without a mesh the JAX trainer builds one of num_devices
+        f"num_devices={t.num_devices} without a mesh (a data axis, ROADMAP item 16; 1 or -1 train on one "
+        "device)": mesh is None and t.num_devices not in (1, -1),
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -152,7 +162,9 @@ class MAETrainer(TrainerBase):
         self.std = torch.as_tensor(np.asarray(std, np.float32), device=self.device)
         self._init_params(t)
         self.optimizer = make_optimizer(self.model.parameters(), t.lr, t.weight_decay, t.betas, self.master)
-        self.noise_generator = torch.Generator(device=self.device)
+        self.noise_generator = torch.Generator(device=self.device)  # eval and reconstruction noise
+        # An unlabeled corpus: the labels are not uploaded.
+        self.corpus = DeviceCorpus(datamodule.source, self.device, with_labels=False) if t.device_corpus else None
 
     def _load_pretrained(self) -> None:
         """Published Prithvi_100M.pt weights when available (finetune path)."""
@@ -185,6 +197,16 @@ class MAETrainer(TrainerBase):
         micro-batches; returns the device-side loss (no host sync), and the
         watch norms on a watched step. ``noise`` (B, L) replaces the step's
         own draws (micro-batch i takes its i-th slice of rows)."""
+        self._begin_step()
+        out = self._step(images, noise=noise)
+        self.step += 1
+        return out
+
+    def _step(self, images: torch.Tensor, noise: torch.Tensor | None = None,
+              flips: bool = False) -> dict[str, typing.Any]:
+        """The device work of one step, after ``_begin_step``: flips (when
+        ``flips``), normalization, masking noise, forward, backward and the
+        update, with no host sync (a CUDA graph captures it)."""
         t = self.config.train
         accum = max(t.grad_accum_steps, 1)
         if images.shape[0] % accum:
@@ -194,15 +216,23 @@ class MAETrainer(TrainerBase):
         named = self._trainable()
         grads, loss = None, 0.0
         noises = noise.chunk(accum) if noise is not None else [None] * accum
-        for i, (micro, n) in enumerate(zip(images.chunk(accum), noises)):
+        for micro, n, g in zip(images.chunk(accum), noises, self.generators):
+            if flips:
+                micro, _ = random_flips(micro, None, g)
             x = self._input(micro)
             if n is None:
-                n = self._noise(x.shape[0], draw_seed(t.seed, self.step, i))
+                n = torch.rand((x.shape[0], self.model_config.num_patches), generator=g, device=self.device)
             loss_i, _, _ = self.model(x, mask_ratio=self.mask_ratio, noise=n)
             loss_i.backward()
             grads = accumulate_grads([p for _, p in named], grads)
             loss = loss + loss_i.detach()
         return {"loss": loss / accum, **self._update(named, grads, accum, self._watch_this_step())}
+
+    def _corpus_step(self, row: torch.Tensor) -> dict[str, typing.Any]:
+        images, _ = self.corpus.gather(row[0], row[1], row[2], self.config.datamodule.random_crop_size)
+        m = self._step(images, flips=self.config.datamodule.augment)
+        self._add_to_sums(m)
+        return m
 
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor, batch_mask: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -231,6 +261,12 @@ class MAETrainer(TrainerBase):
     # ------------------------------------------------------------------
     def run_train_epoch(self, epoch: int) -> dict:
         cfg = self.config
+        if self.corpus is not None:
+            n, sums, seconds = self._run_corpus_epoch(epoch, None)  # the JAX MAE corpus samples unweighted
+            if n == 0:  # a resumed epoch whose batches were all trained
+                return {"loss": float("nan"), "images_per_sec": 0.0}
+            return {"loss": float(sums["loss"]) / n,
+                    "images_per_sec": n * cfg.datamodule.batch_size / max(seconds, 1e-9)}
         t0 = time.time()
         skip, self._skip_batches = self._skip_batches, 0
         batches = prefetch_to_device(
@@ -240,7 +276,7 @@ class MAETrainer(TrainerBase):
         outs, n, images_seen = self._train_loop(epoch, batches, lambda b: self.train_step(b.images), skip)
         if n == 0:  # a resumed epoch whose batches were all trained
             return {"loss": float("nan"), "images_per_sec": 0.0}
-        loss = float(torch.stack([m["loss"] for m in outs]).sum()) / n
+        loss = float(sum((m["loss"] for m in outs[1:]), outs[0]["loss"])) / n  # in step order
         return {"loss": loss, "images_per_sec": images_seen / max(time.time() - t0, 1e-9)}
 
     def run_eval_epoch(self, split: str = "val") -> dict:

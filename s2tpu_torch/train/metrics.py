@@ -1,7 +1,8 @@
 """Segmentation metrics from a confusion matrix (the port of ``s2tpu/train/metrics.py``).
 
-The (K, K) confusion matrix is built on the device with one ``bincount`` per
-step; IoU, accuracy, F1 and the normalized matrix derive from it on the host
+The (K, K) confusion matrix is built on the device with one ``index_add_``
+into a fixed K*K buffer per step (``bincount`` would read the input's range
+on the host, which a CUDA graph cannot capture); IoU, accuracy, F1 and the normalized matrix derive from it on the host
 at epoch end (numpy copies of the JAX package's closed forms).
 """
 
@@ -18,10 +19,11 @@ def confusion_matrix_update(
     ignore_index: int | None = None,
     batch_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """(K, K) f32 counts with rows = true class, cols = predicted class:
-    ``bincount(label * K + pred)`` weighted by validity
-    (``s2tpu/train/metrics.py:17-49``). Labels outside [0, K) are dropped,
-    as the JAX one-hot drops them."""
+    """(K, K) f32 counts with rows = true class, cols = predicted class: the
+    validity weights added at ``label * K + pred`` (``s2tpu/train/metrics.py:17-49``).
+    Labels outside [0, K) are dropped, as the JAX one-hot drops them. The
+    weights are 0 or 1, so the f32 sums are exact in any order below 2^24
+    counts a cell."""
     preds = preds.reshape(preds.shape[0], -1).long()
     labels = labels.reshape(labels.shape[0], -1).long()
     valid = (labels >= 0) & (labels < num_classes)
@@ -31,8 +33,9 @@ def confusion_matrix_update(
     if batch_mask is not None:
         weights = weights * batch_mask.to(torch.float32)[:, None]
     flat = torch.where(valid, labels * num_classes + preds, 0)
-    counts = torch.bincount(flat.reshape(-1), weights=weights.reshape(-1), minlength=num_classes * num_classes)
-    return counts.to(torch.float32).reshape(num_classes, num_classes)
+    counts = torch.zeros(num_classes * num_classes, dtype=torch.float32, device=flat.device)
+    counts.index_add_(0, flat.reshape(-1), weights.reshape(-1))
+    return counts.reshape(num_classes, num_classes)
 
 
 def compute_metrics(cm, ignore_background: bool = False, exclude_index: int | None = None) -> dict:

@@ -118,11 +118,52 @@ def make_optimizer(
 ) -> torch.optim.Adam:
     """Adam with coupled L2 at eps 1e-8 (optax ``scale_by_adam``'s) over the
     parameters that require a gradient, or over their f32 masters. The
-    trainer overwrites the learning rate from its schedule before each step."""
+    trainer overwrites the learning rate from its schedule before each step
+    (:func:`set_lr`).
+
+    On the card Adam is capturable and its learning rate is a one-element f32
+    device tensor, so that a CUDA graph can capture the update and take each
+    step's rate from that tensor: every step on the card, eager or graphed,
+    runs this same arithmetic, and a graphed step equals an eager one bit
+    for bit."""
     trainable = [p for p in params if p.requires_grad]
     if master is not None:
         trainable = master.of(trainable)
-    return torch.optim.Adam(trainable, lr=learning_rate, betas=betas, eps=1e-8, weight_decay=weight_decay)
+    device = trainable[0].device if trainable else torch.device("cpu")
+    if device.type != "cuda":
+        return torch.optim.Adam(trainable, lr=learning_rate, betas=betas, eps=1e-8, weight_decay=weight_decay)
+    lr = torch.tensor(learning_rate, dtype=torch.float32, device=device)
+    return torch.optim.Adam(trainable, lr=lr, betas=betas, eps=1e-8, weight_decay=weight_decay, capturable=True)
+
+
+def set_lr(optimizer: torch.optim.Adam, lr: float) -> None:
+    """Every group's learning rate := ``lr``: written into the device tensor
+    of a capturable Adam (one fill on the current stream), else stored."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(optimizer: torch.optim.Adam, state: dict) -> None:
+    """``optimizer.load_state_dict(state)``, keeping what :func:`make_optimizer`
+    chose for this device: a checkpoint written by a non-capturable Adam (any
+    checkpoint from the CPU) stores a float learning rate,
+    ``capturable=False`` and each step count on the CPU, and a capturable
+    Adam keeps its device tensor rate, its flag and the counts on the
+    parameters' device."""
+    live = [(g["lr"], g.get("capturable", False)) for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, (lr, capturable) in zip(optimizer.param_groups, live):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(group["lr"]))
+        group["lr"], group["capturable"] = lr, capturable
+        if capturable:
+            for p in group["params"]:
+                st = optimizer.state.get(p)
+                if st and "step" in st:
+                    st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
 
 
 def accumulate_grads(params: list[nn.Parameter], sums: list[torch.Tensor] | None) -> list[torch.Tensor]:

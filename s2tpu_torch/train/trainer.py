@@ -27,13 +27,14 @@ The step's extras (``:451-541``), each a config field:
   statistics := exact statistics pooled over that many of epoch 0's train
   batches, taken with the eval weights (``recalibrate_bn``).
 
-Drop-connect (UNet) and dropout (fc-prithvi's head) draw from a generator
-reseeded for every micro-batch from (seed, step, micro-batch), as the JAX
-step folds the step into its key, so a resumed run draws what the
-uninterrupted run would have. ``fit`` (``train.base.TrainerBase``, shared
-with the MAE trainer) installs a SIGTERM handler when a checkpoint manager is
-attached: at the next step boundary it saves the model, Adam, the master,
-the EMA, the step and how many batches of the epoch are done, and returns;
+Drop-connect (UNet), dropout (fc-prithvi's head) and the device-side flips
+draw from the micro-batch's generator, reseeded for every step from (seed,
+step, micro-batch), as the JAX step folds the step into its key, so a
+resumed run draws what the uninterrupted run would have. ``fit``
+(``train.base.TrainerBase``, shared with the MAE trainer) installs a
+SIGTERM handler when a checkpoint manager is attached: at the next step
+boundary it saves the model, Adam, the master, the EMA, the step and how
+many batches of the epoch are done, and returns;
 ``resume_from_checkpoint`` then re-enters that epoch and skips its trained
 prefix (``:75-146``, ``:885-933``).
 
@@ -43,9 +44,21 @@ and ``fit`` (``:1086-1227``), and fc-prithvi's hooks: the pretrained
 backbone (``_load_prithvi_backbone``, ``:369-436``), the frozen backbone
 kept out of the optimizer, and the frozen-then-unfrozen transition
 (``unfreeze_backbone``, ``_maybe_unfreeze``, ``:636-709``).
-Not ported yet, and refused where the config asks for them: the device
-corpus and device-side flips. Epoch image logging is not ported and has no
-config switch.
+The device corpus (``train.device_corpus``, ``:772-883``): the train split's
+segments are uploaded to the card once (``data.device_corpus``), each step's
+crops are gathered there from three (B,) int32 vectors that the host draws
+as the JAX loop does, and ``train.steps_per_dispatch`` steps at a time run
+as replays of one CUDA graph of the whole step (``train.base``, windows; the
+remainder of an epoch as single steps). Flips then run on the device
+(``data.augment.random_flips``), as they do whenever ``host_flips`` is off:
+the host's stream then draws no flips, so a corpus epoch and a streamed epoch
+with ``host_flips=False`` take the same draws and train the same steps, bit
+for bit. BatchNorm recalibration gathers its batches from the corpus
+(``:1004-1050``).
+
+Refused where the config asks for them: the sharded corpus and a data mesh
+(``num_devices`` other than 1 and -1), which need ROADMAP item 16's data
+axis. Epoch image logging is not ported and has no config switch.
 """
 
 from __future__ import annotations
@@ -61,24 +74,26 @@ from s2tpu_torch import resolve_device
 from s2tpu_torch.configs.data_config import BANDS as PRITHVI_BANDS
 from s2tpu_torch.configs.data_config import LABEL_MAPS, parse_bands
 from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES, Config
-from s2tpu_torch.data.augment import model_input, normalize
+from s2tpu_torch.data.augment import augment_batch, model_input, normalize
+from s2tpu_torch.data.device_corpus import DeviceCorpus, sample_crop_batch
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.efficientnet_unet import BatchNorm, EfficientNetUNet
 from s2tpu_torch.train import metrics as metrics_lib
 from s2tpu_torch.train.losses import make_loss_fn
 from s2tpu_torch.train.schedules import build_schedule
 from s2tpu_torch.train.base import TrainerBase
-from s2tpu_torch.train.train_state import accumulate_grads, draw_seed, make_optimizer
+from s2tpu_torch.train.train_state import accumulate_grads, make_optimizer
 from s2tpu_torch.utils import get_logger
 
 logger = get_logger(__name__)
 
 
 def _refuse_unported(config: Config) -> None:
-    t, dm = config.train, config.datamodule
+    t = config.train
     unported = {
-        "device_corpus": t.device_corpus or t.device_corpus_sharded,
-        "device-side flips (host_flips=False)": dm.augment and not dm.host_flips,
+        "device_corpus_sharded (a data axis, ROADMAP item 16)": t.device_corpus_sharded,
+        f"num_devices={t.num_devices} (a data-parallel mesh, ROADMAP item 16; the port trains on one device: "
+        "1 or -1)": t.num_devices not in (1, -1),
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -165,9 +180,11 @@ class SegmentationTrainer(TrainerBase):
         self._init_params(t)
         self.optimizer = make_optimizer(self.model.parameters(), self.schedule(0), t.weight_decay, t.betas,
                                         self.master)
-        # Drop-connect (UNet) and dropout (fc-prithvi's head) masks are drawn
-        # on the device from this generator, reseeded for every micro-batch.
-        self.drop_generator = torch.Generator(device=self.device)
+        dmc = config.datamodule
+        # Flips run on the host in its crop gather when host_flips is on; the
+        # corpus has no host gather, so its flips run on the device (:447-449).
+        self.device_flips = dmc.augment and (t.device_corpus or not dmc.host_flips)
+        self.corpus = DeviceCorpus(datamodule.source, self.device) if t.device_corpus else None
 
     # ------------------------------------------------------------------
     def _load_prithvi_backbone(self) -> None:
@@ -236,6 +253,7 @@ class SegmentationTrainer(TrainerBase):
             self.schedule = lambda step, _base=base: _base(step) * scale
         self.optimizer = make_optimizer(self.model.parameters(), self.schedule(self.step), t.weight_decay, t.betas,
                                         self.master)
+        self._graph = None  # a new optimizer: capture the step again
 
     def _maybe_unfreeze(self, epoch: int) -> None:
         """The scheduled unfreeze on entering ``epoch`` (also on resuming into
@@ -254,25 +272,38 @@ class SegmentationTrainer(TrainerBase):
     def _ignore_index(self) -> int | None:
         return 0 if self.config.train.masked_loss else None
 
+    def _learning_rate(self) -> float:
+        return self.schedule(self.step)  # optax reads the schedule at the update count
+
     def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> dict[str, typing.Any]:
         """One optimizer update on a device batch, in ``grad_accum_steps``
         micro-batches; returns the device-side loss, confusion matrix and
         loss components (no host sync), and the watch norms on a watched
         step."""
-        t = self.config.train
+        self._begin_step()
+        out = self._step(images, labels)
+        self.step += 1
+        return out
+
+    def _step(self, images: torch.Tensor, labels: torch.Tensor) -> dict[str, typing.Any]:
+        """The device work of one step, after ``_begin_step``: flips (when
+        ``device_flips``), normalization, forward, loss, backward and the
+        update, with no host sync (a CUDA graph captures it)."""
+        t, dmc = self.config.train, self.config.datamodule
         accum = max(t.grad_accum_steps, 1)
         if images.shape[0] % accum:
             raise ValueError(f"batch {images.shape[0]} does not split into {accum} micro-batches")
         self.model.train()
-        lr = self.schedule(self.step)  # optax reads the schedule at the update count
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
         self._zero_grads()
         named = self._trainable()
         grads, loss, cm, comps = None, 0.0, 0, {}
-        for i, (x, y) in enumerate(zip(images.chunk(accum), labels.chunk(accum))):
-            self.drop_generator.manual_seed(draw_seed(t.seed, self.step, i))
-            logits = self.model(self._input(x), generator=self.drop_generator)
+        ds = dmc.dataset_cfg
+        for x, y, g in zip(images.chunk(accum), labels.chunk(accum), self.generators):
+            x, y = augment_batch(
+                x, y, g, self.mean, self.std, p_horizontal=dmc.random_horizontal_flip_p,
+                p_vertical=dmc.random_vertical_flip_p, dtype=self.compute_dtype, train=self.device_flips,
+            )
+            logits = self.model(model_input(x, ds.stack_time_into_channels, ds.squeeze_time_dim), generator=g)
             out = self.loss_fn(logits, y)
             out.total.backward()
             grads = accumulate_grads([p for _, p in named], grads)
@@ -284,6 +315,16 @@ class SegmentationTrainer(TrainerBase):
             comps = {k: comps.get(k, 0.0) + v.detach() for k, v in out.components.items()}
         update = self._update(named, grads, accum, self._watch_this_step())
         return {"loss": loss / accum, "cm": cm, **{k: v / accum for k, v in comps.items()}, **update}
+
+    def _corpus_sum_shapes(self) -> dict[str, tuple[int, ...]]:
+        k = self.config.num_classes
+        return {"loss": (), "cm": (k, k)}
+
+    def _corpus_step(self, row: torch.Tensor) -> dict[str, typing.Any]:
+        images, labels = self.corpus.gather(row[0], row[1], row[2], self.config.datamodule.random_crop_size)
+        m = self._step(images, labels)
+        self._add_to_sums(m)
+        return m
 
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor, labels: torch.Tensor, batch_mask: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -306,6 +347,14 @@ class SegmentationTrainer(TrainerBase):
         return self._ignore_index()
 
     def run_train_epoch(self, epoch: int) -> dict:
+        if self.corpus is not None:
+            n, sums, seconds = self._run_corpus_epoch(epoch, self.dm._sample_weights)
+            if n == 0:  # a resumed epoch whose batches were all trained
+                return {"loss": float("nan"), "images_per_sec": 0.0}
+            out = metrics_lib.compute_metrics(sums["cm"].cpu().numpy(), exclude_index=self._metric_exclude_index())
+            out["loss"] = float(sums["loss"]) / n
+            out["images_per_sec"] = n * self.config.datamodule.batch_size / max(seconds, 1e-9)
+            return out
         cfg = self.config
         t0 = time.time()
         skip, self._skip_batches = self._skip_batches, 0
@@ -316,9 +365,10 @@ class SegmentationTrainer(TrainerBase):
         outs, n, images_seen = self._train_loop(epoch, batches, lambda b: self.train_step(b.images, b.labels), skip)
         if n == 0:  # a resumed epoch whose batches were all trained
             return {"loss": float("nan"), "images_per_sec": 0.0}
-        cm = torch.stack([m["cm"] for m in outs]).sum(0)
+        # summed in step order, as the corpus epoch sums on the device
+        cm = sum((m["cm"] for m in outs[1:]), outs[0]["cm"])
         out = metrics_lib.compute_metrics(cm.cpu().numpy(), exclude_index=self._metric_exclude_index())
-        out["loss"] = float(torch.stack([m["loss"] for m in outs]).sum()) / n
+        out["loss"] = float(sum((m["loss"] for m in outs[1:]), outs[0]["loss"])) / n
         out["images_per_sec"] = images_seen / max(time.time() - t0, 1e-9)
         return out
 
@@ -333,11 +383,13 @@ class SegmentationTrainer(TrainerBase):
     @torch.no_grad()
     def recalibrate_bn(self, n_batches: int = 8) -> None:
         """Every BatchNorm's running statistics := exact statistics pooled
-        over the first ``n_batches`` train batches of epoch 0's stream,
-        taken with the eval weights (``s2tpu/train/trainer.py:1052-1085``):
-        a train-mode forward per batch at momentum 0 (so the running
-        statistics become that batch's), drop-connect drawn from a fixed
-        seed, parameters untouched. Models without BatchNorm momentum (the
+        over ``n_batches`` train batches, taken with the eval weights
+        (``s2tpu/train/trainer.py:1052-1085``): a train-mode forward per batch
+        at momentum 0 (so the running statistics become that batch's), no
+        flips, drop-connect drawn from a fixed seed, parameters untouched.
+        The batches are the first of epoch 0's stream, or, with the device
+        corpus, gathered from it by the JAX package's own draws
+        (:meth:`_recal_corpus_batches`). Models without BatchNorm momentum (the
         ViT) are skipped, as in the JAX package."""
         if not isinstance(self.model, EfficientNetUNet):
             logger.warning("recalibrate_bn: the model has no bn_momentum_override; skipping")
@@ -346,14 +398,19 @@ class SegmentationTrainer(TrainerBase):
         decays = [bn.decay for bn in bns]
         stats: list[list[tuple[torch.Tensor, torch.Tensor]]] = [[] for _ in bns]
         self.model.train()
+        generator = self.generators[0]
         try:
             for bn in bns:
                 bn.decay = 0.0
             with self.eval_weights():
-                host = itertools.islice(self.dm.train_batches(0), n_batches)
-                for batch in prefetch_to_device(host, self.device, depth=2):
-                    self.drop_generator.manual_seed(0)  # the JAX pass's fixed dropout key
-                    self.model(self._input(batch.images), generator=self.drop_generator)
+                if self.corpus is not None:
+                    batches = self._recal_corpus_batches(n_batches)
+                else:
+                    host = itertools.islice(self.dm.train_batches(0), n_batches)
+                    batches = (b.images for b in prefetch_to_device(host, self.device, depth=2))
+                for images in batches:
+                    generator.manual_seed(0)  # the JAX pass's fixed dropout key
+                    self.model(self._input(images), generator=generator)
                     for s, bn in zip(stats, bns):
                         s.append((bn.running_mean.clone(), bn.running_var.clone()))
         finally:
@@ -365,6 +422,21 @@ class SegmentationTrainer(TrainerBase):
             mean, var = pool_batch_stats(s)
             bn.running_mean.copy_(mean)
             bn.running_var.copy_(var)
+
+    def _recal_corpus_batches(self, n_batches: int) -> typing.Iterator[torch.Tensor]:
+        """Up to ``n_batches`` batches of crops gathered on the device from
+        the corpus, with no host image traffic (``:1004-1050``): a
+        permutation of the train split and random crops from a generator of
+        their own, seeded by (shuffle_seed, 0x5EED), distinct from every
+        epoch's stream."""
+        dmc = self.config.datamodule
+        bs, crop = dmc.batch_size, dmc.random_crop_size
+        rng = np.random.default_rng((dmc.shuffle_seed, 0x5EED))
+        order = rng.permutation(self.dm.train_idx)
+        for b in range(min(n_batches, len(order) // bs)):
+            idx, ys, xs = (torch.from_numpy(a).to(self.device)
+                           for a in sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop=True))
+            yield self.corpus.gather(idx, ys, xs, crop)[0]
 
     def _end_epoch(self, epoch: int, train_metrics: dict) -> dict:
         """BN recalibration, the val pass, the epoch's record and its logs."""

@@ -537,3 +537,106 @@ def test_fc_prithvi_forward_on_the_card_matches_the_cpu():
         assert float((got.cpu() - want).abs().max()) <= FC_PRITHVI_LOGITS_RTOL * max(1.0, scale)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_graphed_corpus_steps_equal_eager_steps_bit_for_bit():
+    """Four tiny-B0 corpus steps (bf16, focal + weighted, batch 4 at 64^2,
+    device flips and drop-connect on) in windows of K = 2, the step captured
+    as a CUDA graph and replayed, against four eager steps: parameters,
+    BatchNorm statistics, Adam's state and the epoch sums equal bit for bit
+    (deterministic cuDNN; the port's kernels sum in a fixed order)."""
+    from s2tpu_torch.configs import segmentation as cfg_lib
+    from s2tpu_torch.data.dataset import Sample, SegmentSource
+    from s2tpu_torch.data.device_corpus import sample_crop_batch
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    rng = np.random.default_rng(11)
+    xs = rng.integers(0, 3000, size=(12, 96, 96, 6)).astype(np.int16)
+    ys = rng.integers(0, 4, size=(12, 96, 96)).astype(np.uint8)
+
+    class Source(SegmentSource):
+        def __len__(self) -> int:
+            return len(xs)
+
+        def __getitem__(self, i: int) -> Sample:
+            return Sample(xs[i], ys[i])
+
+    def trainer(k: int) -> SegmentationTrainer:
+        c = cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass")
+        c.datamodule.batch_size, c.datamodule.random_crop_size, c.datamodule.data_split = 4, 64, (1.0, 0.0, 0.0)
+        c.train.loss_type, c.train.weighted_loss = cfg_lib.LossType("focal"), True
+        c.train.class_distribution = [0.1, 0.3, 0.4, 0.2]
+        c.train.device_corpus, c.train.steps_per_dispatch, c.train.watch_interval = True, k, 0
+        dm = Datamodule(c.datamodule, source=Source())
+        dm.set_mean_std(np.full(6, 1500.0, np.float32), np.full(6, 800.0, np.float32))
+        return SegmentationTrainer(c, dm, device="cuda")
+
+    def state(t) -> dict:
+        out = dict(t.model.state_dict())
+        for i, st in enumerate(t.optimizer.state.values()):
+            out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+        return {**out, **{f"sums.{k}": v for k, v in t._sums.items()}}
+
+    order = np.random.default_rng(3).permutation(12)
+    draws = np.stack([np.stack(sample_crop_batch(rng, order, b, 4, (96, 96), 64)) for b in range(3)] * 2)[:4]
+    eager, graphed = trainer(1), trainer(2)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for t in (eager, graphed):
+            t.train_window(draws[:2])
+            t.train_window(draws[2:])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert eager._graph is None and graphed._graph is not None and eager.step == graphed.step == 4
+    ours, ref = state(graphed), state(eager)
+    assert ours.keys() == ref.keys()
+    unequal = [k for k in ref if not torch.equal(ours[k], ref[k])]
+    assert not unequal, unequal[:5]
+
+
+def test_a_non_capturable_adam_state_loads_into_the_card_s_capturable_adam():
+    """An Adam state written by a non-capturable Adam (a float learning rate,
+    capturable off, the step counts on the CPU: any checkpoint of the CPU or
+    of an eager run before the card's Adam became capturable) loads into the
+    card's capturable Adam: its device learning-rate tensor, its flag and
+    step counts on the card stay, the moments arrive, and a captured step
+    runs from it."""
+    from s2tpu_torch.train.train_state import load_optimizer_state, make_optimizer, set_lr
+
+    torch.manual_seed(0)
+    cpu = torch.nn.Linear(8, 4)
+    old = make_optimizer(cpu.parameters(), 1e-3, 0.05, (0.9, 0.999))
+    cpu(torch.randn(16, 8)).square().mean().backward()
+    old.step()
+    card = torch.nn.Linear(8, 4).cuda()
+    card.load_state_dict(cpu.state_dict())
+    opt = make_optimizer(card.parameters(), 1e-3, 0.05, (0.9, 0.999))
+    lr = opt.param_groups[0]["lr"]
+    load_optimizer_state(opt, old.state_dict())
+    group = opt.param_groups[0]
+    assert group["lr"] is lr and lr.is_cuda and group["capturable"]
+    for p_old, p in zip(cpu.parameters(), card.parameters()):
+        st = opt.state[p]
+        assert st["step"].is_cuda and float(st["step"]) == 1.0
+        assert torch.equal(st["exp_avg"].cpu(), old.state[p_old]["exp_avg"])
+    x = torch.randn(16, 8, device="cuda")
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):  # the warm-up steps of the capture recipe
+            opt.zero_grad(set_to_none=True)
+            card(x).square().mean().backward()
+            opt.step()
+    torch.cuda.current_stream().wait_stream(stream)
+    opt.zero_grad(set_to_none=True)
+    with torch.cuda.graph(graph, stream=stream):
+        card(x).square().mean().backward()
+        opt.step()
+    set_lr(opt, 1e-4)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(float(opt.state[p]["step"]) == 4.0 for p in card.parameters())  # 1 loaded, 2 warm-up, 1 replay
+    assert all(bool(torch.isfinite(p).all()) for p in card.parameters())

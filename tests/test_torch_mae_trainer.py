@@ -197,7 +197,8 @@ def test_cli_config_matches_the_jax_cli(tmp_path):
     argv = ["fr", "--type", "pretrain", "--from-scratch", "--bs", "16", "--lr", "3e-4", "--epochs", "7",
             "--log-interval", "5", "--num-frames", "3", "--crop", "128", "--bands", "all12", "--mask-ratio", "0.6",
             "--name", "x", "--wandb", "--tags", "a", "b", "--compute-dtype", "bfloat16", "--data-dir",
-            str(tmp_path), "--seed", "7", "--auto-resume", "--ema-decay", "0.999", "--grad-accum", "2", "--remat"]
+            str(tmp_path), "--seed", "7", "--auto-resume", "--ema-decay", "0.999", "--grad-accum", "2", "--remat",
+            "--device-corpus", "--steps-per-dispatch", "3"]
     theirs = dataclasses.asdict(jax_config_from_args(jax_parser().parse_args(argv)))
     ours = dataclasses.asdict(config_from_args(build_parser().parse_args(argv)))
     theirs["train"].update(num_devices=1)
@@ -214,25 +215,36 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
         main(["small", "--from-scratch", "--data-dir", str(fixture_dir)])
 
 
-# The trainer extras' flags, refused until they were ported, now train: each
-# case runs the CLI for one epoch and finds its field in the run's config.
-PORTED_FLAGS = {"--remat": ("remat", True), "--ema-decay": ("ema_decay", 0.99), "--grad-accum": ("grad_accum_steps", 2)}
-
-
 @pytest.mark.parametrize(
-    "flags",
-    [["--remat"], ["--ema-decay", "0.99"], ["--grad-accum", "2"], ["--pp", "2"], ["--device-corpus"],
-     ["--steps-per-dispatch", "4"], ["--num-devices", "4"]],
+    "flags", [["--pp", "2"], ["--pp-microbatches", "2"], ["--device-corpus-sharded"], ["--num-devices", "4"]]
 )
-def test_cli_refuses_flags_of_unported_features(flags, capsys, fixture_dir, tmp_path, monkeypatch):
+def test_cli_refuses_unported_flags(flags, capsys):
+    """The flags of features the port lacks (pipeline stages, the sharded
+    corpus, more than one device) are refused with a message."""
+    from s2tpu_torch.cli.train_mae import main
+
+    with pytest.raises(SystemExit):
+        main(["small", *flags, "--device", "cpu"])
+    assert "not ported" in capsys.readouterr().err
+
+
+# The flags refused until their features were ported now train: each case
+# runs the CLI for one epoch and finds its fields in the run's config.
+PORTED_FLAGS = [
+    (["--remat"], {"remat": True}),
+    (["--ema-decay", "0.99"], {"ema_decay": 0.99}),
+    (["--grad-accum", "2"], {"grad_accum_steps": 2}),
+    (["--device-corpus"], {"device_corpus": True}),
+    (["--device-corpus", "--steps-per-dispatch", "2", "--watch-interval", "0"],
+     {"device_corpus": True, "steps_per_dispatch": 2, "watch_interval": 0}),
+]
+
+
+@pytest.mark.parametrize("flags,fields", PORTED_FLAGS)
+def test_cli_trains_ported_flags(flags, fields, fixture_dir, tmp_path, monkeypatch):
     from s2tpu_torch.cli.train_mae import main
     from s2tpu_torch.configs import paths
 
-    if flags[0] not in PORTED_FLAGS:
-        with pytest.raises(SystemExit):
-            main(["small", *flags, "--device", "cpu"])
-        assert "not ported" in capsys.readouterr().err
-        return
     monkeypatch.setattr(mae_trainer, "default_model_config", _tiny_model_config)
     monkeypatch.setattr(paths, "CKPT_DIR", tmp_path / "ckpts")
     monkeypatch.setattr(paths, "LOG_DIR", tmp_path / "logs")
@@ -240,31 +252,43 @@ def test_cli_refuses_flags_of_unported_features(flags, capsys, fixture_dir, tmp_
                     "--compute-dtype", "float32", "--data-dir", str(fixture_dir), "--wandb", "--device", "cpu", *flags])
     assert np.isfinite(history[0]["train/loss"])
     (run_dir,) = (tmp_path / "ckpts" / "prithvi-mae-finetune").glob("*")
-    field, value = PORTED_FLAGS[flags[0]]
-    assert getattr(io.load_mae_checkpoint(run_dir)[0].train, field) == value
+    t = io.load_mae_checkpoint(run_dir)[0].train
+    assert {k: getattr(t, k) for k in fields} == fields
 
 
-# The extras' config fields likewise train now (one step each, the feature
-# seen at work); the rest still refuse.
+# What the trainer still refuses: pipeline stages, the sharded corpus and,
+# without a mesh, num_devices other than 1 and -1 (a data axis).
 @pytest.mark.parametrize(
     "section,field,value",
-    [("train", "grad_accum_steps", 2), ("train", "remat", True), ("train", "ema_decay", 0.99),
-     ("train", "param_dtype", "bfloat16"), ("train", "device_corpus", True), ("train", "steps_per_dispatch", 2),
-     ("model", "pipeline_stages", 2)],
+    [("model", "pipeline_stages", 2), ("train", "device_corpus_sharded", True), ("train", "num_devices", 4)],
 )
-def test_trainer_refuses_unported_config(section, field, value, fixture_dir):
+def test_trainer_refuses_unported_config_fields(section, field, value):
     c = mae_cfg.base_config("small")
     setattr(getattr(c, section), field, value)
-    if field in ("device_corpus", "steps_per_dispatch", "pipeline_stages"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            MAETrainer(c, datamodule=None, device="cpu")
-        return
+    with pytest.raises(NotImplementedError, match="not ported"):
+        MAETrainer(c, datamodule=None, device="cpu")
+
+
+# The fields once refused train now (one step each, or one epoch from the
+# corpus; every parameter moves).
+@pytest.mark.parametrize(
+    "field,value",
+    [("grad_accum_steps", 2), ("remat", True), ("ema_decay", 0.99), ("param_dtype", "bfloat16"),
+     ("device_corpus", True), ("steps_per_dispatch", 2)],
+)
+def test_trainer_trains_ported_config_fields(field, value, fixture_dir):
     _, pc = _configs(fixture_dir, 32, 2)
     setattr(pc.train, field, value)
+    if field == "steps_per_dispatch":
+        pc.train.device_corpus = True
     _, dm = _datamodules(fixture_dir, 32, 2)
     t = MAETrainer(pc, dm, model_config=PrithviConfig(**TINY), device="cpu")
     before = {n: p.detach().float().clone() for n, p in t.model.named_parameters()}
-    m = t.train_step(torch.from_numpy(next(dm.train_batches(0)).images))
+    if pc.train.device_corpus:
+        m = t.run_train_epoch(0)  # 3 train segments: one step from the corpus
+        assert t.corpus is not None and t.corpus.labels is None
+    else:
+        m = t.train_step(torch.from_numpy(next(dm.train_batches(0)).images))
     assert np.isfinite(float(m["loss"])) and t.step == 1
     # every parameter moved (under bf16 storage its f32 master: an update of
     # lr may be below a bf16 parameter's resolution)

@@ -168,3 +168,40 @@ def test_stacked_cli_trains_and_serves_on_the_cpu(tmp_path, monkeypatch):
     assert len(preds) == 1  # one val segment of five
     raster, _ = read_geotiff(preds[0])
     assert raster.shape == (1, 96, 96) and raster.max() < config.num_classes
+
+
+def test_stacked_corpus_epoch_equals_the_streamed_epoch():
+    """Config #3's layout from the device corpus: a (N, T, H, W, C) corpus,
+    every frame of a sample cropped and flipped together on the device,
+    stacked frame-major, trains the same steps as the host stream with
+    ``host_flips=False`` (B0, T=2 x 12 bands, 32^2 crops), bit for bit."""
+    from s2tpu_torch.data.dataset import Sample, SegmentSource
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    rng = np.random.default_rng(4)
+    xs = rng.integers(0, 3000, size=(6, 2, 48, 48, 12)).astype(np.int16)
+    ys = rng.integers(0, 10, size=(6, 48, 48)).astype(np.uint8)
+
+    class Source(SegmentSource):
+        def __len__(self) -> int:
+            return len(xs)
+
+        def __getitem__(self, i: int) -> Sample:
+            return Sample(xs[i], ys[i])
+
+    states, losses = [], []
+    for corpus in (True, False):
+        c = config_from_args(build_parser().parse_args([
+            "small", "cnes-multiclass", "efficientnet-unet-b0", "--time-frames", "2", "--stack-time", "--bands",
+            "all12", "--bs", "2", "--crop", "32", "--compute-dtype", "float32", "--watch-interval", "0",
+        ]))
+        c.datamodule.data_split, c.datamodule.host_flips, c.train.device_corpus = (1.0, 0.0, 0.0), False, corpus
+        c.train.class_distribution = [0.1] * c.num_classes
+        dm = Datamodule(c.datamodule, source=Source())
+        dm.set_mean_std(np.full(12, 1500.0, np.float32), np.full(12, 800.0, np.float32))
+        trainer = SegmentationTrainer(c, dm, device="cpu")
+        assert trainer.device_flips and (trainer.corpus is not None) == corpus
+        losses.append(trainer.run_train_epoch(0)["loss"])
+        states.append(trainer.model.state_dict())
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[1])

@@ -232,7 +232,7 @@ def test_cli_config_matches_the_jax_cli(tmp_path):
         "1e-6", "--cosine-lr-sched-warmup-steps", "1", "--cosine-lr-sched-gamma", "0.5", "--name", "x", "--wandb",
         "--tags", "a", "b", "--compute-dtype", "float32", "--bands", "all12", "--crop", "128", "--data-dir",
         str(tmp_path), "--seed", "7", "--auto-resume", "--remat", "--param-dtype", "bfloat16", "--ema-decay",
-        "0.99", "--watch-interval", "5", "--bn-recal", "3",
+        "0.99", "--watch-interval", "5", "--bn-recal", "3", "--device-corpus", "--steps-per-dispatch", "4",
     ]
     theirs = dataclasses.asdict(jax_config_from_args(jax_parser().parse_args(argv)))
     ours = dataclasses.asdict(config_from_args(build_parser().parse_args(argv)))
@@ -247,39 +247,65 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
         train_main(["small", "osm-multiclass", "efficientnet-unet-b0", "--data-dir", str(fixture_dir)])
 
 
-def test_cli_refuses_flags_of_unported_features():
-    """argparse refuses the flags of features the port lacks; the trainer
-    extras' flags (once refused here too) reach the config."""
+@pytest.mark.parametrize("flags", [["--fsdp"], ["--type", "tune"], ["--num-devices", "4"], ["--device-corpus-sharded"]])
+def test_cli_refuses_unported_flags(flags):
+    """argparse refuses the flags of features the port lacks (a data mesh,
+    sharding, tuning)."""
+    from s2tpu_torch.cli.train_segmentation import build_parser
+
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flags])
+
+
+@pytest.mark.parametrize(
+    "flags,fields",
+    [(["--remat", "--ema-decay", "0.99"], {"remat": True, "ema_decay": 0.99}),
+     (["--device-corpus", "--steps-per-dispatch", "4"], {"device_corpus": True, "steps_per_dispatch": 4})],
+)
+def test_cli_takes_ported_flags(flags, fields):
+    """The flags of features once refused here (the trainer extras, the
+    device corpus and its windows) reach the config."""
     from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
 
-    base = ["small", "osm-multiclass", "efficientnet-unet-b0"]
-    for flag in (["--fsdp"], ["--type", "tune"], ["--num-devices", "4"]):
-        with pytest.raises(SystemExit):
-            build_parser().parse_args([*base, *flag])
-    t = config_from_args(build_parser().parse_args([*base, "--remat", "--ema-decay", "0.99"])).train
-    assert t.remat and t.ema_decay == 0.99
+    t = config_from_args(build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flags])).train
+    assert {k: getattr(t, k) for k in fields} == fields
 
 
-# The trainer extras' fields, refused until they were ported, must now train
-# (each case holds its feature at work after one step); the device corpus
-# fields still refuse.
-EXTRA_FIELDS = [("grad_accum_steps", 2), ("remat", True), ("ema_decay", 0.99), ("param_dtype", "bfloat16"),
-                ("bn_recalibration_batches", 4), ("device_corpus", True), ("device_corpus_sharded", True)]
-
-
-@pytest.mark.parametrize("field,value", EXTRA_FIELDS)
-def test_trainer_refuses_unported_config(field, value, fixture_dir):
+# What the port still refuses: the sharded corpus and a data mesh (ROADMAP
+# item 16). A config with num_devices = 4 once trained on one card without a
+# word.
+@pytest.mark.parametrize("field,value", [("device_corpus_sharded", True), ("num_devices", 4)])
+def test_trainer_refuses_unported_config_fields(field, value, fixture_dir):
     c = _configure(cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass"),
                    fixture_dir, 1e-3)
     setattr(c.train, field, value)
-    if field.startswith("device_corpus"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            SegmentationTrainer(c, datamodule=None, device="cpu")
-        return
+    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP item 16"):
+        SegmentationTrainer(c, datamodule=None, device="cpu")
+
+
+# The fields refused until they were ported train now: each case holds its
+# feature at work (one step; the corpus cases one epoch from the corpus).
+PORTED_FIELDS = [("grad_accum_steps", 2), ("remat", True), ("ema_decay", 0.99), ("param_dtype", "bfloat16"),
+                 ("bn_recalibration_batches", 4), ("device_corpus", True), ("steps_per_dispatch", 2),
+                 ("num_devices", -1), ("num_devices", 1)]
+
+
+@pytest.mark.parametrize("field,value", PORTED_FIELDS)
+def test_trainer_trains_ported_config_fields(field, value, fixture_dir):
+    c = _configure(cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass"),
+                   fixture_dir, 1e-3)
+    setattr(c.train, field, value)
+    if field == "steps_per_dispatch":
+        c.train.device_corpus = True
     trainer = SegmentationTrainer(c, Datamodule(c.datamodule), device="cpu")
-    batch = next(trainer.dm.train_batches(0))
-    m = trainer.train_step(torch.from_numpy(batch.images), torch.from_numpy(batch.labels))
-    assert np.isfinite(float(m["loss"])) and trainer.step == 1
+    if c.train.device_corpus:
+        m = trainer.run_train_epoch(0)  # 4 train segments: 2 steps from the corpus
+        assert trainer.corpus is not None and trainer.device_flips and trainer.step == 2
+    else:
+        batch = next(trainer.dm.train_batches(0))
+        m = trainer.train_step(torch.from_numpy(batch.images), torch.from_numpy(batch.labels))
+        assert trainer.step == 1
+    assert np.isfinite(float(m["loss"]))
     if field == "remat":
         assert trainer.model.remat
     if field == "ema_decay":
