@@ -1,10 +1,11 @@
-"""Drive s2tpu_torch's serving, training (single- and multi-temporal, with the trainer extras), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding, checkpoint migration and device-corpus (graphed step) paths on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving (graphed, int8, from an AOT artifact), training (single- and multi-temporal, with the trainer extras), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding, checkpoint migration and device-corpus (graphed step) paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
     python3 chip_smoke.py --depthwise    # phases 1, 2 (depthwise only), 3 and 4's depthwise part
     python3 chip_smoke.py --extras       # phases 2, 6, 19, 9 and 20 only, no result lines
     python3 chip_smoke.py --corpus       # phases 2, 6 and 21 only, no result lines
+    python3 chip_smoke.py --serving      # phases 1, 2, 5 and 22 only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 ``--attention`` and ``--depthwise`` use only the kernel wrappers' public
@@ -198,7 +199,28 @@ any failure raises and the script exits non-zero without printing a result:
    corpus eager and graphed at K = 4 and 8, of accum 2 and remat graphed,
    and of the MAE streamed and graphed, each run twice in mirrored order
    (the first profiled).
-22. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
+22. Serving extras (after phase 18; on phase 5's 512^2 segments): seeded
+   checkpoints of B5 config #2, fc-prithvi T=1 and config #3 (phases 13 and
+   16 delete their run directories), served in bf16 at 224^2, overlap 32,
+   batch 8: (a) the tiled program as one CUDA graph against the same
+   padded program eager: blended logits and class maps bit for bit; the
+   wrappers' count (the warm-up chunk and the capture); #1 / #8 launches a
+   replay (the captured graph's kernel nodes, a profiled replay beside
+   them) and the host's launch calls a chunk from ``torch.profiler``;
+   tiles/s, ms per segment and busy share, eager and graphed in mirrored
+   order; the graph pool's bytes. (b) ``cli.infer --tiled --int8
+   --calib-batches 2`` (B5, fc-prithvi): exact launches; every quantized
+   layer's int32 sums on the card equal to the CPU's on one batch of
+   tiles; the int8 logits' relative L2 error against bf16 beside
+   ``tests/test_quantize.py``'s bound; int8 tiles/s. (c) ``--aot-cache``
+   (B5): cold and warm against uncached, class maps equal, exact launches
+   (the kernel nodes of the loaded program's graph), the
+   CLI's wall time to the class maps of each, and a changed overlap
+   rebuilt. (d) ``cli.export_embeddings --int8`` at crop 224 (#8) and
+   ``--crop 0`` (#5), exact launches. (e) ``train.profiling``: the
+   ``StepTimer`` time, ``FlopCounterMode`` count and MFU of B5's graphed
+   training step.
+23. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
    launches, and #8, #9, #5 with their times at fc-prithvi's shapes; #1-#4
@@ -208,7 +230,9 @@ any failure raises and the script exits non-zero without printing a result:
    one accum-2 step, one remat step and the extras' CLI run, #1 with its
    serving's; #8/#9 with phase B's step; ``accum_*``: #1-#4 and #8/#9 at
    the micro-batch's shapes; #1-#4, #8, #9 with phase C's CLI launches
-   and their launches in one replay), the ``nvidia-smi`` line, then the
+   and their launches in one replay; #1 and #8 with the serving extras'
+   graphed, int8 and AOT launches, #8 and #5 with the int8 embeddings'),
+   the ``nvidia-smi`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -396,10 +420,18 @@ PREEMPT_TOL = 1e-6
 CORPUS_SEGMENTS, CORPUS_SIZE, CORPUS_POOL, CORPUS_K = 12_400, 256, 64, 4
 PREEMPT_CORPUS_BATCH = 8
 MAE_CORPUS_BATCH, MAE_CORPUS_SEGMENTS = 8, 40
+# Serving extras: phase 5's 8 segments of 512^2 (4 served, the val split);
+# the int8 logits' relative L2 error against the float path is printed
+# beside tests/test_quantize.py's bound for the model family (UNet 0.15,
+# :69; fc-prithvi 0.1, :134).
+SERVE_SEGMENTS = 8
+PROFILE_SEGMENTS = 700  # (e): 560 train segments, the 17 batches of 32 that one eager step and 4 windows take
+INT8_REL_ERR_BOUND = {"efficientnet-unet-b5": 0.15, "fc-prithvi-backbone": 0.1}
 # Kernel names in a profiler trace, by kernel number (#9's bf16 backward is
 # two launches a call: dq, then dk/dv).
 PORT_KERNEL_NAMES = {"#1": "depthwise_s1_fwd", "#2": "depthwise_s1_dw", "#3": "fused_ce_fwd", "#4": "fused_ce_bwd",
-                     "#8": "attn_fused_fwd", "#9": "attn_fused_bwd_dq", "#9 dk/dv": "attn_fused_bwd_dkdv"}
+                     "#8": "attn_fused_fwd", "#9": "attn_fused_bwd_dq", "#9 dk/dv": "attn_fused_bwd_dkdv",
+                     "#5": "flash_attn_fwd"}
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
                "cudaMemcpyAsync", "cudaMemsetAsync")
 CARD = "card not read"  # nvidia-smi's name and power limit, set by main
@@ -948,7 +980,7 @@ def phase_slice(work: Path) -> int:
     val_idx = train_val_test_split(len(source), config.datamodule.data_split, seed=0)[1]
     n_seg = len(val_idx)
     n_tiles = len(tile_coords(n_seg, 512, 512, 224, 192))
-    n_batches = math.ceil(n_tiles / BATCH)
+    n_batches = serve_batches(n_seg, 512)
     argv = [str(ckpt), "--tiled", "--out", str(out), "--data-dir", str(data_dir)]
     infer_main(argv)  # warm-up: cuDNN heuristics, allocator
     shutil.rmtree(out)
@@ -963,8 +995,9 @@ def phase_slice(work: Path) -> int:
     launches = dw.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     per_forward = count_stride1_depthwise(model_cfg)
-    if launches != per_forward * n_batches:
-        raise AssertionError(f"depthwise launches {launches} != {per_forward} x {n_batches} batches")
+    if launches != graphed_cli_launches(per_forward):
+        raise AssertionError(f"depthwise launches {launches} != {graphed_cli_launches(per_forward)} (a warm-up chunk "
+                             f"and the capture of {per_forward})")
 
     preds = sorted(out.glob("pred_*.tif"))
     if len(preds) != n_seg:
@@ -975,8 +1008,8 @@ def phase_slice(work: Path) -> int:
         if data.shape != (1, 512, 512) or data.max() >= config.num_classes or geo != src_geo:
             raise AssertionError(f"{p.name}: shape {data.shape}, max {data.max()}, geo {geo} vs {src_geo}")
     log(
-        f"slice cli (bf16): {n_seg} segments, {n_tiles} tiles, {n_batches} batches of <= {BATCH}, "
-        f"{cli_s:.3f} s end to end, depthwise launches {launches} = {per_forward} x {n_batches}, "
+        f"slice cli (bf16): {n_seg} segments, {n_tiles} tiles, {n_batches} chunks of {BATCH} (graphed), "
+        f"{cli_s:.3f} s end to end, depthwise wrapper launches {launches} = 2 x {per_forward} (warm-up chunk, capture), "
         f"peak_mem_bytes={peak}"
     )
 
@@ -1468,8 +1501,8 @@ def check_extras_cli(data_dir: Path, per: int) -> dict:
         torch.cuda.synchronize()
         serve_launches = launch_counts()
         n_serve = serve_batches(n_val, TRAIN_SEGMENT_SIZE)
-        if serve_launches != launch_dict(depthwise_fwd=per * n_serve):
-            raise AssertionError(f"serving launches {serve_launches} != {per} x {n_serve} batches")
+        if serve_launches != launch_dict(depthwise_fwd=graphed_cli_launches(per)):
+            raise AssertionError(f"serving launches {serve_launches} != 2 x {per} (warm-up chunk, capture)")
         if not all(torch.equal(served[0][1][n], restored["ema"][n]) for n in params):
             raise AssertionError("cli.infer did not serve the EMA weights")
         log(
@@ -1477,7 +1510,8 @@ def check_extras_cli(data_dir: Path, per: int) -> dict:
             f"{EXTRAS_BN_RECAL} ({CARD}): {steps} steps, {eval_batches} eval batches, {recal} recalibration batches "
             f"in {cli_s:.3f} s; launches {launches} = expected; {len(params)} parameters bf16 with f32 masters and "
             f"EMA; norms logged at steps {[rec['step'] for rec in watched]}; served the EMA weights through "
-            f"cli.infer --tiled with {serve_launches['depthwise_fwd']} = {per} x {n_serve} #1 launches"
+            f"cli.infer --tiled ({n_serve} chunks, graphed) with {serve_launches['depthwise_fwd']} = 2 x {per} #1 "
+            f"wrapper launches"
         )
         return {"launches": launches, "serve_launches": serve_launches}
     finally:
@@ -2714,8 +2748,8 @@ def phase_fc_prithvi(work: Path) -> dict:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         serve = launch_counts()
-        if serve["attn_fused_fwd"] != FC_DEPTH * n_batches or sum(serve.values()) != serve["attn_fused_fwd"]:
-            raise AssertionError(f"fc-prithvi serving launches {serve} != {FC_DEPTH} x {n_batches} batches of #8")
+        if serve["attn_fused_fwd"] != graphed_cli_launches(FC_DEPTH) or sum(serve.values()) != serve["attn_fused_fwd"]:
+            raise AssertionError(f"fc-prithvi serving launches {serve} != 2 x {FC_DEPTH} of #8 (warm-up, capture)")
         preds = sorted(out.glob("pred_*.tif"))
         if len(preds) != len(seg_idx):
             raise AssertionError(f"{len(preds)} class maps for {len(seg_idx)} segments")
@@ -2725,8 +2759,8 @@ def phase_fc_prithvi(work: Path) -> dict:
                 raise AssertionError(f"{p.name}: shape {data.shape}, max {data.max()}")
         log(
             f"fc-prithvi serve (cli.infer --tiled, bf16): {len(seg_idx)} segments 512^2, {n_tiles} tiles, "
-            f"{n_batches} batches of <= {BATCH} in {serve_s:.3f} s end to end (tiles_per_s={n_tiles / serve_s:.2f}); "
-            f"#8 launches {serve['attn_fused_fwd']} = {FC_DEPTH} x {n_batches}"
+            f"{n_batches} chunks of {BATCH} (graphed) in {serve_s:.3f} s end to end (tiles_per_s={n_tiles / serve_s:.2f}); "
+            f"#8 wrapper launches {serve['attn_fused_fwd']} = 2 x {FC_DEPTH} (warm-up chunk, capture)"
         )
 
         # Warm steps, frozen then unfrozen, on one device batch.
@@ -2907,13 +2941,23 @@ def logged_step_losses(run_dir: Path) -> list[float]:
 
 
 def serve_batches(n_segments: int, size: int, tile: int = 224, stride: int = 192) -> int:
-    """Model batches of ``cli.infer --tiled`` over ``n_segments`` segments of
-    ``size``²: SEGMENTS_PER_CALL segments share a queue of BATCH tiles."""
+    """Model batches (chunks) of ``cli.infer --tiled`` over ``n_segments``
+    segments of ``size``²: every group is padded to SEGMENTS_PER_CALL
+    segments, which share a queue of BATCH tiles padded to whole chunks."""
     from s2tpu_torch.cli.infer import SEGMENTS_PER_CALL
     from s2tpu_torch.infer.tiled import tile_coords
 
-    groups = [min(SEGMENTS_PER_CALL, n_segments - g) for g in range(0, n_segments, SEGMENTS_PER_CALL)]
-    return sum(math.ceil(len(tile_coords(n, size, size, tile, stride)) / BATCH) for n in groups)
+    groups = math.ceil(n_segments / SEGMENTS_PER_CALL)
+    return groups * math.ceil(len(tile_coords(SEGMENTS_PER_CALL, size, size, tile, stride)) / BATCH)
+
+
+def graphed_cli_launches(per_forward: int) -> int:
+    """A kernel's wrapper count over one ``cli.infer --tiled`` call on the
+    card, ``per_forward`` launches a model forward: every group padded to one
+    shape, the call captures one CUDA graph of the chunk program, and the
+    wrapper counts its warm-up chunk and its capture; the replays launch from
+    the graph (counted by ``torch.profiler`` in the serving-extras phase)."""
+    return 2 * per_forward
 
 
 def phase_config3(work: Path) -> dict:
@@ -3009,8 +3053,8 @@ def phase_config3(work: Path) -> dict:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         serve = launch_counts()
-        if serve["depthwise_fwd"] != per * n_batches or sum(serve.values()) != serve["depthwise_fwd"]:
-            raise AssertionError(f"config #3 serving launches {serve} != {per} x {n_batches} batches of #1")
+        if serve["depthwise_fwd"] != graphed_cli_launches(per) or sum(serve.values()) != serve["depthwise_fwd"]:
+            raise AssertionError(f"config #3 serving launches {serve} != 2 x {per} of #1 (warm-up chunk, capture)")
         preds = sorted(out.glob("pred_*.tif"))
         if len(preds) != n_val:
             raise AssertionError(f"{len(preds)} class maps for {n_val} val segments")
@@ -3029,8 +3073,9 @@ def phase_config3(work: Path) -> dict:
             raise AssertionError(f"export-unet round trip differs: {differ[:5]}")
         log(
             f"config #3 serve (cli.infer --tiled, bf16): {n_val} segments {TRAIN_SEGMENT_SIZE}^2 x {CFG3_FRAMES} frames, "
-            f"{n_batches} batches of <= {BATCH} tiles in {serve_s:.3f} s end to end, #1 launches {serve['depthwise_fwd']} "
-            f"= {per} x {n_batches}, {len(preds)} class maps; export-unet -> strict load: {len(state)} tensors bit for bit"
+            f"{n_batches} chunks of {BATCH} tiles (graphed) in {serve_s:.3f} s end to end, #1 wrapper launches "
+            f"{serve['depthwise_fwd']} = 2 x {per}, {len(preds)} class maps; export-unet -> strict load: {len(state)} "
+            f"tensors bit for bit"
         )
 
         # One batch of stacked tiles: card f32 (TF32 off) vs CPU f32, same weights.
@@ -3247,8 +3292,8 @@ def phase_migration(work: Path) -> dict:
             counter, per = "attn_fused_fwd", FC_DEPTH
         else:
             counter, per = "depthwise_fwd", count_stride1_depthwise(seeded.config)
-        if launches[counter] != per * n_batches or sum(launches.values()) != launches[counter]:
-            raise AssertionError(f"imported {model_name} serving launches {launches} != {per} x {n_batches} of {counter}")
+        if launches[counter] != graphed_cli_launches(per) or sum(launches.values()) != launches[counter]:
+            raise AssertionError(f"imported {model_name} serving launches {launches} != 2 x {per} of {counter}")
         if len(list(out.glob("pred_*.tif"))) != len(seg_idx):
             raise AssertionError(f"imported {model_name}: class maps missing under {out}")
 
@@ -3270,7 +3315,7 @@ def phase_migration(work: Path) -> dict:
         log(
             f"migration {model_name}: reference .ckpt -> import-ckpt in {import_s:.1f} s ({len(state)} tensors bit for "
             f"bit) -> cli.infer --tiled on the card: {len(seg_idx)} segments 512^2, {n_batches} batches in "
-            f"{serve_s:.3f} s, {counter} launches {launches[counter]} = {per} x {n_batches}; f32 logits vs the seeded "
+            f"{serve_s:.3f} s, {counter} wrapper launches {launches[counter]} = 2 x {per} (graphed); f32 logits vs the seeded "
             f"model: max_abs_diff={diff:.3g} ({'bit-equal' if diff == 0.0 else 'within 1e-6 x scale'})"
         )
         result[model_name] = launches
@@ -3804,6 +3849,419 @@ def extras_launches(seg_extras: dict, kernel: str) -> dict[str, int]:
     return {f"{part}_launches": seg_extras[part]["launches"][kernel] for part in ("accum", "remat", "cli")}
 
 
+# ------------------------------------------------------- serving extras ----
+def serving_model(work: Path, name: str) -> dict:
+    """A seeded checkpoint of one of the serving-extras phase's three
+    configurations (bf16 serving, 224^2 tiles, batch 2 for the int8
+    calibration's training batches, split (0.5, 0.5)) on its data, and its
+    bf16 predictor; returns ckpt, data, config, predictor, counter, per."""
+    from s2tpu_torch.checkpoint.io import load_checkpoint, save_checkpoint
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
+    from s2tpu_torch.data.dataset import make_synthetic_fixture
+    from s2tpu_torch.data.statistics import load_mean_std
+    from s2tpu_torch.infer.predict import Predictor
+    from s2tpu_torch.models.efficientnet_unet import count_stride1_depthwise
+
+    data = work / "data"  # phase 5's 512^2 segments and statistics
+    labels, extra = "osm-multiclass", []
+    if name == "config #3":
+        data = work / "serve_cfg3_data"
+        if not data.exists():
+            from s2tpu_torch.data.dataset import TiffSource
+            from s2tpu_torch.data.statistics import calculate_mean_std
+
+            dirs = make_synthetic_fixture(data, aoi="small", label_map="cnes-multiclass", n_segments=SERVE_SEGMENTS,
+                                          n_time=CFG3_FRAMES, n_bands=CFG3_BANDS, size=(512, 512))
+            calculate_mean_std(TiffSource("small", "cnes-multiclass", data, n_time_frames=CFG3_FRAMES),
+                               save_path=dirs.base_path / "mean_std.json")
+        labels, extra = "cnes-multiclass", ["--time-frames", str(CFG3_FRAMES), "--stack-time", "--bands", "all12"]
+    model_name = "fc-prithvi-backbone" if name == "fc-prithvi" else "efficientnet-unet-b5"
+    config = config_from_args(build_parser().parse_args(
+        ["small", labels, model_name, "--crop", "224", "--compute-dtype", "bfloat16", "--bs", "2", "--data-dir",
+         str(data), *extra]))
+    config.datamodule.data_split = (0.5, 0.5, 0.0)
+    gen = torch.Generator().manual_seed(SEED + 50 + len(name))
+    model = randomize_batch_stats_(config.build_model(dtype=torch.float32, device="cpu", generator=gen), gen)
+    ckpt = work / f"serve_{name.replace(' ', '').replace('#', '')}"
+    save_checkpoint(ckpt, config, model.state_dict())
+    config, state = load_checkpoint(ckpt)
+    ds = config.datamodule.dataset_cfg
+    served = config.build_model(dtype=torch.bfloat16, device="cuda")
+    served.load_state_dict(state, strict=True)
+    from s2tpu_torch.data.dataset import TiffSource
+
+    source = TiffSource(ds.aoi, ds.label_map, data, n_time_frames=ds.n_time_frames)
+    mean, std = load_mean_std(source.data_dirs.base_path / "mean_std.json")
+    predictor = Predictor(served, mean, std, torch.bfloat16, torch.device("cuda"), ds.stack_time_into_channels,
+                          ds.squeeze_time_dim)
+    counter, per = (("attn_fused_fwd", FC_DEPTH) if name == "fc-prithvi"
+                    else ("depthwise_fwd", count_stride1_depthwise(served.config)))
+    return {"ckpt": ckpt, "data": data, "config": config, "state": state, "source": source, "predictor": predictor,
+            "counter": counter, "per": per}
+
+
+def serve_images(m: dict) -> np.ndarray:
+    """The val split's segments of ``m``'s source, one tiled call's group."""
+    from s2tpu_torch.data.dataset import train_val_test_split
+
+    val = train_val_test_split(len(m["source"]), m["config"].datamodule.data_split, seed=0)[1]
+    return np.stack([m["source"].read_with_geo(int(i))[0] for i in val])
+
+
+def serve_timed(predictor, images: np.ndarray, num_classes: int, graph: bool) -> float:
+    """Wall seconds of one warm ``tiled_predict_many`` call (card synchronized)."""
+    from s2tpu_torch.infer.tiled import tiled_predict_many
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiled_predict_many(predictor, images, num_classes, graph=graph)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def debug_graphs():
+    """Inside the block every CUDA graph keeps its ``cudaGraph_t`` after
+    capture (``keep_graph``), so that ``graph_kernel_nodes`` can print it."""
+    base = torch.cuda.CUDAGraph
+
+    class KeptGraph(base):
+        def __init__(self, keep_graph: bool = False):
+            super().__init__(True)  # the binding's constructor takes keep_graph
+
+    torch.cuda.CUDAGraph = KeptGraph
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def graph_kernel_nodes(graph, path: Path) -> dict[str, int]:
+    """The port kernels' nodes in a graph captured under ``debug_graphs``,
+    by kernel number: the driver's DOT print of the graph
+    (``cuGraphDebugDotPrint``, verbose), one line a node, counted by the
+    lines that name the kernel. A replay launches every node once."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    err = libcuda.cuGraphDebugDotPrint(ctypes.c_void_p(graph.raw_cuda_graph()), str(path).encode(), ctypes.c_uint(1))
+    if err != 0:
+        raise RuntimeError(f"cuGraphDebugDotPrint failed with CUDA driver error {err}")
+    lines = path.read_text().splitlines()
+    return {k: sum(frag in line for line in lines) for k, frag in PORT_KERNEL_NAMES.items()}
+
+
+def replay_launches(label: str, graph, dump: Path, rows: torch.Tensor, valid: torch.Tensor, kernel: str,
+                    expected: int) -> int:
+    """A kernel's launches in one replay of a tiled graph: its nodes in the
+    graph (``graph_kernel_nodes``), which must be ``expected``; one replay
+    under ``torch.profiler`` is logged beside them."""
+    nodes = graph_kernel_nodes(graph.graph, dump)
+    prof = device_profile(lambda: graph.replay(rows, valid))
+    log(f"{label}: {kernel} kernel nodes in the graph {nodes[kernel]}, read by torch.profiler in one replay "
+        f"{prof['launches'][kernel]} ({prof['kernels']} device kernels in all)")
+    if nodes[kernel] != expected:
+        raise AssertionError(f"{label}: {kernel} nodes in the graph {nodes} != {expected}")
+    return nodes[kernel]
+
+
+def check_graphed_serving(name: str, m: dict) -> dict:
+    """(a) ``m``'s tiled program graphed against eager: blended logits and
+    class maps bit for bit; the wrapper's count over the first graphed call
+    (warm-up chunk and capture); one replay's launches (the graph's kernel
+    nodes, the profiler's reading beside them); the host's launch calls a
+    chunk from ``torch.profiler``; tiles/s, ms per segment and busy
+    share, eager and graphed in mirrored order (eager, graphed, graphed,
+    eager); the graph pool's bytes."""
+    from s2tpu_torch.infer import tiled
+    from s2tpu_torch.infer.predict import Predictor
+
+    k = m["config"].num_classes
+    images = serve_images(m)
+    n_seg = len(images)
+    n_tiles = len(tiled.tile_coords(n_seg, images.shape[-3], images.shape[-2], 224, 192))
+    n_chunks = math.ceil(n_tiles / BATCH)
+    eager_maps, eager_logits = tiled.tiled_predict_many(m["predictor"], images, k, graph=False, return_logits=True)
+    fresh = Predictor(m["predictor"].model, m["predictor"].mean, m["predictor"].std, torch.bfloat16,
+                      torch.device("cuda"), m["predictor"].module.stack_time_into_channels,
+                      m["predictor"].module.squeeze_time_dim)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with debug_graphs():
+        maps, logits = tiled.tiled_predict_many(fresh, images, k, return_logits=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts[m["counter"]] != graphed_cli_launches(m["per"]) or sum(counts.values()) != counts[m["counter"]]:
+        raise AssertionError(f"{name} graphed serving wrapper launches {counts} != 2 x {m['per']}")
+    if not (np.array_equal(logits, eager_logits) and np.array_equal(maps, eager_maps)):
+        diff = float(np.abs(logits - eager_logits).max())
+        raise AssertionError(f"{name}: graphed serving differs from eager (max |diff| {diff})")
+    images_t = torch.as_tensor(images).cuda()
+    key = tiled.graph_key(fresh, images_t, 224, 192, k, BATCH)
+    graph = tiled.cached_graph(fresh, key)
+    rows, valid = (torch.from_numpy(a).cuda() for a in tiled.padded_queue(n_seg, 512, 512, 224, 192, BATCH))
+    kernel = "#8" if m["counter"] == "attn_fused_fwd" else "#1"
+    per_replay = replay_launches(name, graph, m["ckpt"].with_suffix(".dot"), rows[1], valid[1], kernel, m["per"])
+    walls = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        walls[mode].append(serve_timed(fresh, images, k, mode == "graphed"))
+    out = {"replay_launches": per_replay, "pool_bytes": graph.pool_bytes, "chunks": n_chunks,
+           "wrapper_launches": counts[m["counter"]]}
+    for mode in ("eager", "graphed"):
+        prof = device_profile(lambda: tiled.tiled_predict_many(fresh, images, k, graph=mode == "graphed"))
+        calls = sum(prof["host_api"].values())
+        out[mode] = {
+            "tiles_per_s": [n_tiles / s for s in walls[mode]], "ms_per_segment": [s / n_seg * 1e3 for s in walls[mode]],
+            "busy_share": [prof["device_ms"] / (s * 1e3) for s in walls[mode]] if prof["device_ms"] else None,
+            "device_ms": prof["device_ms"], "host_launch_calls_per_chunk": calls / n_chunks,
+            "host_api": prof["host_api"],
+        }
+    g, e = out["graphed"], out["eager"]
+    log(f"serving extras (a) {name} ({CARD}): {n_seg} segments 512^2, {n_tiles} tiles, {n_chunks} chunks of {BATCH}; "
+        f"graphed = eager bit for bit (logits {logits.shape}, class maps); wrapper launches {counts[m['counter']]} = 2 x "
+        f"{m['per']} (warm-up chunk, capture); {kernel} launches a replay {out['replay_launches']} (the graph's kernel nodes); "
+        f"graph pool {graph.pool_bytes} bytes (memory_reserved growth over warm-up and capture)")
+    for mode, r in (("eager", e), ("graphed", g)):
+        log(f"serving extras (a) {name} {mode} (runs in order eager, graphed, graphed, eager): tiles_per_s="
+            f"{[round(v, 2) for v in r['tiles_per_s']]} ms_per_512_segment={[round(v, 2) for v in r['ms_per_segment']]} "
+            f"device_ms={r['device_ms']:.3f} busy_share="
+            f"{'not measured' if r['busy_share'] is None else [round(v, 3) for v in r['busy_share']]} "
+            f"host_launch_calls_per_chunk={r['host_launch_calls_per_chunk']:.1f} ({r['host_api']})")
+    return out
+
+
+def check_int8_serving(name: str, m: dict, work: Path) -> dict:
+    """(b) ``cli.infer --tiled --int8 --calib-batches 2``: the wrapper's
+    count (two calibration forwards and the graph's warm-up and capture);
+    then, on the same int8 predictor in process, every quantized layer's
+    int32 sums on the card against the CPU's on one batch of tiles, the
+    int8 logits' relative L2 error against the bf16 path beside the bound
+    of ``tests/test_quantize.py`` for the family, and int8 tiles/s."""
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.infer import quantize as pq
+    from s2tpu_torch.infer.tiled import tile_coords, tiled_predict_many
+
+    out = work / f"int8_preds_{m['ckpt'].name}"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    infer_main([str(m["ckpt"]), "--tiled", "--int8", "--calib-batches", "2", "--out", str(out), "--data-dir",
+                str(m["data"])])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = launch_counts()
+    expected = 2 * m["per"] + graphed_cli_launches(m["per"])
+    if counts[m["counter"]] != expected or sum(counts.values()) != counts[m["counter"]]:
+        raise AssertionError(f"{name} int8 CLI launches {counts} != {expected} (2 calibration forwards, warm-up, "
+                             "capture)")
+    if len(list(out.glob("pred_*.tif"))) != len(serve_images(m)):
+        raise AssertionError(f"{name} int8 CLI: class maps missing under {out}")
+
+    dm = Datamodule(m["config"].datamodule, source=m["source"])
+    q = pq.quantize_for_serving(m["predictor"], dm, n_batches=2, state_dict=m["state"])
+    layers = pq.quantizable_modules(q.model)
+    checked = []
+
+    def hook(path):
+        def check(module, args):
+            entry = q.model.quant.entry(path)
+            card = pq.int8_sums(module, args[0], entry)
+            cpu = pq.int8_sums(module, args[0].cpu(), {f: None if v is None else v.cpu() for f, v in entry.items()})
+            if not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"{name} int8 layer {path}: card int32 sums differ from the CPU's")
+            checked.append(path)
+        return check
+
+    images = serve_images(m)
+    tiles = torch.stack([torch.from_numpy(images[i, ..., y : y + 224, x : x + 224, :])
+                         for i, y, x in tile_coords(len(images), 512, 512, 224, 192)[:BATCH]])
+    handles = [layers[p].register_forward_pre_hook(hook(p)) for p in q.model.quant.paths]
+    try:
+        q(tiles)
+    finally:
+        for h in handles:
+            h.remove()
+    if sorted(checked) != sorted(q.model.quant.paths):
+        raise AssertionError(f"{name}: {len(checked)} of {len(q.model.quant.paths)} quantized layers checked")
+    k = m["config"].num_classes
+    _, int8_logits = tiled_predict_many(q, images, k, return_logits=True)
+    _, bf16_logits = tiled_predict_many(m["predictor"], images, k, return_logits=True)
+    rel = float(np.linalg.norm(int8_logits - bf16_logits) / np.linalg.norm(bf16_logits))
+    walls = [serve_timed(q, images, k, True) for _ in range(2)]
+    n_tiles = len(tile_coords(len(images), 512, 512, 224, 192))
+    bound = INT8_REL_ERR_BOUND[str(m["config"].model_name.value)]
+    log(f"serving extras (b) {name} int8 ({CARD}): cli.infer --tiled --int8 --calib-batches 2 in {cli_s:.3f} s, "
+        f"{m['counter']} wrapper launches {counts[m['counter']]} = 2 x {m['per']} calibration + 2 x {m['per']} "
+        f"(warm-up, capture); {len(checked)} quantized layers' int32 sums on the card = the CPU's ({BATCH} tiles); "
+        f"int8 vs bf16 logits relative L2 error {rel:.4f} (tests/test_quantize.py's bound for the family: {bound}); "
+        f"int8 graphed tiles_per_s={[round(n_tiles / s, 2) for s in walls]}")
+    return {"launches": counts[m["counter"]], "layers": len(checked), "rel_err": rel,
+            "tiles_per_s": [n_tiles / s for s in walls]}
+
+
+def check_aot_serving(m: dict, work: Path) -> dict:
+    """(c) ``cli.infer --tiled --aot-cache``: no artifact (exported and
+    written), then the written one (loaded), each against the uncached run's
+    class maps, with the wrapper's count (the graph's warm-up and capture
+    through the program; tracing launches nothing) and the wall time to the
+    first class map of each; the kernel nodes of the loaded program's graph;
+    then a changed overlap, which the artifact must not
+    serve: rebuilt, equal to the uncached run."""
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.geo.tiff import read_geotiff
+    from s2tpu_torch.infer import aot, tiled
+    from s2tpu_torch.infer.predict import Predictor
+
+    cache = work / "serve_b5.aot"
+    cache.unlink(missing_ok=True)
+    maps, walls, counts = {}, {}, {}
+    for run, flags in (("uncached", []), ("cold", ["--aot-cache", str(cache)]), ("warm", ["--aot-cache", str(cache)])):
+        out = work / f"aot_preds_{run}"
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        infer_main([str(m["ckpt"]), "--tiled", "--out", str(out), "--data-dir", str(m["data"]), *flags])
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t0
+        counts[run] = launch_counts()
+        maps[run] = {p.name: read_geotiff(p)[0] for p in sorted(out.glob("pred_*.tif"))}
+        if counts[run] != launch_dict(depthwise_fwd=graphed_cli_launches(m["per"])):
+            raise AssertionError(f"aot {run} CLI launches {counts[run]} != 2 x {m['per']}")
+    for run in ("cold", "warm"):
+        if maps[run].keys() != maps["uncached"].keys() or not all(
+                np.array_equal(maps[run][n], maps["uncached"][n]) for n in maps[run]):
+            raise AssertionError(f"aot {run}: class maps differ from the uncached run's")
+    if not cache.exists():
+        raise AssertionError("aot: no artifact written")
+    p = m["predictor"]
+    images = serve_images(m)
+    k = m["config"].num_classes
+    loaded = aot.cached_predictor(cache, p, torch.as_tensor(images).cuda(), 224, 192, k, BATCH)
+    with debug_graphs():
+        tiled.tiled_predict_many(loaded, images, k)
+    graph = tiled.cached_graph(loaded, tiled.graph_key(loaded, torch.as_tensor(images).cuda(), 224, 192, k, BATCH))
+    rows, valid = (torch.from_numpy(a).cuda() for a in tiled.padded_queue(len(images), 512, 512, 224, 192, BATCH))
+    per_replay = replay_launches("aot (the loaded program)", graph, work / "aot_graph.dot", rows[1], valid[1], "#1",
+                                 m["per"])
+    fresh = Predictor(p.model, p.mean, p.std, torch.bfloat16, torch.device("cuda"))
+    stale, _ = tiled.tiled_predict_many(fresh, images, k, overlap=64, aot_cache=str(cache))
+    ref, _ = tiled.tiled_predict_many(p, images, k, overlap=64)
+    import pickle
+
+    if not np.array_equal(stale, ref) or "s160" not in pickle.loads(cache.read_bytes())["meta"]["statics"]:
+        raise AssertionError("aot: a changed overlap was not rebuilt, or serves other class maps")
+    log(f"serving extras (c) B5 --aot-cache ({CARD}): CLI wall to the class maps uncached {walls['uncached']:.3f} s, "
+        f"cold (export + write) {walls['cold']:.3f} s, warm (load) {walls['warm']:.3f} s; class maps equal to the "
+        f"uncached run's; wrapper launches {counts['warm']['depthwise_fwd']} = 2 x {m['per']} each; #1 launches a "
+        f"replay of the loaded program {per_replay}; artifact {cache.stat().st_size} bytes; overlap 64: "
+        f"stale, rebuilt, equal to uncached")
+    return {"launches": counts["warm"]["depthwise_fwd"], "replay_launches": per_replay,
+            "cold_start_s": walls, "artifact_bytes": cache.stat().st_size}
+
+
+def check_embeddings_int8(work: Path) -> dict:
+    """(d) ``cli.export_embeddings --int8 --calib-batches 1`` from a seeded
+    Prithvi-100M MAE run over phase 5's 512^2 segments (batch 8): crop 224
+    (#8, L = 197) and whole segments (``--crop 0``, #5, L = 1025); exact
+    launches (the calibration forward and the export's), finite embeddings."""
+    from s2tpu_torch.cli.export_embeddings import main as export_main
+    from s2tpu_torch.configs import mae as mae_cfg
+    from s2tpu_torch.train.mae_trainer import default_model_config
+
+    config = mae_cfg.pretrain(mae_cfg.base_config("small"))
+    config.train.compute_dtype = "bfloat16"
+    run = work / "serve_mae"
+    write_mae_run(run, default_model_config(config), SEED + 60, config)
+    result = {}
+    for crop, counter in (("224", "attn_fused_fwd"), ("0", "attn_flash_fwd")):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = export_main([str(run), "--data-dir", str(work / "data"), "--bs", str(SERVE_SEGMENTS), "--crop", crop,
+                           "--int8", "--calib-batches", "1", "--out", str(work / f"int8_embed_{crop}.npz")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        z = np.load(out)
+        meta = json.loads(str(z["meta"]))
+        if counts[counter] != 2 * EMBED_DEPTH or sum(counts.values()) != counts[counter]:
+            raise AssertionError(f"int8 embeddings crop {crop}: launches {counts} != 2 x {EMBED_DEPTH} of {counter}")
+        if not (meta["int8"] and z["embeddings"].shape == (SERVE_SEGMENTS, 768) and np.isfinite(z["embeddings"]).all()):
+            raise AssertionError(f"int8 embeddings crop {crop}: {z['embeddings'].shape} {meta}")
+        log(f"serving extras (d) export_embeddings --int8 --crop {crop} ({CARD}): {SERVE_SEGMENTS} segments in "
+            f"{wall:.3f} s, {counter} launches {counts[counter]} = 2 x {EMBED_DEPTH} (calibration, export)")
+        result[crop] = counts[counter]
+    return result
+
+
+def check_profiling(work: Path) -> dict:
+    """(e) ``train.profiling`` on B5's graphed training step (config #2, bf16,
+    batch 32, 224^2, from a corpus of PROFILE_SEGMENTS pooled segments of
+    256^2, K = 4): one eager
+    step's operations by ``FlopCounterMode``, then ``StepTimer`` over
+    windows of four graphed steps, and the MFU against the card's peak."""
+    from s2tpu_torch.data.device_corpus import DeviceCorpus
+    from s2tpu_torch.train import profiling
+
+    source, mean_std, counts = pool_source(PROFILE_SEGMENTS)
+    corpus = DeviceCorpus(source, torch.device("cuda"))
+    with shared_corpus(corpus):
+        trainer = corpus_seg_trainer(work, source, mean_std, counts, device_corpus=True, steps_per_dispatch=1,
+                                     watch_interval=0)
+        draws = corpus_draws(trainer, 1 + 4 * 4)
+        flops = profiling.count_flops(lambda: trainer.train_window(draws[:1]))
+        trainer.config.train.steps_per_dispatch = 4
+        timer = profiling.StepTimer(warmup=1)
+        for i in range(4):
+            with timer.step():
+                trainer.train_window(draws[1 + 4 * i : 5 + 4 * i])
+    summary = timer.summary()
+    step_s = summary["mean_s"] / 4
+    mfu = profiling.mfu(flops, 1, step_s)
+    log(f"serving extras (e) profiling ({CARD}; torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}): B5 "
+        f"graphed step (K=4) {step_s * 1e3:.3f} ms by StepTimer ({summary}); FlopCounterMode {flops / 1e12:.4f} TFLOP a "
+        f"step; MFU {'not in the peak table' if mfu is None else round(mfu, 4)} of "
+        f"{profiling.peak_flops()} FLOP/s (dense bf16)")
+    return {"step_ms": step_s * 1e3, "tflop_per_step": flops / 1e12, "mfu": mfu}
+
+
+def phase_serving_extras(work: Path) -> dict:
+    """The serving extras (after phase 5, whose 512^2 segments and
+    statistics it serves): (a) the tiled program graphed against eager for
+    B5 config #2, fc-prithvi T=1 and config #3; (b) int8 serving through the
+    CLI for B5 and fc-prithvi; (c) ``--aot-cache`` for B5; (d) int8
+    embeddings; (e) profiling of B5's graphed training step."""
+    models, result = {}, {}
+    for name in ("B5", "fc-prithvi", "config #3"):
+        t0 = time.perf_counter()
+        models[name] = serving_model(work, name)
+        log(f"serving extras setup {name}: seeded checkpoint and bf16 predictor in {time.perf_counter() - t0:.1f} s")
+        result[name] = {"graphed": check_graphed_serving(name, models[name])}
+    for name in ("B5", "fc-prithvi"):
+        result[name]["int8"] = check_int8_serving(name, models[name], work)
+    result["B5"]["aot"] = check_aot_serving(models["B5"], work)
+    result["embed_int8"] = check_embeddings_int8(work)
+    result["profiling"] = check_profiling(work)
+    return result
+
+
+def serving_only() -> int:
+    """``--serving``: the build, the serving slice (whose segments the new
+    phase serves) and the serving extras; no result lines."""
+    phase_build()
+    work = REPO / "out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        for name, fn in (("serving slice", phase_slice), ("serving extras", phase_serving_extras)):
+            t0 = time.perf_counter()
+            fn(work)
+            log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def extras_only() -> int:
     """``--extras``: the build, the training and MAE slices whose data the
     extras run on, and phases A and B; no result lines."""
@@ -3837,6 +4295,20 @@ def corpus_only() -> int:
     return 0
 
 
+def serving_entries(model: dict) -> dict:
+    """A served model's entries from the serving extras for the kernels
+    line: graphed serving's wrapper count and a replay's launches, and, where
+    the phase ran them, the int8 CLI's and the AOT-loaded program's."""
+    out = {"serve_graph_launches": model["graphed"]["wrapper_launches"],
+           "serve_replay_launches": model["graphed"]["replay_launches"]}
+    if "int8" in model:
+        out["int8_serve_launches"] = model["int8"]["launches"]
+    if "aot" in model:
+        out["aot_serve_launches"] = model["aot"]["launches"]
+        out["aot_replay_launches"] = model["aot"]["replay_launches"]
+    return out
+
+
 def corpus_entries(corpus: dict, part: str, kernel: str, key: str) -> dict:
     """A kernel's entries from phase C for the kernels line: its launches in
     the corpus CLI's main path (warm-up, capture, eval; replays launch from
@@ -3847,8 +4319,9 @@ def corpus_entries(corpus: dict, part: str, kernel: str, key: str) -> dict:
 
 def main(argv: list[str]) -> int:
     global CARD
-    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"], ["--corpus"]):
-        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras | --corpus]", file=sys.stderr)
+    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"], ["--corpus"], ["--serving"]):
+        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras | --corpus | --serving]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3861,7 +4334,7 @@ def main(argv: list[str]) -> int:
     CARD = nvidia_smi()
     if argv:
         return {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
-                "--corpus": corpus_only}[argv[0]]()
+                "--corpus": corpus_only, "--serving": serving_only}[argv[0]]()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = CARD
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -3894,6 +4367,7 @@ def main(argv: list[str]) -> int:
         fc_t3 = timed("fc-prithvi slice T=3", phase_fc_prithvi_t3, work)
         embeds = timed("embeddings slice", phase_embeddings, work)
         migration = timed("migration slice", phase_migration, work)
+        serving = timed("serving extras", phase_serving_extras, work)
         mae = timed("MAE slice T=1", phase_mae, work)
         mae_extras = timed("MAE trainer extras", phase_mae_extras, work)
         corpus = timed("corpus and graphed steps", phase_corpus, work)
@@ -3947,6 +4421,10 @@ def main(argv: list[str]) -> int:
             "accum_dx_max_abs_err": micro["bwd"]["dx_max_abs_err"],
             **depthwise_ptxas(ptxas, "depthwise_s1_fwd"),
             **corpus_entries(corpus, "b5_launches", "#1", "depthwise_fwd"),
+            # the serving extras: graphed tiled serving (wrapper count: warm-up chunk and capture; a replay's
+            # launches from torch.profiler), int8 serving through the CLI, the AOT-loaded program
+            **serving_entries(serving["B5"]),
+            **{f"cfg3_{k}": v for k, v in serving_entries(serving["config #3"]).items()},
         },
         {
             "name": "depthwise_conv2d_s1_grad_weight",
@@ -4063,6 +4541,8 @@ def main(argv: list[str]) -> int:
             **corpus_entries(corpus, "mae_launches", "#8", "attn_fused_fwd"),
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"fwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **fwd_ptxas,
+            **{f"fc_prithvi_{k}": v for k, v in serving_entries(serving["fc-prithvi"]).items()},
+            "embed_int8_launches": serving["embed_int8"]["224"],
         },
         {
             "name": "fused_attention_dense_backward",
@@ -4101,6 +4581,7 @@ def main(argv: list[str]) -> int:
             "embed_t3_launches": embeds["t3"]["launches"]["attn_flash_fwd"],
             **{f"embed_{k}": attn_times["flash_embed"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **{f"embed_t3_{k}": attn_times["flash_embed_t3"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "embed_crop0_int8_launches": serving["embed_int8"]["0"],
         },
     ]
     if len(kernels) != 9:

@@ -1,7 +1,8 @@
 """Export MAE encoder embeddings: MAE run directory -> per-segment feature vectors (the port of ``s2tpu/cli/export_embeddings.py``).
 
     python -m s2tpu_torch.cli.export_embeddings <MAE run dir> [--split all] [--pool mean|cls|tokens]
-        [--crop N] [--bs N] [--epoch N] [--data-dir D] [--out F.npz] [--device cuda|cpu]
+        [--crop N] [--bs N] [--int8 [--calib-batches N]] [--epoch N] [--data-dir D] [--out F.npz]
+        [--device cuda|cpu]
 
 Reads a run directory of ``s2tpu_torch.cli.train_mae`` (or of
 ``convert_weights prithvi``), its best epoch by the validation loss or else
@@ -10,15 +11,17 @@ its latest, and writes an ``.npz`` with ``embeddings`` (N, D), or
 stems) and ``meta`` (the export settings, JSON), as the JAX CLI does.
 Segments are center-cropped to ``--crop`` (default: the run's training
 crop; 0: the whole segment); the position tables are regenerated for the
-crop, which must be a multiple of the patch size. Runs on the card unless
-``--device cpu``. ``--int8`` waits for ``infer/quantize.py`` (ROADMAP item
-17) and is refused.
+crop, which must be a multiple of the patch size. ``--int8`` runs the
+encoder's dense layers int8, calibrated on the first ``--calib-batches``
+batches of the export (``infer/quantize.py``). Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 from pathlib import Path
 
@@ -44,7 +47,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, metavar="F.npz")
     p.add_argument("--epoch", type=int, default=None, help="checkpoint epoch (default: best, else latest)")
     p.add_argument("--data-dir", default=None)
-    p.add_argument("--int8", action="store_true", help="int8 encoder serving: not ported yet (ROADMAP item 17)")
+    p.add_argument(
+        "--int8", action="store_true",
+        help="int8 serving for the encoder forward (infer/quantize.py; calibrated on the first --calib-batches "
+        "batches)",
+    )
+    p.add_argument("--calib-batches", type=int, default=2)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
@@ -66,13 +74,11 @@ def main(argv: list[str] | None = None) -> Path:
     from s2tpu_torch.configs.paths import OUT_DIR
     from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES
     from s2tpu_torch.data.dataset import TiffSource, train_val_test_split
-    from s2tpu_torch.infer.embed import center_crop, load_encoder, make_embed_fn
+    from s2tpu_torch.infer.embed import calibrate_encoder_int8, center_crop, load_encoder, make_embed_fn
     from s2tpu_torch.models.prithvi_mae import PrithviConfig
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.int8:
-        parser.error("--int8 is not ported to s2tpu_torch yet (ROADMAP item 17, infer/quantize.py)")
     device = resolve_device(args.device)
     ckpt = CheckpointManager(args.ckpt_dir)
     best = ckpt.best_epoch()
@@ -103,11 +109,22 @@ def main(argv: list[str] | None = None) -> Path:
     model = load_encoder(state, model_config, COMPUTE_DTYPES[config.train.compute_dtype], device)
     logger.info(f"Restored MAE checkpoint epoch {epoch} from {args.ckpt_dir} (encoder only, on {device})")
 
-    embed = make_embed_fn(model, *load_prithvi_mean_std(), pool=args.pool)
+    mean, std = load_prithvi_mean_std()
+
+    def batches():
+        for lo in range(0, len(indices), args.bs):
+            chunk = indices[lo : lo + args.bs]
+            yield chunk, np.stack([center_crop(np.asarray(source[i].x), crop) for i in chunk])
+
+    qstate = None
+    if args.int8:
+        calib = (torch.from_numpy(imgs) for _, imgs in itertools.islice(batches(), args.calib_batches))
+        qstate = calibrate_encoder_int8(model, mean, std, calib)
+        logger.info(f"int8 calibration done ({len(qstate)} encoder layers quantized)")
+
+    embed = make_embed_fn(model, mean, std, pool=args.pool, qstate=qstate)
     chunks, ids = [], []
-    for lo in range(0, len(indices), args.bs):
-        chunk = indices[lo : lo + args.bs]
-        imgs = np.stack([center_crop(np.asarray(source[i].x), crop) for i in chunk])
+    for chunk, imgs in batches():
         chunks.append(embed(torch.from_numpy(imgs)).to(torch.float32).cpu().numpy())
         ids.extend(segment_id(source, i) for i in chunk)
     embeddings = np.concatenate(chunks, axis=0)
@@ -115,7 +132,7 @@ def main(argv: list[str] | None = None) -> Path:
     out = Path(args.out) if args.out else OUT_DIR / f"{Path(args.ckpt_dir).name}_embeddings.npz"
     out.parent.mkdir(parents=True, exist_ok=True)
     meta = {
-        "pool": args.pool, "crop": int(crop), "split": args.split, "int8": False, "epoch": int(epoch),
+        "pool": args.pool, "crop": int(crop), "split": args.split, "int8": bool(args.int8), "epoch": int(epoch),
         "aoi": ds.aoi, "embed_dim": int(model_config.embed_dim),
     }
     np.savez(out, embeddings=embeddings, segment_ids=np.asarray(ids), meta=json.dumps(meta))

@@ -11,8 +11,19 @@ the training crop; an fc-prithvi run's frames are cropped at the same place.
 A run trained with ``--ema-decay`` serves its EMA weights, on which its
 validation ran, unless ``--no-ema`` asks for the raw ones.
 
+With ``--tiled`` each group of ``SEGMENTS_PER_CALL`` segments (the last one
+padded with empty segments, as the JAX CLI pads it) is one call of the
+tiled program, which on the card replays one CUDA graph a chunk of tiles
+(``infer/tiled.py``). ``--int8`` serves post-training int8 (``infer/
+quantize.py``), calibrated on ``--calib-batches`` training batches of epoch
+0. ``--aot-cache PATH`` loads the predictor's program from a
+``torch.export`` artifact, or exports and writes it when it is missing or
+stale (``infer/aot.py``); it composes with ``--int8``, whose quantized
+weights and scales are inputs of the program, not constants.
+
     python -m s2tpu_torch.cli.infer <ckpt_dir> [--split val] [--tiled] [--out DIR]
         [--data-dir DIR] [--device cuda|cpu] [--batch-size N] [--epoch N] [--no-ema]
+        [--aot-cache PATH] [--int8 [--calib-batches N]]
 """
 
 from __future__ import annotations
@@ -59,6 +70,17 @@ def main(argv: list[str] | None = None) -> Path:
         help="tiles per model call with --tiled (default 8); crops per call otherwise "
         "(default: the config's eval batch)",
     )
+    p.add_argument(
+        "--aot-cache", default=None, metavar="PATH",
+        help="torch.export artifact of the tiled serving program: the first run exports and writes it, later "
+        "processes load it instead of tracing (infer/aot.py)",
+    )
+    p.add_argument(
+        "--int8", action="store_true",
+        help="post-training int8 serving: calibrates activation ranges on a few training batches, then runs every "
+        "Dense/Conv counterpart as int8 x int8 -> int32 (infer/quantize.py)",
+    )
+    p.add_argument("--calib-batches", type=int, default=2, help="calibration batches for --int8 activation ranges")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -83,6 +105,13 @@ def main(argv: list[str] | None = None) -> Path:
     model = config.build_model(dtype=dtype, device=device)
     model.load_state_dict(state_dict, strict=True)
     predictor = Predictor(model, mean, std, dtype, device, ds.stack_time_into_channels, ds.squeeze_time_dim)
+    if args.int8:
+        from s2tpu_torch.data.pipeline import Datamodule
+        from s2tpu_torch.infer.quantize import quantize_for_serving
+
+        dm = Datamodule(dm_cfg, source=source)
+        predictor = quantize_for_serving(predictor, dm, n_batches=args.calib_batches, state_dict=state_dict)
+        logger.info(f"int8 serving: calibrated on {args.calib_batches} batches")
 
     out_dir = Path(args.out) if args.out else OUT_DIR / Path(args.ckpt_dir).name
     writer = PredictionWriter(out_dir)
@@ -90,9 +119,11 @@ def main(argv: list[str] | None = None) -> Path:
         for g in range(0, len(indices), SEGMENTS_PER_CALL):
             chunk = [int(i) for i in indices[g : g + SEGMENTS_PER_CALL]]
             imgs, geos = zip(*(source.read_with_geo(i) for i in chunk))
+            # pad the group to a fixed size so one program shape serves all calls
+            imgs = list(imgs) + [np.zeros_like(imgs[0])] * (SEGMENTS_PER_CALL - len(imgs))
             class_maps, _ = tiled_predict_many(
                 predictor, np.stack(imgs), num_classes=config.num_classes,
-                tile=dm_cfg.random_crop_size, batch_size=args.batch_size or 8,
+                tile=dm_cfg.random_crop_size, batch_size=args.batch_size or 8, aot_cache=args.aot_cache,
             )
             for i, cm, geo in zip(chunk, class_maps, geos):
                 writer.write_class_map(source.label_index_for(i), cm, geo=geo)

@@ -9,8 +9,9 @@ its attention takes the model's route (the fused kernel #8 up to the fused
 budget, the streaming kernel #5 beyond it), forward only. The position
 tables are fixed sincos tables of the configured grid, so any crop that is
 a multiple of the patch size works with the same weights.
-``calibrate_encoder_int8`` (int8 serving) waits for ``infer/quantize.py``
-(ROADMAP item 17).
+:func:`calibrate_encoder_int8` quantizes the layers the encoder forward
+touches (``infer/quantize.py``), and :func:`make_embed_fn` with its
+``qstate`` runs them int8.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ def load_encoder(
 
 
 def make_embed_fn(
-    model: PrithviMAE, mean, std, pool: str = "mean"
+    model: PrithviMAE, mean, std, pool: str = "mean", qstate: dict | None = None
 ) -> typing.Callable[[np.ndarray | torch.Tensor], torch.Tensor]:
     """``raw images -> embeddings`` on the model's device, with no autograd.
 
@@ -48,13 +49,19 @@ def make_embed_fn(
     the MAE trainer's eval path (f32 ``(x - mean) / std``, cast to the
     model's compute dtype). Output: (B, D) for pool 'mean' (the average of
     the patch tokens) or 'cls' (the class token), (B, 1 + L, D) for
-    'tokens'; in the compute dtype.
+    'tokens'; in the compute dtype. With ``qstate`` (from
+    :func:`calibrate_encoder_int8`) the calibrated layers of a copy of the
+    model run int8 (``s2tpu/infer/embed.py:40-76``).
     """
     if pool not in POOLS:
         raise ValueError(f"pool must be one of {POOLS}, got {pool!r}")
     device = model.cls_token.device
     mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=device)
     std_t = torch.as_tensor(np.asarray(std, np.float32), device=device)
+    if qstate is not None:
+        from s2tpu_torch.infer.quantize import quantized
+
+        model, _ = quantized(model, qstate)
 
     @torch.no_grad()
     def embed(images: np.ndarray | torch.Tensor) -> torch.Tensor:
@@ -68,6 +75,32 @@ def make_embed_fn(
         return tokens
 
     return embed
+
+
+def calibrate_encoder_int8(
+    model: PrithviMAE, mean, std, batches: typing.Iterable[np.ndarray | torch.Tensor]
+) -> dict[str, dict]:
+    """int8 qstate for the encoder-only forward, the port of
+    ``s2tpu/infer/embed.py:79-112``: activation max-abs recorded over the
+    encoder forwards of ``batches`` (raw-DN images, the embedding
+    preprocessing), weights quantized per output channel. Only layers the
+    encoder forward touches are calibrated."""
+    from s2tpu_torch.infer.quantize import ActivationRecorder, quantize_weights
+
+    device = model.cls_token.device
+    mean_t = torch.as_tensor(np.asarray(mean, np.float32), device=device)
+    std_t = torch.as_tensor(np.asarray(std, np.float32), device=device)
+    rec = ActivationRecorder()
+    n = 0
+    with torch.no_grad(), rec.recording(model):
+        for images in batches:
+            x = normalize(torch.as_tensor(images).to(device), mean_t, std_t, dtype=model.dtype)
+            model.forward_encoder(x[:, None] if x.dim() == 4 else x, 0.0)
+            rec.finish()
+            n += 1
+    if n == 0:
+        raise ValueError("no calibration batches")
+    return quantize_weights(model, rec.scales())
 
 
 def center_crop(img: np.ndarray, size: int) -> np.ndarray:

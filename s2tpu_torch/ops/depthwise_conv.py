@@ -27,17 +27,26 @@ wrappers' tile plans (``_forward_plan``, ``_grad_weight_plan``,
 ``_piece_bytes``) are plain Python, held by the CPU tests; the tile shape
 they share with the kernels is set once, in ``csrc/depthwise_tiles.h``, and
 both kernels' grids are rounds of the blocks the card holds at once.
+
+Each kernel entry is a ``torch.library`` custom op (``s2tpu_torch::
+depthwise_conv2d_s1``, ``..._input_grad``, ``..._grad_weight``) whose CUDA
+implementation launches the hand-written kernel and whose CPU
+implementation is the plain version; a fake version gives the output shape,
+so ``torch.export`` traces a model through them, and a FLOP formula lets
+``FlopCounterMode`` count them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import re
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 # Launches of the CUDA kernels; a run sets them to 0 and reads them to show
 # that a path went through the kernels. Only the CUDA branches of the
@@ -363,57 +372,115 @@ def _launch_forward(x: torch.Tensor, w: torch.Tensor, k: int, flip: bool) -> tor
     return out
 
 
+@torch.library.custom_op("s2tpu_torch::depthwise_conv2d_s1", mutates_args=(), device_types="cpu")
+def _forward_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return depthwise_conv2d_s1_reference(x, w)
+
+
+@_forward_op.register_kernel("cuda")
+def _forward_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    global LAUNCHES
+    out = _launch_forward(x, w, w.shape[0], flip=False)
+    LAUNCHES += 1
+    return out
+
+
+@torch.library.custom_op("s2tpu_torch::depthwise_conv2d_s1_input_grad", mutates_args=(), device_types="cpu")
+def _input_grad_op(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return depthwise_conv2d_s1_reference(g, w.flip(0, 1))
+
+
+@_input_grad_op.register_kernel("cuda")
+def _input_grad_cuda(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    global DX_LAUNCHES
+    out = _launch_forward(g, w, w.shape[0], flip=True)
+    DX_LAUNCHES += 1
+    return out
+
+
+@_forward_op.register_fake
+@_input_grad_op.register_fake
+def _forward_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("s2tpu_torch::depthwise_conv2d_s1_grad_weight", mutates_args=(), device_types="cpu")
+def _grad_weight_op(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    return depthwise_conv2d_s1_grad_weight_reference(x, g, k)
+
+
+@_grad_weight_op.register_kernel("cuda")
+def _grad_weight_cuda(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    global DW_LAUNCHES
+    out = _launch_grad_weight(x, g, k)
+    DW_LAUNCHES += 1
+    return out
+
+
+@_grad_weight_op.register_fake
+def _grad_weight_fake(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    return x.new_empty((k, k, x.shape[-1]), dtype=_accumulation_dtype(x.dtype))
+
+
+def _depthwise_flops(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    """2 k^2 operations an element: the forward, the input gradient and the
+    filter gradient alike (the filter gradient's ``k`` is the last argument)."""
+    k = w_shape[0] if isinstance(w_shape, (tuple, list, torch.Size)) else w_shape
+    return 2 * k * k * math.prod(x_shape)
+
+
+register_flop_formula(torch.ops.s2tpu_torch.depthwise_conv2d_s1)(_depthwise_flops)
+register_flop_formula(torch.ops.s2tpu_torch.depthwise_conv2d_s1_input_grad)(_depthwise_flops)
+register_flop_formula(torch.ops.s2tpu_torch.depthwise_conv2d_s1_grad_weight)(
+    lambda x_shape, g_shape, k, out_shape=None, **kw: 2 * k * k * math.prod(x_shape)
+)
+
+
+def _check_device(t: torch.Tensor, what: str) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+
+
 def depthwise_conv2d_s1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Stride-1 SAME depthwise conv: (B, H, W, C) . (k, k, C) -> (B, H, W, C).
 
-    Ports ``s2tpu/ops/depthwise_conv.py::_forward`` (``:173-200``). A CUDA
-    tensor goes through the hand-written kernel, launched on the current
-    stream without synchronising; a CPU tensor through the plain version.
-    Any other input raises. No autograd: :class:`DepthwiseConv2dS1` is the
-    differentiable op.
+    Ports ``s2tpu/ops/depthwise_conv.py::_forward`` (``:173-200``) as the
+    custom op ``s2tpu_torch::depthwise_conv2d_s1``. A CUDA tensor goes
+    through the hand-written kernel, launched on the current stream without
+    synchronising; a CPU tensor through the plain version. Any other input
+    raises. No autograd: :class:`DepthwiseConv2dS1` is the differentiable op.
     """
-    global LAUNCHES
-    k = _check(x, w)
-    if x.device.type == "cpu":
-        return depthwise_conv2d_s1_reference(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"depthwise_conv2d_s1 runs on cuda or cpu, not {x.device}")
-    out = _launch_forward(x, w, k, flip=False)
-    LAUNCHES += 1
-    return out
+    _check(x, w)
+    _check_device(x, "depthwise_conv2d_s1")
+    return torch.ops.s2tpu_torch.depthwise_conv2d_s1(x, w)
 
 
 def depthwise_conv2d_s1_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of the stride-1 SAME depthwise conv: the forward of the
     cotangent ``g`` with the spatially flipped filter, exact for odd k
-    (``s2tpu/ops/depthwise_conv.py:243-249``). On CUDA, kernel #1 reads the
-    filter flipped by index (no flipped copy; launches count in
+    (``s2tpu/ops/depthwise_conv.py:243-249``), as the custom op
+    ``s2tpu_torch::depthwise_conv2d_s1_input_grad``. On CUDA, kernel #1
+    reads the filter flipped by index (no flipped copy; launches count in
     ``DX_LAUNCHES``); a CPU tensor takes the plain version of the flip."""
-    global DX_LAUNCHES
     k = _check(g, w)
     if k % 2 == 0:
         raise ValueError(f"the flipped-filter input gradient is exact for odd k only, got k={k}")
-    if g.device.type == "cpu":
-        return depthwise_conv2d_s1_reference(g, w.flip(0, 1))
-    if g.device.type != "cuda":
-        raise ValueError(f"depthwise_conv2d_s1_input_grad runs on cuda or cpu, not {g.device}")
-    out = _launch_forward(g, w, k, flip=True)
-    DX_LAUNCHES += 1
-    return out
+    _check_device(g, "depthwise_conv2d_s1_input_grad")
+    return torch.ops.s2tpu_torch.depthwise_conv2d_s1_input_grad(g, w)
 
 
 def depthwise_conv2d_s1_grad_weight(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     """Filter gradient of the stride-1 SAME depthwise conv -> (k, k, C) f32.
 
     Ports ``s2tpu/ops/depthwise_conv.py::_grad_weight`` (``:203-230``, TPU
-    kernel ``_dw_kernel`` ``:101-142``). A CUDA tensor goes through kernel
-    #2 (``csrc/depthwise_grad_weight.cu``), one launch: its blocks write f32
-    partial sums, which the kernel adds in two ordered levels
-    (the JAX package sums its per-image partials outside the kernel); a CPU
-    tensor takes the plain version. ``x`` and ``g`` are (B, H, W, C)
-    NHWC-contiguous of one dtype.
+    kernel ``_dw_kernel`` ``:101-142``) as the custom op
+    ``s2tpu_torch::depthwise_conv2d_s1_grad_weight``. A CUDA tensor goes
+    through kernel #2 (``csrc/depthwise_grad_weight.cu``), one launch: its
+    blocks write f32 partial sums, which the kernel adds in two ordered
+    levels (the JAX package sums its per-image partials outside the
+    kernel); a CPU tensor takes the plain version. ``x`` and ``g`` are
+    (B, H, W, C) NHWC-contiguous of one dtype.
     """
-    global DW_LAUNCHES
     if x.dim() != 4 or g.shape != x.shape or k < 1:
         raise ValueError(f"expected x and g (B, H, W, C) of one shape and k >= 1, got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}, k={k}")
@@ -423,10 +490,12 @@ def depthwise_conv2d_s1_grad_weight(x: torch.Tensor, g: torch.Tensor, k: int) ->
         raise ValueError(f"x on {x.device} but g on {g.device}")
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("x and g must be NHWC-contiguous")
-    if x.device.type == "cpu":
-        return depthwise_conv2d_s1_grad_weight_reference(x, g, k)
-    if x.device.type != "cuda":
-        raise ValueError(f"depthwise_conv2d_s1_grad_weight runs on cuda or cpu, not {x.device}")
+    _check_device(x, "depthwise_conv2d_s1_grad_weight")
+    return torch.ops.s2tpu_torch.depthwise_conv2d_s1_grad_weight(x, g, k)
+
+
+def _launch_grad_weight(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel #2 on CUDA tensors that passed the wrapper's checks."""
     if k not in _GRAD_WEIGHT_KS:
         raise ValueError(f"kernel size {k} is not one of the filter-gradient kernel's {_GRAD_WEIGHT_KS}")
     b, h, wd, c = x.shape
@@ -452,7 +521,6 @@ def depthwise_conv2d_s1_grad_weight(x: torch.Tensor, g: torch.Tensor, k: int) ->
     )
     if err != 0:
         raise RuntimeError(f"depthwise_conv2d_s1_grad_weight kernel launch failed with CUDA error {err}")
-    DW_LAUNCHES += 1
     return out
 
 

@@ -33,6 +33,14 @@ which shapes take the fused kernels, so a configuration runs the same
 kernels on both machines. Each kernel has a plain PyTorch version beside it
 that follows its algorithm and casts; the wrappers use it for CPU tensors
 only. On a CUDA tensor a wrapper launches its kernel or raises.
+
+Each kernel entry is a ``torch.library`` custom op (``s2tpu_torch::
+fused_attention_dense_forward`` and ``..._backward``,
+``fused_attention_qkv_forward`` and ``..._backward``,
+``flash_attention_forward``): the CUDA implementation launches the
+hand-written kernel, the CPU implementation is the plain version, a fake
+version gives the output shapes (``torch.export`` traces the ViT through
+them), and a FLOP formula lets ``FlopCounterMode`` count them.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 # Launches of the CUDA kernels (#8/#9 fused forward/backward on the dense
 # layout, #6/#7 on the head-major layout, #5 flash forward); a run sets them
@@ -303,18 +312,65 @@ def _stream(t: torch.Tensor) -> tuple[int, int]:
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fused_attention_dense_forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """``(B, L, 3D) -> (B, L, D)`` fused attention, no autograd.
+# Each kernel entry is a custom op: the CUDA implementation launches the
+# kernel, the CPU implementation is the plain version, the fake gives shapes.
+def _op(name: str, cpu):
+    return torch.library.custom_op(f"s2tpu_torch::{name}", cpu, mutates_args=(), device_types="cpu")
 
-    Ports ``s2tpu/ops/flash_attention.py::_fused_fwd_dense`` (``:449-470``,
-    TPU kernel ``_fused_fwd_dense_kernel`` ``:324``). A CUDA tensor goes
-    through kernel #8, launched on the current stream without
-    synchronising; it must be contiguous, f32 or bf16, with Dh 32 or 64 and
-    a length on the fused route. A CPU tensor goes through the plain version."""
+
+def _dense_fwd_cpu(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return fused_attention_dense_forward_reference(qkv, num_heads)
+
+
+def _dense_bwd_cpu(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return fused_attention_dense_backward_reference(qkv, out, dout, num_heads)
+
+
+def _qkv_fwd_cpu(qkv: torch.Tensor) -> torch.Tensor:
+    return fused_attention_qkv_forward_reference(qkv)
+
+
+def _qkv_bwd_cpu(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    return fused_attention_qkv_backward_reference(qkv, out, dout)
+
+
+def _flash_fwd_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return flash_attention_forward_reference(q, k, v)
+
+
+_dense_fwd_op = _op("fused_attention_dense_forward", _dense_fwd_cpu)
+_dense_bwd_op = _op("fused_attention_dense_backward", _dense_bwd_cpu)
+_qkv_fwd_op = _op("fused_attention_qkv_forward", _qkv_fwd_cpu)
+_qkv_bwd_op = _op("fused_attention_qkv_backward", _qkv_bwd_cpu)
+_flash_fwd_op = _op("flash_attention_forward", _flash_fwd_cpu)
+
+
+@_dense_fwd_op.register_fake
+def _(qkv, num_heads):
+    b, l, c3 = qkv.shape
+    return qkv.new_empty((b, l, c3 // 3))
+
+
+@_dense_bwd_op.register_fake
+@_qkv_bwd_op.register_fake
+def _(qkv, out, dout, *args):
+    return torch.empty_like(qkv)
+
+
+@_qkv_fwd_op.register_fake
+def _(qkv):
+    return qkv.new_empty(qkv.shape[1:])
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@_dense_fwd_op.register_kernel("cuda")
+def _(qkv, num_heads):
     global FUSED_FWD_LAUNCHES
     b, l, d, dh = _check_dense(qkv, num_heads)
-    if qkv.device.type == "cpu":
-        return fused_attention_dense_forward_reference(qkv, num_heads)
     code = _check_cuda(qkv, "fused_attention_dense")
     _check_fused_kernel_shape(l, d, dh, num_heads)
     if not qkv.is_contiguous():
@@ -330,25 +386,10 @@ def fused_attention_dense_forward(qkv: torch.Tensor, num_heads: int) -> torch.Te
     return out
 
 
-def fused_attention_dense_backward(
-    qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, num_heads: int
-) -> torch.Tensor:
-    """``dqkv (B, L, 3D)`` of :func:`fused_attention_dense` from its saved
-    ``qkv``, its output ``out`` and the output's cotangent ``dout``.
-
-    Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_dense`` (``:473-488``,
-    TPU kernel ``_fused_bwd_dense_kernel`` ``:352``). A CUDA tensor goes
-    through kernel #9 (bf16: dq blocks that also write the rows'
-    statistics, then dk/dv blocks; f32: a statistics pass, then dk/dv and
-    dq blocks; no atomics), launched on the current stream without
-    synchronising; a CPU tensor through the plain version."""
+@_dense_bwd_op.register_kernel("cuda")
+def _(qkv, out, dout, num_heads):
     global FUSED_BWD_LAUNCHES
     b, l, d, dh = _check_dense(qkv, num_heads)
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != (b, l, d) or t.dtype != qkv.dtype or t.device != qkv.device:
-            raise ValueError(f"{name} must be {(b, l, d)} {qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype}")
-    if qkv.device.type == "cpu":
-        return fused_attention_dense_backward_reference(qkv, out, dout, num_heads)
     code = _check_cuda(qkv, "fused_attention_dense backward")
     _check_fused_kernel_shape(l, d, dh, num_heads)
     qkv, out, dout = qkv.contiguous(), out.contiguous(), dout.contiguous()
@@ -365,19 +406,10 @@ def fused_attention_dense_backward(
     return dqkv
 
 
-def fused_attention_qkv_forward(qkv: torch.Tensor) -> torch.Tensor:
-    """``(3, B, H, L, Dh) -> (B, H, L, Dh)`` fused attention, no autograd.
-
-    Ports ``s2tpu/ops/flash_attention.py::_fused_fwd_qkv`` (``:287-301``,
-    TPU kernel ``_fused_fwd_kernel`` ``:199``). A CUDA tensor goes through
-    kernel #6 (the #8 kernels on head-major strides), launched on the
-    current stream without synchronising; it must be contiguous, f32 or
-    bf16, with Dh 32 or 64. Any 1 <= L <= FUSED_MAX_LEN runs, on or off the
-    fused route, as in JAX. A CPU tensor goes through the plain version."""
+@_qkv_fwd_op.register_kernel("cuda")
+def _(qkv):
     global FUSED_QKV_FWD_LAUNCHES
     b, h, l, dh = _check_qkv(qkv)
-    if qkv.device.type == "cpu":
-        return fused_attention_qkv_forward_reference(qkv)
     code = _check_cuda(qkv, "fused_attention_qkv")
     _check_head_dim(dh)
     if not qkv.is_contiguous():
@@ -395,22 +427,10 @@ def fused_attention_qkv_forward(qkv: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fused_attention_qkv_backward(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """``dqkv (3, B, H, L, Dh)`` of :func:`fused_attention_qkv` from its saved
-    ``qkv``, its output ``out`` and the output's cotangent ``dout``.
-
-    Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_qkv`` (``:304-318``,
-    TPU kernel ``_fused_bwd_kernel`` ``:223``). A CUDA tensor goes through
-    kernel #7 (the #9 kernels on head-major strides, no atomics), launched
-    on the current stream without synchronising; a CPU tensor through the
-    plain version."""
+@_qkv_bwd_op.register_kernel("cuda")
+def _(qkv, out, dout):
     global FUSED_QKV_BWD_LAUNCHES
     b, h, l, dh = _check_qkv(qkv)
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != (b, h, l, dh) or t.dtype != qkv.dtype or t.device != qkv.device:
-            raise ValueError(f"{name} must be {(b, h, l, dh)} {qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype}")
-    if qkv.device.type == "cpu":
-        return fused_attention_qkv_backward_reference(qkv, out, dout)
     code = _check_cuda(qkv, "fused_attention_qkv backward")
     _check_head_dim(dh)
     qkv, out, dout = qkv.contiguous(), out.contiguous(), dout.contiguous()
@@ -429,24 +449,9 @@ def fused_attention_qkv_backward(qkv: torch.Tensor, out: torch.Tensor, dout: tor
     return dqkv
 
 
-def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, L, H, Dh) q, k, v -> (B, L, H, Dh) streaming attention, no autograd.
-
-    Ports ``s2tpu/ops/flash_attention.py::_flash_forward`` (``:85-110``, TPU
-    kernel ``_flash_kernel`` ``:36``). A CUDA tensor goes through kernel #5,
-    launched on the current stream without synchronising; q, k and v may be
-    strided views (the last axis contiguous), f32 or bf16, Dh 32 or 64. The
-    bf16 kernel copies rows 16 bytes at a time: each view must start 16-byte
-    aligned, with batch, token and head strides that are multiples of 8
-    elements (the views of one (B, L, 3D) projection that Attention hands
-    over are). A CPU tensor goes through the plain version."""
+@_flash_fwd_op.register_kernel("cuda")
+def _(q, k, v):
     global FLASH_FWD_LAUNCHES
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"expected q, k, v of one (B, L, H, Dh) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
-        raise ValueError("q, k and v must share a dtype and a device")
-    if q.device.type == "cpu":
-        return flash_attention_forward_reference(q, k, v)
     code = _check_cuda(q, "flash_attention")
     b, l, h, dh = q.shape
     if dh not in KERNEL_HEAD_DIMS:
@@ -470,6 +475,127 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
         raise RuntimeError(f"flash attention kernel launch failed with CUDA error {err}")
     FLASH_FWD_LAUNCHES += 1
     return out
+
+
+# FLOP formulas for FlopCounterMode (train/profiling.py's MFU): the
+# algorithm's products, 2 L^2 Dh operations a (batch, head) for each of
+# q k^T and p v forward, and four such products backward (dv, dp, dq, dk),
+# as PyTorch counts scaled_dot_product_attention.
+def _attention_flops(b: int, h: int, l: int, dh: int, products: int) -> int:
+    return products * 2 * b * h * l * l * dh
+
+
+register_flop_formula(torch.ops.s2tpu_torch.fused_attention_dense_forward)(
+    lambda qkv_shape, num_heads, out_shape=None, **kw: _attention_flops(
+        qkv_shape[0], num_heads, qkv_shape[1], qkv_shape[2] // 3 // num_heads, 2)
+)
+register_flop_formula(torch.ops.s2tpu_torch.fused_attention_dense_backward)(
+    lambda qkv_shape, out_shape_, dout_shape, num_heads, out_shape=None, **kw: _attention_flops(
+        qkv_shape[0], num_heads, qkv_shape[1], qkv_shape[2] // 3 // num_heads, 4)
+)
+register_flop_formula(torch.ops.s2tpu_torch.fused_attention_qkv_forward)(
+    lambda qkv_shape, out_shape=None, **kw: _attention_flops(*qkv_shape[1:], 2)
+)
+register_flop_formula(torch.ops.s2tpu_torch.fused_attention_qkv_backward)(
+    lambda qkv_shape, o_shape, do_shape, out_shape=None, **kw: _attention_flops(*qkv_shape[1:], 4)
+)
+register_flop_formula(torch.ops.s2tpu_torch.flash_attention_forward)(
+    lambda q_shape, k_shape, v_shape, out_shape=None, **kw: _attention_flops(
+        q_shape[0], q_shape[2], q_shape[1], q_shape[3], 2)
+)
+
+
+def _check_device(t: torch.Tensor, what: str) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+
+
+def fused_attention_dense_forward(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``(B, L, 3D) -> (B, L, D)`` fused attention, no autograd.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_fwd_dense`` (``:449-470``,
+    TPU kernel ``_fused_fwd_dense_kernel`` ``:324``) as the custom op
+    ``s2tpu_torch::fused_attention_dense_forward``. A CUDA tensor goes
+    through kernel #8, launched on the current stream without
+    synchronising; it must be contiguous, f32 or bf16, with Dh 32 or 64 and
+    a length on the fused route. A CPU tensor goes through the plain version."""
+    _check_dense(qkv, num_heads)
+    _check_device(qkv, "fused_attention_dense")
+    return torch.ops.s2tpu_torch.fused_attention_dense_forward(qkv, num_heads)
+
+
+def fused_attention_dense_backward(
+    qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, num_heads: int
+) -> torch.Tensor:
+    """``dqkv (B, L, 3D)`` of :func:`fused_attention_dense` from its saved
+    ``qkv``, its output ``out`` and the output's cotangent ``dout``.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_dense`` (``:473-488``,
+    TPU kernel ``_fused_bwd_dense_kernel`` ``:352``) as the custom op
+    ``s2tpu_torch::fused_attention_dense_backward``. A CUDA tensor goes
+    through kernel #9 (bf16: dq blocks that also write the rows'
+    statistics, then dk/dv blocks; f32: a statistics pass, then dk/dv and
+    dq blocks; no atomics), launched on the current stream without
+    synchronising; a CPU tensor through the plain version."""
+    b, l, d, _ = _check_dense(qkv, num_heads)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (b, l, d) or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name} must be {(b, l, d)} {qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype}")
+    _check_device(qkv, "fused_attention_dense backward")
+    return torch.ops.s2tpu_torch.fused_attention_dense_backward(qkv, out, dout, num_heads)
+
+
+def fused_attention_qkv_forward(qkv: torch.Tensor) -> torch.Tensor:
+    """``(3, B, H, L, Dh) -> (B, H, L, Dh)`` fused attention, no autograd.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_fwd_qkv`` (``:287-301``,
+    TPU kernel ``_fused_fwd_kernel`` ``:199``) as the custom op
+    ``s2tpu_torch::fused_attention_qkv_forward``. A CUDA tensor goes through
+    kernel #6 (the #8 kernels on head-major strides), launched on the
+    current stream without synchronising; it must be contiguous, f32 or
+    bf16, with Dh 32 or 64. Any 1 <= L <= FUSED_MAX_LEN runs, on or off the
+    fused route, as in JAX. A CPU tensor goes through the plain version."""
+    _check_qkv(qkv)
+    _check_device(qkv, "fused_attention_qkv")
+    return torch.ops.s2tpu_torch.fused_attention_qkv_forward(qkv)
+
+
+def fused_attention_qkv_backward(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``dqkv (3, B, H, L, Dh)`` of :func:`fused_attention_qkv` from its saved
+    ``qkv``, its output ``out`` and the output's cotangent ``dout``.
+
+    Ports ``s2tpu/ops/flash_attention.py::_fused_bwd_qkv`` (``:304-318``,
+    TPU kernel ``_fused_bwd_kernel`` ``:223``) as the custom op
+    ``s2tpu_torch::fused_attention_qkv_backward``. A CUDA tensor goes
+    through kernel #7 (the #9 kernels on head-major strides, no atomics),
+    launched on the current stream without synchronising; a CPU tensor
+    through the plain version."""
+    b, h, l, dh = _check_qkv(qkv)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (b, h, l, dh) or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name} must be {(b, h, l, dh)} {qkv.dtype} on {qkv.device}, got {tuple(t.shape)} {t.dtype}")
+    _check_device(qkv, "fused_attention_qkv backward")
+    return torch.ops.s2tpu_torch.fused_attention_qkv_backward(qkv, out, dout)
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, Dh) q, k, v -> (B, L, H, Dh) streaming attention, no autograd.
+
+    Ports ``s2tpu/ops/flash_attention.py::_flash_forward`` (``:85-110``, TPU
+    kernel ``_flash_kernel`` ``:36``) as the custom op
+    ``s2tpu_torch::flash_attention_forward``. A CUDA tensor goes through
+    kernel #5, launched on the current stream without synchronising; q, k
+    and v may be strided views (the last axis contiguous), f32 or bf16, Dh
+    32 or 64. The bf16 kernel copies rows 16 bytes at a time: each view
+    must start 16-byte aligned, with batch, token and head strides that are
+    multiples of 8 elements (the views of one (B, L, 3D) projection that
+    Attention hands over are). A CPU tensor goes through the plain version."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"expected q, k, v of one (B, L, H, Dh) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
+        raise ValueError("q, k and v must share a dtype and a device")
+    _check_device(q, "flash_attention")
+    return torch.ops.s2tpu_torch.flash_attention_forward(q, k, v)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,11 @@ Both kernels are bound by bytes (~10K flops per pixel against 4K + 12 or 8K
 + 8 bytes): one thread per pixel loads its K contiguous logits as 16-byte
 vectors where K allows, keeps them in registers and writes each output
 once; rows past N are masked in the kernel rather than padded.
+
+Each pass is a ``torch.library`` custom op (``s2tpu_torch::fused_ce_forward``,
+``s2tpu_torch::fused_ce_backward``): its CUDA implementation launches the
+kernel, its CPU implementation is the plain version, and a fake version
+gives the output shapes.
 """
 
 from __future__ import annotations
@@ -132,6 +137,75 @@ def _mode(ignore_index: int | None, gamma: float | None) -> list:
     return [int(ignore_index is not None), int(ignore_index or 0), int(gamma is not None), float(gamma or 0.0)]
 
 
+@torch.library.custom_op("s2tpu_torch::fused_ce_forward", mutates_args=(), device_types="cpu")
+def _forward_op(
+    logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
+    ignore_index: int | None, gamma: float | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return fused_ce_forward_reference(logits, labels, class_weights, ignore_index, gamma)
+
+
+@_forward_op.register_kernel("cuda")
+def _forward_cuda(logits, labels, class_weights, ignore_index, gamma):
+    global FWD_LAUNCHES
+    n, k = logits.shape
+    loss = torch.empty(n, dtype=torch.float32, device=logits.device)
+    weight = torch.empty(n, dtype=torch.float32, device=logits.device)
+    if n == 0:
+        return loss, weight
+    cw = class_weights.contiguous()
+    err = _kernel("fwd")(
+        logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), loss.data_ptr(), weight.data_ptr(), n, k,
+        *_mode(ignore_index, gamma), logits.device.index, torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_ce forward kernel launch failed with CUDA error {err}")
+    FWD_LAUNCHES += 1
+    return loss, weight
+
+
+@_forward_op.register_fake
+def _forward_fake(logits, labels, class_weights, ignore_index, gamma):
+    n = logits.shape[0]
+    return logits.new_empty(n, dtype=torch.float32), logits.new_empty(n, dtype=torch.float32)
+
+
+@torch.library.custom_op("s2tpu_torch::fused_ce_backward", mutates_args=(), device_types="cpu")
+def _backward_op(
+    logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor, g: torch.Tensor,
+    ignore_index: int | None, gamma: float | None,
+) -> torch.Tensor:
+    return fused_ce_backward_reference(logits, labels, class_weights, g, ignore_index, gamma)
+
+
+@_backward_op.register_kernel("cuda")
+def _backward_cuda(logits, labels, class_weights, g, ignore_index, gamma):
+    global BWD_LAUNCHES
+    n, k = logits.shape
+    dlogits = torch.empty((n, k), dtype=torch.float32, device=logits.device)
+    if n == 0:
+        return dlogits
+    cw, gc = class_weights.contiguous(), g.contiguous()
+    err = _kernel("bwd")(
+        logits.data_ptr(), labels.data_ptr(), cw.data_ptr(), gc.data_ptr(), dlogits.data_ptr(), n, k,
+        *_mode(ignore_index, gamma), logits.device.index, torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_ce backward kernel launch failed with CUDA error {err}")
+    BWD_LAUNCHES += 1
+    return dlogits
+
+
+@_backward_op.register_fake
+def _backward_fake(logits, labels, class_weights, g, ignore_index, gamma):
+    return torch.empty_like(logits, dtype=torch.float32)
+
+
+def _check_device(t: torch.Tensor, what: str) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+
+
 def fused_ce_forward(
     logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
     ignore_index: int | None = None, gamma: float | None = None,
@@ -140,30 +214,15 @@ def fused_ce_forward(
     (...) int32 labels.
 
     Ports the forward of ``s2tpu/ops/fused_ce.py::fused_ce_per_pixel``
-    (``:103-142``, TPU kernel ``_fwd_kernel`` ``:45-62``). A CUDA tensor goes
-    through kernel #3, launched on the current stream without synchronising;
-    a CPU tensor through the plain version. No autograd:
-    :func:`fused_ce_per_pixel` is the differentiable op."""
-    global FWD_LAUNCHES
+    (``:103-142``, TPU kernel ``_fwd_kernel`` ``:45-62``) as the custom op
+    ``s2tpu_torch::fused_ce_forward``. A CUDA tensor goes through kernel
+    #3, launched on the current stream without synchronising; a CPU tensor
+    through the plain version. No autograd: :func:`fused_ce_per_pixel` is
+    the differentiable op."""
     n, k = _check(logits, labels, class_weights)
+    _check_device(logits, "fused_ce_forward")
     logits2, labels1 = logits.reshape(n, k).contiguous(), labels.reshape(n).contiguous()
-    if logits.device.type == "cpu":
-        return fused_ce_forward_reference(logits2, labels1, class_weights, ignore_index, gamma)
-    if logits.device.type != "cuda":
-        raise ValueError(f"fused_ce_forward runs on cuda or cpu, not {logits.device}")
-    loss = torch.empty(n, dtype=torch.float32, device=logits.device)
-    weight = torch.empty(n, dtype=torch.float32, device=logits.device)
-    if n == 0:
-        return loss, weight
-    cw = class_weights.contiguous()
-    err = _kernel("fwd")(
-        logits2.data_ptr(), labels1.data_ptr(), cw.data_ptr(), loss.data_ptr(), weight.data_ptr(), n, k,
-        *_mode(ignore_index, gamma), logits.device.index, torch.cuda.current_stream(logits.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_ce forward kernel launch failed with CUDA error {err}")
-    FWD_LAUNCHES += 1
-    return loss, weight
+    return torch.ops.s2tpu_torch.fused_ce_forward(logits2, labels1, class_weights, ignore_index, gamma)
 
 
 def fused_ce_backward(
@@ -174,29 +233,16 @@ def fused_ce_backward(
     ``g`` (N,) of the loss output.
 
     Ports ``s2tpu/ops/fused_ce.py::_vjp_bwd`` (``:150-180``, TPU kernel
-    ``_bwd_kernel`` ``:65-85``). A CUDA tensor goes through kernel #4,
-    launched on the current stream without synchronising; a CPU tensor
+    ``_bwd_kernel`` ``:65-85``) as the custom op
+    ``s2tpu_torch::fused_ce_backward``. A CUDA tensor goes through kernel
+    #4, launched on the current stream without synchronising; a CPU tensor
     through the plain version."""
-    global BWD_LAUNCHES
     n, k = _check(logits, labels, class_weights)
     if g.shape != (n,) or g.dtype != torch.float32 or g.device != logits.device:
         raise ValueError(f"g must be ({n},) float32 on {logits.device}, got {tuple(g.shape)} {g.dtype} {g.device}")
+    _check_device(logits, "fused_ce_backward")
     logits2, labels1 = logits.reshape(n, k).contiguous(), labels.reshape(n).contiguous()
-    if logits.device.type == "cpu":
-        return fused_ce_backward_reference(logits2, labels1, class_weights, g, ignore_index, gamma).reshape(logits.shape)
-    if logits.device.type != "cuda":
-        raise ValueError(f"fused_ce_backward runs on cuda or cpu, not {logits.device}")
-    dlogits = torch.empty((n, k), dtype=torch.float32, device=logits.device)
-    if n == 0:
-        return dlogits.reshape(logits.shape)
-    cw, gc = class_weights.contiguous(), g.contiguous()
-    err = _kernel("bwd")(
-        logits2.data_ptr(), labels1.data_ptr(), cw.data_ptr(), gc.data_ptr(), dlogits.data_ptr(), n, k,
-        *_mode(ignore_index, gamma), logits.device.index, torch.cuda.current_stream(logits.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_ce backward kernel launch failed with CUDA error {err}")
-    BWD_LAUNCHES += 1
+    dlogits = torch.ops.s2tpu_torch.fused_ce_backward(logits2, labels1, class_weights, g, ignore_index, gamma)
     return dlogits.reshape(logits.shape)
 
 

@@ -640,3 +640,72 @@ def test_a_non_capturable_adam_state_loads_into_the_card_s_capturable_adam():
     torch.cuda.synchronize()
     assert all(float(opt.state[p]["step"]) == 4.0 for p in card.parameters())  # 1 loaded, 2 warm-up, 1 replay
     assert all(bool(torch.isfinite(p).all()) for p in card.parameters())
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops; the tiled program as a CUDA graph; int8 products
+# ---------------------------------------------------------------------------
+def _custom_op_cases() -> dict:
+    from test_torch_custom_ops import op_cases  # JAX-free, beside this file
+
+    return op_cases("cuda")
+
+
+@pytest.mark.parametrize("case", [
+    f"{op}-{kind}" for op in ("depthwise_conv2d_s1", "depthwise_conv2d_s1_input_grad", "depthwise_conv2d_s1_grad_weight",
+                              "fused_attention_dense_forward", "fused_attention_dense_backward",
+                              "fused_attention_qkv_forward", "fused_attention_qkv_backward", "flash_attention_forward")
+    for kind in ("float32", "bfloat16")
+] + [f"fused_ce_{d}-{m}" for d in ("forward", "backward") for m in ("ce", "focal_ignore")])
+def test_opcheck_cuda(case):
+    """``torch.library.opcheck`` of each custom op's CUDA implementation (the
+    hand-written kernel) against its fake version, at tiny sizes."""
+    op, args = _custom_op_cases()[case]
+    torch.library.opcheck(op, args)
+
+
+def _tiny_b0_predictor(dtype: torch.dtype):
+    from s2tpu_torch.infer.predict import Predictor
+    from s2tpu_torch.models.efficientnet_unet import EfficientNetUNet, EfficientNetUNetConfig
+
+    model = EfficientNetUNet(EfficientNetUNetConfig(version="b0", in_channels=6, num_classes=4), dtype=dtype)
+    return Predictor(model, np.full(6, 1500.0, np.float32), np.full(6, 800.0, np.float32), dtype,
+                     torch.device("cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graphed_tiled_program_equals_eager_bit_for_bit(dtype):
+    """Tiny B0 tiled serving (3 segments of 96^2, 64^2 tiles, overlap 16,
+    batch 4: 12 tiles a call, the last chunk padded): the graphed program
+    (captured once, then replayed; a second call replays every chunk)
+    against the eager one, blended logits bit for bit; the wrappers count
+    the warm-up and the capture only, 16 stride-1 depthwise layers each."""
+    from s2tpu_torch.infer.tiled import tiled_logits
+    from s2tpu_torch.models.efficientnet_unet import count_stride1_depthwise
+
+    predict = _tiny_b0_predictor(dtype)
+    per_forward = count_stride1_depthwise(predict.model.config)
+    images = torch.from_numpy(np.random.default_rng(5).integers(0, 4000, size=(3, 96, 96, 6)).astype(np.int16)).cuda()
+    eager = tiled_logits(predict, images, 64, 48, 4, 4, graph=False)
+    dw.LAUNCHES = 0
+    first = tiled_logits(predict, images, 64, 48, 4, 4)
+    assert dw.LAUNCHES == 2 * per_forward
+    second = tiled_logits(predict, images.flip(0), 64, 48, 4, 4)  # replayed chunks only, on other images
+    assert dw.LAUNCHES == 2 * per_forward
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager)
+    assert torch.equal(second, tiled_logits(predict, images.flip(0), 64, 48, 4, 4, graph=False))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 12, 48), (17, 24, 24), (300, 576, 40), (4, 1, 3)])
+def test_int8_products_on_the_card_equal_the_cpu(m, k, n):
+    """``int8_matmul`` on the card (``torch._int_mm``, operands zero-padded
+    to its shape rules) equals the CPU's int32 sums exactly."""
+    from s2tpu_torch.infer.quantize import int8_matmul
+
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, size=(n, k)).astype(np.int8))
+    got = int8_matmul(a.cuda(), w.cuda())
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), int8_matmul(a, w))

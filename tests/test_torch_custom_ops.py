@@ -1,0 +1,66 @@
+"""The kernels as ``torch.library`` custom ops (``s2tpu_torch::...``): ``torch.library.opcheck`` on the CPU.
+
+Each op's CPU implementation is its kernel's plain version, and its fake
+version must give the shapes, dtypes and strides that implementation
+gives: ``opcheck`` runs the schema, fake-tensor, autograd-registration and
+AOT-dispatch tests of each op at tiny sizes (the card's implementations are
+checked the same way in ``tests/test_torch_cuda_kernels.py``).
+"""
+
+import pytest
+import torch
+
+from s2tpu_torch.ops import depthwise_conv, flash_attention, fused_ce  # noqa: F401 (registers the ops)
+
+
+def op_cases(device: str = "cpu") -> dict[str, tuple]:
+    """Arguments of each custom op at tiny sizes: f32 and bf16 where the
+    kernels take both; attention on the fused route (L = 130) and past it."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        x, w = r(2, 6, 5, 8, dtype=dtype), r(3, 3, 8, dtype=dtype)
+        cases[f"depthwise_conv2d_s1-{tag}"] = (torch.ops.s2tpu_torch.depthwise_conv2d_s1, (x, w))
+        cases[f"depthwise_conv2d_s1_input_grad-{tag}"] = (torch.ops.s2tpu_torch.depthwise_conv2d_s1_input_grad, (x, w))
+        cases[f"depthwise_conv2d_s1_grad_weight-{tag}"] = (
+            torch.ops.s2tpu_torch.depthwise_conv2d_s1_grad_weight, (x, r(2, 6, 5, 8, dtype=dtype), 3))
+        qkv = r(2, 130, 3 * 64, dtype=dtype)
+        out = flash_attention.fused_attention_dense_forward_reference(qkv, 2)
+        cases[f"fused_attention_dense_forward-{tag}"] = (torch.ops.s2tpu_torch.fused_attention_dense_forward, (qkv, 2))
+        cases[f"fused_attention_dense_backward-{tag}"] = (
+            torch.ops.s2tpu_torch.fused_attention_dense_backward, (qkv, out, r(*out.shape, dtype=dtype), 2))
+        hm = r(3, 2, 2, 20, 32, dtype=dtype)
+        hm_out = flash_attention.fused_attention_qkv_forward_reference(hm)
+        cases[f"fused_attention_qkv_forward-{tag}"] = (torch.ops.s2tpu_torch.fused_attention_qkv_forward, (hm,))
+        cases[f"fused_attention_qkv_backward-{tag}"] = (
+            torch.ops.s2tpu_torch.fused_attention_qkv_backward, (hm, hm_out, r(*hm_out.shape, dtype=dtype)))
+        q, k, v = r(2, 520, 3 * 64, dtype=dtype).reshape(2, 520, 3, 2, 32).unbind(2)  # strided views
+        cases[f"flash_attention_forward-{tag}"] = (torch.ops.s2tpu_torch.flash_attention_forward, (q, k, v))
+    logits = r(40, 4)
+    labels = torch.randint(0, 4, (40,), generator=g, dtype=torch.int32).to(device)
+    weights, cot = r(4).abs(), r(40)
+    for name, mode in (("ce", (None, None)), ("focal_ignore", (0, 2.0))):
+        cases[f"fused_ce_forward-{name}"] = (torch.ops.s2tpu_torch.fused_ce_forward, (logits, labels, weights, *mode))
+        cases[f"fused_ce_backward-{name}"] = (
+            torch.ops.s2tpu_torch.fused_ce_backward, (logits, labels, weights, cot, *mode))
+    return cases
+
+
+@pytest.mark.parametrize("case", list(op_cases()))
+def test_opcheck_cpu(case):
+    op, args = op_cases()[case]
+    torch.library.opcheck(op, args)
+
+
+def test_every_kernel_entry_is_an_op():
+    names = {case.split("-")[0] for case in op_cases()}
+    assert names == {
+        "depthwise_conv2d_s1", "depthwise_conv2d_s1_input_grad", "depthwise_conv2d_s1_grad_weight",
+        "fused_ce_forward", "fused_ce_backward", "fused_attention_dense_forward", "fused_attention_dense_backward",
+        "fused_attention_qkv_forward", "fused_attention_qkv_backward", "flash_attention_forward",
+    }

@@ -37,6 +37,7 @@ from s2tpu_torch.ops.flash_attention import attention_route
 from s2tpu_torch.utils import load_prithvi_mean_std
 
 EMBED_RTOL = 1e-4
+INT8_EMBED_RTOL = 1e-4
 PROBE_LOSS_ATOL = 1e-3
 EMBED, HEADS = 64, 4
 # name: (crop, patch, the port's route)
@@ -165,11 +166,32 @@ def test_export_cli_matches_jax_embeddings(mae_run, tmp_path, monkeypatch, case)
     assert _rel(z["embeddings"], want) <= EMBED_RTOL
 
 
-def test_export_cli_refuses_int8(mae_run, capsys):
-    _, runs = mae_run
-    with pytest.raises(SystemExit):
-        export_embeddings.main([str(runs[1][0]), "--int8", "--device", "cpu"])
-    assert "ROADMAP item 17" in capsys.readouterr().err
+def test_export_cli_refuses_int8(mae_run, tmp_path, monkeypatch):
+    """``--int8`` (refused before the port had ``infer/quantize.py``) now
+    exports int8 embeddings: calibrated on the first ``--calib-batches``
+    batches, against JAX's ``calibrate_encoder_int8`` and int8
+    ``make_embed_fn`` on the same batches. Each side calibrates on its own
+    f32 forward, which differs from the other's by rounding; no activation
+    rounds to the other int8 step on these inputs (measured: 1.4e-7 of the
+    embeddings' scale), so INT8_EMBED_RTOL is f32 rounding's, with room; a
+    flipped step would move an embedding by ~1/127 of a layer's share."""
+    root, runs = mae_run
+    _tiny_model_args(monkeypatch)
+    run_dir, jcfg, params = runs[1]
+    out = export_embeddings.main([str(run_dir), "--out", str(tmp_path / "e.npz"), "--device", "cpu", "--int8",
+                                  "--calib-batches", "1", "--bs", "4"])
+    z = np.load(out)
+    assert json.loads(str(z["meta"]))["int8"] is True
+    source = TiffSource("small", "osm-multiclass", root / "data", require_labels=False)
+    imgs = np.stack([jax_embed.center_crop(np.asarray(source[i].x), 32) for i in range(len(source))])
+    model = jm.PrithviMAE(jm.PrithviConfig.from_model_args(_args(32, 16)))
+    mean, std = (jnp.asarray(np.asarray(v, np.float32)) for v in load_prithvi_mean_std())
+    qstate = jax_embed.calibrate_encoder_int8(model, params, mean, std, [imgs[:4]])
+    want = np.asarray(jax_embed.make_embed_fn(model, mean, std, qstate=qstate)(params, jnp.asarray(imgs)))
+    floats = np.asarray(jax_embed.make_embed_fn(model, mean, std)(params, jnp.asarray(imgs)))
+    assert z["embeddings"].shape == want.shape
+    assert _rel(z["embeddings"], want) <= INT8_EMBED_RTOL
+    assert not np.array_equal(want, floats)
 
 
 def test_export_cli_asks_for_the_card_by_default(mae_run, monkeypatch):

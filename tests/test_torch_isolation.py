@@ -51,7 +51,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_s2tpu():
     assert int(proc.stdout.strip().splitlines()[-1]) >= 45  # every module was imported, s2tpu_torch.parallel's too
 
 
-@pytest.mark.parametrize("name", ["test_torch_cuda_kernels", "test_torch_multi_card"])
+@pytest.mark.parametrize("name", ["test_torch_cuda_kernels", "test_torch_multi_card", "test_torch_custom_ops"])
 def test_card_test_files_import_no_jax_and_no_s2tpu(name):
     """The files whose ``cuda`` tests run on a card without JAX, under
     ``pytest --noconftest -m cuda``, import neither JAX nor the JAX package."""
@@ -72,7 +72,8 @@ def test_card_test_files_import_no_jax_and_no_s2tpu(name):
 @pytest.mark.parametrize("module", [
     "s2tpu_torch.cli.train_segmentation", "s2tpu_torch.cli.convert_weights", "s2tpu_torch.cli.export_embeddings",
     "s2tpu_torch.cli.probe_embeddings", "s2tpu_torch.infer.embed", "s2tpu_torch.checkpoint.convert",
-    "s2tpu_torch.checkpoint.io",
+    "s2tpu_torch.checkpoint.io", "s2tpu_torch.infer.quantize", "s2tpu_torch.infer.aot", "s2tpu_torch.infer.tiled",
+    "s2tpu_torch.train.profiling",
 ])
 def test_migration_and_embedding_modules_import_no_jax_and_no_s2tpu(module):
     """Each entry point of checkpoint migration, embeddings and stacked

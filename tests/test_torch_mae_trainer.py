@@ -303,7 +303,7 @@ def test_trainer_trains_ported_config_fields(field, value, fixture_dir):
         assert all(m.dtype == torch.float32 for m in t.master.master.values())
 
 
-def test_trainer_refuses_norm_watching_with_a_run_logger(fixture_dir, tmp_path):
+def test_trainer_watches_norms_with_a_run_logger(fixture_dir, tmp_path):
     """Norm watching, once refused with a run logger, now logs the global and
     per-tensor norms every watch_interval steps (here every step)."""
     from s2tpu_torch.train.logging_utils import RunLogger
