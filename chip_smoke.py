@@ -1,4 +1,4 @@
-"""Drive s2tpu_torch's serving (graphed, int8, from an AOT artifact), training (single- and multi-temporal, with the trainer extras), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding, checkpoint migration and device-corpus (graphed step) paths on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving (graphed, int8, from an AOT artifact), training (single- and multi-temporal, with the trainer extras, from GeoTIFF, packed and record sources, and tuning), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding, checkpoint migration and device-corpus (graphed step) paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
@@ -6,6 +6,7 @@
     python3 chip_smoke.py --extras       # phases 2, 6, 19, 9 and 20 only, no result lines
     python3 chip_smoke.py --corpus       # phases 2, 6 and 21 only, no result lines
     python3 chip_smoke.py --serving      # phases 1, 2, 5 and 22 only, no result lines
+    python3 chip_smoke.py --data         # phases 2, 6 and 23 only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 ``--attention`` and ``--depthwise`` use only the kernel wrappers' public
@@ -163,8 +164,7 @@ any failure raises and the script exits non-zero without printing a result:
    launches; the warm step with bf16 parameters, the EMA and watching.
    (d) The CLI (bf16 parameters and the EMA, 1 epoch of 2 steps) stopped
    by a SIGTERM after step 1 and resumed with ``--auto-resume``, against
-   one uninterrupted run, deterministic cuDNN. A second plain warm step
-   closes the phase, to show the host's drift.
+   one uninterrupted run, deterministic cuDNN.
 20. MAE trainer extras (phase B, after phase 9, on its data): config #5's
    ``MAETrainer`` (T=1, bf16, batch 64) with two micro-batches, remat, bf16
    parameters with f32 masters, the EMA and watching: #8/#9 at the
@@ -196,9 +196,10 @@ any failure raises and the script exits non-zero without printing a result:
    checkpoint equals the uninterrupted run's bit for bit; the MAE CLI in
    corpus mode (one window); (f) ms per warm step, images/s, busy share,
    device ms, host launch calls and peak bytes of B5 streamed, from the
-   corpus eager and graphed at K = 4 and 8, of accum 2 and remat graphed,
-   and of the MAE streamed and graphed, each run twice in mirrored order
-   (the first profiled).
+   corpus eager and graphed at K = 4, of accum 2 and remat graphed, and of
+   the MAE streamed and graphed, each timed and profiled once (K = 8, within
+   1 % of K = 4 in PR 11, and the mirrored second runs are no longer
+   timed: the full run had grown past 800 s).
 22. Serving extras (after phase 18; on phase 5's 512^2 segments): seeded
    checkpoints of B5 config #2, fc-prithvi T=1 and config #3 (phases 13 and
    16 delete their run directories), served in bf16 at 224^2, overlap 32,
@@ -220,7 +221,29 @@ any failure raises and the script exits non-zero without printing a result:
    ``--crop 0`` (#5), exact launches. (e) ``train.profiling``: the
    ``StepTimer`` time, ``FlopCounterMode`` count and MFU of B5's graphed
    training step.
-23. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
+23. Packed sources and tune (phase D, run right after phase 6, on its
+   data; its packs are removed at its end, so later phases read the
+   GeoTIFF tree): (a) ``cli.pack`` of phase 6's fixture as a memmap and as
+   compressed records; ``s2tpu_torch.native.load()`` must return the
+   library (no quiet numpy route); the Datamodule's train and val batches
+   from each equal the GeoTIFF tree's, bit for bit, with and without host
+   flips, the memmap's all through the native gather. (b) B5 config #2
+   through the training CLI for 1 epoch from ``--source tiff``, ``packed``
+   and ``records``, and with ``--device-corpus`` from ``tiff`` and
+   ``packed``, under deterministic cuDNN: #1-#4 launches equal to the
+   formula (phase 6's per epoch) in each; step and val losses equal with
+   tolerance 0 and the checkpoints bit for bit, packed and records against
+   tiff, the corpus from the pack against the corpus from the tree. (c)
+   The device corpus of a PACK_SEGMENTS x 512^2 x 6 pack written by
+   ``pack_dataset`` from a seeded pool, uploaded from the memmap against
+   the generic path: equal bit for bit, both times in s and GB/s. (d) Host batches/s of the native
+   gather against numpy on that memmap (batch 32, 224^2, host flips), then
+   warm eager streamed steps with host input (the pinned prefetch) from
+   the tree against phase 6's memmap: ms, busy share, host launch calls.
+   (e) ``--type tune`` (3 trials, 2 epochs a trial, eta 2): per trial the
+   loss type, epochs, pruned or not, exact #1-#4 launches, the memory
+   allocated at its trainer's build and its peak; ``best_params=``.
+24. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
    launches, and #8, #9, #5 with their times at fc-prithvi's shapes; #1-#4
@@ -231,8 +254,9 @@ any failure raises and the script exits non-zero without printing a result:
    serving's; #8/#9 with phase B's step; ``accum_*``: #1-#4 and #8/#9 at
    the micro-batch's shapes; #1-#4, #8, #9 with phase C's CLI launches
    and their launches in one replay; #1 and #8 with the serving extras'
-   graphed, int8 and AOT launches, #8 and #5 with the int8 embeddings'),
-   the ``nvidia-smi`` line, then the
+   graphed, int8 and AOT launches, #8 and #5 with the int8 embeddings';
+   #1-#4 with phase D's packed, records and packed-corpus CLI launches and
+   each tune trial's), the ``nvidia-smi`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -241,6 +265,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -420,6 +445,14 @@ PREEMPT_TOL = 1e-6
 CORPUS_SEGMENTS, CORPUS_SIZE, CORPUS_POOL, CORPUS_K = 12_400, 256, 64, 4
 PREEMPT_CORPUS_BATCH = 8
 MAE_CORPUS_BATCH, MAE_CORPUS_SEGMENTS = 8, 40
+# Packed sources and tune (phase D, after phase 6, on its data): the device
+# corpus uploaded from a pack of PACK_SEGMENTS whole 512^2 x 6 segments (1.61
+# GB of int16 images), the native gather against numpy over HOST_GATHER_EPOCHS
+# passes of it at config #2's batch and crop, and --type tune on config #2
+# with TUNE_TRIALS trials of TUNE_EPOCHS epochs, pruned at eta TUNE_ETA
+# (rungs [1, 2]).
+PACK_SEGMENTS, PACK_SIZE, HOST_GATHER_EPOCHS = 512, 512, 2
+TUNE_TRIALS, TUNE_EPOCHS, TUNE_ETA = 3, 2, 2
 # Serving extras: phase 5's 8 segments of 512^2 (4 served, the val split);
 # the int8 logits' relative L2 error against the float path is printed
 # beside tests/test_quantize.py's bound for the model family (UNet 0.15,
@@ -1104,9 +1137,6 @@ def phase_train(work: Path) -> dict:
         step_losses = logged_step_losses(run_dir)
         config, state = load_checkpoint(run_dir)
 
-        # Launches: every train step runs each stride-1 depthwise layer
-        # forward, as input gradient and as filter gradient, and the fused
-        # loss forward and backward; every eval batch the forwards.
         n_train = int(config.datamodule.data_split[0] * TRAIN_SEGMENTS)
         n_val = int(config.datamodule.data_split[1] * TRAIN_SEGMENTS)
         steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
@@ -1115,12 +1145,8 @@ def phase_train(work: Path) -> dict:
             dtype=torch.bfloat16, device="cpu", param_dtype=torch.float32, generator=torch.Generator().manual_seed(SEED)
         )
         per = count_stride1_depthwise(init_model.config)
-        expected = {
-            "depthwise_fwd": per * (steps + eval_batches), "depthwise_dx": per * steps, "depthwise_dw": per * steps,
-            "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
-            "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
-            "attn_flash_fwd": 0,
-        }
+        expected = seg_cli_launches(TRAIN_EPOCHS, per, n_train, n_val,
+                                    TRAIN_BATCH * config.datamodule.val_batch_size_multiplier)
         if launches != expected:
             raise AssertionError(f"training path launches {launches} != expected {expected}")
         losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
@@ -1598,10 +1624,8 @@ def phase_seg_extras(work: Path) -> dict:
                                            labels)
     del extras
 
-    # (d) preemption through the CLI; then the plain step again: the host's drift over the phase
+    # (d) preemption through the CLI
     out["preempt"] = check_seg_preemption(data_dir)
-    plain = seg_extras_trainer(data_dir)
-    out["plain_again"] = time_seg_steps(f"B5 extras plain step again {label}", plain, images, labels)
     return out
 
 
@@ -3020,12 +3044,8 @@ def phase_config3(work: Path) -> dict:
             dtype=torch.bfloat16, device="cpu", param_dtype=torch.float32, generator=torch.Generator().manual_seed(SEED)
         )
         per = count_stride1_depthwise(init_model.config)
-        expected = {
-            "depthwise_fwd": per * (steps + eval_batches), "depthwise_dx": per * steps, "depthwise_dw": per * steps,
-            "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
-            "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
-            "attn_flash_fwd": 0,
-        }
+        expected = seg_cli_launches(TRAIN_EPOCHS, per, n_train, n_val,
+                                    TRAIN_BATCH * config.datamodule.val_batch_size_multiplier)
         if launches != expected:
             raise AssertionError(f"config #3 launches {launches} != expected {expected}")
         losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
@@ -3323,17 +3343,17 @@ def phase_migration(work: Path) -> dict:
 
 
 # ---------------------------------------------------------------- phase C ----
-def pool_source(n: int):
+def pool_source(n: int, size: int = CORPUS_SIZE):
     """A seeded in-memory ``SegmentSource`` of ``n`` labelled segments of
-    CORPUS_SIZE^2 x 6 int16: views of a pool of CORPUS_POOL random segments,
+    ``size``^2 x 6 int16: views of a pool of CORPUS_POOL random segments,
     segment i shifted by i // CORPUS_POOL so that no two are equal. Returns
     the source, its per-band (mean, std) and the label frequencies of the
     pool."""
     from s2tpu_torch.data.dataset import Sample, SegmentSource
 
     rng = np.random.default_rng(SEED + 40)
-    pool_x = rng.integers(200, 3800, size=(CORPUS_POOL, CORPUS_SIZE, CORPUS_SIZE, 6), dtype=np.int16)
-    pool_y = rng.integers(0, CE_CLASSES, size=(CORPUS_POOL, CORPUS_SIZE, CORPUS_SIZE), dtype=np.uint8)
+    pool_x = rng.integers(200, 3800, size=(CORPUS_POOL, size, size, 6), dtype=np.int16)
+    pool_y = rng.integers(0, CE_CLASSES, size=(CORPUS_POOL, size, size), dtype=np.uint8)
 
     class PoolSource(SegmentSource):
         def __len__(self) -> int:
@@ -3742,7 +3762,7 @@ def phase_corpus(work: Path) -> dict:
         out["peak_with_b5_bytes"] = torch.cuda.max_memory_allocated()
         log(f"corpus (a) peak device memory with the corpus and three B5 trainers (one step graph): "
             f"{out['peak_with_b5_bytes']} bytes")
-        # (f) B5 times, each run twice in mirrored order; the graph captured again outside deterministic cuDNN
+        # (f) B5 times, each case once; the graph captured again outside deterministic cuDNN
         graphed._graph = None
         images, labels = (torch.from_numpy(a).cuda() for a in next(stream.dm.train_batches(0))[:2])
         cases = {
@@ -3751,14 +3771,10 @@ def phase_corpus(work: Path) -> dict:
             "corpus eager": (windows(eager, draws[:4], 1), 4, windows(eager, draws[:1], 1)),
             f"corpus graphed K={CORPUS_K}": (windows(graphed, draws[:8], CORPUS_K), 8,
                                             windows(graphed, draws[:1], CORPUS_K)),
-            "corpus graphed K=8": (windows(graphed, draws[:8], 8), 8, windows(graphed, draws[:1], 8)),
         }
         times: dict = {}
-        for name in [*cases, *reversed(cases)]:
-            run, steps, one = cases[name]
-            first = name not in times  # the first run of a pair is profiled
-            times.setdefault(name, []).append(time_run(f"corpus (f) B5 {name} {label}", run, steps, TRAIN_BATCH,
-                                                       one, profiled=first))
+        for name, (run, steps, one) in cases.items():
+            times[name] = time_run(f"corpus (f) B5 {name} {label}", run, steps, TRAIN_BATCH, one)
         log(f"corpus (f) B5 timings: {time.perf_counter() - t_sub:.1f} s")
         out["times"] = times
         del stream, eager, graphed, images, labels, cases, ms, mc, host
@@ -3786,11 +3802,10 @@ def phase_corpus(work: Path) -> dict:
         accum = make(device_corpus=True, steps_per_dispatch=CORPUS_K, grad_accum_steps=2)
         remat = make(device_corpus=True, steps_per_dispatch=CORPUS_K, remat=True)
         extra_cases = {"accum 2": accum, "remat": remat}
-        for name in [*extra_cases, *reversed(extra_cases)]:
-            t, first = extra_cases[name], name not in times
-            times.setdefault(name, []).append(time_run(
+        for name, t in extra_cases.items():
+            times[name] = time_run(
                 f"corpus (f) B5 {name} graphed K={CORPUS_K} {label}", windows(t, draws[:CORPUS_K], CORPUS_K),
-                CORPUS_K, TRAIN_BATCH, windows(t, draws[:1], CORPUS_K), profiled=first))
+                CORPUS_K, TRAIN_BATCH, windows(t, draws[:1], CORPUS_K))
         del accum, remat, extra_cases, t
         torch.cuda.empty_cache()
         log(f"corpus (f) B5 extras: {time.perf_counter() - t_sub:.1f} s")
@@ -3819,11 +3834,8 @@ def phase_corpus(work: Path) -> dict:
             f"corpus graphed K={CORPUS_K}": (windows(graphed, mdraws[:8], CORPUS_K), 8,
                                             windows(graphed, mdraws[:1], CORPUS_K)),
         }
-        for name in [*mae_cases, *reversed(mae_cases)]:
-            run, steps, one = mae_cases[name]
-            first = f"mae {name}" not in times
-            times.setdefault(f"mae {name}", []).append(
-                time_run(f"corpus (f) MAE {name} {mae_label}", run, steps, MAE_BATCH, one, profiled=first))
+        for name, (run, steps, one) in mae_cases.items():
+            times[f"mae {name}"] = time_run(f"corpus (f) MAE {name} {mae_label}", run, steps, MAE_BATCH, one)
         del eager, graphed, mimages, mae_cases, run, one
         log(f"corpus MAE (c), (d), (f): {time.perf_counter() - t_sub:.1f} s")
     del corpus, source, make
@@ -3833,6 +3845,338 @@ def phase_corpus(work: Path) -> dict:
     out["cli_launches"] = check_corpus_cli(work, per)
     out["mae_cli_launches"] = check_mae_corpus_cli(work)
     return out
+
+
+def seg_cli_launches(epochs: int, per: int, n_train: int, n_val: int, val_batch: int) -> dict[str, int]:
+    """#1-#4 launches of a config #2 run of ``epochs`` epochs (no
+    recalibration): every train step each stride-1 depthwise layer forward,
+    as input gradient and as filter gradient, and the fused loss forward and
+    backward; every eval batch the forwards."""
+    steps, evals = epochs * (n_train // TRAIN_BATCH), epochs * math.ceil(n_val / val_batch)
+    return launch_dict(depthwise_fwd=per * (steps + evals), depthwise_dx=per * steps, depthwise_dw=per * steps,
+                       fused_ce_fwd=steps + evals, fused_ce_bwd=steps)
+
+
+def same_batches(what: str, ours, ref, calls: list | None = None) -> int:
+    """Raises unless the two Datamodules' train (epoch 0) and val batches
+    are equal, bit for bit; returns how many batches were held."""
+    held = 0
+    for name, a_it, b_it in (("train", ours.train_batches(0), ref.train_batches(0)),
+                             ("val", ours.eval_batches("val"), ref.eval_batches("val"))):
+        for k, (a, b) in enumerate(zip(a_it, b_it, strict=True)):
+            for field in ("images", "labels", "mask"):
+                x, y = getattr(a, field), getattr(b, field)
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"(a) {what}: {name} batch {k} {field} differs from the GeoTIFF tree's")
+            held += 1
+    return held
+
+
+def host_input_trainer(data_dir: Path, source):
+    """Config #2's SegmentationTrainer on phase 6's data read from ``source``
+    (the CLI's class distribution and band statistics)."""
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
+    from s2tpu_torch.configs.data_config import DataDirs
+    from s2tpu_torch.data import statistics
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    cfg = config_from_args(build_parser().parse_args(train_argv(data_dir, "host")))
+    ds = cfg.datamodule.dataset_cfg
+    cfg.train.class_distribution = statistics.get_class_probabilities(
+        source, num_classes=cfg.num_classes, ignore_zero_label=cfg.train.masked_loss).tolist()
+    dm = Datamodule(cfg.datamodule, source=source)
+    dm.set_mean_std(*statistics.load_mean_std(DataDirs(ds.aoi, ds.label_map, ds.data_dir).base_path / "mean_std.json"))
+    return SegmentationTrainer(cfg, dm, device="cuda")
+
+
+def streamed_step(trainer):
+    """(a callable that trains one step on the next host batch of the
+    trainer's endless epoch stream, through the pinned prefetch; the stream)"""
+    from s2tpu_torch.data.pipeline import prefetch_to_device
+
+    host = itertools.chain.from_iterable(trainer.dm.train_batches(e) for e in itertools.count())
+    stream = prefetch_to_device(host, trainer.device, depth=trainer.config.datamodule.prefetch)
+    return (lambda: trainer.train_step(*next(stream)[:2])), stream
+
+
+@contextlib.contextmanager
+def recording_trials(trials: list):
+    """Inside the block, every SegmentationTrainer built (one a tune trial)
+    records, from its construction to the next one's, its loss type and
+    learning rate, the device memory allocated when it was built, its
+    launches and its peak device memory."""
+    from s2tpu_torch.train import trainer as trainer_mod
+
+    base = trainer_mod.SegmentationTrainer
+
+    def close_last() -> None:
+        if trials and "launches" not in trials[-1]:
+            torch.cuda.synchronize()
+            trials[-1].update(launches=launch_counts(), peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    class Recording(base):
+        def __init__(self, config, dm, **kwargs):
+            close_last()
+            torch.cuda.synchronize()
+            trials.append({"loss_type": config.train.loss_type.value, "lr": config.train.lr,
+                           "start_mem_bytes": torch.cuda.memory_allocated()})
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            super().__init__(config, dm, **kwargs)
+
+    trainer_mod.SegmentationTrainer = Recording
+    try:
+        yield
+        close_last()
+    finally:
+        trainer_mod.SegmentationTrainer = base
+
+
+def phase_packed(work: Path, train_launches: dict) -> dict:
+    """Phase D: packed sources and tune (after phase 6, on its data, whose
+    launches ``train_launches`` are): (a) phase 6's fixture packed by
+    ``cli.pack`` as a memmap and as compressed records, their batches against
+    the GeoTIFF tree's; (b) B5 config #2 trained through the CLI from
+    ``--source tiff``, ``packed`` and ``records``; (c) the device corpus
+    uploaded from a PACK_SEGMENTS x PACK_SIZE^2 x 6 pack against the generic
+    path; (d) host batches of the native gather against numpy on that pack,
+    and warm eager streamed B5 steps from the tree against the pack; (e)
+    ``--type tune``. Returns the packed and records runs' launches and the
+    trials."""
+    from s2tpu_torch import native
+    from s2tpu_torch.cli.pack import main as pack_main
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args, main as train_main
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.data.dataset import PackedSource, SubsetSource, TiffSource, pack_dataset
+    from s2tpu_torch.data.device_corpus import DeviceCorpus
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.data.records import RecordSource
+    from s2tpu_torch.models.efficientnet_unet import EfficientNetUNetConfig, count_stride1_depthwise
+
+    data_dir = work / "train_data"
+    default = data_dir / "small" / "packed" / "osm-multiclass"  # where --source auto|packed|records looks
+    name = f"chip-smoke-pack-{os.getpid()}"
+    out: dict = {}
+    try:
+        # (a) pack and compare
+        lib = native.load()
+        if lib is None:
+            raise AssertionError(f"the native gather library did not build or load ({native.library_path()})")
+        t0 = time.perf_counter()
+        memmap_dir = pack_main(["small", "osm-multiclass", "--data-dir", str(data_dir), "--out", str(work / "memmap")])
+        t1 = time.perf_counter()
+        records_dir = pack_main(["small", "osm-multiclass", "--data-dir", str(data_dir), "--out", str(work / "records"),
+                                 "--format", "sharded", "--compress"])
+        t2 = time.perf_counter()
+        cfg = config_from_args(build_parser().parse_args(train_argv(data_dir, name)))
+        tiff = TiffSource("small", "osm-multiclass", data_dir=data_dir)
+        packed, records = PackedSource(memmap_dir), RecordSource(records_dir)
+        calls: list = []
+        gather = native.gather_crops
+        native.gather_crops = lambda *a, **k: calls.append(1) or gather(*a, **k)
+        try:
+            held = {}
+            for flips in (True, False):
+                dmc = dataclasses.replace(cfg.datamodule, host_flips=flips)
+                ref = Datamodule(dmc, source=tiff)
+                for kind, source in (("memmap", packed), ("records", records)):
+                    held[kind, flips] = same_batches(f"{kind}, host_flips={flips}", Datamodule(dmc, source=source), ref)
+        finally:
+            native.gather_crops = gather
+        if len(calls) != held["memmap", True] + held["memmap", False]:
+            raise AssertionError(f"(a) the native gather took {len(calls)} of the memmap's "
+                                 f"{held['memmap', True] + held['memmap', False]} batches")
+        log(f"packed (a) cli.pack of {len(tiff)} segments {TRAIN_SEGMENT_SIZE}^2 x 6: memmap in {t1 - t0:.2f} s, "
+            f"compressed records in {t2 - t1:.2f} s ({sum(p.stat().st_size for p in records_dir.iterdir())} bytes "
+            f"against {sum(p.stat().st_size for p in memmap_dir.iterdir())}); native library "
+            f"{native.library_path().name} loaded; batches with and without host flips equal the GeoTIFF tree's, "
+            f"bit for bit: memmap {held['memmap', True] + held['memmap', False]} (every one through the native "
+            f"gather), records {held['records', True] + held['records', False]}")
+
+        # (b) train from the packs: the same launches and, under deterministic cuDNN, the same steps
+        per = count_stride1_depthwise(EfficientNetUNetConfig(
+            version=cfg.model_name.value.rsplit("-", 1)[1], in_channels=6, num_classes=cfg.num_classes))
+        n_train = int(cfg.datamodule.data_split[0] * TRAIN_SEGMENTS)
+        n_val = int(cfg.datamodule.data_split[1] * TRAIN_SEGMENTS)
+        val_batch = TRAIN_BATCH * cfg.datamodule.val_batch_size_multiplier
+        expected = seg_cli_launches(1, per, n_train, n_val, val_batch)
+        if seg_cli_launches(TRAIN_EPOCHS, per, n_train, n_val, val_batch) != train_launches:
+            raise AssertionError(f"phase 6's launches {train_launches} are not the formula's")
+        runs: dict = {}
+        with deterministic_cudnn():
+            # (name, --source, the pack under the default location, extra flags)
+            for kind, source, pack, extra in (
+                ("tiff", "tiff", None, []), ("packed", "packed", memmap_dir, []),
+                ("records", "records", records_dir, []),
+                ("corpus from tiff", "tiff", None, ["--device-corpus"]),
+                ("corpus from packed", "packed", memmap_dir, ["--device-corpus"]),
+            ):
+                if default.is_symlink():
+                    default.unlink()
+                if pack is not None:
+                    default.parent.mkdir(parents=True, exist_ok=True)
+                    default.symlink_to(pack, target_is_directory=True)
+                run = f"{name}-{kind.replace(' ', '-')}"
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                history = train_main([*train_argv(data_dir, run, epochs=1), "--source", source, *extra])  # the main path
+                torch.cuda.synchronize()
+                (run_dir,) = CKPT_DIR.glob(f"*/{run}_*")
+                runs[kind] = {"launches": launch_counts(), "s": time.perf_counter() - t0,
+                              "losses": logged_step_losses(run_dir) + [history[0][k] for k in ("train/loss", "val/loss")],
+                              "model": CheckpointManager(run_dir).restore(0)["model"]}
+        # the streamed runs against the tree's; the corpus (device flips) from the pack against the one from the
+        # tree (corpus windows log no step losses: the epoch's train and val loss)
+        for kind, ref in (("packed", "tiff"), ("records", "tiff"), ("corpus from packed", "corpus from tiff")):
+            r, want = runs[kind], runs[ref]
+            if r["losses"] != want["losses"] or not all(map(math.isfinite, r["losses"])):
+                raise AssertionError(f"(b) {kind} losses {r['losses']} != {ref} {want['losses']}")
+            r["held"] = bit_equal(f"(b) {kind} checkpoint vs {ref}", r["model"], want["model"])
+        for kind, r in runs.items():
+            if r["launches"] != expected:
+                raise AssertionError(f"(b) {kind} launches {r['launches']} != expected {expected}")
+        log(f"packed (b) train cli (B5 bf16, batch {TRAIN_BATCH}, 224^2, focal + weighted, 1 epoch, deterministic "
+            f"cuDNN, {CARD}): " + "; ".join(f"{kind} in {r['s']:.1f} s" for kind, r in runs.items())
+            + f"; launches {expected} in each (phase 6's per epoch); step and val losses equal with tolerance 0 "
+            f"and checkpoints bit for bit: packed and records {runs['tiff']['losses']} as tiff "
+            f"({runs['packed']['held']} / {runs['records']['held']} tensors), the corpus from the pack "
+            f"{runs['corpus from tiff']['losses']} as from the tree ({runs['corpus from packed']['held']} tensors)")
+        out["packed_launches"], out["records_launches"] = runs["packed"]["launches"], runs["records"]["launches"]
+        out["corpus_packed_launches"] = runs["corpus from packed"]["launches"]
+        del runs
+        default.unlink()
+
+        # (c) the device corpus uploaded from a pack at a real size
+        segments = PACK_SEGMENTS
+        need = PACK_SEGMENTS * PACK_SIZE * PACK_SIZE * (6 * 2 + 1)
+        free = shutil.disk_usage(work).free
+        if free < 2 * need:
+            segments = max(CORPUS_POOL, int(free // (2 * need // PACK_SEGMENTS)))
+            log(f"packed (c) the disk has {free} bytes free, under twice the pack's {need}: {segments} segments")
+        source, _, _ = pool_source(segments, size=PACK_SIZE)
+        t0 = time.perf_counter()
+        big = pack_dataset(source, work / "big_pack")
+        pack_s = time.perf_counter() - t0
+        nbytes = big.images.nbytes + big.labels.nbytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generic = DeviceCorpus(source, "cuda")
+        torch.cuda.synchronize()
+        generic_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fast = DeviceCorpus(PackedSource(work / "big_pack"), "cuda")
+        torch.cuda.synchronize()
+        fast_s = time.perf_counter() - t0
+        if not (torch.equal(fast.images, generic.images) and torch.equal(fast.labels, generic.labels)):
+            raise AssertionError("(c) the corpus uploaded from the pack differs from the generic path's")
+        del generic, fast
+        torch.cuda.empty_cache()
+        log(f"packed (c) device corpus of {segments} segments {PACK_SIZE}^2 x 6 ({nbytes} bytes of int16 images and "
+            f"uint8 labels; packed by pack_dataset from a seeded pool in {pack_s:.1f} s, so in the page cache), "
+            f"{CARD}: generic per-segment path {generic_s:.3f} s ({nbytes / generic_s / 1e9:.2f} GB/s), from the "
+            f"memmap through pinned pieces {fast_s:.3f} s ({nbytes / fast_s / 1e9:.2f} GB/s); equal, bit for bit")
+
+        # (d) host batches: the native gather against numpy on the same memmap
+        dmc = dataclasses.replace(cfg.datamodule, data_split=(1.0, 0.0, 0.0), host_flips=True)
+        native_dm = Datamodule(dmc, source=big)
+        numpy_dm = Datamodule(dmc, source=SubsetSource(big, np.arange(len(big))))  # not a PackedSource: numpy
+
+        def host_batches(dm) -> tuple[list, float]:
+            t0 = time.perf_counter()
+            batches = [b for e in range(HOST_GATHER_EPOCHS) for b in dm.train_batches(e)]
+            return batches, time.perf_counter() - t0
+
+        host_batches(native_dm)  # the memmap's pages, warm
+        rates: dict = {}
+        passes: dict = {}
+        for kind, dm in (("native", native_dm), ("numpy", numpy_dm), ("numpy", numpy_dm), ("native", native_dm)):
+            batches, secs = host_batches(dm)
+            rates.setdefault(kind, []).append(len(batches) / secs)
+            passes.setdefault(kind, batches)
+        for a, b in zip(passes["native"], passes["numpy"], strict=True):
+            if not (np.array_equal(a.images, b.images) and np.array_equal(a.labels, b.labels)):
+                raise AssertionError("(d) the native gather's batches differ from numpy's")
+        log(f"packed (d) host batches (batch {TRAIN_BATCH}, 224^2 crops with host flips, {len(batches)} batches a pass "
+            f"over the {segments}-segment memmap, {os.cpu_count()} cores): native {rates['native']} batches/s, "
+            f"numpy {rates['numpy']} batches/s (order native, numpy, numpy, native); equal, bit for bit")
+        del source, big, native_dm, numpy_dm, passes, batches
+
+        # (d) warm eager streamed steps, host input included: the GeoTIFF tree against phase 6's memmap
+        trainers = {"tiff": host_input_trainer(data_dir, tiff), "packed": host_input_trainer(data_dir, packed)}
+        streams, times = [], {}
+        label = f"(B5 bf16, batch {TRAIN_BATCH}, 224^2, focal + weighted, eager, host input through the prefetch)"
+        for kind in [*trainers, *reversed(trainers)]:
+            one, stream = streamed_step(trainers[kind])
+            streams.append(stream)
+            first = kind not in times  # the first run of a pair is profiled
+            times.setdefault(kind, []).append(time_run(f"packed (d) streamed step --source {kind} {label}",
+                                                       lambda: [one() for _ in range(4)], 4, TRAIN_BATCH, one,
+                                                       profiled=first))
+        for stream in streams:
+            stream.close()
+        del trainers, streams
+        torch.cuda.empty_cache()
+
+        # (e) --type tune
+        trials: list = []
+        captured = io.StringIO()
+        t0 = time.perf_counter()
+        with recording_trials(trials), contextlib.redirect_stdout(captured):
+            results = train_main([*train_argv(data_dir, f"{name}-tune"), "--type", "tune", "--n-trials",
+                                  str(TUNE_TRIALS), "--epochs-per-trial", str(TUNE_EPOCHS), "--tune-eta",
+                                  str(TUNE_ETA), "--source", "tiff"])
+        tune_s = time.perf_counter() - t0
+        printed = captured.getvalue()
+        sys.stdout.write(printed)
+        if f"best_params={results[0].params}" not in printed:
+            raise AssertionError("(e) tune printed no best_params=")
+        by_lr = {r.params["lr"]: r for r in results}
+        if len(trials) != TUNE_TRIALS or sorted(by_lr) != sorted(t["lr"] for t in trials):
+            raise AssertionError(f"(e) {len(trials)} trainers built for {TUNE_TRIALS} trials")
+        for k, t in enumerate(trials):
+            r = by_lr[t["lr"]]
+            t.update(epochs=r.epochs_trained, pruned=r.pruned, val_loss=r.val_loss)
+            want = seg_cli_launches(r.epochs_trained, per, n_train, n_val, val_batch)
+            if t["launches"] != want or not math.isfinite(r.val_loss):
+                raise AssertionError(f"(e) trial {k}: launches {t['launches']} != {want} ({r.epochs_trained} epochs)")
+            if t["start_mem_bytes"] > trials[0]["start_mem_bytes"] + (64 << 20):
+                raise AssertionError(f"(e) trial {k} starts with {t['start_mem_bytes']} bytes allocated, trial 0 with "
+                                     f"{trials[0]['start_mem_bytes']}: an earlier trial was not released")
+            log(f"packed (e) tune trial {k} ({CARD}): loss {t['loss_type']}, lr {t['lr']:.3g}, {r.epochs_trained} "
+                f"epochs, pruned {r.pruned}, val loss {r.val_loss:.5f}; launches #1 {t['launches']['depthwise_fwd']} "
+                f"#1dx {t['launches']['depthwise_dx']} #2 {t['launches']['depthwise_dw']} #3 "
+                f"{t['launches']['fused_ce_fwd']} #4 {t['launches']['fused_ce_bwd']} = the formula; allocated at "
+                f"build {t['start_mem_bytes']} bytes, peak {t['peak_mem_bytes']} bytes")
+        log(f"packed (e) --type tune (B5 config #2, {TUNE_TRIALS} trials, {TUNE_EPOCHS} epochs a trial, eta "
+            f"{TUNE_ETA}, rungs [1, 2]) in {tune_s:.1f} s; best_params printed")
+        out["tune"] = trials
+        return out
+    finally:
+        if default.is_symlink():
+            default.unlink()
+        shutil.rmtree(default.parent, ignore_errors=True)
+        for d in ("memmap", "records", "big_pack"):
+            shutil.rmtree(work / d, ignore_errors=True)
+        for d in CKPT_DIR.glob(f"*/{name}-*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}-*"):
+            if f.is_dir():
+                shutil.rmtree(f, ignore_errors=True)
+            else:
+                f.unlink(missing_ok=True)
+
+
+def packed_entries(packed: dict, key: str, prefix: str = "") -> dict:
+    """A kernel's entries from phase D for the kernels line: its launches in
+    the CLI runs from the memmap pack, the record corpus and the device
+    corpus uploaded from the pack, and in each tune trial."""
+    return {f"{prefix}packed_launches": packed["packed_launches"][key],
+            f"{prefix}records_launches": packed["records_launches"][key],
+            f"{prefix}packed_corpus_launches": packed["corpus_packed_launches"][key],
+            f"{prefix}tune_launches": [t["launches"][key] for t in packed["tune"]]}
 
 
 def micro_batch_times(times: dict, prefix: str = "", err: str = "max_abs_err") -> dict:
@@ -4279,6 +4623,24 @@ def extras_only() -> int:
     return 0
 
 
+def data_only() -> int:
+    """``--data``: the build, the training slice whose data phase D packs,
+    and phase D; no result lines."""
+    phase_build()
+    work = REPO / "out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        train = phase_train(work)
+        log(f"phase training slice: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_packed(work, train["launches"])
+        log(f"phase packed sources and tune: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def corpus_only() -> int:
     """``--corpus``: the build, the training slice whose data phase C's CLI
     runs use, and phase C; no result lines."""
@@ -4319,8 +4681,8 @@ def corpus_entries(corpus: dict, part: str, kernel: str, key: str) -> dict:
 
 def main(argv: list[str]) -> int:
     global CARD
-    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"], ["--corpus"], ["--serving"]):
-        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras | --corpus | --serving]",
+    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"], ["--corpus"], ["--serving"], ["--data"]):
+        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras | --corpus | --serving | --data]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4334,7 +4696,7 @@ def main(argv: list[str]) -> int:
     CARD = nvidia_smi()
     if argv:
         return {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
-                "--corpus": corpus_only, "--serving": serving_only}[argv[0]]()
+                "--corpus": corpus_only, "--serving": serving_only, "--data": data_only}[argv[0]]()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = CARD
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4361,6 +4723,7 @@ def main(argv: list[str]) -> int:
     try:
         serve_launches = timed("serving slice", phase_slice, work)
         train = timed("training slice", phase_train, work)
+        packed = timed("packed sources and tune", phase_packed, work, train["launches"])
         seg_extras = timed("B5 trainer extras", phase_seg_extras, work)
         cfg3 = timed("config #3 slice", phase_config3, work)
         fc = timed("fc-prithvi slice T=1", phase_fc_prithvi, work)
@@ -4421,6 +4784,9 @@ def main(argv: list[str]) -> int:
             "accum_dx_max_abs_err": micro["bwd"]["dx_max_abs_err"],
             **depthwise_ptxas(ptxas, "depthwise_s1_fwd"),
             **corpus_entries(corpus, "b5_launches", "#1", "depthwise_fwd"),
+            # phase D: the CLI from the memmap pack and the record corpus, and each tune trial
+            **packed_entries(packed, "depthwise_fwd"),
+            **packed_entries(packed, "depthwise_dx", "dx_"),
             # the serving extras: graphed tiled serving (wrapper count: warm-up chunk and capture; a replay's
             # launches from torch.profiler), int8 serving through the CLI, the AOT-loaded program
             **serving_entries(serving["B5"]),
@@ -4444,6 +4810,7 @@ def main(argv: list[str]) -> int:
             **micro_batch_times(micro["bwd"], "dw_", "dw_max_abs_err"),
             **depthwise_ptxas(ptxas, "depthwise_s1_dw"),
             **corpus_entries(corpus, "b5_launches", "#2", "depthwise_dw"),
+            **packed_entries(packed, "depthwise_dw"),
         },
         {
             "name": "fused_ce_forward",
@@ -4465,6 +4832,7 @@ def main(argv: list[str]) -> int:
             "accum_pixels": micro["batch"] * 224 * 224,
             **micro_batch_times(micro["ce"], "fwd_", "fwd_max_abs_err"),
             **corpus_entries(corpus, "b5_launches", "#3", "fused_ce_fwd"),
+            **packed_entries(packed, "fused_ce_fwd"),
         },
         {
             "name": "fused_ce_backward",
@@ -4486,6 +4854,7 @@ def main(argv: list[str]) -> int:
             "accum_pixels": micro["batch"] * 224 * 224,
             **micro_batch_times(micro["ce"], "bwd_", "bwd_max_abs_err"),
             **corpus_entries(corpus, "b5_launches", "#4", "fused_ce_bwd"),
+            **packed_entries(packed, "fused_ce_bwd"),
         },
         {
             "name": "fused_attention_qkv_forward",

@@ -6,18 +6,32 @@ Trains on the card unless ``--device cpu``. Epoch checkpoints land in
 ``ckpts/<project>/<run>/`` (or ``--resume-from``'s directory), which
 ``python -m s2tpu_torch.cli.infer <run dir>`` serves; scalars go to
 ``logs/runs/<run>.metrics.jsonl``, with the grad/param norms every
-``--watch-interval`` steps. Only the flags of features the port has are
-accepted: mesh and sharding flags (``--num-devices``, ``--fsdp``,
-``--device-corpus-sharded``) and ``--type tune`` are not ported yet, and
-argparse refuses them. ``--device-corpus`` uploads the AOI to the card once
-and gathers each step's crops there; with it, ``--steps-per-dispatch N``
-replays one CUDA graph of the whole step N steps a window (on the CPU, with
-``--device cpu``, the same windows of eager steps). The trainer's extras take the JAX
+``--watch-interval`` steps, and, where matplotlib is installed, each epoch's
+confusion matrix and two validation predictions go to
+``logs/runs/<run>/*.png``. ``--source`` picks the input: ``auto`` (default)
+reads the packed corpus under ``<data>/<aoi>/packed/<labels>`` when one
+exists (``python -m s2tpu_torch.cli.pack``), else the GeoTIFF tree;
+``tiff``, ``packed`` (the memmap pack, gathered by the native C++ crop
+gather) and ``records`` (the sharded ``.s2rec`` corpus) force one. Only the
+flags of features the port has are accepted: the mesh and sharding flags
+(``--num-devices``, ``--fsdp``, ``--device-corpus-sharded``) are not ported
+yet, and argparse refuses them. ``--device-corpus`` uploads the AOI to the
+card once and gathers each step's crops there; with it,
+``--steps-per-dispatch N`` replays one CUDA graph of the whole step N steps
+a window (on the CPU, with ``--device cpu``, the same windows of eager
+steps). The trainer's extras take the JAX
 CLI's flags (``--remat``, ``--param-dtype bfloat16``, ``--ema-decay D``,
 ``--watch-interval N``, ``--bn-recal N``); gradient accumulation is the
 config field ``train.grad_accum_steps``, as in the JAX CLI. A SIGTERM saves
 the state at the next step boundary; the same command with ``--auto-resume``
 (or ``--resume-from <run dir>``) continues the interrupted epoch exactly.
+
+``--type tune`` searches hyperparameters instead of training one run:
+``--n-trials`` short fits of ``--epochs-per-trial`` epochs each, pruned by
+ASHA (``--tune-eta``), over the learning rate, weight decay, loss, schedule
+and, with ``--tune-crops`` / ``--tune-batch-sizes``, the crop and batch
+size (``train/tune.py``); it logs ``tune/*`` scalars by rank and prints
+``best_params=...``.
 
 Multi-temporal B5 (BASELINE config #3) folds its frames into channels,
 frame-major, for the single-frame UNet (in_channels = T x bands):
@@ -52,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("aoi", choices=list(AOI_NAMES))
     p.add_argument("labels", choices=list(LABEL_MAPS))
     p.add_argument("model", choices=[m.value for m in cfg_lib.ModelName])
-    p.add_argument("--type", default="train", choices=["train", "debug", "overfit"])
+    p.add_argument("--type", default="train", choices=["train", "debug", "overfit", "tune"])
     p.add_argument("--loss-type", default=None, choices=[t.value for t in cfg_lib.LossType])
     p.add_argument("--lr-scheduler", default=None, choices=[t.value for t in cfg_lib.LRSchedulerType])
     p.add_argument("--bs", type=int, default=None, help="batch size")
@@ -105,6 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="keep a parameter EMA and run validation and serving on the averaged weights (typical 0.99-0.9999)",
     )
     p.add_argument(
+        "--source", default="auto", choices=["auto", "tiff", "packed", "records"],
+        help="input backend: auto picks a packed corpus when one exists",
+    )
+    p.add_argument(
         "--bands", default=None,
         help="spectral band set: 'default' (6 Prithvi-HLS bands), 'all12', or a comma list ('B02,B03,B04')",
     )
@@ -143,6 +161,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--unfreeze-lr-scale", type=float, default=None,
         help="LR multiplier applied at the unfreeze transition (full-network training usually wants ~0.1x)",
     )
+    # --type tune knobs (random search with ASHA pruning)
+    p.add_argument("--n-trials", type=int, default=10, help="tune: number of random-search trials")
+    p.add_argument("--epochs-per-trial", type=int, default=3, help="tune: short-fit budget per trial")
+    p.add_argument(
+        "--tune-crops", default=None,
+        help="tune: comma list of crop sizes to search (e.g. '128,224'); default keeps the configured crop fixed",
+    )
+    p.add_argument(
+        "--tune-batch-sizes", default=None,
+        help="tune: comma list of batch sizes to search; default keeps the configured batch size fixed",
+    )
+    p.add_argument("--tune-eta", type=int, default=2, help="tune: ASHA successive-halving factor (1 disables pruning)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
 
@@ -205,16 +235,18 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
     return config
 
 
-def main(argv: list[str] | None = None) -> list[dict]:
-    """Parse ``argv``, measure the class distribution and band statistics,
-    then train; returns the per-epoch records."""
+def main(argv: list[str] | None = None) -> list:
+    """Parse ``argv``, open the input source, measure the class distribution
+    and band statistics, then train; returns the per-epoch records (with
+    ``--type tune``, the trials, best first)."""
     from pathlib import Path
 
     from s2tpu_torch import resolve_device
     from s2tpu_torch.checkpoint.io import CheckpointManager
+    from s2tpu_torch.configs.data_config import DataDirs
     from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
     from s2tpu_torch.data import statistics
-    from s2tpu_torch.data.dataset import TiffSource
+    from s2tpu_torch.data.dataset import open_source
     from s2tpu_torch.data.pipeline import Datamodule
     from s2tpu_torch.train.logging_utils import RunLogger
     from s2tpu_torch.train.trainer import SegmentationTrainer
@@ -223,7 +255,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
     device = resolve_device(args.device)  # before any data work: no card, no run
     config = config_from_args(args)
     ds_cfg = config.datamodule.dataset_cfg
-    source = TiffSource(ds_cfg.aoi, ds_cfg.label_map, ds_cfg.data_dir, n_time_frames=ds_cfg.n_time_frames)
+    source = open_source(ds_cfg.aoi, ds_cfg.label_map, ds_cfg.data_dir, n_time_frames=ds_cfg.n_time_frames,
+                         kind=args.source)
+    logger.info(f"Input source: {type(source).__name__}")
     logger.info("Computing class distribution...")
     class_distribution = statistics.get_class_probabilities(
         source, num_classes=config.num_classes, ignore_zero_label=config.train.masked_loss
@@ -233,7 +267,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
         config.datamodule.class_distribution = class_distribution.tolist()
     dm = Datamodule(config.datamodule, source=source)
 
-    stats_path = source.data_dirs.base_path / "mean_std.json"
+    # Beside the GeoTIFF tree, whichever source is read: a packed or record
+    # corpus has no tree of its own (s2tpu/cli/train_segmentation.py:272).
+    stats_path = DataDirs(ds_cfg.aoi, ds_cfg.label_map, data_dir=ds_cfg.data_dir).base_path / "mean_std.json"
     if stats_path.exists() and not args.recompute_mean_std:
         dm.set_mean_std(*statistics.load_mean_std(stats_path))
     else:
@@ -243,6 +279,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
 
     config_dict = dataclasses.asdict(config)
     run_logger = RunLogger(config.train.run_name, LOG_DIR / "runs", config=config_dict)
+    if args.type == "tune":
+        return _tune(args, config, dm, run_logger, device)
     ckpt_dir = Path(args.resume_from) if args.resume_from else CKPT_DIR / config.train.project_name / config.train.run_name
     ckpt = CheckpointManager(ckpt_dir, keep=config.train.ckpt_keep, config_dict=config_dict)
     trainer = SegmentationTrainer(config, dm, run_logger=run_logger, checkpoint_manager=ckpt, device=device)
@@ -250,6 +288,42 @@ def main(argv: list[str] | None = None) -> list[dict]:
     epochs = config.train.max_epochs if config.train.max_epochs > 0 else 10**6
     logger.info(f"Training {config.model_name.value} on {device} into {ckpt_dir}")
     return trainer.fit(epochs=epochs, start_epoch=start_epoch)
+
+
+def _tune(args: argparse.Namespace, config: cfg_lib.Config, dm, run_logger, device) -> list:
+    """``--type tune`` (``s2tpu/cli/train_segmentation.py:289-332``): the
+    trials over a datamodule rebuilt per trial (crop and batch size are
+    trial dimensions) with the measured band statistics; ``tune/*`` scalars
+    by rank, then ``best_params=``."""
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.train.tune import SearchSpace, tune
+
+    if args.n_trials < 1:
+        raise SystemExit("--n-trials must be >= 1 for --type tune")
+    space = SearchSpace(
+        crop_sizes=tuple(int(c) for c in args.tune_crops.split(",")) if args.tune_crops else (),
+        batch_sizes=tuple(int(b) for b in args.tune_batch_sizes.split(",")) if args.tune_batch_sizes else (),
+    )
+    mean_std = dm.mean_std()
+
+    def rebuild_dm(cfg):
+        trial_dm = Datamodule(cfg.datamodule, source=dm.source)
+        trial_dm.set_mean_std(*mean_std)
+        return trial_dm
+
+    results = tune(config, datamodule_factory=rebuild_dm, n_trials=args.n_trials,
+                   epochs_per_trial=args.epochs_per_trial, seed=config.train.seed, space=space, eta=args.tune_eta,
+                   device=device)
+    for rank, r in enumerate(results):
+        run_logger.log_scalars(
+            {"tune/val_loss": r.val_loss, "tune/val_iou": r.val_iou,
+             **{f"tune/param_{k}": float(v) for k, v in r.params.items() if isinstance(v, (int, float))}},
+            step=rank,
+        )
+    best = results[0]
+    logger.info(f"Best trial: {best.params} (val_loss {best.val_loss:.4f}, iou {best.val_iou:.4f})")
+    print(f"best_params={best.params}")
+    return results
 
 
 if __name__ == "__main__":

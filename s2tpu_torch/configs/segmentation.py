@@ -329,7 +329,7 @@ def base_config(model_name: ModelName | str, aoi: str = "fr", label_map: str = "
     )
 
 
-RunType = typing.Literal["train", "debug", "overfit"]
+RunType = typing.Literal["train", "debug", "overfit", "tune"]
 
 
 def apply_linear_lr_scaling(config: Config, reference_bs: int = 32) -> Config:
@@ -341,7 +341,7 @@ def apply_linear_lr_scaling(config: Config, reference_bs: int = 32) -> Config:
 
 
 def set_run_type(config: Config, run_type: RunType) -> Config:
-    """The JAX package's run-type presets (``--type tune`` is not ported)."""
+    """The JAX package's run-type presets (``s2tpu/configs/segmentation.py:338-360``)."""
     if run_type == "debug":
         config.train.num_devices = 1
         config.datamodule.batch_size = 1
@@ -351,6 +351,9 @@ def set_run_type(config: Config, run_type: RunType) -> Config:
         config.train.overfit_batches = 1
         config.datamodule.augment = False
         config.train.tags.append("overfit")
+    elif run_type == "tune":
+        config.train.tags.append("tune")
+        config.train.use_wandb_logger = False  # trials log through the tune JSONL summary
     elif run_type != "train":
         raise ValueError(f"Unknown run type {run_type!r}")
     return config

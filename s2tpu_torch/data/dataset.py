@@ -1,20 +1,28 @@
 """Dataset layer: segment sources, splits, and synthetic fixtures.
 
-The port's copy of the GeoTIFF source, the split and the offline fixture of
+The port's copy of the GeoTIFF source, the packed memmap corpus, the source
+auto-detection, the split and the offline fixture of
 ``s2tpu/data/dataset.py``: samples are raw (H, W, C) int16 reflectance plus
 (H, W) class labels, and the same ``seed`` gives the same split as the JAX
-package's Datamodule. Packed memmap and record corpora wait for the
-training slice.
+package's Datamodule. A packed corpus is the JAX package's on-disk format
+(``images.npy`` (N, H, W, C) int16, ``labels.npy`` (N, H, W) uint8 and
+``meta.json``), so a pack written by either package opens in the other; the
+sharded record corpus lives in ``data/records.py``.
 """
 
 from __future__ import annotations
 
+import json
 import typing
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
 from s2tpu_torch.configs.data_config import LABEL_MAPS, SEGMENT_SIZE, DataDirs, LabelMap
+from s2tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
 
 
 class Sample(typing.NamedTuple):
@@ -117,6 +125,127 @@ class TiffSource(SegmentSource):
         if self._lut is not None:
             lbl = self._lut[lbl]
         return Sample(x=img, y=lbl)
+
+
+@dataclass
+class PackedPaths:
+    images: Path
+    labels: Path
+    meta: Path
+
+    @staticmethod
+    def for_dir(packed_dir: Path) -> "PackedPaths":
+        return PackedPaths(packed_dir / "images.npy", packed_dir / "labels.npy", packed_dir / "meta.json")
+
+
+def pack_dataset(source: SegmentSource, packed_dir: str | Path) -> "PackedSource":
+    """Pack any source into memory-mapped (N, H, W, C) int16 + (N, H, W)
+    uint8 arrays (``s2tpu/data/dataset.py:146-168``): a one-time cost, after
+    which a sample is a memmap slice, with no codec and no per-file read."""
+    packed_dir = Path(packed_dir)
+    packed_dir.mkdir(parents=True, exist_ok=True)
+    paths = PackedPaths.for_dir(packed_dir)
+    n = len(source)
+    h, w, c = source[0].x.shape
+    images = np.lib.format.open_memmap(paths.images, mode="w+", dtype=np.int16, shape=(n, h, w, c))
+    labels = np.lib.format.open_memmap(paths.labels, mode="w+", dtype=np.uint8, shape=(n, h, w))
+    for i in range(n):
+        s = source[i]
+        images[i] = s.x
+        labels[i] = s.y
+    images.flush()
+    labels.flush()
+    paths.meta.write_text(json.dumps({"n": n, "height": h, "width": w, "channels": c}))
+    return PackedSource(packed_dir)
+
+
+class PackedSource(SegmentSource):
+    """A packed corpus, memory-mapped read-only: samples are views of the
+    two arrays (the Datamodule gathers crops from them with the native
+    gather, ``s2tpu_torch.native``)."""
+
+    def __init__(self, packed_dir: str | Path) -> None:
+        paths = PackedPaths.for_dir(Path(packed_dir))
+        self.images = np.load(paths.images, mmap_mode="r")
+        self.labels = np.load(paths.labels, mmap_mode="r")
+        self.meta = json.loads(paths.meta.read_text())
+
+    def __len__(self) -> int:
+        return self.meta["n"]
+
+    def __getitem__(self, idx: int) -> Sample:
+        return Sample(x=self.images[idx], y=self.labels[idx])
+
+    def gather(self, indices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Vectorized batch gather straight from the memmap."""
+        return np.asarray(self.images[indices]), np.asarray(self.labels[indices])
+
+
+def open_source(
+    aoi: str,
+    label_map: str,
+    data_dir: str | Path | None = None,
+    n_time_frames: int = 1,
+    kind: str = "auto",
+) -> SegmentSource:
+    """Open the best available source for an AOI (``s2tpu/data/dataset.py:189-252``).
+
+    kind:
+      * "auto"    -- the packed corpus under <data>/<aoi>/packed/<label_map>
+                    if one exists (memmap or .s2rec, told apart by meta.json),
+                    else the GeoTIFF tree; the pack's path and time are logged,
+                    with a warning when the GeoTIFF tree is newer. Multi-temporal
+                    (T > 1) always reads GeoTIFFs (packing flattens the frames).
+      * "tiff" / "packed" / "records" -- that backend, or FileNotFoundError.
+    """
+    if kind not in ("auto", "tiff", "packed", "records"):
+        raise ValueError(f"unknown source kind {kind!r}")
+    dirs = DataDirs(aoi=aoi, map_type=label_map, data_dir=data_dir)
+    packed_dir = dirs.base_path / "packed" / label_map
+    meta_path = packed_dir / "meta.json"
+    if kind != "tiff" and n_time_frames == 1 and meta_path.exists():
+        meta = json.loads(meta_path.read_text())
+        if kind == "auto":
+            _log_auto_pack(aoi, label_map, dirs, packed_dir, meta, meta_path.stat().st_mtime)
+        if str(meta.get("magic", "")).startswith("s2rec"):
+            if kind == "packed":
+                raise FileNotFoundError(f"{packed_dir} holds an s2rec corpus, not a memmap pack")
+            from s2tpu_torch.data.records import RecordSource
+
+            return RecordSource(packed_dir)
+        if kind == "records":
+            raise FileNotFoundError(f"{packed_dir} holds a memmap pack, not an s2rec corpus")
+        return PackedSource(packed_dir)
+    if kind in ("packed", "records"):
+        raise FileNotFoundError(
+            f"No packed corpus under {packed_dir} -- run `python -m s2tpu_torch.cli.pack {aoi} {label_map}`"
+            + (" --format sharded" if kind == "records" else "")
+        )
+    return TiffSource(aoi, label_map, data_dir, n_time_frames=n_time_frames)
+
+
+def _log_auto_pack(aoi: str, label_map: str, dirs: DataDirs, packed_dir: Path, meta: dict, mtime: float) -> None:
+    """"auto" prefers an existing pack over the GeoTIFF tree without being
+    asked: say so, with the pack's time, and warn when the tree holds newer
+    files (the pack may be stale). The check never stops a run."""
+    import datetime
+
+    def stamp(t: float) -> str:
+        return f"{datetime.datetime.fromtimestamp(t):%Y-%m-%d %H:%M}"
+
+    logger.info(f"source auto: using packed corpus {packed_dir} (n={meta.get('n')}, packed {stamp(mtime)})")
+    try:
+        tiffs = dirs.sentinel_files
+        newest = max((p.stat().st_mtime for p in tiffs.values()), default=None)
+    except (OSError, ValueError) as e:  # an unreadable tree or a stray file name
+        logger.debug(f"pack staleness check skipped: {e}")
+        return
+    if newest is not None and newest > mtime:
+        logger.warning(
+            f"source auto: GeoTIFF tree has files newer than the packed corpus ({stamp(newest)} > pack "
+            f"{stamp(mtime)}) -- the pack may be stale; re-run `python -m s2tpu_torch.cli.pack {aoi} {label_map}` "
+            "or force --source tiff"
+        )
 
 
 class SubsetSource(SegmentSource):

@@ -5,7 +5,10 @@ step the host sends only three (B,) int32 vectors, the segment indices and
 the crop offsets, and the crops are gathered on the device inside the train
 step. The gather is plain PyTorch advanced indexing: no host sync and no
 shape that depends on the data, so a CUDA graph captures it with the rest
-of the step.
+of the step. A packed memmap corpus (``PackedSource``) is uploaded straight
+from its memmap (``device_corpus.py:48-50``), in pieces through two pinned
+staging buffers on the card; any other source is stacked segment by
+segment first.
 
 The sharded corpus (the segment axis split over a data mesh,
 ``device_corpus.py:184-309``) needs a data axis above one rank, which the
@@ -17,7 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from s2tpu_torch.data.dataset import SegmentSource
+from s2tpu_torch.data.dataset import PackedSource, SegmentSource
+
+UPLOAD_PIECE_BYTES = 64 << 20  # one pinned staging buffer of the memmap upload
 
 
 def crop_slice_images(
@@ -38,8 +43,11 @@ def crop_slice_images(
 
 
 def _materialize(source: SegmentSource) -> tuple[np.ndarray, np.ndarray]:
-    """The int16 images and uint8 labels of every segment of ``source``,
-    stacked (the JAX ``_materialize``'s generic per-segment path)."""
+    """The int16 images and uint8 labels of every segment of ``source``: a
+    packed corpus's read-only memmaps as they are, else stacked segment by
+    segment (the JAX ``_materialize``)."""
+    if isinstance(source, PackedSource):
+        return source.images, source.labels
     first = source[0]
     n = len(source)
     images = np.empty((n, *first.x.shape), np.int16)
@@ -65,8 +73,12 @@ class DeviceCorpus:
         # (N, H, W, C) single-frame or (N, T, H, W, C) multi-temporal: the
         # spatial axes are always the two before the channels.
         self.hw = images.shape[-3:-1]
-        self.images = torch.from_numpy(images).to(device)
-        self.labels = torch.from_numpy(labels).to(device) if with_labels else None
+        if isinstance(source, PackedSource):
+            self.images = upload(images, device)
+            self.labels = upload(labels, device) if with_labels else None
+        else:
+            self.images = torch.from_numpy(images).to(device)
+            self.labels = torch.from_numpy(labels).to(device) if with_labels else None
 
     def gather(
         self, idx: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, crop: int
@@ -79,6 +91,37 @@ class DeviceCorpus:
         r = torch.arange(crop, device=self.labels.device)
         rows, cols = ys.long()[:, None] + r, xs.long()[:, None] + r
         return images, self.labels[idx.long()[:, None, None], rows[:, :, None], cols[:, None, :]].to(torch.int32)
+
+
+def upload(array: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """A copy of ``array`` on ``device``, never a view of it (a packed
+    corpus's read-only memmap stays untouched). To the card it goes in
+    pieces of about ``UPLOAD_PIECE_BYTES`` along the first axis through two
+    pinned staging buffers: the host fills one while the card copies the
+    other."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(array))
+    out = torch.empty(array.shape, dtype=torch.from_numpy(np.empty(0, array.dtype)).dtype, device=device)
+    if out.numel() == 0:
+        return out
+    rows = max(1, UPLOAD_PIECE_BYTES // max(array[0].nbytes, 1))
+    stages = [torch.empty((min(rows, len(array)), *array.shape[1:]), dtype=out.dtype, pin_memory=True)
+              for _ in range(2)]
+    done: list[torch.cuda.Event | None] = [None, None]
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream()
+        for k, start in enumerate(range(0, len(array), rows)):
+            stage, j = stages[k % 2], k % 2
+            if done[j] is not None:
+                done[j].synchronize()  # the card has finished reading this buffer
+            m = min(rows, len(array) - start)
+            np.copyto(stage[:m].numpy(), array[start:start + m])
+            out[start:start + m].copy_(stage[:m], non_blocking=True)
+            done[j] = torch.cuda.Event()
+            done[j].record(stream)
+        stream.synchronize()
+    return out
 
 
 def sample_crop_batch(

@@ -6,8 +6,11 @@
 
 The same ``shuffle_seed`` gives the same split, epoch order, crops and
 flips as the JAX package's Datamodule. Eval batches are padded to a fixed
-batch size with a validity mask, as the JAX package pads them. Only the
-GeoTIFF source is ported. Flips happen on the host when ``host_flips`` is on;
+batch size with a validity mask, as the JAX package pads them. A packed
+memmap corpus (``PackedSource``) is gathered by the native multithreaded
+crop gather (``s2tpu_torch.native``, flips applied during the copy), every
+other source by numpy slices; both give the same batches, bit for bit.
+Flips happen on the host when ``host_flips`` is on;
 off, the stream draws none and the trainer flips on the device, taking the
 same draws as the device corpus (``data/device_corpus.py``). The MAE
 trainer takes these batches as they are (unlabeled sources give zero
@@ -27,7 +30,7 @@ import torch
 
 from s2tpu_torch.configs.segmentation import DatamoduleConfig
 from s2tpu_torch.data import statistics
-from s2tpu_torch.data.dataset import SegmentSource, TiffSource, train_val_test_split
+from s2tpu_torch.data.dataset import PackedSource, SegmentSource, TiffSource, train_val_test_split
 
 
 class HostBatch(typing.NamedTuple):
@@ -115,6 +118,16 @@ class Datamodule:
     ) -> HostBatch:
         crop = self.cfg.random_crop_size
         n = len(indices)
+        if isinstance(self.source, PackedSource):
+            # C++ row copies straight out of the memmap (s2tpu/data/pipeline.py:138-151)
+            from s2tpu_torch import native
+
+            gathered = native.gather_crops(
+                self.source.images, self.source.labels, np.asarray(indices), ys, xs, crop,
+                flip_h=flip_h, flip_v=flip_v,
+            )
+            if gathered is not None:
+                return HostBatch(*gathered, np.ones(n, dtype=bool))
         first = self.source[int(indices[0])]
         c = first.x.shape[-1]
         lead = first.x.shape[:-3]  # multi-temporal samples are (T, H, W, C)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from s2tpu_torch import plotting
 from s2tpu_torch.data.device_corpus import sample_crop_batch
 from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
 from s2tpu_torch.train.graphs import StepGraph
@@ -146,6 +147,7 @@ class TrainerBase:
         self._graph: StepGraph | None = None  # the captured corpus step; None until the first graphed window
         self._sums: dict[str, torch.Tensor] | None = None  # the corpus epoch's device sums
         self._window_logged = False  # the one log line when watching turns fusion off
+        self._no_pyplot_warned = False  # the one warning when matplotlib is missing
 
     def _trainable(self) -> list[tuple[str, torch.nn.Parameter]]:
         return [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
@@ -188,6 +190,18 @@ class TrainerBase:
         if "watch" in step_metrics:
             names, values = step_metrics["watch"]
             self.run_logger.log_scalars(dict(zip(names, values.tolist())), step=self.step)
+
+    def _image_pyplot(self):
+        """pyplot for the epoch's images, or None: without a run logger, or
+        without matplotlib (one warning a trainer). Asked before any forward
+        the images need, so where matplotlib is missing none runs."""
+        if self.run_logger is None:
+            return None
+        plt = plotting.pyplot()
+        if plt is None and not self._no_pyplot_warned:
+            logger.warning("matplotlib is not installed: epoch images are not logged")
+            self._no_pyplot_warned = True
+        return plt
 
     def eval_weights(self) -> typing.ContextManager:
         """The weights of validation and serving: the EMA's when kept."""

@@ -306,4 +306,33 @@ class MAETrainer(TrainerBase):
             )
         if self.run_logger is not None:
             self.run_logger.log_scalars({k: v for k, v in record.items() if k != "epoch"}, step=self.step)
+            self._log_reconstruction_image()
         return record
+
+    def _log_reconstruction_image(self) -> None:
+        """The first eval crop's RGB against its reconstruction
+        (``s2tpu/train/mae_trainer.py:635-667``). Never stops training: a
+        failure is a warning."""
+        plt = self._image_pyplot()
+        if plt is None:
+            return
+        if self.mesh is not None and dist.get_world_size() > 1:
+            logger.info("reconstruction image skipped: the model is split over several ranks")
+            return
+        from s2tpu_torch.plotting import reconstruction_figure
+
+        was_training = self.model.training
+        try:
+            split = "val" if len(self.dm.val_idx) else "train"
+            batch = next(iter(self.dm.eval_batches(split)))
+            rec = self.reconstruct(batch.images[:1])[0, 0]  # (H, W, C) denormalized
+            orig = np.asarray(batch.images[0], np.float64)
+            if orig.ndim == 4:  # multi-temporal (T, H, W, C): frame 0
+                orig = orig[0]
+            self.run_logger.log_image("val/reconstruction", reconstruction_figure(orig, rec, self.mask_ratio),
+                                      self.step)
+            plt.close("all")
+        except Exception as e:  # noqa: BLE001 - never kill training over a plot
+            logger.warning(f"reconstruction logging failed: {e}", exc_info=True)
+        finally:
+            self.model.train(was_training)

@@ -56,9 +56,15 @@ with ``host_flips=False`` take the same draws and train the same steps, bit
 for bit. BatchNorm recalibration gathers its batches from the corpus
 (``:1004-1050``).
 
+With a run logger, each epoch also logs images (``_log_epoch_images``,
+``:1229-1289``, the single-process branch): the validation confusion matrix
+and the predictions of one random validation sample and of sample 0, from
+the eval weights in eval mode under no_grad, drawing from none of the
+step's generators; where matplotlib is missing, none is drawn (one warning).
+
 Refused where the config asks for them: the sharded corpus and a data mesh
 (``num_devices`` other than 1 and -1), which need ROADMAP item 16's data
-axis. Epoch image logging is not ported and has no config switch.
+axis.
 """
 
 from __future__ import annotations
@@ -466,4 +472,59 @@ class SegmentationTrainer(TrainerBase):
         )
         if self.run_logger is not None:
             self.run_logger.log_scalars({k: v for k, v in record.items() if k != "epoch"}, step=self.step)
+            self._log_epoch_images(val_metrics or train_metrics)
         return record
+
+    def _log_epoch_images(self, epoch_metrics: dict) -> None:
+        """The confusion matrix and two prediction overlays, one random
+        validation sample (``default_rng(step)``) and sample 0, each
+        center-cropped (``s2tpu/train/trainer.py:1229-1289``). Never stops
+        training: a failure is a warning."""
+        plt = self._image_pyplot()
+        if plt is None:
+            return
+        from s2tpu_torch.plotting import confusion_matrix_figure, plot_sentinel_and_mask, stretch_rgb
+
+        try:
+            step = self.step
+            cfg = self.config
+            lm = LABEL_MAPS[cfg.datamodule.dataset_cfg.label_map]
+            cm = epoch_metrics.get("confusion_matrix")
+            if cm is not None:
+                names = lm.class_names[1:] if cfg.train.masked_loss else lm.class_names
+                cm_vis = cm[1:, 1:] if (cfg.train.masked_loss and cm.shape[0] == lm.num_classes) else cm
+                self.run_logger.log_image("val/confusion_matrix",
+                                          confusion_matrix_figure(cm_vis, names[: cm_vis.shape[0]]), step)
+            indices = self.dm.val_idx if len(self.dm.val_idx) else self.dm.train_idx
+            rng = np.random.default_rng(step)
+            for name, idx in (
+                ("val/segmentation", int(rng.choice(indices))),
+                ("val/fixed_prediction_dynamics", int(indices[0])),
+            ):
+                sample = self.dm.source[idx]
+                crop = cfg.datamodule.random_crop_size
+                # samples are (H, W, C) or, multi-temporal, (T, H, W, C)
+                y0 = (sample.x.shape[-3] - crop) // 2
+                x0 = (sample.x.shape[-2] - crop) // 2
+                img = sample.x[..., y0 : y0 + crop, x0 : x0 + crop, :]
+                lbl = sample.y[y0 : y0 + crop, x0 : x0 + crop]
+                pred = self._predict_classes(img)
+                disp = img[0] if img.ndim == 4 else img  # first frame of a T > 1 stack
+                fig = plot_sentinel_and_mask(stretch_rgb(disp.transpose(2, 0, 1)), lbl, lm, pred=pred)
+                self.run_logger.log_image(name, fig, step)
+                plt.close("all")
+        except Exception as e:  # noqa: BLE001 - image logging must never kill training
+            logger.warning(f"epoch image logging failed: {e}", exc_info=True)
+
+    @torch.no_grad()
+    def _predict_classes(self, image: np.ndarray) -> np.ndarray:
+        """The eval weights' class map of one int16 ([T,] H, W, C) image, in
+        eval mode (the model's mode is restored after)."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with self.eval_weights():
+                logits = self.model(self._input(torch.from_numpy(np.array(image)[None]).to(self.device)))
+            return logits[0].argmax(-1).cpu().numpy()
+        finally:
+            self.model.train(was_training)

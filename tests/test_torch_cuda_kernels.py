@@ -709,3 +709,34 @@ def test_int8_products_on_the_card_equal_the_cpu(m, k, n):
     got = int8_matmul(a.cuda(), w.cuda())
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert torch.equal(got.cpu(), int8_matmul(a, w))
+
+
+@pytest.mark.parametrize("piece_bytes", [1, 5000, 1 << 30], ids=["row-pieces", "three-row-pieces", "one-piece"])
+def test_packed_corpus_upload_in_pinned_pieces_equals_the_memmap(tmp_path, monkeypatch, piece_bytes):
+    """A packed corpus uploaded from its read-only memmap through the two
+    pinned staging buffers equals the arrays, bit for bit, and the labels
+    stay uint8; the gather then reads the same crops as from a generic
+    source."""
+    from s2tpu_torch.data import device_corpus
+    from s2tpu_torch.data.dataset import PackedSource, Sample, SegmentSource, pack_dataset
+
+    rng = np.random.default_rng(11)
+    x = rng.integers(-3000, 9000, size=(7, 20, 24, 6)).astype(np.int16)
+    y = rng.integers(0, 4, size=(7, 20, 24)).astype(np.uint8)
+
+    class Arrays(SegmentSource):
+        def __len__(self):
+            return len(x)
+
+        def __getitem__(self, i):
+            return Sample(x[i], y[i])
+
+    pack_dataset(Arrays(), tmp_path / "p")
+    monkeypatch.setattr(device_corpus, "UPLOAD_PIECE_BYTES", piece_bytes)
+    ours = device_corpus.DeviceCorpus(PackedSource(tmp_path / "p"), "cuda")
+    ref = device_corpus.DeviceCorpus(Arrays(), "cuda")
+    assert ours.labels.dtype == torch.uint8 and ours.hw == (20, 24)
+    assert torch.equal(ours.images.cpu(), torch.from_numpy(x)) and torch.equal(ours.labels.cpu(), torch.from_numpy(y))
+    idx, ys, xs = (torch.tensor(v, dtype=torch.int32, device="cuda") for v in ([6, 0, 3], [0, 4, 2], [8, 0, 5]))
+    for a, b in zip(ours.gather(idx, ys, xs, 16), ref.gather(idx, ys, xs, 16)):
+        assert torch.equal(a, b)

@@ -247,10 +247,10 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
         train_main(["small", "osm-multiclass", "efficientnet-unet-b0", "--data-dir", str(fixture_dir)])
 
 
-@pytest.mark.parametrize("flags", [["--fsdp"], ["--type", "tune"], ["--num-devices", "4"], ["--device-corpus-sharded"]])
+@pytest.mark.parametrize("flags", [["--fsdp"], ["--num-devices", "4"], ["--device-corpus-sharded"]])
 def test_cli_refuses_unported_flags(flags):
     """argparse refuses the flags of features the port lacks (a data mesh,
-    sharding, tuning)."""
+    sharding)."""
     from s2tpu_torch.cli.train_segmentation import build_parser
 
     with pytest.raises(SystemExit):
@@ -269,6 +269,24 @@ def test_cli_takes_ported_flags(flags, fields):
 
     t = config_from_args(build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flags])).train
     assert {k: getattr(t, k) for k in fields} == fields
+
+
+def test_cli_takes_type_tune_and_source():
+    """``--type tune`` and its knobs, once refused here, and ``--source``
+    parse as the JAX CLI parses them, into the JAX CLI's config."""
+    from s2tpu.cli.train_segmentation import build_parser as jax_parser
+    from s2tpu.cli.train_segmentation import config_from_args as jax_config_from_args
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
+
+    argv = ["small", "osm-multiclass", "efficientnet-unet-b0", "--type", "tune", "--n-trials", "3",
+            "--epochs-per-trial", "2", "--tune-crops", "64,128", "--tune-batch-sizes", "8,16", "--tune-eta", "3",
+            "--source", "records", "--name", "t"]
+    ours, theirs = build_parser().parse_args(argv), jax_parser().parse_args(argv)
+    for flag in ("type", "n_trials", "epochs_per_trial", "tune_crops", "tune_batch_sizes", "tune_eta", "source"):
+        assert getattr(ours, flag) == getattr(theirs, flag), flag
+    config, jax_config = config_from_args(ours), jax_config_from_args(theirs)
+    assert config.train.tags == jax_config.train.tags == ["tune"]
+    assert config.train.use_wandb_logger is jax_config.train.use_wandb_logger is False
 
 
 # What the port still refuses: the sharded corpus and a data mesh (ROADMAP
