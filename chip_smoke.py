@@ -438,6 +438,29 @@ REMAT_RTOL = 1e-5
 # the same data and masks (deterministic cuDNN): its final weights to
 # PREEMPT_TOL, in max |diff| / max |w| and in relative L2.
 PREEMPT_TOL = 1e-6
+# Phase E, the data axis: DP_RANKS gloo ranks share the card, each training
+# its TRAIN_BATCH / DP_RANKS rows of config #2's global batch (bf16). Their
+# step is held against the one-rank step on the same global batch, in loss,
+# BatchNorm running statistics, the applied gradients and the parameter
+# update, as phase 7 holds the card against the CPU: within DP_FACTOR x the
+# one-rank step's own movement when its weights move by a random half unit
+# in the last place of the compute dtype (DP_BF16_EPS, bf16's 2^-9 where
+# phase 7 moves f32 by 1e-7), and at least DP_FLOOR. (The ranks' convs run
+# at half the batch, so cuDNN may round every activation otherwise; the
+# same step with the batch's halves swapped moved the loss 17x less than
+# the ranks did in the first card run, and checks nothing for bf16.) Then
+# the same step in f32 (TF32 off) at F32_STEP_BATCH and F32_STEP_CROP^2,
+# held to tests/test_torch_data_parallel.py's bounds: loss and running
+# statistics to DP_F32_RTOL, the classifier's gradient to DP_F32_RTOL_GRAD
+# in relative L2, all gradients together to DP_F32_TOTAL_GRAD (train-mode
+# BatchNorm over few values amplifies f32 sums in another order). A
+# global-batch statistic computed per rank moves the f32 loss by far more.
+# Standalone (--data-parallel), the phase makes DP_SEGMENTS segments (one
+# global batch of train segments).
+DP_RANKS, DP_SEGMENTS = 2, 40
+DP_FACTOR, DP_BF16_EPS = 10.0, 2.0**-9
+DP_FLOOR = {"loss": 1e-5, "running_stats": 1e-4, "grads": 1e-4, "update": 1e-4}
+DP_F32_RTOL, DP_F32_RTOL_GRAD, DP_F32_TOTAL_GRAD = 1e-5, 1e-4, 2.5e-2
 # Phase C: the "fr" AOI's corpus (s2tpu/data/device_corpus.py:5-7: 12.4k
 # segments, ~9.7 GB of int16 at 256^2 x 6), made from a seeded pool of
 # segments in memory; K-step windows; (e) at a batch that gives its epoch
@@ -1094,11 +1117,12 @@ def launch_counts() -> dict[str, int]:
 
 
 def train_argv(data_dir: Path, name: str, epochs: int = TRAIN_EPOCHS) -> list[str]:
-    """The training CLI's arguments of the training slice (phase 6): config #2."""
+    """The training CLI's arguments of the training slice (phase 6): config #2
+    on one card, whatever the host holds."""
     return [
         "small", "osm-multiclass", "efficientnet-unet-b5", "--loss-type", "focal", "--weighted-loss",
         "--bs", str(TRAIN_BATCH), "--crop", "224", "--compute-dtype", "bfloat16", "--epochs", str(epochs),
-        "--log-interval", "1", "--data-dir", str(data_dir), "--name", name, "--seed", str(SEED),
+        "--log-interval", "1", "--data-dir", str(data_dir), "--name", name, "--seed", str(SEED), "--num-devices", "1",
     ]
 
 
@@ -1259,9 +1283,10 @@ def state_distance(ours: dict, ref: dict) -> tuple[float, float]:
     return worst, math.sqrt(diff2 / max(ref2, 1e-30))
 
 
-def seg_extras_trainer(data_dir: Path, argv_extra: tuple = (), run_logger=None, **train):
+def seg_extras_trainer(data_dir: Path, argv_extra: tuple = (), run_logger=None, mesh=None, **train):
     """Config #2's SegmentationTrainer on the training slice's data (phase
-    6), with the extra CLI flags ``argv_extra`` and config fields ``train``."""
+    6), with the extra CLI flags ``argv_extra`` and config fields ``train``;
+    on the card, or as one rank of ``mesh``'s data axis."""
     from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
     from s2tpu_torch.data import statistics
     from s2tpu_torch.data.dataset import TiffSource
@@ -1278,7 +1303,7 @@ def seg_extras_trainer(data_dir: Path, argv_extra: tuple = (), run_logger=None, 
     ).tolist()
     dm = Datamodule(cfg.datamodule, source=source)
     dm.set_mean_std(*statistics.load_mean_std(source.data_dirs.base_path / "mean_std.json"))
-    return SegmentationTrainer(cfg, dm, run_logger=run_logger, device="cuda")
+    return SegmentationTrainer(cfg, dm, run_logger=run_logger, device="cuda", mesh=mesh)
 
 
 def seg_device_batch(trainer) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2651,7 +2676,7 @@ def fc_argv(data_dir: Path, mae_dir: Path, name: str) -> list[str]:
         "small", "osm-multiclass", "fc-prithvi-backbone", "--bs", str(FC_BATCH), "--crop", "224", "--compute-dtype",
         "bfloat16", "--epochs", str(FC_EPOCHS), "--log-interval", "1", "--data-dir", str(data_dir), "--name", name,
         "--seed", str(SEED), "--backbone-ckpt", str(mae_dir), "--unfreeze-at-epoch", str(FC_UNFREEZE_AT),
-        "--unfreeze-lr-scale", str(FC_LR_SCALE),
+        "--unfreeze-lr-scale", str(FC_LR_SCALE), "--num-devices", "1",
     ]
 
 
@@ -3019,7 +3044,7 @@ def phase_config3(work: Path) -> dict:
         "small", "cnes-multiclass", "efficientnet-unet-b5", "--time-frames", str(CFG3_FRAMES), "--stack-time",
         "--bands", "all12", "--loss-type", "focal", "--weighted-loss", "--bs", str(TRAIN_BATCH), "--crop", "224",
         "--compute-dtype", "bfloat16", "--epochs", str(TRAIN_EPOCHS), "--log-interval", "1", "--data-dir",
-        str(data_dir), "--name", name, "--seed", str(SEED),
+        str(data_dir), "--name", name, "--seed", str(SEED), "--num-devices", "1",
     ]
     try:
         torch.cuda.synchronize()
@@ -4657,6 +4682,236 @@ def corpus_only() -> int:
     return 0
 
 
+def dp_record(trainer, m: dict) -> dict:
+    """A step's loss, applied gradients, new parameters and BatchNorm
+    running statistics, on the CPU."""
+    return {
+        "loss": float(m["loss"]),
+        "grads": {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()},
+        "params": {n: p.detach().float().cpu() for n, p in trainer.model.named_parameters()},
+        "stats": {n: b.detach().cpu() for n, b in trainer.model.named_buffers() if "running" in n},
+    }
+
+
+def dp_global_batch(trainer) -> tuple[np.ndarray, np.ndarray]:
+    """The first global train batch of epoch 0 of ``trainer``'s config."""
+    from s2tpu_torch.data.pipeline import Datamodule
+
+    host = next(Datamodule(trainer.config.datamodule, source=trainer.dm.source).train_batches(0))
+    return host.images, host.labels
+
+
+def dp_f32_trainer(data_dir: Path, mesh=None, **train):
+    """Config #2's trainer in f32 at F32_STEP_BATCH and F32_STEP_CROP^2."""
+    small = ("--bs", str(F32_STEP_BATCH), "--crop", str(F32_STEP_CROP), "--compute-dtype", "float32")
+    return seg_extras_trainer(data_dir, small, mesh=mesh, **train)
+
+
+def dp_f32_record(trainer, m: dict, grads: bool) -> dict:
+    """An f32 step's loss, running statistics and (``grads``) gradients."""
+    rec = dp_record(trainer, m)
+    del rec["params"]
+    if not grads:
+        del rec["grads"]
+    return rec
+
+
+def _dp_rank(rank: int, work: str, data_dir: str) -> None:
+    """One of phase E's gloo ranks on the card: one config #2 step on its
+    rows of the global batch, its launches counted from 0 around it, then
+    the f32 step; the records go to ``work/dp_rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    from s2tpu_torch.parallel.mesh import make_mesh
+    from s2tpu_torch.parallel.multihost import put_batch
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/dp_store", world_size=DP_RANKS, rank=rank)
+    try:
+        mesh = make_mesh(DP_RANKS, 1, "cuda")
+        trainer = seg_extras_trainer(Path(data_dir), mesh=mesh, num_devices=DP_RANKS)
+        images, labels = dp_global_batch(trainer)
+        rows = trainer.dm.local_rows()
+        t0 = time.perf_counter()
+        launches, m = step_launches(trainer, put_batch(images, trainer.device, rows),
+                                    put_batch(labels, trainer.device, rows))
+        step_s = time.perf_counter() - t0
+        rec = {**dp_record(trainer, m), "launches": launches, "device": str(trainer.device), "step_s": step_s,
+               "rows": rows.tolist(), "axis": (trainer.data_axis.index, trainer.data_axis.size)}
+        del trainer, m
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = dp_f32_trainer(Path(data_dir), mesh=mesh, num_devices=DP_RANKS)
+        images, labels = dp_global_batch(f32)
+        rows = f32.dm.local_rows()
+        m = f32.train_step(put_batch(images, f32.device, rows), put_batch(labels, f32.device, rows))
+        rec["f32"] = dp_f32_record(f32, m, grads=rank == 0)
+        torch.save(rec, f"{work}/dp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_distance(a: dict, ref: dict, init_a: dict, init_ref: dict) -> dict[str, float]:
+    """Loss (relative), running statistics (max |diff| / max(|ref|, 1)),
+    applied gradients and parameter updates (relative L2 over all
+    tensors) of two step records, each update from its own initial
+    parameters."""
+    return {
+        "loss": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "running_stats": max(float(((a["stats"][n] - t).abs() / t.abs().clamp_min(1.0)).max())
+                             for n, t in ref["stats"].items()),
+        "grads": state_distance(a["grads"], ref["grads"])[1],
+        "update": state_distance({n: p - init_a[n] for n, p in a["params"].items()},
+                                 {n: p - init_ref[n] for n, p in ref["params"].items()})[1],
+    }
+
+
+def check_dp_cli(work: Path, data_dir: Path) -> dict | None:
+    """Where the machine has two cards: the training CLI with
+    ``--num-devices 2`` (two NCCL ranks it starts itself) for one epoch;
+    None (logged) on one card."""
+    from s2tpu_torch.cli.train_segmentation import main as train_main
+    from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+
+    if torch.cuda.device_count() < 2:
+        log(f"data axis (e) CLI --num-devices 2 over NCCL: not run, {torch.cuda.device_count()} card")
+        return None
+    name = f"chip-smoke-dp-{os.getpid()}"
+    try:
+        t0 = time.perf_counter()
+        history = train_main([*train_argv(data_dir, name, epochs=1), "--num-devices", "2"])
+        cli_s = time.perf_counter() - t0
+        runs = list(CKPT_DIR.glob(f"*/{name}_*"))
+        if [r["epoch"] for r in history] != [0] or not all(math.isfinite(v) for k, v in history[0].items()
+                                                          if "loss" in k) or len(runs) != 1:
+            raise AssertionError(f"--num-devices 2: history {history}, run directories {runs}")
+        log(f"data axis (e) CLI --num-devices 2 over NCCL ({CARD}): 1 epoch in {cli_s:.1f} s, train loss "
+            f"{history[0]['train/loss']:.5f}, val loss {history[0]['val/loss']:.5f}, one run directory")
+        return {"seconds": cli_s, "history": history}
+    finally:
+        for d in CKPT_DIR.glob(f"*/{name}_*"):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+            f.unlink(missing_ok=True)
+
+
+def phase_data_parallel(work: Path) -> dict:
+    """Phase E: config #2's step on a data axis of DP_RANKS gloo ranks that
+    share the card (a check of the data axis, not a scaling figure): each
+    rank's exact #1-#4 launches, parameters bit-equal across the ranks, and
+    the step against the one-rank step on the same global batch; then, on
+    two cards, the CLI over NCCL. Returns rank 0's launches."""
+    import torch.multiprocessing as mp
+
+    from s2tpu_torch.data import statistics
+    from s2tpu_torch.data.dataset import TiffSource, make_synthetic_fixture
+    from s2tpu_torch.models import efficientnet_unet as tu
+
+    data_dir = work / "train_data"
+    if not data_dir.exists():  # standalone: one global batch of train segments
+        make_synthetic_fixture(data_dir, aoi="small", label_map="osm-multiclass", n_segments=DP_SEGMENTS,
+                               size=(TRAIN_SEGMENT_SIZE, TRAIN_SEGMENT_SIZE))
+        source = TiffSource("small", "osm-multiclass", data_dir)
+        statistics.calculate_mean_std(source, save_path=source.data_dirs.base_path / "mean_std.json")
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, args=(str(work), str(data_dir)), nprocs=DP_RANKS)  # a rank's failure raises here
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"dp_rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+
+    def params(trainer) -> dict:
+        return {n: p.detach().float().cpu().clone() for n, p in trainer.model.named_parameters()}
+
+    one = seg_extras_trainer(data_dir)
+    per = tu.count_stride1_depthwise(one.model.config)
+    expected = seg_step_launches(per, 1)
+    init = params(one)
+    images, labels = dp_global_batch(one)
+    ref = dp_record(one, one.train_step(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()))
+    del one
+    # The same step with every weight moved by a random half bf16 unit in the last place.
+    moved = seg_extras_trainer(data_dir)
+    noise = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for p in moved.model.parameters():
+            p.mul_(1.0 + DP_BF16_EPS * torch.randn(p.shape, generator=noise).to(p.device))
+    moved_init = params(moved)
+    rec = dp_record(moved, moved.train_step(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()))
+    del moved
+    sensitivity = dp_distance(rec, ref, moved_init, init)
+
+    # f32, TF32 off: the one-rank step the ranks' f32 step is held to.
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = dp_f32_trainer(data_dir)
+        f32_images, f32_labels = dp_global_batch(f32)
+        f32_ref = dp_f32_record(f32, f32.train_step(torch.from_numpy(f32_images).cuda(),
+                                                    torch.from_numpy(f32_labels).cuda()), grads=True)
+        del f32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    failures = []
+    for r, rank in enumerate(ranks):
+        if rank["launches"] != expected:
+            failures.append(f"rank {r} launches {rank['launches']} != {expected}")
+        if rank["axis"] != (r, DP_RANKS) or rank["device"] != f"cuda:{r % torch.cuda.device_count()}":
+            failures.append(f"rank {r} on {rank['device']}, data axis place {rank['axis']}")
+    first, second = ranks
+    unequal = [f"{key} {n}" for key in ("params", "grads", "stats") for n, t in first[key].items()
+               if not torch.equal(second[key][n], t)]
+    if unequal or first["loss"] != second["loss"]:
+        failures.append(f"the ranks differ: loss {first['loss']} / {second['loss']}, {unequal[:5]} "
+                        f"({len(unequal)} tensors)")
+    diff = dp_distance(first, ref, init, init)
+    limits = {k: max(DP_FACTOR * sensitivity[k], DP_FLOOR[k]) for k in diff}
+    failures += [f"{k}: {DP_RANKS} ranks vs one {v:.3g} > {limits[k]:.3g}" for k, v in diff.items()
+                 if not v <= limits[k]]
+    f32_diff = {
+        "loss": max(abs(r["f32"]["loss"] - f32_ref["loss"]) / abs(f32_ref["loss"]) for r in ranks),
+        "running_stats": max(float(((r["f32"]["stats"][n] - t).abs() / t.abs().clamp_min(1.0)).max())
+                             for r in ranks for n, t in f32_ref["stats"].items()),
+        "classifier_grad": state_distance({"w": first["f32"]["grads"]["out_conv1x1.weight"]},
+                                          {"w": f32_ref["grads"]["out_conv1x1.weight"]})[1],
+        "grads": state_distance(first["f32"]["grads"], f32_ref["grads"])[1],
+    }
+    f32_limits = {"loss": DP_F32_RTOL, "running_stats": DP_F32_RTOL, "classifier_grad": DP_F32_RTOL_GRAD,
+                  "grads": DP_F32_TOTAL_GRAD}
+    failures += [f"f32 {k}: {DP_RANKS} ranks vs one {v:.3g} > {f32_limits[k]:.3g}" for k, v in f32_diff.items()
+                 if not v <= f32_limits[k]]
+    log(
+        f"data axis (B5 config #2, bf16, global batch {TRAIN_BATCH}, {DP_RANKS} gloo ranks on one card, {CARD}): "
+        f"ranks spawned, built and stepped in {ranks_s:.1f} s (rank steps {[round(x['step_s'], 3) for x in ranks]} "
+        f"s); each rank's launches {first['launches']} (expected {expected}); parameters, gradients and "
+        f"statistics bit-equal across ranks: {not unequal}; loss {first['loss']:.6f} vs one rank "
+        f"{ref['loss']:.6f}; vs the one-rank step: " + ", ".join(f"{k} {v:.3g}" for k, v in diff.items())
+        + "; the one-rank step with its weights moved by half a bf16 ulp: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sensitivity.items())
+        + f"; limits {', '.join(f'{k} {v:.3g}' for k, v in limits.items())}; f32 (TF32 off, batch "
+        f"{F32_STEP_BATCH}, {F32_STEP_CROP}^2) {DP_RANKS} ranks vs one: "
+        + ", ".join(f"{k} {v:.3g} (limit {f32_limits[k]:.3g})" for k, v in f32_diff.items())
+    )
+    if failures:
+        raise AssertionError("data axis: " + "; ".join(failures))
+    return {"launches": first["launches"], "distances": diff, "sensitivity": sensitivity, "f32": f32_diff,
+            "cli": check_dp_cli(work, data_dir)}
+
+
+def data_parallel_only() -> int:
+    """``--data-parallel``: the build of #1-#4 and phase E on data of its
+    own; no result lines."""
+    phase_build(only=("depthwise_conv", "depthwise_grad_weight", "fused_ce"))
+    work = REPO / "out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        phase_data_parallel(work)
+        log(f"phase data axis: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def serving_entries(model: dict) -> dict:
     """A served model's entries from the serving extras for the kernels
     line: graphed serving's wrapper count and a replay's launches, and, where
@@ -4681,9 +4936,11 @@ def corpus_entries(corpus: dict, part: str, kernel: str, key: str) -> dict:
 
 def main(argv: list[str]) -> int:
     global CARD
-    if argv not in ([], ["--attention"], ["--depthwise"], ["--extras"], ["--corpus"], ["--serving"], ["--data"]):
-        print("usage: python3 chip_smoke.py [--attention | --depthwise | --extras | --corpus | --serving | --data]",
-              file=sys.stderr)
+    modes = {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
+             "--corpus": corpus_only, "--serving": serving_only, "--data": data_only,
+             "--data-parallel": data_parallel_only}
+    if argv and (len(argv) > 1 or argv[0] not in modes):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4695,8 +4952,7 @@ def main(argv: list[str]) -> int:
         return 1
     CARD = nvidia_smi()
     if argv:
-        return {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
-                "--corpus": corpus_only, "--serving": serving_only, "--data": data_only}[argv[0]]()
+        return modes[argv[0]]()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = CARD
     log(f"device: {name} x{count}; nvidia-smi: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4725,6 +4981,7 @@ def main(argv: list[str]) -> int:
         train = timed("training slice", phase_train, work)
         packed = timed("packed sources and tune", phase_packed, work, train["launches"])
         seg_extras = timed("B5 trainer extras", phase_seg_extras, work)
+        dp = timed("data axis", phase_data_parallel, work)
         cfg3 = timed("config #3 slice", phase_config3, work)
         fc = timed("fc-prithvi slice T=1", phase_fc_prithvi, work)
         fc_t3 = timed("fc-prithvi slice T=3", phase_fc_prithvi_t3, work)
@@ -4791,6 +5048,9 @@ def main(argv: list[str]) -> int:
             # launches from torch.profiler), int8 serving through the CLI, the AOT-loaded program
             **serving_entries(serving["B5"]),
             **{f"cfg3_{k}": v for k, v in serving_entries(serving["config #3"]).items()},
+            # phase E: one rank's step of the data axis (TRAIN_BATCH / DP_RANKS rows), forwards and input gradients
+            "dp_rank_launches": dp["launches"]["depthwise_fwd"],
+            "dp_rank_dx_launches": dp["launches"]["depthwise_dx"],
         },
         {
             "name": "depthwise_conv2d_s1_grad_weight",
@@ -4811,6 +5071,7 @@ def main(argv: list[str]) -> int:
             **depthwise_ptxas(ptxas, "depthwise_s1_dw"),
             **corpus_entries(corpus, "b5_launches", "#2", "depthwise_dw"),
             **packed_entries(packed, "depthwise_dw"),
+            "dp_rank_launches": dp["launches"]["depthwise_dw"],
         },
         {
             "name": "fused_ce_forward",
@@ -4833,6 +5094,7 @@ def main(argv: list[str]) -> int:
             **micro_batch_times(micro["ce"], "fwd_", "fwd_max_abs_err"),
             **corpus_entries(corpus, "b5_launches", "#3", "fused_ce_fwd"),
             **packed_entries(packed, "fused_ce_fwd"),
+            "dp_rank_launches": dp["launches"]["fused_ce_fwd"],
         },
         {
             "name": "fused_ce_backward",
@@ -4855,6 +5117,7 @@ def main(argv: list[str]) -> int:
             **micro_batch_times(micro["ce"], "bwd_", "bwd_max_abs_err"),
             **corpus_entries(corpus, "b5_launches", "#4", "fused_ce_bwd"),
             **packed_entries(packed, "fused_ce_bwd"),
+            "dp_rank_launches": dp["launches"]["fused_ce_bwd"],
         },
         {
             "name": "fused_attention_qkv_forward",

@@ -19,6 +19,10 @@ An MAE run directory has the same layout with an ``MAEConfig`` in
 ``model.pt``. :func:`load_checkpoint` reads either segmentation layout and
 :func:`load_mae_checkpoint` an MAE run, the latest epoch by default, with
 ``ema=True`` the EMA in place of the parameters where the run kept one.
+
+Several processes of one run (a data axis) share its directory: the trainers
+write through :func:`on_rank0`, so rank 0 writes, every rank waits at a
+barrier until it has, and then every rank reads what it wrote.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import shutil
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from s2tpu_torch.configs.mae import MAEConfig
 from s2tpu_torch.configs.mae import config_from_dict as mae_config_from_dict
@@ -42,6 +47,17 @@ EMA_FILE = "ema.pt"
 STATE_FILE = "state.json"
 EPOCH_PREFIX = "epoch_"
 PREEMPT_DIR = "preempt"
+
+
+def on_rank0(write) -> None:
+    """``write()`` on rank 0 of the process group (or in the one process
+    there is), then a barrier of every rank, so that none reads or writes
+    the run directory before rank 0 is done."""
+    several = dist.is_initialized() and dist.get_world_size() > 1
+    if not several or dist.get_rank() == 0:
+        write()
+    if several:
+        dist.barrier()
 
 
 def _cpu(state_dict: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:

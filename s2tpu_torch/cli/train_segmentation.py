@@ -13,9 +13,8 @@ reads the packed corpus under ``<data>/<aoi>/packed/<labels>`` when one
 exists (``python -m s2tpu_torch.cli.pack``), else the GeoTIFF tree;
 ``tiff``, ``packed`` (the memmap pack, gathered by the native C++ crop
 gather) and ``records`` (the sharded ``.s2rec`` corpus) force one. Only the
-flags of features the port has are accepted: the mesh and sharding flags
-(``--num-devices``, ``--fsdp``, ``--device-corpus-sharded``) are not ported
-yet, and argparse refuses them. ``--device-corpus`` uploads the AOI to the
+flags of features the port has are accepted: ``--device-corpus-sharded`` is
+not ported yet, and argparse refuses it, naming ROADMAP item 16. ``--device-corpus`` uploads the AOI to the
 card once and gathers each step's crops there; with it,
 ``--steps-per-dispatch N`` replays one CUDA graph of the whole step N steps
 a window (on the CPU, with ``--device cpu``, the same windows of eager
@@ -32,6 +31,18 @@ ASHA (``--tune-eta``), over the learning rate, weight decay, loss, schedule
 and, with ``--tune-crops`` / ``--tune-batch-sizes``, the crop and batch
 size (``train/tune.py``); it logs ``tune/*`` scalars by rank and prints
 ``best_params=...``.
+
+``--num-devices N`` trains data-parallel on N ranks, one process and one
+card each (NCCL; with ``--device cpu``, N processes over gloo): each rank
+trains its slice of every global ``--bs`` batch, with BatchNorm statistics,
+losses and metrics of the global batch, and only rank 0 logs and writes
+checkpoints. Outside a launcher the command starts the N ranks itself;
+under ``torchrun --nproc-per-node N -m s2tpu_torch.cli.train_segmentation``
+N must equal the world size. -1 (the default) takes every visible card (a
+launcher's world size; one process on the CPU); N above the visible cards is
+an error. ``--fsdp`` is taken with ``s2tpu``'s meaning: the CLI's mesh has a
+model axis of one rank, over which nothing is sharded, so the parameters
+stay replicated (pure data parallelism).
 
 Multi-temporal B5 (BASELINE config #3) folds its frames into channels,
 frame-major, for the single-frame UNet (in_channels = T x bands):
@@ -51,14 +62,31 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
+import os
+import sys
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from s2tpu_torch.configs import segmentation as cfg_lib
 from s2tpu_torch.configs.data_config import AOI_NAMES, LABEL_MAPS
+from s2tpu_torch.parallel import multihost
+from s2tpu_torch.parallel.mesh import make_mesh
 from s2tpu_torch.utils import get_logger, get_unique_run_name
 
 logger = get_logger(__name__)
+
+
+class _Refused(argparse.Action):
+    """A flag of a feature the port lacks: argparse refuses it with its help."""
+
+    def __init__(self, option_strings, dest, **kwargs) -> None:
+        super().__init__(option_strings, dest, nargs=0, **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None) -> None:
+        parser.error(f"{option_string}: {self.help}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -99,6 +127,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--name", default=None, help="run-name prefix")
     p.add_argument("--wandb", action="store_true", help="disable wandb (the port logs to JSONL only)")
     p.add_argument("--tags", nargs="+", default=[])
+    p.add_argument(
+        "--num-devices", type=int, default=-1,
+        help="data-parallel ranks, one process and one card each (-1 = all visible cards; one process on the CPU)",
+    )
+    p.add_argument(
+        "--fsdp", action="store_true",
+        help="shard params over the 'model' mesh axis (the CLI's mesh has a model axis of 1: params stay "
+        "replicated, pure data parallelism, as in s2tpu)",
+    )
+    p.add_argument(
+        "--device-corpus-sharded", action=_Refused,
+        help="the sharded corpus is not ported to s2tpu_torch yet (ROADMAP item 16)",
+    )
     p.add_argument("--remat", action="store_true", help="recompute each block's activations in the backward pass")
     p.add_argument(
         "--device-corpus", action="store_true",
@@ -198,6 +239,7 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
     t.log_interval = args.log_interval or t.log_interval
     t.watch_interval = args.watch_interval if args.watch_interval is not None else t.watch_interval
     t.bn_recalibration_batches = args.bn_recal if args.bn_recal is not None else t.bn_recalibration_batches
+    t.num_devices = args.num_devices
     t.remat = args.remat or t.remat
     t.device_corpus = args.device_corpus or t.device_corpus
     t.steps_per_dispatch = args.steps_per_dispatch if args.steps_per_dispatch is not None else t.steps_per_dispatch
@@ -251,9 +293,28 @@ def main(argv: list[str] | None = None) -> list:
     from s2tpu_torch.train.logging_utils import RunLogger
     from s2tpu_torch.train.trainer import SegmentationTrainer
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # before any data work: no card, no run
+    n = _num_ranks(args.num_devices, device)
+    if n > 1 and not dist.is_initialized():
+        if not multihost.under_launcher():
+            if args.type == "tune":
+                raise SystemExit("--type tune runs its trials in one process: use --num-devices 1")
+            return _spawn_ranks(argv, n, device)
+        multihost.initialize(backend="nccl" if device.type == "cuda" else "gloo")
+    world = multihost.process_count()
+    if n != world:
+        raise SystemExit(f"--num-devices {n} in a process group of {world} ranks: they must be equal")
+    mesh = make_mesh(n, 1, device.type) if n > 1 else None
+    rank0 = multihost.process_index() == 0
+    if not rank0:  # only rank 0 logs; the others' warnings still show
+        logging.disable(logging.INFO)
     config = config_from_args(args)
+    if n > 1:  # rank 0's run name (its random part) names the run on every rank
+        name = [config.train.run_name]
+        dist.broadcast_object_list(name, src=0)
+        config.train.run_name = name[0]
     ds_cfg = config.datamodule.dataset_cfg
     source = open_source(ds_cfg.aoi, ds_cfg.label_map, ds_cfg.data_dir, n_time_frames=ds_cfg.n_time_frames,
                          kind=args.source)
@@ -274,20 +335,75 @@ def main(argv: list[str] | None = None) -> list:
         dm.set_mean_std(*statistics.load_mean_std(stats_path))
     else:
         logger.info("Computing per-band mean/std (Welford pass)...")
-        stats = statistics.calculate_mean_std(source, save_path=stats_path)
+        stats = statistics.calculate_mean_std(source, save_path=stats_path if rank0 else None)
         dm.set_mean_std(np.asarray(stats["mean"]), np.asarray(stats["std"]))
 
     config_dict = dataclasses.asdict(config)
-    run_logger = RunLogger(config.train.run_name, LOG_DIR / "runs", config=config_dict)
+    run_logger = RunLogger(config.train.run_name, LOG_DIR / "runs", config=config_dict) if rank0 else None
     if args.type == "tune":
         return _tune(args, config, dm, run_logger, device)
     ckpt_dir = Path(args.resume_from) if args.resume_from else CKPT_DIR / config.train.project_name / config.train.run_name
-    ckpt = CheckpointManager(ckpt_dir, keep=config.train.ckpt_keep, config_dict=config_dict)
-    trainer = SegmentationTrainer(config, dm, run_logger=run_logger, checkpoint_manager=ckpt, device=device)
+    ckpt = CheckpointManager(ckpt_dir, keep=config.train.ckpt_keep, config_dict=config_dict if rank0 else None)
+    trainer = SegmentationTrainer(config, dm, run_logger=run_logger, checkpoint_manager=ckpt, device=device,
+                                  mesh=mesh)
     start_epoch = trainer.resume_from_checkpoint() if (args.resume_from or args.auto_resume) else 0
     epochs = config.train.max_epochs if config.train.max_epochs > 0 else 10**6
-    logger.info(f"Training {config.model_name.value} on {device} into {ckpt_dir}")
+    ranks = f" and {n - 1} more ranks" if n > 1 else ""
+    logger.info(f"Training {config.model_name.value} on {trainer.device}{ranks} into {ckpt_dir}")
     return trainer.fit(epochs=epochs, start_epoch=start_epoch)
+
+
+def _num_ranks(num_devices: int, device: torch.device) -> int:
+    """The data axis ``--num-devices`` asks for: a launcher's (or an
+    initialized group's) world size for -1, which it must equal otherwise;
+    without one, -1 takes every visible card (one process on the CPU).
+    Asking for more cards than are visible is an error."""
+    world = None
+    if dist.is_initialized():
+        world = dist.get_world_size()
+    elif multihost.under_launcher():
+        world = int(os.environ["WORLD_SIZE"])
+    if world is not None:
+        if num_devices not in (-1, world):
+            raise SystemExit(f"--num-devices {num_devices} under a launcher of {world} ranks: they must be equal")
+        return world
+    n = (torch.cuda.device_count() if device.type == "cuda" else 1) if num_devices == -1 else num_devices
+    if n < 1:
+        raise SystemExit(f"--num-devices {num_devices}: give a positive count, or -1 for every visible card")
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"--num-devices {n} asks for more cards than the {torch.cuda.device_count()} visible")
+    return n
+
+
+def _spawn_ranks(argv: list[str], n: int, device: torch.device) -> list:
+    """Run this command as ``n`` ranks on this host, one process each (one
+    card each on the card, NCCL over the loopback; gloo on the CPU), meeting
+    through a file store in a temporary directory; returns rank 0's
+    records."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if device.type == "cuda":
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # every rank is on this host
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_rank_main, args=(argv, n, f"file://{tmp}/store", backend, f"{tmp}/history.pt"), nprocs=n)
+        return torch.load(f"{tmp}/history.pt", weights_only=False)
+
+
+def _rank_main(rank: int, argv: list[str], n: int, init_method: str, backend: str, result: str) -> None:
+    """One spawned rank: the process group, then :func:`main`; rank 0 leaves
+    its records in ``result``."""
+    multihost.initialize(init_method, n, rank, backend)
+    if backend == "gloo":  # the CPU's threads shared out among the ranks
+        torch.set_num_threads(max(1, torch.get_num_threads() // n))
+    try:
+        history = main(argv)
+        if rank == 0:
+            torch.save(history, result)
+    finally:
+        dist.destroy_process_group()
 
 
 def _tune(args: argparse.Namespace, config: cfg_lib.Config, dm, run_logger, device) -> list:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
+
 
 def normalize(
     images: torch.Tensor, mean: torch.Tensor, std: torch.Tensor, dtype: torch.dtype = torch.bfloat16
@@ -46,25 +48,28 @@ def apply_flips(
 
 def random_flips(
     images: torch.Tensor, labels: torch.Tensor | None, generator: torch.Generator,
-    p_horizontal: float = 0.5, p_vertical: float = 0.5,
+    p_horizontal: float = 0.5, p_vertical: float = 0.5, data_axis: DataAxis = SINGLE,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Flip each sample left-right with probability ``p_horizontal`` and
     up-down with ``p_vertical`` (``s2tpu/data/augment.py:60-89``), the two
     (B,) uniform draws taken from ``generator`` in one call on the images'
-    device."""
-    u = torch.rand((2, images.shape[0]), generator=generator, device=images.device)
+    device; on a data axis, the global batch's draws, of which this rank
+    keeps its columns."""
+    u = torch.rand((2, images.shape[0] * data_axis.size), generator=generator, device=images.device)
+    u = data_axis.local(u, dim=1)
     return apply_flips(images, labels, u[0] < p_horizontal, u[1] < p_vertical)
 
 
 def augment_batch(
     images: torch.Tensor, labels: torch.Tensor | None, generator: torch.Generator | None,
     mean: torch.Tensor, std: torch.Tensor, p_horizontal: float = 0.5, p_vertical: float = 0.5,
-    dtype: torch.dtype = torch.bfloat16, train: bool = True,
+    dtype: torch.dtype = torch.bfloat16, train: bool = True, data_axis: DataAxis = SINGLE,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The device transform of a batch (``s2tpu/data/augment.py:92-107``):
-    flips when ``train``, then :func:`normalize`."""
+    flips when ``train`` (drawn for the global batch of ``data_axis``), then
+    :func:`normalize`."""
     if train:
-        images, labels = random_flips(images, labels, generator, p_horizontal, p_vertical)
+        images, labels = random_flips(images, labels, generator, p_horizontal, p_vertical, data_axis)
     return normalize(images, mean, std, dtype=dtype), labels
 
 

@@ -17,6 +17,13 @@ trainer takes these batches as they are (unlabeled sources give zero
 labels): where the JAX MAE path flips on the host and again on the device,
 the port flips once, which gives crops of the same distribution (the XOR of
 two fair coins is a fair coin).
+
+Under a data axis of several processes (:meth:`Datamodule.set_process`),
+every process draws the same epoch order, crops and flips from the same
+seed and gathers only its rows of each global batch
+(``parallel.multihost.local_rows``: with gradient accumulation, its slice of
+each global micro-batch); eval batches are padded to the global batch first,
+then sliced, with their masks (``s2tpu/data/pipeline.py:196-240``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from s2tpu_torch.configs.segmentation import DatamoduleConfig
 from s2tpu_torch.data import statistics
 from s2tpu_torch.data.dataset import PackedSource, SegmentSource, TiffSource, train_val_test_split
+from s2tpu_torch.parallel.multihost import local_rows, local_slice
 
 
 class HostBatch(typing.NamedTuple):
@@ -73,11 +81,12 @@ def sample_epoch_order(
 
 
 class Datamodule:
-    """Sources, splits, statistics and batch iterators for one config
-    (single process: the JAX package's multi-host slicing is not ported)."""
+    """Sources, splits, statistics and batch iterators for one config; one
+    process's rows of each batch under :meth:`set_process`."""
 
     def __init__(self, cfg: DatamoduleConfig, source: SegmentSource | None = None) -> None:
         self.cfg = cfg
+        self.n_proc, self.proc, self.micro_batches = 1, 0, 1
         ds = cfg.dataset_cfg
         self.source = (
             source if source is not None
@@ -102,6 +111,21 @@ class Datamodule:
 
     def set_mean_std(self, mean: np.ndarray, std: np.ndarray) -> None:
         self._mean_std = (np.asarray(mean, np.float32), np.asarray(std, np.float32))
+
+    def set_process(self, count: int, index: int, micro_batches: int = 1) -> None:
+        """Feed process ``index`` of ``count`` (the data axis): its rows of
+        each global train batch that trains as ``micro_batches``
+        micro-batches, and its slice of each padded eval batch."""
+        if self.cfg.batch_size % (count * micro_batches):
+            raise ValueError(f"global batch {self.cfg.batch_size} does not split over {count} processes "
+                             f"x {micro_batches} micro-batches")
+        self.n_proc, self.proc, self.micro_batches = count, index, micro_batches
+
+    def local_rows(self) -> np.ndarray | None:
+        """This process's rows of a global train batch (None: all of them)."""
+        if self.n_proc == 1:
+            return None
+        return local_rows(self.cfg.batch_size, self.micro_batches, self.n_proc, self.proc)
 
     # -- batching -----------------------------------------------------------
     def _sample_hw(self) -> tuple[int, int]:
@@ -157,6 +181,7 @@ class Datamodule:
         order, n_batches = sample_epoch_order(rng, self.train_idx, self._sample_weights, bs, overfit_batches)
         hw = self._sample_hw()
         random_aug = self.cfg.augment and overfit_batches == 0
+        rows = self.local_rows()
         for b in range(n_batches):
             idx = order[b * bs : (b + 1) * bs]
             flip_h = flip_v = None
@@ -169,11 +194,18 @@ class Datamodule:
             else:
                 ys = np.full(bs, (hw[0] - self.cfg.random_crop_size) // 2)
                 xs = np.full(bs, (hw[1] - self.cfg.random_crop_size) // 2)
-            if b >= start:
-                yield self._gather_crops(idx, ys, xs, flip_h=flip_h, flip_v=flip_v)
+            if b < start:
+                continue  # the draws only
+            if rows is not None:  # the same global draws everywhere; gather only this process's rows
+                idx, ys, xs = idx[rows], ys[rows], xs[rows]
+                flip_h = flip_h[rows] if flip_h is not None else None
+                flip_v = flip_v[rows] if flip_v is not None else None
+            yield self._gather_crops(idx, ys, xs, flip_h=flip_h, flip_v=flip_v)
 
     def eval_batches(self, split: str = "val") -> typing.Iterator[HostBatch]:
-        """Center-cropped eval batches, padded to a fixed batch size."""
+        """Center-cropped eval batches, padded to a fixed batch size (under
+        several processes, padded with segment 0 under a False mask, then
+        this process's slice)."""
         bs = self.cfg.batch_size * self.cfg.val_batch_size_multiplier
         indices = {"val": self.val_idx, "test": self.test_idx, "train": self.train_idx}[split]
         hw = self._sample_hw()
@@ -181,6 +213,13 @@ class Datamodule:
         x0 = (hw[1] - self.cfg.random_crop_size) // 2
         for b in range(0, len(indices), bs):
             idx = indices[b : b + bs]
+            if self.n_proc > 1:
+                mask = np.arange(bs) < len(idx)
+                sl = local_slice(bs, self.n_proc, self.proc)
+                idx, mask = np.concatenate([idx, np.zeros(bs - len(idx), idx.dtype)])[sl], mask[sl]
+                batch = self._gather_crops(idx, np.full(len(idx), y0), np.full(len(idx), x0))
+                yield HostBatch(batch.images, batch.labels, mask)
+                continue
             batch = self._gather_crops(idx, np.full(len(idx), y0), np.full(len(idx), x0))
             if len(idx) < bs:
                 pad = bs - len(idx)

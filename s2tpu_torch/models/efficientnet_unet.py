@@ -32,6 +32,13 @@ dtype (serving). With ``remat`` set, a train-mode forward that records
 gradients runs each MBConv block and each decoder stage under
 ``models.remat.checkpointed``: the drop-connect masks are drawn before the
 block, and BatchNorm leaves its running statistics alone in the recompute.
+
+On a data axis of several ranks (:meth:`EfficientNetUNet.set_data_axis`),
+each rank runs its slice of the global batch and the model computes what
+the one-process model computes on the whole batch: train-mode BatchNorm
+sums each channel's f32 Σx and Σx² over the ranks (the gradient flows back
+through the sum) and divides by the global count, and each rank draws the
+global batch's drop-connect mask and keeps its rows.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from torch import nn
 
 from s2tpu_torch.models.remat import checkpointed, recomputing
 from s2tpu_torch.ops.depthwise_conv import depthwise_conv2d, same_padding
+from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
 
 # (width_coefficient, depth_coefficient, resolution, dropout_rate) per version.
 SCALING: dict[str, tuple[float, float, int, float]] = {
@@ -234,8 +242,12 @@ class BatchNorm(nn.BatchNorm2d):
     cast back to the activation dtype, and running statistics updated as
     ``decay * running + (1 - decay) * batch`` with the biased variance,
     except in a checkpointed block's recompute, which must not update them a
-    second time.
+    second time (the recompute sums over the data axis again). On a data
+    axis of several ranks the statistics are the global batch's: Σx and Σx²
+    summed over the ranks, over the global count.
     """
+
+    data_axis: DataAxis = SINGLE
 
     def __init__(self, num_features: int, eps: float, decay: float) -> None:
         super().__init__(num_features, eps=eps, momentum=1.0 - decay)
@@ -244,8 +256,12 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             xf = x.to(torch.float32)
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            if self.data_axis.size == 1:
+                mean, ex2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                sums = self.data_axis.sum(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+                mean, ex2 = sums / (xf.numel() // xf.shape[1] * self.data_axis.size)
+            var = (ex2 - mean * mean).clamp_min(0.0)
             if not recomputing():
                 self._update_running(mean, var)
             mul = torch.rsqrt(var + self.eps) * self.weight
@@ -288,6 +304,8 @@ class MBConv(nn.Module):
     """Mobile inverted bottleneck: expand -> depthwise -> SE -> project, with
     per-sample drop-connect on the residual branch in train mode."""
 
+    data_axis: DataAxis = SINGLE
+
     def __init__(self, spec: BlockSpec, bn_eps: float, bn_decay: float, drop_rate: float, **factory) -> None:
         super().__init__()
         s = spec
@@ -322,7 +340,9 @@ class MBConv(nn.Module):
             return None
         if generator is None:
             raise ValueError("train-mode drop-connect draws from an explicit torch.Generator: pass generator=")
-        return drop_connect_mask(x.shape[0], 1.0 - self.drop_rate, generator, x.device)
+        # the global batch's mask, this rank's rows of it
+        mask = drop_connect_mask(x.shape[0] * self.data_axis.size, 1.0 - self.drop_rate, generator, x.device)
+        return self.data_axis.local(mask)
 
     def body(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         """The block with its drop-connect mask given."""
@@ -453,6 +473,13 @@ class EfficientNetUNet(nn.Module):
                 m.to(param_dtype or dtype)
         self.to(device=device, memory_format=torch.channels_last)
         self.eval()
+
+    def set_data_axis(self, data: DataAxis) -> None:
+        """Run as one rank of ``data``: BatchNorm statistics and drop-connect
+        masks over the global batch (:data:`SINGLE`: this process's batch)."""
+        for m in self.modules():
+            if isinstance(m, (BatchNorm, MBConv)):
+                m.data_axis = data
 
     @torch.no_grad()
     def _init_parameters(self, generator: torch.Generator) -> None:

@@ -3,20 +3,30 @@
 A ('data', 'model') ``torch.distributed.device_mesh.DeviceMesh`` over the
 process group the caller initialized (``torch.distributed`` has no ambient
 cluster: the caller gives ``init_process_group`` its address, world size and
-rank). On the card, :func:`make_mesh` binds each process to its own card
-first (:func:`local_cuda_index`). The tensor-parallel ViT
-(``models/prithvi_mae.py`` with ``tp_axis``) splits its heads and MLP hidden
-over the 'model' group; its parameters stay replicated on every rank, as the
-JAX package keeps them (``replicate_pytree``), and :func:`replicate_module`
-makes them rank 0's.
+rank; ``parallel.multihost.initialize`` does it from a launcher's
+environment). On the card, :func:`make_mesh` binds each process to its own
+card first (:func:`local_cuda_index`). Parameters stay replicated on every
+rank, as the JAX package keeps them (``replicate_pytree``), and
+:func:`replicate_module` makes them rank 0's.
 
-Not ported yet (ROADMAP A16): data parallelism over more than one rank
-(DDP/FSDP2 in place of ``data_sharding`` and ``fsdp_param_shardings``).
+- The 'model' axis: the tensor-parallel ViT (``models/prithvi_mae.py`` with
+  ``tp_axis``) splits its heads and MLP hidden over the 'model' group.
+- The 'data' axis (:class:`DataAxis`): each rank holds its slice of every
+  global batch (the counterpart of ``data_sharding``), and what the JAX
+  program reduces over the whole batch is summed over the data group: the
+  BatchNorm statistics (differentiably, :meth:`DataAxis.sum`), the loss
+  denominators (:meth:`DataAxis.total`), and the gradients and step sums in
+  a few flat f32 buckets (:meth:`DataAxis.all_reduce_flat_`).
+
+Not ported yet (ROADMAP A16): ``fsdp_param_shardings`` on a model axis above
+one rank (FSDP2); with a model axis of one the JAX package replicates too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import typing
 
 import torch
 import torch.distributed as dist
@@ -24,6 +34,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+BUCKET_BYTES = 64 << 20  # one flat f32 all-reduce of the gradients: B5's ~134 MB go in three
 
 
 def local_cuda_index() -> int:
@@ -36,9 +47,8 @@ def local_cuda_index() -> int:
 def make_mesh(num_devices: int = -1, model_parallel: int = 1, device_type: str = "cuda") -> DeviceMesh:
     """('data', 'model') mesh over the initialized process group's
     ``num_devices`` ranks (-1: all of them), ``model_parallel`` ranks on the
-    model axis; one device per rank, the card by default, which becomes the
-    process's current device. Raises when the data axis would hold more than
-    one rank."""
+    model axis and the rest on the data axis; one device per rank, the card
+    by default, which becomes the process's current device."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed.init_process_group first")
     world = dist.get_world_size()
@@ -47,14 +57,14 @@ def make_mesh(num_devices: int = -1, model_parallel: int = 1, device_type: str =
         raise ValueError(f"the mesh spans the whole process group: {n} devices asked, world size {world}")
     if model_parallel < 1 or n % model_parallel:
         raise ValueError(f"{n} devices do not split into a model axis of {model_parallel}")
-    if n // model_parallel > 1:
-        raise NotImplementedError(
-            f"a data axis of {n // model_parallel} ranks is not ported to s2tpu_torch yet (DDP/FSDP2, "
-            "ROADMAP A16); use a mesh whose ranks all lie on the model axis"
-        )
     if device_type == "cuda":
         torch.cuda.set_device(local_cuda_index())
     return init_device_mesh(device_type, (n // model_parallel, model_parallel), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def axis_size(mesh, name: str) -> int:
+    """Ranks on the axis ``name`` of ``mesh``."""
+    return mesh.shape[mesh.mesh_dim_names.index(name)]
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
@@ -66,10 +76,94 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
 
 @torch.no_grad()
 def replicate_module(module: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
-    """Broadcast rank 0's parameters to every rank of ``mesh`` in place (the
-    counterpart of ``replicate_pytree``); returns ``module``."""
-    group = mesh.get_group(MODEL_AXIS)  # the whole mesh while the data axis holds one rank
-    src = dist.get_global_rank(group, 0)
-    for p in module.parameters():
-        dist.broadcast(p.data, src=src, group=group)
+    """Broadcast rank 0's parameters and buffers to every rank of ``mesh``
+    (the whole process group, :func:`make_mesh`) in place (the counterpart of
+    ``replicate_pytree``); returns ``module``."""
+    del mesh  # the mesh spans the default group
+    for t in (*module.parameters(), *module.buffers()):
+        dist.broadcast(t.data, src=0)
     return module
+
+
+class _Sum(torch.autograd.Function):
+    """The sum of ``x`` over ``group``; the gradient of every rank's input
+    is the sum of the ranks' output gradients (each rank's loss uses the
+    sum)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class DataAxis:
+    """This rank's place on the data axis: the axis's process ``group``, the
+    rank's ``index`` on it and its ``size``. Each rank holds rows
+    ``[index * n, (index + 1) * n)`` of every global batch of ``size * n``
+    rows (:meth:`local`), as ``data_sharding`` lays a batch out."""
+
+    group: typing.Any = None
+    index: int = 0
+    size: int = 1
+
+    def local(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's slice of the global ``x`` along ``dim``."""
+        if self.size == 1:
+            return x
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * n, n)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the axis, differentiably."""
+        return x if self.size == 1 else _Sum.apply(x, self.group)
+
+    def total(self, x: torch.Tensor | int | float) -> torch.Tensor | int | float:
+        """A loss denominator over the global batch from this rank's: a
+        tensor is summed over the axis (outside autograd); a count of
+        elements, equal on every rank, is multiplied by the axis size."""
+        if self.size == 1:
+            return x
+        if not isinstance(x, torch.Tensor):
+            return x * self.size
+        out = x.detach().clone()
+        dist.all_reduce(out, group=self.group)
+        return out
+
+    def all_reduce_flat_(self, tensors: list[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
+        """Sum each of ``tensors`` (f32) over the axis in place, packed into
+        flat buffers of at most ``bucket_bytes`` (one tensor larger than that
+        goes alone): a few collectives where one a tensor would be hundreds."""
+        if self.size == 1:
+            return
+        bucket: list[torch.Tensor] = []
+        nbytes = 0
+        for t in (*tensors, None):
+            if bucket and (t is None or nbytes + t.numel() * t.element_size() > bucket_bytes):
+                flat = torch.cat([b.reshape(-1) for b in bucket])
+                dist.all_reduce(flat, group=self.group)
+                for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                    b.copy_(part.view_as(b))
+                bucket, nbytes = [], 0
+            if t is not None:
+                bucket.append(t)
+                nbytes += t.numel() * t.element_size()
+
+
+SINGLE = DataAxis()
+
+
+def data_axis(mesh: DeviceMesh | None) -> DataAxis:
+    """The data axis of ``mesh`` as this rank sees it (:data:`SINGLE`
+    without a mesh)."""
+    if mesh is None or axis_size(mesh, DATA_AXIS) == 1:
+        return SINGLE
+    return DataAxis(mesh.get_group(DATA_AXIS), mesh.get_local_rank(DATA_AXIS), axis_size(mesh, DATA_AXIS))

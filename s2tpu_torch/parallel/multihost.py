@@ -1,0 +1,98 @@
+"""Several processes, one rank and one device each: the counterpart of ``s2tpu/parallel/multihost.py``.
+
+In the torch idiom every rank of a data axis is a process of its own, on one
+card or on the CPU. This module supplies what the trainers and the CLI need
+around ``torch.distributed``:
+
+1. :func:`initialize`: the process group, from a launcher's environment
+   (torchrun sets ``RANK``, ``WORLD_SIZE`` and ``MASTER_ADDR``/``PORT``) or
+   from explicit arguments (a ``file://`` or ``tcp://`` store, as a spawning
+   parent gives its children).
+2. Input slicing: every process draws the same epoch order, crops and flips
+   from the same seeds and feeds only its slice of each global batch
+   (:func:`local_slice`, :func:`local_rows`), so no input crosses
+   processes.
+3. :func:`put_batch`: a rank's slice of a host array on its device (the
+   global array of the JAX package is the slices of all ranks together).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from s2tpu_torch.utils import get_logger
+
+logger = get_logger(__name__)
+
+
+def under_launcher() -> bool:
+    """Whether a launcher (torchrun) started this process as one rank of a
+    group: its environment names the world."""
+    return "WORLD_SIZE" in os.environ and "RANK" in os.environ
+
+
+def initialize(
+    init_method: str | None = None,
+    world_size: int | None = None,
+    rank: int | None = None,
+    backend: str | None = None,
+) -> None:
+    """Bring up the default process group: from the launcher's environment
+    when no argument is given (``env://``), else from ``init_method``,
+    ``world_size`` and ``rank``. ``backend`` defaults to NCCL where there is
+    a card and gloo elsewhere. A no-op (with a warning) when a group is up."""
+    if dist.is_initialized():
+        logger.warning("torch.distributed is already initialized; skipping")
+        return
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if init_method is None:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
+    if process_index() == 0:  # only rank 0 logs
+        logger.info(f"distributed: {process_count()} processes ({backend})")
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def local_slice(global_batch_size: int, n_proc: int | None = None, index: int | None = None) -> slice:
+    """This process's contiguous slice of a global batch."""
+    n = n_proc if n_proc is not None else process_count()
+    i = index if index is not None else process_index()
+    assert global_batch_size % n == 0, f"global batch {global_batch_size} must divide process count {n}"
+    per = global_batch_size // n
+    return slice(i * per, (i + 1) * per)
+
+
+def local_rows(global_batch_size: int, micro_batches: int = 1, n_proc: int | None = None,
+               index: int | None = None) -> np.ndarray:
+    """This process's rows of a global batch that trains as ``micro_batches``
+    micro-batches: its :func:`local_slice` of each global micro-batch, in
+    micro-batch order, so that the m-th of its own ``micro_batches`` chunks
+    is its share of global micro-batch m (BatchNorm then sees the samples
+    together that the one-process step puts together)."""
+    assert global_batch_size % micro_batches == 0, (
+        f"global batch {global_batch_size} does not split into {micro_batches} micro-batches"
+    )
+    micro = global_batch_size // micro_batches
+    sl = local_slice(micro, n_proc, index)
+    return np.concatenate([np.arange(m * micro + sl.start, m * micro + sl.stop) for m in range(micro_batches)])
+
+
+def put_batch(array: np.ndarray, device: torch.device | str, rows: np.ndarray | slice | None = None) -> torch.Tensor:
+    """This process's ``rows`` of the global host ``array`` (None: its
+    :func:`local_slice`, all of it in one process) on ``device``."""
+    if rows is None:
+        rows = local_slice(len(array))
+    return torch.from_numpy(np.ascontiguousarray(array[rows])).to(device)

@@ -25,6 +25,14 @@ batches, run as single steps as in the JAX loop) replays the same graph.
 Everything a graphed step computes is what the eager step computes, bit for
 bit. On the CPU the same windows run eager steps, as the caller asked for
 the CPU.
+
+On a data axis of several ranks (``data_axis``, one process each), each
+rank trains its rows of the same global draws, steps are dispatched one at a
+time (said once in the log, as ``s2tpu`` does for several processes,
+``s2tpu/train/trainer.py:814-825``), the preemption flag is reduced over the
+whole mesh at every step boundary, and checkpoints are written by rank 0
+while the others wait (``checkpoint.io.on_rank0``); every rank reads them on
+resume.
 """
 
 from __future__ import annotations
@@ -39,8 +47,10 @@ import torch
 import torch.distributed as dist
 
 from s2tpu_torch import plotting
+from s2tpu_torch.checkpoint.io import on_rank0
 from s2tpu_torch.data.device_corpus import sample_crop_batch
 from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
+from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
 from s2tpu_torch.train.graphs import StepGraph
 from s2tpu_torch.train.train_state import (
     F32Master, ParamEMA, apply_update, draw_seed, load_optimizer_state, set_lr, watch_norms,
@@ -73,8 +83,7 @@ def preempt_requested(trainer) -> bool:
     stop? With a mesh of several processes and a checkpoint manager, every
     rank calls this at every step boundary and the flags are reduced (MAX),
     so all ranks stop at the same batch."""
-    mesh = getattr(trainer, "mesh", None)
-    if trainer.ckpt is None or mesh is None or dist.get_world_size() == 1:
+    if trainer.ckpt is None or trainer.mesh is None or dist.get_world_size() == 1:
         return trainer.preempt_flag
     flag = torch.tensor([int(trainer.preempt_flag)], device=trainer.device)
     dist.all_reduce(flag, op=dist.ReduceOp.MAX)
@@ -128,6 +137,9 @@ def with_is_last(it: typing.Iterable) -> typing.Iterator[tuple[typing.Any, bool]
 class TrainerBase:
     """What the two trainers share around their optimizer: the f32 master,
     the EMA, the per-step update, the watch norms and the checkpoint state."""
+
+    mesh = None  # the process group's ('data', 'model') mesh, where the trainer runs on one
+    data_axis: DataAxis = SINGLE  # this rank's place on the mesh's data axis
 
     def _init_params(self, t) -> None:
         """Master, EMA, remat and preemption state, after the model exists
@@ -282,12 +294,12 @@ class TrainerBase:
                     train_metrics = self.run_train_epoch(epoch)
                     if self._resumed_from_preempt:
                         # only the marker this run consumed: another run's stays
-                        self.ckpt.clear_preempt()
+                        on_rank0(self.ckpt.clear_preempt)
                         self._resumed_from_preempt = False
                 except PreemptionInterrupt as pi:
-                    if self.ckpt is not None and self.is_main:
-                        self.ckpt.save_preempt(pi.epoch, pi.batches_done, self.model, self.optimizer, self.step,
-                                               **self._extras())
+                    if self.ckpt is not None:
+                        on_rank0(lambda: self.ckpt.save_preempt(pi.epoch, pi.batches_done, self.model,
+                                                                self.optimizer, self.step, **self._extras()))
                     logger.warning(
                         f"Preempted in epoch {pi.epoch} after {pi.batches_done} batches: state saved; rerun "
                         "with --resume-from (or --auto-resume) for an exact continuation"
@@ -295,9 +307,9 @@ class TrainerBase:
                     return history
                 record = self._end_epoch(epoch, train_metrics)
                 history.append(record)
-                if self.ckpt is not None and self.is_main and (epoch + 1) % cfg.train.ckpt_every_n_epochs == 0:
-                    self.ckpt.save_epoch(epoch, self.model, self.optimizer, self.step, metrics=record,
-                                         **self._extras())
+                if self.ckpt is not None and (epoch + 1) % cfg.train.ckpt_every_n_epochs == 0:
+                    on_rank0(lambda: self.ckpt.save_epoch(epoch, self.model, self.optimizer, self.step,
+                                                          metrics=record, **self._extras()))
             return history
         finally:
             restore_preempt_handler(prev)
@@ -337,12 +349,15 @@ class TrainerBase:
     def _window_size(self) -> int:
         """Steps a corpus window trains: ``steps_per_dispatch``, but 1 (said
         once in the log) when the norms are watched, which are read each
-        step (``s2tpu/train/trainer.py:816-825``)."""
+        step, or on a data axis of several ranks, whose steps are dispatched
+        one at a time (``s2tpu/train/trainer.py:814-825``)."""
         t = self.config.train
         k = max(t.steps_per_dispatch, 1)
-        if k > 1 and self.run_logger is not None and t.watch_interval > 0:
+        watched = self.run_logger is not None and t.watch_interval > 0
+        if k > 1 and (watched or self.data_axis.size > 1):
             if not self._window_logged:
-                logger.info("steps_per_dispatch > 1 disabled (watch logging reads the norms of every step)")
+                logger.info("steps_per_dispatch > 1 disabled (watch logging or a data axis of several ranks "
+                            "requires per-step dispatch)")
                 self._window_logged = True
             return 1
         return k
@@ -403,6 +418,7 @@ class TrainerBase:
         rng = epoch_rng(dmc.shuffle_seed, epoch, overfit)
         order, n_batches = sample_epoch_order(rng, self.dm.train_idx, sample_weights, bs, overfit)
         random_crop = dmc.augment and overfit == 0
+        rows = self.dm.local_rows()  # this rank's rows of each global draw (None: all)
         if n_batches == 0:
             raise ValueError(
                 f"train epoch {epoch} produced ZERO device-corpus batches: the train pool "
@@ -411,7 +427,8 @@ class TrainerBase:
             )
 
         def sample(b: int) -> np.ndarray:
-            return np.stack(sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop))
+            draws = np.stack(sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop))
+            return draws if rows is None else draws[:, rows]
 
         skip, self._skip_batches = self._skip_batches, 0
         for b in range(min(skip, n_batches)):

@@ -14,6 +14,12 @@ Masks are applied as selects (``torch.where``), as XLA compiles the JAX
 losses' products with 0/1 masks: an ignored pixel never passes a NaN (focal's
 (1-pt)^(gamma-1) at pt = 1 when gamma < 1) into its gradient.
 
+On a data axis of several ranks (``data_axis``), each rank holds its slice
+of the global batch and the loss is the global batch's: every denominator
+(CE's Σw, focal's pixel count, dice's sample count) is summed over the
+ranks, and a rank's loss is its own numerator over that global denominator,
+so the ranks' losses (and their gradients) sum to the one-process loss.
+
 The MAE pretraining loss (:func:`mae_reconstruction_loss`) is plain torch.
 """
 
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from s2tpu_torch.ops.fused_ce import fused_ce_per_pixel
+from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
 
 
 def _one_hot_smoothed(labels: torch.Tensor, num_classes: int, label_smoothing: float) -> torch.Tensor:
@@ -68,9 +75,10 @@ def cross_entropy(
     ignore_index: int | None = None,
     label_smoothing: float = 0.0,
     batch_mask: torch.Tensor | None = None,
+    data_axis: DataAxis = SINGLE,
 ) -> torch.Tensor:
     """torch.nn.CrossEntropyLoss-equivalent weighted masked mean
-    (``s2tpu/train/losses.py:55-70``)."""
+    (``s2tpu/train/losses.py:55-70``), over the global batch of ``data_axis``."""
     if label_smoothing == 0.0:
         k = logits.shape[-1]
         cw = class_weights if class_weights is not None else torch.ones(k, dtype=torch.float32, device=logits.device)
@@ -78,12 +86,12 @@ def cross_entropy(
         if batch_mask is not None:
             m = _pixel_mask(labels, batch_mask)
             loss, weight = loss * m, weight * m
-        return loss.sum() / weight.sum().clamp_min(1e-12)
+        return loss.sum() / data_axis.total(weight.sum()).clamp_min(1e-12)
     ce = _per_pixel_ce(logits, labels, label_smoothing)
     valid = _valid_mask(labels, ignore_index, batch_mask)
     w = class_weights.to(torch.float32)[labels.long()] if class_weights is not None else torch.ones_like(ce)
     w = torch.where(valid, w, 0.0)
-    return (ce * w).sum() / w.sum().clamp_min(1e-12)
+    return (ce * w).sum() / data_axis.total(w.sum()).clamp_min(1e-12)
 
 
 def focal_loss(
@@ -94,13 +102,15 @@ def focal_loss(
     ignore_index: int | None = None,
     label_smoothing: float = 0.0,
     batch_mask: torch.Tensor | None = None,
+    data_axis: DataAxis = SINGLE,
 ) -> torch.Tensor:
     """alpha_y (1-pt)^gamma ce, mean over ALL pixels (``s2tpu/train/losses.py:73-94``);
-    with ``batch_mask``, over the pixels of the real rows."""
+    with ``batch_mask``, over the pixels of the real rows; over the global
+    batch of ``data_axis``."""
     if batch_mask is not None:
-        denom = (batch_mask.to(torch.float32).sum() * labels[0].numel()).clamp_min(1e-12)
+        denom = (data_axis.total(batch_mask.to(torch.float32).sum()) * labels[0].numel()).clamp_min(1e-12)
     else:
-        denom = labels.numel()
+        denom = data_axis.total(labels.numel())
     if label_smoothing == 0.0:
         loss, _ = fused_ce_per_pixel(logits, _labels_int32(labels), alpha, ignore_index, gamma)
         if batch_mask is not None:
@@ -114,9 +124,11 @@ def focal_loss(
 
 
 def dice_loss(
-    logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-8, batch_mask: torch.Tensor | None = None
+    logits: torch.Tensor, labels: torch.Tensor, eps: float = 1e-8, batch_mask: torch.Tensor | None = None,
+    data_axis: DataAxis = SINGLE,
 ) -> torch.Tensor:
-    """Multiclass soft-dice: 1 - mean per-sample dice coefficient (``:104-122``)."""
+    """Multiclass soft-dice: 1 - mean per-sample dice coefficient (``:104-122``),
+    over the global batch of ``data_axis``."""
     num_classes = logits.shape[-1]
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     target = F.one_hot(labels.long(), num_classes).to(torch.float32)
@@ -126,8 +138,10 @@ def dice_loss(
     per_sample = 1.0 - (2.0 * intersection + eps) / (union + eps)
     if batch_mask is not None:
         m = batch_mask.to(torch.float32)
-        return (per_sample * m).sum() / m.sum().clamp_min(1e-12)
-    return per_sample.mean()
+        return (per_sample * m).sum() / data_axis.total(m.sum()).clamp_min(1e-12)
+    if data_axis.size == 1:
+        return per_sample.mean()
+    return per_sample.sum() / data_axis.total(per_sample.numel())
 
 
 class LossOutput(typing.NamedTuple):
@@ -163,9 +177,11 @@ def make_loss_fn(
     dice_weight: float | None = 0.5,
     focal_weight: float | None = 0.5,
     device: torch.device | str = "cpu",
+    data_axis: DataAxis = SINGLE,
 ) -> LossFn:
     """Factory mirroring ``s2tpu/train/losses.py::make_loss_fn`` (``:133-182``);
-    the class weights live on ``device``."""
+    the class weights live on ``device``; the losses are the global batch's
+    of ``data_axis``."""
     if loss_type not in ("ce", "focal", "dice", "dice_focal"):
         raise ValueError(f"Unknown loss type {loss_type!r}")
     ignore_index = 0 if masked_loss else None
@@ -176,17 +192,20 @@ def make_loss_fn(
         class_weights = class_weights_from_distribution(class_distribution, num_classes, masked_loss).to(device)
     alpha = class_weights if class_weights is not None else torch.ones(num_classes, dtype=torch.float32, device=device)
 
+    def focal(logits: torch.Tensor, labels: torch.Tensor, batch_mask: torch.Tensor | None) -> torch.Tensor:
+        return focal_loss(logits, labels, alpha, focal_gamma, ignore_index, label_smoothing, batch_mask, data_axis)
+
     def fn(logits: torch.Tensor, labels: torch.Tensor, batch_mask: torch.Tensor | None = None) -> LossOutput:
         if loss_type == "ce":
-            return LossOutput(cross_entropy(logits, labels, class_weights, ignore_index, label_smoothing, batch_mask), {})
-        if loss_type == "focal":
             return LossOutput(
-                focal_loss(logits, labels, alpha, focal_gamma, ignore_index, label_smoothing, batch_mask), {}
+                cross_entropy(logits, labels, class_weights, ignore_index, label_smoothing, batch_mask, data_axis), {}
             )
+        if loss_type == "focal":
+            return LossOutput(focal(logits, labels, batch_mask), {})
         if loss_type == "dice":
-            return LossOutput(dice_loss(logits, labels, dice_eps, batch_mask), {})
-        d = dice_weight * dice_loss(logits, labels, dice_eps, batch_mask)
-        f = focal_weight * focal_loss(logits, labels, alpha, focal_gamma, ignore_index, label_smoothing, batch_mask)
+            return LossOutput(dice_loss(logits, labels, dice_eps, batch_mask, data_axis), {})
+        d = dice_weight * dice_loss(logits, labels, dice_eps, batch_mask, data_axis)
+        f = focal_weight * focal(logits, labels, batch_mask)
         return LossOutput(d + f, {"dice": d, "focal": f})
 
     return fn

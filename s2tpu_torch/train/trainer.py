@@ -62,9 +62,25 @@ and the predictions of one random validation sample and of sample 0, from
 the eval weights in eval mode under no_grad, drawing from none of the
 step's generators; where matplotlib is missing, none is drawn (one warning).
 
-Refused where the config asks for them: the sharded corpus and a data mesh
-(``num_devices`` other than 1 and -1), which need ROADMAP item 16's data
-axis.
+A data axis (``mesh``, or ``train.num_devices`` N > 1 in a process group of
+N ranks; one process and one device a rank): each rank trains its rows of
+every global batch (``Datamodule.set_process``) and the step computes what
+the JAX program computes over a data mesh of N devices
+(``tests/test_trainer.py:69``): BatchNorm statistics of the global batch and
+drop-connect masks drawn for it (``EfficientNetUNet.set_data_axis``), the
+losses' denominators summed over the ranks, and after backward the f32
+gradient sums summed over the ranks in a few flat buckets with the step's
+loss (``DataAxis.all_reduce_flat_``): each rank's loss is its share of the
+global loss, so the sum is the global batch's gradient, not N times it.
+Every rank then applies the same update to the same replicated parameters.
+The train and eval confusion matrices and eval loss sums are summed over
+the ranks before the metrics. With gradient accumulation, a rank's
+micro-batch m is its slice of global micro-batch m, and the sum over the
+ranks runs once, after the last micro-batch.
+
+Refused where asked for: the sharded corpus, a model axis above one rank
+(``param_sharding="fsdp"`` that shards, FSDP2) and fc-prithvi on a data
+axis, all ROADMAP item 16.
 """
 
 from __future__ import annotations
@@ -75,6 +91,7 @@ import typing
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s2tpu_torch import resolve_device
 from s2tpu_torch.configs.data_config import BANDS as PRITHVI_BANDS
@@ -84,6 +101,7 @@ from s2tpu_torch.data.augment import augment_batch, model_input, normalize
 from s2tpu_torch.data.device_corpus import DeviceCorpus, sample_crop_batch
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.efficientnet_unet import BatchNorm, EfficientNetUNet
+from s2tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, data_axis, make_mesh, mesh_device, replicate_module
 from s2tpu_torch.train import metrics as metrics_lib
 from s2tpu_torch.train.losses import make_loss_fn
 from s2tpu_torch.train.schedules import build_schedule
@@ -94,16 +112,36 @@ from s2tpu_torch.utils import get_logger
 logger = get_logger(__name__)
 
 
-def _refuse_unported(config: Config) -> None:
+def _refuse_unported(config: Config, mesh=None) -> None:
     t = config.train
     unported = {
-        "device_corpus_sharded (a data axis, ROADMAP item 16)": t.device_corpus_sharded,
-        f"num_devices={t.num_devices} (a data-parallel mesh, ROADMAP item 16; the port trains on one device: "
-        "1 or -1)": t.num_devices not in (1, -1),
+        "device_corpus_sharded (the sharded corpus, ROADMAP item 16)": t.device_corpus_sharded,
+        "a model axis above 1 (parameters sharded over it, FSDP2, ROADMAP item 16)": (
+            mesh is not None and axis_size(mesh, MODEL_AXIS) > 1
+        ),
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"not ported to s2tpu_torch yet: {', '.join(asked)}")
+
+
+def _data_mesh(num_devices: int, device_type: str):
+    """The mesh of ``train.num_devices`` without one given (the JAX trainer
+    builds ``make_mesh(num_devices)``): None for one device (1, or -1
+    outside a process group of several ranks); else a data axis over the
+    initialized process group, which must hold ``num_devices`` ranks."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if num_devices == 1 or (num_devices == -1 and world == 1):
+        return None
+    if num_devices != -1 and num_devices != world:
+        raise RuntimeError(
+            f"num_devices={num_devices} needs a process group of {num_devices} ranks, one process and one card "
+            f"each, and this process has {world}: run `python -m s2tpu_torch.cli.train_segmentation ... "
+            f"--num-devices {num_devices}`, which starts them, or launch the ranks with `torchrun "
+            f"--nproc-per-node {num_devices} -m s2tpu_torch.cli.train_segmentation ... --num-devices "
+            f"{num_devices}`, or pass mesh= from parallel.mesh.make_mesh after init_process_group"
+        )
+    return make_mesh(world, 1, device_type)
 
 
 def pool_batch_stats(stats: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,9 +158,10 @@ def pool_batch_stats(stats: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[to
 
 class SegmentationTrainer(TrainerBase):
     """Trains ``config``'s model on ``datamodule``'s batches on one device
-    (``resolve_device``: the card unless ``device="cpu"``)."""
-
-    is_main = True
+    (``resolve_device``: the card unless ``device="cpu"``), or as one rank
+    of the data axis of ``mesh`` (or of the mesh ``train.num_devices``
+    asks for) on the rank's device. Only rank 0 logs (``run_logger``) and
+    writes checkpoints."""
 
     def __init__(
         self,
@@ -131,22 +170,44 @@ class SegmentationTrainer(TrainerBase):
         run_logger=None,
         checkpoint_manager=None,
         device: torch.device | str | None = None,
+        mesh=None,
     ) -> None:
-        _refuse_unported(config)
+        _refuse_unported(config, mesh)
+        t = config.train
+        self.mesh = mesh if mesh is not None else _data_mesh(t.num_devices, resolve_device(device).type)
+        self.data_axis = data_axis(self.mesh)
+        n_data = self.data_axis.size
+        if t.num_devices not in (-1, n_data):
+            raise ValueError(f"train.num_devices={t.num_devices}, but the mesh's data axis holds {n_data} ranks")
+        if config.datamodule.batch_size % n_data:
+            raise ValueError(
+                f"batch_size {config.datamodule.batch_size} must be divisible by the data-parallel mesh size "
+                f"{n_data} (set train.num_devices or the batch size)"
+            )
+        self.is_prithvi = config.model_name.value.startswith("fc-prithvi")
+        if self.is_prithvi and n_data > 1:
+            raise NotImplementedError(
+                "not ported to s2tpu_torch yet: fc-prithvi on a data axis of several ranks (ROADMAP item 16)"
+            )
         self.config = config
         self.dm = datamodule
-        self.device = resolve_device(device)
-        self.run_logger = run_logger
+        self.device = resolve_device(device) if self.mesh is None else mesh_device(self.mesh)
+        self.is_main = self.mesh is None or dist.get_rank() == 0
+        self.run_logger = run_logger if self.is_main else None
         self.ckpt = checkpoint_manager
-        t = config.train
+        if n_data > 1:
+            datamodule.set_process(n_data, self.data_axis.index, max(t.grad_accum_steps, 1))
         self.compute_dtype = COMPUTE_DTYPES[t.compute_dtype]
-        self.is_prithvi = config.model_name.value.startswith("fc-prithvi")
         self.model = config.build_model(
             dtype=self.compute_dtype, device=self.device, param_dtype=torch.float32,
             generator=torch.Generator().manual_seed(t.seed),
         )
         if self.is_prithvi:
             self._load_prithvi_backbone()
+        else:
+            self.model.set_data_axis(self.data_axis)
+        if n_data > 1:
+            replicate_module(self.model, self.mesh)
         mean, std = datamodule.mean_std()
         in_ch = config.datamodule.dataset_cfg.in_channels
         if len(mean) != in_ch:
@@ -168,6 +229,7 @@ class SegmentationTrainer(TrainerBase):
             dice_weight=t.dice_focal_dice_weight,
             focal_weight=t.dice_focal_focal_weight,
             device=self.device,
+            data_axis=self.data_axis,
         )
         steps_per_epoch = max(len(datamodule.train_idx) // config.datamodule.batch_size, 1)
         self.schedule = build_schedule(
@@ -308,6 +370,7 @@ class SegmentationTrainer(TrainerBase):
             x, y = augment_batch(
                 x, y, g, self.mean, self.std, p_horizontal=dmc.random_horizontal_flip_p,
                 p_vertical=dmc.random_vertical_flip_p, dtype=self.compute_dtype, train=self.device_flips,
+                data_axis=self.data_axis,
             )
             logits = self.model(model_input(x, ds.stack_time_into_channels, ds.squeeze_time_dim), generator=g)
             out = self.loss_fn(logits, y)
@@ -319,6 +382,12 @@ class SegmentationTrainer(TrainerBase):
                 )
             loss = loss + out.total.detach()
             comps = {k: comps.get(k, 0.0) + v.detach() for k, v in out.components.items()}
+        if self.data_axis.size > 1:
+            # Each rank's loss is its share of the global loss: the sums over
+            # the ranks are the global batch's gradient and loss.
+            scalars = torch.stack([loss, *comps.values()])
+            self.data_axis.all_reduce_flat_([*grads, scalars])
+            loss, comps = scalars[0], dict(zip(comps, scalars[1:]))
         update = self._update(named, grads, accum, self._watch_this_step())
         return {"loss": loss / accum, "cm": cm, **{k: v / accum for k, v in comps.items()}, **update}
 
@@ -357,7 +426,8 @@ class SegmentationTrainer(TrainerBase):
             n, sums, seconds = self._run_corpus_epoch(epoch, self.dm._sample_weights)
             if n == 0:  # a resumed epoch whose batches were all trained
                 return {"loss": float("nan"), "images_per_sec": 0.0}
-            out = metrics_lib.compute_metrics(sums["cm"].cpu().numpy(), exclude_index=self._metric_exclude_index())
+            out = metrics_lib.compute_metrics(self._global_cm(sums["cm"]),
+                                              exclude_index=self._metric_exclude_index())
             out["loss"] = float(sums["loss"]) / n
             out["images_per_sec"] = n * self.config.datamodule.batch_size / max(seconds, 1e-9)
             return out
@@ -373,10 +443,17 @@ class SegmentationTrainer(TrainerBase):
             return {"loss": float("nan"), "images_per_sec": 0.0}
         # summed in step order, as the corpus epoch sums on the device
         cm = sum((m["cm"] for m in outs[1:]), outs[0]["cm"])
-        out = metrics_lib.compute_metrics(cm.cpu().numpy(), exclude_index=self._metric_exclude_index())
+        out = metrics_lib.compute_metrics(self._global_cm(cm), exclude_index=self._metric_exclude_index())
         out["loss"] = float(sum((m["loss"] for m in outs[1:]), outs[0]["loss"])) / n
-        out["images_per_sec"] = images_seen / max(time.time() - t0, 1e-9)
+        out["images_per_sec"] = images_seen * self.data_axis.size / max(time.time() - t0, 1e-9)  # global
         return out
+
+    def _global_cm(self, cm: torch.Tensor) -> np.ndarray:
+        """An epoch's confusion matrix summed over the data axis, on the host
+        (the train loss needs no sum: each step's is already global)."""
+        cm = cm.clone()
+        self.data_axis.all_reduce_flat_([cm])
+        return cm.cpu().numpy()
 
     def run_eval_epoch(self, split: str = "val") -> dict:
         acc = metrics_lib.MetricAccumulator(self.config.num_classes, ignore_index=self._metric_exclude_index())
@@ -384,6 +461,11 @@ class SegmentationTrainer(TrainerBase):
             for batch in prefetch_to_device(self.dm.eval_batches(split), self.device, depth=2):
                 m = self.eval_step(batch.images, batch.labels, batch.mask)
                 acc.update(m["cm"].cpu().numpy(), float(m["loss"]))
+        if self.data_axis.size > 1:  # each rank's sums over its slices: the global batches' sums
+            sums = torch.from_numpy(np.append(acc.cm.ravel(), acc.loss_sum)).to(self.device)
+            self.data_axis.all_reduce_flat_([sums])
+            sums = sums.cpu().numpy()
+            acc.cm, acc.loss_sum = sums[:-1].reshape(acc.cm.shape), float(sums[-1])
         return acc.compute()
 
     @torch.no_grad()
@@ -439,9 +521,10 @@ class SegmentationTrainer(TrainerBase):
         bs, crop = dmc.batch_size, dmc.random_crop_size
         rng = np.random.default_rng((dmc.shuffle_seed, 0x5EED))
         order = rng.permutation(self.dm.train_idx)
+        rows = self.dm.local_rows()
         for b in range(min(n_batches, len(order) // bs)):
-            idx, ys, xs = (torch.from_numpy(a).to(self.device)
-                           for a in sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop=True))
+            draws = sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop=True)
+            idx, ys, xs = (torch.from_numpy(a if rows is None else a[rows]).to(self.device) for a in draws)
             yield self.corpus.gather(idx, ys, xs, crop)[0]
 
     def _end_epoch(self, epoch: int, train_metrics: dict) -> dict:
@@ -463,13 +546,14 @@ class SegmentationTrainer(TrainerBase):
                 f"val/iou_{class_names[k] if k < len(class_names) else k}": float(v)
                 for k, v in enumerate(np.asarray(pci, np.float64)) if np.isfinite(v)
             })
-        logger.info(
-            f"epoch {epoch}: train loss {train_metrics.get('loss', float('nan')):.4f} "
-            f"iou {train_metrics.get('iou', float('nan')):.4f} | "
-            f"val loss {val_metrics.get('loss', float('nan')):.4f} "
-            f"iou {val_metrics.get('iou', float('nan')):.4f} | "
-            f"{train_metrics.get('images_per_sec', 0):.1f} img/s"
-        )
+        if self.is_main:
+            logger.info(
+                f"epoch {epoch}: train loss {train_metrics.get('loss', float('nan')):.4f} "
+                f"iou {train_metrics.get('iou', float('nan')):.4f} | "
+                f"val loss {val_metrics.get('loss', float('nan')):.4f} "
+                f"iou {val_metrics.get('iou', float('nan')):.4f} | "
+                f"{train_metrics.get('images_per_sec', 0):.1f} img/s"
+            )
         if self.run_logger is not None:
             self.run_logger.log_scalars({k: v for k, v in record.items() if k != "epoch"}, step=self.step)
             self._log_epoch_images(val_metrics or train_metrics)

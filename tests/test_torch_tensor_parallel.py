@@ -180,8 +180,9 @@ def _gloo_worker(rank: int, tmp: str, fixture_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", world_size=WORLD, rank=rank)
     try:
         out: dict = {}
-        try:
-            mesh_lib.make_mesh(WORLD, 1, device_type="cpu")
+        config, dm = _trainer_parts(fixture_dir)
+        try:  # the MAE trainer's data axis is not ported (the segmentation trainer's is)
+            MAETrainer(config, dm, mesh=mesh_lib.make_mesh(WORLD, 1, device_type="cpu"), model_config=TP)
         except NotImplementedError as e:
             out["data_axis_refusal"] = str(e)
         mesh = mesh_lib.make_mesh(WORLD, WORLD, device_type="cpu")
@@ -199,7 +200,6 @@ def _gloo_worker(rank: int, tmp: str, fixture_dir: str) -> None:
         out["forward"] = _run(model, imgs, noise, 0.5)
 
         # One MAETrainer step on the mesh, then an epoch with a logger and checkpoints.
-        config, dm = _trainer_parts(fixture_dir)
         trainer = MAETrainer(
             config, dm, mesh=mesh, model_config=TP, run_logger=RunLogger("run", f"{tmp}/logs{rank}"),
             checkpoint_manager=CheckpointManager(f"{tmp}/ckpt{rank}"),

@@ -247,24 +247,28 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
         train_main(["small", "osm-multiclass", "efficientnet-unet-b0", "--data-dir", str(fixture_dir)])
 
 
-@pytest.mark.parametrize("flags", [["--fsdp"], ["--num-devices", "4"], ["--device-corpus-sharded"]])
-def test_cli_refuses_unported_flags(flags):
-    """argparse refuses the flags of features the port lacks (a data mesh,
-    sharding)."""
+@pytest.mark.parametrize("flags", [["--device-corpus-sharded"]])
+def test_cli_refuses_unported_flags(flags, capsys):
+    """argparse refuses the flags of features the port lacks (the sharded
+    corpus), naming the ROADMAP item."""
     from s2tpu_torch.cli.train_segmentation import build_parser
 
     with pytest.raises(SystemExit):
         build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flags])
+    assert "ROADMAP item 16" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize(
     "flags,fields",
     [(["--remat", "--ema-decay", "0.99"], {"remat": True, "ema_decay": 0.99}),
-     (["--device-corpus", "--steps-per-dispatch", "4"], {"device_corpus": True, "steps_per_dispatch": 4})],
+     (["--device-corpus", "--steps-per-dispatch", "4"], {"device_corpus": True, "steps_per_dispatch": 4}),
+     (["--num-devices", "4"], {"num_devices": 4}),
+     (["--fsdp", "--num-devices", "2"], {"num_devices": 2})],
 )
 def test_cli_takes_ported_flags(flags, fields):
     """The flags of features once refused here (the trainer extras, the
-    device corpus and its windows) reach the config."""
+    device corpus and its windows, the data axis and ``--fsdp``, which
+    shards nothing on the CLI's model axis of one rank) reach the config."""
     from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
 
     t = config_from_args(build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flags])).train
@@ -289,16 +293,24 @@ def test_cli_takes_type_tune_and_source():
     assert config.train.use_wandb_logger is jax_config.train.use_wandb_logger is False
 
 
-# What the port still refuses: the sharded corpus and a data mesh (ROADMAP
-# item 16). A config with num_devices = 4 once trained on one card without a
-# word.
-@pytest.mark.parametrize("field,value", [("device_corpus_sharded", True), ("num_devices", 4)])
+class _Mesh:
+    """The shape of a DeviceMesh, for refusals that read only its axes."""
+
+    def __init__(self, data: int, model: int) -> None:
+        self.mesh_dim_names, self.shape = ("data", "model"), (data, model)
+
+
+# What the port still refuses: the sharded corpus and a model axis above one
+# rank (ROADMAP item 16). A data axis trains (tests/test_torch_data_parallel.py).
+@pytest.mark.parametrize("field,value", [("device_corpus_sharded", True), ("mesh", _Mesh(1, 2))])
 def test_trainer_refuses_unported_config_fields(field, value, fixture_dir):
     c = _configure(cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass"),
                    fixture_dir, 1e-3)
-    setattr(c.train, field, value)
+    mesh = value if field == "mesh" else None
+    if mesh is None:
+        setattr(c.train, field, value)
     with pytest.raises(NotImplementedError, match="not ported.*ROADMAP item 16"):
-        SegmentationTrainer(c, datamodule=None, device="cpu")
+        SegmentationTrainer(c, datamodule=None, device="cpu", mesh=mesh)
 
 
 # The fields refused until they were ported train now: each case holds its
