@@ -7,6 +7,7 @@
     python3 chip_smoke.py --corpus       # phases 2, 6 and 21 only, no result lines
     python3 chip_smoke.py --serving      # phases 1, 2, 5 and 22 only, no result lines
     python3 chip_smoke.py --data         # phases 2, 6 and 23 only, no result lines
+    python3 chip_smoke.py --data-parallel  # the build and phase E only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 ``--attention`` and ``--depthwise`` use only the kernel wrappers' public
@@ -243,6 +244,13 @@ any failure raises and the script exits non-zero without printing a result:
    (e) ``--type tune`` (3 trials, 2 epochs a trial, eta 2): per trial the
    loss type, epochs, pruned or not, exact #1-#4 launches, the memory
    allocated at its trainer's build and its peak; ``best_params=``.
+E. The data axis (after phase A): config #2's step and config #5's MAE step
+   on two gloo ranks that share the card (each rank's exact launches, bit-
+   equal ranks, the step against the one-rank step); with two cards, the
+   training CLI over NCCL and config #2's and config #5's corpus windows of
+   CORPUS_K steps graphed over two NCCL ranks, bit for bit against the same
+   ranks' eager steps (each rank's launches and NCCL all-reduces a replay);
+   with four, config #5's window on a 2 x 2 data x model mesh as well.
 24. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
@@ -456,11 +464,25 @@ PREEMPT_TOL = 1e-6
 # BatchNorm over few values amplifies f32 sums in another order). A
 # global-batch statistic computed per rank moves the f32 loss by far more.
 # Standalone (--data-parallel), the phase makes DP_SEGMENTS segments (one
-# global batch of train segments).
-DP_RANKS, DP_SEGMENTS = 2, 40
+# MAE global batch of train segments).
+DP_RANKS, DP_SEGMENTS = 2, 80
 DP_FACTOR, DP_BF16_EPS = 10.0, 2.0**-9
 DP_FLOOR = {"loss": 1e-5, "running_stats": 1e-4, "grads": 1e-4, "update": 1e-4}
 DP_F32_RTOL, DP_F32_RTOL_GRAD, DP_F32_TOTAL_GRAD = 1e-5, 1e-4, 2.5e-2
+# Phase E's MAE step: config #5 (Prithvi-100M, bf16) at MAE_BATCH over the
+# DP_RANKS gloo ranks, held to the one-rank step as the B5 step is (loss,
+# gradients and update within DP_FACTOR x the half-bf16-ulp movement, at
+# least DP_MAE_FLOOR), then in f32 (TF32 off) at MAE_F32_BATCH to the CPU
+# tests' bounds: loss DP_F32_RTOL, every gradient DP_MAE_F32_GRAD in relative
+# L2 (no BatchNorm: the ranks' sums differ in order alone).
+DP_MAE_FLOOR = {"loss": 1e-5, "grads": 1e-4, "update": 1e-4}
+DP_MAE_F32_GRAD = 1e-4
+# With two or more cards: corpus windows of CORPUS_K steps graphed over NCCL
+# ranks (one card each) against the same ranks' eager steps, bit for bit
+# (deterministic cuDNN). The in-memory pool sources hold CORPUS_K global
+# batches of train segments (split 0.8): config #2 at TRAIN_BATCH, config #5
+# at MAE_BATCH.
+DP_GRAPH_SEGMENTS = {"b5": 5 * TRAIN_BATCH, "mae": 5 * MAE_BATCH}
 # Phase C: the "fr" AOI's corpus (s2tpu/data/device_corpus.py:5-7: 12.4k
 # segments, ~9.7 GB of int16 at 256^2 x 6), made from a seeded pool of
 # segments in memory; K-step windows; (e) at a batch that gives its epoch
@@ -2276,11 +2298,12 @@ def unlabeled_fixture(data_dir: Path, n_segments: int, n_time: int = 1):
 
 
 def mae_argv(data_dir: Path, name: str) -> list[str]:
-    """The MAE CLI's arguments of the T=1 slice (phase 9)."""
+    """The MAE CLI's arguments of the T=1 slice (phase 9): config #5 on one
+    card, whatever the host holds."""
     return [
         "small", "--type", "pretrain", "--from-scratch", "--compute-dtype", "bfloat16", "--bs", str(MAE_BATCH),
         "--wandb", "--epochs", str(MAE_EPOCHS), "--log-interval", "1", "--data-dir", str(data_dir), "--name", name,
-        "--seed", str(SEED),
+        "--seed", str(SEED), "--num-devices", "1",
     ]
 
 
@@ -3407,9 +3430,10 @@ def shared_corpus(corpus):
 
 
 def corpus_seg_trainer(work: Path, source, mean_std, counts, argv_extra: tuple = (), host_flips: bool = True,
-                       **train):
+                       mesh=None, **train):
     """Config #2's SegmentationTrainer (bf16, batch 32, 224^2, focal +
-    weighted) over ``source``, with the extra CLI flags and config fields."""
+    weighted) over ``source``, with the extra CLI flags and config fields;
+    on the card, or as one rank of ``mesh``."""
     from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
     from s2tpu_torch.data.pipeline import Datamodule
     from s2tpu_torch.train.trainer import SegmentationTrainer
@@ -3424,12 +3448,12 @@ def corpus_seg_trainer(work: Path, source, mean_std, counts, argv_extra: tuple =
         setattr(cfg.train, k, v)
     dm = Datamodule(cfg.datamodule, source=source)
     dm.set_mean_std(*mean_std)
-    return SegmentationTrainer(cfg, dm, device="cuda")
+    return SegmentationTrainer(cfg, dm, device="cuda", mesh=mesh)
 
 
-def corpus_mae_trainer(work: Path, source, **train):
+def corpus_mae_trainer(work: Path, source, mesh=None, model_config=None, **train):
     """Config #5's MAETrainer (Prithvi-100M, T=1, bf16, batch 64, 224^2) over
-    ``source``'s images."""
+    ``source``'s images; on the card, or as one rank of ``mesh``."""
     from s2tpu_torch.cli.train_mae import build_parser, config_from_args
     from s2tpu_torch.configs.segmentation import DatamoduleConfig, DatasetConfig
     from s2tpu_torch.data.pipeline import Datamodule
@@ -3444,7 +3468,7 @@ def corpus_mae_trainer(work: Path, source, **train):
         data_split=dmc.data_split, augment=dmc.augment, random_crop_size=dmc.random_crop_size,
         shuffle_seed=dmc.shuffle_seed,
     ), source=source)
-    return MAETrainer(cfg, dm, device="cuda")
+    return MAETrainer(cfg, dm, device="cuda", mesh=mesh, model_config=model_config)
 
 
 def corpus_draws(trainer, n: int, epoch: int = 0) -> np.ndarray:
@@ -3507,6 +3531,7 @@ def device_profile(run) -> dict:
         "kernels": sum(e.count for e in kernels),
         "launches": {k: sum(e.count for e in kernels if frag in e.key) for k, frag in PORT_KERNEL_NAMES.items()},
         "host_api": {e.key: e.count for e in events if e.device_type == DeviceType.CPU and e.key in LAUNCH_APIS},
+        "nccl_all_reduce": sum(e.count for e in kernels if "nccl" in e.key.lower() and "allreduce" in e.key.lower()),
     }
 
 
@@ -4750,6 +4775,290 @@ def _dp_rank(rank: int, work: str, data_dir: str) -> None:
         dist.destroy_process_group()
 
 
+def dp_mae_trainer(data_dir: Path, mesh=None, batch: int = MAE_BATCH, **train):
+    """Config #5's MAETrainer (Prithvi-100M, T=1, bf16) at a global
+    ``batch`` on ``data_dir``'s images: on the card, or as one rank of
+    ``mesh``."""
+    from s2tpu_torch.cli.train_mae import build_datamodule, build_parser, config_from_args
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    cfg = config_from_args(build_parser().parse_args(mae_argv(data_dir, "dp")))
+    cfg.datamodule.batch_size = batch
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    return MAETrainer(cfg, build_datamodule(cfg), device="cuda", mesh=mesh)
+
+
+def dp_mae_record(trainer, m: dict, full: bool) -> dict:
+    """An MAE step's loss and digests of its gradients and parameters; with
+    ``full`` the gradients and parameters themselves (f32, on the CPU)."""
+    named = dict(trainer.model.named_parameters())
+    rec = {"loss": float(m["loss"]), "digest": state_digest({n: p.grad for n, p in named.items()}),
+           "params_digest": state_digest(named)}
+    if full:
+        rec["grads"] = {n: p.grad.detach().float().cpu() for n, p in named.items()}
+        rec["params"] = {n: p.detach().float().cpu() for n, p in named.items()}
+    return rec
+
+
+def state_digest(tensors: dict) -> str:
+    """One hash of every tensor's bytes, in name order: equal digests are
+    equal tensors, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def trainer_state_digest(trainer) -> str:
+    """A hash of the parameters, buffers and Adam's state tensors."""
+    params = [p for _, p in trainer.model.named_parameters()]
+    adam = {f"adam.{i}.{k}": v for i, p in enumerate(params) for k, v in trainer.optimizer.state.get(p, {}).items()
+            if isinstance(v, torch.Tensor)}
+    return state_digest({**dict(trainer.model.named_parameters()), **dict(trainer.model.named_buffers()), **adam})
+
+
+def _dp_mae_rank(rank: int, work: str, data_dir: str) -> None:
+    """One of phase E's gloo ranks on the card for config #5: one MAE step
+    on its rows of the global batch, its launches counted from 0 around it,
+    then the f32 step; the records go to ``work/dp_mae_rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    from s2tpu_torch.parallel.mesh import make_mesh
+    from s2tpu_torch.parallel.multihost import put_batch
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/dp_mae_store", world_size=DP_RANKS, rank=rank)
+    try:
+        mesh = make_mesh(DP_RANKS, 1, "cuda")
+        trainer = dp_mae_trainer(Path(data_dir), mesh=mesh, num_devices=DP_RANKS)
+        images = dp_mae_global_batch(trainer)
+        rows = trainer.dm.local_rows()
+        launches, m = step_launches(trainer, put_batch(images, trainer.device, rows))
+        rec = {**dp_mae_record(trainer, m, full=rank == 0), "launches": launches, "device": str(trainer.device),
+               "rows": rows.tolist(), "axis": (trainer.data_axis.index, trainer.data_axis.size)}
+        del trainer, m
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = dp_mae_trainer(Path(data_dir), mesh=mesh, batch=MAE_F32_BATCH, num_devices=DP_RANKS,
+                             compute_dtype="float32")
+        images = dp_mae_global_batch(f32)
+        m = f32.train_step(put_batch(images, f32.device, f32.dm.local_rows()))
+        rec["f32"] = {k: v for k, v in dp_mae_record(f32, m, full=rank == 0).items() if k != "params"}
+        torch.save(rec, f"{work}/dp_mae_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_mae_global_batch(trainer) -> np.ndarray:
+    """The first global train batch of epoch 0 of ``trainer``'s MAE config."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+
+    dm = build_datamodule(trainer.config)
+    return next(dm.train_batches(0)).images
+
+
+def dp_mae_one_rank(data_dir: Path, f32: bool = False, moved: bool = False) -> tuple[dict, dict]:
+    """The one-rank MAE step the ranks are held to: (its record, its initial
+    parameters); ``moved``: every weight moved by a random half bf16 ulp
+    first; ``f32``: in f32 at MAE_F32_BATCH (TF32 off by the caller)."""
+    one = dp_mae_trainer(data_dir, batch=MAE_F32_BATCH, compute_dtype="float32") if f32 else dp_mae_trainer(data_dir)
+    if moved:
+        noise = torch.Generator().manual_seed(SEED + 5)
+        with torch.no_grad():
+            for p in one.model.parameters():
+                p.mul_(1.0 + DP_BF16_EPS * torch.randn(p.shape, generator=noise).to(p.device))
+    init = {n: p.detach().float().cpu().clone() for n, p in one.model.named_parameters()}
+    m = one.train_step(torch.from_numpy(dp_mae_global_batch(one)).cuda())
+    return dp_mae_record(one, m, full=True), init
+
+
+def check_dp_mae(work: Path, data_dir: Path) -> dict:
+    """Phase E's MAE part: config #5's step on DP_RANKS gloo ranks sharing
+    the card, each rank's exact #8/#9 launches (a one-card step's), bit-equal
+    ranks, the step against the one-rank step (calibrated in bf16, tight in
+    f32). Returns rank 0's launches and the distances."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.spawn(_dp_mae_rank, args=(str(work), str(data_dir)), nprocs=DP_RANKS)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"dp_mae_rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    ref, init = dp_mae_one_rank(data_dir)
+    moved, moved_init = dp_mae_one_rank(data_dir, moved=True)
+    one = dp_mae_trainer(data_dir)
+    expected = mae_expected_launches(one.model_config, 1, 0, one.mask_ratio)
+    del one
+
+    def distance(a: dict, b: dict, init_a: dict, init_b: dict) -> dict[str, float]:
+        return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                "grads": state_distance(a["grads"], b["grads"])[1],
+                "update": state_distance({n: p - init_a[n] for n, p in a["params"].items()},
+                                         {n: p - init_b[n] for n, p in b["params"].items()})[1]}
+
+    sensitivity = distance(moved, ref, moved_init, init)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32_ref, _ = dp_mae_one_rank(data_dir, f32=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    failures = []
+    for r, rank in enumerate(ranks):
+        if rank["launches"] != expected:
+            failures.append(f"rank {r} launches {rank['launches']} != {expected}")
+        if rank["axis"] != (r, DP_RANKS) or len(rank["rows"]) != MAE_BATCH // DP_RANKS:
+            failures.append(f"rank {r}: data axis place {rank['axis']}, {len(rank['rows'])} rows")
+    first, second = ranks
+    equal = all(first[k] == second[k] for k in ("loss", "digest", "params_digest"))
+    equal_f32 = all(first["f32"][k] == second["f32"][k] for k in ("loss", "digest", "params_digest"))
+    if not (equal and equal_f32):
+        failures.append(f"the ranks differ: bf16 {equal}, f32 {equal_f32}")
+    diff = distance(first, ref, init, init)
+    limits = {k: max(DP_FACTOR * sensitivity[k], DP_MAE_FLOOR[k]) for k in diff}
+    failures += [f"mae {k}: {DP_RANKS} ranks vs one {v:.3g} > {limits[k]:.3g}" for k, v in diff.items()
+                 if not v <= limits[k]]
+    f32_diff = {"loss": abs(first["f32"]["loss"] - f32_ref["loss"]) / abs(f32_ref["loss"]),
+                "grads": max(state_distance({n: g}, {n: f32_ref["grads"][n]})[1]
+                             for n, g in first["f32"]["grads"].items())}
+    f32_limits = {"loss": DP_F32_RTOL, "grads": DP_MAE_F32_GRAD}
+    failures += [f"mae f32 {k}: {DP_RANKS} ranks vs one {v:.3g} > {f32_limits[k]:.3g}" for k, v in f32_diff.items()
+                 if not v <= f32_limits[k]]
+    log(
+        f"data axis (config #5 MAE, Prithvi-100M bf16, global batch {MAE_BATCH}, {DP_RANKS} gloo ranks on one card, "
+        f"{CARD}): ranks spawned, built and stepped in {ranks_s:.1f} s; each rank's launches {first['launches']} "
+        f"(expected a one-card step's {expected}); parameters and gradients bit-equal across ranks: bf16 {equal}, "
+        f"f32 {equal_f32}; loss {first['loss']:.6f} vs one rank {ref['loss']:.6f}; vs the one-rank step: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in diff.items()) + "; half a bf16 ulp: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sensitivity.items())
+        + f"; limits {', '.join(f'{k} {v:.3g}' for k, v in limits.items())}; f32 (TF32 off, batch {MAE_F32_BATCH}) "
+        + ", ".join(f"{k} {v:.3g} (limit {f32_limits[k]:.3g})" for k, v in f32_diff.items())
+    )
+    if failures:
+        raise AssertionError("MAE data axis: " + "; ".join(failures))
+    return {"launches": first["launches"], "distances": diff, "sensitivity": sensitivity, "f32": f32_diff}
+
+
+def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models: tuple[str, ...]) -> None:
+    """One NCCL rank (one card each) of phase E's graphed windows: for each
+    of ``models``, a corpus epoch of CORPUS_K-step windows graphed and the
+    same epoch in eager steps from the same init (deterministic cuDNN); each
+    one's training-state digest, epoch loss and wrapper launches, then one
+    replay's and one eager step's launches and NCCL all-reduces
+    (``torch.profiler``), and the reserved bytes the graphed epoch added
+    after the eager epoch warmed the allocator (the graph's pool); the
+    records go to ``work/dp_graph<world>_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from s2tpu_torch.cli.train_mae import build_parser, config_from_args
+    from s2tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from s2tpu_torch.train.mae_trainer import default_model_config
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{work}/dp_graph{world}_store", world_size=world, rank=rank)
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh(world, model_parallel, "cuda")
+        data = world // model_parallel
+        out = {}
+        for model in models:
+            source, mean_std, counts = pool_source(DP_GRAPH_SEGMENTS[model])
+            rec, trainers = {}, {}
+            for mode, k in (("eager", 1), ("graphed", CORPUS_K)):  # eager first: it warms the allocator
+                fields = dict(device_corpus=True, steps_per_dispatch=k, watch_interval=0, num_devices=data)
+                if model == "b5":
+                    trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh, **fields)
+                else:
+                    mc = None
+                    if model_parallel > 1:
+                        cfg = config_from_args(build_parser().parse_args(mae_argv(Path(work), "dp")))
+                        mc = dataclasses.replace(default_model_config(cfg), tp_axis=MODEL_AXIS)
+                    trainer = corpus_mae_trainer(Path(work), source, mesh=mesh, model_config=mc, **fields)
+                torch.cuda.synchronize()
+                reserved = torch.cuda.memory_reserved()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                train = trainer.run_train_epoch(0)
+                torch.cuda.synchronize()
+                rec[mode] = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+                             "loss": train["loss"], "digest": trainer_state_digest(trainer),
+                             "steps": trainer.step, "graph": trainer._graph is not None,
+                             "reserved_added": torch.cuda.memory_reserved() - reserved}
+                trainers[mode] = trainer
+            draw = corpus_draws(trainers["graphed"], 1, epoch=1)
+            rows = trainers["graphed"].dm.local_rows()
+            draw = draw if rows is None else draw[:, :, rows]
+            rec["replay"] = device_profile(lambda: trainers["graphed"].train_window(draw))
+            rec["eager_step"] = device_profile(lambda: trainers["eager"].train_window(draw))
+            out[model] = rec
+            del trainers, trainer
+            torch.cuda.empty_cache()
+        torch.save(out, f"{work}/dp_graph{world}_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_dp_graphs(work: Path) -> dict | None:
+    """Where the machine has two cards or more: config #2's and config #5's
+    corpus windows graphed over two NCCL ranks, and with four cards config
+    #5's on a 2 x 2 data x model mesh, each rank's state after the epoch
+    bit for bit against the same ranks' eager steps. None (logged) on one
+    card."""
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"data axis graphed windows over NCCL: not run, {cards} card")
+        return None
+    runs = [(2, 1, ("b5", "mae"))] + ([(4, 2, ("mae",))] if cards >= 4 else [])
+    out, failures = {}, []
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    for world, model_parallel, models in runs:
+        t0 = time.perf_counter()
+        mp.spawn(_dp_graph_rank, args=(str(work), world, model_parallel, models), nprocs=world)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(work / f"dp_graph{world}_rank{r}.pt", weights_only=False) for r in range(world)]
+        mesh = f"{world // model_parallel} x {model_parallel}"
+        for model in models:
+            recs = [r[model] for r in ranks]
+            for r, rec in enumerate(recs):
+                g, e = rec["graphed"], rec["eager"]
+                if not (g["graph"] and not e["graph"] and g["steps"] == e["steps"] == CORPUS_K):
+                    failures.append(f"{model} {mesh} rank {r}: graph {g['graph']}/{e['graph']}, steps "
+                                    f"{g['steps']}/{e['steps']}")
+                if g["digest"] != e["digest"] or g["loss"] != e["loss"]:
+                    failures.append(f"{model} {mesh} rank {r}: graphed != eager (loss {g['loss']} / {e['loss']})")
+                replay = {k: v for k, v in rec["replay"]["launches"].items() if v}
+                step = {k: v for k, v in rec["eager_step"]["launches"].items() if v}
+                if replay != step or rec["replay"]["nccl_all_reduce"] != rec["eager_step"]["nccl_all_reduce"]:
+                    failures.append(f"{model} {mesh} rank {r}: a replay launches {replay} and "
+                                    f"{rec['replay']['nccl_all_reduce']} NCCL all-reduces, an eager step {step} and "
+                                    f"{rec['eager_step']['nccl_all_reduce']}")
+            if len({rec["graphed"]["digest"] for rec in recs}) != 1:
+                failures.append(f"{model} {mesh}: the ranks' graphed states differ")
+            log(
+                f"data axis graphed windows ({model}, {mesh} NCCL ranks, one card each, {CARD}): {CORPUS_K}-step "
+                f"window graphed vs eager steps, bit-equal on every rank: "
+                f"{all(r['graphed']['digest'] == r['eager']['digest'] for r in recs)}; epoch loss "
+                f"{recs[0]['graphed']['loss']:.6f}; graphed epoch {[round(r['graphed']['seconds'], 3) for r in recs]} s, "
+                f"eager {[round(r['eager']['seconds'], 3) for r in recs]} s; per rank a replay launches "
+                f"{[{k: v for k, v in r['replay']['launches'].items() if v} for r in recs]} and "
+                f"{[r['replay']['nccl_all_reduce'] for r in recs]} nccl all-reduce kernels (an eager step "
+                f"{[r['eager_step']['nccl_all_reduce'] for r in recs]}); host launch calls a replay "
+                f"{[sum(r['replay']['host_api'].values()) for r in recs]}, an eager step "
+                f"{[sum(r['eager_step']['host_api'].values()) for r in recs]}; wrapper launches (warm-up and "
+                f"capture) {recs[0]['graphed']['launches']}; graph pool (reserved bytes the graphed epoch added after "
+                f"the eager epoch) {[r['graphed']['reserved_added'] for r in recs]} B"
+            )
+            out[f"{model}_{world}"] = recs[0]
+        log(f"data axis graphed windows on {world} cards: {spawn_s:.1f} s")
+    if failures:
+        raise AssertionError("graphed windows over NCCL: " + "; ".join(failures))
+    return out
+
+
 def dp_distance(a: dict, ref: dict, init_a: dict, init_ref: dict) -> dict[str, float]:
     """Loss (relative), running statistics (max |diff| / max(|ref|, 1)),
     applied gradients and parameter updates (relative L2 over all
@@ -4798,8 +5107,10 @@ def phase_data_parallel(work: Path) -> dict:
     """Phase E: config #2's step on a data axis of DP_RANKS gloo ranks that
     share the card (a check of the data axis, not a scaling figure): each
     rank's exact #1-#4 launches, parameters bit-equal across the ranks, and
-    the step against the one-rank step on the same global batch; then, on
-    two cards, the CLI over NCCL. Returns rank 0's launches."""
+    the step against the one-rank step on the same global batch; the same
+    for config #5's MAE step (#8/#9); then, on two cards, the CLI over NCCL
+    and the graphed corpus windows (:func:`check_dp_graphs`). Returns rank
+    0's launches."""
     import torch.multiprocessing as mp
 
     from s2tpu_torch.data import statistics
@@ -4893,13 +5204,13 @@ def phase_data_parallel(work: Path) -> dict:
     if failures:
         raise AssertionError("data axis: " + "; ".join(failures))
     return {"launches": first["launches"], "distances": diff, "sensitivity": sensitivity, "f32": f32_diff,
-            "cli": check_dp_cli(work, data_dir)}
+            "mae": check_dp_mae(work, data_dir), "cli": check_dp_cli(work, data_dir), "graphs": check_dp_graphs(work)}
 
 
 def data_parallel_only() -> int:
     """``--data-parallel``: the build of #1-#4 and phase E on data of its
     own; no result lines."""
-    phase_build(only=("depthwise_conv", "depthwise_grad_weight", "fused_ce"))
+    phase_build(only=("depthwise_conv", "depthwise_grad_weight", "fused_ce", "fused_attention_dense"))
     work = REPO / "out" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -4910,6 +5221,14 @@ def data_parallel_only() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
+
+
+def dp_graph_entries(dp: dict, run: str, kernel: str) -> dict:
+    """A kernel's launches in one replay of phase E's graphed window on NCCL
+    ranks (rank 0; ``run`` "b5_2", "mae_2" or "mae_4"), None where the
+    machine had too few cards."""
+    graphs = dp["graphs"] or {}
+    return {"dp_graph_replay_launches": graphs[run]["replay"]["launches"][kernel] if run in graphs else None}
 
 
 def serving_entries(model: dict) -> dict:
@@ -5051,6 +5370,7 @@ def main(argv: list[str]) -> int:
             # phase E: one rank's step of the data axis (TRAIN_BATCH / DP_RANKS rows), forwards and input gradients
             "dp_rank_launches": dp["launches"]["depthwise_fwd"],
             "dp_rank_dx_launches": dp["launches"]["depthwise_dx"],
+            **dp_graph_entries(dp, "b5_2", "#1"),
         },
         {
             "name": "depthwise_conv2d_s1_grad_weight",
@@ -5072,6 +5392,7 @@ def main(argv: list[str]) -> int:
             **corpus_entries(corpus, "b5_launches", "#2", "depthwise_dw"),
             **packed_entries(packed, "depthwise_dw"),
             "dp_rank_launches": dp["launches"]["depthwise_dw"],
+            **dp_graph_entries(dp, "b5_2", "#2"),
         },
         {
             "name": "fused_ce_forward",
@@ -5095,6 +5416,7 @@ def main(argv: list[str]) -> int:
             **corpus_entries(corpus, "b5_launches", "#3", "fused_ce_fwd"),
             **packed_entries(packed, "fused_ce_fwd"),
             "dp_rank_launches": dp["launches"]["fused_ce_fwd"],
+            **dp_graph_entries(dp, "b5_2", "#3"),
         },
         {
             "name": "fused_ce_backward",
@@ -5118,6 +5440,7 @@ def main(argv: list[str]) -> int:
             **corpus_entries(corpus, "b5_launches", "#4", "fused_ce_bwd"),
             **packed_entries(packed, "fused_ce_bwd"),
             "dp_rank_launches": dp["launches"]["fused_ce_bwd"],
+            **dp_graph_entries(dp, "b5_2", "#4"),
         },
         {
             "name": "fused_attention_qkv_forward",
@@ -5133,6 +5456,7 @@ def main(argv: list[str]) -> int:
             "library_ms": attn_times["qkv"]["fwd_library_ms"],
             "t3_launches": tp_t3["launches"]["attn_fused_qkv_fwd"],
             **fwd_ptxas,
+            **dp_graph_entries(dp, "mae_4", "#8"),  # #6 and #8 share their kernels' names (one library)
         },
         {
             "name": "fused_attention_qkv_backward",
@@ -5147,6 +5471,7 @@ def main(argv: list[str]) -> int:
             "bound_by": attn_times["qkv"]["bwd_bound_by"],
             "library_ms": attn_times["qkv"]["bwd_library_ms"],
             "t3_launches": tp_t3["launches"]["attn_fused_qkv_bwd"],
+            **dp_graph_entries(dp, "mae_4", "#9"),
         },
         {
             "name": "fused_attention_dense_forward",
@@ -5175,6 +5500,9 @@ def main(argv: list[str]) -> int:
             **fwd_ptxas,
             **{f"fc_prithvi_{k}": v for k, v in serving_entries(serving["fc-prithvi"]).items()},
             "embed_int8_launches": serving["embed_int8"]["224"],
+            # phase E: one gloo rank's MAE step (MAE_BATCH / DP_RANKS rows) and, on cards, a graphed replay
+            "dp_rank_launches": dp["mae"]["launches"]["attn_fused_fwd"],
+            **dp_graph_entries(dp, "mae_2", "#8"),
         },
         {
             "name": "fused_attention_dense_backward",
@@ -5194,6 +5522,8 @@ def main(argv: list[str]) -> int:
             **micro_batch_times(mae_extras["micro_attention"], "bwd_", "bwd_max_abs_err"),
             **corpus_entries(corpus, "mae_launches", "#9", "attn_fused_bwd"),
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"bwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "dp_rank_launches": dp["mae"]["launches"]["attn_fused_bwd"],
+            **dp_graph_entries(dp, "mae_2", "#9"),
         },
         {
             "name": "flash_attention_forward",

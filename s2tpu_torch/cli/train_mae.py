@@ -16,9 +16,19 @@ window replay one CUDA graph of the whole step on the card), and the
 segmentation CLI's ``--watch-interval``, without which a run watches its
 norms every 30 steps and so trains one eager step a window; those whose
 feature is not ported (pipeline parallelism, the sharded corpus, more than
-one device) are refused with a message. A SIGTERM saves the state
+the sharded corpus) are refused with a message. A SIGTERM saves the state
 at the next step boundary; the same command with ``--auto-resume`` (or
 ``--resume-from <run dir>``) continues the interrupted epoch exactly.
+
+``--num-devices N`` trains data-parallel on N ranks, one process and one
+card each (NCCL; with ``--device cpu``, N processes over gloo), as the
+segmentation CLI does: each rank trains its slice of every global ``--bs``
+batch, the loss and gradients are the global batch's, and only rank 0 logs
+and writes checkpoints. Outside a launcher the command starts the N ranks
+itself; under ``torchrun --nproc-per-node N -m s2tpu_torch.cli.train_mae``
+N must equal the world size. -1 (the default) takes every visible card (a
+launcher's world size; one process on the CPU). With ``--device-corpus
+--steps-per-dispatch K`` each rank replays its step graph over NCCL.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 from s2tpu_torch.configs import mae as mae_cfg
 from s2tpu_torch.configs.data_config import AOI_NAMES
@@ -61,7 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--name", default=None)
     p.add_argument("--wandb", action="store_true", help="disable wandb (the port logs to JSONL only)")
     p.add_argument("--tags", nargs="+", default=[])
-    p.add_argument("--num-devices", type=int, default=-1, help="1 (or -1): the port trains on one device")
+    p.add_argument(
+        "--num-devices", type=int, default=-1,
+        help="data-parallel ranks, one process and one card each (-1: every visible card; one process on the CPU)",
+    )
     p.add_argument("--compute-dtype", default=None, choices=["bfloat16", "float32"])
     p.add_argument(
         "--ema-decay", type=float, default=None,
@@ -97,14 +111,14 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
         "--pp > 1": (args.pp or 1) > 1,
         "--pp-microbatches": args.pp_microbatches is not None,
         "--device-corpus-sharded": args.device_corpus_sharded,
-        "--num-devices other than 1": args.num_devices not in (-1, 1),
     }
     return [flag for flag, on in asked.items() if on]
 
 
 def config_from_args(args: argparse.Namespace) -> mae_cfg.MAEConfig:
-    config = mae_cfg.PRESETS[args.type](mae_cfg.base_config(aoi=args.aoi))
-    config.train.num_devices = 1
+    config = mae_cfg.base_config(aoi=args.aoi)
+    config.train.num_devices = args.num_devices
+    config = mae_cfg.PRESETS[args.type](config)
     t, dmc = config.train, config.datamodule
     dmc.dataset_cfg.data_dir = args.data_dir or dmc.dataset_cfg.data_dir
     if args.bands:
@@ -180,28 +194,40 @@ def main(argv: list[str] | None = None) -> list[dict]:
     """Parse ``argv`` and train; returns the per-epoch records."""
     from pathlib import Path
 
+    import torch.distributed as dist
+
     from s2tpu_torch import resolve_device
     from s2tpu_torch.checkpoint.io import CheckpointManager
     from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
+    from s2tpu_torch.parallel import multihost
     from s2tpu_torch.train.logging_utils import RunLogger
     from s2tpu_torch.train.mae_trainer import MAETrainer
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
     args = parser.parse_args(argv)
     refused = unported_flags(args)
     if refused:
         parser.error(f"not ported to s2tpu_torch yet: {', '.join(refused)}")
     device = resolve_device(args.device)  # before any data work: no card, no run
+    n = multihost.num_ranks(args.num_devices, device)
+    if n > 1 and not dist.is_initialized() and not multihost.under_launcher():
+        return multihost.spawn_ranks(main, argv, n, device)
+    mesh = multihost.data_axis_mesh(n, device)
+    rank0 = multihost.process_index() == 0
     config = config_from_args(args)
+    multihost.share_run_name(config.train, n)
     dm = build_datamodule(config)
     config_dict = dataclasses.asdict(config)
-    run_logger = RunLogger(config.train.run_name, LOG_DIR / "runs", config=config_dict)
+    run_logger = RunLogger(config.train.run_name, LOG_DIR / "runs", config=config_dict) if rank0 else None
     ckpt_dir = Path(args.resume_from) if args.resume_from else CKPT_DIR / config.train.project_name / config.train.run_name
-    ckpt = CheckpointManager(ckpt_dir, keep=config.train.ckpt_keep, config_dict=config_dict)
-    trainer = MAETrainer(config, dm, run_logger=run_logger, checkpoint_manager=ckpt, device=device)
+    ckpt = CheckpointManager(ckpt_dir, keep=config.train.ckpt_keep, config_dict=config_dict if rank0 else None)
+    trainer = MAETrainer(config, dm, mesh=mesh, run_logger=run_logger, checkpoint_manager=ckpt, device=device)
     start_epoch = trainer.resume_from_checkpoint() if (args.resume_from or args.auto_resume) else 0
     epochs = config.train.max_epochs if config.train.max_epochs > 0 else 10**6
-    logger.info(f"MAE {args.type} of Prithvi ({config.model.num_frames} frame(s)) on {device} into {ckpt_dir}")
+    ranks = f" and {n - 1} more ranks" if n > 1 else ""
+    logger.info(f"MAE {args.type} of Prithvi ({config.model.num_frames} frame(s)) on {trainer.device}{ranks} "
+                f"into {ckpt_dir}")
     return trainer.fit(epochs=epochs, start_epoch=start_epoch)
 
 

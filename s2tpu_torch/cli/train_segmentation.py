@@ -62,18 +62,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import logging
-import os
 import sys
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from s2tpu_torch.configs import segmentation as cfg_lib
 from s2tpu_torch.configs.data_config import AOI_NAMES, LABEL_MAPS
 from s2tpu_torch.parallel import multihost
-from s2tpu_torch.parallel.mesh import make_mesh
 from s2tpu_torch.utils import get_logger, get_unique_run_name
 
 logger = get_logger(__name__)
@@ -296,25 +292,15 @@ def main(argv: list[str] | None = None) -> list:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # before any data work: no card, no run
-    n = _num_ranks(args.num_devices, device)
-    if n > 1 and not dist.is_initialized():
-        if not multihost.under_launcher():
-            if args.type == "tune":
-                raise SystemExit("--type tune runs its trials in one process: use --num-devices 1")
-            return _spawn_ranks(argv, n, device)
-        multihost.initialize(backend="nccl" if device.type == "cuda" else "gloo")
-    world = multihost.process_count()
-    if n != world:
-        raise SystemExit(f"--num-devices {n} in a process group of {world} ranks: they must be equal")
-    mesh = make_mesh(n, 1, device.type) if n > 1 else None
+    n = multihost.num_ranks(args.num_devices, device)
+    if n > 1 and not dist.is_initialized() and not multihost.under_launcher():
+        if args.type == "tune":
+            raise SystemExit("--type tune runs its trials in one process: use --num-devices 1")
+        return multihost.spawn_ranks(main, argv, n, device)
+    mesh = multihost.data_axis_mesh(n, device)
     rank0 = multihost.process_index() == 0
-    if not rank0:  # only rank 0 logs; the others' warnings still show
-        logging.disable(logging.INFO)
     config = config_from_args(args)
-    if n > 1:  # rank 0's run name (its random part) names the run on every rank
-        name = [config.train.run_name]
-        dist.broadcast_object_list(name, src=0)
-        config.train.run_name = name[0]
+    multihost.share_run_name(config.train, n)
     ds_cfg = config.datamodule.dataset_cfg
     source = open_source(ds_cfg.aoi, ds_cfg.label_map, ds_cfg.data_dir, n_time_frames=ds_cfg.n_time_frames,
                          kind=args.source)
@@ -351,59 +337,6 @@ def main(argv: list[str] | None = None) -> list:
     ranks = f" and {n - 1} more ranks" if n > 1 else ""
     logger.info(f"Training {config.model_name.value} on {trainer.device}{ranks} into {ckpt_dir}")
     return trainer.fit(epochs=epochs, start_epoch=start_epoch)
-
-
-def _num_ranks(num_devices: int, device: torch.device) -> int:
-    """The data axis ``--num-devices`` asks for: a launcher's (or an
-    initialized group's) world size for -1, which it must equal otherwise;
-    without one, -1 takes every visible card (one process on the CPU).
-    Asking for more cards than are visible is an error."""
-    world = None
-    if dist.is_initialized():
-        world = dist.get_world_size()
-    elif multihost.under_launcher():
-        world = int(os.environ["WORLD_SIZE"])
-    if world is not None:
-        if num_devices not in (-1, world):
-            raise SystemExit(f"--num-devices {num_devices} under a launcher of {world} ranks: they must be equal")
-        return world
-    n = (torch.cuda.device_count() if device.type == "cuda" else 1) if num_devices == -1 else num_devices
-    if n < 1:
-        raise SystemExit(f"--num-devices {num_devices}: give a positive count, or -1 for every visible card")
-    if device.type == "cuda" and n > torch.cuda.device_count():
-        raise SystemExit(f"--num-devices {n} asks for more cards than the {torch.cuda.device_count()} visible")
-    return n
-
-
-def _spawn_ranks(argv: list[str], n: int, device: torch.device) -> list:
-    """Run this command as ``n`` ranks on this host, one process each (one
-    card each on the card, NCCL over the loopback; gloo on the CPU), meeting
-    through a file store in a temporary directory; returns rank 0's
-    records."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    if device.type == "cuda":
-        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # every rank is on this host
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main, args=(argv, n, f"file://{tmp}/store", backend, f"{tmp}/history.pt"), nprocs=n)
-        return torch.load(f"{tmp}/history.pt", weights_only=False)
-
-
-def _rank_main(rank: int, argv: list[str], n: int, init_method: str, backend: str, result: str) -> None:
-    """One spawned rank: the process group, then :func:`main`; rank 0 leaves
-    its records in ``result``."""
-    multihost.initialize(init_method, n, rank, backend)
-    if backend == "gloo":  # the CPU's threads shared out among the ranks
-        torch.set_num_threads(max(1, torch.get_num_threads() // n))
-    try:
-        history = main(argv)
-        if rank == 0:
-            torch.save(history, result)
-    finally:
-        dist.destroy_process_group()
 
 
 def _tune(args: argparse.Namespace, config: cfg_lib.Config, dm, run_logger, device) -> list:

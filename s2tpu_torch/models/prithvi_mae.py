@@ -34,7 +34,10 @@ rank r runs heads [r·H/n, (r+1)·H/n) and MLP hidden columns
 [r·4D/n, (r+1)·4D/n) from its slices of the replicated parameters, with
 Megatron's pair of collectives around each block half. The parameter names
 and shapes are the dense model's, so the two load each other's state
-dicts. Context parallelism (``cp_axis``) is not ported.
+dicts. On a 2-D ('data', 'model') mesh the model group is the mesh's
+'model' group and the batch is split over 'data' (``data_axis``: the
+loss's masked-patch denominator is the global batch's). Context
+parallelism (``cp_axis``) is not ported.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from s2tpu_torch.ops.flash_attention import (
     fused_attention_dense,
     fused_attention_qkv,
 )
+from s2tpu_torch.parallel.mesh import SINGLE
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 
 LECUN_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to (-2, 2)
@@ -95,8 +99,8 @@ def sincos_3d(embed_dim: int, grid_size: tuple[int, int, int], cls_token: bool =
 class PrithviConfig:
     """The JAX model's config. ``tp_axis`` names the mesh axis the heads and
     MLP hidden are split over (None: the dense form). ``dp_axis`` names the
-    batch axis; the port holds the batch on one rank of the 'data' axis and
-    takes no other value (ROADMAP A16). ``cp_axis`` (context parallelism) is
+    batch axis, the mesh's 'data' axis; the port takes no other value
+    (ROADMAP A16). ``cp_axis`` (context parallelism) is
     not ported and must stay None."""
 
     img_size: int = 224
@@ -493,6 +497,8 @@ class PrithviMAE(nn.Module):
             raise ValueError("a tensor-parallel process group needs PrithviConfig(tp_axis=...)")
         self.dtype = dtype
         self.remat = False
+        # The trainer's data axis: the loss's denominator is the global batch's (the trainers set it).
+        self.data_axis = SINGLE
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         impl, eps = cfg.attention_impl, cfg.layer_norm_eps
         tp = dict(tensor_parallel=cfg.tp_axis is not None, group=tp_group)
@@ -592,4 +598,5 @@ class PrithviMAE(nn.Module):
         latent, mask, ids_restore = self.forward_encoder(imgs, mask_ratio, noise)
         pred = self.forward_decoder(latent, ids_restore)
         target = patchify(imgs, cfg.patch_size, cfg.tubelet_size)
-        return mae_reconstruction_loss(pred, target, mask, norm_pix=cfg.norm_pix_loss), pred, mask
+        loss = mae_reconstruction_loss(pred, target, mask, norm_pix=cfg.norm_pix_loss, data_axis=self.data_axis)
+        return loss, pred, mask

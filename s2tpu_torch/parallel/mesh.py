@@ -62,6 +62,25 @@ def make_mesh(num_devices: int = -1, model_parallel: int = 1, device_type: str =
     return init_device_mesh(device_type, (n // model_parallel, model_parallel), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
+def mesh_for_num_devices(num_devices: int, device_type: str, cli: str) -> DeviceMesh | None:
+    """The mesh of a trainer's ``train.num_devices`` without one given (the
+    JAX trainers build ``make_mesh(num_devices)``): None for one device (1,
+    or -1 outside a process group of several ranks); else a data axis over
+    the initialized process group, which must hold ``num_devices`` ranks
+    (``cli``, the module that starts them, is named in the error)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if num_devices == 1 or (num_devices == -1 and world == 1):
+        return None
+    if num_devices != -1 and num_devices != world:
+        raise RuntimeError(
+            f"num_devices={num_devices} needs a process group of {num_devices} ranks, one process and one card "
+            f"each, and this process has {world}: run `python -m {cli} ... --num-devices {num_devices}`, which "
+            f"starts them, or launch the ranks with `torchrun --nproc-per-node {num_devices} -m {cli} ... "
+            f"--num-devices {num_devices}`, or pass mesh= from parallel.mesh.make_mesh after init_process_group"
+        )
+    return make_mesh(world, 1, device_type)
+
+
 def axis_size(mesh, name: str) -> int:
     """Ranks on the axis ``name`` of ``mesh``."""
     return mesh.shape[mesh.mesh_dim_names.index(name)]
@@ -109,11 +128,28 @@ class DataAxis:
     """This rank's place on the data axis: the axis's process ``group``, the
     rank's ``index`` on it and its ``size``. Each rank holds rows
     ``[index * n, (index + 1) * n)`` of every global batch of ``size * n``
-    rows (:meth:`local`), as ``data_sharding`` lays a batch out."""
+    rows (:meth:`local`), as ``data_sharding`` lays a batch out.
+
+    Every collective here runs on the current stream's order with no host
+    sync, so that a CUDA graph of a whole step captures it over NCCL
+    (:attr:`capturable`): the BatchNorm sums (:meth:`sum`, forward and
+    backward), the loss denominators (:meth:`total`) and the gradient
+    buckets (:meth:`all_reduce_flat_`), whose flat buffers are persistent,
+    one set per list of shapes, so that a replay finds them at the
+    addresses its capture saw."""
 
     group: typing.Any = None
     index: int = 0
     size: int = 1
+    # (shapes, dtype, device) of an all_reduce_flat_ list -> its flat buffers
+    _buckets: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this axis's collectives: one rank,
+        or an NCCL group (gloo's collectives on card tensors pass through
+        the host)."""
+        return self.size == 1 or dist.get_backend(self.group) == "nccl"
 
     def local(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's slice of the global ``x`` along ``dim``."""
@@ -144,18 +180,32 @@ class DataAxis:
         goes alone): a few collectives where one a tensor would be hundreds."""
         if self.size == 1:
             return
-        bucket: list[torch.Tensor] = []
-        nbytes = 0
-        for t in (*tensors, None):
-            if bucket and (t is None or nbytes + t.numel() * t.element_size() > bucket_bytes):
-                flat = torch.cat([b.reshape(-1) for b in bucket])
-                dist.all_reduce(flat, group=self.group)
-                for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
-                    b.copy_(part.view_as(b))
-                bucket, nbytes = [], 0
-            if t is not None:
-                bucket.append(t)
-                nbytes += t.numel() * t.element_size()
+        for bucket, flat in self._flat_buffers(tensors, bucket_bytes):
+            torch.cat([b.reshape(-1) for b in bucket], out=flat)
+            dist.all_reduce(flat, group=self.group)
+            for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                b.copy_(part.view_as(b))
+
+    def _flat_buffers(self, tensors: list[torch.Tensor], bucket_bytes: int) -> list[tuple[list, torch.Tensor]]:
+        """``tensors`` in consecutive buckets, each with its persistent flat
+        buffer (made at the first call with these shapes)."""
+        key = (tuple(tuple(t.shape) for t in tensors), tensors[0].dtype, tensors[0].device, bucket_bytes)
+        if key not in self._buckets:
+            groups: list[list[int]] = []
+            nbytes = 0
+            for i, t in enumerate(tensors):
+                size = t.numel() * t.element_size()
+                if not groups or nbytes + size > bucket_bytes:
+                    groups.append([])
+                    nbytes = 0
+                groups[-1].append(i)
+                nbytes += size
+            self._buckets[key] = [
+                (g[0], g[-1] + 1, torch.empty(sum(tensors[i].numel() for i in g), dtype=tensors[0].dtype,
+                                              device=tensors[0].device))
+                for g in groups
+            ]
+        return [(tensors[start:stop], flat) for start, stop, flat in self._buckets[key]]
 
 
 SINGLE = DataAxis()

@@ -27,12 +27,17 @@ bit. On the CPU the same windows run eager steps, as the caller asked for
 the CPU.
 
 On a data axis of several ranks (``data_axis``, one process each), each
-rank trains its rows of the same global draws, steps are dispatched one at a
-time (said once in the log, as ``s2tpu`` does for several processes,
-``s2tpu/train/trainer.py:814-825``), the preemption flag is reduced over the
-whole mesh at every step boundary, and checkpoints are written by rank 0
-while the others wait (``checkpoint.io.on_rank0``); every rank reads them on
-resume.
+rank trains its rows of the same global draws (its slice of each window's
+draws is the graph's input), the preemption flag is reduced over the whole
+mesh at every step boundary (a window's, on the corpus), and checkpoints are written by rank 0 while
+the others wait (``checkpoint.io.on_rank0``); every rank reads them on
+resume. Over NCCL each rank captures the same step graph, with the step's
+collectives (BatchNorm sums, loss denominators, the gradient buckets) in it
+in the same order, so a replay is a real step on every rank; ``s2tpu`` runs
+its fused windows on a one-process data mesh and turns them off only across
+processes (``s2tpu/train/trainer.py:814-825``), and in the port every rank
+is a process. Over gloo (ranks sharing one card, or the CPU) the windows run
+eager steps.
 """
 
 from __future__ import annotations
@@ -158,7 +163,7 @@ class TrainerBase:
         self.generators = [torch.Generator(device=self.device) for _ in range(max(t.grad_accum_steps, 1))]
         self._graph: StepGraph | None = None  # the captured corpus step; None until the first graphed window
         self._sums: dict[str, torch.Tensor] | None = None  # the corpus epoch's device sums
-        self._window_logged = False  # the one log line when watching turns fusion off
+        self._window_logged = False  # the one log line when watching or gloo turns graphs off
         self._no_pyplot_warned = False  # the one warning when matplotlib is missing
 
     def _trainable(self) -> list[tuple[str, torch.nn.Parameter]]:
@@ -349,18 +354,31 @@ class TrainerBase:
     def _window_size(self) -> int:
         """Steps a corpus window trains: ``steps_per_dispatch``, but 1 (said
         once in the log) when the norms are watched, which are read each
-        step, or on a data axis of several ranks, whose steps are dispatched
-        one at a time (``s2tpu/train/trainer.py:814-825``)."""
+        step."""
         t = self.config.train
         k = max(t.steps_per_dispatch, 1)
-        watched = self.run_logger is not None and t.watch_interval > 0
-        if k > 1 and (watched or self.data_axis.size > 1):
+        if k > 1 and self.run_logger is not None and t.watch_interval > 0:
             if not self._window_logged:
-                logger.info("steps_per_dispatch > 1 disabled (watch logging or a data axis of several ranks "
-                            "requires per-step dispatch)")
+                logger.info("steps_per_dispatch > 1 disabled (watch logging requires per-step dispatch)")
                 self._window_logged = True
             return 1
         return k
+
+    def _graphed(self) -> bool:
+        """Whether the corpus steps replay the captured step graph: on the
+        card, with windows above one step, on one rank or on a data axis
+        whose collectives a graph can hold (NCCL). A gloo data axis on the
+        card (ranks sharing a card) trains its windows eagerly, said once in
+        the log."""
+        if self.device.type != "cuda" or self._window_size() == 1:
+            return False
+        if self.data_axis.capturable:
+            return True
+        if not self._window_logged:
+            logger.info("corpus windows run eager steps: a gloo data axis's collectives pass through the host, "
+                        "which a CUDA graph cannot capture (NCCL ranks replay the step graph)")
+            self._window_logged = True
+        return False
 
     def _corpus_sum_shapes(self) -> dict[str, tuple[int, ...]]:
         """The per-step outputs the corpus epoch sums, and their shapes."""
@@ -379,17 +397,17 @@ class TrainerBase:
     def train_window(self, draws: np.ndarray) -> dict[str, typing.Any] | None:
         """Train one window of corpus steps: ``draws`` is (K, 3, B) int32, each
         step's segment indices and row and column offsets, uploaded in one
-        copy. On the card, when the configured window is above one step,
-        every step replays the captured step graph (the first one captures
-        it); otherwise the steps run eagerly. Returns the last eager step's
-        outputs (None for graphed steps, whose outputs live in the graph)."""
+        copy. Where :meth:`_graphed`, every step replays the captured step
+        graph (the first one captures it); otherwise the steps run eagerly.
+        Returns the last eager step's outputs (None for graphed steps, whose
+        outputs live in the graph)."""
         if self._sums is None:
             self._sums = {k: torch.zeros(shape, dtype=torch.float32, device=self.device)
                           for k, shape in self._corpus_sum_shapes().items()}
         rows = torch.from_numpy(np.ascontiguousarray(draws, dtype=np.int32))
         if self.device.type == "cuda":  # from pinned memory: the copy does not wait for the stream
             rows = rows.pin_memory().to(self.device, non_blocking=True)
-        graphed = self.device.type == "cuda" and self._window_size() > 1
+        graphed = self._graphed()
         m = None
         for row in rows:
             self._begin_step()

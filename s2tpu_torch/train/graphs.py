@@ -16,6 +16,14 @@ dropping their ``StepGraph``. The step's random draws come from generators
 registered with the graph: each replay takes the seed and offset the host
 gave the generator just before it (``manual_seed`` from (seed, step,
 micro-batch)), so a replayed step draws what the same eager step draws.
+
+On a data axis over NCCL the graph also holds the step's collectives
+(``parallel.mesh.DataAxis``: BatchNorm sums, loss denominators, the
+gradient buckets). The eager warm-up step creates the communicators and the
+persistent bucket buffers before the capture, every rank captures the same
+collectives in the same order, and each replay runs them with the other
+ranks' replays, so that every replay is a real step on every rank. The step
+reads nothing back to the host, so the capture holds no sync.
 """
 
 from __future__ import annotations
@@ -33,9 +41,11 @@ class StepGraph:
     step on ``row``, so the warm-up trains nothing twice), then captures the
     step on that stream, with every generator of ``generators`` registered.
     The warm-up also creates, on the capture stream, whatever the kernels'
-    wrappers cache per stream (kernel #2's ticket counters), so that the
-    capture reuses it. Capture and replay raise on failure: there is no
-    eager fallback."""
+    wrappers cache per stream (kernel #2's ticket counters) and the data
+    axis's communicators and bucket buffers, so that the capture reuses them.
+    The capture checks only this thread's calls (``thread_local``): the
+    NCCL watchdog thread polls earlier collectives' events meanwhile.
+    Capture and replay raise on failure: there is no eager fallback."""
 
     def __init__(self, step: typing.Callable[[torch.Tensor], typing.Any], row: torch.Tensor,
                  generators: typing.Sequence[torch.Generator]) -> None:
@@ -50,7 +60,7 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
-        with torch.cuda.graph(self.graph, stream=self.stream):
+        with torch.cuda.graph(self.graph, stream=self.stream, capture_error_mode="thread_local"):
             step(self.row)
 
     def replay(self, row: torch.Tensor) -> None:

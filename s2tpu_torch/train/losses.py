@@ -217,6 +217,7 @@ def mae_reconstruction_loss(
     mask: torch.Tensor,
     norm_pix: bool = False,
     sample_weights: torch.Tensor | None = None,
+    data_axis: DataAxis = SINGLE,
 ) -> torch.Tensor:
     """MAE loss (``s2tpu/train/losses.py:185-210``): the per-patch MSE in f32,
     averaged over the masked (removed) patches only.
@@ -224,7 +225,9 @@ def mae_reconstruction_loss(
     pred/target (B, L, D) patch pixels; mask (B, L) with 1 = masked;
     ``norm_pix`` standardizes each target patch (biased variance, eps 1e-6).
     ``sample_weights`` (B,) 0/1 drops rows (padded eval entries) from the
-    numerator and the denominator alike.
+    numerator and the denominator alike. On a data axis the denominator is
+    the global batch's masked patches, so this rank's value is its share of
+    the global loss (the shares sum to it).
     """
     target, pred = target.float(), pred.float()
     if norm_pix:
@@ -235,4 +238,4 @@ def mae_reconstruction_loss(
     mask = mask.float()
     if sample_weights is not None:
         mask = mask * sample_weights.float()[:, None]
-    return (per_patch * mask).sum() / mask.sum().clamp_min(1e-12)
+    return (per_patch * mask).sum() / data_axis.total(mask.sum()).clamp_min(1e-12)

@@ -34,19 +34,26 @@ steps at a time then run as replays of one CUDA graph of the whole step
 when present and otherwise warns and keeps the random init, as the JAX
 trainer does.
 
-With a ``mesh`` (``s2tpu_torch.parallel.mesh.make_mesh``) one trainer runs
-in each process of the mesh's group, on the rank's device: a model config
-with ``tp_axis`` splits the heads and MLP hidden over the 'model' group
-(``PrithviConfig(tp_axis=MODEL_AXIS)``, as the JAX trainer takes it), the
-parameters start as rank 0's, every rank sees the same batches (the same
-shuffle seed) and draws the same masking noise (the same generator seed),
-and only rank 0 logs and writes checkpoints. The data axis holds one rank.
+With a ``mesh`` (``s2tpu_torch.parallel.mesh.make_mesh``, or the mesh
+``train.num_devices`` N > 1 asks for in a process group of N ranks) one
+trainer runs in each process of the mesh's group, on the rank's device,
+the parameters starting as rank 0's; only rank 0 logs and writes
+checkpoints. A model config with ``tp_axis`` splits the heads and MLP hidden
+over the mesh's 'model' group (``PrithviConfig(tp_axis=MODEL_AXIS)``, as
+the JAX trainer takes it). Over the 'data' axis (``s2tpu``'s
+``make_mesh(n)`` and ``make_mesh(n, model_parallel=m)``) each rank trains
+its rows of every global batch (``Datamodule.set_process``; the ranks of one
+'model' group share theirs), and the step computes what the one-process step
+computes on the global batch: the flips and the (B, L) masking noise are
+drawn for the global micro-batch on every rank and sliced
+(``DataAxis.local``), the masked-patch denominator is the global batch's
+(``DataAxis.total``), and after the last micro-batch the f32 gradient sums
+and the loss are summed over the data group in a few flat buckets. Eval sums
+its loss numerators and its padded-row denominators over the data axis. The
+per-epoch reconstruction image is skipped on a mesh of several ranks.
 
 Not ported, and refused where the config asks for them: pipeline stages,
-the sharded corpus, a data axis above one rank (a mesh's, or
-``num_devices`` other than 1 and -1 without a mesh) and context
-parallelism (``cp_axis``). The per-epoch reconstruction image is not
-ported and has no config switch.
+the sharded corpus and context parallelism (``cp_axis``).
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ from s2tpu_torch.data.augment import normalize, random_flips
 from s2tpu_torch.data.device_corpus import DeviceCorpus
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.prithvi_mae import PrithviConfig, PrithviMAE, patchify, unpatchify
-from s2tpu_torch.parallel.mesh import DATA_AXIS, mesh_device, replicate_module
+from s2tpu_torch.parallel.mesh import data_axis, mesh_device, mesh_for_num_devices, replicate_module
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 from s2tpu_torch.train.train_state import accumulate_grads, make_optimizer
 from s2tpu_torch.train.base import TrainerBase
@@ -76,18 +83,12 @@ from s2tpu_torch.utils import get_logger, load_prithvi_mean_std, load_prithvi_mo
 logger = get_logger(__name__)
 
 
-def _refuse_unported(config: MAEConfig, mesh=None, model_config: PrithviConfig | None = None) -> None:
+def _refuse_unported(config: MAEConfig, model_config: PrithviConfig | None = None) -> None:
     t, m = config.train, config.model
     unported = {
-        "a data axis above 1 (DDP/FSDP2, ROADMAP A16)": (
-            mesh is not None and mesh.shape[mesh.mesh_dim_names.index(DATA_AXIS)] > 1
-        ),
         "cp_axis (context parallelism)": model_config is not None and model_config.cp_axis is not None,
         "pipeline_stages > 1": m.pipeline_stages > 1,
-        "device_corpus_sharded (a data axis, ROADMAP item 16)": t.device_corpus_sharded,
-        # without a mesh the JAX trainer builds one of num_devices
-        f"num_devices={t.num_devices} without a mesh (a data axis, ROADMAP item 16; 1 or -1 train on one "
-        "device)": mesh is None and t.num_devices not in (1, -1),
+        "device_corpus_sharded (the sharded corpus, ROADMAP item 16)": t.device_corpus_sharded,
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -112,8 +113,8 @@ def default_model_config(config: MAEConfig) -> PrithviConfig:
 class MAETrainer(TrainerBase):
     """Trains a Prithvi MAE on ``datamodule``'s unlabeled crops on one device
     (``resolve_device``: the card unless ``device="cpu"``), or on this
-    rank's device of ``mesh`` (``mesh_device``: the card ``make_mesh``
-    bound the process to)."""
+    rank's device of ``mesh`` (or of the mesh ``train.num_devices`` asks
+    for; ``mesh_device``: the card ``make_mesh`` bound the process to)."""
 
     def __init__(
         self,
@@ -125,15 +126,27 @@ class MAETrainer(TrainerBase):
         checkpoint_manager=None,
         device: torch.device | str | None = None,
     ) -> None:
-        _refuse_unported(config, mesh, model_config)
+        _refuse_unported(config, model_config)
+        t = config.train
+        self.mesh = mesh if mesh is not None else mesh_for_num_devices(
+            t.num_devices, resolve_device(device).type, "s2tpu_torch.cli.train_mae")
+        self.data_axis = data_axis(self.mesh)
+        n_data = self.data_axis.size
+        if t.num_devices not in (-1, n_data):
+            raise ValueError(f"train.num_devices={t.num_devices}, but the mesh's data axis holds {n_data} ranks")
+        if config.datamodule.batch_size % (n_data * max(t.grad_accum_steps, 1)):
+            raise ValueError(
+                f"batch_size {config.datamodule.batch_size} must split over the data axis's {n_data} ranks "
+                f"x {max(t.grad_accum_steps, 1)} micro-batches"
+            )
         self.config = config
         self.dm = datamodule
-        self.mesh = mesh
-        self.is_main = mesh is None or dist.get_rank() == 0
-        self.device = resolve_device(device) if device is not None or mesh is None else mesh_device(mesh)
+        self.is_main = self.mesh is None or dist.get_rank() == 0
+        self.device = resolve_device(device) if self.mesh is None else mesh_device(self.mesh)
         self.run_logger = run_logger if self.is_main else None
         self.ckpt = checkpoint_manager
-        t = config.train
+        if n_data > 1:
+            datamodule.set_process(n_data, self.data_axis.index, max(t.grad_accum_steps, 1))
         self.mask_ratio = config.model.mask_ratio
         self.compute_dtype = COMPUTE_DTYPES[t.compute_dtype]
         self.model_config = model_config if model_config is not None else default_model_config(config)
@@ -141,12 +154,13 @@ class MAETrainer(TrainerBase):
         self.model = PrithviMAE(
             self.model_config, dtype=self.compute_dtype, device=self.device,
             generator=torch.Generator().manual_seed(t.seed),
-            tp_group=mesh.get_group(tp_axis) if mesh is not None and tp_axis is not None else None,
+            tp_group=self.mesh.get_group(tp_axis) if self.mesh is not None and tp_axis is not None else None,
         )
+        self.model.data_axis = self.data_axis
         if not t.from_scratch:
             self._load_pretrained()
-        if mesh is not None:
-            replicate_module(self.model, mesh)
+        if self.mesh is not None:
+            replicate_module(self.model, self.mesh)
         if parse_bands(config.datamodule.dataset_cfg.bands) == list(BANDS):
             mean, std = load_prithvi_mean_std()  # the published Prithvi normalization
         else:
@@ -188,15 +202,19 @@ class MAETrainer(TrainerBase):
         return x[:, None] if x.dim() == 4 else x
 
     def _noise(self, batch: int, seed: int) -> torch.Tensor:
-        """(B, L) uniform masking noise from the device generator at ``seed``."""
+        """This rank's rows of the global batch's (B, L) uniform masking
+        noise, from the device generator at ``seed``."""
         self.noise_generator.manual_seed(seed)
-        return torch.rand((batch, self.model_config.num_patches), generator=self.noise_generator, device=self.device)
+        return self.data_axis.local(torch.rand((batch * self.data_axis.size, self.model_config.num_patches),
+                                               generator=self.noise_generator, device=self.device))
 
     def train_step(self, images: torch.Tensor, noise: torch.Tensor | None = None) -> dict[str, typing.Any]:
-        """One optimizer update on a device batch, in ``grad_accum_steps``
-        micro-batches; returns the device-side loss (no host sync), and the
-        watch norms on a watched step. ``noise`` (B, L) replaces the step's
-        own draws (micro-batch i takes its i-th slice of rows)."""
+        """One optimizer update on a device batch (this rank's rows), in
+        ``grad_accum_steps`` micro-batches; returns the device-side loss of
+        the global batch (no host sync), and the watch norms on a watched
+        step. ``noise`` (B, L) over the global batch replaces the step's own
+        draws (micro-batch i takes its i-th slice of rows, and of that, this
+        rank's)."""
         self._begin_step()
         out = self._step(images, noise=noise)
         self.step += 1
@@ -215,17 +233,25 @@ class MAETrainer(TrainerBase):
         self._zero_grads()
         named = self._trainable()
         grads, loss = None, 0.0
+        axis = self.data_axis
         noises = noise.chunk(accum) if noise is not None else [None] * accum
         for micro, n, g in zip(images.chunk(accum), noises, self.generators):
             if flips:
-                micro, _ = random_flips(micro, None, g)
+                micro, _ = random_flips(micro, None, g, data_axis=axis)
             x = self._input(micro)
-            if n is None:
-                n = torch.rand((x.shape[0], self.model_config.num_patches), generator=g, device=self.device)
-            loss_i, _, _ = self.model(x, mask_ratio=self.mask_ratio, noise=n)
+            if n is None:  # the global micro-batch's draws, after its flips'
+                n = torch.rand((x.shape[0] * axis.size, self.model_config.num_patches), generator=g,
+                               device=self.device)
+            loss_i, _, _ = self.model(x, mask_ratio=self.mask_ratio, noise=axis.local(n))
             loss_i.backward()
             grads = accumulate_grads([p for _, p in named], grads)
             loss = loss + loss_i.detach()
+        if axis.size > 1:
+            # Each rank's loss is its share of the global loss: the sums over
+            # the ranks are the global batch's gradient and loss.
+            loss = loss.reshape(1)
+            axis.all_reduce_flat_([*grads, loss])
+            loss = loss[0]
         return {"loss": loss / accum, **self._update(named, grads, accum, self._watch_this_step())}
 
     def _corpus_step(self, row: torch.Tensor) -> dict[str, typing.Any]:
@@ -237,14 +263,22 @@ class MAETrainer(TrainerBase):
     @torch.no_grad()
     def eval_step(self, images: torch.Tensor, batch_mask: torch.Tensor) -> dict[str, torch.Tensor]:
         """Loss of a padded eval batch, padded rows excluded from both sums,
-        on the weights in the model (``eval_weights`` puts the EMA there)."""
+        on the weights in the model (``eval_weights`` puts the EMA there);
+        on a data axis, of the global batch (the ranks' numerators and
+        padded-row counts summed)."""
         self.model.eval()
         x = self._input(images)
         _, pred, mask = self.model(x, mask_ratio=self.mask_ratio, noise=self._noise(x.shape[0], self.config.train.seed))
         mc = self.model_config
         target = patchify(x, mc.patch_size, mc.tubelet_size)
-        loss = mae_reconstruction_loss(pred, target, mask, norm_pix=mc.norm_pix_loss, sample_weights=batch_mask)
-        return {"loss": loss, "weight": batch_mask.float().mean(), "pred": pred, "mask": mask}
+        loss = mae_reconstruction_loss(pred, target, mask, norm_pix=mc.norm_pix_loss, sample_weights=batch_mask,
+                                       data_axis=self.data_axis)
+        weight = batch_mask.float().sum() / (batch_mask.shape[0] * self.data_axis.size)
+        if self.data_axis.size > 1:  # each rank's share of the global loss and weight
+            sums = torch.stack([loss, weight])
+            self.data_axis.all_reduce_flat_([sums])
+            loss, weight = sums[0], sums[1]
+        return {"loss": loss, "weight": weight, "pred": pred, "mask": mask}
 
     @torch.no_grad()
     def reconstruct(self, images) -> np.ndarray:
@@ -277,7 +311,7 @@ class MAETrainer(TrainerBase):
         if n == 0:  # a resumed epoch whose batches were all trained
             return {"loss": float("nan"), "images_per_sec": 0.0}
         loss = float(sum((m["loss"] for m in outs[1:]), outs[0]["loss"])) / n  # in step order
-        return {"loss": loss, "images_per_sec": images_seen / max(time.time() - t0, 1e-9)}
+        return {"loss": loss, "images_per_sec": images_seen * self.data_axis.size / max(time.time() - t0, 1e-9)}
 
     def run_eval_epoch(self, split: str = "val") -> dict:
         total, weight = 0.0, 0.0
@@ -317,7 +351,7 @@ class MAETrainer(TrainerBase):
         if plt is None:
             return
         if self.mesh is not None and dist.get_world_size() > 1:
-            logger.info("reconstruction image skipped: the model is split over several ranks")
+            logger.info("reconstruction image skipped: the mesh holds several ranks")
             return
         from s2tpu_torch.plotting import reconstruction_figure
 

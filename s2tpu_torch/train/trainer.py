@@ -101,7 +101,9 @@ from s2tpu_torch.data.augment import augment_batch, model_input, normalize
 from s2tpu_torch.data.device_corpus import DeviceCorpus, sample_crop_batch
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.efficientnet_unet import BatchNorm, EfficientNetUNet
-from s2tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, data_axis, make_mesh, mesh_device, replicate_module
+from s2tpu_torch.parallel.mesh import (
+    MODEL_AXIS, axis_size, data_axis, mesh_device, mesh_for_num_devices, replicate_module,
+)
 from s2tpu_torch.train import metrics as metrics_lib
 from s2tpu_torch.train.losses import make_loss_fn
 from s2tpu_torch.train.schedules import build_schedule
@@ -123,25 +125,6 @@ def _refuse_unported(config: Config, mesh=None) -> None:
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(f"not ported to s2tpu_torch yet: {', '.join(asked)}")
-
-
-def _data_mesh(num_devices: int, device_type: str):
-    """The mesh of ``train.num_devices`` without one given (the JAX trainer
-    builds ``make_mesh(num_devices)``): None for one device (1, or -1
-    outside a process group of several ranks); else a data axis over the
-    initialized process group, which must hold ``num_devices`` ranks."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if num_devices == 1 or (num_devices == -1 and world == 1):
-        return None
-    if num_devices != -1 and num_devices != world:
-        raise RuntimeError(
-            f"num_devices={num_devices} needs a process group of {num_devices} ranks, one process and one card "
-            f"each, and this process has {world}: run `python -m s2tpu_torch.cli.train_segmentation ... "
-            f"--num-devices {num_devices}`, which starts them, or launch the ranks with `torchrun "
-            f"--nproc-per-node {num_devices} -m s2tpu_torch.cli.train_segmentation ... --num-devices "
-            f"{num_devices}`, or pass mesh= from parallel.mesh.make_mesh after init_process_group"
-        )
-    return make_mesh(world, 1, device_type)
 
 
 def pool_batch_stats(stats: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -174,7 +157,8 @@ class SegmentationTrainer(TrainerBase):
     ) -> None:
         _refuse_unported(config, mesh)
         t = config.train
-        self.mesh = mesh if mesh is not None else _data_mesh(t.num_devices, resolve_device(device).type)
+        self.mesh = mesh if mesh is not None else mesh_for_num_devices(
+            t.num_devices, resolve_device(device).type, "s2tpu_torch.cli.train_segmentation")
         self.data_axis = data_axis(self.mesh)
         n_data = self.data_axis.size
         if t.num_devices not in (-1, n_data):

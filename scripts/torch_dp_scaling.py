@@ -1,25 +1,36 @@
-"""Data-parallel scaling of s2tpu_torch's B5 config #2 training step on 1, 2 and 4 cards.
+"""Data-parallel scaling of s2tpu_torch's training step on 1, 2 and 4 cards: B5 config #2 or the Prithvi-100M MAE config #5.
 
-    python scripts/torch_dp_scaling.py [--ranks 1 2 4] [--steps 5] [--out out/dp_scaling.json]
+    python scripts/torch_dp_scaling.py [--model b5|mae] [--graphed] [--ranks 1 2 4] [--steps 5]
+        [--out out/dp_scaling.json]
 
 For each rank count N (one process and one card a rank, NCCL) and each batch
-rule, "global" (a global batch of 32: 32 / N rows a rank) and "per_rank"
-(32 rows a rank: a global batch of 32 N), eager ``SegmentationTrainer``
-steps (bf16 compute, f32 parameters, focal + weighted loss, 224^2 crops,
-drop-connect on) on a fixed device batch made from a synthetic AOI's first
-train batch: the warm step's ms (host clock around steps that end in a
+rule, "global" (the config's global batch: B5 32, MAE 64, so 32 / N or 64 /
+N rows a rank) and "per_rank" (that many rows a rank: a global batch N
+times it), eager train steps (bf16 compute, f32 parameters; B5 with focal +
+weighted loss and drop-connect, the MAE with its masking noise; 224^2
+crops) on a fixed device batch made from a synthetic AOI's first train
+batch: the warm step's ms (host clock around steps that end in a
 synchronize, after a barrier), images/s of the global batch, peak memory,
 and one step under ``torch.profiler``: the device ms of every kernel, the
-ms of the NCCL all-reduce kernels, the ``nccl:all_reduce`` ranges'
-count, and the busy share (device ms over the unprofiled step's ms).
-Rank 0's numbers are printed, one JSON line per (N, rule), and written to
-``--out`` with the card's name and power limit.
-N = 1 runs without a process group (the one-card path). Imports no JAX.
+ms of the NCCL all-reduce kernels, the ``nccl:all_reduce`` ranges' count,
+and the busy share (device ms over the unprofiled step's ms). With
+``--graphed``, each rank then also times the same trainer fed from the
+device corpus in windows of WINDOW steps, each step a replay of its CUDA
+graph (captured at the first window, over NCCL on N > 1): ms a step over
+timed windows, one window under ``torch.profiler`` (its numbers divided by
+WINDOW: a replay issues no ``nccl:all_reduce`` range on the host), and the
+reserved bytes the capturing window added after the eager steps warmed the
+allocator (the graph's pool). Rank 0's numbers are printed, one JSON line
+per (N, rule, mode), and written to ``--out`` with the card's name and power
+limit. The graphed trainer is captured before any profiler session, and a
+run whose ranks are not done within RUN_TIMEOUT_S is killed and raises. N = 1 runs without a process group (the one-card path). Imports no
+JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -33,7 +44,10 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-SEED, PER_RANK, GLOBAL, SEGMENTS, SIZE = 0, 32, 32, 40, 256
+SEED, SEGMENTS, SIZE = 0, 80, 256  # 64 train segments: one MAE batch of 64
+BATCH = {"b5": 32, "mae": 64}  # the configs' global batches (BASELINE.json #2 and #5)
+WINDOW = 4  # steps a graphed window
+RUN_TIMEOUT_S = 600  # one (N, rule) run's ranks, killed past it
 
 
 def card() -> str:
@@ -41,10 +55,42 @@ def card() -> str:
                           capture_output=True, text=True, check=False).stdout.strip().splitlines()[0]
 
 
-def argv(data_dir: Path, batch: int, ranks: int) -> list[str]:
-    return ["small", "osm-multiclass", "efficientnet-unet-b5", "--loss-type", "focal", "--weighted-loss", "--bs",
-            str(batch), "--crop", "224", "--compute-dtype", "bfloat16", "--data-dir", str(data_dir), "--seed",
-            str(SEED), "--num-devices", str(ranks)]
+def argv(model: str, data_dir: Path, batch: int, ranks: int) -> list[str]:
+    common = ["--bs", str(batch), "--compute-dtype", "bfloat16", "--data-dir", str(data_dir), "--seed", str(SEED),
+              "--num-devices", str(ranks)]
+    if model == "mae":
+        return ["small", "--type", "pretrain", "--from-scratch", "--crop", "224", "--watch-interval", "0", *common]
+    return ["small", "osm-multiclass", "efficientnet-unet-b5", "--loss-type", "focal", "--weighted-loss", "--crop",
+            "224", "--watch-interval", "0", *common]
+
+
+def build_trainer(model: str, data_dir: Path, batch: int, ranks: int, mesh, **train):
+    """The config's trainer on ``data_dir`` at a global ``batch``, one rank
+    of ``mesh`` (or the card), with the config fields ``train``."""
+    from s2tpu_torch.data import statistics
+    from s2tpu_torch.data.dataset import TiffSource
+    from s2tpu_torch.data.pipeline import Datamodule
+
+    if model == "mae":
+        from s2tpu_torch.cli.train_mae import build_datamodule, build_parser, config_from_args
+        from s2tpu_torch.train.mae_trainer import MAETrainer
+
+        cfg = config_from_args(build_parser().parse_args(argv(model, data_dir, batch, ranks)))
+        for k, v in train.items():
+            setattr(cfg.train, k, v)
+        return MAETrainer(cfg, build_datamodule(cfg), device="cuda", mesh=mesh)
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    cfg = config_from_args(build_parser().parse_args(argv(model, data_dir, batch, ranks)))
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    source = TiffSource("small", "osm-multiclass", data_dir)
+    cfg.train.class_distribution = statistics.get_class_probabilities(
+        source, num_classes=cfg.num_classes, ignore_zero_label=True).tolist()
+    dm = Datamodule(cfg.datamodule, source=source)
+    dm.set_mean_std(*statistics.load_mean_std(source.data_dirs.base_path / "mean_std.json"))
+    return SegmentationTrainer(cfg, dm, device="cuda", mesh=mesh)
 
 
 def profile_step(step) -> dict:
@@ -69,63 +115,92 @@ def profile_step(step) -> dict:
     }
 
 
-def _rank(rank: int, ranks: int, rule: str, data_dir: str, store: str, steps: int, out: str) -> None:
+def _rank(rank: int, model: str, ranks: int, rule: str, graphed: bool, data_dir: str, store: str, steps: int,
+          out: str) -> None:
     import numpy as np
     import torch.distributed as dist
 
-    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
-    from s2tpu_torch.data import statistics
-    from s2tpu_torch.data.dataset import TiffSource
-    from s2tpu_torch.data.pipeline import Datamodule
     from s2tpu_torch.parallel.mesh import make_mesh
     from s2tpu_torch.parallel.multihost import put_batch
-    from s2tpu_torch.train.trainer import SegmentationTrainer
 
     mesh = None
     if ranks > 1:
         dist.init_process_group("nccl", init_method=f"file://{store}", world_size=ranks, rank=rank)
         mesh = make_mesh(ranks, 1, "cuda")
     try:
-        batch = GLOBAL if rule == "global" else PER_RANK * ranks
-        cfg = config_from_args(build_parser().parse_args(argv(Path(data_dir), batch, ranks)))
-        source = TiffSource("small", "osm-multiclass", data_dir)
-        cfg.train.class_distribution = statistics.get_class_probabilities(
-            source, num_classes=cfg.num_classes, ignore_zero_label=True).tolist()
-        dm = Datamodule(cfg.datamodule, source=source)
-        dm.set_mean_std(*statistics.load_mean_std(source.data_dirs.base_path / "mean_std.json"))
-        trainer = SegmentationTrainer(cfg, dm, device="cuda", mesh=mesh)
-        # The AOI's first 32-image batch, tiled to the global batch; this rank's rows of it.
-        cfg32 = config_from_args(build_parser().parse_args(argv(Path(data_dir), GLOBAL, 1)))
-        host = next(Datamodule(cfg32.datamodule, source=source).train_batches(0))
+        batch = BATCH[model] * (ranks if rule == "per_rank" else 1)
+        trainer = build_trainer(model, Path(data_dir), batch, ranks, mesh)
+        # The AOI's first batch at the config's batch, tiled to the global batch; this rank's rows of it.
+        host = _first_batch(trainer, BATCH[model])
         reps = -(-batch // len(host.images))
-        images, labels = (np.concatenate([a] * reps)[:batch] for a in (host.images, host.labels))
         rows = trainer.dm.local_rows()
-        x, y = put_batch(images, trainer.device, rows), put_batch(labels, trainer.device, rows)
+        batch_arrays = [np.concatenate([a] * reps)[:batch] for a in (host.images, host.labels)]
+        xy = [put_batch(a, trainer.device, rows) for a in batch_arrays[: 1 if model == "mae" else 2]]
+        rows_per_rank = len(xy[0])
 
         def sync() -> None:
             torch.cuda.synchronize()
             if ranks > 1:
                 dist.barrier()
 
+        def timed(run, n: int) -> float:
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                run()
+            sync()
+            return (time.perf_counter() - t0) / n
+
+        def record(mode: str, step_s: float, peak: int, prof: dict, **extra) -> dict:
+            return {"model": model, "mode": mode, "ranks": ranks, "rule": rule, "global_batch": batch,
+                    "rows_per_rank": rows_per_rank, "ms_per_step": step_s * 1e3, "images_per_s": batch / step_s,
+                    "peak_mem_bytes": peak, **prof, "busy_share": prof["device_ms"] / (step_s * 1e3),
+                    "steps_timed": steps, **extra}
+
         for _ in range(2):
-            trainer.train_step(x, y)
-        sync()
+            trainer.train_step(*xy)
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(x, y)
-        sync()
-        step_s = (time.perf_counter() - t0) / steps
-        peak = torch.cuda.max_memory_allocated()
-        prof = profile_step(lambda: trainer.train_step(x, y))
+        step_s = timed(lambda: trainer.train_step(*xy), steps)
+        eager_peak = torch.cuda.max_memory_allocated()
+        graphed_rec = None
+        if graphed:  # captured before any profiler session, as chip_smoke's phase E captures
+            corpus = build_trainer(model, Path(data_dir), batch, ranks, mesh, device_corpus=True,
+                                   steps_per_dispatch=WINDOW)
+            rng = np.random.default_rng(SEED)
+            hw, crop = corpus.corpus.hw, corpus.config.datamodule.random_crop_size
+            draws = np.stack([rng.choice(corpus.dm.train_idx, size=(WINDOW, batch)),
+                              rng.integers(0, hw[0] - crop + 1, size=(WINDOW, batch)),
+                              rng.integers(0, hw[1] - crop + 1, size=(WINDOW, batch))], axis=1).astype(np.int32)
+            draws = draws if rows is None else draws[:, :, rows]
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+            corpus.train_window(draws)  # captures the step graph
+            torch.cuda.synchronize()
+            pool = torch.cuda.memory_reserved() - reserved
+            corpus.train_window(draws)
+            torch.cuda.reset_peak_memory_stats()
+            windows = max(steps // WINDOW, 2)
+            window_s = timed(lambda: corpus.train_window(draws), windows)
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile_step(lambda: corpus.train_window(draws))
+            graphed_rec = record("graphed", window_s / WINDOW, peak, {k: v / WINDOW for k, v in prof.items()},
+                                 window=WINDOW, graph_pool_reserved_bytes=pool, steps_timed=windows * WINDOW)
+        recs = [record("eager", step_s, eager_peak, profile_step(lambda: trainer.train_step(*xy)))]
+        recs += [graphed_rec] if graphed_rec else []
         if rank == 0:
-            rec = {"ranks": ranks, "rule": rule, "global_batch": batch, "rows_per_rank": len(x),
-                   "ms_per_step": step_s * 1e3, "images_per_s": batch / step_s, "peak_mem_bytes": peak,
-                   **prof, "busy_share": prof["device_ms"] / (step_s * 1e3), "steps_timed": steps}
-            Path(out).write_text(json.dumps(rec))
+            Path(out).write_text(json.dumps(recs))
     finally:
         if ranks > 1:
             dist.destroy_process_group()
+
+
+def _first_batch(trainer, batch: int):
+    """The first train batch of epoch 0 at ``batch`` of ``trainer``'s source
+    (one process's rows: all of them)."""
+    from s2tpu_torch.data.pipeline import Datamodule
+
+    cfg = dataclasses.replace(trainer.dm.cfg, batch_size=batch)
+    return next(Datamodule(cfg, source=trainer.dm.source).train_batches(0))
 
 
 def main(args: list[str] | None = None) -> int:
@@ -135,6 +210,8 @@ def main(args: list[str] | None = None) -> int:
     from s2tpu_torch.data.dataset import TiffSource, make_synthetic_fixture
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", choices=sorted(BATCH), default="b5")
+    p.add_argument("--graphed", action="store_true", help=f"also time device-corpus windows of {WINDOW} graphed steps")
     p.add_argument("--ranks", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", type=Path, default=REPO / "out" / "dp_scaling.json")
@@ -154,10 +231,21 @@ def main(args: list[str] | None = None) -> int:
             for rule in (("global",) if ranks == 1 else ("global", "per_rank")):
                 out = Path(tmp) / f"r{ranks}_{rule}.json"
                 store = Path(tmp) / f"store_{ranks}_{rule}"
-                mp.spawn(_rank, args=(ranks, rule, str(data), str(store), a.steps, str(out)), nprocs=ranks)
-                rec = {**json.loads(out.read_text()), "card": name, "device": torch.cuda.get_device_name(0)}
-                print(json.dumps(rec), flush=True)
-                results.append(rec)
+                ctx = mp.spawn(_rank, args=(a.model, ranks, rule, a.graphed, str(data), str(store), a.steps,
+                                            str(out)), nprocs=ranks, join=False)
+                deadline = time.time() + RUN_TIMEOUT_S
+                try:
+                    while not ctx.join(timeout=5):  # a rank's failure raises here
+                        if time.time() > deadline:
+                            raise TimeoutError(f"{ranks} ranks ({rule}) did not finish within {RUN_TIMEOUT_S} s")
+                finally:
+                    for proc in ctx.processes:
+                        if proc.is_alive():
+                            proc.kill()
+                for rec in json.loads(out.read_text()):
+                    rec = {**rec, "card": name, "device": torch.cuda.get_device_name(0)}
+                    print(json.dumps(rec), flush=True)
+                    results.append(rec)
     a.out.parent.mkdir(parents=True, exist_ok=True)
     a.out.write_text(json.dumps(results, indent=1))
     return 0

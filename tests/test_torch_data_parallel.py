@@ -32,6 +32,9 @@ Tolerances:
   confusion matrix within 8 pixels (``tests/test_trainer.py:69``; measured
   2 of 9,044), its loss, the train loss and the metrics to 1e-3 (the update
   between the steps carries the gradient noise above into the weights).
+  The same epoch in windows of 2 corpus steps: the ranks' training state
+  (parameters, buffers, Adam) equals their one-step-at-a-time run's, bit
+  for bit (eager steps on the CPU), and so holds the same bounds.
 - BatchNorm recalibration from the same weights: the pooled statistics to
   1e-5 of max(|ref|, 1).
 - A SIGTERM to one rank, then ``--auto-resume``: both ranks stop after the
@@ -58,9 +61,10 @@ from s2tpu_torch.checkpoint import io
 from s2tpu_torch.checkpoint.convert import unet_state_dict_from_jax
 from s2tpu_torch.data.pipeline import Datamodule
 from s2tpu_torch.parallel import multihost
+from s2tpu_torch.parallel.mesh import DataAxis
 from tests.test_torch_multi_card import (  # noqa: F401 - dp_data_dir is a fixture
     DP_BATCH, DP_DIST, DP_EPOCH_LR, DP_STEPS, _dp_worker, assert_dp_step_close, assert_preempted_and_resumed,
-    dp_config, dp_data_dir, dp_epoch, dp_global_batch, dp_ranks, dp_recal, dp_step, dp_trainer,
+    dp_config, dp_data_dir, dp_epoch, dp_global_batch, dp_ranks, dp_recal, dp_step, dp_trainer, join_ranks,
 )
 
 EPOCH_RTOL, CM_PIXELS = 1e-3, 8
@@ -68,7 +72,7 @@ SPAWN_TIMEOUT_S = 600  # a guard: the ranks take ~60 s alone, longer beside the 
 WORLDS = (2, 3)
 # Accumulation and remat at 2 ranks; every loss type at 2 and 3.
 SCENARIOS = {
-    2: (*DP_STEPS, "jax", "corpus", "recal", "preempt", "refusals", "num_devices"),
+    2: (*DP_STEPS, "jax", "corpus", "corpus_windows", "recal", "preempt", "refusals", "num_devices"),
     3: ("focal", "ce", "dice_focal", "num_devices"),
 }
 STEP_CASES = [(world, name) for world, names in SCENARIOS.items() for name in names if name in DP_STEPS]
@@ -135,22 +139,8 @@ def runs(tmp_path_factory, dp_data_dir):
         refs["jax"] = jlosses
     finally:
         for world, ctx in contexts.items():
-            _join(ctx, world)
+            join_ranks(ctx, world, SPAWN_TIMEOUT_S, tmp[world])
     return {"refs": refs, "ranks": {world: dp_ranks(tmp[world], world) for world in WORLDS}, "tmp": tmp}
-
-
-def _join(ctx, world: int) -> None:
-    import time
-
-    t0 = time.time()
-    try:
-        while not ctx.join(timeout=1):
-            if time.time() - t0 > SPAWN_TIMEOUT_S:
-                raise TimeoutError(f"the {world} ranks did not finish within {SPAWN_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +202,7 @@ def test_cli_ranks_are_the_visible_cards_or_the_launchers_world(num_devices, car
     """``--num-devices`` on the card: -1 takes every visible card (or a
     launcher's world size, which an explicit count must equal), and more
     than the visible cards is an error, never fewer ranks or the CPU."""
-    from s2tpu_torch.cli.train_segmentation import _num_ranks
+    from s2tpu_torch.parallel.multihost import num_ranks as _num_ranks
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     for key in ("WORLD_SIZE", "RANK"):
@@ -228,7 +218,7 @@ def test_cli_ranks_are_the_visible_cards_or_the_launchers_world(num_devices, car
 
 def test_cli_ranks_on_the_cpu(monkeypatch):
     """With ``--device cpu`` the ranks are gloo processes: -1 is one."""
-    from s2tpu_torch.cli.train_segmentation import _num_ranks
+    from s2tpu_torch.parallel.multihost import num_ranks as _num_ranks
 
     for key in ("WORLD_SIZE", "RANK"):
         monkeypatch.delenv(key, raising=False)
@@ -275,6 +265,19 @@ def test_device_corpus_epoch_and_eval_match_one_process(runs):
         np.testing.assert_allclose(ours["val"]["loss"], ref["val"]["loss"], rtol=EPOCH_RTOL)
         for k in ("iou", "accuracy", "f1"):
             assert abs(ours["val"][k] - ref["val"][k]) <= EPOCH_RTOL, k
+
+
+def test_device_corpus_windows_on_a_data_axis_equal_single_steps(runs):
+    """Windows of DP_WINDOW corpus steps on 2 ranks (eager on the CPU,
+    gloo) train the state the same ranks train one step at a time, bit for
+    bit, and so hold the one-process epoch to the same bounds."""
+    ref = runs["refs"]["corpus"]
+    for rank in runs["ranks"][2]:
+        ours, single = rank["corpus_windows"], rank["corpus"]
+        assert ours["digest"] == single["digest"] and ours["train_loss"] == single["train_loss"]
+        assert np.abs(ours["val_cm"] - ref["val_cm"]).sum() <= CM_PIXELS
+        np.testing.assert_allclose(ours["train_loss"], ref["train_loss"], rtol=EPOCH_RTOL)
+        np.testing.assert_allclose(ours["val"]["loss"], ref["val"]["loss"], rtol=EPOCH_RTOL)
 
 
 def test_bn_recalibration_pools_the_global_batches(runs):
@@ -325,3 +328,43 @@ def test_cli_trains_on_two_cpu_ranks_and_serves(dp_data_dir, tmp_path, monkeypat
     out = infer_main([str(run_dir), "--tiled", "--device", "cpu", "--out", str(tmp_path / "preds"),
                       "--data-dir", str(dp_data_dir)])
     assert len(list(out.glob("pred_*.tif"))) == len(Datamodule(dp_config(dp_data_dir).datamodule).val_idx)
+
+
+# ---------------------------------------------------------------------------
+# graphed windows on a data axis: the rule and the persistent buckets
+# ---------------------------------------------------------------------------
+def test_gradient_buckets_are_persistent_flat_buffers_of_at_most_the_bucket_size():
+    """``all_reduce_flat_``'s buckets: consecutive tensors up to the bucket
+    size (a larger tensor alone), one flat buffer each, the same buffers at
+    every call with the same shapes (the addresses a step graph captured)."""
+    axis = DataAxis(None, 0, 2)
+    tensors = [torch.zeros(n) for n in (10, 5, 40, 3, 3, 100, 1)]
+    buckets = axis._flat_buffers(tensors, bucket_bytes=4 * 20)
+    assert [[t.numel() for t in b] for b, _ in buckets] == [[10, 5], [40], [3, 3], [100], [1]]
+    assert all(flat.numel() == sum(t.numel() for t in b) for b, flat in buckets)
+    again = axis._flat_buffers([torch.ones(n) for n in (10, 5, 40, 3, 3, 100, 1)], bucket_bytes=4 * 20)
+    assert all(a is b for (_, a), (_, b) in zip(buckets, again))
+    assert axis._flat_buffers(tensors[:2], bucket_bytes=4 * 20)[0][1] is not buckets[0][1]  # other shapes
+
+
+@pytest.mark.parametrize("backend,watched,graphed", [("nccl", False, True), ("gloo", False, False),
+                                                     ("nccl", True, False)])
+def test_corpus_windows_are_graphed_on_the_card_over_nccl_only(backend, watched, graphed, dp_data_dir, monkeypatch,
+                                                                caplog):
+    """The rule of ``TrainerBase._graphed`` on a card (the device set by
+    hand here): windows above one step replay the step graph on a data axis
+    of NCCL ranks; a gloo axis runs eager windows and says so once; watched
+    norms make windows of one step."""
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    trainer = dp_trainer(dp_data_dir, None, device="cpu", device_corpus=True, steps_per_dispatch=4)
+    monkeypatch.setattr(trainer, "device", torch.device("cuda"))
+    monkeypatch.setattr(trainer, "data_axis", DataAxis(object(), 0, 2))
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group: backend)
+    if watched:
+        monkeypatch.setattr(trainer, "run_logger", object())
+        trainer.config.train.watch_interval = 1
+    with caplog.at_level("INFO"):
+        assert [SegmentationTrainer._graphed(trainer) for _ in range(2)] == [graphed] * 2
+    said = [r.message for r in caplog.records if "eager steps" in r.message or "disabled" in r.message]
+    assert len(said) == (0 if graphed else 1)

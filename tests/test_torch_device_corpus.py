@@ -342,7 +342,7 @@ def test_mae_corpus_windows_with_device_flips_equal_single_steps(monkeypatch):
     flips = []
     random_flips = augment.random_flips
     monkeypatch.setattr("s2tpu_torch.train.mae_trainer.random_flips",
-                        lambda x, y, g: flips.append(x.shape) or random_flips(x, y, g))
+                        lambda x, y, g, **kw: flips.append(x.shape) or random_flips(x, y, g, **kw))
     a, b = single.run_train_epoch(0), windowed.run_train_epoch(0)
     assert len(flips) == 6 and np.isfinite(a["loss"]) and a["loss"] == b["loss"] and windowed.step == 3
     _equal(_state(single), _state(windowed))

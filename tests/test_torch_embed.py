@@ -166,9 +166,8 @@ def test_export_cli_matches_jax_embeddings(mae_run, tmp_path, monkeypatch, case)
     assert _rel(z["embeddings"], want) <= EMBED_RTOL
 
 
-def test_export_cli_refuses_int8(mae_run, tmp_path, monkeypatch):
-    """``--int8`` (refused before the port had ``infer/quantize.py``) now
-    exports int8 embeddings: calibrated on the first ``--calib-batches``
+def test_export_cli_int8_embeddings_match_the_jax_int8_embeddings(mae_run, tmp_path, monkeypatch):
+    """``--int8`` exports int8 embeddings: calibrated on the first ``--calib-batches``
     batches, against JAX's ``calibrate_encoder_int8`` and int8
     ``make_embed_fn`` on the same batches. Each side calibrates on its own
     f32 forward, which differs from the other's by rounding; no activation

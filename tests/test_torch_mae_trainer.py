@@ -188,8 +188,7 @@ def test_cli_num_frames_reaches_the_source_and_the_model(tmp_path, monkeypatch):
 
 
 def test_cli_config_matches_the_jax_cli(tmp_path):
-    """The flags both CLIs take build the same config tree, but for what the
-    port records of itself: one device."""
+    """The flags both CLIs take build the same config tree."""
     from s2tpu.cli.train_mae import build_parser as jax_parser
     from s2tpu.cli.train_mae import config_from_args as jax_config_from_args
     from s2tpu_torch.cli.train_mae import build_parser, config_from_args
@@ -201,7 +200,6 @@ def test_cli_config_matches_the_jax_cli(tmp_path):
             "--device-corpus", "--steps-per-dispatch", "3"]
     theirs = dataclasses.asdict(jax_config_from_args(jax_parser().parse_args(argv)))
     ours = dataclasses.asdict(config_from_args(build_parser().parse_args(argv)))
-    theirs["train"].update(num_devices=1)
     assert ours == theirs
     parsed = config_from_args(build_parser().parse_args(argv))
     assert mae_cfg.config_from_dict(json.loads(json.dumps(dataclasses.asdict(parsed)))) == parsed
@@ -216,11 +214,13 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
 
 
 @pytest.mark.parametrize(
-    "flags", [["--pp", "2"], ["--pp-microbatches", "2"], ["--device-corpus-sharded"], ["--num-devices", "4"]]
+    "flags", [["--pp", "2"], ["--pp-microbatches", "2"], ["--device-corpus-sharded"],
+              ["--num-devices", "4", "--device-corpus-sharded"]]
 )
 def test_cli_refuses_unported_flags(flags, capsys):
     """The flags of features the port lacks (pipeline stages, the sharded
-    corpus, more than one device) are refused with a message."""
+    corpus, also on a data axis of several ranks) are refused with a message
+    before any rank starts."""
     from s2tpu_torch.cli.train_mae import main
 
     with pytest.raises(SystemExit):
@@ -257,7 +257,8 @@ def test_cli_trains_ported_flags(flags, fields, fixture_dir, tmp_path, monkeypat
 
 
 # What the trainer still refuses: pipeline stages, the sharded corpus and,
-# without a mesh, num_devices other than 1 and -1 (a data axis).
+# outside a process group of as many ranks, num_devices other than 1 and -1
+# (a data axis: the error names the launch that starts the ranks).
 @pytest.mark.parametrize(
     "section,field,value",
     [("model", "pipeline_stages", 2), ("train", "device_corpus_sharded", True), ("train", "num_devices", 4)],
@@ -265,6 +266,10 @@ def test_cli_trains_ported_flags(flags, fields, fixture_dir, tmp_path, monkeypat
 def test_trainer_refuses_unported_config_fields(section, field, value):
     c = mae_cfg.base_config("small")
     setattr(getattr(c, section), field, value)
+    if field == "num_devices":
+        with pytest.raises(RuntimeError, match="num_devices=4 needs a process group of 4 ranks.*torchrun"):
+            MAETrainer(c, datamodule=None, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         MAETrainer(c, datamodule=None, device="cpu")
 

@@ -1,26 +1,37 @@
-"""The tensor-parallel ``MAETrainer`` step of s2tpu_torch with one rank per device.
+"""s2tpu_torch's trainers with one rank per device: the tensor-parallel and data axes.
 
 - Four gloo ranks on the CPU (``torch.multiprocessing.spawn``, a file://
   store): a (1, 4) mesh gives each rank one of the 4 heads and a quarter of
   the MLP hidden.
 - ``cuda``-marked: two and four NCCL ranks on as many cards. ``make_mesh``
   binds each rank to its own card (``local_cuda_index``), and the trainer
-  runs there.
+  runs there: the tensor-parallel MAE step, the segmentation and MAE
+  data-axis steps against one card, a SIGTERM over NCCL, and corpus
+  windows graphed over NCCL against the same ranks' eager steps (B0 and a
+  tiny MAE), bit for bit on each rank.
 
-Each run is held to the one-process CPU step on the same batch and noise
+Each step is held to the one-process step on the same batch and noise
 (f32, TF32 off on the card): loss to 1e-5 relative, each parameter gradient
-to 1e-4 in relative L2. Parameters and gradients across ranks: bit for bit.
+to 1e-4 in relative L2 (the B0 data axis to the bounds stated at
+``assert_dp_step_close``). Parameters and gradients across ranks: bit for
+bit.
 
-This file imports no JAX, and neither do the helpers it shares with
-``tests/test_torch_tensor_parallel.py``. So on a machine with cards and
-without JAX the card tests run alone:
+This file also holds the rank workers and helpers of
+``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_data_parallel.py``
+and ``tests/test_torch_mae_data_parallel.py``. It imports no JAX, so on a
+machine with cards and without JAX the card tests run alone:
 ``python -m pytest --noconftest -m cuda tests/test_torch_multi_card.py``.
 """
 
+import contextlib
 import hashlib
+import multiprocessing.connection as mp_connection
 import os
+import pickle
 import shutil
+import signal
 import time
+import traceback
 
 import numpy as np
 import pytest
@@ -44,6 +55,7 @@ GRAD_RTOL = 1e-4
 LR = 1e-3
 SPAWN_TIMEOUT_S = 120
 CARD_SPAWN_TIMEOUT_S = 600  # each rank loads the attention kernels, the first one builds them
+RANK_GRACE_S = 60  # after one rank fails, how long the others may take to end on their own
 
 
 def _rel_l2(a, b) -> float:
@@ -84,19 +96,57 @@ def _step_record(trainer: MAETrainer, loss) -> dict:
             "params": {n: p.detach().clone() for n, p in trainer.model.named_parameters()}}
 
 
-def _spawn(worker, args: tuple, world: int, timeout_s: float) -> None:
-    """Run ``worker(rank, *args)`` in ``world`` processes; kill them all if
-    they are not done within ``timeout_s``."""
-    t0 = time.time()
-    ctx = mp.spawn(worker, args=args, nprocs=world, join=False)
-    try:
-        while not ctx.join(timeout=1):
-            if time.time() - t0 > timeout_s:
-                raise TimeoutError(f"the {world} ranks did not finish within {timeout_s} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
+def join_ranks(ctx: mp.ProcessContext, world: int, timeout_s: float, tmp=None) -> None:
+    """Wait for every rank of ``ctx`` to end. When one fails, the others get
+    RANK_GRACE_S to end on their own (a rank whose peer died raises in its
+    next collective); a rank still alive then, or at ``timeout_s``, is
+    killed. Raises, naming every rank's exit code or signal and every
+    traceback a rank left (``tmp/rank<r>.err``, else the spawn's error
+    file), when any rank did not exit with 0."""
+    t0, failed_at = time.time(), None
+    procs = ctx.processes
+    while any(p.is_alive() for p in procs):
+        now = time.time()
+        if failed_at is None and any(p.exitcode not in (None, 0) for p in procs):
+            failed_at = now
+        if now - t0 > timeout_s or (failed_at is not None and now - failed_at > RANK_GRACE_S):
+            break
+        mp_connection.wait([p.sentinel for p in procs if p.is_alive()], timeout=1)
+    killed = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    if not any(killed) and all(p.exitcode == 0 for p in procs):
+        return
+    ends, tracebacks = [], []
+    for r, (p, was_killed) in enumerate(zip(procs, killed)):
+        code = p.exitcode
+        end = f"signal {signal.Signals(-code).name}" if code < 0 else f"exit code {code}"
+        ends.append(f"rank {r}: {end}" + (" (killed: still running)" if was_killed else ""))
+        text = _rank_traceback(ctx.error_files[r], None if tmp is None else f"{tmp}/rank{r}.err")
+        if text:
+            tracebacks.append(f"-- rank {r}:\n{text}")
+    why = f"did not finish within {timeout_s} s" if time.time() - t0 > timeout_s else "did not all succeed"
+    raise RuntimeError(f"the {world} ranks {why}: {'; '.join(ends)}\n" + "\n".join(tracebacks))
+
+
+def _rank_traceback(spawn_error_file: str, own: str | None) -> str:
+    """The traceback a rank wrote itself (``own``), else the one
+    ``torch.multiprocessing`` pickled for it; empty when there is none."""
+    if own is not None and os.path.exists(own):
+        with open(own) as f:
+            return f.read()
+    if os.path.exists(spawn_error_file) and os.path.getsize(spawn_error_file):
+        with open(spawn_error_file, "rb") as f:
+            return pickle.load(f)  # written by torch.multiprocessing in this test's own child
+    return ""
+
+
+def _spawn(worker, args: tuple, world: int, timeout_s: float, tmp=None) -> None:
+    """Run ``worker(rank, *args)`` in ``world`` processes and
+    :func:`join_ranks` them."""
+    join_ranks(mp.spawn(worker, args=args, nprocs=world, join=False), world, timeout_s, tmp)
 
 
 def _single_step(fixture_dir: str) -> dict:
@@ -202,6 +252,7 @@ DP_RECAL_BATCHES = 2
 # (tests/test_torch_train.py's JAX-held steps) the val predictions of two
 # runs that sum in other orders stay within the JAX package's 8 pixels.
 DP_EPOCH_LR = 1e-4
+DP_WINDOW = 2  # corpus steps a window: the epoch's 2 steps in one window
 
 
 def dp_config(data_dir, loss: str = "focal", batch: int = DP_BATCH, **train):
@@ -278,7 +329,16 @@ def dp_epoch(trainer) -> dict:
     val = trainer.run_eval_epoch("val")
     counts = np.asarray(val["confusion_matrix"]) * np.asarray(val["support"])[:, None]
     return {"train_loss": train["loss"], "val": {k: val[k] for k in ("loss", "iou", "accuracy", "f1")},
-            "val_cm": np.rint(counts)}
+            "val_cm": np.rint(counts), "digest": state_digest(trainer)}
+
+
+def state_digest(trainer) -> str:
+    """One hash of the trainer's parameters, buffers and Adam's state
+    tensors: equal digests are equal training states, bit for bit."""
+    params = [p for _, p in trainer.model.named_parameters()]
+    adam = {f"adam.{i}.{k}": v for i, p in enumerate(params) for k, v in trainer.optimizer.state.get(p, {}).items()
+            if isinstance(v, torch.Tensor)}
+    return digest({**dict(trainer.model.named_parameters()), **dict(trainer.model.named_buffers()), **adam})
 
 
 def dp_recal(trainer) -> dict:
@@ -289,20 +349,11 @@ def dp_recal(trainer) -> dict:
 
 
 def dp_preempt_runs(data_dir, tmp: str, rank: int, device: str, batch: int) -> dict:
-    """Three training CLI runs of one epoch (2 steps) under the caller's
-    process group: uninterrupted; stopped by a SIGTERM that only rank 1
-    receives, after its first step; the same command again
-    (``--auto-resume``). Returns the steps each rank trained in the
-    stopped run, its history and the two runs' final checkpoints."""
-    import signal
-    from pathlib import Path
-
-    from s2tpu_torch.checkpoint.io import CheckpointManager, on_rank0
+    """:func:`preempt_runs` of the segmentation CLI (B0, focal + weighted,
+    64^2 crops, f32, an EMA)."""
     from s2tpu_torch.cli.train_segmentation import main
-    from s2tpu_torch.configs import paths
     from s2tpu_torch.train.trainer import SegmentationTrainer
 
-    paths.CKPT_DIR, paths.LOG_DIR = Path(tmp) / "ckpts", Path(tmp) / "logs"
     # On the card, cuDNN's default algorithms may sum a weight gradient in
     # another order each call; the resumed run must repeat the
     # uninterrupted run's arithmetic (as chip_smoke's preemption checks).
@@ -310,8 +361,23 @@ def dp_preempt_runs(data_dir, tmp: str, rank: int, device: str, batch: int) -> d
     argv = ["small", "osm-multiclass", "efficientnet-unet-b0", "--loss-type", "focal", "--weighted-loss", "--bs",
             str(batch), "--crop", "64", "--compute-dtype", "float32", "--epochs", "1", "--data-dir", str(data_dir),
             "--device", device, "--ema-decay", "0.9", "--auto-resume"]
+    return preempt_runs(tmp, rank, main, argv, SegmentationTrainer, "sentinel-segmentation")
+
+
+def preempt_runs(tmp: str, rank: int, main, argv: list[str], trainer_cls, project: str) -> dict:
+    """Three runs of a training CLI's ``main(argv)`` (one epoch of 2 steps,
+    ``--auto-resume``) under the caller's process group: uninterrupted;
+    stopped by a SIGTERM that only rank 1 receives, after its first step;
+    the same command again. Returns the steps each rank trained in the
+    stopped run, its history and the two runs' final checkpoints."""
+    from pathlib import Path
+
+    from s2tpu_torch.checkpoint.io import CheckpointManager, on_rank0
+    from s2tpu_torch.configs import paths
+
+    paths.CKPT_DIR, paths.LOG_DIR = Path(tmp) / "ckpts", Path(tmp) / "logs"
     main([*argv, "--name", "ref"])
-    step, steps = SegmentationTrainer.train_step, []
+    step, steps = trainer_cls.train_step, []
 
     def sigterm_on_rank1(self, *args, **kwargs):
         out = step(self, *args, **kwargs)
@@ -320,23 +386,28 @@ def dp_preempt_runs(data_dir, tmp: str, rank: int, device: str, batch: int) -> d
             signal.raise_signal(signal.SIGTERM)
         return out
 
-    SegmentationTrainer.train_step = sigterm_on_rank1
+    trainer_cls.train_step = sigterm_on_rank1
     try:
         stopped = main([*argv, "--name", "int"])
     finally:
-        SegmentationTrainer.train_step = step
-    run = paths.CKPT_DIR / "sentinel-segmentation" / "int_sentinel-segmentation"
+        trainer_cls.train_step = step
+    run = paths.CKPT_DIR / project / f"int_{project}"
     marker = CheckpointManager(run).restore_preempt()
     resumed = main([*argv, "--name", "int"])
-    ref = CheckpointManager(paths.CKPT_DIR / "sentinel-segmentation" / "ref_sentinel-segmentation").restore(0)
+    ref = CheckpointManager(paths.CKPT_DIR / project / f"ref_{project}").restore(0)
     got = CheckpointManager(run).restore(0)
+    pending = CheckpointManager(run).has_preempt()
     # how far the resumed weights lie outside rtol 1e-6, atol 1e-7 of the uninterrupted run's (<= 0: inside)
     excess = {part: max(float(((got[part][n] - t).abs() - (1e-7 + 1e-6 * t.abs())).max()) for n, t in ref[part].items())
               for part in ("model", "ema")}
-    on_rank0(lambda: shutil.rmtree(paths.CKPT_DIR))  # the runs' checkpoints, once read
+    # The runs' checkpoints, once every rank has read them: rank 0 removes
+    # them only after this barrier (on_rank0's own barrier comes after its
+    # write, so without this one a rank still reading would lose its files).
+    dist.barrier()
+    on_rank0(lambda: shutil.rmtree(paths.CKPT_DIR))
     return {"stopped_steps": len(steps), "stopped": stopped, "marker": {k: marker[k] for k in ("epoch",
             "batches_done", "step")}, "resumed": [r["epoch"] for r in resumed],
-            "pending": CheckpointManager(run).has_preempt(), "steps": (got["step"], ref["step"]), "excess": excess}
+            "pending": pending, "steps": (got["step"], ref["step"]), "excess": excess}
 
 
 def _dp_worker(rank: int, tmp: str, data_dir: str, world: int, backend: str, device_type: str,
@@ -351,53 +422,74 @@ def _dp_worker(rank: int, tmp: str, data_dir: str, world: int, backend: str, dev
         torch.set_num_threads(1)
     dist.init_process_group(backend, init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
     try:
-        mesh = mesh_lib.make_mesh(world, 1, device_type=device_type)
-        images, labels = dp_global_batch(data_dir, batch)
-        out: dict = {"device": None}
-        for name in scenarios:
-            if name in DP_STEPS:
-                loss, fields, step_batch = DP_STEPS[name]
-                trainer = dp_trainer(data_dir, mesh, loss, step_batch or batch, **fields)
-                out["device"] = str(trainer.device)
-                out[name] = dp_step(trainer, *dp_global_batch(data_dir, step_batch or batch))
-                if rank:  # the test process compares rank 0's gradients, the others' digests
-                    del out[name]["grads"]
-            elif name == "jax":  # the JAX-held init, drop-connect keeping every sample, two steps
-                from s2tpu_torch.models import efficientnet_unet as tu
-
-                draw = tu.drop_connect_mask
-                tu.drop_connect_mask = lambda b, keep, generator, device: torch.ones(b, 1, 1, 1, dtype=torch.bool)
-                try:
-                    trainer = dp_trainer(data_dir, mesh, batch=batch, lr=1e-4)
-                    trainer.model.load_state_dict(torch.load(f"{tmp}/jax_init.pt"), strict=True)
-                    out[name] = [dp_step(trainer, images, labels)["loss"] for _ in range(2)]
-                finally:
-                    tu.drop_connect_mask = draw
-            elif name == "corpus":
-                out[name] = dp_epoch(dp_trainer(data_dir, mesh, batch=batch, device_corpus=True, lr=DP_EPOCH_LR))
-            elif name == "recal":
-                out[name] = dp_recal(dp_trainer(data_dir, mesh, batch=batch))
-            elif name == "preempt":
-                out[name] = dp_preempt_runs(data_dir, tmp, rank, device_type, batch)
-            elif name == "num_devices":  # the mesh built from train.num_devices and the process group
-                trainer = dp_trainer(data_dir, None, batch=batch, device=device_type, num_devices=world)
-                out[name] = (trainer.data_axis.size, trainer.data_axis.index)
-            elif name == "refusals":
-                try:
-                    dp_trainer(data_dir, mesh, batch=batch, num_devices=world + 1)
-                except ValueError as e:
-                    out["num_devices_refusal"] = str(e)
-                cfg = dp_config(data_dir, batch=batch)
-                cfg.model_name = cfg.model_name.__class__("fc-prithvi-backbone")
-                try:
-                    from s2tpu_torch.train.trainer import SegmentationTrainer
-
-                    SegmentationTrainer(cfg, None, mesh=mesh)
-                except NotImplementedError as e:
-                    out["prithvi_refusal"] = str(e)
-        torch.save(out, f"{tmp}/rank{rank}.pt")
+        with traceback_file(tmp, rank):
+            _dp_scenarios(rank, tmp, data_dir, world, device_type, scenarios, batch)
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def traceback_file(tmp: str, rank: int):
+    """This rank's traceback, when the block raises, in ``tmp/rank<rank>.err``
+    (which :func:`join_ranks` reports beside every other rank's)."""
+    try:
+        yield
+    except BaseException:
+        with open(f"{tmp}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _dp_scenarios(rank: int, tmp: str, data_dir: str, world: int, device_type: str, scenarios: tuple[str, ...],
+                  batch: int) -> None:
+    mesh = mesh_lib.make_mesh(world, 1, device_type=device_type)
+    images, labels = dp_global_batch(data_dir, batch)
+    out: dict = {"device": None}
+    for name in scenarios:
+        if name in DP_STEPS:
+            loss, fields, step_batch = DP_STEPS[name]
+            trainer = dp_trainer(data_dir, mesh, loss, step_batch or batch, **fields)
+            out["device"] = str(trainer.device)
+            out[name] = dp_step(trainer, *dp_global_batch(data_dir, step_batch or batch))
+            if rank:  # the test process compares rank 0's gradients, the others' digests
+                del out[name]["grads"]
+        elif name == "jax":  # the JAX-held init, drop-connect keeping every sample, two steps
+            from s2tpu_torch.models import efficientnet_unet as tu
+
+            draw = tu.drop_connect_mask
+            tu.drop_connect_mask = lambda b, keep, generator, device: torch.ones(b, 1, 1, 1, dtype=torch.bool)
+            try:
+                trainer = dp_trainer(data_dir, mesh, batch=batch, lr=1e-4)
+                trainer.model.load_state_dict(torch.load(f"{tmp}/jax_init.pt"), strict=True)
+                out[name] = [dp_step(trainer, images, labels)["loss"] for _ in range(2)]
+            finally:
+                tu.drop_connect_mask = draw
+        elif name == "corpus":
+            out[name] = dp_epoch(dp_trainer(data_dir, mesh, batch=batch, device_corpus=True, lr=DP_EPOCH_LR))
+        elif name == "corpus_windows":  # the same epoch in windows of DP_WINDOW steps
+            out[name] = dp_epoch(dp_trainer(data_dir, mesh, batch=batch, device_corpus=True, lr=DP_EPOCH_LR,
+                                            steps_per_dispatch=DP_WINDOW))
+        elif name == "recal":
+            out[name] = dp_recal(dp_trainer(data_dir, mesh, batch=batch))
+        elif name == "preempt":
+            out[name] = dp_preempt_runs(data_dir, tmp, rank, device_type, batch)
+        elif name == "num_devices":  # the mesh built from train.num_devices and the process group
+            trainer = dp_trainer(data_dir, None, batch=batch, device=device_type, num_devices=world)
+            out[name] = (trainer.data_axis.size, trainer.data_axis.index)
+        elif name == "refusals":
+            try:
+                dp_trainer(data_dir, mesh, batch=batch, num_devices=world + 1)
+            except ValueError as e:
+                out["num_devices_refusal"] = str(e)
+            cfg = dp_config(data_dir, batch=batch)
+            cfg.model_name = cfg.model_name.__class__("fc-prithvi-backbone")
+            try:
+                from s2tpu_torch.train.trainer import SegmentationTrainer
+
+                SegmentationTrainer(cfg, None, mesh=mesh)
+            except NotImplementedError as e:
+                out["prithvi_refusal"] = str(e)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
 
 
 def dp_ranks(tmp, world: int) -> list[dict]:
@@ -486,3 +578,246 @@ def test_sigterm_to_one_rank_over_nccl_stops_both_and_resumes_exactly(tmp_path, 
     _spawn(_dp_worker, (str(tmp_path), str(dp_data_dir), 2, "nccl", "cuda", ("preempt",), DP_BATCH), 2,
            CARD_SPAWN_TIMEOUT_S)
     assert_preempted_and_resumed(dp_ranks(tmp_path, 2))
+
+
+# ---------------------------------------------------------------------------
+# The MAE trainer's data axis (and data x model): one rank per process
+# ---------------------------------------------------------------------------
+# A tiny ViT (GEOMETRY: 64^2, patch 4, L = 256, mask 0.5, the fused route) at
+# a global batch of 6 on dp_data_dir's 16 segments: split (0.75, 0.25) gives
+# 12 train (an epoch of 2 steps) and 4 val (one eval batch of 12, padded).
+DENSE = tm.PrithviConfig(**GEOMETRY)
+MAE_DP_BATCH = 6
+
+
+def mae_dp_config(data_dir, batch: int = MAE_DP_BATCH, **train):
+    config = mae_cfg.base_config("small")
+    config.datamodule.dataset_cfg.data_dir = str(data_dir)
+    config.datamodule.batch_size = batch
+    config.datamodule.random_crop_size = 64
+    config.datamodule.data_split = (0.75, 0.25, 0.0)
+    config.datamodule.augment = False
+    config.model.mask_ratio = 0.5
+    config.train.from_scratch = True
+    config.train.lr = LR
+    config.train.compute_dtype = "float32"
+    config.train.watch_interval = 0
+    for k, v in train.items():
+        setattr(config.train, k, v)
+    return config
+
+
+def mae_dp_trainer(data_dir, mesh=None, model_config=DENSE, device=None, batch: int = MAE_DP_BATCH, **train):
+    """An MAETrainer on ``data_dir``'s images: one rank of ``mesh``, or one
+    process on ``device``."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+
+    config = mae_dp_config(data_dir, batch, **train)
+    return MAETrainer(config, build_datamodule(config), mesh=mesh, model_config=model_config, device=device)
+
+
+def mae_dp_global_batch(data_dir, batch: int = MAE_DP_BATCH) -> tuple[np.ndarray, torch.Tensor]:
+    """The first global train batch of epoch 0 and seeded (B, L) masking
+    noise for it."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+
+    images = next(build_datamodule(mae_dp_config(data_dir, batch)).train_batches(0)).images
+    noise = np.random.default_rng(11).random((batch, DENSE.num_patches)).astype(np.float32)
+    return images, torch.from_numpy(noise)
+
+
+def mae_dp_step(trainer, images: np.ndarray, noise: torch.Tensor) -> dict:
+    """One MAE step on this rank's rows of the global batch with the global
+    noise: loss, gradients and digests (as :func:`dp_step`)."""
+    rows = trainer.dm.local_rows()
+    m = trainer.train_step(put_batch(images, trainer.device, rows), noise=noise.to(trainer.device))
+    grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+    return {"loss": float(m["loss"]), "grads": grads,
+            "digest": {"grads": digest(grads), "params": digest(dict(trainer.model.named_parameters()))}}
+
+
+def mae_dp_epoch(trainer) -> dict:
+    """One corpus epoch, then the val pass."""
+    train = trainer.run_train_epoch(0)
+    return {"train_loss": train["loss"], "val_loss": trainer.run_eval_epoch("val")["loss"],
+            "digest": state_digest(trainer)}
+
+
+def _tiny_mae_model_config(config):
+    """The MAE CLI's model at test size (GEOMETRY's widths at the run's crop)."""
+    return tm.PrithviConfig(**dict(GEOMETRY, img_size=config.datamodule.random_crop_size))
+
+
+def mae_preempt_runs(data_dir, tmp: str, rank: int, device: str, world: int) -> dict:
+    """:func:`preempt_runs` of the MAE CLI with ``--num-devices``, its model
+    at test size (the default split gives 12 train segments: 2 steps)."""
+    from s2tpu_torch.cli.train_mae import main
+    from s2tpu_torch.train import mae_trainer
+
+    mae_trainer.default_model_config = _tiny_mae_model_config
+    argv = ["small", "--type", "pretrain", "--from-scratch", "--bs", str(MAE_DP_BATCH), "--crop", "64", "--epochs",
+            "1", "--compute-dtype", "float32", "--data-dir", str(data_dir), "--device", device, "--ema-decay", "0.9",
+            "--watch-interval", "0", "--num-devices", str(world), "--auto-resume"]
+    return preempt_runs(tmp, rank, main, argv, MAETrainer, "prithvi-mae-finetune")
+
+
+def _mae_dp_worker(rank: int, tmp: str, data_dir: str, world: int, model_parallel: int, backend: str,
+                   device_type: str, scenarios: tuple[str, ...], batch: int = MAE_DP_BATCH) -> None:
+    """One rank of the MAE's ('data', 'model') mesh: every scenario named,
+    its record saved in ``tmp/rank<rank>.pt`` (a traceback in
+    ``tmp/rank<rank>.err``)."""
+    if device_type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            _mae_dp_scenarios(rank, tmp, data_dir, world, model_parallel, device_type, scenarios, batch)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mae_dp_scenarios(rank: int, tmp: str, data_dir: str, world: int, model_parallel: int, device_type: str,
+                      scenarios: tuple[str, ...], batch: int) -> None:
+    mesh = mesh_lib.make_mesh(world, model_parallel, device_type=device_type)
+    model_config = TP if model_parallel > 1 else DENSE
+    images, noise = mae_dp_global_batch(data_dir, batch)
+    out: dict = {}
+    for name in scenarios:
+        if name == "step":
+            trainer = mae_dp_trainer(data_dir, mesh, model_config, batch=batch)
+            out["device"] = str(trainer.device)
+            out[name] = mae_dp_step(trainer, images, noise)
+            if rank:
+                del out[name]["grads"]
+        elif name == "jax":  # the JAX trainer's init and its masking noise, two steps
+            trainer = mae_dp_trainer(data_dir, mesh, model_config)
+            trainer.model.load_state_dict(torch.load(f"{tmp}/jax_init.pt"), strict=True)
+            out[name] = [mae_dp_step(trainer, images, n)["loss"] for n in torch.load(f"{tmp}/jax_noise.pt")]
+        elif name == "corpus":  # the device corpus in windows of DP_WINDOW steps, with flips
+            trainer = mae_dp_trainer(data_dir, mesh, model_config, device_corpus=True,
+                                     steps_per_dispatch=DP_WINDOW)
+            trainer.config.datamodule.augment = True
+            out[name] = mae_dp_epoch(trainer)
+        elif name == "preempt":
+            out[name] = mae_preempt_runs(data_dir, tmp, rank, device_type, world)
+        elif name == "num_devices":
+            trainer = mae_dp_trainer(data_dir, None, model_config, device=device_type, num_devices=world)
+            out[name] = (trainer.data_axis.size, trainer.data_axis.index)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+# A data-axis MAE step against the one-process step on the same global batch
+# and noise (no BatchNorm: the ranks' partial sums differ from one sum by f32
+# rounding alone): loss to 1e-5 relative, every gradient to GRAD_RTOL in
+# relative L2; parameters and gradients bit-equal across the ranks.
+def assert_mae_dp_step_close(ranks: list[dict], ref: dict) -> dict[str, float]:
+    """The check above; returns the largest deviations measured."""
+    for rank in ranks:
+        assert rank["step"]["digest"] == ranks[0]["step"]["digest"] and rank["step"]["loss"] == ranks[0]["step"]["loss"]
+    np.testing.assert_allclose(ranks[0]["step"]["loss"], float(ref["loss"]), rtol=1e-5)
+    grads = ranks[0]["step"]["grads"]
+    worst = max(_rel_l2(grads[n], g) for n, g in ref["grads"].items())
+    assert set(grads) == set(ref["grads"]) and worst <= GRAD_RTOL, worst
+    return {"loss": abs(ranks[0]["step"]["loss"] - float(ref["loss"])) / abs(float(ref["loss"])), "grads": worst}
+
+
+def mae_one_process_step(data_dir, device: str = "cpu", batch: int = MAE_DP_BATCH) -> dict:
+    """The one-process (one-card) MAE step the ranks are held to."""
+    trainer = mae_dp_trainer(data_dir, None, DENSE, device=device, batch=batch)
+    images, noise = mae_dp_global_batch(data_dir, batch)
+    m = trainer.train_step(torch.from_numpy(images).to(trainer.device), noise=noise.to(trainer.device))
+    return {"loss": float(m["loss"]), "grads": {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_mae_data_axis_step_on_one_card_per_rank(world, tmp_path, dp_data_dir):
+    """The tiny MAE's step, 3 rows a rank, over ``world`` NCCL ranks, one
+    card each, against the one-card f32 step on the same global batch."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} NVIDIA cards")
+    batch = 3 * world
+    _spawn(_mae_dp_worker, (str(tmp_path), str(dp_data_dir), world, 1, "nccl", "cuda", ("step",), batch), world,
+           CARD_SPAWN_TIMEOUT_S, tmp_path)
+    ranks = dp_ranks(tmp_path, world)
+    assert [r["device"] for r in ranks] == [f"cuda:{r}" for r in range(world)]
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = mae_one_process_step(dp_data_dir, "cuda", batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    assert_mae_dp_step_close(ranks, ref)
+
+
+# ---------------------------------------------------------------------------
+# Graphed corpus windows over NCCL against eager windows (cards only)
+# ---------------------------------------------------------------------------
+# GRAPH_SEGMENTS give 25 train segments (split 0.8 / 0.75): 3 steps of
+# GRAPH_BATCH, one window of 2 and a remainder step that replays the graph.
+GRAPH_SEGMENTS, GRAPH_BATCH = 32, 8
+
+
+def _graph_worker(rank: int, tmp: str, data_dir: str, world: int, model: str) -> None:
+    """One NCCL rank: a corpus epoch graphed (windows of 2) and the same
+    epoch eager (one step at a time) from the same init, each rank's final
+    training state and epoch sums saved for the test."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the eager steps repeat the graph's convolution algorithms
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            _graph_epochs(rank, tmp, data_dir, world, model)
+    finally:
+        dist.destroy_process_group()
+
+
+def _graph_epochs(rank: int, tmp: str, data_dir: str, world: int, model: str) -> None:
+    mesh = mesh_lib.make_mesh(world, 1, device_type="cuda")
+    out = {}
+    for mode, k in (("graphed", 2), ("eager", 1)):
+        if model == "b0":
+            trainer = dp_trainer(data_dir, mesh, batch=GRAPH_BATCH, device_corpus=True, steps_per_dispatch=k)
+            train = trainer.run_train_epoch(0)
+            sums = {"loss": train["loss"], "cm": trainer._sums["cm"].cpu()}
+        else:
+            trainer = mae_dp_trainer(data_dir, mesh, DENSE, batch=GRAPH_BATCH, device_corpus=True,
+                                     steps_per_dispatch=k)
+            trainer.config.datamodule.augment = True  # the device flips
+            sums = {"loss": trainer.run_train_epoch(0)["loss"]}
+        out[mode] = {"digest": state_digest(trainer), "sums": sums, "graph": trainer._graph is not None,
+                     "step": trainer.step}
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+@pytest.fixture(scope="module")
+def graph_data_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("graph_data")
+    make_synthetic_fixture(root, aoi="small", label_map="osm-multiclass", n_segments=GRAPH_SEGMENTS, size=(96, 96))
+    return root
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["b0", "mae"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_graphed_corpus_windows_over_nccl_equal_eager_steps_on_each_rank(world, model, tmp_path, graph_data_dir):
+    """B0 (focal + weighted, BatchNorm sums in the graph) and the tiny MAE
+    (device flips and masking noise drawn for the global batch): an epoch of
+    graphed windows on ``world`` NCCL ranks trains, on each rank, the state
+    and epoch sums of the same ranks' eager steps, bit for bit."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} NVIDIA cards")
+    _spawn(_graph_worker, (str(tmp_path), str(graph_data_dir), world, model), world, CARD_SPAWN_TIMEOUT_S, tmp_path)
+    ranks = dp_ranks(tmp_path, world)
+    for rank in ranks:
+        graphed, eager = rank["graphed"], rank["eager"]
+        assert graphed["graph"] and not eager["graph"] and graphed["step"] == eager["step"] == 3
+        assert graphed["digest"] == eager["digest"]
+        assert all(torch.equal(torch.as_tensor(graphed["sums"][k]), torch.as_tensor(v)) for k, v in eager["sums"].items())
+    assert len({r["graphed"]["digest"] for r in ranks}) == 1

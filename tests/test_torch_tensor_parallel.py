@@ -150,11 +150,14 @@ def test_context_parallelism_and_a_data_axis_are_refused():
     c = mae_cfg.base_config("small")
     with pytest.raises(NotImplementedError, match="not ported.*cp_axis"):
         MAETrainer(c, datamodule=None, model_config=dataclasses.replace(TP, cp_axis="model"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported.*data axis"):
+    # A data axis trains (tests/test_torch_mae_data_parallel.py); its sharded corpus is refused.
+    c.train.device_corpus_sharded = True
+    with pytest.raises(NotImplementedError, match="not ported.*sharded corpus, ROADMAP item 16"):
         MAETrainer(c, datamodule=None, mesh=_Mesh(2, 1), model_config=TP, device="cpu")
-    with pytest.raises(NotImplementedError, match="data axis.*A16"):
-        _refuse_unported(c, _Mesh(4, 2), TP)
-    _refuse_unported(c, _Mesh(1, 4), TP)
+    with pytest.raises(NotImplementedError, match="sharded corpus, ROADMAP item 16"):
+        _refuse_unported(c, TP)
+    c.train.device_corpus_sharded = False
+    _refuse_unported(c, TP)
     with pytest.raises(ValueError, match="tp_axis"):
         tm.PrithviMAE(DENSE, tp_group=object())
 
@@ -181,8 +184,9 @@ def _gloo_worker(rank: int, tmp: str, fixture_dir: str) -> None:
     try:
         out: dict = {}
         config, dm = _trainer_parts(fixture_dir)
-        try:  # the MAE trainer's data axis is not ported (the segmentation trainer's is)
-            MAETrainer(config, dm, mesh=mesh_lib.make_mesh(WORLD, 1, device_type="cpu"), model_config=TP)
+        sharded = dataclasses.replace(config, train=dataclasses.replace(config.train, device_corpus_sharded=True))
+        try:  # the MAE trainer's data axis trains; its sharded corpus is not ported
+            MAETrainer(sharded, dm, mesh=mesh_lib.make_mesh(WORLD, 1, device_type="cpu"), model_config=TP)
         except NotImplementedError as e:
             out["data_axis_refusal"] = str(e)
         mesh = mesh_lib.make_mesh(WORLD, WORLD, device_type="cpu")
@@ -267,6 +271,6 @@ def test_only_rank_zero_logs_and_writes_checkpoints(gloo_run):
 
 def test_two_rank_refusals(gloo_run):
     for rank in gloo_run["ranks"]:
-        assert "A16" in rank["data_axis_refusal"]
+        assert "sharded corpus, ROADMAP item 16" in rank["data_axis_refusal"]
         assert "3 heads do not split over a model axis of 2 ranks" in rank["heads_refusal"]
 
