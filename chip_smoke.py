@@ -244,13 +244,23 @@ any failure raises and the script exits non-zero without printing a result:
    (e) ``--type tune`` (3 trials, 2 epochs a trial, eta 2): per trial the
    loss type, epochs, pruned or not, exact #1-#4 launches, the memory
    allocated at its trainer's build and its peak; ``best_params=``.
-E. The data axis (after phase A): config #2's step and config #5's MAE step
-   on two gloo ranks that share the card (each rank's exact launches, bit-
-   equal ranks, the step against the one-rank step); with two cards, the
-   training CLI over NCCL and config #2's and config #5's corpus windows of
-   CORPUS_K steps graphed over two NCCL ranks, bit for bit against the same
-   ranks' eager steps (each rank's launches and NCCL all-reduces a replay);
-   with four, config #5's window on a 2 x 2 data x model mesh as well.
+E. The data axis (after phase A): config #2's step, config #4's fc-prithvi
+   steps (frozen, the unfreeze, unfrozen; dropout drawn for the global
+   batch) and config #5's MAE step on two gloo ranks that share the card
+   (each rank's exact launches, bit-equal ranks, the steps against the
+   one-rank steps, in bf16 and f32); each rank's block of the sharded
+   corpus (its bytes, crops by local ids against the source's);
+   ``cli.infer --tiled --num-devices 2`` on the same ranks (the union of
+   the files byte for byte against one rank's, each rank's #1 launches);
+   with two cards, the training CLI over NCCL (config #2, and config #4 in
+   graphed corpus steps) and config #2's, #5's and #4's corpus windows of
+   CORPUS_K steps graphed over two NCCL ranks, and #2's and #5's from the
+   sharded corpus, bit for bit against the same ranks' eager steps (each
+   rank's launches and NCCL all-reduces a replay, its corpus bytes), and
+   tiled serving over two NCCL ranks (files byte for byte, tiles/s a rank
+   and in total); with four, config #5's windows on a 2 x 2 data x model
+   mesh (from the corpus and the sharded corpus), #4's and #2's (sharded)
+   over four ranks, and serving over four.
 24. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
@@ -264,7 +274,11 @@ E. The data axis (after phase A): config #2's step and config #5's MAE step
    and their launches in one replay; #1 and #8 with the serving extras'
    graphed, int8 and AOT launches, #8 and #5 with the int8 embeddings';
    #1-#4 with phase D's packed, records and packed-corpus CLI launches and
-   each tune trial's), the ``nvidia-smi`` line, then the
+   each tune trial's; ``dp_*``: phase E's launches, one gloo rank's step
+   (B5, MAE, fc-prithvi frozen and unfrozen) and tiled-serving share, and
+   one replay of a graphed window over two (#6/#7: four) NCCL ranks, from
+   the corpus and the sharded corpus, null on one card), the ``nvidia-smi``
+   line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -482,7 +496,24 @@ DP_MAE_F32_GRAD = 1e-4
 # (deterministic cuDNN). The in-memory pool sources hold CORPUS_K global
 # batches of train segments (split 0.8): config #2 at TRAIN_BATCH, config #5
 # at MAE_BATCH.
-DP_GRAPH_SEGMENTS = {"b5": 5 * TRAIN_BATCH, "mae": 5 * MAE_BATCH}
+DP_GRAPH_SEGMENTS = {"b5": 5 * TRAIN_BATCH, "mae": 5 * MAE_BATCH, "fc": 5 * TRAIN_BATCH}
+# Phase E's fc-prithvi step: config #4 T=1 (Prithvi-100M, bf16, dropout 0.1,
+# a seeded random backbone) at DP_FC_BATCH over the DP_RANKS gloo ranks: a
+# frozen step, the unfreeze, an unfrozen step, each held to the one-rank
+# step's as the B5 step is (within DP_FACTOR x the one-rank sequence's own
+# movement when its weights move by half a bf16 ulp, at least DP_FLOOR),
+# each rank's launches exactly a one-card step's at its rows; then a frozen
+# and an unfrozen f32 step (TF32 off), each from its own trainer, at
+# DP_FC_F32_BATCH, to the B5 f32 step's bounds.
+DP_FC_BATCH, DP_FC_F32_BATCH = 32, 4
+DP_FC_CLASSIFIER = "head.net.4.weight"
+# The sharded corpus on the same ranks: each rank's block of phase E's
+# segments and DP_CROP_CHECKS crops gathered by local ids against the
+# source's; with cards, graphed windows from it (DP_SHARDED_SEGMENTS: every
+# block's train pool fills CORPUS_K windows at 2 and 4 data ranks).
+DP_CROP_CHECKS = 8
+DP_SERVE_MODEL = "b5"  # phase E's serving checkpoint: config #2's model, seeded
+DP_SHARDED_SEGMENTS = {"b5": 6 * TRAIN_BATCH, "mae": 6 * MAE_BATCH}
 # Phase C: the "fr" AOI's corpus (s2tpu/data/device_corpus.py:5-7: 12.4k
 # segments, ~9.7 GB of int16 at 256^2 x 6), made from a seeded pool of
 # segments in memory; K-step windows; (e) at a batch that gives its epoch
@@ -510,6 +541,8 @@ INT8_REL_ERR_BOUND = {"efficientnet-unet-b5": 0.15, "fc-prithvi-backbone": 0.1}
 PORT_KERNEL_NAMES = {"#1": "depthwise_s1_fwd", "#2": "depthwise_s1_dw", "#3": "fused_ce_fwd", "#4": "fused_ce_bwd",
                      "#8": "attn_fused_fwd", "#9": "attn_fused_bwd_dq", "#9 dk/dv": "attn_fused_bwd_dkdv",
                      "#5": "flash_attn_fwd"}
+PORT_KERNEL_FOR = {"depthwise_fwd": "#1", "depthwise_dw": "#2", "fused_ce_fwd": "#3", "fused_ce_bwd": "#4",
+                   "attn_fused_fwd": "#8", "attn_fused_bwd": "#9"}  # a launch counter's name in a trace
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
                "cudaMemcpyAsync", "cudaMemsetAsync")
 CARD = "card not read"  # nvidia-smi's name and power limit, set by main
@@ -3422,7 +3455,7 @@ def shared_corpus(corpus):
     from s2tpu_torch.train import mae_trainer, trainer
 
     saved = trainer.DeviceCorpus, mae_trainer.DeviceCorpus
-    trainer.DeviceCorpus = mae_trainer.DeviceCorpus = lambda source, device, with_labels=True: corpus
+    trainer.DeviceCorpus = mae_trainer.DeviceCorpus = lambda source, device, with_labels=True, data=None: corpus
     try:
         yield
     finally:
@@ -3430,15 +3463,16 @@ def shared_corpus(corpus):
 
 
 def corpus_seg_trainer(work: Path, source, mean_std, counts, argv_extra: tuple = (), host_flips: bool = True,
-                       mesh=None, **train):
+                       mesh=None, argv: list[str] | None = None, **train):
     """Config #2's SegmentationTrainer (bf16, batch 32, 224^2, focal +
-    weighted) over ``source``, with the extra CLI flags and config fields;
-    on the card, or as one rank of ``mesh``."""
+    weighted; or the CLI arguments ``argv``) over ``source``, with the extra
+    CLI flags and config fields; on the card, or as one rank of ``mesh``."""
     from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
     from s2tpu_torch.data.pipeline import Datamodule
     from s2tpu_torch.train.trainer import SegmentationTrainer
 
-    cfg = config_from_args(build_parser().parse_args([*train_argv(work, "corpus"), *argv_extra]))
+    argv = argv if argv is not None else train_argv(work, "corpus")
+    cfg = config_from_args(build_parser().parse_args([*argv, *argv_extra]))
     p = counts.copy()
     if cfg.train.masked_loss:
         p[0] = 0.0
@@ -3472,16 +3506,14 @@ def corpus_mae_trainer(work: Path, source, mesh=None, model_config=None, **train
 
 
 def corpus_draws(trainer, n: int, epoch: int = 0) -> np.ndarray:
-    """The first ``n`` steps' (3, B) draws of ``epoch``'s corpus stream, as
-    the trainer's epoch loop makes them."""
-    from s2tpu_torch.data.device_corpus import sample_crop_batch
-    from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
+    """The first ``n`` steps' (3, rows) draws of ``epoch``'s corpus stream,
+    this rank's rows of them, as the trainer's epoch loop makes them
+    (``TrainerBase._corpus_sampler``; random crops, no overfitting)."""
+    from s2tpu_torch.data.pipeline import epoch_rng
 
     dmc = trainer.config.datamodule
-    rng = epoch_rng(dmc.shuffle_seed, epoch, 0)
-    order, _ = sample_epoch_order(rng, trainer.dm.train_idx, trainer.dm._sample_weights, dmc.batch_size, 0)
-    return np.stack([np.stack(sample_crop_batch(rng, order, b, dmc.batch_size, trainer.corpus.hw,
-                                                dmc.random_crop_size, True)) for b in range(n)])
+    sample, _ = trainer._corpus_sampler(epoch_rng(dmc.shuffle_seed, epoch, 0), trainer.dm._sample_weights, 0, True)
+    return np.stack([sample(b) for b in range(n)])
 
 
 def trainer_state(trainer) -> dict[str, torch.Tensor]:
@@ -4342,7 +4374,8 @@ def graph_kernel_nodes(graph, path: Path) -> dict[str, int]:
     if err != 0:
         raise RuntimeError(f"cuGraphDebugDotPrint failed with CUDA driver error {err}")
     lines = path.read_text().splitlines()
-    return {k: sum(frag in line for line in lines) for k, frag in PORT_KERNEL_NAMES.items()}
+    return {**{k: sum(frag in line for line in lines) for k, frag in PORT_KERNEL_NAMES.items()},
+            "nccl_all_reduce": sum("nccl" in line.lower() and "allreduce" in line.lower() for line in lines)}
 
 
 def replay_launches(label: str, graph, dump: Path, rows: torch.Tensor, valid: torch.Tensor, kernel: str,
@@ -4744,9 +4777,13 @@ def dp_f32_record(trainer, m: dict, grads: bool) -> dict:
 def _dp_rank(rank: int, work: str, data_dir: str) -> None:
     """One of phase E's gloo ranks on the card: one config #2 step on its
     rows of the global batch, its launches counted from 0 around it, then
-    the f32 step; the records go to ``work/dp_rank<rank>.pt``."""
+    the f32 step; its block of the sharded corpus; fc-prithvi's frozen step,
+    the unfreeze and its unfrozen step (bf16), then its f32 steps; its
+    share of ``cli.infer --tiled --num-devices DP_RANKS``, the #1 launches
+    counted from 0 around it. The records go to ``work/dp_rank<rank>.pt``."""
     import torch.distributed as dist
 
+    from s2tpu_torch.cli.infer import main as infer_main
     from s2tpu_torch.parallel.mesh import make_mesh
     from s2tpu_torch.parallel.multihost import put_batch
 
@@ -4762,7 +4799,16 @@ def _dp_rank(rank: int, work: str, data_dir: str) -> None:
         step_s = time.perf_counter() - t0
         rec = {**dp_record(trainer, m), "launches": launches, "device": str(trainer.device), "step_s": step_s,
                "rows": rows.tolist(), "axis": (trainer.data_axis.index, trainer.data_axis.size)}
+        rec["sharded"] = dp_sharded_blocks(trainer)
         del trainer, m
+        torch.cuda.empty_cache()
+        fc = dp_fc_trainer(Path(data_dir), mesh=mesh, num_devices=DP_RANKS)
+        images, labels = dp_global_batch(fc)
+        rec["fc"] = dp_fc_sequence(fc, images, labels, full=rank == 0)
+        rec["fc_rows"] = len(fc.dm.local_rows())
+        del fc
+        torch.cuda.empty_cache()
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         f32 = dp_f32_trainer(Path(data_dir), mesh=mesh, num_devices=DP_RANKS)
@@ -4770,6 +4816,16 @@ def _dp_rank(rank: int, work: str, data_dir: str) -> None:
         rows = f32.dm.local_rows()
         m = f32.train_step(put_batch(images, f32.device, rows), put_batch(labels, f32.device, rows))
         rec["f32"] = dp_f32_record(f32, m, grads=rank == 0)
+        del f32, m
+        rec["fc_f32"] = dp_fc_f32(Path(data_dir), mesh, full=rank == 0, num_devices=DP_RANKS)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32  # serve as the one rank does
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with serving_spy() as served:
+            infer_main(dp_serve_argv(Path(work), Path(data_dir), "dp_serve_two", DP_RANKS))
+        torch.cuda.synchronize()
+        rec["serve"] = {"launches": launch_counts(), **served[-1]}
         torch.save(rec, f"{work}/dp_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4941,6 +4997,140 @@ def check_dp_mae(work: Path, data_dir: Path) -> dict:
     return {"launches": first["launches"], "distances": diff, "sensitivity": sensitivity, "f32": f32_diff}
 
 
+def dp_fc_argv(data_dir: Path, batch: int | None = None) -> list[str]:
+    """The training CLI's arguments of phase E's fc-prithvi config #4 (T=1,
+    bf16, 224^2, frozen, DP_FC_BATCH by default; no backbone checkpoint: a
+    seeded random encoder)."""
+    return ["small", "osm-multiclass", "fc-prithvi-backbone", "--bs", str(batch or DP_FC_BATCH), "--crop", "224",
+            "--compute-dtype", "bfloat16", "--data-dir", str(data_dir), "--seed", str(SEED), "--num-devices", "1",
+            "--watch-interval", "0"]
+
+
+def dp_fc_trainer(data_dir: Path, mesh=None, batch: int | None = None, **train):
+    """Config #4's fc-prithvi SegmentationTrainer on the training slice's
+    data, on the card or as one rank of ``mesh``, with config fields
+    ``train``."""
+    from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
+    from s2tpu_torch.data import statistics
+    from s2tpu_torch.data.dataset import TiffSource
+    from s2tpu_torch.data.pipeline import Datamodule
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    cfg = config_from_args(build_parser().parse_args(dp_fc_argv(data_dir, batch)))
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    source = TiffSource("small", "osm-multiclass", data_dir)
+    cfg.train.class_distribution = statistics.get_class_probabilities(
+        source, num_classes=cfg.num_classes, ignore_zero_label=cfg.train.masked_loss).tolist()
+    dm = Datamodule(cfg.datamodule, source=source)
+    dm.set_mean_std(*statistics.load_mean_std(source.data_dirs.base_path / "mean_std.json"))
+    return SegmentationTrainer(cfg, dm, device="cuda", mesh=mesh)
+
+
+def dp_fc_step(trainer, images: np.ndarray, labels: np.ndarray, full: bool) -> dict:
+    """One fc-prithvi step on this process's rows of the global batch, its
+    launches counted from 0 around it: the loss, the launches, the head's
+    running statistics, a digest of every parameter and, with ``full``, the
+    trainable parameters' gradients and updates (f32, on the CPU)."""
+    from s2tpu_torch.parallel.multihost import put_batch
+
+    rows = trainer.dm.local_rows()
+    named = [(n, p) for n, p in trainer.model.named_parameters() if p.requires_grad]
+    before = {n: p.detach().float().cpu() for n, p in named} if full else {}
+    launches, m = step_launches(trainer, *(put_batch(a, trainer.device, rows) for a in (images, labels)))
+    rec = {"loss": float(m["loss"]), "launches": launches,
+           "stats": {n: b.detach().cpu() for n, b in trainer.model.named_buffers() if "running" in n},
+           "digest": state_digest(dict(trainer.model.named_parameters()))}
+    if full:
+        rec["grads"] = {n: p.grad.detach().float().cpu() for n, p in named}
+        rec["update"] = {n: p.detach().float().cpu() - before[n] for n, p in named}
+    return rec
+
+
+def dp_fc_sequence(trainer, images: np.ndarray, labels: np.ndarray, full: bool) -> dict:
+    """A frozen step, the unfreeze, an unfrozen step on the same global batch."""
+    frozen = dp_fc_step(trainer, images, labels, full)
+    trainer.unfreeze_backbone()
+    return {"frozen": frozen, "unfrozen": dp_fc_step(trainer, images, labels, full)}
+
+
+def dp_fc_f32(data_dir: Path, mesh=None, full: bool = True, **train) -> dict:
+    """A frozen and an unfrozen f32 fc-prithvi step (TF32 off by the caller)
+    at DP_FC_F32_BATCH, each from its own seeded trainer."""
+    out = {}
+    for form, frozen in (("frozen", True), ("unfrozen", False)):
+        trainer = dp_fc_trainer(data_dir, mesh, batch=DP_FC_F32_BATCH, compute_dtype="float32",
+                                frozen_backbone=frozen, **train)
+        images, labels = dp_global_batch(trainer)
+        out[form] = dp_fc_step(trainer, images, labels, full)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_fc_distance(a: dict, ref: dict) -> dict[str, float]:
+    """Loss (relative), running statistics (max |diff| / max(|ref|, 1)),
+    the gradients and the updates (relative L2 over all tensors) of two fc
+    step records."""
+    return {
+        "loss": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "running_stats": max(float(((a["stats"][n] - t).abs() / t.abs().clamp_min(1.0)).max())
+                             for n, t in ref["stats"].items()),
+        "grads": state_distance(a["grads"], ref["grads"])[1],
+        "update": state_distance(a["update"], ref["update"])[1],
+    }
+
+
+def dp_sharded_blocks(trainer) -> dict:
+    """This rank's block of the sharded corpus of ``trainer``'s source: its
+    bytes on the card and DP_CROP_CHECKS crops gathered by local ids against
+    the source's crops of the same global segments."""
+    from s2tpu_torch.data.device_corpus import DeviceCorpus
+
+    source, crop = trainer.dm.source, trainer.config.datamodule.random_crop_size
+    t0 = time.perf_counter()
+    corpus = DeviceCorpus(source, trainer.device, data=trainer.data_axis)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 11)
+    local = rng.integers(0, corpus.n_local, DP_CROP_CHECKS).astype(np.int32)
+    ys, xs = (rng.integers(0, corpus.hw[k] - crop + 1, DP_CROP_CHECKS).astype(np.int32) for k in (0, 1))
+    images, labels = corpus.gather(*(torch.from_numpy(a).to(trainer.device) for a in (local, ys, xs)), crop)
+    equal = 0
+    for j, (i, y, x) in enumerate(zip(local, ys, xs)):
+        s = source[int((trainer.data_axis.index * corpus.n_local + i) % len(source))]
+        equal += bool(np.array_equal(images[j].cpu().numpy(), s.x[y:y + crop, x:x + crop])
+                      and np.array_equal(labels[j].cpu().numpy(), s.y[y:y + crop, x:x + crop].astype(np.int32)))
+    return {"bytes": corpus.images.nbytes + corpus.labels.nbytes, "n_local": corpus.n_local,
+            "segments": corpus.images.shape[0], "crops_equal": equal, "upload_s": upload_s,
+            "segment_bytes": corpus.images[0].nbytes + corpus.labels[0].nbytes}
+
+
+def dp_serve_argv(work: Path, data_dir: Path, out: str, ranks: int) -> list[str]:
+    return [str(work / "dp_serve_ckpt"), "--tiled", "--out", str(work / out), "--data-dir", str(data_dir),
+            "--num-devices", str(ranks)]
+
+
+@contextlib.contextmanager
+def serving_spy():
+    """Inside the block, ``cli.infer.serve_tiled`` keeps what each call
+    served (segments, tiles, seconds) in the list the block gets."""
+    from s2tpu_torch.cli import infer
+
+    served, serve = [], infer.serve_tiled
+
+    def spy(*args, **kwargs):
+        out = serve(*args, **kwargs)
+        served.append(out)
+        return out
+
+    infer.serve_tiled = spy
+    try:
+        yield served
+    finally:
+        infer.serve_tiled = serve
+
+
 def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models: tuple[str, ...]) -> None:
     """One NCCL rank (one card each) of phase E's graphed windows: for each
     of ``models``, a corpus epoch of CORPUS_K-step windows graphed and the
@@ -4964,12 +5154,18 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
         data = world // model_parallel
         out = {}
         for model in models:
-            source, mean_std, counts = pool_source(DP_GRAPH_SEGMENTS[model])
+            base, sharded = model.removesuffix("_sharded"), model.endswith("_sharded")
+            segments = (DP_SHARDED_SEGMENTS if sharded else DP_GRAPH_SEGMENTS)[base]
+            source, mean_std, counts = pool_source(segments)
             rec, trainers = {}, {}
             for mode, k in (("eager", 1), ("graphed", CORPUS_K)):  # eager first: it warms the allocator
-                fields = dict(device_corpus=True, steps_per_dispatch=k, watch_interval=0, num_devices=data)
-                if model == "b5":
+                fields = dict(device_corpus=True, device_corpus_sharded=sharded, steps_per_dispatch=k,
+                              watch_interval=0, num_devices=data)
+                if base == "b5":
                     trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh, **fields)
+                elif base == "fc":
+                    trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh,
+                                                 argv=dp_fc_argv(Path(work)), **fields)
                 else:
                     mc = None
                     if model_parallel > 1:
@@ -4980,16 +5176,21 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
                 reserved = torch.cuda.memory_reserved()
                 reset_launch_counts()
                 t0 = time.perf_counter()
-                train = trainer.run_train_epoch(0)
+                with debug_graphs():  # the step graph keeps its cudaGraph_t: its nodes are counted below
+                    train = trainer.run_train_epoch(0)
                 torch.cuda.synchronize()
+                corpus = trainer.corpus
                 rec[mode] = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
                              "loss": train["loss"], "digest": trainer_state_digest(trainer),
                              "steps": trainer.step, "graph": trainer._graph is not None,
-                             "reserved_added": torch.cuda.memory_reserved() - reserved}
+                             "reserved_added": torch.cuda.memory_reserved() - reserved,
+                             "corpus_bytes": corpus.images.nbytes + (0 if corpus.labels is None
+                                                                     else corpus.labels.nbytes),
+                             "corpus_segments": corpus.images.shape[0], "sharded": corpus.sharded}
                 trainers[mode] = trainer
             draw = corpus_draws(trainers["graphed"], 1, epoch=1)
-            rows = trainers["graphed"].dm.local_rows()
-            draw = draw if rows is None else draw[:, :, rows]
+            rec["replay_nodes"] = graph_kernel_nodes(trainers["graphed"]._graph.graph,
+                                                     Path(work) / f"dp_graph{world}_{model}_rank{rank}.dot")
             rec["replay"] = device_profile(lambda: trainers["graphed"].train_window(draw))
             rec["eager_step"] = device_profile(lambda: trainers["eager"].train_window(draw))
             out[model] = rec
@@ -5001,18 +5202,23 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
 
 
 def check_dp_graphs(work: Path) -> dict | None:
-    """Where the machine has two cards or more: config #2's and config #5's
-    corpus windows graphed over two NCCL ranks, and with four cards config
-    #5's on a 2 x 2 data x model mesh, each rank's state after the epoch
-    bit for bit against the same ranks' eager steps. None (logged) on one
-    card."""
+    """Where the machine has two cards or more: config #2's, config #5's
+    and config #4's (fc-prithvi, frozen) corpus windows graphed over two
+    NCCL ranks, and config #2's and config #5's from the sharded corpus (each
+    rank's block on its card); with four cards config #5's on a 2 x 2 data x
+    model mesh, from the corpus and from the sharded corpus, and config #4's
+    and config #2's (sharded) over four ranks: each rank's state after the
+    epoch bit for bit against the same ranks' eager steps. None (logged) on
+    one card."""
     import torch.multiprocessing as mp
 
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"data axis graphed windows over NCCL: not run, {cards} card")
         return None
-    runs = [(2, 1, ("b5", "mae"))] + ([(4, 2, ("mae",))] if cards >= 4 else [])
+    runs = [(2, 1, ("b5", "mae", "fc", "b5_sharded", "mae_sharded"))]
+    if cards >= 4:
+        runs += [(4, 2, ("mae", "mae_sharded")), (4, 1, ("fc", "b5_sharded"))]
     out, failures = {}, []
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     for world, model_parallel, models in runs:
@@ -5025,17 +5231,24 @@ def check_dp_graphs(work: Path) -> dict | None:
             recs = [r[model] for r in ranks]
             for r, rec in enumerate(recs):
                 g, e = rec["graphed"], rec["eager"]
-                if not (g["graph"] and not e["graph"] and g["steps"] == e["steps"] == CORPUS_K):
+                sharded = model.endswith("_sharded")
+                if not (g["graph"] and not e["graph"] and g["steps"] == e["steps"]
+                        and (g["steps"] >= CORPUS_K if sharded else g["steps"] == CORPUS_K)):
                     failures.append(f"{model} {mesh} rank {r}: graph {g['graph']}/{e['graph']}, steps "
                                     f"{g['steps']}/{e['steps']}")
+                if g["sharded"] != (sharded and world // model_parallel > 1):
+                    failures.append(f"{model} {mesh} rank {r}: corpus sharded {g['sharded']}")
                 if g["digest"] != e["digest"] or g["loss"] != e["loss"]:
                     failures.append(f"{model} {mesh} rank {r}: graphed != eager (loss {g['loss']} / {e['loss']})")
-                replay = {k: v for k, v in rec["replay"]["launches"].items() if v}
-                step = {k: v for k, v in rec["eager_step"]["launches"].items() if v}
-                if replay != step or rec["replay"]["nccl_all_reduce"] != rec["eager_step"]["nccl_all_reduce"]:
-                    failures.append(f"{model} {mesh} rank {r}: a replay launches {replay} and "
-                                    f"{rec['replay']['nccl_all_reduce']} NCCL all-reduces, an eager step {step} and "
-                                    f"{rec['eager_step']['nccl_all_reduce']}")
+                # A replay launches every kernel node of the graph once; torch.profiler has read a
+                # replay one NCCL all-reduce short (on one rank of the 2 x 2 sharded MAE).
+                replay = {k: v for k, v in rec["replay_nodes"].items() if v}
+                step = {k: v for k, v in {**rec["eager_step"]["launches"],
+                                          "nccl_all_reduce": rec["eager_step"]["nccl_all_reduce"]}.items() if v}
+                if replay != step:
+                    failures.append(f"{model} {mesh} rank {r}: the step graph's kernel nodes {replay}, an eager "
+                                    f"step's launches {step} and {rec['eager_step']['nccl_all_reduce']} NCCL "
+                                    "all-reduces")
             if len({rec["graphed"]["digest"] for rec in recs}) != 1:
                 failures.append(f"{model} {mesh}: the ranks' graphed states differ")
             log(
@@ -5043,19 +5256,240 @@ def check_dp_graphs(work: Path) -> dict | None:
                 f"window graphed vs eager steps, bit-equal on every rank: "
                 f"{all(r['graphed']['digest'] == r['eager']['digest'] for r in recs)}; epoch loss "
                 f"{recs[0]['graphed']['loss']:.6f}; graphed epoch {[round(r['graphed']['seconds'], 3) for r in recs]} s, "
-                f"eager {[round(r['eager']['seconds'], 3) for r in recs]} s; per rank a replay launches "
-                f"{[{k: v for k, v in r['replay']['launches'].items() if v} for r in recs]} and "
-                f"{[r['replay']['nccl_all_reduce'] for r in recs]} nccl all-reduce kernels (an eager step "
+                f"eager {[round(r['eager']['seconds'], 3) for r in recs]} s; per rank the step graph's kernel "
+                f"nodes {[{k: v for k, v in r['replay_nodes'].items() if v} for r in recs]} (torch.profiler in one "
+                f"replay: {[{k: v for k, v in r['replay']['launches'].items() if v} for r in recs]} and "
+                f"{[r['replay']['nccl_all_reduce'] for r in recs]} nccl all-reduce kernels; an eager step "
                 f"{[r['eager_step']['nccl_all_reduce'] for r in recs]}); host launch calls a replay "
                 f"{[sum(r['replay']['host_api'].values()) for r in recs]}, an eager step "
                 f"{[sum(r['eager_step']['host_api'].values()) for r in recs]}; wrapper launches (warm-up and "
                 f"capture) {recs[0]['graphed']['launches']}; graph pool (reserved bytes the graphed epoch added after "
-                f"the eager epoch) {[r['graphed']['reserved_added'] for r in recs]} B"
+                f"the eager epoch) {[r['graphed']['reserved_added'] for r in recs]} B; corpus on each card "
+                f"{[r['graphed']['corpus_segments'] for r in recs]} segments, "
+                f"{[r['graphed']['corpus_bytes'] for r in recs]} B"
             )
             out[f"{model}_{world}"] = recs[0]
         log(f"data axis graphed windows on {world} cards: {spawn_s:.1f} s")
     if failures:
         raise AssertionError("graphed windows over NCCL: " + "; ".join(failures))
+    return out
+
+
+def dp_serving_reference(work: Path, data_dir: Path) -> dict:
+    """A seeded B5 serving checkpoint (config #2, bf16, random BatchNorm
+    statistics) served once through ``cli.infer --tiled`` on one rank, the
+    #1 launches counted from 0 around it: its files under ``dp_serve_one``."""
+    from s2tpu_torch.checkpoint.io import save_checkpoint
+    from s2tpu_torch.cli.infer import main as infer_main
+    from s2tpu_torch.configs.segmentation import base_config
+    from s2tpu_torch.models.efficientnet_unet import EfficientNetUNet, EfficientNetUNetConfig
+
+    config = base_config(f"efficientnet-unet-{DP_SERVE_MODEL}", aoi="small", label_map="osm-multiclass")
+    config.datamodule.dataset_cfg.data_dir = str(data_dir)
+    config.datamodule.random_crop_size = 224
+    config.train.compute_dtype = "bfloat16"
+    gen = torch.Generator().manual_seed(SEED + 12)
+    model_cfg = EfficientNetUNetConfig(version=DP_SERVE_MODEL, in_channels=6, num_classes=config.num_classes)
+    model = randomize_batch_stats_(EfficientNetUNet(model_cfg, generator=gen), gen)
+    save_checkpoint(work / "dp_serve_ckpt", config, model.state_dict())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with serving_spy() as served:
+        infer_main(dp_serve_argv(work, data_dir, "dp_serve_one", 1))
+    torch.cuda.synchronize()
+    return {"launches": launch_counts(), **served[-1], "files": served_files(work / "dp_serve_one")}
+
+
+def served_files(out: Path) -> dict[str, bytes]:
+    return {p.name: p.read_bytes() for p in sorted(out.glob("pred_*.tif"))}
+
+
+def check_dp_fc(data_dir: Path, ranks: list[dict]) -> dict:
+    """Phase E's fc-prithvi part: on each of the DP_RANKS gloo ranks a frozen
+    step, the unfreeze and an unfrozen step of config #4 at its DP_FC_BATCH /
+    DP_RANKS rows, each rank launching exactly a one-card step's #8/#9/#3/#4,
+    the ranks bit-equal, against the one-rank steps within DP_FACTOR x the
+    one-rank sequence's movement under half a bf16 ulp (at least DP_FLOOR);
+    then the f32 steps to the B5 f32 bounds."""
+    one = dp_fc_trainer(data_dir)
+    images, labels = dp_global_batch(one)
+    ref = dp_fc_sequence(one, images, labels, full=True)
+    del one
+    torch.cuda.empty_cache()
+    moved = dp_fc_trainer(data_dir)
+    noise = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for p in moved.model.parameters():
+            p.mul_(1.0 + DP_BF16_EPS * torch.randn(p.shape, generator=noise).to(p.device))
+    moved_rec = dp_fc_sequence(moved, images, labels, full=True)
+    del moved
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32_ref = dp_fc_f32(data_dir)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    expected = {"frozen": launch_dict(attn_fused_fwd=FC_DEPTH, fused_ce_fwd=1, fused_ce_bwd=1),
+                "unfrozen": launch_dict(attn_fused_fwd=FC_DEPTH, attn_fused_bwd=FC_DEPTH, fused_ce_fwd=1,
+                                        fused_ce_bwd=1)}
+    failures, out = [], {"launches": {}, "distances": {}, "sensitivity": {}, "limits": {}, "f32": {}}
+    first = ranks[0]
+    for form in ("frozen", "unfrozen"):
+        for r, rank in enumerate(ranks):
+            if rank["fc"][form]["launches"] != expected[form]:
+                failures.append(f"{form} rank {r} launches {rank['fc'][form]['launches']} != {expected[form]}")
+            for key in ("fc", "fc_f32"):
+                if (rank[key][form]["digest"], rank[key][form]["loss"]) != (first[key][form]["digest"],
+                                                                             first[key][form]["loss"]):
+                    failures.append(f"{key} {form}: rank {r} differs from rank 0")
+        if ref[form]["launches"] != expected[form]:
+            failures.append(f"{form}: the one-rank step launched {ref[form]['launches']}")
+        sens = dp_fc_distance(moved_rec[form], ref[form])
+        diff = dp_fc_distance(first["fc"][form], ref[form])
+        limits = {k: max(DP_FACTOR * sens[k], DP_FLOOR[k]) for k in diff}
+        failures += [f"fc {form} {k}: {DP_RANKS} ranks vs one {v:.3g} > {limits[k]:.3g}" for k, v in diff.items()
+                     if not v <= limits[k]]
+        a, b = first["fc_f32"][form], f32_ref[form]
+        f32 = {
+            "loss": max(abs(r["fc_f32"][form]["loss"] - b["loss"]) / abs(b["loss"]) for r in ranks),
+            "running_stats": max(float(((r["fc_f32"][form]["stats"][n] - t).abs() / t.abs().clamp_min(1.0)).max())
+                                 for r in ranks for n, t in b["stats"].items()),
+            "classifier_grad": state_distance({"w": a["grads"][DP_FC_CLASSIFIER]},
+                                              {"w": b["grads"][DP_FC_CLASSIFIER]})[1],
+            "grads": state_distance(a["grads"], b["grads"])[1],
+        }
+        f32_limits = {"loss": DP_F32_RTOL, "running_stats": DP_F32_RTOL, "classifier_grad": DP_F32_RTOL_GRAD,
+                      "grads": DP_F32_TOTAL_GRAD}
+        failures += [f"fc f32 {form} {k}: {DP_RANKS} ranks vs one {v:.3g} > {f32_limits[k]:.3g}"
+                     for k, v in f32.items() if not v <= f32_limits[k]]
+        out["launches"][form], out["distances"][form] = first["fc"][form]["launches"], diff
+        out["sensitivity"][form], out["limits"][form], out["f32"][form] = sens, limits, f32
+        log(
+            f"data axis (fc-prithvi config #4 T=1 {form}, Prithvi-100M bf16, dropout 0.1, global batch "
+            f"{DP_FC_BATCH}, {DP_RANKS} gloo ranks of {first['fc_rows']} rows on one card, {CARD}): each rank's "
+            f"launches {first['fc'][form]['launches']} (expected a one-card step's {expected[form]}); ranks "
+            f"bit-equal: {all(r['fc'][form]['digest'] == first['fc'][form]['digest'] for r in ranks)}; loss "
+            f"{first['fc'][form]['loss']:.6f} vs one rank {ref[form]['loss']:.6f}; vs the one-rank step: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in diff.items()) + "; half a bf16 ulp: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in sens.items())
+            + f"; limits {', '.join(f'{k} {v:.3g}' for k, v in limits.items())}; f32 (TF32 off, batch "
+            f"{DP_FC_F32_BATCH}) " + ", ".join(f"{k} {v:.3g} (limit {f32_limits[k]:.3g})" for k, v in f32.items())
+        )
+    if failures:
+        raise AssertionError("fc-prithvi data axis: " + "; ".join(failures))
+    return out
+
+
+def check_dp_sharded(ranks: list[dict]) -> dict:
+    """Each gloo rank's block of the sharded corpus: the segments it owns
+    (ceil(N / DP_RANKS)) and no more on its card, and crops gathered by
+    local ids equal to the source's."""
+    failures = []
+    for r, rank in enumerate(ranks):
+        b = rank["sharded"]
+        if b["segments"] != b["n_local"] or b["bytes"] != b["n_local"] * b["segment_bytes"]:
+            failures.append(f"rank {r}: {b['segments']} segments, {b['bytes']} bytes for a block of {b['n_local']}")
+        if b["crops_equal"] != DP_CROP_CHECKS:
+            failures.append(f"rank {r}: {b['crops_equal']} of {DP_CROP_CHECKS} crops equal the source's")
+    log(
+        f"data axis sharded corpus ({DP_RANKS} gloo ranks on one card, {CARD}): per rank "
+        + "; ".join(f"rank {r}: {b['sharded']['segments']} segments, {b['sharded']['bytes']} bytes on the card, "
+                    f"uploaded in {b['sharded']['upload_s']:.3f} s, {b['sharded']['crops_equal']} of "
+                    f"{DP_CROP_CHECKS} crops bit-equal to the source's" for r, b in enumerate(ranks))
+    )
+    if failures:
+        raise AssertionError("sharded corpus: " + "; ".join(failures))
+    return {"bytes": [rank["sharded"]["bytes"] for rank in ranks]}
+
+
+def check_dp_serve(work: Path, ranks: list[dict], one: dict) -> dict:
+    """``cli.infer --tiled --num-devices DP_RANKS`` on the gloo ranks sharing
+    the card: the union of the files equals the one-rank run's, byte for
+    byte, and each rank that served a group launched #1 exactly as a
+    one-rank call does (its warm-up chunk and its capture)."""
+    from s2tpu_torch.models.efficientnet_unet import EfficientNetUNetConfig, count_stride1_depthwise
+
+    per = count_stride1_depthwise(EfficientNetUNetConfig(version=DP_SERVE_MODEL, in_channels=6, num_classes=CE_CLASSES))
+    expected = launch_dict(depthwise_fwd=graphed_cli_launches(per))
+    two = served_files(work / "dp_serve_two")
+    failures = []
+    if list(two) != list(one["files"]) or any(two[n] != one["files"][n] for n in two):
+        failures.append(f"the ranks' files {list(two)} differ from the one-rank run's {list(one['files'])}")
+    if one["launches"] != expected:
+        failures.append(f"one rank launched {one['launches']}, not {expected}")
+    for r, rank in enumerate(ranks):
+        if rank["serve"]["launches"] != (expected if rank["serve"]["segments"] else launch_dict()):
+            failures.append(f"rank {r} launched {rank['serve']['launches']} serving {rank['serve']['segments']}")
+    log(
+        f"data axis tiled serving (B5 config #2 bf16, cli.infer --tiled --num-devices {DP_RANKS}, gloo ranks on one "
+        f"card, {CARD}): {len(one['files'])} files, the ranks' union equal to one rank's byte for byte: "
+        f"{not failures}; per rank segments {[r['serve']['segments'] for r in ranks]}, tiles "
+        f"{[r['serve']['tiles'] for r in ranks]}, #1 launches "
+        f"{[r['serve']['launches']['depthwise_fwd'] for r in ranks]}"
+        f" (one rank {one['launches']['depthwise_fwd']}: warm-up chunk and capture)"
+    )
+    if failures:
+        raise AssertionError("tiled serving on a data axis: " + "; ".join(failures))
+    return {"rank_launches": ranks[0]["serve"]["launches"], "one_launches": one["launches"]}
+
+
+def _dp_serve_rank(rank: int, work: str, data_dir: str, world: int) -> None:
+    """One NCCL rank (one card each) of ``cli.infer --tiled --num-devices
+    world``: its share's segments, tiles, seconds and #1 launches go to
+    ``work/dp_serve<world>_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from s2tpu_torch.cli.infer import main as infer_main
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{work}/dp_serve{world}_store", world_size=world, rank=rank)
+    try:
+        reset_launch_counts()
+        with serving_spy() as served:
+            infer_main(dp_serve_argv(Path(work), Path(data_dir), f"dp_serve_{world}", world))
+        torch.cuda.synchronize()
+        torch.save({"launches": launch_counts(), **served[-1], "device": torch.cuda.current_device()},
+                   f"{work}/dp_serve{world}_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_dp_serving_nccl(work: Path, data_dir: Path, one: dict) -> dict | None:
+    """With two cards or more: ``cli.infer --tiled --num-devices N`` over N
+    NCCL ranks, one card each (N = 2, and 4 with four cards): the union of
+    the files equals the one-rank run's byte for byte; each rank's segments,
+    tiles and tiles/s (its CLI serving loop, the graph's capture included)
+    and the total. None (logged) on one card."""
+    import torch.multiprocessing as mp
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"data axis tiled serving over NCCL: not run, {cards} card")
+        return None
+    out, failures = {}, []
+    for world in [2] + ([4] if cards >= 4 else []):
+        mp.spawn(_dp_serve_rank, args=(str(work), str(data_dir), world), nprocs=world)
+        ranks = [torch.load(work / f"dp_serve{world}_rank{r}.pt", weights_only=False) for r in range(world)]
+        files = served_files(work / f"dp_serve_{world}")
+        if list(files) != list(one["files"]) or any(files[n] != one["files"][n] for n in files):
+            failures.append(f"{world} ranks' files {list(files)} differ from one rank's {list(one['files'])}")
+        if [r["device"] for r in ranks] != list(range(world)):
+            failures.append(f"{world} ranks on cards {[r['device'] for r in ranks]}")
+        rates = [r["tiles"] / r["seconds"] for r in ranks]
+        total = sum(r["tiles"] for r in ranks) / max(r["seconds"] for r in ranks)
+        out[world] = {"tiles_per_s": rates, "total_tiles_per_s": total,
+                      "one_tiles_per_s": one["tiles"] / one["seconds"]}
+        log(
+            f"data axis tiled serving over NCCL ({world} ranks, one card each, {CARD}): files equal to one rank's "
+            f"byte for byte: {files == one['files']}; per rank segments {[r['segments'] for r in ranks]}, tiles "
+            f"{[r['tiles'] for r in ranks]}, s {[round(r['seconds'], 3) for r in ranks]}, tiles/s "
+            f"{[round(x, 2) for x in rates]} (the CLI's loop, one graph capture included), total {total:.2f} tiles/s "
+            f"against one rank's {one['tiles'] / one['seconds']:.2f}; #1 launches "
+            f"{[r['launches']['depthwise_fwd'] for r in ranks]}"
+        )
+    if failures:
+        raise AssertionError("tiled serving over NCCL: " + "; ".join(failures))
     return out
 
 
@@ -5076,31 +5510,38 @@ def dp_distance(a: dict, ref: dict, init_a: dict, init_ref: dict) -> dict[str, f
 
 def check_dp_cli(work: Path, data_dir: Path) -> dict | None:
     """Where the machine has two cards: the training CLI with
-    ``--num-devices 2`` (two NCCL ranks it starts itself) for one epoch;
-    None (logged) on one card."""
+    ``--num-devices 2`` (two NCCL ranks it starts itself) for one epoch, for
+    config #2 and for config #4 (fc-prithvi from the device corpus, its steps
+    replays of the step graph over NCCL); None (logged) on one card."""
     from s2tpu_torch.cli.train_segmentation import main as train_main
     from s2tpu_torch.configs.paths import CKPT_DIR, LOG_DIR
 
     if torch.cuda.device_count() < 2:
         log(f"data axis (e) CLI --num-devices 2 over NCCL: not run, {torch.cuda.device_count()} card")
         return None
-    name = f"chip-smoke-dp-{os.getpid()}"
-    try:
-        t0 = time.perf_counter()
-        history = train_main([*train_argv(data_dir, name, epochs=1), "--num-devices", "2"])
-        cli_s = time.perf_counter() - t0
-        runs = list(CKPT_DIR.glob(f"*/{name}_*"))
-        if [r["epoch"] for r in history] != [0] or not all(math.isfinite(v) for k, v in history[0].items()
-                                                          if "loss" in k) or len(runs) != 1:
-            raise AssertionError(f"--num-devices 2: history {history}, run directories {runs}")
-        log(f"data axis (e) CLI --num-devices 2 over NCCL ({CARD}): 1 epoch in {cli_s:.1f} s, train loss "
-            f"{history[0]['train/loss']:.5f}, val loss {history[0]['val/loss']:.5f}, one run directory")
-        return {"seconds": cli_s, "history": history}
-    finally:
-        for d in CKPT_DIR.glob(f"*/{name}_*"):
-            shutil.rmtree(d, ignore_errors=True)
-        for f in (LOG_DIR / "runs").glob(f"{name}_*"):
-            f.unlink(missing_ok=True)
+    out = {}
+    runs = {"b5": [*train_argv(data_dir, "{name}", epochs=1), "--num-devices", "2"],
+            "fc": [*dp_fc_argv(data_dir), "--name", "{name}", "--epochs", "1", "--num-devices", "2",
+                   "--device-corpus", "--steps-per-dispatch", str(CORPUS_K)]}
+    for model, argv in runs.items():
+        name = f"chip-smoke-dp-{model}-{os.getpid()}"
+        try:
+            t0 = time.perf_counter()
+            history = train_main([a.replace("{name}", name) for a in argv])
+            cli_s = time.perf_counter() - t0
+            found = list(CKPT_DIR.glob(f"*/{name}_*"))
+            if [r["epoch"] for r in history] != [0] or not all(math.isfinite(v) for k, v in history[0].items()
+                                                              if "loss" in k) or len(found) != 1:
+                raise AssertionError(f"{model} --num-devices 2: history {history}, run directories {found}")
+            log(f"data axis (e) CLI {model} --num-devices 2 over NCCL ({CARD}): 1 epoch in {cli_s:.1f} s, train loss "
+                f"{history[0]['train/loss']:.5f}, val loss {history[0]['val/loss']:.5f}, one run directory")
+            out[model] = {"seconds": cli_s, "history": history}
+        finally:
+            for d in CKPT_DIR.glob(f"*/{name}_*"):
+                shutil.rmtree(d, ignore_errors=True)
+            for f in (LOG_DIR / "runs").glob(f"{name}_*"):
+                shutil.rmtree(f) if f.is_dir() else f.unlink(missing_ok=True)
+    return out
 
 
 def phase_data_parallel(work: Path) -> dict:
@@ -5108,9 +5549,12 @@ def phase_data_parallel(work: Path) -> dict:
     share the card (a check of the data axis, not a scaling figure): each
     rank's exact #1-#4 launches, parameters bit-equal across the ranks, and
     the step against the one-rank step on the same global batch; the same
-    for config #5's MAE step (#8/#9); then, on two cards, the CLI over NCCL
-    and the graphed corpus windows (:func:`check_dp_graphs`). Returns rank
-    0's launches."""
+    for config #4's fc-prithvi steps, frozen then unfrozen (#8/#9/#3/#4,
+    :func:`check_dp_fc`) and config #5's MAE step (#8/#9); each rank's block
+    of the sharded corpus (:func:`check_dp_sharded`) and its share of tiled
+    serving (:func:`check_dp_serve`); then, on two cards and more, the CLIs
+    over NCCL, the graphed corpus windows (:func:`check_dp_graphs`) and
+    serving over NCCL. Returns rank 0's launches and the checks' records."""
     import torch.multiprocessing as mp
 
     from s2tpu_torch.data import statistics
@@ -5123,6 +5567,7 @@ def phase_data_parallel(work: Path) -> dict:
                                size=(TRAIN_SEGMENT_SIZE, TRAIN_SEGMENT_SIZE))
         source = TiffSource("small", "osm-multiclass", data_dir)
         statistics.calculate_mean_std(source, save_path=source.data_dirs.base_path / "mean_std.json")
+    serve_one = dp_serving_reference(work, data_dir)
     t0 = time.perf_counter()
     mp.spawn(_dp_rank, args=(str(work), str(data_dir)), nprocs=DP_RANKS)  # a rank's failure raises here
     ranks_s = time.perf_counter() - t0
@@ -5204,7 +5649,10 @@ def phase_data_parallel(work: Path) -> dict:
     if failures:
         raise AssertionError("data axis: " + "; ".join(failures))
     return {"launches": first["launches"], "distances": diff, "sensitivity": sensitivity, "f32": f32_diff,
-            "mae": check_dp_mae(work, data_dir), "cli": check_dp_cli(work, data_dir), "graphs": check_dp_graphs(work)}
+            "fc": check_dp_fc(data_dir, ranks), "sharded": check_dp_sharded(ranks),
+            "serve": check_dp_serve(work, ranks, serve_one), "mae": check_dp_mae(work, data_dir),
+            "cli": check_dp_cli(work, data_dir), "graphs": check_dp_graphs(work),
+            "serve_nccl": check_dp_serving_nccl(work, data_dir, serve_one)}
 
 
 def data_parallel_only() -> int:
@@ -5223,12 +5671,22 @@ def data_parallel_only() -> int:
     return 0
 
 
-def dp_graph_entries(dp: dict, run: str, kernel: str) -> dict:
+def dp_graph_entries(dp: dict, run: str, kernel: str, key: str = "dp_graph_replay_launches") -> dict:
     """A kernel's launches in one replay of phase E's graphed window on NCCL
-    ranks (rank 0; ``run`` "b5_2", "mae_2" or "mae_4"), None where the
-    machine had too few cards."""
+    ranks (rank 0; ``run`` "<model>_<ranks>": "b5_2", "mae_2", "fc_2",
+    "b5_sharded_2", "mae_sharded_2", "mae_4", ...), None where the machine
+    had too few cards."""
     graphs = dp["graphs"] or {}
-    return {"dp_graph_replay_launches": graphs[run]["replay"]["launches"][kernel] if run in graphs else None}
+    return {key: graphs[run]["replay_nodes"][kernel] if run in graphs else None}
+
+
+def dp_fc_entries(dp: dict, kernel: str) -> dict:
+    """A kernel's launches in one gloo rank's fc-prithvi steps of phase E
+    (frozen, then unfrozen) and in one replay of its graphed window over
+    two NCCL ranks."""
+    launches = dp["fc"]["launches"]
+    return {"dp_fc_rank_launches": {form: launches[form][kernel] for form in ("frozen", "unfrozen")},
+            **dp_graph_entries(dp, "fc_2", PORT_KERNEL_FOR[kernel], "dp_fc_graph_replay_launches")}
 
 
 def serving_entries(model: dict) -> dict:
@@ -5371,6 +5829,9 @@ def main(argv: list[str]) -> int:
             "dp_rank_launches": dp["launches"]["depthwise_fwd"],
             "dp_rank_dx_launches": dp["launches"]["depthwise_dx"],
             **dp_graph_entries(dp, "b5_2", "#1"),
+            # phase E: one gloo rank's share of cli.infer --tiled --num-devices 2, a replay from the sharded corpus
+            "dp_serve_rank_launches": dp["serve"]["rank_launches"]["depthwise_fwd"],
+            **dp_graph_entries(dp, "b5_sharded_2", "#1", "dp_sharded_graph_replay_launches"),
         },
         {
             "name": "depthwise_conv2d_s1_grad_weight",
@@ -5393,6 +5854,7 @@ def main(argv: list[str]) -> int:
             **packed_entries(packed, "depthwise_dw"),
             "dp_rank_launches": dp["launches"]["depthwise_dw"],
             **dp_graph_entries(dp, "b5_2", "#2"),
+            **dp_graph_entries(dp, "b5_sharded_2", "#2", "dp_sharded_graph_replay_launches"),
         },
         {
             "name": "fused_ce_forward",
@@ -5417,6 +5879,8 @@ def main(argv: list[str]) -> int:
             **packed_entries(packed, "fused_ce_fwd"),
             "dp_rank_launches": dp["launches"]["fused_ce_fwd"],
             **dp_graph_entries(dp, "b5_2", "#3"),
+            **dp_graph_entries(dp, "b5_sharded_2", "#3", "dp_sharded_graph_replay_launches"),
+            **dp_fc_entries(dp, "fused_ce_fwd"),
         },
         {
             "name": "fused_ce_backward",
@@ -5441,6 +5905,8 @@ def main(argv: list[str]) -> int:
             **packed_entries(packed, "fused_ce_bwd"),
             "dp_rank_launches": dp["launches"]["fused_ce_bwd"],
             **dp_graph_entries(dp, "b5_2", "#4"),
+            **dp_graph_entries(dp, "b5_sharded_2", "#4", "dp_sharded_graph_replay_launches"),
+            **dp_fc_entries(dp, "fused_ce_bwd"),
         },
         {
             "name": "fused_attention_qkv_forward",
@@ -5457,6 +5923,7 @@ def main(argv: list[str]) -> int:
             "t3_launches": tp_t3["launches"]["attn_fused_qkv_fwd"],
             **fwd_ptxas,
             **dp_graph_entries(dp, "mae_4", "#8"),  # #6 and #8 share their kernels' names (one library)
+            **dp_graph_entries(dp, "mae_sharded_4", "#8", "dp_sharded_graph_replay_launches"),
         },
         {
             "name": "fused_attention_qkv_backward",
@@ -5472,6 +5939,7 @@ def main(argv: list[str]) -> int:
             "library_ms": attn_times["qkv"]["bwd_library_ms"],
             "t3_launches": tp_t3["launches"]["attn_fused_qkv_bwd"],
             **dp_graph_entries(dp, "mae_4", "#9"),
+            **dp_graph_entries(dp, "mae_sharded_4", "#9", "dp_sharded_graph_replay_launches"),
         },
         {
             "name": "fused_attention_dense_forward",
@@ -5503,6 +5971,8 @@ def main(argv: list[str]) -> int:
             # phase E: one gloo rank's MAE step (MAE_BATCH / DP_RANKS rows) and, on cards, a graphed replay
             "dp_rank_launches": dp["mae"]["launches"]["attn_fused_fwd"],
             **dp_graph_entries(dp, "mae_2", "#8"),
+            **dp_graph_entries(dp, "mae_sharded_2", "#8", "dp_sharded_graph_replay_launches"),
+            **dp_fc_entries(dp, "attn_fused_fwd"),
         },
         {
             "name": "fused_attention_dense_backward",
@@ -5524,6 +5994,8 @@ def main(argv: list[str]) -> int:
             **{f"fc_prithvi_{k}": attn_times["dense_fc"][f"bwd_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             "dp_rank_launches": dp["mae"]["launches"]["attn_fused_bwd"],
             **dp_graph_entries(dp, "mae_2", "#9"),
+            **dp_graph_entries(dp, "mae_sharded_2", "#9", "dp_sharded_graph_replay_launches"),
+            **dp_fc_entries(dp, "attn_fused_bwd"),
         },
         {
             "name": "flash_attention_forward",

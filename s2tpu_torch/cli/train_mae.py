@@ -15,8 +15,8 @@ per sample: the source is built with the dataset config's
 window replay one CUDA graph of the whole step on the card), and the
 segmentation CLI's ``--watch-interval``, without which a run watches its
 norms every 30 steps and so trains one eager step a window; those whose
-feature is not ported (pipeline parallelism, the sharded corpus, more than
-the sharded corpus) are refused with a message. A SIGTERM saves the state
+feature is not ported (pipeline parallelism, ``--pp`` and
+``--pp-microbatches``) are refused with a message. A SIGTERM saves the state
 at the next step boundary; the same command with ``--auto-resume`` (or
 ``--resume-from <run dir>``) continues the interrupted epoch exactly.
 
@@ -29,6 +29,8 @@ itself; under ``torchrun --nproc-per-node N -m s2tpu_torch.cli.train_mae``
 N must equal the world size. -1 (the default) takes every visible card (a
 launcher's world size; one process on the CPU). With ``--device-corpus
 --steps-per-dispatch K`` each rank replays its step graph over NCCL.
+``--device-corpus-sharded`` implies ``--device-corpus`` and, on N > 1
+ranks, uploads to each rank only its 1/N block of the images.
 """
 
 from __future__ import annotations
@@ -90,7 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device-corpus", action="store_true", help="upload the corpus to the card once; crop and flip on the card"
     )
-    p.add_argument("--device-corpus-sharded", action="store_true", help="not ported (a data axis, ROADMAP item 16)")
+    p.add_argument(
+        "--device-corpus-sharded", action="store_true",
+        help="implies --device-corpus; on N ranks each card holds only its 1/N block of the images",
+    )
     p.add_argument(
         "--steps-per-dispatch", type=int, default=None,
         help="device-corpus mode: N steps a window, each a replay of one CUDA graph of the whole step "
@@ -110,7 +115,6 @@ def unported_flags(args: argparse.Namespace) -> list[str]:
     asked = {
         "--pp > 1": (args.pp or 1) > 1,
         "--pp-microbatches": args.pp_microbatches is not None,
-        "--device-corpus-sharded": args.device_corpus_sharded,
     }
     return [flag for flag, on in asked.items() if on]
 

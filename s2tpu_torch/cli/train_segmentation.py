@@ -12,13 +12,14 @@ confusion matrix and two validation predictions go to
 reads the packed corpus under ``<data>/<aoi>/packed/<labels>`` when one
 exists (``python -m s2tpu_torch.cli.pack``), else the GeoTIFF tree;
 ``tiff``, ``packed`` (the memmap pack, gathered by the native C++ crop
-gather) and ``records`` (the sharded ``.s2rec`` corpus) force one. Only the
-flags of features the port has are accepted: ``--device-corpus-sharded`` is
-not ported yet, and argparse refuses it, naming ROADMAP item 16. ``--device-corpus`` uploads the AOI to the
-card once and gathers each step's crops there; with it,
-``--steps-per-dispatch N`` replays one CUDA graph of the whole step N steps
-a window (on the CPU, with ``--device cpu``, the same windows of eager
-steps). The trainer's extras take the JAX
+gather) and ``records`` (the sharded ``.s2rec`` corpus) force one.
+``--device-corpus`` uploads the AOI to the card once and gathers each step's
+crops there; with it, ``--steps-per-dispatch N`` replays one CUDA graph of
+the whole step N steps a window (on the CPU, with ``--device cpu``, the same
+windows of eager steps). ``--device-corpus-sharded`` implies
+``--device-corpus`` and, on N > 1 ranks, uploads to each rank only its
+1/N block of the segments, from which it draws its rows of every batch (on
+one rank it is the plain corpus). The trainer's extras take the JAX
 CLI's flags (``--remat``, ``--param-dtype bfloat16``, ``--ema-decay D``,
 ``--watch-interval N``, ``--bn-recal N``); gradient accumulation is the
 config field ``train.grad_accum_steps``, as in the JAX CLI. A SIGTERM saves
@@ -40,9 +41,10 @@ checkpoints. Outside a launcher the command starts the N ranks itself;
 under ``torchrun --nproc-per-node N -m s2tpu_torch.cli.train_segmentation``
 N must equal the world size. -1 (the default) takes every visible card (a
 launcher's world size; one process on the CPU); N above the visible cards is
-an error. ``--fsdp`` is taken with ``s2tpu``'s meaning: the CLI's mesh has a
-model axis of one rank, over which nothing is sharded, so the parameters
-stay replicated (pure data parallelism).
+an error. fc-prithvi trains on N ranks as the UNet does. ``--fsdp`` is
+taken with ``s2tpu``'s meaning: the CLI's mesh has a model axis of one
+rank, over which nothing is sharded, so the parameters stay replicated
+(pure data parallelism).
 
 Multi-temporal B5 (BASELINE config #3) folds its frames into channels,
 frame-major, for the single-frame UNet (in_channels = T x bands):
@@ -73,16 +75,6 @@ from s2tpu_torch.parallel import multihost
 from s2tpu_torch.utils import get_logger, get_unique_run_name
 
 logger = get_logger(__name__)
-
-
-class _Refused(argparse.Action):
-    """A flag of a feature the port lacks: argparse refuses it with its help."""
-
-    def __init__(self, option_strings, dest, **kwargs) -> None:
-        super().__init__(option_strings, dest, nargs=0, **kwargs)
-
-    def __call__(self, parser, namespace, values, option_string=None) -> None:
-        parser.error(f"{option_string}: {self.help}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -133,8 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
         "replicated, pure data parallelism, as in s2tpu)",
     )
     p.add_argument(
-        "--device-corpus-sharded", action=_Refused,
-        help="the sharded corpus is not ported to s2tpu_torch yet (ROADMAP item 16)",
+        "--device-corpus-sharded", action="store_true",
+        help="implies --device-corpus; on N ranks each card holds only its 1/N block of the segments",
     )
     p.add_argument("--remat", action="store_true", help="recompute each block's activations in the backward pass")
     p.add_argument(
@@ -237,7 +229,8 @@ def config_from_args(args: argparse.Namespace) -> cfg_lib.Config:
     t.bn_recalibration_batches = args.bn_recal if args.bn_recal is not None else t.bn_recalibration_batches
     t.num_devices = args.num_devices
     t.remat = args.remat or t.remat
-    t.device_corpus = args.device_corpus or t.device_corpus
+    t.device_corpus = args.device_corpus or args.device_corpus_sharded or t.device_corpus
+    t.device_corpus_sharded = args.device_corpus_sharded or t.device_corpus_sharded
     t.steps_per_dispatch = args.steps_per_dispatch if args.steps_per_dispatch is not None else t.steps_per_dispatch
     t.use_wandb_logger = False if args.wandb else t.use_wandb_logger
     t.tags.extend(args.tags)

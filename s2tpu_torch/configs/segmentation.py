@@ -118,8 +118,8 @@ class TrainConfig:
     # Upload the corpus to the card once and crop there: per step the host
     # sends only index/offset vectors (data/device_corpus.py).
     device_corpus: bool = False
-    # Shard the corpus segment axis over a data mesh: not ported (refused;
-    # it needs ROADMAP item 16's data axis).
+    # Shard the corpus segment axis over the data axis: each rank uploads
+    # only its block of the segments (a data axis of one: the plain corpus).
     device_corpus_sharded: bool = False
     # In device-corpus mode, train N steps a window: on the card each step
     # replays one CUDA graph of the whole step (train/graphs.py), so the

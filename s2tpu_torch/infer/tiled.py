@@ -22,6 +22,13 @@ batch size, compute dtype) and replayed once a chunk after each chunk's
 rows are copied into its static input; a capture or replay failure raises.
 On the CPU, and on the card with ``graph=False``, the same chunk program
 runs eagerly.
+
+Serving over N cards is N processes, one card each, every one serving its
+round-robin share of the segments with its own graphs
+(:func:`multihost_segment_slice`, ``cli/infer.py --num-devices``): the JAX
+package's one-program ``mesh=`` path, segments sharded over a device mesh
+under ``shard_map`` (``:222-265``), has no counterpart, and gives the same
+files.
 """
 
 from __future__ import annotations
@@ -219,6 +226,16 @@ def tiled_logits(
         for c in range(first, len(rows)):
             tiled.replay(rows[c], valid[c])
         return tiled.program.blend()
+
+
+def multihost_segment_slice(indices: typing.Sequence[int], n_proc: int, index: int) -> list[int]:
+    """Process ``index`` of ``n_proc`` serves ``indices[index::n_proc]``
+    (``s2tpu/infer/tiled.py:167-183``): serving needs no collective, each
+    process writes its own segments' files (named by segment id, so
+    concurrent writers never write the same file), the union over the
+    processes is the one-process output, and round-robin balances the
+    load."""
+    return list(indices)[index::n_proc]
 
 
 def tiled_predict_many(

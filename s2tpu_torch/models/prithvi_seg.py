@@ -22,7 +22,11 @@ reference ``PrithviSegmentationNet.state_dict()`` loads with ``strict=True``.
 Numerics, from the JAX model: the neck's LayerNorms take f32 statistics
 with eps 1e-6 and return the compute dtype; the head's BatchNorm has flax
 semantics at decay 0.9 and eps 1e-5; dropout draws its keep mask from an
-explicit generator; the classifier runs in f32 on f32 input. A frozen
+explicit generator; the classifier runs in f32 on f32 input. On a data axis
+of several ranks (:meth:`PrithviSegmentationNet.set_data_axis`) the head's
+BatchNorm takes the global batch's statistics and dropout draws the global
+batch's keep mask and keeps this rank's rows, so N ranks compute what one
+process computes on the global batch. A frozen
 backbone runs with no autograd graph (JAX: ``stop_gradient`` on its
 output), so its attention saves nothing for a backward that never comes.
 The backbone's attention takes the port's kernel route ("fused": #8/#9 up
@@ -40,6 +44,7 @@ from torch import nn
 
 from s2tpu_torch.models.efficientnet_unet import BatchNorm, Conv1x1, Conv2d, ConvTranspose2d, conv_init_
 from s2tpu_torch.models.prithvi_mae import LayerNorm, PrithviConfig, PrithviMAE
+from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
 
 NECK_LN_EPS = 1e-6
 HEAD_BN_EPS, HEAD_BN_DECAY = 1e-5, 0.9  # torch BatchNorm2d's defaults, flax's decay 0.9
@@ -103,7 +108,12 @@ class Neck(nn.Module):
 class Dropout(nn.Module):
     """Dropout whose keep mask (uniform < 1 - rate, the draw of
     ``jax.random.bernoulli``) comes from an explicit generator on the device
-    of ``x``; identity in eval mode or at rate 0."""
+    of ``x``; identity in eval mode or at rate 0. On a data axis of several
+    ranks the mask is drawn for the global batch and this rank keeps its
+    rows (``DataAxis.local``): the one-process draw, whatever the rank
+    count."""
+
+    data_axis: DataAxis = SINGLE
 
     def __init__(self, rate: float) -> None:
         super().__init__()
@@ -113,7 +123,8 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        shape = (x.shape[0] * self.data_axis.size, *x.shape[1:])
+        mask = self.data_axis.local(torch.rand(shape, generator=generator, device=x.device) < keep)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -190,6 +201,14 @@ class PrithviSegmentationNet(nn.Module):
         when the shapes match, as ``PrithviMAE.load_state_dict`` does)."""
         state_dict = self.backbone.drop_position_tables(state_dict, prefix="backbone.")
         return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
+    def set_data_axis(self, data: DataAxis) -> None:
+        """Run as one rank of ``data``: the head's BatchNorm statistics and
+        dropout masks over the global batch (:data:`SINGLE`: this process's
+        batch)."""
+        for m in self.head.modules():
+            if isinstance(m, (BatchNorm, Dropout)):
+                m.data_axis = data
 
     def set_frozen(self, frozen: bool) -> None:
         """Freeze (no autograd graph through the encoder, no gradients for

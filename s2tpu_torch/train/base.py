@@ -53,7 +53,7 @@ import torch.distributed as dist
 
 from s2tpu_torch import plotting
 from s2tpu_torch.checkpoint.io import on_rank0
-from s2tpu_torch.data.device_corpus import sample_crop_batch
+from s2tpu_torch.data.device_corpus import sample_crop_batch, sample_sharded_crop_batch, sharded_epoch_orders
 from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
 from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
 from s2tpu_torch.train.graphs import StepGraph
@@ -164,7 +164,19 @@ class TrainerBase:
         self._graph: StepGraph | None = None  # the captured corpus step; None until the first graphed window
         self._sums: dict[str, torch.Tensor] | None = None  # the corpus epoch's device sums
         self._window_logged = False  # the one log line when watching or gloo turns graphs off
+        # Whether another rank of the mesh holds a run logger (rank 0 alone
+        # does): the rule for windows must be the same on every rank.
+        self._peer_logs = self._on_any_rank(self.run_logger is not None)
         self._no_pyplot_warned = False  # the one warning when matplotlib is missing
+
+    def _on_any_rank(self, flag: bool) -> bool:
+        """``flag`` or'ed over the ranks of the trainer's mesh (one
+        collective; ``flag`` itself without a mesh of several ranks)."""
+        if self.mesh is None or dist.get_world_size() == 1:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     def _trainable(self) -> list[tuple[str, torch.nn.Parameter]]:
         return [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
@@ -354,10 +366,11 @@ class TrainerBase:
     def _window_size(self) -> int:
         """Steps a corpus window trains: ``steps_per_dispatch``, but 1 (said
         once in the log) when the norms are watched, which are read each
-        step."""
+        step; on every rank of a mesh when rank 0 watches, so that no rank
+        replays a step graph while another runs eager steps."""
         t = self.config.train
         k = max(t.steps_per_dispatch, 1)
-        if k > 1 and self.run_logger is not None and t.watch_interval > 0:
+        if k > 1 and (self.run_logger is not None or self._peer_logs) and t.watch_interval > 0:
             if not self._window_logged:
                 logger.info("steps_per_dispatch > 1 disabled (watch logging requires per-step dispatch)")
                 self._window_logged = True
@@ -422,31 +435,58 @@ class TrainerBase:
             self.step += 1
         return m
 
+    def _corpus_sampler(self, rng: np.random.Generator, sample_weights: np.ndarray | None, overfit: int,
+                        random_crop: bool) -> tuple[typing.Callable[[int], np.ndarray], int]:
+        """The epoch's draws from ``rng`` as the JAX loop makes them: a
+        function of the step giving this rank's (3, rows) int32 segment ids
+        and crop offsets, and the epoch's step count. The plain corpus: the
+        epoch's order over the train split (weighted when
+        ``sample_weights``), one ``sample_crop_batch`` a step, this rank's
+        rows of it. The sharded corpus: one order a block
+        (``sharded_epoch_orders``, per-block weights), one
+        ``sample_sharded_crop_batch`` a step, this rank's block's rows of it
+        (local ids)."""
+        dmc = self.config.datamodule
+        bs, crop, hw = dmc.batch_size, dmc.random_crop_size, self.corpus.hw
+        if self.corpus.sharded:
+            per = bs // self.data_axis.size
+            weights = None
+            if sample_weights is not None:
+                owners = self.dm.train_idx // self.corpus.n_local
+                w = sample_weights[self.dm.train_idx]
+                weights = [w[owners == k] for k in range(self.data_axis.size)]
+            orders, n_batches = sharded_epoch_orders(rng, self.corpus.shard_pools(self.dm.train_idx), per, overfit,
+                                                     weights=weights)
+            mine = slice(self.data_axis.index * per, (self.data_axis.index + 1) * per)
+            return (lambda b: np.stack(sample_sharded_crop_batch(rng, orders, b, per, hw, crop, random_crop))[:, mine],
+                    n_batches)
+        order, n_batches = sample_epoch_order(rng, self.dm.train_idx, sample_weights, bs, overfit)
+        rows = self.dm.local_rows()  # this rank's rows of each global draw (None: all)
+
+        def sample(b: int) -> np.ndarray:
+            draws = np.stack(sample_crop_batch(rng, order, b, bs, hw, crop, random_crop))
+            return draws if rows is None else draws[:, rows]
+
+        return sample, n_batches
+
     def _run_corpus_epoch(self, epoch: int, sample_weights: np.ndarray | None) -> tuple[int, dict, float]:
-        """One epoch from the device corpus: the JAX loop's draws (the epoch's
-        order, weighted when ``sample_weights``, then one
-        ``sample_crop_batch`` a step) in windows of ``_window_size()`` steps,
-        a remainder of fewer as single steps. A resumed epoch replays the
+        """One epoch from the device corpus: the JAX loop's draws
+        (:meth:`_corpus_sampler`) in windows of ``_window_size()`` steps, a
+        remainder of fewer as single steps. A resumed epoch replays the
         skipped prefix's draws without training on them. A SIGTERM stops it
         at a window boundary. Returns the batches trained, the epoch's device
         sums and its seconds."""
         cfg = self.config
         dmc = cfg.datamodule
-        bs, overfit, crop = dmc.batch_size, cfg.train.overfit_batches, dmc.random_crop_size
+        bs, overfit = dmc.batch_size, cfg.train.overfit_batches
         rng = epoch_rng(dmc.shuffle_seed, epoch, overfit)
-        order, n_batches = sample_epoch_order(rng, self.dm.train_idx, sample_weights, bs, overfit)
-        random_crop = dmc.augment and overfit == 0
-        rows = self.dm.local_rows()  # this rank's rows of each global draw (None: all)
+        sample, n_batches = self._corpus_sampler(rng, sample_weights, overfit, dmc.augment and overfit == 0)
         if n_batches == 0:
             raise ValueError(
                 f"train epoch {epoch} produced ZERO device-corpus batches: the train pool "
                 f"({len(self.dm.train_idx)} segments) is smaller than one batch ({bs}); "
                 "reduce --bs or grow the dataset/split"
             )
-
-        def sample(b: int) -> np.ndarray:
-            draws = np.stack(sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop))
-            return draws if rows is None else draws[:, rows]
 
         skip, self._skip_batches = self._skip_batches, 0
         for b in range(min(skip, n_batches)):

@@ -52,8 +52,15 @@ and the loss are summed over the data group in a few flat buckets. Eval sums
 its loss numerators and its padded-row denominators over the data axis. The
 per-epoch reconstruction image is skipped on a mesh of several ranks.
 
-Not ported, and refused where the config asks for them: pipeline stages,
-the sharded corpus and context parallelism (``cp_axis``).
+The sharded corpus (``train.device_corpus_sharded`` on a data axis of N > 1
+ranks, ``:114-123``, ``:322-325``, ``:400-410``): each rank uploads only its
+block of the images (the ranks of one 'model' group the same block), every
+rank draws the same per-block epoch orders and trains the rows its block
+owns, gathered by local ids with no collective. On one rank it is the plain
+corpus, as in the JAX trainer.
+
+Not ported, and refused where the config asks for them: pipeline stages and
+context parallelism (``cp_axis``), ROADMAP item 16.
 """
 
 from __future__ import annotations
@@ -84,11 +91,12 @@ logger = get_logger(__name__)
 
 
 def _refuse_unported(config: MAEConfig, model_config: PrithviConfig | None = None) -> None:
-    t, m = config.train, config.model
+    m = config.model
     unported = {
-        "cp_axis (context parallelism)": model_config is not None and model_config.cp_axis is not None,
-        "pipeline_stages > 1": m.pipeline_stages > 1,
-        "device_corpus_sharded (the sharded corpus, ROADMAP item 16)": t.device_corpus_sharded,
+        "cp_axis (context parallelism, ROADMAP item 16)": (
+            model_config is not None and model_config.cp_axis is not None
+        ),
+        "pipeline_stages > 1 (GPipe, ROADMAP item 16)": m.pipeline_stages > 1,
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -178,7 +186,10 @@ class MAETrainer(TrainerBase):
         self.optimizer = make_optimizer(self.model.parameters(), t.lr, t.weight_decay, t.betas, self.master)
         self.noise_generator = torch.Generator(device=self.device)  # eval and reconstruction noise
         # An unlabeled corpus: the labels are not uploaded.
-        self.corpus = DeviceCorpus(datamodule.source, self.device, with_labels=False) if t.device_corpus else None
+        self.corpus = None
+        if t.device_corpus:
+            self.corpus = DeviceCorpus(datamodule.source, self.device, with_labels=False,
+                                       data=self.data_axis if t.device_corpus_sharded else None)
 
     def _load_pretrained(self) -> None:
         """Published Prithvi_100M.pt weights when available (finetune path)."""

@@ -78,9 +78,25 @@ the ranks before the metrics. With gradient accumulation, a rank's
 micro-batch m is its slice of global micro-batch m, and the sum over the
 ranks runs once, after the last micro-batch.
 
-Refused where asked for: the sharded corpus, a model axis above one rank
-(``param_sharding="fsdp"`` that shards, FSDP2) and fc-prithvi on a data
-axis, all ROADMAP item 16.
+fc-prithvi trains on a data axis too (``PrithviSegmentationNet.set_data_axis``):
+the head's BatchNorm takes the global batch's statistics and its dropout
+draws the global batch's keep mask, of which each rank keeps its rows; every
+rank loads the same backbone, and rank 0's parameters are replicated. With a
+frozen backbone the gradient buckets hold the trainable parameters only; the
+unfreeze builds new buckets (they key on the list of shapes) and drops the
+step graph. BatchNorm recalibration skips fc-prithvi, as the JAX trainer does
+(its model config has no ``bn_momentum_override``).
+
+The sharded corpus (``train.device_corpus_sharded`` on a data axis of N > 1
+ranks, ``:784-802``): each rank uploads only its block of the segments
+(``DeviceCorpus(data=...)``), every rank draws the same per-block epoch
+orders (weighted per block when the sampling is), and each trains the
+block's rows it owns, gathered by local ids with no collective; BatchNorm
+recalibration draws its batches the same way (``:1018-1045``). On one rank
+it is the plain corpus, as in the JAX trainer.
+
+Refused where asked for: a model axis above one rank (``param_sharding="fsdp"``
+that shards, FSDP2), ROADMAP item 16.
 """
 
 from __future__ import annotations
@@ -98,7 +114,7 @@ from s2tpu_torch.configs.data_config import BANDS as PRITHVI_BANDS
 from s2tpu_torch.configs.data_config import LABEL_MAPS, parse_bands
 from s2tpu_torch.configs.segmentation import COMPUTE_DTYPES, Config
 from s2tpu_torch.data.augment import augment_batch, model_input, normalize
-from s2tpu_torch.data.device_corpus import DeviceCorpus, sample_crop_batch
+from s2tpu_torch.data.device_corpus import DeviceCorpus
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.efficientnet_unet import BatchNorm, EfficientNetUNet
 from s2tpu_torch.parallel.mesh import (
@@ -114,17 +130,11 @@ from s2tpu_torch.utils import get_logger
 logger = get_logger(__name__)
 
 
-def _refuse_unported(config: Config, mesh=None) -> None:
-    t = config.train
-    unported = {
-        "device_corpus_sharded (the sharded corpus, ROADMAP item 16)": t.device_corpus_sharded,
-        "a model axis above 1 (parameters sharded over it, FSDP2, ROADMAP item 16)": (
-            mesh is not None and axis_size(mesh, MODEL_AXIS) > 1
-        ),
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported to s2tpu_torch yet: {', '.join(asked)}")
+def _refuse_unported(mesh=None) -> None:
+    if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1:
+        raise NotImplementedError(
+            "not ported to s2tpu_torch yet: a model axis above 1 (parameters sharded over it, FSDP2, ROADMAP item 16)"
+        )
 
 
 def pool_batch_stats(stats: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -155,7 +165,7 @@ class SegmentationTrainer(TrainerBase):
         device: torch.device | str | None = None,
         mesh=None,
     ) -> None:
-        _refuse_unported(config, mesh)
+        _refuse_unported(mesh)
         t = config.train
         self.mesh = mesh if mesh is not None else mesh_for_num_devices(
             t.num_devices, resolve_device(device).type, "s2tpu_torch.cli.train_segmentation")
@@ -169,10 +179,6 @@ class SegmentationTrainer(TrainerBase):
                 f"{n_data} (set train.num_devices or the batch size)"
             )
         self.is_prithvi = config.model_name.value.startswith("fc-prithvi")
-        if self.is_prithvi and n_data > 1:
-            raise NotImplementedError(
-                "not ported to s2tpu_torch yet: fc-prithvi on a data axis of several ranks (ROADMAP item 16)"
-            )
         self.config = config
         self.dm = datamodule
         self.device = resolve_device(device) if self.mesh is None else mesh_device(self.mesh)
@@ -188,8 +194,7 @@ class SegmentationTrainer(TrainerBase):
         )
         if self.is_prithvi:
             self._load_prithvi_backbone()
-        else:
-            self.model.set_data_axis(self.data_axis)
+        self.model.set_data_axis(self.data_axis)
         if n_data > 1:
             replicate_module(self.model, self.mesh)
         mean, std = datamodule.mean_std()
@@ -236,7 +241,10 @@ class SegmentationTrainer(TrainerBase):
         # Flips run on the host in its crop gather when host_flips is on; the
         # corpus has no host gather, so its flips run on the device (:447-449).
         self.device_flips = dmc.augment and (t.device_corpus or not dmc.host_flips)
-        self.corpus = DeviceCorpus(datamodule.source, self.device) if t.device_corpus else None
+        self.corpus = None
+        if t.device_corpus:
+            self.corpus = DeviceCorpus(datamodule.source, self.device,
+                                       data=self.data_axis if t.device_corpus_sharded else None)
 
     # ------------------------------------------------------------------
     def _load_prithvi_backbone(self) -> None:
@@ -497,19 +505,16 @@ class SegmentationTrainer(TrainerBase):
 
     def _recal_corpus_batches(self, n_batches: int) -> typing.Iterator[torch.Tensor]:
         """Up to ``n_batches`` batches of crops gathered on the device from
-        the corpus, with no host image traffic (``:1004-1050``): a
-        permutation of the train split and random crops from a generator of
-        their own, seeded by (shuffle_seed, 0x5EED), distinct from every
-        epoch's stream."""
+        the corpus, with no host image traffic (``:1004-1050``): drawn as an
+        epoch draws them (:meth:`_corpus_sampler`: a permutation of the train
+        split, or of each block's pool on the sharded corpus, and random
+        crops), from a generator of their own, seeded by (shuffle_seed,
+        0x5EED), distinct from every epoch's stream."""
         dmc = self.config.datamodule
-        bs, crop = dmc.batch_size, dmc.random_crop_size
-        rng = np.random.default_rng((dmc.shuffle_seed, 0x5EED))
-        order = rng.permutation(self.dm.train_idx)
-        rows = self.dm.local_rows()
-        for b in range(min(n_batches, len(order) // bs)):
-            draws = sample_crop_batch(rng, order, b, bs, self.corpus.hw, crop, random_crop=True)
-            idx, ys, xs = (torch.from_numpy(a if rows is None else a[rows]).to(self.device) for a in draws)
-            yield self.corpus.gather(idx, ys, xs, crop)[0]
+        sample, available = self._corpus_sampler(np.random.default_rng((dmc.shuffle_seed, 0x5EED)), None, 0, True)
+        for b in range(min(n_batches, available)):
+            idx, ys, xs = torch.from_numpy(sample(b)).to(self.device)
+            yield self.corpus.gather(idx, ys, xs, dmc.random_crop_size)[0]
 
     def _end_epoch(self, epoch: int, train_metrics: dict) -> dict:
         """BN recalibration, the val pass, the epoch's record and its logs."""

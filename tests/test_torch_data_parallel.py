@@ -297,7 +297,8 @@ def test_sigterm_to_one_rank_stops_both_and_auto_resume_continues_exactly(runs):
 def test_refusals_on_a_data_axis(runs):
     for rank in runs["ranks"][2]:
         assert "num_devices=3, but the mesh's data axis holds 2 ranks" in rank["num_devices_refusal"]
-        assert "fc-prithvi on a data axis" in rank["prithvi_refusal"] and "ROADMAP item 16" in rank["prithvi_refusal"]
+        # fc-prithvi, refused here until it was ported, trains (tests/test_torch_fc_data_parallel.py)
+        assert "a model axis above 1" in rank["model_axis_refusal"] and "ROADMAP item 16" in rank["model_axis_refusal"]
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -368,3 +369,15 @@ def test_corpus_windows_are_graphed_on_the_card_over_nccl_only(backend, watched,
         assert [SegmentationTrainer._graphed(trainer) for _ in range(2)] == [graphed] * 2
     said = [r.message for r in caplog.records if "eager steps" in r.message or "disabled" in r.message]
     assert len(said) == (0 if graphed else 1)
+
+
+def test_windows_follow_rank_zeros_watching_on_every_rank(dp_data_dir, monkeypatch):
+    """Rank 0 alone holds the run logger; a rank without one whose peer
+    watches norms (``TrainerBase._peer_logs``, learnt at construction) takes
+    windows of one step too, so that no rank replays a step graph while
+    another runs eager steps."""
+    trainer = dp_trainer(dp_data_dir, None, device="cpu", device_corpus=True, steps_per_dispatch=4,
+                         watch_interval=30)
+    assert trainer.run_logger is None and not trainer._peer_logs and trainer._window_size() == 4
+    monkeypatch.setattr(trainer, "_peer_logs", True)
+    assert trainer._window_size() == 1

@@ -214,13 +214,14 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
 
 
 @pytest.mark.parametrize(
-    "flags", [["--pp", "2"], ["--pp-microbatches", "2"], ["--device-corpus-sharded"],
-              ["--num-devices", "4", "--device-corpus-sharded"]]
+    "flags", [["--pp", "2"], ["--pp-microbatches", "2"], ["--pp", "2", "--device-corpus-sharded"],
+              ["--num-devices", "4", "--pp", "2"]]
 )
 def test_cli_refuses_unported_flags(flags, capsys):
-    """The flags of features the port lacks (pipeline stages, the sharded
-    corpus, also on a data axis of several ranks) are refused with a message
-    before any rank starts."""
+    """The flags of features the port lacks (pipeline stages, also beside
+    the sharded corpus and on a data axis of several ranks) are refused with
+    a message before any rank starts; the sharded corpus, refused until it
+    was ported, trains (``PORTED_FLAGS``)."""
     from s2tpu_torch.cli.train_mae import main
 
     with pytest.raises(SystemExit):
@@ -237,6 +238,7 @@ PORTED_FLAGS = [
     (["--device-corpus"], {"device_corpus": True}),
     (["--device-corpus", "--steps-per-dispatch", "2", "--watch-interval", "0"],
      {"device_corpus": True, "steps_per_dispatch": 2, "watch_interval": 0}),
+    (["--device-corpus-sharded"], {"device_corpus": True, "device_corpus_sharded": True}),
 ]
 
 
@@ -256,16 +258,25 @@ def test_cli_trains_ported_flags(flags, fields, fixture_dir, tmp_path, monkeypat
     assert {k: getattr(t, k) for k in fields} == fields
 
 
-# What the trainer still refuses: pipeline stages, the sharded corpus and,
-# outside a process group of as many ranks, num_devices other than 1 and -1
-# (a data axis: the error names the launch that starts the ranks).
+# What the trainer still refuses: pipeline stages and, outside a process
+# group of as many ranks, num_devices other than 1 and -1 (a data axis: the
+# error names the launch that starts the ranks). The sharded corpus, refused
+# until it was ported, is on one process the plain corpus, as in the JAX
+# trainer (tests/test_torch_sharded_corpus.py holds it on a data axis).
 @pytest.mark.parametrize(
     "section,field,value",
     [("model", "pipeline_stages", 2), ("train", "device_corpus_sharded", True), ("train", "num_devices", 4)],
 )
-def test_trainer_refuses_unported_config_fields(section, field, value):
+def test_trainer_refuses_unported_config_fields(section, field, value, fixture_dir):
     c = mae_cfg.base_config("small")
     setattr(getattr(c, section), field, value)
+    if field == "device_corpus_sharded":
+        _, pc = _configs(fixture_dir, 32, 2)
+        pc.train.device_corpus = pc.train.device_corpus_sharded = True
+        _, dm = _datamodules(fixture_dir, 32, 2)
+        t = MAETrainer(pc, dm, model_config=PrithviConfig(**TINY), device="cpu")
+        assert not t.corpus.sharded and t.corpus.labels is None and t.corpus.images.shape[0] == len(dm.source)
+        return
     if field == "num_devices":
         with pytest.raises(RuntimeError, match="num_devices=4 needs a process group of 4 ranks.*torchrun"):
             MAETrainer(c, datamodule=None, device="cpu")

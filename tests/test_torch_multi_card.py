@@ -481,14 +481,13 @@ def _dp_scenarios(rank: int, tmp: str, data_dir: str, world: int, device_type: s
                 dp_trainer(data_dir, mesh, batch=batch, num_devices=world + 1)
             except ValueError as e:
                 out["num_devices_refusal"] = str(e)
-            cfg = dp_config(data_dir, batch=batch)
-            cfg.model_name = cfg.model_name.__class__("fc-prithvi-backbone")
-            try:
+            try:  # fc-prithvi trains on a data axis now; a model axis above one rank stays refused
                 from s2tpu_torch.train.trainer import SegmentationTrainer
 
-                SegmentationTrainer(cfg, None, mesh=mesh)
+                SegmentationTrainer(dp_config(data_dir, batch=batch), None,
+                                    mesh=mesh_lib.make_mesh(world, world, device_type=device_type))
             except NotImplementedError as e:
-                out["prithvi_refusal"] = str(e)
+                out["model_axis_refusal"] = str(e)
     torch.save(out, f"{tmp}/rank{rank}.pt")
 
 
@@ -821,3 +820,265 @@ def test_graphed_corpus_windows_over_nccl_equal_eager_steps_on_each_rank(world, 
         assert graphed["digest"] == eager["digest"]
         assert all(torch.equal(torch.as_tensor(graphed["sums"][k]), torch.as_tensor(v)) for k, v in eager["sums"].items())
     assert len({r["graphed"]["digest"] for r in ranks}) == 1
+
+
+# ---------------------------------------------------------------------------
+# fc-prithvi on the data axis: one rank per process (a 2-block ViT, 64^2, f32)
+# ---------------------------------------------------------------------------
+# Narrow widths (embed 64, 4 heads, 2 encoder blocks, a head of 16), patch 16
+# (a 4 x 4 token grid at 64^2), dropout FC_DROPOUT, on dp_data_dir's 16
+# segments at DP_BATCH: 3 rows a rank at 2 ranks, 2 at 3.
+FC_EMBED, FC_HEADS, FC_DEPTH, FC_HEAD_WIDTH, FC_DROPOUT = 64, 4, 2, 16, 0.1
+FC_CLASSIFIER = "head.net.4.weight"  # conv, BatchNorm, ReLU, dropout, classifier
+
+
+def fc_tiny_config(config, dropout: float = FC_DROPOUT):
+    """The port's fc-prithvi config of ``config`` at test widths."""
+    from s2tpu_torch.models.prithvi_seg import PrithviSegmentationConfig
+
+    crop, t = config.datamodule.random_crop_size, config.datamodule.dataset_cfg.n_time_frames
+    backbone = tm.PrithviConfig(img_size=crop, patch_size=16, num_frames=t, in_chans=6, embed_dim=FC_EMBED,
+                                depth=FC_DEPTH, num_heads=FC_HEADS, decoder_embed_dim=48, decoder_depth=1,
+                                decoder_num_heads=4, attention_impl="fused")
+    return PrithviSegmentationConfig(num_frames=t, num_classes=config.num_classes, fcn_out_channels=FC_HEAD_WIDTH,
+                                     fcn_num_convs=1, fcn_dropout=dropout,
+                                     frozen_backbone=config.train.frozen_backbone, embed_dim=FC_EMBED,
+                                     patch_height=crop // 16, patch_width=crop // 16, backbone=backbone)
+
+
+@contextlib.contextmanager
+def tiny_fc_prithvi(dropout: float = FC_DROPOUT):
+    """fc-prithvi built at test widths while the block runs."""
+    from s2tpu_torch.configs import segmentation as cfg_lib
+
+    prev = cfg_lib.fc_prithvi_config
+    cfg_lib.fc_prithvi_config = lambda config: fc_tiny_config(config, dropout)
+    try:
+        yield
+    finally:
+        cfg_lib.fc_prithvi_config = prev
+
+
+def fc_dp_config(data_dir, batch: int = DP_BATCH, **train):
+    """fc-prithvi's config at test size: 64^2 crops, f32, weighted CE, at
+    DP_EPOCH_LR (the update between a frozen and an unfrozen step moves the
+    bias before the head's BatchNorm by about lr on a sign that rounding
+    picks, which the second step's statistics see: at 1e-3 by 1.5e-4)."""
+    from s2tpu_torch.configs import segmentation as cfg_lib
+
+    c = cfg_lib.base_config("fc-prithvi-backbone", aoi="small", label_map="osm-multiclass")
+    c.datamodule.dataset_cfg.data_dir = str(data_dir)
+    c.datamodule.batch_size = batch
+    c.datamodule.random_crop_size = 64
+    c.train.compute_dtype = "float32"
+    c.train.weighted_loss = True
+    c.train.class_distribution = list(DP_DIST)
+    c.train.lr = DP_EPOCH_LR
+    c.train.watch_interval = 0
+    for k, v in train.items():
+        setattr(c.train, k, v)
+    return c
+
+
+def fc_dp_trainer(data_dir, mesh=None, device=None, dropout: float = FC_DROPOUT, batch: int = DP_BATCH, **train):
+    """An fc-prithvi SegmentationTrainer at test widths: one rank of
+    ``mesh``'s data axis, or one process on ``device``."""
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    cfg = fc_dp_config(data_dir, batch, **train)
+    with tiny_fc_prithvi(dropout):
+        return SegmentationTrainer(cfg, Datamodule(cfg.datamodule), device=device, mesh=mesh)
+
+
+def fc_dp_global_batch(data_dir, batch: int = DP_BATCH) -> tuple[np.ndarray, np.ndarray]:
+    """The first global train batch of epoch 0 of fc-prithvi's config."""
+    b = next(Datamodule(fc_dp_config(data_dir, batch).datamodule).train_batches(0))
+    return b.images, b.labels
+
+
+def fc_dp_step(trainer, images: np.ndarray, labels: np.ndarray) -> dict:
+    """One step on this rank's rows of the global batch: the loss, the
+    gradients applied (the trainable parameters'), the head's BatchNorm
+    running statistics, and digests of the gradients, parameters and
+    statistics."""
+    rows = trainer.dm.local_rows()
+    m = trainer.train_step(*(put_batch(a, trainer.device, rows) for a in (images, labels)))
+    grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
+    stats = {n: b.detach().cpu().clone() for n, b in trainer.model.named_buffers() if "running" in n}
+    return {"loss": float(m["loss"]), "grads": grads, "stats": stats,
+            "digest": {"grads": digest(grads), "stats": digest(stats),
+                       "params": digest(dict(trainer.model.named_parameters()))}}
+
+
+def fc_frozen_then_unfrozen(trainer, images: np.ndarray, labels: np.ndarray) -> dict:
+    """A frozen step, the unfreeze, an unfrozen step (on the same global
+    batch), and the gradient buckets the data axis holds after them."""
+    frozen = fc_dp_step(trainer, images, labels)
+    trainer.unfreeze_backbone()
+    unfrozen = fc_dp_step(trainer, images, labels)
+    return {"frozen": frozen, "unfrozen": unfrozen, "buckets": len(trainer.data_axis._buckets)}
+
+
+def _fc_dp_worker(rank: int, tmp: str, data_dir: str, world: int, scenarios: tuple[str, ...]) -> None:
+    """One gloo rank of fc-prithvi's data axis: every scenario named, its
+    record in ``tmp/rank<rank>.pt`` (a traceback in ``tmp/rank<rank>.err``)."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            mesh = mesh_lib.make_mesh(world, 1, device_type="cpu")
+            images, labels = fc_dp_global_batch(data_dir)
+            out: dict = {}
+            for name in scenarios:
+                if name == "fc":
+                    out[name] = fc_frozen_then_unfrozen(fc_dp_trainer(data_dir, mesh), images, labels)
+                    if rank:  # the test compares rank 0's gradients, the others' digests
+                        for step in ("frozen", "unfrozen"):
+                            del out[name][step]["grads"]
+                elif name == "jax":  # the JAX trainer's init, dropout off, two frozen steps
+                    trainer = fc_dp_trainer(data_dir, mesh, dropout=0.0, lr=1e-4)
+                    init = torch.load(f"{tmp}/jax_init.pt")
+                    trainer.model.load_state_dict(init["model"], strict=True)
+                    trainer.mean, trainer.std = init["mean"], init["std"]
+                    out[name] = [fc_dp_step(trainer, images, labels)["loss"] for _ in range(2)]
+            torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+# The running statistics after a second step (the unfrozen one) carry the
+# first update's rounding: Adam moves the bias before the head's BatchNorm,
+# whose gradient is rounding noise, by about lr on a sign the summation
+# order picks, so the two runs' batch means may differ by 2 lr, of which the
+# running mean takes 1 - decay (0.1).
+FC_SECOND_STEP_STATS = 1e-5 + 2 * 0.1 * DP_EPOCH_LR
+
+
+def assert_fc_dp_step_close(ranks: list[dict], name: str, ref: dict, stats_tol: float = 1e-5) -> None:
+    """``assert_dp_step_close`` for an fc-prithvi step record (its
+    classifier is the head's 1x1 conv; only trainable parameters have
+    gradients; the running statistics to ``stats_tol``)."""
+    first = ranks[0][name]
+    for rank in ranks:
+        assert rank[name]["digest"] == first["digest"] and rank[name]["loss"] == first["loss"]
+        np.testing.assert_allclose(rank[name]["loss"], ref["loss"], rtol=1e-5)
+        for n, s in ref["stats"].items():
+            assert float(((rank[name]["stats"][n] - s).abs() / s.abs().clamp_min(1.0)).max()) <= stats_tol, n
+    grads = first["grads"]
+    assert set(grads) == set(ref["grads"])
+    total = float(torch.cat([g.flatten() for g in ref["grads"].values()]).norm())
+    assert _rel_l2(grads[FC_CLASSIFIER], ref["grads"][FC_CLASSIFIER]) <= DP_CLASSIFIER_GRAD_RTOL
+    for n, g in ref["grads"].items():
+        diff = float((grads[n] - g).norm())
+        assert diff <= DP_GRAD_RTOL * float(g.norm()) + 1e-6 * total, (n, diff, float(g.norm()))
+    ours = torch.cat([grads[n].flatten() for n in ref["grads"]])
+    assert _rel_l2(ours, torch.cat([g.flatten() for g in ref["grads"].values()])) <= DP_TOTAL_GRAD_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_fc_prithvi_step_on_one_card_per_rank(world, tmp_path, dp_data_dir):
+    """fc-prithvi's frozen and unfrozen steps (dropout 0.1, global batch of
+    3 rows a rank) over ``world`` NCCL ranks, one card each, against the
+    one-card steps (f32, TF32 off)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} NVIDIA cards")
+    batch = 3 * world
+    _spawn(_fc_card_worker, (str(tmp_path), str(dp_data_dir), world, batch), world, CARD_SPAWN_TIMEOUT_S, tmp_path)
+    ranks = dp_ranks(tmp_path, world)
+    assert [r["device"] for r in ranks] == [f"cuda:{r}" for r in range(world)]
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = fc_frozen_then_unfrozen(fc_dp_trainer(dp_data_dir, None, device="cuda", batch=batch),
+                                      *fc_dp_global_batch(dp_data_dir, batch))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    assert_fc_dp_step_close([r["fc"] for r in ranks], "frozen", ref["frozen"])
+    assert_fc_dp_step_close([r["fc"] for r in ranks], "unfrozen", ref["unfrozen"], FC_SECOND_STEP_STATS)
+
+
+def _fc_card_worker(rank: int, tmp: str, data_dir: str, world: int, batch: int) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            trainer = fc_dp_trainer(data_dir, mesh_lib.make_mesh(world, 1, device_type="cuda"), batch=batch)
+            out = {"device": str(trainer.device),
+                   "fc": fc_frozen_then_unfrozen(trainer, *fc_dp_global_batch(data_dir, batch))}
+            torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The sharded corpus: each rank holds its block of the segments
+# ---------------------------------------------------------------------------
+def sharded_seg_trainer(data_dir, mesh=None, device=None, **train):
+    """B0's trainer (``dp_config``) from the sharded corpus, no flips (so
+    that the JAX package's device flips, drawn from its own keys, stay out of
+    the comparison), lr 1e-4."""
+    from s2tpu_torch.train.trainer import SegmentationTrainer
+
+    cfg = dp_config(data_dir, device_corpus=True, device_corpus_sharded=True, lr=DP_EPOCH_LR, **train)
+    cfg.datamodule.augment = False
+    return SegmentationTrainer(cfg, Datamodule(cfg.datamodule), device=device, mesh=mesh)
+
+
+@contextlib.contextmanager
+def every_sample_kept():
+    """Drop-connect keeping every sample (the JAX package's masks come from
+    its own keys)."""
+    from s2tpu_torch.models import efficientnet_unet as tu
+
+    draw = tu.drop_connect_mask
+    tu.drop_connect_mask = lambda b, keep, generator, device: torch.ones(b, 1, 1, 1, dtype=torch.bool, device=device)
+    try:
+        yield
+    finally:
+        tu.drop_connect_mask = draw
+
+
+def with_noise(trainer, noises: list[torch.Tensor]):
+    """``trainer``'s MAE steps take ``noises[step]`` (the global batch's
+    masking noise) instead of drawing their own."""
+    step = trainer._step
+
+    def noised(images, noise=None, flips=False):
+        return step(images, noise=noises[trainer.step].to(trainer.device), flips=flips)
+
+    trainer._step = noised
+    return trainer
+
+
+def _sharded_worker(rank: int, tmp: str, data_dir: str, world: int, scenarios: tuple[str, ...]) -> None:
+    """One gloo rank training from the sharded corpus: every scenario named,
+    its record in ``tmp/rank<rank>.pt``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            mesh = mesh_lib.make_mesh(world, 1, device_type="cpu")
+            out: dict = {}
+            for name in scenarios:
+                if name == "blocks":
+                    corpus = sharded_seg_trainer(data_dir, mesh).corpus
+                    out[name] = {"images": corpus.images, "labels": corpus.labels, "n_local": corpus.n_local,
+                                 "sharded": corpus.sharded}
+                elif name in ("seg_epoch", "seg_windows", "seg_recal"):
+                    with every_sample_kept():
+                        trainer = sharded_seg_trainer(data_dir, mesh,
+                                                      steps_per_dispatch=2 if name == "seg_windows" else 1)
+                        trainer.model.load_state_dict(torch.load(f"{tmp}/jax_seg_init.pt"), strict=True)
+                        out[name] = dp_recal(trainer) if name == "seg_recal" else dp_epoch(trainer)
+                elif name == "mae_epoch":
+                    trainer = mae_dp_trainer(data_dir, mesh, DENSE, device_corpus=True, device_corpus_sharded=True)
+                    trainer.model.load_state_dict(torch.load(f"{tmp}/jax_mae_init.pt"), strict=True)
+                    with_noise(trainer, torch.load(f"{tmp}/jax_mae_noise.pt"))
+                    out[name] = {"train_loss": trainer.run_train_epoch(0)["loss"], "steps": trainer.step,
+                                 "images": trainer.corpus.images.shape, "labels": trainer.corpus.labels}
+            torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()

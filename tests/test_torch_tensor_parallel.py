@@ -150,14 +150,13 @@ def test_context_parallelism_and_a_data_axis_are_refused():
     c = mae_cfg.base_config("small")
     with pytest.raises(NotImplementedError, match="not ported.*cp_axis"):
         MAETrainer(c, datamodule=None, model_config=dataclasses.replace(TP, cp_axis="model"), device="cpu")
-    # A data axis trains (tests/test_torch_mae_data_parallel.py); its sharded corpus is refused.
+    # A data axis trains (tests/test_torch_mae_data_parallel.py), and so does
+    # its sharded corpus (tests/test_torch_sharded_corpus.py), refused until
+    # it was ported; context parallelism stays refused beside it.
     c.train.device_corpus_sharded = True
-    with pytest.raises(NotImplementedError, match="not ported.*sharded corpus, ROADMAP item 16"):
-        MAETrainer(c, datamodule=None, mesh=_Mesh(2, 1), model_config=TP, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded corpus, ROADMAP item 16"):
-        _refuse_unported(c, TP)
-    c.train.device_corpus_sharded = False
     _refuse_unported(c, TP)
+    with pytest.raises(NotImplementedError, match="not ported.*cp_axis.*ROADMAP item 16"):
+        _refuse_unported(c, dataclasses.replace(TP, cp_axis="model"))
     with pytest.raises(ValueError, match="tp_axis"):
         tm.PrithviMAE(DENSE, tp_group=object())
 
@@ -184,11 +183,12 @@ def _gloo_worker(rank: int, tmp: str, fixture_dir: str) -> None:
     try:
         out: dict = {}
         config, dm = _trainer_parts(fixture_dir)
-        sharded = dataclasses.replace(config, train=dataclasses.replace(config.train, device_corpus_sharded=True))
-        try:  # the MAE trainer's data axis trains; its sharded corpus is not ported
-            MAETrainer(sharded, dm, mesh=mesh_lib.make_mesh(WORLD, 1, device_type="cpu"), model_config=TP)
-        except NotImplementedError as e:
-            out["data_axis_refusal"] = str(e)
+        sharded = dataclasses.replace(config, train=dataclasses.replace(config.train, device_corpus=True,
+                                                                        device_corpus_sharded=True))
+        # the MAE trainer's data axis trains from the sharded corpus: each rank holds its block
+        corpus = MAETrainer(sharded, _trainer_parts(fixture_dir)[1], model_config=TP,
+                            mesh=mesh_lib.make_mesh(WORLD, 1, device_type="cpu")).corpus
+        out["data_axis_corpus"] = (corpus.sharded, corpus.n_local, corpus.images.shape[0], corpus.labels)
         mesh = mesh_lib.make_mesh(WORLD, WORLD, device_type="cpu")
         group = mesh.get_group(mesh_lib.MODEL_AXIS)
         try:
@@ -271,6 +271,6 @@ def test_only_rank_zero_logs_and_writes_checkpoints(gloo_run):
 
 def test_two_rank_refusals(gloo_run):
     for rank in gloo_run["ranks"]:
-        assert "sharded corpus, ROADMAP item 16" in rank["data_axis_refusal"]
+        assert rank["data_axis_corpus"] == (True, 3, 3, None)  # 3 of the 6 segments, no labels
         assert "3 heads do not split over a model axis of 2 ranks" in rank["heads_refusal"]
 

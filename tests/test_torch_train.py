@@ -247,15 +247,16 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
         train_main(["small", "osm-multiclass", "efficientnet-unet-b0", "--data-dir", str(fixture_dir)])
 
 
-@pytest.mark.parametrize("flags", [["--device-corpus-sharded"]])
-def test_cli_refuses_unported_flags(flags, capsys):
-    """argparse refuses the flags of features the port lacks (the sharded
-    corpus), naming the ROADMAP item."""
-    from s2tpu_torch.cli.train_segmentation import build_parser
+@pytest.mark.parametrize("flags", [["--type", "tune", "--num-devices", "2"]])
+def test_cli_refuses_unported_flags(flags):
+    """The CLI refuses, before any rank starts, the flags of what the port
+    lacks: tune trials over a data axis (each trial runs in one process).
+    The sharded corpus, refused here until it was ported, is taken
+    (``test_cli_takes_ported_flags``)."""
+    from s2tpu_torch.cli.train_segmentation import main
 
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flags])
-    assert "ROADMAP item 16" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="one process"):
+        main(["small", "osm-multiclass", "efficientnet-unet-b0", "--device", "cpu", *flags])
 
 
 @pytest.mark.parametrize(
@@ -263,12 +264,15 @@ def test_cli_refuses_unported_flags(flags, capsys):
     [(["--remat", "--ema-decay", "0.99"], {"remat": True, "ema_decay": 0.99}),
      (["--device-corpus", "--steps-per-dispatch", "4"], {"device_corpus": True, "steps_per_dispatch": 4}),
      (["--num-devices", "4"], {"num_devices": 4}),
-     (["--fsdp", "--num-devices", "2"], {"num_devices": 2})],
+     (["--fsdp", "--num-devices", "2"], {"num_devices": 2}),
+     (["--device-corpus-sharded", "--num-devices", "2"],
+      {"device_corpus": True, "device_corpus_sharded": True, "num_devices": 2})],
 )
 def test_cli_takes_ported_flags(flags, fields):
     """The flags of features once refused here (the trainer extras, the
-    device corpus and its windows, the data axis and ``--fsdp``, which
-    shards nothing on the CLI's model axis of one rank) reach the config."""
+    device corpus and its windows, the data axis, ``--fsdp``, which shards
+    nothing on the CLI's model axis of one rank, and the sharded corpus,
+    which implies the corpus) reach the config."""
     from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
 
     t = config_from_args(build_parser().parse_args(["small", "osm-multiclass", "efficientnet-unet-b0", *flags])).train
@@ -300,17 +304,22 @@ class _Mesh:
         self.mesh_dim_names, self.shape = ("data", "model"), (data, model)
 
 
-# What the port still refuses: the sharded corpus and a model axis above one
-# rank (ROADMAP item 16). A data axis trains (tests/test_torch_data_parallel.py).
+# What the port still refuses: a model axis above one rank (FSDP2, ROADMAP
+# item 16). A data axis trains (tests/test_torch_data_parallel.py), and so
+# does the sharded corpus, refused here until it was ported: on one process
+# it is the plain corpus, as in the JAX trainer (tests/test_torch_sharded_corpus.py
+# holds it on a data axis).
 @pytest.mark.parametrize("field,value", [("device_corpus_sharded", True), ("mesh", _Mesh(1, 2))])
 def test_trainer_refuses_unported_config_fields(field, value, fixture_dir):
     c = _configure(cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass"),
                    fixture_dir, 1e-3)
-    mesh = value if field == "mesh" else None
-    if mesh is None:
-        setattr(c.train, field, value)
-    with pytest.raises(NotImplementedError, match="not ported.*ROADMAP item 16"):
-        SegmentationTrainer(c, datamodule=None, device="cpu", mesh=mesh)
+    if field == "device_corpus_sharded":
+        c.train.device_corpus = c.train.device_corpus_sharded = True
+        trainer = SegmentationTrainer(c, Datamodule(c.datamodule), device="cpu")
+        assert not trainer.corpus.sharded and trainer.corpus.images.shape[0] == len(trainer.dm.source)
+        return
+    with pytest.raises(NotImplementedError, match="not ported.*a model axis above 1.*ROADMAP item 16"):
+        SegmentationTrainer(c, datamodule=None, device="cpu", mesh=value)
 
 
 # The fields refused until they were ported train now: each case holds its
