@@ -8,6 +8,7 @@
     python3 chip_smoke.py --serving      # phases 1, 2, 5 and 22 only, no result lines
     python3 chip_smoke.py --data         # phases 2, 6 and 23 only, no result lines
     python3 chip_smoke.py --data-parallel  # the build and phase E only, no result lines
+    python3 chip_smoke.py --model-axis     # the build and phase F only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 ``--attention`` and ``--depthwise`` use only the kernel wrappers' public
@@ -167,7 +168,8 @@ any failure raises and the script exits non-zero without printing a result:
    by a SIGTERM after step 1 and resumed with ``--auto-resume``, against
    one uninterrupted run, deterministic cuDNN.
 20. MAE trainer extras (phase B, after phase 9, on its data): config #5's
-   ``MAETrainer`` (T=1, bf16, batch 64) with two micro-batches, remat, bf16
+   ``MAETrainer`` (T=1, bf16, batch 64; Prithvi-100M's widths at CUT_DEPTH,
+   2 encoder and 2 decoder blocks, as phase E's MAE and phase F) with two micro-batches, remat, bf16
    parameters with f32 masters, the EMA and watching: #8/#9 at the
    micro-batch's shape (32, 197, 16, 32) against their plain versions; one
    step's exact
@@ -246,7 +248,7 @@ any failure raises and the script exits non-zero without printing a result:
    allocated at its trainer's build and its peak; ``best_params=``.
 E. The data axis (after phase A): config #2's step, config #4's fc-prithvi
    steps (frozen, the unfreeze, unfrozen; dropout drawn for the global
-   batch) and config #5's MAE step on two gloo ranks that share the card
+   batch) and config #5's MAE step (at CUT_DEPTH) on two gloo ranks that share the card
    (each rank's exact launches, bit-equal ranks, the steps against the
    one-rank steps, in bf16 and f32); each rank's block of the sharded
    corpus (its bytes, crops by local ids against the source's);
@@ -261,6 +263,21 @@ E. The data axis (after phase A): config #2's step, config #4's fc-prithvi
    and in total); with four, config #5's windows on a 2 x 2 data x model
    mesh (from the corpus and the sharded corpus), #4's and #2's (sharded)
    over four ranks, and serving over four.
+F. The model axis (after phase 11): on two gloo ranks sharing the card, a
+   1 x 2 mesh whose ranks hold every row: (a) config #2's step with its
+   parameters sharded (FSDP), bf16 and f32, each rank's loss and gathered
+   state bit for bit against the one-rank step, its #1-#4 launches, its
+   parameter and Adam bytes against one rank's and the rule's at m = 1, 2,
+   4; (b) config #5's MAE (CUT_DEPTH) at T=1 and T=3 with tp + cp against the
+   tensor-parallel MAE from one init: the forward bit for bit, the
+   gradients within stated bounds, #6/#7 (T=1) and #5 (T=3) launches, the
+   eager steps' times; (c) fc-prithvi's forward (CUT_DEPTH) at one 512^2 tile (L =
+   1025, #5) with tp + cp against the dense one-rank forward in f32. With
+   two cards, config #2 with FSDP over two NCCL ranks, and with four, FSDP
+   and the tp + cp MAE (beside the tensor-parallel MAE) on a 2 x 2 mesh:
+   corpus windows graphed against eager steps bit for bit, a replay's
+   kernel nodes (with NCCL all-gathers and reduce-scatters) against an
+   eager step's launches.
 24. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
@@ -277,7 +294,9 @@ E. The data axis (after phase A): config #2's step, config #4's fc-prithvi
    each tune trial's; ``dp_*``: phase E's launches, one gloo rank's step
    (B5, MAE, fc-prithvi frozen and unfrozen) and tiled-serving share, and
    one replay of a graphed window over two (#6/#7: four) NCCL ranks, from
-   the corpus and the sharded corpus, null on one card), the ``nvidia-smi``
+   the corpus and the sharded corpus, null on one card); ``ma_*``: phase
+   F's, one FSDP rank's step (#1-#4), one tp + cp rank's MAE step (#6/#7 at
+   T=1 and T=3, #5 at T=3) and 512^2 forward (#5), the ``nvidia-smi``
    line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -391,6 +410,10 @@ MAE_T3_BATCH, MAE_T3_SEGMENTS, MAE_T3_FRAMES = 16, 40, 3
 # LayerNorm is far better conditioned than train-mode BatchNorm, so the
 # floors usually decide.
 MAE_F32_BATCH = 4
+# The MAE of phases B, E and F, and phase F's 512^2 fc-prithvi forward, at
+# Prithvi-100M's widths and a cut depth (the full run's time limit): 2
+# encoder and 2 decoder blocks. The main path (phases 9-11) keeps all 12 + 8.
+CUT_DEPTH = {"depth": 2, "decoder_depth": 2}
 MAE_F32_FLOOR = {"loss": 1e-5, "grad": 1e-4}
 MAE_F32_GRADS = ("patch_embed.proj.weight", "blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.qkv.weight",
                  "decoder_pred.weight")
@@ -514,6 +537,17 @@ DP_FC_CLASSIFIER = "head.net.4.weight"
 DP_CROP_CHECKS = 8
 DP_SERVE_MODEL = "b5"  # phase E's serving checkpoint: config #2's model, seeded
 DP_SHARDED_SEGMENTS = {"b5": 6 * TRAIN_BATCH, "mae": 6 * MAE_BATCH}
+GRAPH_TIMED = 3  # steps timed after a graphed epoch, graphed and eager
+# Phase F, the model axis: MA_RANKS gloo ranks on a 1 x MA_RANKS mesh sharing
+# the card. (b)'s bounds on the tp + cp gradients against the tp ones: the
+# LayerNorms' and post-scatter biases' are sums over each rank's tokens in
+# bf16, then over the ranks (two bf16 roundings where the tp step makes one);
+# the rest see the same tokens and products. (c) in f32 with TF32 off: the
+# dense forward's heads and hidden columns summed in one product where the
+# ranks sum two halves.
+MA_RANKS, MA_TIMED = 2, 1  # (b)'s eager steps timed on gloo ranks: the four-card run times NCCL
+MA_TOKEN_GRAD, MA_GRAD = 2.0**-6, 1e-5
+MA_TILE, MA_TILE_CLASSES, MA_TILE_RTOL = 512, 4, 1e-4
 # Phase C: the "fr" AOI's corpus (s2tpu/data/device_corpus.py:5-7: 12.4k
 # segments, ~9.7 GB of int16 at 256^2 x 6), made from a seeded pool of
 # segments in memory; K-step windows; (e) at a batch that gives its epoch
@@ -543,6 +577,8 @@ PORT_KERNEL_NAMES = {"#1": "depthwise_s1_fwd", "#2": "depthwise_s1_dw", "#3": "f
                      "#5": "flash_attn_fwd"}
 PORT_KERNEL_FOR = {"depthwise_fwd": "#1", "depthwise_dw": "#2", "fused_ce_fwd": "#3", "fused_ce_bwd": "#4",
                    "attn_fused_fwd": "#8", "attn_fused_bwd": "#9"}  # a launch counter's name in a trace
+# NCCL's kernels by collective, matched on their lowercased names.
+NCCL_KERNELS = {"nccl_all_reduce": "allreduce", "nccl_all_gather": "allgather", "nccl_reduce_scatter": "reducescatter"}
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
                "cudaMemcpyAsync", "cudaMemsetAsync")
 CARD = "card not read"  # nvidia-smi's name and power limit, set by main
@@ -1338,10 +1374,12 @@ def state_distance(ours: dict, ref: dict) -> tuple[float, float]:
     return worst, math.sqrt(diff2 / max(ref2, 1e-30))
 
 
-def seg_extras_trainer(data_dir: Path, argv_extra: tuple = (), run_logger=None, mesh=None, **train):
+def seg_extras_trainer(data_dir: Path, argv_extra: tuple = (), run_logger=None, mesh=None,
+                       param_sharding: str = "replicated", **train):
     """Config #2's SegmentationTrainer on the training slice's data (phase
     6), with the extra CLI flags ``argv_extra`` and config fields ``train``;
-    on the card, or as one rank of ``mesh``'s data axis."""
+    on the card, or as one rank of ``mesh`` (its parameters sharded over
+    the model axis with ``param_sharding="fsdp"``)."""
     from s2tpu_torch.cli.train_segmentation import build_parser, config_from_args
     from s2tpu_torch.data import statistics
     from s2tpu_torch.data.dataset import TiffSource
@@ -1358,7 +1396,8 @@ def seg_extras_trainer(data_dir: Path, argv_extra: tuple = (), run_logger=None, 
     ).tolist()
     dm = Datamodule(cfg.datamodule, source=source)
     dm.set_mean_std(*statistics.load_mean_std(source.data_dirs.base_path / "mean_std.json"))
-    return SegmentationTrainer(cfg, dm, run_logger=run_logger, device="cuda", mesh=mesh)
+    return SegmentationTrainer(cfg, dm, run_logger=run_logger, device="cuda", mesh=mesh,
+                               param_sharding=param_sharding)
 
 
 def seg_device_batch(trainer) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1722,7 +1761,7 @@ def mae_extras_trainer(data_dir: Path, run_logger=None, checkpoint_manager=None,
     for k, v in {**extras, **train}.items():
         setattr(cfg.train, k, v)
     return MAETrainer(cfg, build_datamodule(cfg), run_logger=run_logger, checkpoint_manager=checkpoint_manager,
-                      device="cuda")
+                      device="cuda", model_config=cut_mae_config(cfg))
 
 
 def phase_mae_extras(work: Path) -> dict:
@@ -1737,7 +1776,8 @@ def phase_mae_extras(work: Path) -> dict:
     from s2tpu_torch.train.mae_trainer import MAETrainer
 
     data_dir = work / "mae_data"
-    label = f"(Prithvi-100M T=1, bf16, batch {MAE_BATCH}, 224^2, {CARD})"
+    label = (f"(Prithvi-100M widths at {CUT_DEPTH['depth']} + {CUT_DEPTH['decoder_depth']} blocks, T=1, bf16, "
+             f"batch {MAE_BATCH}, 224^2, {CARD})")
     # #8/#9 at the decoder's micro-batch shape, against their plain versions
     b, l, h, dh = next(iter(DENSE_ATTENTION_SHAPES))
     micro_shape = (b // 2, l, h, dh)
@@ -2430,6 +2470,13 @@ def t3_config(data_dir: Path):
     config.train.compute_dtype = "bfloat16"
     config.train.seed = SEED
     return config
+
+
+def cut_mae_config(config):
+    """Config #5's Prithvi-100M for ``config`` at CUT_DEPTH."""
+    from s2tpu_torch.train.mae_trainer import default_model_config
+
+    return dataclasses.replace(default_model_config(config), **CUT_DEPTH)
 
 
 def phase_mae_t3(work: Path) -> dict:
@@ -3463,7 +3510,7 @@ def shared_corpus(corpus):
 
 
 def corpus_seg_trainer(work: Path, source, mean_std, counts, argv_extra: tuple = (), host_flips: bool = True,
-                       mesh=None, argv: list[str] | None = None, **train):
+                       mesh=None, argv: list[str] | None = None, param_sharding: str = "replicated", **train):
     """Config #2's SegmentationTrainer (bf16, batch 32, 224^2, focal +
     weighted; or the CLI arguments ``argv``) over ``source``, with the extra
     CLI flags and config fields; on the card, or as one rank of ``mesh``."""
@@ -3482,7 +3529,7 @@ def corpus_seg_trainer(work: Path, source, mean_std, counts, argv_extra: tuple =
         setattr(cfg.train, k, v)
     dm = Datamodule(cfg.datamodule, source=source)
     dm.set_mean_std(*mean_std)
-    return SegmentationTrainer(cfg, dm, device="cuda", mesh=mesh)
+    return SegmentationTrainer(cfg, dm, device="cuda", mesh=mesh, param_sharding=param_sharding)
 
 
 def corpus_mae_trainer(work: Path, source, mesh=None, model_config=None, **train):
@@ -3563,7 +3610,8 @@ def device_profile(run) -> dict:
         "kernels": sum(e.count for e in kernels),
         "launches": {k: sum(e.count for e in kernels if frag in e.key) for k, frag in PORT_KERNEL_NAMES.items()},
         "host_api": {e.key: e.count for e in events if e.device_type == DeviceType.CPU and e.key in LAUNCH_APIS},
-        "nccl_all_reduce": sum(e.count for e in kernels if "nccl" in e.key.lower() and "allreduce" in e.key.lower()),
+        **{k: sum(e.count for e in kernels if "nccl" in e.key.lower() and frag in e.key.lower())
+           for k, frag in NCCL_KERNELS.items()},
     }
 
 
@@ -4373,9 +4421,9 @@ def graph_kernel_nodes(graph, path: Path) -> dict[str, int]:
     err = libcuda.cuGraphDebugDotPrint(ctypes.c_void_p(graph.raw_cuda_graph()), str(path).encode(), ctypes.c_uint(1))
     if err != 0:
         raise RuntimeError(f"cuGraphDebugDotPrint failed with CUDA driver error {err}")
-    lines = path.read_text().splitlines()
-    return {**{k: sum(frag in line for line in lines) for k, frag in PORT_KERNEL_NAMES.items()},
-            "nccl_all_reduce": sum("nccl" in line.lower() and "allreduce" in line.lower() for line in lines)}
+    lines = [line.lower() for line in path.read_text().splitlines()]
+    return {**{k: sum(frag.lower() in line for line in lines) for k, frag in PORT_KERNEL_NAMES.items()},
+            **{k: sum("nccl" in line and frag in line for line in lines) for k, frag in NCCL_KERNELS.items()}}
 
 
 def replay_launches(label: str, graph, dump: Path, rows: torch.Tensor, valid: torch.Tensor, kernel: str,
@@ -4759,10 +4807,10 @@ def dp_global_batch(trainer) -> tuple[np.ndarray, np.ndarray]:
     return host.images, host.labels
 
 
-def dp_f32_trainer(data_dir: Path, mesh=None, **train):
+def dp_f32_trainer(data_dir: Path, mesh=None, param_sharding: str = "replicated", **train):
     """Config #2's trainer in f32 at F32_STEP_BATCH and F32_STEP_CROP^2."""
     small = ("--bs", str(F32_STEP_BATCH), "--crop", str(F32_STEP_CROP), "--compute-dtype", "float32")
-    return seg_extras_trainer(data_dir, small, mesh=mesh, **train)
+    return seg_extras_trainer(data_dir, small, mesh=mesh, param_sharding=param_sharding, **train)
 
 
 def dp_f32_record(trainer, m: dict, grads: bool) -> dict:
@@ -4842,7 +4890,7 @@ def dp_mae_trainer(data_dir: Path, mesh=None, batch: int = MAE_BATCH, **train):
     cfg.datamodule.batch_size = batch
     for k, v in train.items():
         setattr(cfg.train, k, v)
-    return MAETrainer(cfg, build_datamodule(cfg), device="cuda", mesh=mesh)
+    return MAETrainer(cfg, build_datamodule(cfg), device="cuda", mesh=mesh, model_config=cut_mae_config(cfg))
 
 
 def dp_mae_record(trainer, m: dict, full: bool) -> dict:
@@ -4869,12 +4917,34 @@ def state_digest(tensors: dict) -> str:
     return h.hexdigest()
 
 
+def whole_model_state(trainer) -> dict[str, torch.Tensor]:
+    """The trainer's model state dict with its parameters whole: sharded
+    ones (FSDP) gathered over the model axis, a collective of every rank."""
+    model = trainer._checkpoint_state()["model"]
+    return model.state_dict() if isinstance(model, torch.nn.Module) else model
+
+
 def trainer_state_digest(trainer) -> str:
     """A hash of the parameters, buffers and Adam's state tensors."""
     params = [p for _, p in trainer.model.named_parameters()]
     adam = {f"adam.{i}.{k}": v for i, p in enumerate(params) for k, v in trainer.optimizer.state.get(p, {}).items()
             if isinstance(v, torch.Tensor)}
     return state_digest({**dict(trainer.model.named_parameters()), **dict(trainer.model.named_buffers()), **adam})
+
+
+def whole_trainer_digest(trainer) -> str:
+    """:func:`trainer_state_digest` of the whole training state: with
+    sharded parameters (FSDP) the parameters and Adam's state tensors
+    gathered over the model axis first (a collective of every rank)."""
+    if trainer.shards is None:
+        return trainer_state_digest(trainer)
+    state = trainer._checkpoint_state()
+    order = {n: i for i, (n, _) in enumerate(trainer.model.named_parameters())}
+    names = [n for n, _ in trainer._trainable()]  # the optimizer's parameters, in order
+    params = {n: state["model"][n] for n in order}
+    adam = {f"adam.{order[names[i]]}.{k}": v for i, st in state["optimizer"]["state"].items() for k, v in st.items()
+            if isinstance(v, torch.Tensor)}
+    return state_digest({**params, **dict(trainer.model.named_buffers()), **adam})
 
 
 def _dp_mae_rank(rank: int, work: str, data_dir: str) -> None:
@@ -4983,7 +5053,9 @@ def check_dp_mae(work: Path, data_dir: Path) -> dict:
     failures += [f"mae f32 {k}: {DP_RANKS} ranks vs one {v:.3g} > {f32_limits[k]:.3g}" for k, v in f32_diff.items()
                  if not v <= f32_limits[k]]
     log(
-        f"data axis (config #5 MAE, Prithvi-100M bf16, global batch {MAE_BATCH}, {DP_RANKS} gloo ranks on one card, "
+        f"data axis (config #5 MAE, Prithvi-100M widths at {CUT_DEPTH['depth']} + {CUT_DEPTH['decoder_depth']} "
+        f"blocks, bf16, global batch {MAE_BATCH}, "
+        f"{DP_RANKS} gloo ranks on one card, "
         f"{CARD}): ranks spawned, built and stepped in {ranks_s:.1f} s; each rank's launches {first['launches']} "
         f"(expected a one-card step's {expected}); parameters and gradients bit-equal across ranks: bf16 {equal}, "
         f"f32 {equal_f32}; loss {first['loss']:.6f} vs one rank {ref['loss']:.6f}; vs the one-rank step: "
@@ -5154,7 +5226,8 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
         data = world // model_parallel
         out = {}
         for model in models:
-            base, sharded = model.removesuffix("_sharded"), model.endswith("_sharded")
+            base, _, form = model.partition("_")  # form: "", "sharded" (corpus), "fsdp" or "cp" (model axis)
+            sharded = form == "sharded"
             segments = (DP_SHARDED_SEGMENTS if sharded else DP_GRAPH_SEGMENTS)[base]
             source, mean_std, counts = pool_source(segments)
             rec, trainers = {}, {}
@@ -5162,7 +5235,8 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
                 fields = dict(device_corpus=True, device_corpus_sharded=sharded, steps_per_dispatch=k,
                               watch_interval=0, num_devices=data)
                 if base == "b5":
-                    trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh, **fields)
+                    trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh,
+                                                 param_sharding="fsdp" if form == "fsdp" else "replicated", **fields)
                 elif base == "fc":
                     trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh,
                                                  argv=dp_fc_argv(Path(work)), **fields)
@@ -5170,7 +5244,8 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
                     mc = None
                     if model_parallel > 1:
                         cfg = config_from_args(build_parser().parse_args(mae_argv(Path(work), "dp")))
-                        mc = dataclasses.replace(default_model_config(cfg), tp_axis=MODEL_AXIS)
+                        mc = dataclasses.replace(default_model_config(cfg), tp_axis=MODEL_AXIS,
+                                                 cp_axis=MODEL_AXIS if form == "cp" else None)
                     trainer = corpus_mae_trainer(Path(work), source, mesh=mesh, model_config=mc, **fields)
                 torch.cuda.synchronize()
                 reserved = torch.cuda.memory_reserved()
@@ -5182,6 +5257,7 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
                 corpus = trainer.corpus
                 rec[mode] = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
                              "loss": train["loss"], "digest": trainer_state_digest(trainer),
+                             "whole_digest": whole_trainer_digest(trainer),
                              "steps": trainer.step, "graph": trainer._graph is not None,
                              "reserved_added": torch.cuda.memory_reserved() - reserved,
                              "corpus_bytes": corpus.images.nbytes + (0 if corpus.labels is None
@@ -5193,6 +5269,14 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
                                                      Path(work) / f"dp_graph{world}_{model}_rank{rank}.dot")
             rec["replay"] = device_profile(lambda: trainers["graphed"].train_window(draw))
             rec["eager_step"] = device_profile(lambda: trainers["eager"].train_window(draw))
+            for mode in ("graphed", "eager"):  # one step's wall time, a mean of GRAPH_TIMED, the ranks aligned
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_TIMED):
+                    trainers[mode].train_window(draw)
+                torch.cuda.synchronize()
+                rec[f"{mode}_step_ms"] = (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED
             out[model] = rec
             del trainers, trainer
             torch.cuda.empty_cache()
@@ -5208,10 +5292,8 @@ def check_dp_graphs(work: Path) -> dict | None:
     rank's block on its card); with four cards config #5's on a 2 x 2 data x
     model mesh, from the corpus and from the sharded corpus, and config #4's
     and config #2's (sharded) over four ranks: each rank's state after the
-    epoch bit for bit against the same ranks' eager steps. None (logged) on
-    one card."""
-    import torch.multiprocessing as mp
-
+    epoch bit for bit against the same ranks' eager steps
+    (:func:`check_graph_runs`). None (logged) on one card."""
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"data axis graphed windows over NCCL: not run, {cards} card")
@@ -5219,6 +5301,19 @@ def check_dp_graphs(work: Path) -> dict | None:
     runs = [(2, 1, ("b5", "mae", "fc", "b5_sharded", "mae_sharded"))]
     if cards >= 4:
         runs += [(4, 2, ("mae", "mae_sharded")), (4, 1, ("fc", "b5_sharded"))]
+    return check_graph_runs(work, runs, "data axis")
+
+
+def check_graph_runs(work: Path, runs: list[tuple[int, int, tuple[str, ...]]], what: str) -> dict:
+    """Each (world, model axis, models) of ``runs``: ``world`` NCCL ranks,
+    one card each, on a (world / model axis) x model axis mesh, train each
+    model's corpus epoch in graphed windows and in eager steps
+    (:func:`_dp_graph_rank`); each rank's graphed state equals its eager
+    state bit for bit, and a replay's kernel nodes (port kernels and NCCL
+    collectives) an eager step's launches. Returns rank 0's records by
+    "<model>_<world>"."""
+    import torch.multiprocessing as mp
+
     out, failures = {}, []
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     for world, model_parallel, models in runs:
@@ -5244,15 +5339,14 @@ def check_dp_graphs(work: Path) -> dict | None:
                 # replay one NCCL all-reduce short (on one rank of the 2 x 2 sharded MAE).
                 replay = {k: v for k, v in rec["replay_nodes"].items() if v}
                 step = {k: v for k, v in {**rec["eager_step"]["launches"],
-                                          "nccl_all_reduce": rec["eager_step"]["nccl_all_reduce"]}.items() if v}
+                                          **{c: rec["eager_step"][c] for c in NCCL_KERNELS}}.items() if v}
                 if replay != step:
                     failures.append(f"{model} {mesh} rank {r}: the step graph's kernel nodes {replay}, an eager "
-                                    f"step's launches {step} and {rec['eager_step']['nccl_all_reduce']} NCCL "
-                                    "all-reduces")
-            if len({rec["graphed"]["digest"] for rec in recs}) != 1:
+                                    f"step's launches and NCCL collectives {step}")
+            if len({rec["graphed"]["whole_digest"] for rec in recs}) != 1:
                 failures.append(f"{model} {mesh}: the ranks' graphed states differ")
             log(
-                f"data axis graphed windows ({model}, {mesh} NCCL ranks, one card each, {CARD}): {CORPUS_K}-step "
+                f"{what} graphed windows ({model}, {mesh} NCCL ranks, one card each, {CARD}): {CORPUS_K}-step "
                 f"window graphed vs eager steps, bit-equal on every rank: "
                 f"{all(r['graphed']['digest'] == r['eager']['digest'] for r in recs)}; epoch loss "
                 f"{recs[0]['graphed']['loss']:.6f}; graphed epoch {[round(r['graphed']['seconds'], 3) for r in recs]} s, "
@@ -5260,7 +5354,9 @@ def check_dp_graphs(work: Path) -> dict | None:
                 f"nodes {[{k: v for k, v in r['replay_nodes'].items() if v} for r in recs]} (torch.profiler in one "
                 f"replay: {[{k: v for k, v in r['replay']['launches'].items() if v} for r in recs]} and "
                 f"{[r['replay']['nccl_all_reduce'] for r in recs]} nccl all-reduce kernels; an eager step "
-                f"{[r['eager_step']['nccl_all_reduce'] for r in recs]}); host launch calls a replay "
+                f"{[r['eager_step']['nccl_all_reduce'] for r in recs]}); a step's wall ms (mean of {GRAPH_TIMED}) "
+                f"graphed {[round(r['graphed_step_ms'], 3) for r in recs]}, eager "
+                f"{[round(r['eager_step_ms'], 3) for r in recs]}; host launch calls a replay "
                 f"{[sum(r['replay']['host_api'].values()) for r in recs]}, an eager step "
                 f"{[sum(r['eager_step']['host_api'].values()) for r in recs]}; wrapper launches (warm-up and "
                 f"capture) {recs[0]['graphed']['launches']}; graph pool (reserved bytes the graphed epoch added after "
@@ -5269,9 +5365,9 @@ def check_dp_graphs(work: Path) -> dict | None:
                 f"{[r['graphed']['corpus_bytes'] for r in recs]} B"
             )
             out[f"{model}_{world}"] = recs[0]
-        log(f"data axis graphed windows on {world} cards: {spawn_s:.1f} s")
+        log(f"{what} graphed windows on {world} cards: {spawn_s:.1f} s")
     if failures:
-        raise AssertionError("graphed windows over NCCL: " + "; ".join(failures))
+        raise AssertionError(f"{what}: graphed windows over NCCL: " + "; ".join(failures))
     return out
 
 
@@ -5671,6 +5767,379 @@ def data_parallel_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase F: the model axis beyond tensor parallelism (FSDP, context parallelism)
+# ---------------------------------------------------------------------------
+def ma_state_bytes(trainer) -> int:
+    """This rank's parameter and optimizer bytes: the parameters, Adam's
+    state tensors and, where kept, the f32 master and the EMA."""
+    tensors = [*trainer.model.parameters(),
+               *(v for st in trainer.optimizer.state.values() for v in st.values() if torch.is_tensor(v))]
+    for part in (trainer.master, trainer.ema):
+        if part is not None:
+            tensors += list(part.state_dict().values())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ma_rule_bytes(model: torch.nn.Module, m: int) -> int:
+    """Config #2's parameter and optimizer bytes on one rank of a model axis
+    of ``m`` under the FSDP rule: f32 parameters and two f32 Adam moments (12
+    bytes an element of this rank's slice, the whole of a replicated
+    tensor) and one f32 step count a parameter (capturable Adam)."""
+    from s2tpu_torch.parallel.mesh import fsdp_shard_dim
+
+    modules = dict(model.named_modules())
+    total = 0
+    for name, p in model.named_parameters():
+        sharded = fsdp_shard_dim(modules[name.rpartition(".")[0]], p, m) is not None
+        total += p.numel() // (m if sharded else 1) * 12 + 4
+    return total
+
+
+def ma_fsdp_record(trainer, m: dict, launches: dict) -> dict:
+    """An FSDP step's loss, launches, whole-state digest (a collective), this
+    rank's state bytes and peak memory."""
+    return {"loss": float(m["loss"]), "launches": launches, "digest": state_digest(whole_model_state(trainer)),
+            "bytes": ma_state_bytes(trainer), "peak": torch.cuda.max_memory_allocated(),
+            "sharded": len(trainer.shards.shards), "axes": (trainer.data_axis.size, trainer.model_axis.size)}
+
+
+def ma_mae_forms(data_dir: Path, frames: int) -> tuple:
+    """Config #5's MAE config at ``frames`` (T=1: the T=1 slice's CLI config
+    at MAE_BATCH on ``data_dir``; T=3: the T=3 slice's) and its
+    tensor-parallel and tp + cp model configs at CUT_DEPTH."""
+    from s2tpu_torch.cli.train_mae import build_parser, config_from_args
+    from s2tpu_torch.parallel.mesh import MODEL_AXIS
+
+    cfg = config_from_args(build_parser().parse_args(mae_argv(data_dir, "ma"))) if frames == 1 else t3_config(data_dir)
+    tp = dataclasses.replace(cut_mae_config(cfg), tp_axis=MODEL_AXIS)
+    return cfg, {"tp": tp, "cp": dataclasses.replace(tp, cp_axis=MODEL_AXIS)}
+
+
+def ma_cp_rank(mesh, data_dir: Path, frames: int) -> dict:
+    """(b) on this rank: config #5's tensor-parallel and tp + cp MAE from one
+    init on the same global batch and noise: each form's no-grad forward
+    (loss and predictions, kept here to compare) and one train step (its
+    launches, loss, gradients) and the mean of MA_TIMED warm eager steps."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    cfg, forms = ma_mae_forms(data_dir, frames)
+    out = {}
+    for form, mc in forms.items():
+        trainer = MAETrainer(cfg, build_datamodule(cfg), mesh=mesh, model_config=mc, device="cuda")
+        images = torch.from_numpy(next(build_datamodule(cfg).train_batches(0)).images).cuda()
+        noise = torch.rand((images.shape[0], mc.num_patches), generator=torch.Generator().manual_seed(SEED + 20))
+        noise = noise.cuda()
+        with torch.no_grad():
+            trainer.model.eval()
+            loss, pred, _ = trainer.model(trainer._input(images), mask_ratio=trainer.mask_ratio, noise=noise)
+        launches, m = step_launches(trainer, images, noise)
+        rec = {"forward": (loss.float().cpu(), pred.float().cpu()), "launches": launches, "loss": float(m["loss"]),
+               "grads": {n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()},
+               "token_share": [n for n, p in trainer.model.named_parameters()
+                               if id(p) in {id(q) for q in trainer.model.token_shard_parameters()}],
+               "expected": mae_expected_launches(mc, 1, 0, cfg.model.mask_ratio)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MA_TIMED):
+            trainer.train_step(images, noise=noise)
+        torch.cuda.synchronize()
+        rec["step_ms"] = (time.perf_counter() - t0) * 1e3 / MA_TIMED
+        out[form] = rec
+        del trainer, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def ma_tile_net(tp_group=None, dtype=torch.float32):
+    """fc-prithvi (the Prithvi-100M encoder's widths at CUT_DEPTH's
+    encoder blocks) at one MA_TILE^2 tile, seeded: tp + cp over
+    ``tp_group``, or dense."""
+    from s2tpu_torch.models.prithvi_mae import PrithviConfig
+    from s2tpu_torch.models.prithvi_seg import PrithviSegmentationConfig, PrithviSegmentationNet
+    from s2tpu_torch.parallel.mesh import MODEL_AXIS
+    from s2tpu_torch.utils import load_prithvi_model_args
+
+    axes = dict(tp_axis=MODEL_AXIS, cp_axis=MODEL_AXIS) if tp_group is not None else {}
+    backbone = PrithviConfig.from_model_args(load_prithvi_model_args(), num_frames=1, img_size=MA_TILE)
+    backbone = dataclasses.replace(backbone, attention_impl="fused", depth=CUT_DEPTH["depth"], **axes)
+    grid = MA_TILE // backbone.patch_size
+    cfg = PrithviSegmentationConfig(num_frames=1, num_classes=MA_TILE_CLASSES, frozen_backbone=False,
+                                    embed_dim=backbone.embed_dim, patch_height=grid, patch_width=grid,
+                                    backbone=backbone)
+    return PrithviSegmentationNet(cfg, dtype=dtype, device="cuda", generator=torch.Generator().manual_seed(SEED + 21),
+                                  param_dtype=torch.float32, tp_group=tp_group)
+
+
+def ma_tile_input() -> torch.Tensor:
+    gen = torch.Generator().manual_seed(SEED + 22)
+    return torch.randn((1, 1, MA_TILE, MA_TILE, 6), generator=gen).cuda()
+
+
+def _ma_rank(rank: int, work: str, data_dir: str, t3_dir: str) -> None:
+    """One of phase F's gloo ranks on the card, on a 1 x MA_RANKS mesh (both
+    hold every row): (a) config #2's FSDP step (bf16, then f32), (b) the tp
+    and tp + cp MAE at T=1 and T=3, (c) the tp + cp fc-prithvi forward at
+    one MA_TILE^2 tile. Records in ``work/ma_rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    from s2tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/ma_store", world_size=MA_RANKS, rank=rank)
+    try:
+        mesh = make_mesh(MA_RANKS, MA_RANKS, "cuda")
+        with deterministic_cudnn():  # the one-rank step's convolution algorithms, bit for bit
+            trainer = seg_extras_trainer(Path(data_dir), mesh=mesh, param_sharding="fsdp")
+            images, labels = dp_global_batch(trainer)
+            torch.cuda.reset_peak_memory_stats()
+            launches, m = step_launches(trainer, torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
+            rec = {"fsdp": ma_fsdp_record(trainer, m, launches), "device": str(trainer.device)}
+            del trainer, m
+            torch.cuda.empty_cache()
+            tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            f32 = dp_f32_trainer(Path(data_dir), mesh=mesh, param_sharding="fsdp")
+            images, labels = dp_global_batch(f32)
+            launches, m = step_launches(f32, torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
+            rec["fsdp_f32"] = ma_fsdp_record(f32, m, launches)
+            del f32, m
+            torch.cuda.empty_cache()
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        rec["cp"] = {frames: ma_cp_rank(mesh, Path(d), frames) for frames, d in ((1, data_dir), (3, t3_dir))}
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        net = ma_tile_net(mesh.get_group(MODEL_AXIS))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.no_grad():
+            logits = net(ma_tile_input())
+        torch.cuda.synchronize()
+        rec["tile"] = {"logits": logits.cpu(), "launches": launch_counts()}
+        torch.save(rec, f"{work}/ma_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_ma_fsdp(ranks: list[dict], one: dict, one_f32: dict, rule: dict[int, int]) -> dict:
+    """(a): each FSDP rank's step equals the one-rank step bit for bit (loss
+    and whole state, bf16 and f32), launches a one-rank step's #1-#4, and
+    holds the rule's share of the state bytes."""
+    failures = []
+    for r, rank in enumerate(ranks):
+        for key, ref in (("fsdp", one), ("fsdp_f32", one_f32)):
+            rec = rank[key]
+            if rec["loss"] != ref["loss"] or rec["digest"] != ref["digest"]:
+                failures.append(f"rank {r} {key}: loss {rec['loss']} vs one rank {ref['loss']}, whole state "
+                                f"bit-equal {rec['digest'] == ref['digest']}")
+            if rec["launches"] != ref["launches"]:
+                failures.append(f"rank {r} {key}: launches {rec['launches']} != one rank's {ref['launches']}")
+            if rec["axes"] != (1, MA_RANKS):
+                failures.append(f"rank {r} {key}: mesh axes {rec['axes']}")
+        if rank["fsdp"]["bytes"] != rule[MA_RANKS]:
+            failures.append(f"rank {r}: {rank['fsdp']['bytes']} state bytes, the rule's {rule[MA_RANKS]}")
+    if one["bytes"] != rule[1]:
+        failures.append(f"one rank: {one['bytes']} state bytes, the rule's {rule[1]}")
+    first = ranks[0]["fsdp"]
+    log(
+        f"model axis (a) FSDP (B5 config #2, bf16, batch {TRAIN_BATCH} on each of {MA_RANKS} gloo ranks of a "
+        f"1 x {MA_RANKS} mesh sharing the card, {CARD}): {first['sharded']} of the parameter tensors sharded; "
+        f"each rank's step equal to the one-rank step bit for bit (loss and whole state): bf16 "
+        f"{all(r['fsdp']['digest'] == one['digest'] and r['fsdp']['loss'] == one['loss'] for r in ranks)}, f32 "
+        f"(TF32 off, batch {F32_STEP_BATCH}) "
+        f"{all(r['fsdp_f32']['digest'] == one_f32['digest'] and r['fsdp_f32']['loss'] == one_f32['loss'] for r in ranks)}; "
+        f"loss {first['loss']:.6f}; each rank's launches {first['launches']} (one rank's {one['launches']}); "
+        f"parameter + Adam bytes a rank {[r['fsdp']['bytes'] for r in ranks]} against one rank's {one['bytes']} "
+        f"({first['bytes'] / one['bytes']:.4f}); by the rule at m = 1, 2, 4: {rule[1]}, {rule[2]}, {rule[4]}; "
+        f"max_memory_allocated a rank {[r['fsdp']['peak'] for r in ranks]} B, one rank {one['peak']} B"
+    )
+    if failures:
+        raise AssertionError("model axis (a) FSDP: " + "; ".join(failures))
+    return {"launches": first["launches"], "bytes": [r["fsdp"]["bytes"] for r in ranks], "one_bytes": one["bytes"],
+            "rule": rule}
+
+
+def check_ma_cp(ranks: list[dict]) -> dict:
+    """(b): on each rank, the tp + cp MAE step against the tensor-parallel
+    step from the same init, batch and noise: the forward bit for bit (the
+    ranks' two partial sums added in either order), the gradients of the
+    parameters that see this rank's tokens alone (LayerNorms, post-scatter
+    biases; their bf16 sums split in two) within MA_TOKEN_GRAD in relative
+    L2, every other gradient within MA_GRAD; each form's launches as the
+    route says (#6/#7 at T=1, #5 at T=3)."""
+    failures, out = [], {}
+    for frames in (1, 3):
+        worst, equal, total = {"token_share": 0.0, "other": 0.0}, 0, 0
+        for r, rank in enumerate(ranks):
+            tp, cp = rank["cp"][frames]["tp"], rank["cp"][frames]["cp"]
+            if not (torch.equal(tp["forward"][0], cp["forward"][0]) and torch.equal(tp["forward"][1], cp["forward"][1])):
+                diff = float((tp["forward"][1] - cp["forward"][1]).abs().max())
+                failures.append(f"T={frames} rank {r}: the cp forward is not the tp forward bit for bit "
+                                f"(losses {float(tp['forward'][0])} / {float(cp['forward'][0])}, pred {diff:.3g})")
+            for form in ("tp", "cp"):
+                if rank["cp"][frames][form]["launches"] != rank["cp"][frames][form]["expected"]:
+                    failures.append(f"T={frames} rank {r} {form}: launches {rank['cp'][frames][form]['launches']} "
+                                    f"!= {rank['cp'][frames][form]['expected']}")
+            shared = set(cp["token_share"])
+            for n, g in tp["grads"].items():
+                total += 1
+                if torch.equal(cp["grads"][n], g):
+                    equal += 1
+                    continue
+                rel = state_distance({"g": cp["grads"][n]}, {"g": g})[1]
+                kind = "token_share" if n in shared else "other"
+                worst[kind] = max(worst[kind], rel)
+        bounds = {"token_share": MA_TOKEN_GRAD, "other": MA_GRAD}
+        failures += [f"T={frames} {k} gradients {v:.3g} > {bounds[k]:.3g}" for k, v in worst.items() if not v <= bounds[k]]
+        first = ranks[0]["cp"][frames]
+        out[frames] = {"launches": first["cp"]["launches"], "tp_ms": first["tp"]["step_ms"],
+                       "cp_ms": first["cp"]["step_ms"], "worst": worst}
+        log(
+            f"model axis (b) context parallelism (Prithvi-100M MAE widths at {CUT_DEPTH['depth']} + "
+            f"{CUT_DEPTH['decoder_depth']} blocks, T={frames}, bf16, "
+            f"batch "
+            f"{MAE_BATCH if frames == 1 else MAE_T3_BATCH} on each of {MA_RANKS} gloo ranks sharing the card, "
+            f"{CARD}): tp + cp forward equal to the tensor-parallel forward bit for bit on every rank: "
+            f"{not any(f.startswith(f'T={frames} rank') and 'forward' in f for f in failures)}; loss "
+            f"{first['cp']['loss']:.6f} (tp {first['tp']['loss']:.6f}); gradients bit-equal {equal} of {total}, "
+            f"the rest in relative L2: token-share {worst['token_share']:.3g} (limit {MA_TOKEN_GRAD:.3g}), other "
+            f"{worst['other']:.3g} (limit {MA_GRAD:.3g}); {len(first['cp']['token_share'])} token-share tensors; "
+            f"launches tp + cp {first['cp']['launches']} (tp {first['tp']['launches']}); eager step (gloo ranks "
+            f"sharing the card, mean of {MA_TIMED}) tp + cp {first['cp']['step_ms']:.3f} ms, tp "
+            f"{first['tp']['step_ms']:.3f} ms"
+        )
+    if failures:
+        raise AssertionError("model axis (b) context parallelism: " + "; ".join(failures))
+    return out
+
+
+def check_ma_tile(ranks: list[dict]) -> dict:
+    """(c): the tp + cp fc-prithvi forward at one MA_TILE^2 tile (L = 1025,
+    past the fused route: #5 in each block) on each rank against the dense
+    forward on one rank, f32 with TF32 off: logits within MA_TILE_RTOL of
+    their scale, class maps equal but where the dense forward's best two
+    classes tie within that bound, the ranks equal."""
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    net = ma_tile_net()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = net(ma_tile_input()).cpu()
+    torch.cuda.synchronize()
+    one_launches = launch_counts()
+    del net
+    torch.cuda.empty_cache()
+    first = ranks[0]["tile"]
+    scale = float(ref.abs().max())
+    diff = float((first["logits"] - ref).abs().max()) / scale
+    # A class may change only where the dense forward's two best classes lie
+    # within the logits' bound of each other (a tie that rounding decides).
+    flips = first["logits"].argmax(-1) != ref.argmax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * MA_TILE_RTOL * scale
+    same_map = 1.0 - float(flips.float().mean())
+    failures = []
+    if not all(torch.equal(r["tile"]["logits"], first["logits"]) for r in ranks):
+        failures.append("the ranks' logits differ")
+    if not diff <= MA_TILE_RTOL or bool((flips & ~near_tie).any()):
+        failures.append(f"logits {diff:.3g} of their scale (limit {MA_TILE_RTOL:.3g}), class maps equal on "
+                        f"{same_map:.6f} of the pixels, {int((flips & ~near_tie).sum())} changed away from a tie")
+    depth = CUT_DEPTH["depth"]
+    if first["launches"]["attn_flash_fwd"] != depth or one_launches["attn_flash_fwd"] != depth:
+        failures.append(f"#5 launches {first['launches']['attn_flash_fwd']} (one rank "
+                        f"{one_launches['attn_flash_fwd']}), not one a block of {depth}")
+    log(
+        f"model axis (c) large tile (fc-prithvi, Prithvi-100M encoder widths at {CUT_DEPTH['depth']} blocks, one "
+        f"{MA_TILE}^2 tile: L = 1025, f32, TF32 "
+        f"off, tp + cp on {MA_RANKS} gloo ranks sharing the card, {CARD}): logits vs the dense one-rank forward "
+        f"{diff:.3g} of their scale (limit {MA_TILE_RTOL:.3g}); class maps equal on {same_map:.6f} of the pixels "
+        f"({int(flips.sum())} changed, each at a tie within the bound); "
+        f"#5 launches a rank {first['launches']['attn_flash_fwd']} (one rank {one_launches['attn_flash_fwd']})"
+    )
+    if failures:
+        raise AssertionError("model axis (c) large tile: " + "; ".join(failures))
+    return {"launches": first["launches"], "rel": diff}
+
+
+def phase_model_axis(work: Path) -> dict:
+    """Phase F: the model axis beyond tensor parallelism, on MA_RANKS gloo
+    ranks sharing the card (:func:`_ma_rank`), each checked against one
+    rank (:func:`check_ma_fsdp`, :func:`check_ma_cp`, :func:`check_ma_tile`);
+    then, with two cards, FSDP over NCCL and, with four, FSDP and the tp +
+    cp MAE (beside the tensor-parallel MAE) on a 2 x 2 mesh, graphed windows
+    against eager steps bit for bit (:func:`check_graph_runs`)."""
+    import torch.multiprocessing as mp
+
+    from s2tpu_torch.data import statistics
+    from s2tpu_torch.data.dataset import TiffSource, make_synthetic_fixture
+
+    data_dir, t3_dir = work / "train_data", work / "mae_t3_data"  # phases 6 and 10's, made here standalone
+    if not data_dir.exists():
+        make_synthetic_fixture(data_dir, aoi="small", label_map="osm-multiclass", n_segments=DP_SEGMENTS,
+                               size=(TRAIN_SEGMENT_SIZE, TRAIN_SEGMENT_SIZE))
+        source = TiffSource("small", "osm-multiclass", data_dir)
+        statistics.calculate_mean_std(source, save_path=source.data_dirs.base_path / "mean_std.json")
+    if not t3_dir.exists():
+        unlabeled_fixture(t3_dir, MAE_T3_SEGMENTS, n_time=MAE_T3_FRAMES)
+    t0 = time.perf_counter()
+    mp.spawn(_ma_rank, args=(str(work), str(data_dir), str(t3_dir)), nprocs=MA_RANKS)  # a rank's failure raises
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"ma_rank{r}.pt", weights_only=False) for r in range(MA_RANKS)]
+    log(f"model axis: {MA_RANKS} gloo ranks spawned, built and stepped in {ranks_s:.1f} s")
+
+    with deterministic_cudnn():
+        one = seg_extras_trainer(data_dir)
+        rule = {m: ma_rule_bytes(one.model, m) for m in (1, 2, 4)}
+        images, labels = dp_global_batch(one)
+        torch.cuda.reset_peak_memory_stats()
+        launches, m = step_launches(one, torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
+        one_rec = {"loss": float(m["loss"]), "launches": launches, "digest": state_digest(one.model.state_dict()),
+                   "bytes": ma_state_bytes(one), "peak": torch.cuda.max_memory_allocated()}
+        del one, m
+        torch.cuda.empty_cache()
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            f32 = dp_f32_trainer(data_dir)
+            images, labels = dp_global_batch(f32)
+            launches, m = step_launches(f32, torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
+            one_f32 = {"loss": float(m["loss"]), "launches": launches, "digest": state_digest(f32.model.state_dict())}
+            del f32, m
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {"fsdp": check_ma_fsdp(ranks, one_rec, one_f32, rule), "cp": check_ma_cp(ranks)}
+    try:
+        out["tile"] = check_ma_tile(ranks)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cards = torch.cuda.device_count()
+    runs = []
+    if cards >= 2:
+        runs.append((2, 2, ("b5_fsdp",)))
+    if cards >= 4:
+        runs.append((4, 2, ("b5_fsdp", "mae", "mae_cp")))
+    if runs:
+        out["graphs"] = check_graph_runs(work, runs, "model axis")
+    else:
+        log(f"model axis graphed windows over NCCL: not run, {cards} card")
+    return out
+
+
+def model_axis_only() -> int:
+    """``--model-axis``: the build (phase F runs #1-#7) and phase F on data
+    of its own; no result lines."""
+    phase_build()
+    work = REPO / "out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        phase_model_axis(work)
+        log(f"phase model axis: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def dp_graph_entries(dp: dict, run: str, kernel: str, key: str = "dp_graph_replay_launches") -> dict:
     """A kernel's launches in one replay of phase E's graphed window on NCCL
     ranks (rank 0; ``run`` "<model>_<ranks>": "b5_2", "mae_2", "fc_2",
@@ -5715,7 +6184,7 @@ def main(argv: list[str]) -> int:
     global CARD
     modes = {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
              "--corpus": corpus_only, "--serving": serving_only, "--data": data_only,
-             "--data-parallel": data_parallel_only}
+             "--data-parallel": data_parallel_only, "--model-axis": model_axis_only}
     if argv and (len(argv) > 1 or argv[0] not in modes):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -5773,6 +6242,7 @@ def main(argv: list[str]) -> int:
             tp = timed("tensor-parallel MAE slice T=1", phase_mae_tp, work, mesh, mae)
             tp_t3 = timed("tensor-parallel MAE slice T=3", phase_mae_tp_t3, work, mesh)
             timed("f32 tensor-parallel MAE step card vs cpu", phase_mae_f32_step, mesh)
+        ma = timed("model axis", phase_model_axis, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timed("f32 train step card vs cpu", phase_f32_step)
@@ -5828,6 +6298,9 @@ def main(argv: list[str]) -> int:
             # phase E: one rank's step of the data axis (TRAIN_BATCH / DP_RANKS rows), forwards and input gradients
             "dp_rank_launches": dp["launches"]["depthwise_fwd"],
             "dp_rank_dx_launches": dp["launches"]["depthwise_dx"],
+            # phase F (a): one FSDP rank's step of config #2 (every row), forwards and input gradients
+            "ma_fsdp_rank_launches": ma["fsdp"]["launches"]["depthwise_fwd"],
+            "ma_fsdp_rank_dx_launches": ma["fsdp"]["launches"]["depthwise_dx"],
             **dp_graph_entries(dp, "b5_2", "#1"),
             # phase E: one gloo rank's share of cli.infer --tiled --num-devices 2, a replay from the sharded corpus
             "dp_serve_rank_launches": dp["serve"]["rank_launches"]["depthwise_fwd"],
@@ -5853,6 +6326,7 @@ def main(argv: list[str]) -> int:
             **corpus_entries(corpus, "b5_launches", "#2", "depthwise_dw"),
             **packed_entries(packed, "depthwise_dw"),
             "dp_rank_launches": dp["launches"]["depthwise_dw"],
+            "ma_fsdp_rank_launches": ma["fsdp"]["launches"]["depthwise_dw"],
             **dp_graph_entries(dp, "b5_2", "#2"),
             **dp_graph_entries(dp, "b5_sharded_2", "#2", "dp_sharded_graph_replay_launches"),
         },
@@ -5878,6 +6352,7 @@ def main(argv: list[str]) -> int:
             **corpus_entries(corpus, "b5_launches", "#3", "fused_ce_fwd"),
             **packed_entries(packed, "fused_ce_fwd"),
             "dp_rank_launches": dp["launches"]["fused_ce_fwd"],
+            "ma_fsdp_rank_launches": ma["fsdp"]["launches"]["fused_ce_fwd"],
             **dp_graph_entries(dp, "b5_2", "#3"),
             **dp_graph_entries(dp, "b5_sharded_2", "#3", "dp_sharded_graph_replay_launches"),
             **dp_fc_entries(dp, "fused_ce_fwd"),
@@ -5904,6 +6379,7 @@ def main(argv: list[str]) -> int:
             **corpus_entries(corpus, "b5_launches", "#4", "fused_ce_bwd"),
             **packed_entries(packed, "fused_ce_bwd"),
             "dp_rank_launches": dp["launches"]["fused_ce_bwd"],
+            "ma_fsdp_rank_launches": ma["fsdp"]["launches"]["fused_ce_bwd"],
             **dp_graph_entries(dp, "b5_2", "#4"),
             **dp_graph_entries(dp, "b5_sharded_2", "#4", "dp_sharded_graph_replay_launches"),
             **dp_fc_entries(dp, "fused_ce_bwd"),
@@ -5921,6 +6397,9 @@ def main(argv: list[str]) -> int:
             "bound_by": attn_times["qkv"]["fwd_bound_by"],
             "library_ms": attn_times["qkv"]["fwd_library_ms"],
             "t3_launches": tp_t3["launches"]["attn_fused_qkv_fwd"],
+            # phase F (b): one rank's tp + cp MAE step at T=1 (decoder) and T=3 (encoder)
+            "ma_cp_rank_launches": ma["cp"][1]["launches"]["attn_fused_qkv_fwd"],
+            "ma_cp_t3_rank_launches": ma["cp"][3]["launches"]["attn_fused_qkv_fwd"],
             **fwd_ptxas,
             **dp_graph_entries(dp, "mae_4", "#8"),  # #6 and #8 share their kernels' names (one library)
             **dp_graph_entries(dp, "mae_sharded_4", "#8", "dp_sharded_graph_replay_launches"),
@@ -5938,6 +6417,8 @@ def main(argv: list[str]) -> int:
             "bound_by": attn_times["qkv"]["bwd_bound_by"],
             "library_ms": attn_times["qkv"]["bwd_library_ms"],
             "t3_launches": tp_t3["launches"]["attn_fused_qkv_bwd"],
+            "ma_cp_rank_launches": ma["cp"][1]["launches"]["attn_fused_qkv_bwd"],
+            "ma_cp_t3_rank_launches": ma["cp"][3]["launches"]["attn_fused_qkv_bwd"],
             **dp_graph_entries(dp, "mae_4", "#9"),
             **dp_graph_entries(dp, "mae_sharded_4", "#9", "dp_sharded_graph_replay_launches"),
         },
@@ -6016,6 +6497,9 @@ def main(argv: list[str]) -> int:
             **{f"embed_{k}": attn_times["flash_embed"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **{f"embed_t3_{k}": attn_times["flash_embed_t3"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             "embed_crop0_int8_launches": serving["embed_int8"]["0"],
+            # phase F: one rank's tp + cp MAE step at T=3 (the decoder, L = 589) and 512^2 fc-prithvi forward
+            "ma_cp_t3_rank_launches": ma["cp"][3]["launches"]["attn_flash_fwd"],
+            "ma_tile_rank_launches": ma["tile"]["launches"]["attn_flash_fwd"],
         },
     ]
     if len(kernels) != 9:

@@ -22,7 +22,11 @@ An MAE run directory has the same layout with an ``MAEConfig`` in
 
 Several processes of one run (a data axis) share its directory: the trainers
 write through :func:`on_rank0`, so rank 0 writes, every rank waits at a
-barrier until it has, and then every rank reads what it wrote.
+barrier until it has, and then every rank reads what it wrote. The files
+always hold whole tensors: a trainer whose parameters are sharded over a
+model axis (FSDP) gathers them, its Adam moments, master and EMA before
+rank 0 writes them, and slices what it reads, so its run directories and a
+one-rank run's load into each other and serve alike.
 """
 
 from __future__ import annotations
@@ -163,7 +167,7 @@ class CheckpointManager:
         return value if self.mode == "min" else -value
 
     def save_epoch(
-        self, epoch: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer, step: int,
+        self, epoch: int, model: torch.nn.Module | dict, optimizer: torch.optim.Optimizer | dict, step: int,
         metrics: dict | None = None, master: dict | None = None, ema: dict | None = None,
     ) -> None:
         """Write epoch ``epoch`` (``state.json`` last, so a partial write is
@@ -197,7 +201,7 @@ class CheckpointManager:
 
     # -- preemption --------------------------------------------------------
     def save_preempt(
-        self, epoch: int, batches_done: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+        self, epoch: int, batches_done: int, model: torch.nn.Module | dict, optimizer: torch.optim.Optimizer | dict,
         step: int, master: dict | None = None, ema: dict | None = None,
     ) -> None:
         """The whole training state at a step boundary of ``epoch`` after
@@ -223,15 +227,16 @@ class CheckpointManager:
 
 
 def _write_state(
-    d: Path, model: torch.nn.Module, optimizer: torch.optim.Optimizer, master: dict | None, ema: dict | None,
-    state: dict,
+    d: Path, model: torch.nn.Module | dict, optimizer: torch.optim.Optimizer | dict, master: dict | None,
+    ema: dict | None, state: dict,
 ) -> None:
-    """``d`` := the model, Adam, the master and EMA where kept, and
-    ``state.json`` last (a directory without it is no checkpoint)."""
+    """``d`` := the model, Adam (each a module and an optimizer, or their
+    state dicts), the master and EMA where kept, and ``state.json`` last (a
+    directory without it is no checkpoint)."""
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    torch.save(_cpu(model.state_dict()), d / WEIGHTS_FILE)
-    torch.save(optimizer.state_dict(), d / OPTIMIZER_FILE)
+    torch.save(_cpu(model.state_dict() if isinstance(model, torch.nn.Module) else model), d / WEIGHTS_FILE)
+    torch.save(optimizer if isinstance(optimizer, dict) else optimizer.state_dict(), d / OPTIMIZER_FILE)
     for name, part in ((MASTER_FILE, master), (EMA_FILE, ema)):
         if part is not None:
             torch.save(_cpu(part), d / name)

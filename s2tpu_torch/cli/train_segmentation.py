@@ -41,10 +41,13 @@ checkpoints. Outside a launcher the command starts the N ranks itself;
 under ``torchrun --nproc-per-node N -m s2tpu_torch.cli.train_segmentation``
 N must equal the world size. -1 (the default) takes every visible card (a
 launcher's world size; one process on the CPU); N above the visible cards is
-an error. fc-prithvi trains on N ranks as the UNet does. ``--fsdp`` is
-taken with ``s2tpu``'s meaning: the CLI's mesh has a model axis of one
-rank, over which nothing is sharded, so the parameters stay replicated
-(pure data parallelism).
+an error. fc-prithvi trains on N ranks as the UNet does. ``--fsdp`` passes
+``param_sharding="fsdp"`` to the trainer, as ``s2tpu``'s CLI does: the
+CLI's mesh has a model axis of one rank, over which nothing is sharded, so
+the parameters stay replicated (pure data parallelism). A model axis above
+one rank is reached through the trainer's API
+(``SegmentationTrainer(mesh=make_mesh(n, model_parallel=m),
+param_sharding="fsdp")``), as in ``s2tpu``.
 
 Multi-temporal B5 (BASELINE config #3) folds its frames into channels,
 frame-major, for the single-frame UNet (in_channels = T x bands):
@@ -324,7 +327,7 @@ def main(argv: list[str] | None = None) -> list:
     ckpt_dir = Path(args.resume_from) if args.resume_from else CKPT_DIR / config.train.project_name / config.train.run_name
     ckpt = CheckpointManager(ckpt_dir, keep=config.train.ckpt_keep, config_dict=config_dict if rank0 else None)
     trainer = SegmentationTrainer(config, dm, run_logger=run_logger, checkpoint_manager=ckpt, device=device,
-                                  mesh=mesh)
+                                  mesh=mesh, param_sharding="fsdp" if args.fsdp else "replicated")
     start_epoch = trainer.resume_from_checkpoint() if (args.resume_from or args.auto_resume) else 0
     epochs = config.train.max_epochs if config.train.max_epochs > 0 else 10**6
     ranks = f" and {n - 1} more ranks" if n > 1 else ""

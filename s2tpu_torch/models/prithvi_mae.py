@@ -36,8 +36,29 @@ Megatron's pair of collectives around each block half. The parameter names
 and shapes are the dense model's, so the two load each other's state
 dicts. On a 2-D ('data', 'model') mesh the model group is the mesh's
 'model' group and the batch is split over 'data' (``data_axis``: the
-loss's masked-patch denominator is the global batch's). Context
-parallelism (``cp_axis``) is not ported.
+loss's masked-patch denominator is the global batch's).
+
+``PrithviConfig(cp_axis=...)`` is context parallelism over the same group
+(``prithvi_mae.py:98-104``, ``:304-328``): between the blocks each rank
+holds its share of the tokens, padded to ``n·⌈L/n⌉`` so that the shares are
+equal (``L`` is odd with the cls token), and its LayerNorms and residual
+adds run on its own tokens; the pad rows are cut off before any attention
+and their gradient is zero. Two forms, as in the JAX model:
+
+- ``tp_axis == cp_axis``: Megatron's sequence parallelism over the
+  tensor-parallel block. The normed tokens are all-gathered before the q/k/v
+  projection and before ``fc1`` (the backward reduce-scatters), the
+  partial outputs of ``proj`` and ``fc2`` are reduce-scattered over the
+  tokens in place of the all-reduce, and their biases added once after it.
+- ``cp_axis`` alone (gather-KV): each rank keeps its tokens through the
+  MLP; attention gathers the normed tokens, runs the dense model's route
+  over the whole sequence and keeps this rank's rows for ``proj``.
+
+The LayerNorms', the post-scatter biases' (and in the gather-KV form every
+block parameter's) gradients then cover only this rank's tokens:
+:meth:`PrithviMAE.token_shard_parameters` names them, and the trainer sums
+their gradients over the model group in one bucketed all-reduce after the
+backward (``ModelAxis.all_reduce_flat_``).
 """
 
 from __future__ import annotations
@@ -59,7 +80,7 @@ from s2tpu_torch.ops.flash_attention import (
     fused_attention_dense,
     fused_attention_qkv,
 )
-from s2tpu_torch.parallel.mesh import SINGLE
+from s2tpu_torch.parallel.mesh import MODEL_AXIS, SINGLE, ModelAxis
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 
 LECUN_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to (-2, 2)
@@ -98,10 +119,11 @@ def sincos_3d(embed_dim: int, grid_size: tuple[int, int, int], cls_token: bool =
 @dataclass(frozen=True)
 class PrithviConfig:
     """The JAX model's config. ``tp_axis`` names the mesh axis the heads and
-    MLP hidden are split over (None: the dense form). ``dp_axis`` names the
-    batch axis, the mesh's 'data' axis; the port takes no other value
-    (ROADMAP A16). ``cp_axis`` (context parallelism) is
-    not ported and must stay None."""
+    MLP hidden are split over, ``cp_axis`` the axis the tokens are split
+    over between the blocks (None: the dense form); the port has one such
+    axis, the mesh's 'model' axis, and refuses any other name.
+    ``dp_axis`` names the batch axis, the mesh's 'data' axis; the port takes
+    no other value (ROADMAP A16)."""
 
     img_size: int = 224
     patch_size: int = 16
@@ -213,15 +235,26 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, generator)
         self.proj = Linear(dim, dim, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def core(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, D) -> the heads' outputs (B, L, D), before ``proj``."""
         b, l, _ = x.shape
         qkv = self.qkv(x)
         route = attention_route(l, self.dim, self.num_heads, self.impl)
         if route == "fused":
-            return self.proj(fused_attention_dense(qkv, self.num_heads))
+            return fused_attention_dense(qkv, self.num_heads)
         q, k, v = qkv.reshape(b, l, 3, self.num_heads, self.dim // self.num_heads).unbind(2)
         out = flash_attention(q, k, v) if route == "flash" else dot_product_attention(q, k, v)
-        return self.proj(out.reshape(b, l, self.dim))
+        return out.reshape(b, l, self.dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.core(x))
+
+    def on_tokens(self, y: torch.Tensor, axis: ModelAxis, length: int) -> torch.Tensor:
+        """Gather-KV context parallelism: this rank's normed token share
+        ``y`` -> its rows of the attention output. The whole sequence's
+        attention runs on every rank; ``proj`` only on this rank's rows."""
+        whole = axis.gather_summed(y, 1)[:, :length]
+        return self.proj(axis.local(_pad_tokens(self.core(whole), axis.size), 1))
 
 
 class Mlp(nn.Module):
@@ -232,6 +265,11 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+    def on_tokens(self, y: torch.Tensor, axis: ModelAxis, length: int) -> torch.Tensor:
+        """Gather-KV context parallelism: the MLP of this rank's tokens."""
+        del axis, length
+        return self(y)
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +312,17 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def _pad_tokens(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, L, D) -> (B, n·⌈L/n⌉, D), zero rows after the last token."""
+    return F.pad(x, (0, 0, 0, -x.shape[1] % n))
+
+
+def _reduce_scatter_tokens(partial: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The ranks' partial (B, L, D) outputs summed, this rank's share of the
+    padded tokens kept."""
+    return axis.reduce_scatter(_pad_tokens(partial, axis.size), 1)
 
 
 def _shard(n_items: int, group, what: str) -> slice:
@@ -333,15 +382,22 @@ class ProjEinsum(Linear):
         d = self.in_features
         return copy_to_group(self.weight, self.group).view(d, self.num_heads, -1)[:, self.heads].to(dtype)
 
+    def partial(self, x_bhld: torch.Tensor) -> torch.Tensor:
+        """(B, H_r, L, Dh) -> this rank's heads' share of the (B, L, D)
+        output, before the sum and the bias."""
+        return torch.einsum("bhld,ohd->blo", x_bhld, self._local(x_bhld.dtype))
+
+    def partial_dense(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, H_r·Dh) -> this rank's share, before the sum and the bias."""
+        return F.linear(x, self._local(x.dtype).reshape(self.out_features, -1))
+
     def forward(self, x_bhld: torch.Tensor) -> torch.Tensor:
         """(B, H_r, L, Dh) -> (B, L, D)."""
-        partial = torch.einsum("bhld,ohd->blo", x_bhld, self._local(x_bhld.dtype))
-        return reduce_from_group(partial, self.group) + self.bias.to(x_bhld.dtype)
+        return reduce_from_group(self.partial(x_bhld), self.group) + self.bias.to(x_bhld.dtype)
 
     def dense(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L, H_r·Dh) -> (B, L, D)."""
-        partial = F.linear(x, self._local(x.dtype).reshape(self.out_features, -1))
-        return reduce_from_group(partial, self.group) + self.bias.to(x.dtype)
+        return reduce_from_group(self.partial_dense(x), self.group) + self.bias.to(x.dtype)
 
 
 class TensorParallelAttention(nn.Module):
@@ -356,15 +412,28 @@ class TensorParallelAttention(nn.Module):
         self.qkv = QKVEinsum(dim, num_heads, generator, group)
         self.proj = ProjEinsum(dim, num_heads, generator, group)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, D) -> this rank's heads' share of the output, before the
+        sum over the group and ``proj``'s bias."""
         b, l, _ = x.shape
-        x = copy_to_group(x, self.group)
         route = attention_route(l, self.dim, self.num_heads, self.impl)
         if route == "fused":
-            return self.proj(fused_attention_qkv(self.qkv(x)))
+            return self.proj.partial(fused_attention_qkv(self.qkv(x)))
         q, k, v = self.qkv.dense(x).reshape(b, l, 3, -1, self.dim // self.num_heads).unbind(2)
         out = flash_attention(q, k, v) if route == "flash" else dot_product_attention(q, k, v)
-        return self.proj.dense(out.reshape(b, l, -1))
+        return self.proj.partial_dense(out.reshape(b, l, -1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        partial = self.partial(copy_to_group(x, self.group))
+        return reduce_from_group(partial, self.group) + self.proj.bias.to(x.dtype)
+
+    def on_tokens(self, y: torch.Tensor, axis: ModelAxis, length: int) -> torch.Tensor:
+        """Sequence parallelism: this rank's normed token share ``y`` ->
+        its share of the output: the tokens all-gathered (the backward
+        reduce-scatters), the heads' partial outputs reduce-scattered over
+        the tokens, ``proj``'s bias added after."""
+        partial = self.partial(axis.gather_summed(y, 1)[:, :length])
+        return _reduce_scatter_tokens(partial, axis) + self.proj.bias.to(y.dtype)
 
 
 class TensorParallelMlp(Mlp):
@@ -377,22 +446,34 @@ class TensorParallelMlp(Mlp):
         self.group = group
         self.cols = _shard(hidden, group, "MLP hidden units")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = copy_to_group(x, self.group)
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's hidden columns' share of the output, before the sum
+        over the group and fc2's bias."""
         w1 = copy_to_group(self.fc1.weight, self.group)[self.cols].to(x.dtype)
         b1 = copy_to_group(self.fc1.bias, self.group)[self.cols].to(x.dtype)
         w2 = copy_to_group(self.fc2.weight, self.group)[:, self.cols].to(x.dtype)
-        partial = F.linear(F.gelu(F.linear(x, w1, b1), approximate="none"), w2)
+        return F.linear(F.gelu(F.linear(x, w1, b1), approximate="none"), w2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        partial = self.partial(copy_to_group(x, self.group))
         return reduce_from_group(partial, self.group) + self.fc2.bias.to(x.dtype)
+
+    def on_tokens(self, y: torch.Tensor, axis: ModelAxis, length: int) -> torch.Tensor:
+        """Sequence parallelism, as :meth:`TensorParallelAttention.on_tokens`."""
+        partial = self.partial(axis.gather_summed(y, 1)[:, :length])
+        return _reduce_scatter_tokens(partial, axis) + self.fc2.bias.to(y.dtype)
 
 
 class Block(nn.Module):
     """Pre-norm ViT block: LN - attention - residual, LN - MLP - residual;
-    the tensor-parallel form over ``group`` when ``tensor_parallel``."""
+    the tensor-parallel form over ``group`` when ``tensor_parallel``. Given
+    a ``context`` (the model axis), ``x`` is this rank's share of ``length``
+    tokens (context parallelism, :meth:`PrithviMAE._run_blocks`)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, impl: str, eps: float,
                  generator: torch.Generator, tensor_parallel: bool = False, group=None) -> None:
         super().__init__()
+        self.tensor_parallel = tensor_parallel
         self.norm1 = LayerNorm(dim, eps=eps)
         if tensor_parallel:
             self.attn = TensorParallelAttention(dim, num_heads, impl, generator, group)
@@ -404,9 +485,20 @@ class Block(nn.Module):
         else:
             self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, context: ModelAxis | None = None, length: int = 0) -> torch.Tensor:
+        if context is None:
+            x = x + self.attn(self.norm1(x))
+            return x + self.mlp(self.norm2(x))
+        x = x + self.attn.on_tokens(self.norm1(x), context, length)
+        return x + self.mlp.on_tokens(self.norm2(x), context, length)
+
+    def token_shard_parameters(self) -> list[nn.Parameter]:
+        """Under context parallelism, the parameters whose gradients cover
+        only this rank's tokens: the LayerNorms' and the biases added after
+        the reduce-scatter; in the gather-KV form every parameter."""
+        if not self.tensor_parallel:
+            return list(self.parameters())
+        return [*self.norm1.parameters(), *self.norm2.parameters(), self.attn.proj.bias, self.mlp.fc2.bias]
 
 
 class PatchEmbed(nn.Module):
@@ -486,15 +578,23 @@ class PrithviMAE(nn.Module):
     ) -> None:
         super().__init__()
         cfg = self.config = config
-        if cfg.cp_axis is not None:
-            raise NotImplementedError("context parallelism (cp_axis) is not ported to s2tpu_torch yet (ROADMAP A16)")
         if cfg.dp_axis != "data":
             raise NotImplementedError(
                 f"dp_axis={cfg.dp_axis!r}: the batch stays on one rank of the 'data' axis; another batch axis "
                 "is not ported to s2tpu_torch yet (ROADMAP A16)"
             )
-        if tp_group is not None and cfg.tp_axis is None:
-            raise ValueError("a tensor-parallel process group needs PrithviConfig(tp_axis=...)")
+        if tp_group is not None and cfg.tp_axis is None and cfg.cp_axis is None:
+            raise ValueError("a model-axis process group needs PrithviConfig(tp_axis=...) or cp_axis")
+        if cfg.tp_axis is not None and cfg.cp_axis is not None and cfg.tp_axis != cfg.cp_axis:
+            raise ValueError(f"tp_axis={cfg.tp_axis!r} and cp_axis={cfg.cp_axis!r}: the port has one model axis")
+        for name, axis in (("tp_axis", cfg.tp_axis), ("cp_axis", cfg.cp_axis)):
+            if axis not in (None, MODEL_AXIS):
+                # The model's group must hold the same rows: the ranks of another axis hold other rows.
+                raise ValueError(f"{name}={axis!r}: heads and tokens are split over the mesh's {MODEL_AXIS!r} axis only")
+        # Context parallelism: the tokens' split between the blocks (None: every token on this rank).
+        self.context = None
+        if cfg.cp_axis is not None and tp_group is not None and dist.get_world_size(tp_group) > 1:
+            self.context = ModelAxis(tp_group, dist.get_rank(tp_group), dist.get_world_size(tp_group))
         self.dtype = dtype
         self.remat = False
         # The trainer's data axis: the loss's denominator is the global batch's (the trainers set it).
@@ -587,10 +687,26 @@ class PrithviMAE(nn.Module):
         return self.decoder_post(x)
 
     def _run_blocks(self, blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        """The blocks on (B, L, D) tokens. Under context parallelism this
+        rank runs them on its share of the padded tokens, gathered whole
+        after the last block (every rank's consumers of the whole are the
+        same, so the backward keeps this rank's share)."""
         remat = self.remat and self.training and torch.is_grad_enabled()
+        axis, length = self.context, x.shape[1]
+        if axis is not None:
+            x = axis.split(_pad_tokens(x, axis.size), 1)
         for block in blocks:
-            x = checkpointed(block, x) if remat else block(x)
-        return x
+            x = checkpointed(block, x, axis, length) if remat else block(x, axis, length)
+        return x if axis is None else axis.gather(x, 1)[:, :length]
+
+    def token_shard_parameters(self) -> list[nn.Parameter]:
+        """The parameters whose gradients cover only this rank's tokens under
+        context parallelism (:meth:`Block.token_shard_parameters`), to be
+        summed over the model group after the backward; none without it."""
+        if self.context is None:
+            return []
+        blocks = [*self.blocks, *(self.decoder_blocks if self.has_decoder else ())]
+        return [p for b in blocks for p in b.token_shard_parameters()]
 
     def forward(self, imgs: torch.Tensor, mask_ratio: float = 0.75, noise: torch.Tensor | None = None):
         """Full MAE pass -> (loss, pred (B, L, patch_dim), mask (B, L))."""

@@ -32,6 +32,14 @@ output), so its attention saves nothing for a backward that never comes.
 The backbone's attention takes the port's kernel route ("fused": #8/#9 up
 to the fused budget, #5 beyond it), the same attention as the JAX model's
 default plain route.
+
+A backbone config with ``tp_axis`` or ``cp_axis`` runs over the model
+group given as ``tp_group`` (the mesh's 'model' group): the encoder's heads,
+or its tokens between the blocks, split over it, as
+``PrithviMAE(tp_group=...)`` runs them; the neck and head run on the
+gathered tokens on every rank. That is large-tile segmentation under
+context parallelism (``tests/test_context_parallel.py``: a 512² tile is
+1025 tokens).
 """
 
 from __future__ import annotations
@@ -159,6 +167,8 @@ class PrithviSegmentationNet(nn.Module):
     backbone's, and truncated-normal fan-out variance scaling for the
     convs), on the CPU, before the move to ``device``. The module starts in
     eval mode; in train mode ``forward`` takes the dropout generator.
+    ``tp_group``: the model group of a backbone config with ``tp_axis`` or
+    ``cp_axis``.
     """
 
     def __init__(
@@ -168,12 +178,14 @@ class PrithviSegmentationNet(nn.Module):
         device: torch.device | str = "cpu",
         generator: torch.Generator | None = None,
         param_dtype: torch.dtype | None = None,
+        tp_group=None,
     ) -> None:
         super().__init__()
         self.config = config
         self.dtype = dtype
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        self.backbone = PrithviMAE(config.backbone_config(), dtype=dtype, generator=gen, decoder=False)
+        self.backbone = PrithviMAE(config.backbone_config(), dtype=dtype, generator=gen, tp_group=tp_group,
+                                   decoder=False)
         self.neck = Neck(config.output_embed_dim)
         self.head = FCNHead(
             config.output_embed_dim, config.num_classes, config.fcn_out_channels, config.fcn_num_convs,

@@ -55,7 +55,7 @@ from s2tpu_torch import plotting
 from s2tpu_torch.checkpoint.io import on_rank0
 from s2tpu_torch.data.device_corpus import sample_crop_batch, sample_sharded_crop_batch, sharded_epoch_orders
 from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
-from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
+from s2tpu_torch.parallel.mesh import MODEL_SINGLE, SINGLE, DataAxis, ModelAxis, ShardedParameters
 from s2tpu_torch.train.graphs import StepGraph
 from s2tpu_torch.train.train_state import (
     F32Master, ParamEMA, apply_update, draw_seed, load_optimizer_state, set_lr, watch_norms,
@@ -145,6 +145,8 @@ class TrainerBase:
 
     mesh = None  # the process group's ('data', 'model') mesh, where the trainer runs on one
     data_axis: DataAxis = SINGLE  # this rank's place on the mesh's data axis
+    model_axis: ModelAxis = MODEL_SINGLE  # this rank's place on the mesh's model axis
+    shards: ShardedParameters | None = None  # the parameters sharded over the model axis (FSDP), if any
 
     def _init_params(self, t) -> None:
         """Master, EMA, remat and preemption state, after the model exists
@@ -208,15 +210,19 @@ class TrainerBase:
         apply_update(self.optimizer, params, grads, self.master, self.ema)
         if not watch:
             return {}
-        return {"watch": watch_norms(dict(zip((n for n, _ in named), grads)), dict(self.model.named_parameters()))}
+        return {"watch": watch_norms(dict(zip((n for n, _ in named), grads)), dict(self.model.named_parameters()),
+                                     self.shards)}
 
     def _watch_this_step(self) -> bool:
-        """Whether the next step's norms will be logged."""
+        """Whether the next step's norms will be logged; with sharded
+        parameters on every rank when rank 0 logs, since the norms of the
+        slices are summed over the model axis."""
         wi = self.config.train.watch_interval
-        return self.run_logger is not None and wi > 0 and (self.step + 1) % wi == 0
+        logs = self.run_logger is not None or (self.shards is not None and self._peer_logs)
+        return logs and wi > 0 and (self.step + 1) % wi == 0
 
     def _maybe_log_watch(self, step_metrics: dict) -> None:
-        if "watch" in step_metrics:
+        if "watch" in step_metrics and self.run_logger is not None:
             names, values = step_metrics["watch"]
             self.run_logger.log_scalars(dict(zip(names, values.tolist())), step=self.step)
 
@@ -236,13 +242,37 @@ class TrainerBase:
         """The weights of validation and serving: the EMA's when kept."""
         return self.ema.swapped_in() if self.ema is not None else contextlib.nullcontext()
 
+    def whole_weights(self) -> typing.ContextManager:
+        """Around every use of the model: with parameters sharded over the
+        model axis, the modules see them whole inside the block (one
+        all-gather; :meth:`ShardedParameters.gathered`)."""
+        return self.shards.gathered() if self.shards is not None else contextlib.nullcontext()
+
     def _extras(self) -> dict:
         return {
             "master": self.master.state_dict() if self.master is not None else None,
             "ema": self.ema.state_dict() if self.ema is not None else None,
         }
 
+    def _checkpoint_state(self) -> dict:
+        """What a checkpoint holds: the model, Adam, the master and the EMA,
+        each whole. With sharded parameters their slices are gathered over
+        the model axis first, a collective that every rank makes before rank
+        0 writes."""
+        state = {"model": self.model, "optimizer": self.optimizer, **self._extras()}
+        if self.shards is None:
+            return state
+        names = [n for n, _ in self._trainable()]  # the optimizer's parameters, in order
+        return {"model": self.shards.full(self.model.state_dict()),
+                "optimizer": self.shards.full_optimizer(self.optimizer.state_dict(), names),
+                **{k: None if v is None else self.shards.full(v) for k, v in self._extras().items()}}
+
     def _load(self, restored: dict) -> None:
+        if self.shards is not None:  # whole tensors on disk: this rank keeps its slices
+            names = [n for n, _ in self._trainable()]
+            restored = {**restored, "model": self.shards.local(restored["model"]),
+                        "optimizer": self.shards.local_optimizer(restored["optimizer"], names),
+                        **{k: self.shards.local(restored[k]) for k in ("master", "ema") if restored.get(k) is not None}}
         self.model.load_state_dict(restored["model"], strict=True)
         load_optimizer_state(self.optimizer, restored["optimizer"])
         self._graph = None  # Adam's state tensors are new: capture the step again
@@ -315,8 +345,8 @@ class TrainerBase:
                         self._resumed_from_preempt = False
                 except PreemptionInterrupt as pi:
                     if self.ckpt is not None:
-                        on_rank0(lambda: self.ckpt.save_preempt(pi.epoch, pi.batches_done, self.model,
-                                                                self.optimizer, self.step, **self._extras()))
+                        state = self._checkpoint_state()
+                        on_rank0(lambda: self.ckpt.save_preempt(pi.epoch, pi.batches_done, step=self.step, **state))
                     logger.warning(
                         f"Preempted in epoch {pi.epoch} after {pi.batches_done} batches: state saved; rerun "
                         "with --resume-from (or --auto-resume) for an exact continuation"
@@ -325,8 +355,8 @@ class TrainerBase:
                 record = self._end_epoch(epoch, train_metrics)
                 history.append(record)
                 if self.ckpt is not None and (epoch + 1) % cfg.train.ckpt_every_n_epochs == 0:
-                    on_rank0(lambda: self.ckpt.save_epoch(epoch, self.model, self.optimizer, self.step,
-                                                          metrics=record, **self._extras()))
+                    state = self._checkpoint_state()
+                    on_rank0(lambda: self.ckpt.save_epoch(epoch, step=self.step, metrics=record, **state))
             return history
         finally:
             restore_preempt_handler(prev)
@@ -379,16 +409,16 @@ class TrainerBase:
 
     def _graphed(self) -> bool:
         """Whether the corpus steps replay the captured step graph: on the
-        card, with windows above one step, on one rank or on a data axis
-        whose collectives a graph can hold (NCCL). A gloo data axis on the
-        card (ranks sharing a card) trains its windows eagerly, said once in
-        the log."""
+        card, with windows above one step, on one rank or on mesh axes
+        whose collectives a graph can hold (NCCL). A gloo axis on the card
+        (ranks sharing a card) trains its windows eagerly, said once in the
+        log."""
         if self.device.type != "cuda" or self._window_size() == 1:
             return False
-        if self.data_axis.capturable:
+        if self.data_axis.capturable and self.model_axis.capturable:
             return True
         if not self._window_logged:
-            logger.info("corpus windows run eager steps: a gloo data axis's collectives pass through the host, "
+            logger.info("corpus windows run eager steps: a gloo axis's collectives pass through the host, "
                         "which a CUDA graph cannot capture (NCCL ranks replay the step graph)")
             self._window_logged = True
         return False

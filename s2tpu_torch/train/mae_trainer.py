@@ -40,8 +40,12 @@ trainer runs in each process of the mesh's group, on the rank's device,
 the parameters starting as rank 0's; only rank 0 logs and writes
 checkpoints. A model config with ``tp_axis`` splits the heads and MLP hidden
 over the mesh's 'model' group (``PrithviConfig(tp_axis=MODEL_AXIS)``, as
-the JAX trainer takes it). Over the 'data' axis (``s2tpu``'s
-``make_mesh(n)`` and ``make_mesh(n, model_parallel=m)``) each rank trains
+the JAX trainer takes it), and one with ``cp_axis`` the tokens between the
+blocks (context parallelism, with ``tp_axis`` or without): after the last
+micro-batch's backward the gradients that cover only this rank's tokens
+(``PrithviMAE.token_shard_parameters``) are summed over the model group in
+one bucketed all-reduce, before the data axis's sum. Over the 'data' axis
+(``s2tpu``'s ``make_mesh(n)`` and ``make_mesh(n, model_parallel=m)``) each rank trains
 its rows of every global batch (``Datamodule.set_process``; the ranks of one
 'model' group share theirs), and the step computes what the one-process step
 computes on the global batch: the flips and the (B, L) masking noise are
@@ -59,8 +63,8 @@ rank draws the same per-block epoch orders and trains the rows its block
 owns, gathered by local ids with no collective. On one rank it is the plain
 corpus, as in the JAX trainer.
 
-Not ported, and refused where the config asks for them: pipeline stages and
-context parallelism (``cp_axis``), ROADMAP item 16.
+Not ported, and refused where the config asks for it: pipeline stages
+(GPipe), ROADMAP item 16.
 """
 
 from __future__ import annotations
@@ -81,7 +85,7 @@ from s2tpu_torch.data.augment import normalize, random_flips
 from s2tpu_torch.data.device_corpus import DeviceCorpus
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.prithvi_mae import PrithviConfig, PrithviMAE, patchify, unpatchify
-from s2tpu_torch.parallel.mesh import data_axis, mesh_device, mesh_for_num_devices, replicate_module
+from s2tpu_torch.parallel.mesh import data_axis, mesh_device, mesh_for_num_devices, model_axis, replicate_module
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 from s2tpu_torch.train.train_state import accumulate_grads, make_optimizer
 from s2tpu_torch.train.base import TrainerBase
@@ -90,12 +94,9 @@ from s2tpu_torch.utils import get_logger, load_prithvi_mean_std, load_prithvi_mo
 logger = get_logger(__name__)
 
 
-def _refuse_unported(config: MAEConfig, model_config: PrithviConfig | None = None) -> None:
+def _refuse_unported(config: MAEConfig) -> None:
     m = config.model
     unported = {
-        "cp_axis (context parallelism, ROADMAP item 16)": (
-            model_config is not None and model_config.cp_axis is not None
-        ),
         "pipeline_stages > 1 (GPipe, ROADMAP item 16)": m.pipeline_stages > 1,
     }
     asked = [name for name, on in unported.items() if on]
@@ -134,11 +135,12 @@ class MAETrainer(TrainerBase):
         checkpoint_manager=None,
         device: torch.device | str | None = None,
     ) -> None:
-        _refuse_unported(config, model_config)
+        _refuse_unported(config)
         t = config.train
         self.mesh = mesh if mesh is not None else mesh_for_num_devices(
             t.num_devices, resolve_device(device).type, "s2tpu_torch.cli.train_mae")
         self.data_axis = data_axis(self.mesh)
+        self.model_axis = model_axis(self.mesh)
         n_data = self.data_axis.size
         if t.num_devices not in (-1, n_data):
             raise ValueError(f"train.num_devices={t.num_devices}, but the mesh's data axis holds {n_data} ranks")
@@ -158,12 +160,13 @@ class MAETrainer(TrainerBase):
         self.mask_ratio = config.model.mask_ratio
         self.compute_dtype = COMPUTE_DTYPES[t.compute_dtype]
         self.model_config = model_config if model_config is not None else default_model_config(config)
-        tp_axis = self.model_config.tp_axis
+        mc = self.model_config
+        split = mc.tp_axis or mc.cp_axis  # the model axis, where the heads or the tokens are split over it
         self.model = PrithviMAE(
-            self.model_config, dtype=self.compute_dtype, device=self.device,
-            generator=torch.Generator().manual_seed(t.seed),
-            tp_group=self.mesh.get_group(tp_axis) if self.mesh is not None and tp_axis is not None else None,
+            mc, dtype=self.compute_dtype, device=self.device, generator=torch.Generator().manual_seed(t.seed),
+            tp_group=self.mesh.get_group(split) if self.mesh is not None and split is not None else None,
         )
+        self._token_shard = {id(p) for p in self.model.token_shard_parameters()}
         self.model.data_axis = self.data_axis
         if not t.from_scratch:
             self._load_pretrained()
@@ -257,6 +260,8 @@ class MAETrainer(TrainerBase):
             loss_i.backward()
             grads = accumulate_grads([p for _, p in named], grads)
             loss = loss + loss_i.detach()
+        if self._token_shard:  # context parallelism: each rank's share of these gradients, summed
+            self.model_axis.all_reduce_flat_([g for (_, p), g in zip(named, grads) if id(p) in self._token_shard])
         if axis.size > 1:
             # Each rank's loss is its share of the global loss: the sums over
             # the ranks are the global batch's gradient and loss.

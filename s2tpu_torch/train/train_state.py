@@ -196,15 +196,26 @@ def apply_update(
         ema.update(params)
 
 
+@torch.no_grad()
 def watch_norms(
-    grads: dict[str, torch.Tensor], params: dict[str, torch.Tensor]
+    grads: dict[str, torch.Tensor], params: dict[str, torch.Tensor], sharded=None,
 ) -> tuple[list[str], torch.Tensor]:
     """The global and per-tensor L2 norms of a step's gradients and of its new
     parameters (``s2tpu/train/trainer.py::_watch_norms``), in f32 on the
     device: the names and one vector, which the host reads only on a logged
-    step. Names are the state dict's."""
+    step. Names are the state dict's. With ``sharded`` (the trainer's
+    :class:`~s2tpu_torch.parallel.mesh.ShardedParameters`), the tensors it
+    shards are this rank's slices: their squared norms are summed over the
+    model axis in one all-reduce, so every rank logs the whole tensors'
+    norms."""
     g = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32) for t in grads.values()])
     p = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32) for t in params.values()])
+    if sharded is not None and sharded.shards:
+        mask = torch.tensor([n in sharded for n in (*grads, *params)], device=g.device)
+        both = torch.cat([g, p])
+        squares = torch.where(mask, both.square(), 0.0)
+        sharded.axis.all_reduce_flat_([squares])
+        g, p = torch.where(mask, squares.sqrt(), both).split([len(grads), len(params)])
     names = ["grads/global_norm", "params/global_norm", *(f"grads/{n}" for n in grads),
              *(f"params/{n}" for n in params)]
     return names, torch.cat([g.square().sum().sqrt()[None], p.square().sum().sqrt()[None], g, p])

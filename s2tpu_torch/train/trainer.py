@@ -95,8 +95,23 @@ block's rows it owns, gathered by local ids with no collective; BatchNorm
 recalibration draws its batches the same way (``:1018-1045``). On one rank
 it is the plain corpus, as in the JAX trainer.
 
-Refused where asked for: a model axis above one rank (``param_sharding="fsdp"``
-that shards, FSDP2), ROADMAP item 16.
+A model axis (``mesh=make_mesh(n, model_parallel=m)``): a batch lies over the
+data axis only (``P('data')``), so the m ranks of a model group train the
+same rows. With ``param_sharding="replicated"`` (the default) every model
+peer runs the same step on whole parameters. With ``param_sharding="fsdp"``
+(``:341-362``) every parameter that ``fsdp_param_shardings``' rule shards
+(``parallel.mesh.ShardedParameters``: at least 2**16 elements, on the
+kernel's largest axis that m divides) is held as this rank's slice, and so
+are its Adam moments, its f32 master and its EMA, which update elementwise;
+BatchNorm statistics and the other parameters stay whole. Each step sees the
+whole parameters through one all-gather (``whole_weights``), whose backward
+keeps this rank's slice of the gradient that every model peer computes
+alike; the data axis then sums the slices as it sums whole gradients. The
+watch norms sum the slices' squares over the model axis, and checkpoints
+hold whole tensors (``train.base.TrainerBase._checkpoint_state``), so an
+FSDP run and a one-rank run resume each other's checkpoints and
+``cli.infer`` serves them unchanged. fc-prithvi shards its backbone too,
+frozen or not; the unfreeze builds Adam over the slices.
 """
 
 from __future__ import annotations
@@ -118,7 +133,7 @@ from s2tpu_torch.data.device_corpus import DeviceCorpus
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.efficientnet_unet import BatchNorm, EfficientNetUNet
 from s2tpu_torch.parallel.mesh import (
-    MODEL_AXIS, axis_size, data_axis, mesh_device, mesh_for_num_devices, replicate_module,
+    ShardedParameters, data_axis, mesh_device, mesh_for_num_devices, model_axis, replicate_module,
 )
 from s2tpu_torch.train import metrics as metrics_lib
 from s2tpu_torch.train.losses import make_loss_fn
@@ -130,11 +145,7 @@ from s2tpu_torch.utils import get_logger
 logger = get_logger(__name__)
 
 
-def _refuse_unported(mesh=None) -> None:
-    if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1:
-        raise NotImplementedError(
-            "not ported to s2tpu_torch yet: a model axis above 1 (parameters sharded over it, FSDP2, ROADMAP item 16)"
-        )
+PARAM_SHARDINGS = ("replicated", "fsdp")
 
 
 def pool_batch_stats(stats: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -152,9 +163,10 @@ def pool_batch_stats(stats: list[tuple[torch.Tensor, torch.Tensor]]) -> tuple[to
 class SegmentationTrainer(TrainerBase):
     """Trains ``config``'s model on ``datamodule``'s batches on one device
     (``resolve_device``: the card unless ``device="cpu"``), or as one rank
-    of the data axis of ``mesh`` (or of the mesh ``train.num_devices``
-    asks for) on the rank's device. Only rank 0 logs (``run_logger``) and
-    writes checkpoints."""
+    of ``mesh`` (or of the mesh ``train.num_devices`` asks for) on the
+    rank's device, its parameters whole or (``param_sharding="fsdp"``)
+    sharded over the mesh's model axis. Only rank 0 logs (``run_logger``)
+    and writes checkpoints."""
 
     def __init__(
         self,
@@ -164,12 +176,15 @@ class SegmentationTrainer(TrainerBase):
         checkpoint_manager=None,
         device: torch.device | str | None = None,
         mesh=None,
+        param_sharding: str = "replicated",
     ) -> None:
-        _refuse_unported(mesh)
+        if param_sharding not in PARAM_SHARDINGS:
+            raise ValueError(f"param_sharding={param_sharding!r}: one of {PARAM_SHARDINGS}")
         t = config.train
         self.mesh = mesh if mesh is not None else mesh_for_num_devices(
             t.num_devices, resolve_device(device).type, "s2tpu_torch.cli.train_segmentation")
         self.data_axis = data_axis(self.mesh)
+        self.model_axis = model_axis(self.mesh)
         n_data = self.data_axis.size
         if t.num_devices not in (-1, n_data):
             raise ValueError(f"train.num_devices={t.num_devices}, but the mesh's data axis holds {n_data} ranks")
@@ -195,8 +210,10 @@ class SegmentationTrainer(TrainerBase):
         if self.is_prithvi:
             self._load_prithvi_backbone()
         self.model.set_data_axis(self.data_axis)
-        if n_data > 1:
+        if self.mesh is not None and dist.get_world_size() > 1:
             replicate_module(self.model, self.mesh)
+        if param_sharding == "fsdp" and self.model_axis.size > 1:
+            self.shards = ShardedParameters(self.model, self.model_axis)
         mean, std = datamodule.mean_std()
         in_ch = config.datamodule.dataset_cfg.in_channels
         if len(mean) != in_ch:
@@ -358,22 +375,23 @@ class SegmentationTrainer(TrainerBase):
         named = self._trainable()
         grads, loss, cm, comps = None, 0.0, 0, {}
         ds = dmc.dataset_cfg
-        for x, y, g in zip(images.chunk(accum), labels.chunk(accum), self.generators):
-            x, y = augment_batch(
-                x, y, g, self.mean, self.std, p_horizontal=dmc.random_horizontal_flip_p,
-                p_vertical=dmc.random_vertical_flip_p, dtype=self.compute_dtype, train=self.device_flips,
-                data_axis=self.data_axis,
-            )
-            logits = self.model(model_input(x, ds.stack_time_into_channels, ds.squeeze_time_dim), generator=g)
-            out = self.loss_fn(logits, y)
-            out.total.backward()
-            grads = accumulate_grads([p for _, p in named], grads)
-            with torch.no_grad():
-                cm = cm + metrics_lib.confusion_matrix_update(
-                    logits.argmax(-1), y, self.config.num_classes, ignore_index=self._ignore_index()
+        with self.whole_weights():
+            for x, y, g in zip(images.chunk(accum), labels.chunk(accum), self.generators):
+                x, y = augment_batch(
+                    x, y, g, self.mean, self.std, p_horizontal=dmc.random_horizontal_flip_p,
+                    p_vertical=dmc.random_vertical_flip_p, dtype=self.compute_dtype, train=self.device_flips,
+                    data_axis=self.data_axis,
                 )
-            loss = loss + out.total.detach()
-            comps = {k: comps.get(k, 0.0) + v.detach() for k, v in out.components.items()}
+                logits = self.model(model_input(x, ds.stack_time_into_channels, ds.squeeze_time_dim), generator=g)
+                out = self.loss_fn(logits, y)
+                out.total.backward()
+                grads = accumulate_grads([p for _, p in named], grads)
+                with torch.no_grad():
+                    cm = cm + metrics_lib.confusion_matrix_update(
+                        logits.argmax(-1), y, self.config.num_classes, ignore_index=self._ignore_index()
+                    )
+                loss = loss + out.total.detach()
+                comps = {k: comps.get(k, 0.0) + v.detach() for k, v in out.components.items()}
         if self.data_axis.size > 1:
             # Each rank's loss is its share of the global loss: the sums over
             # the ranks are the global batch's gradient and loss.
@@ -399,7 +417,8 @@ class SegmentationTrainer(TrainerBase):
         statistics, on the weights in the model (``eval_weights`` puts the
         EMA there)."""
         self.model.eval()
-        logits = self.model(self._input(images))
+        with self.whole_weights():
+            logits = self.model(self._input(images))
         out = self.loss_fn(logits, labels, batch_mask=batch_mask)
         cm = metrics_lib.confusion_matrix_update(
             logits.argmax(-1), labels, self.config.num_classes,
@@ -482,7 +501,7 @@ class SegmentationTrainer(TrainerBase):
         try:
             for bn in bns:
                 bn.decay = 0.0
-            with self.eval_weights():
+            with self.eval_weights(), self.whole_weights():
                 if self.corpus is not None:
                     batches = self._recal_corpus_batches(n_batches)
                 else:
@@ -596,7 +615,7 @@ class SegmentationTrainer(TrainerBase):
         was_training = self.model.training
         self.model.eval()
         try:
-            with self.eval_weights():
+            with self.eval_weights(), self.whole_weights():
                 logits = self.model(self._input(torch.from_numpy(np.array(image)[None]).to(self.device)))
             return logits[0].argmax(-1).cpu().numpy()
         finally:

@@ -297,8 +297,9 @@ def test_sigterm_to_one_rank_stops_both_and_auto_resume_continues_exactly(runs):
 def test_refusals_on_a_data_axis(runs):
     for rank in runs["ranks"][2]:
         assert "num_devices=3, but the mesh's data axis holds 2 ranks" in rank["num_devices_refusal"]
-        # fc-prithvi, refused here until it was ported, trains (tests/test_torch_fc_data_parallel.py)
-        assert "a model axis above 1" in rank["model_axis_refusal"] and "ROADMAP item 16" in rank["model_axis_refusal"]
+    # A model axis above one rank, refused here until FSDP was ported (tests/test_torch_fsdp.py
+    # trains it): a 1 x 2 mesh whose model ranks each hold their slices of B0's 24 sharded tensors
+    assert [r["model_axis"] for r in runs["ranks"][2]] == [(1, 2, 0, 24), (1, 2, 1, 24)]
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -274,13 +274,22 @@ def dp_config(data_dir, loss: str = "focal", batch: int = DP_BATCH, **train):
     return c
 
 
-def dp_trainer(data_dir, mesh=None, loss: str = "focal", batch: int = DP_BATCH, device=None, **train):
-    """A SegmentationTrainer on ``data_dir``: one rank of ``mesh``'s data
-    axis, or one process on ``device``."""
+def dp_trainer(data_dir, mesh=None, loss: str = "focal", batch: int = DP_BATCH, device=None,
+               param_sharding: str = "replicated", run_logger=None, **train):
+    """A SegmentationTrainer on ``data_dir``: one rank of ``mesh``, or one
+    process on ``device``."""
     from s2tpu_torch.train.trainer import SegmentationTrainer
 
     cfg = dp_config(data_dir, loss, batch, **train)
-    return SegmentationTrainer(cfg, Datamodule(cfg.datamodule), device=device, mesh=mesh)
+    return SegmentationTrainer(cfg, Datamodule(cfg.datamodule), device=device, mesh=mesh,
+                               param_sharding=param_sharding, run_logger=run_logger)
+
+
+def batch_rows(trainer) -> np.ndarray | slice:
+    """This rank's rows of a global batch: its data axis's share (every row
+    on a model axis alone, or in one process)."""
+    rows = trainer.dm.local_rows()
+    return slice(None) if rows is None else rows
 
 
 def dp_global_batch(data_dir, batch: int = DP_BATCH) -> tuple[np.ndarray, np.ndarray]:
@@ -312,7 +321,7 @@ def dp_step(trainer, images: np.ndarray, labels: np.ndarray) -> dict:
     step's loss, confusion matrix, gradients (the ones applied) and
     BatchNorm running statistics on the CPU, and digests of the gradients,
     new parameters and statistics."""
-    rows = trainer.dm.local_rows()
+    rows = batch_rows(trainer)
     m = trainer.train_step(*(put_batch(a, trainer.device, rows) for a in (images, labels)))
     grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
     stats = {n: b.detach().cpu().clone() for n, b in trainer.model.named_buffers() if "running" in n}
@@ -339,6 +348,23 @@ def state_digest(trainer) -> str:
     adam = {f"adam.{i}.{k}": v for i, p in enumerate(params) for k, v in trainer.optimizer.state.get(p, {}).items()
             if isinstance(v, torch.Tensor)}
     return digest({**dict(trainer.model.named_parameters()), **dict(trainer.model.named_buffers()), **adam})
+
+
+def whole_state_digest(trainer) -> str:
+    """:func:`state_digest` of the whole training state: with sharded
+    parameters (FSDP) the parameters and Adam's state tensors are gathered
+    over the model axis first (a collective of every rank), so the ranks of
+    a model group compare as the ranks of a data axis do, and an FSDP run
+    as its replicated run."""
+    if trainer.shards is None:
+        return state_digest(trainer)
+    state = trainer._checkpoint_state()
+    order = {n: i for i, (n, _) in enumerate(trainer.model.named_parameters())}
+    names = [n for n, _ in trainer._trainable()]  # the optimizer's parameters, in order
+    params = {n: state["model"][n] for n in order}
+    adam = {f"adam.{order[names[i]]}.{k}": v for i, st in state["optimizer"]["state"].items() for k, v in st.items()
+            if isinstance(v, torch.Tensor)}
+    return digest({**params, **dict(trainer.model.named_buffers()), **adam})
 
 
 def dp_recal(trainer) -> dict:
@@ -481,13 +507,10 @@ def _dp_scenarios(rank: int, tmp: str, data_dir: str, world: int, device_type: s
                 dp_trainer(data_dir, mesh, batch=batch, num_devices=world + 1)
             except ValueError as e:
                 out["num_devices_refusal"] = str(e)
-            try:  # fc-prithvi trains on a data axis now; a model axis above one rank stays refused
-                from s2tpu_torch.train.trainer import SegmentationTrainer
-
-                SegmentationTrainer(dp_config(data_dir, batch=batch), None,
-                                    mesh=mesh_lib.make_mesh(world, world, device_type=device_type))
-            except NotImplementedError as e:
-                out["model_axis_refusal"] = str(e)
+            # a model axis above one rank, refused here until FSDP was ported: the ranks shard B0
+            t = dp_trainer(data_dir, mesh_lib.make_mesh(world, world, device_type=device_type), batch=batch,
+                           param_sharding="fsdp")
+            out["model_axis"] = (t.data_axis.size, t.model_axis.size, t.model_axis.index, len(t.shards.shards))
     torch.save(out, f"{tmp}/rank{rank}.pt")
 
 
@@ -628,8 +651,7 @@ def mae_dp_global_batch(data_dir, batch: int = MAE_DP_BATCH) -> tuple[np.ndarray
 def mae_dp_step(trainer, images: np.ndarray, noise: torch.Tensor) -> dict:
     """One MAE step on this rank's rows of the global batch with the global
     noise: loss, gradients and digests (as :func:`dp_step`)."""
-    rows = trainer.dm.local_rows()
-    m = trainer.train_step(put_batch(images, trainer.device, rows), noise=noise.to(trainer.device))
+    m = trainer.train_step(put_batch(images, trainer.device, batch_rows(trainer)), noise=noise.to(trainer.device))
     grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
     return {"loss": float(m["loss"]), "grads": grads,
             "digest": {"grads": digest(grads), "params": digest(dict(trainer.model.named_parameters()))}}
@@ -778,20 +800,22 @@ def _graph_worker(rank: int, tmp: str, data_dir: str, world: int, model: str) ->
 
 
 def _graph_epochs(rank: int, tmp: str, data_dir: str, world: int, model: str) -> None:
-    mesh = mesh_lib.make_mesh(world, 1, device_type="cuda")
+    base, _, form = model.partition("_")  # form: "" (a data axis), "fsdp" or "cp" (a model axis of 2)
+    mesh = mesh_lib.make_mesh(world, 2 if form else 1, device_type="cuda")
     out = {}
     for mode, k in (("graphed", 2), ("eager", 1)):
-        if model == "b0":
-            trainer = dp_trainer(data_dir, mesh, batch=GRAPH_BATCH, device_corpus=True, steps_per_dispatch=k)
+        if base == "b0":
+            trainer = dp_trainer(data_dir, mesh, batch=GRAPH_BATCH, device_corpus=True, steps_per_dispatch=k,
+                                 param_sharding="fsdp" if form == "fsdp" else "replicated")
             train = trainer.run_train_epoch(0)
             sums = {"loss": train["loss"], "cm": trainer._sums["cm"].cpu()}
         else:
-            trainer = mae_dp_trainer(data_dir, mesh, DENSE, batch=GRAPH_BATCH, device_corpus=True,
-                                     steps_per_dispatch=k)
+            trainer = mae_dp_trainer(data_dir, mesh, CP if form == "cp" else DENSE, batch=GRAPH_BATCH,
+                                     device_corpus=True, steps_per_dispatch=k)
             trainer.config.datamodule.augment = True  # the device flips
             sums = {"loss": trainer.run_train_epoch(0)["loss"]}
-        out[mode] = {"digest": state_digest(trainer), "sums": sums, "graph": trainer._graph is not None,
-                     "step": trainer.step}
+        out[mode] = {"digest": state_digest(trainer), "whole": whole_state_digest(trainer), "sums": sums,
+                     "graph": trainer._graph is not None, "step": trainer.step}
     torch.save(out, f"{tmp}/rank{rank}.pt")
 
 
@@ -803,13 +827,16 @@ def graph_data_dir(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["b0", "mae"])
+@pytest.mark.parametrize("model", ["b0", "mae", "b0_fsdp", "mae_cp"])
 @pytest.mark.parametrize("world", [2, 4])
 def test_graphed_corpus_windows_over_nccl_equal_eager_steps_on_each_rank(world, model, tmp_path, graph_data_dir):
     """B0 (focal + weighted, BatchNorm sums in the graph) and the tiny MAE
-    (device flips and masking noise drawn for the global batch): an epoch of
-    graphed windows on ``world`` NCCL ranks trains, on each rank, the state
-    and epoch sums of the same ranks' eager steps, bit for bit."""
+    (device flips and masking noise drawn for the global batch) on a data
+    axis, and on a model axis of 2 (B0 with FSDP: the all-gathers in the
+    graph; the MAE with tp + cp: the token collectives and the token-share
+    gradient bucket in the graph): an epoch of graphed windows on ``world``
+    NCCL ranks trains, on each rank, the state and epoch sums of the same
+    ranks' eager steps, bit for bit."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < world:
         pytest.skip(f"needs {world} NVIDIA cards")
     _spawn(_graph_worker, (str(tmp_path), str(graph_data_dir), world, model), world, CARD_SPAWN_TIMEOUT_S, tmp_path)
@@ -819,7 +846,7 @@ def test_graphed_corpus_windows_over_nccl_equal_eager_steps_on_each_rank(world, 
         assert graphed["graph"] and not eager["graph"] and graphed["step"] == eager["step"] == 3
         assert graphed["digest"] == eager["digest"]
         assert all(torch.equal(torch.as_tensor(graphed["sums"][k]), torch.as_tensor(v)) for k, v in eager["sums"].items())
-    assert len({r["graphed"]["digest"] for r in ranks}) == 1
+    assert len({r["graphed"]["whole"] for r in ranks}) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -880,14 +907,16 @@ def fc_dp_config(data_dir, batch: int = DP_BATCH, **train):
     return c
 
 
-def fc_dp_trainer(data_dir, mesh=None, device=None, dropout: float = FC_DROPOUT, batch: int = DP_BATCH, **train):
+def fc_dp_trainer(data_dir, mesh=None, device=None, dropout: float = FC_DROPOUT, batch: int = DP_BATCH,
+                  param_sharding: str = "replicated", **train):
     """An fc-prithvi SegmentationTrainer at test widths: one rank of
-    ``mesh``'s data axis, or one process on ``device``."""
+    ``mesh``, or one process on ``device``."""
     from s2tpu_torch.train.trainer import SegmentationTrainer
 
     cfg = fc_dp_config(data_dir, batch, **train)
     with tiny_fc_prithvi(dropout):
-        return SegmentationTrainer(cfg, Datamodule(cfg.datamodule), device=device, mesh=mesh)
+        return SegmentationTrainer(cfg, Datamodule(cfg.datamodule), device=device, mesh=mesh,
+                                   param_sharding=param_sharding)
 
 
 def fc_dp_global_batch(data_dir, batch: int = DP_BATCH) -> tuple[np.ndarray, np.ndarray]:
@@ -901,7 +930,7 @@ def fc_dp_step(trainer, images: np.ndarray, labels: np.ndarray) -> dict:
     gradients applied (the trainable parameters'), the head's BatchNorm
     running statistics, and digests of the gradients, parameters and
     statistics."""
-    rows = trainer.dm.local_rows()
+    rows = batch_rows(trainer)
     m = trainer.train_step(*(put_batch(a, trainer.device, rows) for a in (images, labels)))
     grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
     stats = {n: b.detach().cpu().clone() for n, b in trainer.model.named_buffers() if "running" in n}
@@ -1079,6 +1108,247 @@ def _sharded_worker(rank: int, tmp: str, data_dir: str, world: int, scenarios: t
                     with_noise(trainer, torch.load(f"{tmp}/jax_mae_noise.pt"))
                     out[name] = {"train_loss": trainer.run_train_epoch(0)["loss"], "steps": trainer.step,
                                  "images": trainer.corpus.images.shape, "labels": trainer.corpus.labels}
+            torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# A model axis in the segmentation trainer: FSDP and replicated (B0 and
+# fc-prithvi, 64^2, f32), and context parallelism in the MAE trainer
+# ---------------------------------------------------------------------------
+FSDP_STEPS, FSDP_LR = 3, 1e-4  # DP_EPOCH_LR: sums in other orders stay within the data axis's bounds
+
+
+def whole_state(trainer) -> dict[str, torch.Tensor]:
+    """The trainer's parameters and buffers, whole (sharded parameters
+    gathered over the model axis: a collective of every rank), on the CPU."""
+    model = trainer._checkpoint_state()["model"]
+    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    return {n: t.detach().cpu().clone() for n, t in state.items()}
+
+
+def fsdp_steps(trainer, images: np.ndarray, labels: np.ndarray, n: int = FSDP_STEPS) -> dict:
+    """``n`` steps on this rank's rows of the global batch: each step's loss
+    and watch norms (names and values), the whole state after the first
+    (of several) and after the last, and the last's digest."""
+    rows = batch_rows(trainer)
+    steps = []
+    for i in range(n):
+        m = trainer.train_step(*(put_batch(a, trainer.device, rows) for a in (images, labels)))
+        names, values = m["watch"] if "watch" in m else ([], torch.zeros(0))
+        steps.append({"loss": float(m["loss"]), "watch": dict(zip(names, values.cpu().tolist()))})
+        if i == 0 and n > 1:
+            first = whole_state(trainer)
+    state = whole_state(trainer)
+    return {"steps": steps, "state": state, "digest": digest(state), **({"state_1": first} if n > 1 else {})}
+
+
+def fsdp_bytes(trainer) -> int:
+    """The bytes of this rank's parameters, Adam's state, f32 master and
+    EMA."""
+    tensors = [*trainer.model.parameters(), *(v for st in trainer.optimizer.state.values() for v in st.values()
+                                              if torch.is_tensor(v))]
+    for part in (trainer.master, trainer.ema):
+        if part is not None:
+            tensors += list(part.state_dict().values())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fsdp_fit(trainer, directory) -> dict:
+    """One epoch of ``trainer.fit`` with a checkpoint manager in
+    ``directory``: the epoch's record and the checkpoint's whole model."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+
+    trainer.ckpt = CheckpointManager(directory)
+    record = trainer.fit(epochs=1)[0]
+    return {"record": {k: v for k, v in record.items() if np.isscalar(v) and not k.endswith("per_sec")},
+            "model": CheckpointManager(directory).restore(0)["model"]}
+
+
+@contextlib.contextmanager
+def no_drop_connect():
+    """B0's drop-connect keeping every sample inside the block, as the JAX
+    steps are run."""
+    from s2tpu_torch.models import efficientnet_unet as tu
+
+    draw = tu.drop_connect_mask
+    tu.drop_connect_mask = lambda b, keep, generator, device: torch.ones(b, 1, 1, 1, dtype=torch.bool)
+    try:
+        yield
+    finally:
+        tu.drop_connect_mask = draw
+
+
+def save_checkpoint(trainer, directory) -> None:
+    """The trainer's state as epoch 0 of a run directory: whole tensors,
+    gathered by every rank, written by rank 0."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager, on_rank0
+
+    state = trainer._checkpoint_state()
+    on_rank0(lambda: CheckpointManager(directory).save_epoch(0, step=trainer.step, **state))
+
+
+def resumed(trainer, directory):
+    """``trainer`` with epoch 0 of the run directory loaded."""
+    from s2tpu_torch.checkpoint.io import CheckpointManager
+
+    trainer.ckpt = CheckpointManager(directory)
+    trainer.resume_from_checkpoint(0)
+    return trainer
+
+
+def _fsdp_worker(rank: int, tmp: str, data_dir: str, world: int, model_parallel: int, scenarios: tuple[str, ...],
+                 backend: str = "gloo", device_type: str = "cpu") -> None:
+    """One rank of a (world / model_parallel) x model_parallel mesh: every
+    scenario named, its record in ``tmp/rank<rank>.pt``. Rank 0 keeps the
+    whole states, the others their digests."""
+    if device_type == "cpu":
+        torch.set_num_threads(1)
+    else:
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            out = _fsdp_scenarios(rank, tmp, data_dir, world, model_parallel, scenarios, device_type)
+            if rank:
+                for rec in out.values():
+                    if isinstance(rec, dict):
+                        rec.pop("state", None)
+                        rec.pop("state_1", None)
+            torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _fsdp_scenarios(rank: int, tmp: str, data_dir: str, world: int, model_parallel: int, scenarios, device_type):
+    from s2tpu_torch.train.logging_utils import RunLogger
+
+    mesh = mesh_lib.make_mesh(world, model_parallel, device_type=device_type)
+    images, labels = dp_global_batch(data_dir)
+    logger = RunLogger("fsdp", f"{tmp}/logs{rank}")  # only rank 0's is kept: every rank computes the norms
+    out: dict = {}
+
+    def trainer(sharding: str = "fsdp", on=mesh, **train):
+        return dp_trainer(data_dir, on, lr=FSDP_LR, param_sharding=sharding, **train)
+
+    for name in scenarios:
+        if name == "jax":  # the JAX trainer's init, drop-connect keeping every sample
+            with no_drop_connect():
+                t, init = trainer(), torch.load(f"{tmp}/jax_init.pt")
+                t.model.load_state_dict(t.shards.local(init), strict=True)  # this rank's slices
+                out[name] = fsdp_steps(t, images, labels)
+        elif name in ("fsdp", "replicated"):
+            t = dp_trainer(data_dir, mesh, lr=FSDP_LR, param_sharding=name, run_logger=logger, watch_interval=1)
+            out[name] = {**fsdp_steps(t, images, labels), "axes": (t.data_axis.size, t.model_axis.size),
+                         "sharded": sorted(t.shards.shards) if t.shards is not None else [],
+                         "whole_digest": whole_state_digest(t)}
+            if name == "fsdp":
+                fsdp = t
+        elif name == "ckpt":  # checkpoints between FSDP, a data axis alone and one process, both ways
+            save_checkpoint(fsdp, f"{tmp}/ckpt_fsdp")
+            rec = {"fsdp_4": fsdp_steps(fsdp, images, labels, 1)}
+            data = resumed(trainer("replicated", mesh_lib.make_mesh(world, 1, device_type=device_type)),
+                           f"{tmp}/ckpt_fsdp")
+            rec["data_4"] = fsdp_steps(data, images, labels, 1)
+            save_checkpoint(data, f"{tmp}/ckpt_data")
+            rec["data_5"] = fsdp_steps(data, images, labels, 1)
+            rec["fsdp_5"] = fsdp_steps(resumed(trainer(), f"{tmp}/ckpt_data"), images, labels, 1)
+            rec["from_one_4"] = fsdp_steps(resumed(trainer(), f"{tmp}/ckpt_one"), images, labels, 1)
+            out[name] = rec
+        elif name == "fc":  # fc-prithvi frozen, the unfreeze, unfrozen
+            fc_images, fc_labels = fc_dp_global_batch(data_dir)
+            t = fc_dp_trainer(data_dir, mesh, lr=FSDP_LR, param_sharding="fsdp")
+            frozen = fsdp_steps(t, fc_images, fc_labels, 1)
+            t.unfreeze_backbone()
+            out[name] = {"frozen": frozen, "unfrozen": fsdp_steps(t, fc_images, fc_labels, 1),
+                         "sharded": sorted(t.shards.shards)}
+        elif name == "fit":  # an epoch through fit: steps, BatchNorm recalibration and eval on the EMA, a checkpoint
+            out[name] = fsdp_fit(trainer(ema_decay=0.9, bn_recalibration_batches=1), f"{tmp}/fit_fsdp")
+        elif name == "bytes":  # bf16 parameters with an f32 master and an EMA, after one step
+            t = trainer(param_dtype="bfloat16", ema_decay=0.9)
+            fsdp_steps(t, images, labels, 1)
+            out[name] = fsdp_bytes(t)
+    return out
+
+
+# Context parallelism (a model axis of 2, the tokens split between the
+# blocks): the tiny large-tile segmentation net's forward, the tiny MAE's
+# forward and gradients (tp + cp, and cp alone), and MAETrainer steps.
+CP_TILE = 64  # patch 16: 16 tokens and the cls token, 9 and 8 a rank (one pad row)
+CP = tm.PrithviConfig(**GEOMETRY, tp_axis=mesh_lib.MODEL_AXIS, cp_axis=mesh_lib.MODEL_AXIS)
+CP_STEPS = 3
+
+
+def cp_seg_configs(cp: bool):
+    """The port's tiny large-tile segmentation config of
+    ``tests/test_context_parallel.py``'s ``_seg_for_tile`` at CP_TILE."""
+    from s2tpu_torch.models import prithvi_seg as ts
+
+    axes = dict(tp_axis=mesh_lib.MODEL_AXIS, cp_axis=mesh_lib.MODEL_AXIS) if cp else {}
+    backbone = tm.PrithviConfig(img_size=CP_TILE, patch_size=16, num_frames=1, in_chans=6, embed_dim=64, depth=2,
+                                num_heads=4, decoder_embed_dim=48, decoder_depth=1, decoder_num_heads=4,
+                                attention_impl="fused", **axes)
+    return ts.PrithviSegmentationConfig(num_frames=1, num_classes=4, frozen_backbone=False, embed_dim=64,
+                                        patch_height=CP_TILE // 16, patch_width=CP_TILE // 16, backbone=backbone)
+
+
+def cp_mae_run(model: tm.PrithviMAE, imgs: torch.Tensor, noise: torch.Tensor, ratio: float) -> dict:
+    """A forward and backward of ``model``; the token-share gradients (as the
+    trainer does) summed over the model axis. Also the first LayerNorm's
+    gradient before that sum, this rank's tokens' share alone."""
+    loss, pred, _ = model(imgs, mask_ratio=ratio, noise=noise)
+    loss.backward()
+    share = model.blocks[0].norm1.weight.grad.clone()
+    shared = model.token_shard_parameters()
+    if shared:
+        model.context.all_reduce_flat_([p.grad for p in shared])
+    return {"loss": loss.detach(), "pred": pred.detach(), "share": share,
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()}}
+
+
+def cp_trainer_steps(trainer, images: np.ndarray, noises: list[torch.Tensor]) -> dict:
+    """Steps of ``trainer`` with the given global masking noise: their
+    losses, the first step's gradients, the parameters after the last."""
+    rows, losses, grads = batch_rows(trainer), [], None
+    for noise in noises:
+        m = trainer.train_step(put_batch(images, trainer.device, rows), noise=noise.to(trainer.device))
+        losses.append(float(m["loss"]))
+        if grads is None:
+            grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+    params = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+    return {"losses": losses, "grads": grads, "params": params, "digest": digest(params)}
+
+
+def _cp_worker(rank: int, tmp: str, data_dir: str, world: int, scenarios: tuple[str, ...]) -> None:
+    """One rank of a (world / 2) x 2 mesh: every scenario named, its record in
+    ``tmp/rank<rank>.pt``; the inputs and initial weights come from the test
+    process in ``tmp/cp_inputs.pt``."""
+    from s2tpu_torch.models import prithvi_seg as ts
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            mesh = mesh_lib.make_mesh(world, 2, device_type="cpu")
+            group = mesh.get_group(mesh_lib.MODEL_AXIS)
+            given = torch.load(f"{tmp}/cp_inputs.pt", weights_only=False)
+            out: dict = {}
+            for name in scenarios:
+                if name == "seg":
+                    net = ts.PrithviSegmentationNet(cp_seg_configs(cp=True), tp_group=group)
+                    net.load_state_dict(given["seg_state"], strict=True)
+                    with torch.no_grad():
+                        out[name] = net(given["seg_images"])
+                elif name == "mae":
+                    for form, config in given["mae_configs"].items():
+                        model = tm.PrithviMAE(config, tp_group=group)
+                        model.load_state_dict(given["mae_state"], strict=True)
+                        out[form] = cp_mae_run(model, given["mae_images"], given["mae_noise"], given["mae_ratio"])
+                elif name == "trainer":
+                    trainer = mae_dp_trainer(data_dir, mesh, CP)
+                    trainer.model.load_state_dict(given["trainer_state"], strict=True)
+                    out[name] = cp_trainer_steps(trainer, given["trainer_images"], given["trainer_noise"])
             torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()

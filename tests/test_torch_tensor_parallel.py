@@ -137,28 +137,35 @@ def test_bf16_tensor_parallel_model_runs_with_f32_parameters():
     assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in model.parameters())
 
 
-class _Mesh:
-    """The shape of a DeviceMesh, for refusals that read only its axes."""
-
-    def __init__(self, data: int, model: int) -> None:
-        self.mesh_dim_names, self.shape = (mesh_lib.DATA_AXIS, mesh_lib.MODEL_AXIS), (data, model)
-
-
 def test_context_parallelism_and_a_data_axis_are_refused():
-    with pytest.raises(NotImplementedError, match="cp_axis"):
-        tm.PrithviMAE(dataclasses.replace(TP, cp_axis="model"))
+    """Context parallelism and the sharded corpus, refused here until they
+    were ported, build: without a model group a cp model is the dense one
+    (the same parameters from one seed, the same loss and gradients), the
+    MAE trainer takes ``cp_axis`` (tests/test_torch_context_parallel.py
+    trains it on 1 x 2 and 2 x 2 meshes) and the sharded corpus
+    (tests/test_torch_sharded_corpus.py). What stays refused: pipeline
+    stages, a group for a model without a model axis, two model axes, and
+    heads or tokens split over an axis other than 'model' (whose ranks
+    would hold other rows)."""
+    cp = dataclasses.replace(TP, cp_axis="model")
+    imgs, noise = _inputs(5)
+    ours = tm.PrithviMAE(cp, generator=torch.Generator().manual_seed(3))
+    ref = tm.PrithviMAE(DENSE, generator=torch.Generator().manual_seed(3))
+    assert ours.context is None and ours.token_shard_parameters() == []
+    _assert_close_run(_run(ours, imgs, noise, 0.5), _run(ref, imgs, noise, 0.5))
     c = mae_cfg.base_config("small")
-    with pytest.raises(NotImplementedError, match="not ported.*cp_axis"):
-        MAETrainer(c, datamodule=None, model_config=dataclasses.replace(TP, cp_axis="model"), device="cpu")
-    # A data axis trains (tests/test_torch_mae_data_parallel.py), and so does
-    # its sharded corpus (tests/test_torch_sharded_corpus.py), refused until
-    # it was ported; context parallelism stays refused beside it.
     c.train.device_corpus_sharded = True
-    _refuse_unported(c, TP)
-    with pytest.raises(NotImplementedError, match="not ported.*cp_axis.*ROADMAP item 16"):
-        _refuse_unported(c, dataclasses.replace(TP, cp_axis="model"))
+    _refuse_unported(c)
+    c.model.pipeline_stages = 2
+    with pytest.raises(NotImplementedError, match="not ported.*pipeline_stages > 1.*ROADMAP item 16"):
+        _refuse_unported(c)
     with pytest.raises(ValueError, match="tp_axis"):
         tm.PrithviMAE(DENSE, tp_group=object())
+    with pytest.raises(ValueError, match="one model axis"):
+        tm.PrithviMAE(dataclasses.replace(TP, cp_axis="data"))
+    for axes in (dict(tp_axis=None, cp_axis="data"), dict(tp_axis="data"), dict(tp_axis="data", cp_axis="data")):
+        with pytest.raises(ValueError, match="'model' axis only"):
+            tm.PrithviMAE(dataclasses.replace(TP, **axes))
 
 
 @pytest.mark.parametrize("dp_axis", [None, "model"])
@@ -202,6 +209,12 @@ def _gloo_worker(rank: int, tmp: str, fixture_dir: str) -> None:
         out["replicated"] = {n: p.detach().clone() for n, p in model.named_parameters()}
         imgs, noise = _inputs(0)
         out["forward"] = _run(model, imgs, noise, 0.5)
+        # The same model with its tokens split over the group too (context
+        # parallelism, refused here until it was ported): the forward.
+        cp = tm.PrithviMAE(dataclasses.replace(TP, cp_axis="model"), tp_group=group)
+        cp.load_state_dict(model.state_dict(), strict=True)
+        with torch.no_grad():
+            out["cp_forward"] = cp(imgs, mask_ratio=0.5, noise=noise)[:2]
 
         # One MAETrainer step on the mesh, then an epoch with a logger and checkpoints.
         trainer = MAETrainer(
@@ -273,4 +286,9 @@ def test_two_rank_refusals(gloo_run):
     for rank in gloo_run["ranks"]:
         assert rank["data_axis_corpus"] == (True, 3, 3, None)  # 3 of the 6 segments, no labels
         assert "3 heads do not split over a model axis of 2 ranks" in rank["heads_refusal"]
+        # context parallelism over the two ranks: the tensor-parallel forward, to this file's f32
+        # tolerances (the gathered tokens' products may take other CPU kernels than the whole input's)
+        loss, pred = rank["cp_forward"]
+        np.testing.assert_allclose(float(loss), float(rank["forward"]["loss"]), rtol=1e-5)
+        assert float((pred - rank["forward"]["pred"]).abs().max()) <= 1e-4 * float(rank["forward"]["pred"].abs().max())
 

@@ -304,13 +304,16 @@ class _Mesh:
         self.mesh_dim_names, self.shape = ("data", "model"), (data, model)
 
 
-# What the port still refuses: a model axis above one rank (FSDP2, ROADMAP
-# item 16). A data axis trains (tests/test_torch_data_parallel.py), and so
-# does the sharded corpus, refused here until it was ported: on one process
-# it is the plain corpus, as in the JAX trainer (tests/test_torch_sharded_corpus.py
-# holds it on a data axis).
+# Once refused here: a model axis above one rank (FSDP, tests/test_torch_fsdp.py
+# trains it on 1 x 2 and 2 x 2 meshes) and the sharded corpus, which on one
+# process is the plain corpus, as in the JAX trainer (tests/test_torch_sharded_corpus.py
+# holds it on a data axis). What the "mesh" case holds now: the FSDP rule
+# shards B0's large tensors over a model axis of the mesh's size, and a
+# param_sharding the JAX trainer lacks is refused.
 @pytest.mark.parametrize("field,value", [("device_corpus_sharded", True), ("mesh", _Mesh(1, 2))])
 def test_trainer_refuses_unported_config_fields(field, value, fixture_dir):
+    from s2tpu_torch.parallel.mesh import fsdp_shard_dim
+
     c = _configure(cfg_lib.base_config("efficientnet-unet-b0", aoi="small", label_map="osm-multiclass"),
                    fixture_dir, 1e-3)
     if field == "device_corpus_sharded":
@@ -318,8 +321,15 @@ def test_trainer_refuses_unported_config_fields(field, value, fixture_dir):
         trainer = SegmentationTrainer(c, Datamodule(c.datamodule), device="cpu")
         assert not trainer.corpus.sharded and trainer.corpus.images.shape[0] == len(trainer.dm.source)
         return
-    with pytest.raises(NotImplementedError, match="not ported.*a model axis above 1.*ROADMAP item 16"):
-        SegmentationTrainer(c, datamodule=None, device="cpu", mesh=value)
+    m = value.shape[1]
+    model = c.build_model(device="cpu")
+    modules = dict(model.named_modules())
+    dims = {n: fsdp_shard_dim(modules[n.rpartition(".")[0]], p, m) for n, p in model.named_parameters()}
+    sharded = {n for n, d in dims.items() if d is not None}
+    assert sharded and all(model.get_parameter(n).numel() >= 2**16 for n in sharded)
+    assert all(model.get_parameter(n).shape[dims[n]] % m == 0 for n in sharded)
+    with pytest.raises(ValueError, match="param_sharding='zero3'"):
+        SegmentationTrainer(c, datamodule=None, device="cpu", mesh=value, param_sharding="zero3")
 
 
 # The fields refused until they were ported train now: each case holds its
