@@ -1,4 +1,4 @@
-"""Drive s2tpu_torch's serving (graphed, int8, from an AOT artifact), training (single- and multi-temporal, with the trainer extras, from GeoTIFF, packed and record sources, and tuning), fc-prithvi finetuning, MAE pretraining (dense and tensor-parallel, with the trainer extras), MAE embedding, checkpoint migration and device-corpus (graphed step) paths on one NVIDIA card and hold its kernels against their plain versions.
+"""Drive s2tpu_torch's serving (graphed, int8, from an AOT artifact), training (single- and multi-temporal, with the trainer extras, from GeoTIFF, packed and record sources, and tuning), fc-prithvi finetuning, MAE pretraining (dense, tensor-parallel and pipelined, with the trainer extras), MAE embedding, checkpoint migration and device-corpus (graphed step) paths on one NVIDIA card and hold its kernels against their plain versions.
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
@@ -8,7 +8,8 @@
     python3 chip_smoke.py --serving      # phases 1, 2, 5 and 22 only, no result lines
     python3 chip_smoke.py --data         # phases 2, 6 and 23 only, no result lines
     python3 chip_smoke.py --data-parallel  # the build and phase E only, no result lines
-    python3 chip_smoke.py --model-axis     # the build and phase F only, no result lines
+    python3 chip_smoke.py --model-axis     # the build and phase F at full depth only, no result lines
+    python3 chip_smoke.py --pipeline       # the attention build and phase G at full depth only, no result lines
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 ``--attention`` and ``--depthwise`` use only the kernel wrappers' public
@@ -278,6 +279,19 @@ F. The model axis (after phase 11): on two gloo ranks sharing the card, a
    corpus windows graphed against eager steps bit for bit, a replay's
    kernel nodes (with NCCL all-gathers and reduce-scatters) against an
    eager step's launches.
+G. The pipeline (after phase F): GPipe over a 1 x 2 mesh of two gloo
+   ranks sharing the card, each a stage: (a) config #5's MAE step at T=1
+   (bf16 at batch 64, f32 with TF32 off at MAE_F32_BATCH) and (b) at T=3
+   (batch 16 / MAE_F32_BATCH), each at M = 1 micro-batch (the loss, the
+   predictions and every gradient bit for bit against the one-rank step)
+   and M = 2 (within PP_BF16_REL in bf16, the CPU tests' bounds in f32),
+   each rank's exact #8/#9 (and #5 at T=3) launches for its stage; (c)
+   ``cli.train_mae --pp 2 --num-devices 2`` on the two ranks (one epoch,
+   exact launches). Prithvi-100M's widths at CUT_DEPTH in the full run (one
+   block a stage), at its full depth under ``--pipeline``. With two cards
+   the MAE's corpus windows graphed over two NCCL stages, with four over a
+   2 x 2 mesh (beside the tensor-parallel MAE's) and over four stages,
+   against eager steps bit for bit.
 24. Result: a ``kernels`` JSON line (nine kernels; #1, #2, #8 and #6 with
    their bf16 kernels' registers and spill bytes from ``-Xptxas -v``; #3,
    #4, #8, #9 with their fc-prithvi launches, #5 with its fc-prithvi T=3
@@ -296,7 +310,10 @@ F. The model axis (after phase 11): on two gloo ranks sharing the card, a
    one replay of a graphed window over two (#6/#7: four) NCCL ranks, from
    the corpus and the sharded corpus, null on one card); ``ma_*``: phase
    F's, one FSDP rank's step (#1-#4), one tp + cp rank's MAE step (#6/#7 at
-   T=1 and T=3, #5 at T=3) and 512^2 forward (#5), the ``nvidia-smi``
+   T=1 and T=3, #5 at T=3) and 512^2 forward (#5); ``pp_*``: phase G's,
+   each stage's #8/#9 (#5 at T=3) in one step at M = 1 and 2, stage 0's in
+   the CLI's epoch and in one replay of the graphed windows over NCCL
+   stages (null on one card), the ``nvidia-smi``
    line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
@@ -414,6 +431,7 @@ MAE_F32_BATCH = 4
 # Prithvi-100M's widths and a cut depth (the full run's time limit): 2
 # encoder and 2 decoder blocks. The main path (phases 9-11) keeps all 12 + 8.
 CUT_DEPTH = {"depth": 2, "decoder_depth": 2}
+FULL_DEPTH = {"depth": 12, "decoder_depth": 8}  # --model-axis and --pipeline run phases F and G at this depth
 MAE_F32_FLOOR = {"loss": 1e-5, "grad": 1e-4}
 MAE_F32_GRADS = ("patch_embed.proj.weight", "blocks.0.attn.qkv.weight", "decoder_blocks.0.attn.qkv.weight",
                  "decoder_pred.weight")
@@ -548,6 +566,15 @@ GRAPH_TIMED = 3  # steps timed after a graphed epoch, graphed and eager
 MA_RANKS, MA_TIMED = 2, 1  # (b)'s eager steps timed on gloo ranks: the four-card run times NCCL
 MA_TOKEN_GRAD, MA_GRAD = 2.0**-6, 1e-5
 MA_TILE, MA_TILE_CLASSES, MA_TILE_RTOL = 512, 4, 1e-4
+# Phase G, the pipeline: PP_RANKS gloo ranks, the stages of a 1 x PP_RANKS
+# mesh, sharing the card. At M = 1 each stage runs its blocks on the whole
+# batch, the one-rank step's operations at its shapes: bit for bit. At M = 2
+# the products run on half the rows, so cuBLAS may take other algorithms:
+# the largest relative L2 difference of the loss, predictions and any
+# gradient within PP_BF16_REL in bf16 (phase F (b)'s bound), within the CPU
+# tests' bounds in f32 (TF32 off; tests/test_torch_pipeline_parallel.py).
+PP_RANKS, PP_BF16_REL = 2, 2.0**-6
+PP_F32 = {"loss": 1e-5, "pred": 1e-4, "forward_loss": 1e-5, "grads": 1e-4}
 # Phase C: the "fr" AOI's corpus (s2tpu/data/device_corpus.py:5-7: 12.4k
 # segments, ~9.7 GB of int16 at 256^2 x 6), made from a seeded pool of
 # segments in memory; K-step windows; (e) at a batch that gives its epoch
@@ -576,7 +603,7 @@ PORT_KERNEL_NAMES = {"#1": "depthwise_s1_fwd", "#2": "depthwise_s1_dw", "#3": "f
                      "#8": "attn_fused_fwd", "#9": "attn_fused_bwd_dq", "#9 dk/dv": "attn_fused_bwd_dkdv",
                      "#5": "flash_attn_fwd"}
 PORT_KERNEL_FOR = {"depthwise_fwd": "#1", "depthwise_dw": "#2", "fused_ce_fwd": "#3", "fused_ce_bwd": "#4",
-                   "attn_fused_fwd": "#8", "attn_fused_bwd": "#9"}  # a launch counter's name in a trace
+                   "attn_fused_fwd": "#8", "attn_fused_bwd": "#9", "attn_flash_fwd": "#5"}  # a counter's name in a trace
 # NCCL's kernels by collective, matched on their lowercased names.
 NCCL_KERNELS = {"nccl_all_reduce": "allreduce", "nccl_all_gather": "allgather", "nccl_reduce_scatter": "reducescatter"}
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
@@ -2316,17 +2343,22 @@ def attention_only() -> int:
     return 0
 
 
-def mae_expected_launches(model_config, steps: int, eval_batches: int, mask_ratio: float) -> dict[str, int]:
-    """Launches of the attention kernels on an MAE run: each block's
+def mae_expected_launches(model_config, steps: int, eval_batches: int, mask_ratio: float, stages: int = 1,
+                          micro: int = 1) -> dict[str, int]:
+    """Launches of the attention kernels on an MAE run (on one rank of
+    ``stages`` pipeline stages in ``micro`` micro-batches): each block's
     attention takes its route once per forward, the fused backward once per
-    train step; the fused route is #8/#9 in the dense form and #6/#7 in the
-    tensor-parallel form."""
+    train step; a pipelined stack runs its stage's blocks once a
+    micro-batch, a decoder the stages do not divide runs whole; the fused
+    route is #8/#9 in the dense form and #6/#7 in the tensor-parallel form."""
     from s2tpu_torch.ops.flash_attention import attention_route
 
     mc = model_config
     enc = attention_route(int(mc.num_patches * (1 - mask_ratio)) + 1, mc.embed_dim, mc.num_heads, mc.attention_impl)
     dec = attention_route(mc.num_patches + 1, mc.decoder_embed_dim, mc.decoder_num_heads, mc.attention_impl)
-    per = {route: mc.depth * (enc == route) + mc.decoder_depth * (dec == route) for route in ("fused", "flash")}
+    enc_blocks = mc.depth // stages * micro
+    dec_blocks = mc.decoder_depth // stages * micro if mc.decoder_depth % stages == 0 else mc.decoder_depth
+    per = {route: enc_blocks * (enc == route) + dec_blocks * (dec == route) for route in ("fused", "flash")}
     fused = "attn_fused_qkv" if mc.tp_axis is not None else "attn_fused"
     out = {
         "depthwise_fwd": 0, "depthwise_dx": 0, "depthwise_dw": 0, "fused_ce_fwd": 0, "fused_ce_bwd": 0,
@@ -2472,11 +2504,11 @@ def t3_config(data_dir: Path):
     return config
 
 
-def cut_mae_config(config):
-    """Config #5's Prithvi-100M for ``config`` at CUT_DEPTH."""
+def cut_mae_config(config, depth: dict = CUT_DEPTH):
+    """Config #5's Prithvi-100M for ``config`` at ``depth`` (CUT_DEPTH or FULL_DEPTH)."""
     from s2tpu_torch.train.mae_trainer import default_model_config
 
-    return dataclasses.replace(default_model_config(config), **CUT_DEPTH)
+    return dataclasses.replace(default_model_config(config), **depth)
 
 
 def phase_mae_t3(work: Path) -> dict:
@@ -3532,15 +3564,17 @@ def corpus_seg_trainer(work: Path, source, mean_std, counts, argv_extra: tuple =
     return SegmentationTrainer(cfg, dm, device="cuda", mesh=mesh, param_sharding=param_sharding)
 
 
-def corpus_mae_trainer(work: Path, source, mesh=None, model_config=None, **train):
+def corpus_mae_trainer(work: Path, source, mesh=None, model_config=None, stages: int = 1, **train):
     """Config #5's MAETrainer (Prithvi-100M, T=1, bf16, batch 64, 224^2) over
-    ``source``'s images; on the card, or as one rank of ``mesh``."""
+    ``source``'s images; on the card, or as one rank of ``mesh`` (with
+    ``stages`` pipeline stages on its model axis)."""
     from s2tpu_torch.cli.train_mae import build_parser, config_from_args
     from s2tpu_torch.configs.segmentation import DatamoduleConfig, DatasetConfig
     from s2tpu_torch.data.pipeline import Datamodule
     from s2tpu_torch.train.mae_trainer import MAETrainer
 
     cfg = config_from_args(build_parser().parse_args(mae_argv(work, "corpus")))
+    cfg.model.pipeline_stages = stages
     for k, v in train.items():
         setattr(cfg.train, k, v)
     dmc = cfg.datamodule
@@ -5226,20 +5260,23 @@ def _dp_graph_rank(rank: int, work: str, world: int, model_parallel: int, models
         data = world // model_parallel
         out = {}
         for model in models:
-            base, _, form = model.partition("_")  # form: "", "sharded" (corpus), "fsdp" or "cp" (model axis)
+            # form: "", "sharded" (corpus), "fsdp", "cp" or "pp" (pipeline stages) on the model axis
+            base, _, form = model.partition("_")
             sharded = form == "sharded"
             segments = (DP_SHARDED_SEGMENTS if sharded else DP_GRAPH_SEGMENTS)[base]
             source, mean_std, counts = pool_source(segments)
             rec, trainers = {}, {}
             for mode, k in (("eager", 1), ("graphed", CORPUS_K)):  # eager first: it warms the allocator
                 fields = dict(device_corpus=True, device_corpus_sharded=sharded, steps_per_dispatch=k,
-                              watch_interval=0, num_devices=data)
+                              watch_interval=0, num_devices=world if form.startswith("pp") else data)
                 if base == "b5":
                     trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh,
                                                  param_sharding="fsdp" if form == "fsdp" else "replicated", **fields)
                 elif base == "fc":
                     trainer = corpus_seg_trainer(Path(work), source, mean_std, counts, mesh=mesh,
                                                  argv=dp_fc_argv(Path(work)), **fields)
+                elif form.startswith("pp"):  # "pp" on a model axis of 2, "pp4" of 4
+                    trainer = corpus_mae_trainer(Path(work), source, mesh=mesh, stages=model_parallel, **fields)
                 else:
                     mc = None
                     if model_parallel > 1:
@@ -5804,19 +5841,19 @@ def ma_fsdp_record(trainer, m: dict, launches: dict) -> dict:
             "sharded": len(trainer.shards.shards), "axes": (trainer.data_axis.size, trainer.model_axis.size)}
 
 
-def ma_mae_forms(data_dir: Path, frames: int) -> tuple:
+def ma_mae_forms(data_dir: Path, frames: int, depth: dict) -> tuple:
     """Config #5's MAE config at ``frames`` (T=1: the T=1 slice's CLI config
     at MAE_BATCH on ``data_dir``; T=3: the T=3 slice's) and its
-    tensor-parallel and tp + cp model configs at CUT_DEPTH."""
+    tensor-parallel and tp + cp model configs at ``depth``."""
     from s2tpu_torch.cli.train_mae import build_parser, config_from_args
     from s2tpu_torch.parallel.mesh import MODEL_AXIS
 
     cfg = config_from_args(build_parser().parse_args(mae_argv(data_dir, "ma"))) if frames == 1 else t3_config(data_dir)
-    tp = dataclasses.replace(cut_mae_config(cfg), tp_axis=MODEL_AXIS)
+    tp = dataclasses.replace(cut_mae_config(cfg, depth), tp_axis=MODEL_AXIS)
     return cfg, {"tp": tp, "cp": dataclasses.replace(tp, cp_axis=MODEL_AXIS)}
 
 
-def ma_cp_rank(mesh, data_dir: Path, frames: int) -> dict:
+def ma_cp_rank(mesh, data_dir: Path, frames: int, depth: dict) -> dict:
     """(b) on this rank: config #5's tensor-parallel and tp + cp MAE from one
     init on the same global batch and noise: each form's no-grad forward
     (loss and predictions, kept here to compare) and one train step (its
@@ -5824,7 +5861,7 @@ def ma_cp_rank(mesh, data_dir: Path, frames: int) -> dict:
     from s2tpu_torch.cli.train_mae import build_datamodule
     from s2tpu_torch.train.mae_trainer import MAETrainer
 
-    cfg, forms = ma_mae_forms(data_dir, frames)
+    cfg, forms = ma_mae_forms(data_dir, frames, depth)
     out = {}
     for form, mc in forms.items():
         trainer = MAETrainer(cfg, build_datamodule(cfg), mesh=mesh, model_config=mc, device="cuda")
@@ -5852,10 +5889,10 @@ def ma_cp_rank(mesh, data_dir: Path, frames: int) -> dict:
     return out
 
 
-def ma_tile_net(tp_group=None, dtype=torch.float32):
-    """fc-prithvi (the Prithvi-100M encoder's widths at CUT_DEPTH's
-    encoder blocks) at one MA_TILE^2 tile, seeded: tp + cp over
-    ``tp_group``, or dense."""
+def ma_tile_net(depth: dict, tp_group=None, dtype=torch.float32):
+    """fc-prithvi (the Prithvi-100M encoder's widths at ``depth``'s encoder
+    blocks) at one MA_TILE^2 tile, seeded: tp + cp over ``tp_group``, or
+    dense."""
     from s2tpu_torch.models.prithvi_mae import PrithviConfig
     from s2tpu_torch.models.prithvi_seg import PrithviSegmentationConfig, PrithviSegmentationNet
     from s2tpu_torch.parallel.mesh import MODEL_AXIS
@@ -5863,7 +5900,7 @@ def ma_tile_net(tp_group=None, dtype=torch.float32):
 
     axes = dict(tp_axis=MODEL_AXIS, cp_axis=MODEL_AXIS) if tp_group is not None else {}
     backbone = PrithviConfig.from_model_args(load_prithvi_model_args(), num_frames=1, img_size=MA_TILE)
-    backbone = dataclasses.replace(backbone, attention_impl="fused", depth=CUT_DEPTH["depth"], **axes)
+    backbone = dataclasses.replace(backbone, attention_impl="fused", depth=depth["depth"], **axes)
     grid = MA_TILE // backbone.patch_size
     cfg = PrithviSegmentationConfig(num_frames=1, num_classes=MA_TILE_CLASSES, frozen_backbone=False,
                                     embed_dim=backbone.embed_dim, patch_height=grid, patch_width=grid,
@@ -5877,7 +5914,7 @@ def ma_tile_input() -> torch.Tensor:
     return torch.randn((1, 1, MA_TILE, MA_TILE, 6), generator=gen).cuda()
 
 
-def _ma_rank(rank: int, work: str, data_dir: str, t3_dir: str) -> None:
+def _ma_rank(rank: int, work: str, data_dir: str, t3_dir: str, depth: dict) -> None:
     """One of phase F's gloo ranks on the card, on a 1 x MA_RANKS mesh (both
     hold every row): (a) config #2's FSDP step (bf16, then f32), (b) the tp
     and tp + cp MAE at T=1 and T=3, (c) the tp + cp fc-prithvi forward at
@@ -5906,9 +5943,9 @@ def _ma_rank(rank: int, work: str, data_dir: str, t3_dir: str) -> None:
             del f32, m
             torch.cuda.empty_cache()
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        rec["cp"] = {frames: ma_cp_rank(mesh, Path(d), frames) for frames, d in ((1, data_dir), (3, t3_dir))}
+        rec["cp"] = {frames: ma_cp_rank(mesh, Path(d), frames, depth) for frames, d in ((1, data_dir), (3, t3_dir))}
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        net = ma_tile_net(mesh.get_group(MODEL_AXIS))
+        net = ma_tile_net(depth, mesh.get_group(MODEL_AXIS))
         torch.cuda.synchronize()
         reset_launch_counts()
         with torch.no_grad():
@@ -5958,7 +5995,7 @@ def check_ma_fsdp(ranks: list[dict], one: dict, one_f32: dict, rule: dict[int, i
             "rule": rule}
 
 
-def check_ma_cp(ranks: list[dict]) -> dict:
+def check_ma_cp(ranks: list[dict], depth: dict) -> dict:
     """(b): on each rank, the tp + cp MAE step against the tensor-parallel
     step from the same init, batch and noise: the forward bit for bit (the
     ranks' two partial sums added in either order), the gradients of the
@@ -5994,8 +6031,8 @@ def check_ma_cp(ranks: list[dict]) -> dict:
         out[frames] = {"launches": first["cp"]["launches"], "tp_ms": first["tp"]["step_ms"],
                        "cp_ms": first["cp"]["step_ms"], "worst": worst}
         log(
-            f"model axis (b) context parallelism (Prithvi-100M MAE widths at {CUT_DEPTH['depth']} + "
-            f"{CUT_DEPTH['decoder_depth']} blocks, T={frames}, bf16, "
+            f"model axis (b) context parallelism (Prithvi-100M MAE widths at {depth['depth']} + "
+            f"{depth['decoder_depth']} blocks, T={frames}, bf16, "
             f"batch "
             f"{MAE_BATCH if frames == 1 else MAE_T3_BATCH} on each of {MA_RANKS} gloo ranks sharing the card, "
             f"{CARD}): tp + cp forward equal to the tensor-parallel forward bit for bit on every rank: "
@@ -6012,14 +6049,14 @@ def check_ma_cp(ranks: list[dict]) -> dict:
     return out
 
 
-def check_ma_tile(ranks: list[dict]) -> dict:
+def check_ma_tile(ranks: list[dict], depth: dict) -> dict:
     """(c): the tp + cp fc-prithvi forward at one MA_TILE^2 tile (L = 1025,
     past the fused route: #5 in each block) on each rank against the dense
     forward on one rank, f32 with TF32 off: logits within MA_TILE_RTOL of
     their scale, class maps equal but where the dense forward's best two
     classes tie within that bound, the ranks equal."""
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    net = ma_tile_net()
+    net = ma_tile_net(depth)
     torch.cuda.synchronize()
     reset_launch_counts()
     with torch.no_grad():
@@ -6043,12 +6080,12 @@ def check_ma_tile(ranks: list[dict]) -> dict:
     if not diff <= MA_TILE_RTOL or bool((flips & ~near_tie).any()):
         failures.append(f"logits {diff:.3g} of their scale (limit {MA_TILE_RTOL:.3g}), class maps equal on "
                         f"{same_map:.6f} of the pixels, {int((flips & ~near_tie).sum())} changed away from a tie")
-    depth = CUT_DEPTH["depth"]
-    if first["launches"]["attn_flash_fwd"] != depth or one_launches["attn_flash_fwd"] != depth:
+    blocks = depth["depth"]
+    if first["launches"]["attn_flash_fwd"] != blocks or one_launches["attn_flash_fwd"] != blocks:
         failures.append(f"#5 launches {first['launches']['attn_flash_fwd']} (one rank "
-                        f"{one_launches['attn_flash_fwd']}), not one a block of {depth}")
+                        f"{one_launches['attn_flash_fwd']}), not one a block of {blocks}")
     log(
-        f"model axis (c) large tile (fc-prithvi, Prithvi-100M encoder widths at {CUT_DEPTH['depth']} blocks, one "
+        f"model axis (c) large tile (fc-prithvi, Prithvi-100M encoder widths at {blocks} blocks, one "
         f"{MA_TILE}^2 tile: L = 1025, f32, TF32 "
         f"off, tp + cp on {MA_RANKS} gloo ranks sharing the card, {CARD}): logits vs the dense one-rank forward "
         f"{diff:.3g} of their scale (limit {MA_TILE_RTOL:.3g}); class maps equal on {same_map:.6f} of the pixels "
@@ -6060,7 +6097,7 @@ def check_ma_tile(ranks: list[dict]) -> dict:
     return {"launches": first["launches"], "rel": diff}
 
 
-def phase_model_axis(work: Path) -> dict:
+def phase_model_axis(work: Path, depth: dict = CUT_DEPTH) -> dict:
     """Phase F: the model axis beyond tensor parallelism, on MA_RANKS gloo
     ranks sharing the card (:func:`_ma_rank`), each checked against one
     rank (:func:`check_ma_fsdp`, :func:`check_ma_cp`, :func:`check_ma_tile`);
@@ -6081,7 +6118,7 @@ def phase_model_axis(work: Path) -> dict:
     if not t3_dir.exists():
         unlabeled_fixture(t3_dir, MAE_T3_SEGMENTS, n_time=MAE_T3_FRAMES)
     t0 = time.perf_counter()
-    mp.spawn(_ma_rank, args=(str(work), str(data_dir), str(t3_dir)), nprocs=MA_RANKS)  # a rank's failure raises
+    mp.spawn(_ma_rank, args=(str(work), str(data_dir), str(t3_dir), depth), nprocs=MA_RANKS)  # a rank's failure raises
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(work / f"ma_rank{r}.pt", weights_only=False) for r in range(MA_RANKS)]
     log(f"model axis: {MA_RANKS} gloo ranks spawned, built and stepped in {ranks_s:.1f} s")
@@ -6106,9 +6143,9 @@ def phase_model_axis(work: Path) -> dict:
             del f32, m
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    out = {"fsdp": check_ma_fsdp(ranks, one_rec, one_f32, rule), "cp": check_ma_cp(ranks)}
+    out = {"fsdp": check_ma_fsdp(ranks, one_rec, one_f32, rule), "cp": check_ma_cp(ranks, depth)}
     try:
-        out["tile"] = check_ma_tile(ranks)
+        out["tile"] = check_ma_tile(ranks, depth)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     cards = torch.cuda.device_count()
@@ -6126,18 +6163,278 @@ def phase_model_axis(work: Path) -> dict:
 
 def model_axis_only() -> int:
     """``--model-axis``: the build (phase F runs #1-#7) and phase F on data
-    of its own; no result lines."""
+    of its own, Prithvi-100M at its full depth (FULL_DEPTH); no result
+    lines."""
     phase_build()
     work = REPO / "out" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
         t0 = time.perf_counter()
-        phase_model_axis(work)
+        phase_model_axis(work, FULL_DEPTH)
         log(f"phase model axis: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase G: GPipe pipeline parallelism over the model axis
+# ---------------------------------------------------------------------------
+def pp_mae_trainer(frames: int, data_dir: Path, depth: dict, mesh=None, micro: int = 1, f32: bool = False):
+    """Config #5's MAETrainer at ``frames`` (T=1: the T=1 slice's CLI config
+    at MAE_BATCH; T=3: the T=3 slice's at MAE_T3_BATCH; ``f32``: f32 at
+    MAE_F32_BATCH) with Prithvi-100M's widths at ``depth``: PP_RANKS
+    pipeline stages in ``micro`` micro-batches on ``mesh``, or one rank."""
+    from s2tpu_torch.cli.train_mae import build_datamodule, build_parser, config_from_args
+    from s2tpu_torch.train.mae_trainer import MAETrainer
+
+    cfg = config_from_args(build_parser().parse_args(mae_argv(data_dir, "pp"))) if frames == 1 else t3_config(data_dir)
+    if f32:
+        cfg.train.compute_dtype, cfg.datamodule.batch_size = "float32", MAE_F32_BATCH
+    cfg.model.pipeline_stages = PP_RANKS if mesh is not None else 1
+    cfg.model.pipeline_microbatches = micro
+    cfg.train.num_devices = PP_RANKS if mesh is not None else 1
+    return MAETrainer(cfg, build_datamodule(cfg), device="cuda", mesh=mesh, model_config=cut_mae_config(cfg, depth))
+
+
+def pp_step_record(trainer, full: bool) -> dict:
+    """One train step of ``trainer`` on its config's first global batch
+    (every row: the ranks of a model axis hold them all) with seeded masking
+    noise: the no-grad forward's loss and predictions first, then the
+    step's launches (counts set to 0 around it), loss and applied
+    gradients (with ``full`` on the CPU, else their digest)."""
+    from s2tpu_torch.cli.train_mae import build_datamodule
+
+    images = torch.from_numpy(next(build_datamodule(trainer.config).train_batches(0)).images).cuda()
+    noise = torch.rand((images.shape[0], trainer.model_config.num_patches),
+                       generator=torch.Generator().manual_seed(SEED + 30)).cuda()
+    with torch.no_grad():
+        loss, pred, _ = trainer.model(trainer._input(images), mask_ratio=trainer.mask_ratio, noise=noise)
+    launches, m = step_launches(trainer, images, noise)
+    grads = {n: p.grad.detach() for n, p in trainer.model.named_parameters()}
+    rec = {"forward": (loss.float().cpu(), pred.float().cpu()), "loss": m["loss"].float().cpu(),
+           "launches": launches, "digest": state_digest(grads), "batch": images.shape[0],
+           "expected": mae_expected_launches(trainer.model_config, 1, 0, trainer.mask_ratio,
+                                             trainer.model_axis.size, trainer.config.model.pipeline_microbatches)}
+    if full:
+        rec["grads"] = {n: g.float().cpu() for n, g in grads.items()}
+    return rec
+
+
+PP_FORMS = [(frames, f32) for frames in (1, 3) for f32 in (False, True)]  # (T, f32): bf16 and f32 at T=1 and T=3
+
+
+@contextlib.contextmanager
+def f32_products(on: bool):
+    """TF32 off inside the block when ``on`` (the f32 records)."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if on:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def pp_cli(work: Path, data_dir: Path, depth: dict) -> dict:
+    """(c) on this rank: ``cli.train_mae --pp 2 --num-devices 2`` (config
+    #5, 1 epoch: 2 steps and an eval batch) under the ranks' group, its
+    model at ``depth``; its launches and history."""
+    from s2tpu_torch.cli.train_mae import main as mae_main
+    from s2tpu_torch.configs import paths
+    from s2tpu_torch.train import mae_trainer
+
+    default = mae_trainer.default_model_config
+    mae_trainer.default_model_config = lambda config: dataclasses.replace(default(config), **depth)
+    paths.CKPT_DIR, paths.LOG_DIR = work / "pp_ckpts", work / "pp_logs"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    history = mae_main([*mae_argv(data_dir, "chip-smoke-pp"), "--epochs", "1", "--pp", str(PP_RANKS),
+                        "--num-devices", str(PP_RANKS)])
+    torch.cuda.synchronize()
+    return {"launches": launch_counts(), "seconds": time.perf_counter() - t0, "history": history}
+
+
+def _pp_rank(rank: int, work: str, t1_dir: str, t3_dir: str, depth: dict) -> None:
+    """One of phase G's gloo ranks on the card, stage ``rank`` of a 1 x
+    PP_RANKS mesh: for each (T, dtype) of PP_FORMS and M = 1, 2, one step
+    (:func:`pp_step_record`; rank 0 keeps the gradients), then the CLI run
+    (c). Records in ``work/pp_rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    from s2tpu_torch.parallel.mesh import make_mesh
+    from s2tpu_torch.parallel.pipeline import pipeline_parameters
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/pp_store", world_size=PP_RANKS, rank=rank)
+    try:
+        mesh = make_mesh(PP_RANKS, PP_RANKS, "cuda")
+        rec = {}
+        for frames, f32 in PP_FORMS:
+            for micro in (1, 2):
+                with f32_products(f32):
+                    trainer = pp_mae_trainer(frames, Path(t1_dir if frames == 1 else t3_dir), depth, mesh, micro, f32)
+                    rec[(frames, f32, micro)] = pp_step_record(trainer, full=rank == 0)
+                rec["bucket_bytes"] = sum(p.numel() * 4 for p in pipeline_parameters(trainer.model))
+                rec["device"] = str(trainer.device)
+                del trainer
+                torch.cuda.empty_cache()
+        rec["cli"] = pp_cli(Path(work), Path(t1_dir), depth)
+        torch.save(rec, f"{work}/pp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def nonzero(launches: dict[str, int]) -> dict[str, int]:
+    """The kernels of a launch-count dict that launched."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+
+
+def check_pp_forms(ranks: list[dict], t1_dir: Path, t3_dir: Path, depth: dict) -> dict:
+    """(a) and (b): against the one-rank step from the same init, batch and
+    noise, each (T, dtype): at M = 1 the loss, the predictions and every
+    applied gradient bit for bit; at M = 2 the largest relative L2
+    difference within PP_BF16_REL (bf16) or the CPU tests' bounds (f32);
+    the ranks' gradients bit-equal; each rank's launches as
+    :func:`mae_expected_launches` says for its stage."""
+    failures, out = [], {}
+    for frames, f32 in PP_FORMS:
+        with f32_products(f32):
+            one = pp_step_record(pp_mae_trainer(frames, t1_dir if frames == 1 else t3_dir, depth, f32=f32), full=True)
+        torch.cuda.empty_cache()
+        label = f"T={frames} {'f32' if f32 else 'bf16'}"
+        for micro in (1, 2):
+            key = (frames, f32, micro)
+            recs = [r[key] for r in ranks]
+            ours = recs[0]
+            diff = {"loss": rel_l2(ours["loss"], one["loss"]), "pred": rel_l2(ours["forward"][1], one["forward"][1]),
+                    "forward_loss": rel_l2(ours["forward"][0], one["forward"][0]),
+                    "grads": max(rel_l2(g, one["grads"][n]) for n, g in ours["grads"].items())}
+            equal = (torch.equal(ours["loss"], one["loss"]) and torch.equal(ours["forward"][1], one["forward"][1])
+                     and all(torch.equal(g, one["grads"][n]) for n, g in ours["grads"].items()))
+            if micro == 1 and not equal:
+                failures.append(f"{label} M=1: not the one-rank step bit for bit ({diff})")
+            limits = PP_F32 if f32 else dict.fromkeys(diff, PP_BF16_REL)
+            failures += [f"{label} M={micro} {k} {v:.3g} > {limits[k]:.3g}" for k, v in diff.items()
+                         if micro > 1 and not v <= limits[k]]
+            if len({r["digest"] for r in recs}) != 1 or any(not torch.equal(r["loss"], ours["loss"]) for r in recs):
+                failures.append(f"{label} M={micro}: the ranks' gradients differ")
+            for r, rec in enumerate(recs):
+                if rec["launches"] != rec["expected"]:
+                    failures.append(f"{label} M={micro} rank {r}: launches {rec['launches']} != {rec['expected']}")
+            out[key] = {"launches": [r["launches"] for r in recs], "diff": diff, "equal": equal,
+                        "batch": ours["batch"]}
+            used = [nonzero(r["launches"]) for r in recs]
+            log(
+                f"pipeline ({'a' if frames == 1 else 'b'}) config #5 T={frames} (Prithvi-100M widths at "
+                f"{depth['depth']} + {depth['decoder_depth']} blocks, {label.split()[1]}, batch {ours['batch']}, "
+                f"{PP_RANKS} stages, M={micro}, on {PP_RANKS} gloo ranks sharing the card, {CARD}): bit for bit "
+                f"against the one-rank step (loss, predictions, every gradient): {equal}; relative L2 against it "
+                + ", ".join(f"{k} {v:.3g}" for k, v in diff.items())
+                + (f" (limits {', '.join(f'{k} {v:.3g}' for k, v in limits.items())})" if micro > 1 else "")
+                + f"; launches a rank {used} (as expected: {used == [nonzero(r['expected']) for r in recs]}; one "
+                f"rank {nonzero(one['launches'])})"
+            )
+        del one
+    if failures:
+        raise AssertionError("pipeline: " + "; ".join(failures))
+    return out
+
+
+def phase_pipeline(work: Path, depth: dict = CUT_DEPTH) -> dict:
+    """Phase G: GPipe over a model axis of PP_RANKS gloo ranks sharing the
+    card (:func:`_pp_rank`): (a) config #5 at T=1 and (b) at T=3, bf16 and
+    f32, M = 1 and 2, against the one-rank step (:func:`check_pp_forms`);
+    (c) ``cli.train_mae --pp 2 --num-devices 2`` on the ranks. With two
+    cards, the MAE's graphed corpus windows over two NCCL stages, with four
+    over a 2 x 2 mesh (beside the tensor-parallel MAE's) and four stages,
+    against eager steps bit for bit (:func:`check_graph_runs`)."""
+    import torch.multiprocessing as mp
+
+    t1_dir, t3_dir = work / "mae_data", work / "mae_t3_data"  # phases 9 and 10's, made here standalone
+    if not t1_dir.exists():
+        unlabeled_fixture(t1_dir, MAE_SEGMENTS)
+    if not t3_dir.exists():
+        unlabeled_fixture(t3_dir, MAE_T3_SEGMENTS, n_time=MAE_T3_FRAMES)
+    t0 = time.perf_counter()
+    mp.spawn(_pp_rank, args=(str(work), str(t1_dir), str(t3_dir), depth), nprocs=PP_RANKS)  # a rank's failure raises
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(work / f"pp_rank{r}.pt", weights_only=False) for r in range(PP_RANKS)]
+    log(f"pipeline: {PP_RANKS} gloo ranks spawned, built, stepped and ran the CLI in {ranks_s:.1f} s")
+    out = {"forms": check_pp_forms(ranks, t1_dir, t3_dir, depth)}
+    # (c) the CLI's epoch: its steps and eval batches, each rank its stage's blocks in 2 micro-batches
+    from s2tpu_torch.cli.train_mae import build_parser, config_from_args
+
+    cfg = config_from_args(build_parser().parse_args(mae_argv(t1_dir, "pp")))
+    mc, (train_share, val_share, _) = cut_mae_config(cfg, depth), cfg.datamodule.data_split
+    eval_batches = math.ceil(int(val_share * MAE_SEGMENTS) / (MAE_BATCH * cfg.datamodule.val_batch_size_multiplier))
+    expected = mae_expected_launches(mc, int(train_share * MAE_SEGMENTS) // MAE_BATCH, eval_batches,
+                                     cfg.model.mask_ratio, PP_RANKS, cfg.model.pipeline_microbatches)
+    cli = [r["cli"] for r in ranks]
+    losses = [cli[0]["history"][0][k] for k in ("train/loss", "val/loss")]
+    failures = [f"rank {r}: CLI launches {c['launches']} != {expected}" for r, c in enumerate(cli)
+                if c["launches"] != expected]
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"CLI losses {losses}")
+    mb, tokens = MAE_BATCH // 2, mc.num_patches + 1
+    rotation = (PP_RANKS - 1) * mb * tokens * mc.decoder_embed_dim * 2  # bf16, a decoder tick's all-gather into a rank
+    log(
+        f"pipeline (c) cli.train_mae --pp {PP_RANKS} --num-devices {PP_RANKS} (config #5, Prithvi-100M widths at "
+        f"{depth['depth']} + {depth['decoder_depth']} blocks, bf16, batch {MAE_BATCH}, 2 micro-batches, 1 epoch, "
+        f"{CARD}): {[round(c['seconds'], 1) for c in cli]} s; train loss {losses[0]:.5f}, val loss {losses[1]:.5f}; "
+        f"launches a rank {[nonzero(c['launches']) for c in cli]} (expected {nonzero(expected)}); the stage-gradient bucket "
+        f"{ranks[0]['bucket_bytes']} B of f32 a rank; a decoder tick's rotation brings {rotation} B into each rank"
+    )
+    if failures:
+        raise AssertionError("pipeline (c): " + "; ".join(failures))
+    out["cli"] = {"launches": cli[0]["launches"], "bucket_bytes": ranks[0]["bucket_bytes"]}
+    cards = torch.cuda.device_count()
+    runs = []
+    if cards >= 2:
+        runs.append((2, 2, ("mae_pp",)))
+    if cards >= 4:
+        runs += [(4, 2, ("mae", "mae_pp")), (4, 4, ("mae_pp4",))]
+    if runs:
+        out["graphs"] = check_graph_runs(work, runs, "pipeline")
+    else:
+        log(f"pipeline graphed windows over NCCL: not run, {cards} card")
+    return out
+
+
+def pipeline_only() -> int:
+    """``--pipeline``: the build of the attention kernels and phase G on data
+    of its own, Prithvi-100M at its full depth (FULL_DEPTH); no result
+    lines."""
+    phase_build(only=("fused_attention_dense", "flash_attention"))
+    work = REPO / "out" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        phase_pipeline(work, FULL_DEPTH)
+        log(f"phase pipeline: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
+def pp_entries(pipe: dict, kernel: str) -> dict:
+    """A kernel's launches in phase G: on each stage (rank) of one bf16
+    step at T=1 and T=3 at M = 1 and 2, stage 0's in the CLI's epoch, and in
+    one replay of stage 0's graphed window over NCCL ranks (2 stages on 2
+    and on 2 x 2 cards, 4 stages on 4; None where the machine had fewer)."""
+    forms, graphs = pipe["forms"], pipe.get("graphs") or {}
+    out = {f"pp_t{frames}_m{micro}_rank_launches": [c[kernel] for c in forms[(frames, False, micro)]["launches"]]
+           for frames in (1, 3) for micro in (1, 2)}
+    out["pp_cli_rank_launches"] = pipe["cli"]["launches"][kernel]
+    for run in ("mae_pp_2", "mae_pp_4", "mae_pp4_4"):
+        out[f"{run}_graph_replay_launches"] = graphs[run]["replay_nodes"][PORT_KERNEL_FOR[kernel]] if run in graphs else None
+    return out
 
 
 def dp_graph_entries(dp: dict, run: str, kernel: str, key: str = "dp_graph_replay_launches") -> dict:
@@ -6184,7 +6481,7 @@ def main(argv: list[str]) -> int:
     global CARD
     modes = {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
              "--corpus": corpus_only, "--serving": serving_only, "--data": data_only,
-             "--data-parallel": data_parallel_only, "--model-axis": model_axis_only}
+             "--data-parallel": data_parallel_only, "--model-axis": model_axis_only, "--pipeline": pipeline_only}
     if argv and (len(argv) > 1 or argv[0] not in modes):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -6243,6 +6540,7 @@ def main(argv: list[str]) -> int:
             tp_t3 = timed("tensor-parallel MAE slice T=3", phase_mae_tp_t3, work, mesh)
             timed("f32 tensor-parallel MAE step card vs cpu", phase_mae_f32_step, mesh)
         ma = timed("model axis", phase_model_axis, work)
+        pipe = timed("pipeline", phase_pipeline, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     timed("f32 train step card vs cpu", phase_f32_step)
@@ -6454,6 +6752,8 @@ def main(argv: list[str]) -> int:
             **dp_graph_entries(dp, "mae_2", "#8"),
             **dp_graph_entries(dp, "mae_sharded_2", "#8", "dp_sharded_graph_replay_launches"),
             **dp_fc_entries(dp, "attn_fused_fwd"),
+            # phase G: each pipeline stage's launches (T=1 decoder, T=3 encoder), the CLI's, a graphed replay's
+            **pp_entries(pipe, "attn_fused_fwd"),
         },
         {
             "name": "fused_attention_dense_backward",
@@ -6477,6 +6777,7 @@ def main(argv: list[str]) -> int:
             **dp_graph_entries(dp, "mae_2", "#9"),
             **dp_graph_entries(dp, "mae_sharded_2", "#9", "dp_sharded_graph_replay_launches"),
             **dp_fc_entries(dp, "attn_fused_bwd"),
+            **pp_entries(pipe, "attn_fused_bwd"),
         },
         {
             "name": "flash_attention_forward",
@@ -6500,6 +6801,8 @@ def main(argv: list[str]) -> int:
             # phase F: one rank's tp + cp MAE step at T=3 (the decoder, L = 589) and 512^2 fc-prithvi forward
             "ma_cp_t3_rank_launches": ma["cp"][3]["launches"]["attn_flash_fwd"],
             "ma_tile_rank_launches": ma["tile"]["launches"]["attn_flash_fwd"],
+            # phase G: each pipeline stage's launches in the T=3 step (the decoder, L = 589)
+            **pp_entries(pipe, "attn_flash_fwd"),
         },
     ]
     if len(kernels) != 9:

@@ -14,11 +14,10 @@ per sample: the source is built with the dataset config's
 ``--steps-per-dispatch`` among them (with the device corpus, N steps a
 window replay one CUDA graph of the whole step on the card), and the
 segmentation CLI's ``--watch-interval``, without which a run watches its
-norms every 30 steps and so trains one eager step a window; those whose
-feature is not ported (pipeline parallelism, ``--pp`` and
-``--pp-microbatches``) are refused with a message. A SIGTERM saves the state
-at the next step boundary; the same command with ``--auto-resume`` (or
-``--resume-from <run dir>``) continues the interrupted epoch exactly.
+norms every 30 steps and so trains one eager step a window. A SIGTERM
+saves the state at the next step boundary; the same command with
+``--auto-resume`` (or ``--resume-from <run dir>``) continues the
+interrupted epoch exactly.
 
 ``--num-devices N`` trains data-parallel on N ranks, one process and one
 card each (NCCL; with ``--device cpu``, N processes over gloo), as the
@@ -31,6 +30,12 @@ launcher's world size; one process on the CPU). With ``--device-corpus
 --steps-per-dispatch K`` each rank replays its step graph over NCCL.
 ``--device-corpus-sharded`` implies ``--device-corpus`` and, on N > 1
 ranks, uploads to each rank only its 1/N block of the images.
+
+``--pp S`` runs the ViT's encoder blocks (and its decoder blocks where S
+divides their depth) as S GPipe stages over the mesh's model axis, in
+``--pp-microbatches`` micro-batches (default 2): ``--num-devices N`` then
+builds an (N / S) x S data x model mesh, as the JAX CLI's
+``make_mesh(N, model_parallel=S)`` (``s2tpu_torch.parallel.pipeline``).
 """
 
 from __future__ import annotations
@@ -87,8 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--grad-accum", type=int, default=None, help="micro-batches per optimizer update")
     p.add_argument("--remat", action="store_true", help="recompute each ViT block's activations in the backward pass")
-    p.add_argument("--pp", type=int, default=None, metavar="STAGES", help="not ported beyond 1")
-    p.add_argument("--pp-microbatches", type=int, default=None, help="not ported")
+    p.add_argument(
+        "--pp", type=int, default=None, metavar="STAGES",
+        help="pipeline-parallel stages over the mesh's 'model' axis (GPipe micro-batch schedule; --num-devices "
+        "must be divisible by it)",
+    )
+    p.add_argument("--pp-microbatches", type=int, default=None, help="micro-batches per pipeline schedule (default 2)")
     p.add_argument(
         "--device-corpus", action="store_true", help="upload the corpus to the card once; crop and flip on the card"
     )
@@ -108,15 +117,6 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p
-
-
-def unported_flags(args: argparse.Namespace) -> list[str]:
-    """The flags in ``args`` that ask for a feature the port does not have."""
-    asked = {
-        "--pp > 1": (args.pp or 1) > 1,
-        "--pp-microbatches": args.pp_microbatches is not None,
-    }
-    return [flag for flag, on in asked.items() if on]
 
 
 def config_from_args(args: argparse.Namespace) -> mae_cfg.MAEConfig:
@@ -154,6 +154,10 @@ def config_from_args(args: argparse.Namespace) -> mae_cfg.MAEConfig:
         dmc.dataset_cfg.n_time_frames = args.num_frames
     if args.mask_ratio is not None:
         config.model.mask_ratio = args.mask_ratio
+    if args.pp:
+        config.model.pipeline_stages = args.pp
+    if args.pp_microbatches:
+        config.model.pipeline_microbatches = args.pp_microbatches
     # --auto-resume needs a run name (-> checkpoint directory) that is stable
     # across invocations of the same command line.
     t.run_name = (
@@ -208,16 +212,15 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from s2tpu_torch.train.mae_trainer import MAETrainer
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refused = unported_flags(args)
-    if refused:
-        parser.error(f"not ported to s2tpu_torch yet: {', '.join(refused)}")
+    args = build_parser().parse_args(argv)
     device = resolve_device(args.device)  # before any data work: no card, no run
     n = multihost.num_ranks(args.num_devices, device)
+    if (args.pp or 1) > 1 and n % args.pp:
+        raise SystemExit(f"--pp {args.pp} needs --num-devices N divisible by {args.pp} (N ranks, one process "
+                         f"each), and {n} rank(s) were asked for")
     if n > 1 and not dist.is_initialized() and not multihost.under_launcher():
         return multihost.spawn_ranks(main, argv, n, device)
-    mesh = multihost.data_axis_mesh(n, device)
+    mesh = multihost.data_axis_mesh(n, device, model_parallel=args.pp or 1)
     rank0 = multihost.process_index() == 0
     config = config_from_args(args)
     multihost.share_run_name(config.train, n)

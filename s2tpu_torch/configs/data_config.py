@@ -1,14 +1,15 @@
-"""Bands, segment geometry, the label-map registry and the on-disk layout.
+"""AOIs, bands, segment geometry, acquisition gates, the label-map registry and the on-disk layout.
 
-The port's copy of the parts of ``s2tpu/configs/data_config.py`` that
-serving reads: the band sets, the segment size, the label maps and the file
-contract (``sentinel/<segment>_<timeidx>.tif`` and
-``label/<type>/<segment>.tif``). AOI boxes, acquisition gates and
-evalscripts wait for the acquisition CLIs.
+The port's copy of ``s2tpu/configs/data_config.py``: the AOI bounding
+boxes, the band sets, the time interval, the segment geometry, the quality
+gates, the label maps, the file contract
+(``sentinel/<segment>_<timeidx>.tif`` and ``label/<type>/<segment>.tif``)
+and the SentinelHub evalscripts the acquisition CLIs send.
 """
 
 from __future__ import annotations
 
+import json
 import typing
 from dataclasses import dataclass
 from pathlib import Path
@@ -16,9 +17,30 @@ from pathlib import Path
 from s2tpu_torch.configs import cnes_labels, osm_labels
 from s2tpu_torch.configs.paths import DATA_DIR
 
-# The AOI names of the JAX package's ``AOIs`` (their boxes serve acquisition,
-# which is not ported); the training CLI takes one of them.
-AOI_NAMES: tuple[str, ...] = ("vie", "test", "at", "small", "fr", "fr-lyon", "fr-test")
+
+class BBox(typing.NamedTuple):
+    """Geographic bounding box in WGS84 degrees."""
+
+    north: float
+    south: float
+    east: float
+    west: float
+
+    def __str__(self) -> str:
+        return f"(N: {self.north}, S: {self.south}, E: {self.east}, W: {self.west})"
+
+
+AOIs: dict[str, BBox] = {
+    "vie": BBox(north=48.341646, south=47.739323, east=16.567383, west=15.117188),
+    "test": BBox(north=48.980217, south=46.845164, east=17.116699, west=13.930664),
+    "at": BBox(north=49.009121, south=46.439861, east=17.523438, west=9.008164),
+    "small": BBox(north=48.286391, south=48.195845, east=16.463699, west=16.311951),
+    # CNES AOIs must stay inside France (no sea) so raster value 0 is unambiguous.
+    "fr": BBox(north=49.2834, south=43.4828, east=5.9551, west=-0.9523),
+    "fr-lyon": BBox(north=45.897655, south=45.477466, east=5.284424, west=4.508514),
+    "fr-test": BBox(north=49.549043, south=49.381467, east=0.155069, west=-0.203631),
+}
+AOI_NAMES: tuple[str, ...] = tuple(AOIs)  # what the CLIs take
 
 BANDS: list[str] = ["B02", "B03", "B04", "B8A", "B11", "B12"]  # 10/20 m bands used by Prithvi-HLS
 # Every Sentinel-2 L2A surface-reflectance band (L2A has no B10 — cirrus is
@@ -62,7 +84,14 @@ class BandsMixin:
         return len(self.bands)
 
 
+EPSG_WGS84: int = 4326
+TIME_INTERVAL: tuple[str, str] = ("2020-01-01", "2021-01-01")
 SEGMENT_SIZE: tuple[int, int] = (512, 512)  # pixels per segment side
+SEGMENT_LENGTH_KM: float = 5.12  # 512 px * 10 m
+MAX_CLOUD_COVER: float = 0.05
+MAX_UNLABELED: float = 0.05  # label-quality gate: max fraction of unlabeled pixels
+ZERO_FRAME_THRESHOLD: float = 0.5  # drop a composite frame if > this fraction is 0
+CNES_BYOC_COLLECTION_ID: str = "9baa2732-6010-49e2-a75f-7b6f6930d4ad"
 
 
 LabelClass = osm_labels.OsmClass | cnes_labels.CnesClass
@@ -141,3 +170,33 @@ class DataDirs:
     @property
     def label_files(self) -> dict[int, Path]:
         return {int(p.stem): p for p in sorted(self.label.glob("*.tif"), key=lambda p: int(p.stem))}
+
+
+def sentinel2_evalscript(bands: list[str] | None = None) -> str:
+    """SentinelHub v3 evalscript: raw DN INT16 for the configured bands."""
+    bands = bands if bands is not None else BANDS
+    sample_expr = ", ".join(f"sample.{b}" for b in bands)
+    return f"""//VERSION=3
+function setup() {{
+    return {{
+        input: [{{ bands: {json.dumps(bands)}, units: "DN" }}],
+        output: {{ bands: {len(bands)}, sampleType: "INT16" }}
+    }};
+}}
+function evaluatePixel(sample) {{
+    return [{sample_expr}];
+}}
+"""
+
+
+CNES_LABEL_EVALSCRIPT: str = """//VERSION=3
+function setup() {
+    return {
+        input: [{"bands": ["OCS", "OCS_Confidence", "OCS_Validity"], "units": "DN"}],
+        output: {bands: 3, sampleType: "UINT8"}
+    };
+}
+function evaluatePixel(sample) {
+    return [sample.OCS, sample.OCS_Confidence, sample.OCS_Validity];
+}
+"""

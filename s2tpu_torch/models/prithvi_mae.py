@@ -81,6 +81,7 @@ from s2tpu_torch.ops.flash_attention import (
     fused_attention_qkv,
 )
 from s2tpu_torch.parallel.mesh import MODEL_AXIS, SINGLE, ModelAxis
+from s2tpu_torch.parallel.pipeline import Pipeline, check_pipeline, pipelined_block_apply, pipelined_stacks
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 
 LECUN_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to (-2, 2)
@@ -562,7 +563,10 @@ class PrithviMAE(nn.Module):
     ``forward_encoder`` touches in flax); its state dict is the published
     layout's encoder keys. ``remat`` (off; the trainers set it from
     ``train.remat``) checkpoints each ViT block of a train-mode forward that
-    records gradients.
+    records gradients. With a ``pipeline`` (``parallel.pipeline``: the
+    mesh's model axis and the micro-batch count) the encoder's blocks, and
+    the decoder's where the stages divide their depth, run as GPipe stages,
+    this rank its own; refused beside ``tp_axis`` or ``cp_axis``.
     """
 
     POS_KEYS = ("pos_embed", "decoder_pos_embed")
@@ -575,6 +579,7 @@ class PrithviMAE(nn.Module):
         generator: torch.Generator | None = None,
         tp_group=None,
         decoder: bool = True,
+        pipeline: Pipeline | None = None,
     ) -> None:
         super().__init__()
         cfg = self.config = config
@@ -591,6 +596,10 @@ class PrithviMAE(nn.Module):
             if axis not in (None, MODEL_AXIS):
                 # The model's group must hold the same rows: the ranks of another axis hold other rows.
                 raise ValueError(f"{name}={axis!r}: heads and tokens are split over the mesh's {MODEL_AXIS!r} axis only")
+        if pipeline is not None:
+            check_pipeline(cfg, pipeline)
+        # GPipe over the model axis (parallel/pipeline.py): None runs every block on this rank.
+        self.pipeline = pipeline
         # Context parallelism: the tokens' split between the blocks (None: every token on this rank).
         self.context = None
         if cfg.cp_axis is not None and tp_group is not None and dist.get_world_size(tp_group) > 1:
@@ -687,11 +696,15 @@ class PrithviMAE(nn.Module):
         return self.decoder_post(x)
 
     def _run_blocks(self, blocks: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
-        """The blocks on (B, L, D) tokens. Under context parallelism this
+        """The blocks on (B, L, D) tokens. With a pipeline this rank runs its
+        stage's blocks of a pipelined stack (:func:`pipelined_block_apply`;
+        every rank gets the stack's output). Under context parallelism this
         rank runs them on its share of the padded tokens, gathered whole
         after the last block (every rank's consumers of the whole are the
         same, so the backward keeps this rank's share)."""
         remat = self.remat and self.training and torch.is_grad_enabled()
+        if any(blocks is stack for stack in pipelined_stacks(self)):
+            return pipelined_block_apply(blocks, x, self.pipeline, remat)
         axis, length = self.context, x.shape[1]
         if axis is not None:
             x = axis.split(_pad_tokens(x, axis.size), 1)

@@ -72,12 +72,13 @@ def make_mesh(num_devices: int = -1, model_parallel: int = 1, device_type: str =
     return init_device_mesh(device_type, (n // model_parallel, model_parallel), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
-def mesh_for_num_devices(num_devices: int, device_type: str, cli: str) -> DeviceMesh | None:
+def mesh_for_num_devices(num_devices: int, device_type: str, cli: str, model_parallel: int = 1) -> DeviceMesh | None:
     """The mesh of a trainer's ``train.num_devices`` without one given (the
-    JAX trainers build ``make_mesh(num_devices)``): None for one device (1,
-    or -1 outside a process group of several ranks); else a data axis over
+    JAX trainers build ``make_mesh(num_devices, model_parallel=...)``): None
+    for one device (1, or -1 outside a process group of several ranks); else
     the initialized process group, which must hold ``num_devices`` ranks
-    (``cli``, the module that starts them, is named in the error)."""
+    (``cli``, the module that starts them, is named in the error), as a data
+    axis x a model axis of ``model_parallel`` ranks."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if num_devices == 1 or (num_devices == -1 and world == 1):
         return None
@@ -88,7 +89,7 @@ def mesh_for_num_devices(num_devices: int, device_type: str, cli: str) -> Device
             f"starts them, or launch the ranks with `torchrun --nproc-per-node {num_devices} -m {cli} ... "
             f"--num-devices {num_devices}`, or pass mesh= from parallel.mesh.make_mesh after init_process_group"
         )
-    return make_mesh(world, 1, device_type)
+    return make_mesh(world, model_parallel, device_type)
 
 
 def axis_size(mesh, name: str) -> int:

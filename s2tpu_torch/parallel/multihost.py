@@ -158,12 +158,12 @@ def _rank_main(rank: int, main: typing.Callable[[list[str]], typing.Any], argv: 
         dist.destroy_process_group()
 
 
-def data_axis_mesh(n: int, device: torch.device):
-    """A training CLI's data axis of ``n`` ranks, in a process that is one
-    of them: brings up a launcher's process group (torchrun) when none is
-    up, checks that the group holds ``n`` ranks and returns its data mesh
-    (None for one rank). Only rank 0 logs INFO; the others' warnings still
-    show."""
+def data_axis_mesh(n: int, device: torch.device, model_parallel: int = 1):
+    """A CLI's mesh of ``n`` ranks, in a process that is one of them: brings
+    up a launcher's process group (torchrun) when none is up, checks that
+    the group holds ``n`` ranks and returns its mesh, a data axis x a model
+    axis of ``model_parallel`` ranks (the MAE CLI's pipeline stages; None
+    for one rank). Only rank 0 logs INFO; the others' warnings still show."""
     if n > 1 and not dist.is_initialized():
         initialize(backend="nccl" if device.type == "cuda" else "gloo")
     world = process_count()
@@ -171,7 +171,7 @@ def data_axis_mesh(n: int, device: torch.device):
         raise SystemExit(f"--num-devices {n} in a process group of {world} ranks: they must be equal")
     if process_index() != 0:
         logging.disable(logging.INFO)
-    return make_mesh(n, 1, device.type) if n > 1 else None
+    return make_mesh(n, model_parallel, device.type) if n > 1 else None
 
 
 def share_run_name(train_config, n: int) -> None:

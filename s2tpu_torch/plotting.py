@@ -2,16 +2,18 @@
 
 Percentile-stretched RGB from bands (B04, B03, B02), a ListedColormap from
 the label taxonomy's colors, side-by-side sentinel/mask(/prediction)
-figures with a class legend, and the confusion-matrix figure the trainer
-logs each epoch. matplotlib is imported inside the functions, on the Agg
+figures with a class legend, the confusion-matrix figure the trainer
+logs each epoch, and the interactive segment viewer of ``cli/plot.py``
+(n/b/<int>/q). matplotlib is imported inside the functions, on the Agg
 backend: the port imports without it, and where it is missing
-:func:`pyplot` returns None and the trainers skip their images. The
-interactive segment viewer (``cli/plot.py``) is not ported.
+:func:`pyplot` returns None and the trainers skip their images.
 """
 
 from __future__ import annotations
 
+import tempfile
 import typing
+from pathlib import Path
 
 import numpy as np
 
@@ -37,6 +39,14 @@ def stretch_rgb(sentinel_chw: np.ndarray, bands: tuple[int, int, int] = (2, 1, 0
     lo, hi = np.percentile(rgb, [2, 98])
     rgb = np.clip((rgb - lo) / max(hi - lo, 1e-9), 0, 1)
     return (rgb * 255).astype(np.uint8).transpose(1, 2, 0)
+
+
+def load_sentinel_for_plotting(path: str | Path) -> tuple[np.ndarray, typing.Any]:
+    """A sentinel GeoTIFF as its stretched (H, W, 3) RGB and its georeferencing."""
+    from s2tpu_torch.geo.tiff import read_geotiff
+
+    data, geo = read_geotiff(path)
+    return stretch_rgb(data), geo
 
 
 def label_colormap(label_map: LabelMap | str):
@@ -118,3 +128,31 @@ def reconstruction_figure(original_hwc: np.ndarray, reconstruction_hwc: np.ndarr
         ax.axis("off")
     fig.tight_layout()
     return fig
+
+
+def interactive_viewer(aoi: str, label_map: str, data_dir: str | None = None) -> None:
+    """Terminal viewer over segments: each segment's RGB and labels saved as
+    a PNG in the temporary directory, then n(ext) / b(ack) / <index> /
+    q(uit)."""
+    from s2tpu_torch.data.dataset import TiffSource
+    from s2tpu_torch.geo.tiff import read_geotiff
+
+    plt = pyplot()
+    src = TiffSource(aoi, label_map, data_dir=data_dir)
+    idx = 0
+    while True:
+        data, _ = read_geotiff(src.sentinel_files[idx])
+        sample = src[idx]
+        fig = plot_sentinel_and_mask(stretch_rgb(data), sample.y, src.label_map)
+        out = Path(tempfile.gettempdir()) / f"s2tpu_view_{idx}.png"
+        fig.savefig(out)
+        plt.close(fig)
+        cmd = input(f"[{idx}/{len(src) - 1}] saved {out} — n/b/<int>/q: ").strip()
+        if cmd == "q":
+            return
+        if cmd == "n":
+            idx = min(idx + 1, len(src) - 1)
+        elif cmd == "b":
+            idx = max(idx - 1, 0)
+        elif cmd.isdigit():
+            idx = min(int(cmd), len(src) - 1)

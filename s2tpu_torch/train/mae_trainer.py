@@ -63,8 +63,16 @@ rank draws the same per-block epoch orders and trains the rows its block
 owns, gathered by local ids with no collective. On one rank it is the plain
 corpus, as in the JAX trainer.
 
-Not ported, and refused where the config asks for it: pipeline stages
-(GPipe), ROADMAP item 16.
+Pipeline parallelism (``model.pipeline_stages`` S > 1, ``:214-238``): the
+mesh's model axis of S ranks holds the stages (``train.num_devices`` N
+builds ``make_mesh(N, model_parallel=S)``, as the JAX trainer does), and the
+model runs its encoder blocks, and its decoder blocks where S divides their
+depth, as a GPipe schedule of ``model.pipeline_microbatches`` micro-batches
+(``parallel.pipeline``); each accumulation micro-batch's rows must split
+into them. Each rank holds the gradients of its own stage's blocks only:
+after the last micro-batch's backward they are summed over the model group
+in one flat bucket, before the data axis's sum. Pipeline stages with
+``tp_axis`` or ``cp_axis`` are refused: all three use the 'model' axis.
 """
 
 from __future__ import annotations
@@ -86,22 +94,13 @@ from s2tpu_torch.data.device_corpus import DeviceCorpus
 from s2tpu_torch.data.pipeline import Datamodule, prefetch_to_device
 from s2tpu_torch.models.prithvi_mae import PrithviConfig, PrithviMAE, patchify, unpatchify
 from s2tpu_torch.parallel.mesh import data_axis, mesh_device, mesh_for_num_devices, model_axis, replicate_module
+from s2tpu_torch.parallel.pipeline import Pipeline, pipeline_parameters
 from s2tpu_torch.train.losses import mae_reconstruction_loss
 from s2tpu_torch.train.train_state import accumulate_grads, make_optimizer
 from s2tpu_torch.train.base import TrainerBase
 from s2tpu_torch.utils import get_logger, load_prithvi_mean_std, load_prithvi_model_args
 
 logger = get_logger(__name__)
-
-
-def _refuse_unported(config: MAEConfig) -> None:
-    m = config.model
-    unported = {
-        "pipeline_stages > 1 (GPipe, ROADMAP item 16)": m.pipeline_stages > 1,
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported to s2tpu_torch yet: {', '.join(asked)}")
 
 
 def default_model_config(config: MAEConfig) -> PrithviConfig:
@@ -135,19 +134,26 @@ class MAETrainer(TrainerBase):
         checkpoint_manager=None,
         device: torch.device | str | None = None,
     ) -> None:
-        _refuse_unported(config)
         t = config.train
+        stages = max(config.model.pipeline_stages, 1)
         self.mesh = mesh if mesh is not None else mesh_for_num_devices(
-            t.num_devices, resolve_device(device).type, "s2tpu_torch.cli.train_mae")
+            t.num_devices, resolve_device(device).type, "s2tpu_torch.cli.train_mae", model_parallel=stages)
         self.data_axis = data_axis(self.mesh)
         self.model_axis = model_axis(self.mesh)
         n_data = self.data_axis.size
-        if t.num_devices not in (-1, n_data):
-            raise ValueError(f"train.num_devices={t.num_devices}, but the mesh's data axis holds {n_data} ranks")
-        if config.datamodule.batch_size % (n_data * max(t.grad_accum_steps, 1)):
+        if stages > 1 and self.model_axis.size != stages:
+            raise ValueError(f"pipeline_stages={stages} needs a mesh whose model axis holds {stages} ranks, "
+                             f"and this one holds {self.model_axis.size}")
+        # the JAX trainer's make_mesh(num_devices, model_parallel=stages): the stages count in num_devices
+        if t.num_devices not in (-1, n_data * stages):
+            raise ValueError(f"train.num_devices={t.num_devices}, but the mesh's data axis holds {n_data} ranks"
+                             + (f" x {stages} pipeline stages" if stages > 1 else ""))
+        accum = max(t.grad_accum_steps, 1)
+        micro = config.model.pipeline_microbatches if stages > 1 else 1
+        if config.datamodule.batch_size % (n_data * accum * micro):
             raise ValueError(
                 f"batch_size {config.datamodule.batch_size} must split over the data axis's {n_data} ranks "
-                f"x {max(t.grad_accum_steps, 1)} micro-batches"
+                f"x {accum} micro-batches" + (f" x {micro} pipeline microbatches" if stages > 1 else "")
             )
         self.config = config
         self.dm = datamodule
@@ -165,8 +171,10 @@ class MAETrainer(TrainerBase):
         self.model = PrithviMAE(
             mc, dtype=self.compute_dtype, device=self.device, generator=torch.Generator().manual_seed(t.seed),
             tp_group=self.mesh.get_group(split) if self.mesh is not None and split is not None else None,
+            pipeline=Pipeline(self.model_axis, config.model.pipeline_microbatches) if stages > 1 else None,
         )
         self._token_shard = {id(p) for p in self.model.token_shard_parameters()}
+        self._stage_only = {id(p) for p in pipeline_parameters(self.model)}
         self.model.data_axis = self.data_axis
         if not t.from_scratch:
             self._load_pretrained()
@@ -262,6 +270,8 @@ class MAETrainer(TrainerBase):
             loss = loss + loss_i.detach()
         if self._token_shard:  # context parallelism: each rank's share of these gradients, summed
             self.model_axis.all_reduce_flat_([g for (_, p), g in zip(named, grads) if id(p) in self._token_shard])
+        if self._stage_only:  # pipeline: each stage's blocks' gradients (zero on the other stages), summed
+            self.model_axis.all_reduce_flat_([g for (_, p), g in zip(named, grads) if id(p) in self._stage_only])
         if axis.size > 1:
             # Each rank's loss is its share of the global loss: the sums over
             # the ranks are the global batch's gradient and loss.

@@ -226,10 +226,25 @@ def test_mae_trainer_steps_with_context_parallelism(world, runs):
 
 
 def test_pipeline_stages_stay_refused():
+    """Pipeline stages train since GPipe was ported
+    (tests/test_torch_pipeline_parallel.py). With context parallelism they
+    stay refused (both use the 'model' axis), and one process has no model
+    axis for the stages."""
     from s2tpu_torch.configs import mae as mae_cfg
+    from s2tpu_torch.parallel.pipeline import Pipeline
     from s2tpu_torch.train.mae_trainer import MAETrainer
 
     c = mae_cfg.base_config("small")
     c.model.pipeline_stages = 2
-    with pytest.raises(NotImplementedError, match="not ported.*pipeline_stages > 1 \\(GPipe"):
+    with pytest.raises(ValueError, match="pipeline_stages=2 needs a mesh whose model axis holds 2 ranks"):
         MAETrainer(c, datamodule=None, model_config=CP, device="cpu")
+    for config in (CP, tm.PrithviConfig(**MAE, **FORMS["cp"])):
+        with pytest.raises(ValueError, match="'model' axis"):
+            tm.PrithviMAE(config, pipeline=Pipeline(_two_rank_axis(), 2))
+
+
+def _two_rank_axis():
+    """A model axis of two ranks, as the refusals see it (no collective runs)."""
+    from s2tpu_torch.parallel.mesh import ModelAxis
+
+    return ModelAxis(None, 0, 2)

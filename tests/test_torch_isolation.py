@@ -92,6 +92,35 @@ def test_migration_and_embedding_modules_import_no_jax_and_no_s2tpu(module):
     assert proc.returncode == 0, proc.stderr
 
 
+OPTIONAL = ("cv2", "grain", "sentinelhub", "osmnx", "pandas")  # imported only where a feature needs them
+
+
+@pytest.mark.parametrize("module", [
+    "s2tpu_torch.configs.data_config", "s2tpu_torch.geo.grid", "s2tpu_torch.geo.rasterize", "s2tpu_torch.geo.resume",
+    "s2tpu_torch.geo.acquisition", "s2tpu_torch.geo.providers", "s2tpu_torch.cli.download_sentinel",
+    "s2tpu_torch.cli.download_labels", "s2tpu_torch.cli.eda", "s2tpu_torch.cli.plot", "s2tpu_torch.data.grain_pipeline",
+    "s2tpu_torch.parallel.pipeline",
+])
+def test_data_tooling_modules_import_without_their_optional_libraries(module):
+    """The acquisition, data-tooling and pipeline modules, each imported
+    alone in a fresh interpreter with cv2, grain, sentinelhub, osmnx and
+    pandas blocked besides JAX, the JAX package and matplotlib: each imports
+    its optional library only where a feature runs."""
+    head = _PROBE.split("import s2tpu_torch\n")[0]
+    forbidden = '"yaml", "matplotlib")'
+    assert forbidden in head
+    probe = head.replace(forbidden, '"yaml", "matplotlib", ' + ", ".join(map(repr, OPTIONAL)) + ")") + (
+        f"importlib.import_module({module!r})\n"
+        "leaked = sorted(m for m in sys.modules if forbidden(m))\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_resolve_device_defaults_to_cuda(monkeypatch):
     from s2tpu_torch import resolve_device
 

@@ -217,16 +217,33 @@ def test_cli_without_cuda_raises_unless_cpu_is_asked(monkeypatch, fixture_dir):
     "flags", [["--pp", "2"], ["--pp-microbatches", "2"], ["--pp", "2", "--device-corpus-sharded"],
               ["--num-devices", "4", "--pp", "2"]]
 )
-def test_cli_refuses_unported_flags(flags, capsys):
-    """The flags of features the port lacks (pipeline stages, also beside
-    the sharded corpus and on a data axis of several ranks) are refused with
-    a message before any rank starts; the sharded corpus, refused until it
-    was ported, trains (``PORTED_FLAGS``)."""
-    from s2tpu_torch.cli.train_mae import main
+def test_cli_refuses_unported_flags(flags, monkeypatch):
+    """The pipeline flags, refused here until GPipe was ported, reach the
+    run: ``--pp S`` needs ``--num-devices`` ranks that S divides, so one
+    process refuses it before any data work (also beside the sharded
+    corpus); ``--pp-microbatches`` sets the config's micro-batches; ``--pp 2
+    --num-devices 4`` starts four ranks, each of which builds a 2 x 2 mesh
+    (tests/test_torch_pipeline_parallel.py trains ``--pp 2 --num-devices 2``
+    on two)."""
+    from s2tpu_torch.cli import train_mae
+    from s2tpu_torch.parallel import multihost
 
-    with pytest.raises(SystemExit):
-        main(["small", *flags, "--device", "cpu"])
-    assert "not ported" in capsys.readouterr().err
+    args = train_mae.build_parser().parse_args(["small", *flags])
+    config = train_mae.config_from_args(args)
+    assert (config.model.pipeline_stages, config.model.pipeline_microbatches) == (
+        int(flags[flags.index("--pp") + 1]) if "--pp" in flags else 1, 2)
+    spawned = []
+    monkeypatch.setattr(multihost, "spawn_ranks", lambda main, argv, n, device: spawned.append((n, argv)))
+    monkeypatch.setattr(train_mae, "build_datamodule", lambda config: pytest.fail("a one-process run went on"))
+    if "--num-devices" in flags:
+        train_mae.main(["small", *flags, "--device", "cpu"])
+        assert spawned == [(4, ["small", *flags, "--device", "cpu"])]
+    elif "--pp" in flags:
+        with pytest.raises(SystemExit, match="--pp 2 needs --num-devices N divisible by 2"):
+            train_mae.main(["small", *flags, "--device", "cpu"])
+    else:
+        with pytest.raises(pytest.fail.Exception, match="a one-process run went on"):
+            train_mae.main(["small", *flags, "--device", "cpu"])
 
 
 # The flags refused until their features were ported now train: each case
@@ -258,11 +275,13 @@ def test_cli_trains_ported_flags(flags, fields, fixture_dir, tmp_path, monkeypat
     assert {k: getattr(t, k) for k in fields} == fields
 
 
-# What the trainer still refuses: pipeline stages and, outside a process
-# group of as many ranks, num_devices other than 1 and -1 (a data axis: the
-# error names the launch that starts the ranks). The sharded corpus, refused
-# until it was ported, is on one process the plain corpus, as in the JAX
-# trainer (tests/test_torch_sharded_corpus.py holds it on a data axis).
+# What the trainer refuses: pipeline stages without a model axis of as many
+# ranks (tests/test_torch_pipeline_parallel.py trains them on one) and,
+# outside a process group of as many ranks, num_devices other than 1 and -1
+# (a data axis: the error names the launch that starts the ranks). The
+# sharded corpus, refused until it was ported, is on one process the plain
+# corpus, as in the JAX trainer (tests/test_torch_sharded_corpus.py holds it
+# on a data axis).
 @pytest.mark.parametrize(
     "section,field,value",
     [("model", "pipeline_stages", 2), ("train", "device_corpus_sharded", True), ("train", "num_devices", 4)],
@@ -281,7 +300,7 @@ def test_trainer_refuses_unported_config_fields(section, field, value, fixture_d
         with pytest.raises(RuntimeError, match="num_devices=4 needs a process group of 4 ranks.*torchrun"):
             MAETrainer(c, datamodule=None, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="pipeline_stages=2 needs a mesh whose model axis holds 2 ranks"):
         MAETrainer(c, datamodule=None, device="cpu")
 
 

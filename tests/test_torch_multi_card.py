@@ -24,6 +24,7 @@ machine with cards and without JAX the card tests run alone:
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import multiprocessing.connection as mp_connection
 import os
@@ -612,8 +613,9 @@ DENSE = tm.PrithviConfig(**GEOMETRY)
 MAE_DP_BATCH = 6
 
 
-def mae_dp_config(data_dir, batch: int = MAE_DP_BATCH, **train):
+def mae_dp_config(data_dir, batch: int = MAE_DP_BATCH, stages: int = 1, **train):
     config = mae_cfg.base_config("small")
+    config.model.pipeline_stages = stages
     config.datamodule.dataset_cfg.data_dir = str(data_dir)
     config.datamodule.batch_size = batch
     config.datamodule.random_crop_size = 64
@@ -629,12 +631,14 @@ def mae_dp_config(data_dir, batch: int = MAE_DP_BATCH, **train):
     return config
 
 
-def mae_dp_trainer(data_dir, mesh=None, model_config=DENSE, device=None, batch: int = MAE_DP_BATCH, **train):
+def mae_dp_trainer(data_dir, mesh=None, model_config=DENSE, device=None, batch: int = MAE_DP_BATCH, stages: int = 1,
+                   **train):
     """An MAETrainer on ``data_dir``'s images: one rank of ``mesh``, or one
-    process on ``device``."""
+    process on ``device``; ``stages`` pipeline stages over the mesh's model
+    axis."""
     from s2tpu_torch.cli.train_mae import build_datamodule
 
-    config = mae_dp_config(data_dir, batch, **train)
+    config = mae_dp_config(data_dir, batch, stages, **train)
     return MAETrainer(config, build_datamodule(config), mesh=mesh, model_config=model_config, device=device)
 
 
@@ -800,8 +804,10 @@ def _graph_worker(rank: int, tmp: str, data_dir: str, world: int, model: str) ->
 
 
 def _graph_epochs(rank: int, tmp: str, data_dir: str, world: int, model: str) -> None:
-    base, _, form = model.partition("_")  # form: "" (a data axis), "fsdp" or "cp" (a model axis of 2)
-    mesh = mesh_lib.make_mesh(world, 2 if form else 1, device_type="cuda")
+    # form: "" (a data axis), "fsdp" or "cp" (a model axis of 2), "pp<S>" (S pipeline stages on the model axis)
+    base, _, form = model.partition("_")
+    stages = int(form[2:]) if form.startswith("pp") else 1
+    mesh = mesh_lib.make_mesh(world, stages if stages > 1 else 2 if form else 1, device_type="cuda")
     out = {}
     for mode, k in (("graphed", 2), ("eager", 1)):
         if base == "b0":
@@ -810,8 +816,9 @@ def _graph_epochs(rank: int, tmp: str, data_dir: str, world: int, model: str) ->
             train = trainer.run_train_epoch(0)
             sums = {"loss": train["loss"], "cm": trainer._sums["cm"].cpu()}
         else:
-            trainer = mae_dp_trainer(data_dir, mesh, CP if form == "cp" else DENSE, batch=GRAPH_BATCH,
-                                     device_corpus=True, steps_per_dispatch=k)
+            config = PP if stages > 1 else CP if form == "cp" else DENSE
+            trainer = mae_dp_trainer(data_dir, mesh, config, batch=GRAPH_BATCH, stages=stages, device_corpus=True,
+                                     steps_per_dispatch=k)
             trainer.config.datamodule.augment = True  # the device flips
             sums = {"loss": trainer.run_train_epoch(0)["loss"]}
         out[mode] = {"digest": state_digest(trainer), "whole": whole_state_digest(trainer), "sums": sums,
@@ -847,6 +854,19 @@ def test_graphed_corpus_windows_over_nccl_equal_eager_steps_on_each_rank(world, 
         assert graphed["digest"] == eager["digest"]
         assert all(torch.equal(torch.as_tensor(graphed["sums"][k]), torch.as_tensor(v)) for k, v in eager["sums"].items())
     assert len({r["graphed"]["whole"] for r in ranks}) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,stages", [(2, 2), (4, 2), (4, 4)])
+def test_graphed_pipeline_windows_over_nccl_equal_eager_steps_on_each_rank(world, stages, tmp_path, graph_data_dir):
+    """The tiny MAE with ``stages`` GPipe stages (PP: the encoder's 4 blocks
+    one or two a stage, the decoder's 2 pipelined at 2 stages and whole at
+    4) on a (world / stages) x stages NCCL mesh: the graph holds the
+    rotation's and the copies' all-gathers and the stage-gradient bucket;
+    an epoch of graphed windows trains each rank's eager state bit for bit,
+    Adam's included, and every rank's state is the same."""
+    test_graphed_corpus_windows_over_nccl_equal_eager_steps_on_each_rank(world, f"mae_pp{stages}", tmp_path,
+                                                                           graph_data_dir)
 
 
 # ---------------------------------------------------------------------------
@@ -1349,6 +1369,144 @@ def _cp_worker(rank: int, tmp: str, data_dir: str, world: int, scenarios: tuple[
                     trainer = mae_dp_trainer(data_dir, mesh, CP)
                     trainer.model.load_state_dict(given["trainer_state"], strict=True)
                     out[name] = cp_trainer_steps(trainer, given["trainer_images"], given["trainer_noise"])
+            torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+# GPipe over the model axis (PP: 4 encoder and 2 decoder blocks of the tiny
+# ViT, so that 2 stages pipeline both stacks and 4 stages the encoder alone):
+# the reference's tiny MAE (tests/test_pipeline_parallel.py's BASE) forward
+# and backward on 1 x 2 and 1 x 4 meshes whose ranks hold every row, the
+# MAETrainer on a 2 x 2 mesh, and the MAE CLI with --pp 2 on two ranks.
+PP = tm.PrithviConfig(**dict(GEOMETRY, depth=4, decoder_depth=2))
+PP_BATCH, PP_STEPS = 8, 2  # a global batch of 8: 4 rows a data rank of the 2 x 2 mesh, 2 a micro-batch
+# the trainer extras beside the stages: each accumulation micro-batch's 2 rows a rank in 2 pipeline micro-batches
+PP_EXTRAS = dict(remat=True, grad_accum_steps=2, ema_decay=0.9)
+PP_BASE = dict(img_size=32, patch_size=8, num_frames=1, in_chans=6, embed_dim=64, depth=4, num_heads=4,
+               decoder_embed_dim=48, decoder_depth=2, decoder_num_heads=4)
+
+
+def pp_model(axis, microbatches: int, state: dict) -> tm.PrithviMAE:
+    """The reference's tiny MAE in f32 with ``state``'s weights, its blocks
+    pipelined over ``axis`` in ``microbatches`` micro-batches."""
+    from s2tpu_torch.parallel.pipeline import Pipeline
+
+    model = tm.PrithviMAE(tm.PrithviConfig(**PP_BASE), pipeline=Pipeline(axis, microbatches))
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def pp_grads(model) -> dict[str, torch.Tensor]:
+    """Every parameter's gradient after a backward of ``model`` (zeros where
+    none reached it), the stages' block gradients summed over the model
+    axis as the trainer sums them."""
+    from s2tpu_torch.parallel.pipeline import pipeline_parameters
+
+    grads = {n: p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters()}
+    stage_only = {id(p) for p in pipeline_parameters(model)}
+    model.pipeline.axis.all_reduce_flat_([grads[n] for n, p in model.named_parameters() if id(p) in stage_only])
+    return grads
+
+
+def pp_scenario(name: str, m: int, axis, given: dict) -> dict:
+    """One forward (and backward) of the tiny pipelined MAE on every row:
+    ``encode`` (mask ratio 0), ``grads`` (the encoder against a cotangent),
+    ``masked`` (the encoder at mask 0.5), ``decode`` (the reference's latent
+    and ids), ``mae`` (the full forward, loss, gradients) and ``fallback``
+    (the full forward where the stages do not divide the decoder)."""
+    from s2tpu_torch.parallel import pipeline as pp
+
+    model = pp_model(axis, m, given["state"])
+    pipe, imgs = model.pipeline, given["imgs"]
+    if name in ("encode", "grads", "masked"):
+        ratio, noise = (0.5, given["noise"]["masked"]) if name == "masked" else (0.0, None)
+        out, mask, ids = pp.prithvi_pipelined_encode(model, imgs, pipe, ratio, noise)
+        if name != "grads":
+            return {"out": out.detach(), "mask": mask, "ids": ids}
+        (out * given["cot"]).sum().backward()
+        return {"grads": pp_grads(model)}
+    if name == "decode":
+        with torch.no_grad():
+            return {"pred": pp.prithvi_pipelined_decode(model, given["latent"], given["ids"], pipe)}
+    loss, pred, mask = pp.prithvi_pipelined_mae_forward(model, imgs, pipe, 0.75, given["noise"][name])
+    loss.backward()
+    return {"loss": loss.detach(), "pred": pred.detach(), "mask": mask, "grads": pp_grads(model)}
+
+
+def pp_trainer_steps(trainer, images: np.ndarray, noises: list[torch.Tensor]) -> dict:
+    """:func:`cp_trainer_steps` with the parameters after the first step
+    and a digest of the whole training state, Adam's included."""
+    rows, losses, grads, first = batch_rows(trainer), [], None, None
+    for noise in noises:
+        m = trainer.train_step(put_batch(images, trainer.device, rows), noise=noise.to(trainer.device))
+        losses.append(float(m["loss"]))
+        if first is None:
+            grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+            first = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+    return {"losses": losses, "grads": grads, "first": first, "digest": state_digest(trainer),
+            "axes": (trainer.data_axis.size, trainer.model_axis.size)}
+
+
+def pp_cli_run(data_dir, tmp: str, argv: list[str]) -> dict:
+    """The MAE CLI's ``main(argv)`` with PP's widths at the run's crop, its
+    run under ``tmp``: the history and the checkpoint's config."""
+    from pathlib import Path
+
+    from s2tpu_torch.checkpoint import io
+    from s2tpu_torch.cli.train_mae import main
+    from s2tpu_torch.configs import paths
+    from s2tpu_torch.train import mae_trainer
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(mae_trainer, "default_model_config",
+                      lambda config: dataclasses.replace(PP, img_size=config.datamodule.random_crop_size))
+        patch.setattr(paths, "CKPT_DIR", Path(tmp) / "ckpts")
+        patch.setattr(paths, "LOG_DIR", Path(tmp) / "logs")
+        history = main(["small", "--type", "pretrain", "--from-scratch", "--bs", "4", "--crop", "64", "--epochs",
+                        "1", "--compute-dtype", "float32", "--data-dir", str(data_dir), "--device", "cpu", "--wandb",
+                        "--watch-interval", "0", "--seed", "3", *argv])
+        (run,) = (paths.CKPT_DIR / "prithvi-mae-finetune").glob("*")
+        return {"history": history, "model": dataclasses.asdict(io.load_mae_checkpoint(run)[0].model)}
+
+
+def _pp_worker(rank: int, tmp: str, data_dir: str, world: int, scenarios: tuple) -> None:
+    """One gloo rank: each scenario (name, micro-batches, stages) of
+    :func:`pp_scenario` on a (world / stages) x stages mesh, ``("trainer",
+    m, s)`` (MAETrainer steps), ``("extras", m, s)`` (with remat, gradient
+    accumulation and the EMA), ``("corpus", m, s)`` (a sharded-corpus epoch
+    with and without the stages) or ``("cli", m, s)``; the records in
+    ``tmp/rank<rank>.pt``, the inputs from ``tmp/pp_inputs.pt``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", world_size=world, rank=rank)
+    try:
+        with traceback_file(tmp, rank):
+            given = torch.load(f"{tmp}/pp_inputs.pt", weights_only=False)
+            meshes, out = {}, {}
+            for name, m, stages in scenarios:
+                if name == "cli":
+                    out[name] = pp_cli_run(data_dir, tmp, ["--pp", str(stages), "--pp-microbatches", str(m),
+                                                           "--num-devices", str(world)])
+                    continue
+                if stages not in meshes:
+                    meshes[stages] = mesh_lib.make_mesh(world, stages, device_type="cpu")
+                mesh = meshes[stages]
+                if name in ("trainer", "extras"):
+                    extras = PP_EXTRAS if name == "extras" else {}
+                    trainer = mae_dp_trainer(data_dir, mesh, PP, batch=PP_BATCH, stages=stages, **extras)
+                    trainer.model.load_state_dict(given["trainer_state"], strict=True)
+                    out[name] = pp_trainer_steps(trainer, given["trainer_images"], given["trainer_noise"])
+                elif name == "corpus":  # the sharded corpus in windows of DP_WINDOW steps, with flips
+                    out[name] = {}
+                    for form, s in (("pipeline", stages), ("dense", 1)):
+                        trainer = mae_dp_trainer(data_dir, mesh, PP, batch=PP_BATCH, stages=s, device_corpus=True,
+                                                 device_corpus_sharded=True, steps_per_dispatch=DP_WINDOW)
+                        trainer.model.load_state_dict(given["trainer_state"], strict=True)
+                        trainer.config.datamodule.augment = True
+                        out[name][form] = mae_dp_epoch(trainer)
+                else:
+                    out[(name, m, stages)] = pp_scenario(name, m, mesh_lib.model_axis(mesh), given)
             torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()

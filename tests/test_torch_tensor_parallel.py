@@ -39,12 +39,12 @@ from s2tpu.models import prithvi_mae as jm
 from s2tpu.parallel import mesh as jax_mesh
 from s2tpu_torch.checkpoint.convert import prithvi_state_dict_from_jax
 from s2tpu_torch.checkpoint.io import CheckpointManager, epochs_in
-from s2tpu_torch.configs import mae as mae_cfg
 from s2tpu_torch.models import prithvi_mae as tm
 from s2tpu_torch.ops import flash_attention as tfa
 from s2tpu_torch.parallel import mesh as mesh_lib
 from s2tpu_torch.train.logging_utils import RunLogger
-from s2tpu_torch.train.mae_trainer import MAETrainer, _refuse_unported
+from s2tpu_torch.parallel.pipeline import Pipeline
+from s2tpu_torch.train.mae_trainer import MAETrainer
 from tests.test_torch_multi_card import (
     GEOMETRY, GRAD_RTOL, SPAWN_TIMEOUT_S, TP, _inputs, _rel_l2, _single_step, _spawn, _step_record, _trainer_parts,
 )
@@ -143,22 +143,22 @@ def test_context_parallelism_and_a_data_axis_are_refused():
     (the same parameters from one seed, the same loss and gradients), the
     MAE trainer takes ``cp_axis`` (tests/test_torch_context_parallel.py
     trains it on 1 x 2 and 2 x 2 meshes) and the sharded corpus
-    (tests/test_torch_sharded_corpus.py). What stays refused: pipeline
-    stages, a group for a model without a model axis, two model axes, and
-    heads or tokens split over an axis other than 'model' (whose ranks
-    would hold other rows)."""
+    (tests/test_torch_sharded_corpus.py), and pipeline stages train
+    (tests/test_torch_pipeline_parallel.py). What stays refused: pipeline
+    stages beside the tensor-parallel heads (both on the 'model' axis), a
+    group for a model without a model axis, two model axes, and heads or
+    tokens split over an axis other than 'model' (whose ranks would hold
+    other rows)."""
     cp = dataclasses.replace(TP, cp_axis="model")
     imgs, noise = _inputs(5)
     ours = tm.PrithviMAE(cp, generator=torch.Generator().manual_seed(3))
     ref = tm.PrithviMAE(DENSE, generator=torch.Generator().manual_seed(3))
     assert ours.context is None and ours.token_shard_parameters() == []
     _assert_close_run(_run(ours, imgs, noise, 0.5), _run(ref, imgs, noise, 0.5))
-    c = mae_cfg.base_config("small")
-    c.train.device_corpus_sharded = True
-    _refuse_unported(c)
-    c.model.pipeline_stages = 2
-    with pytest.raises(NotImplementedError, match="not ported.*pipeline_stages > 1.*ROADMAP item 16"):
-        _refuse_unported(c)
+    for config in (TP, cp):
+        with pytest.raises(ValueError, match="pipeline parallelism and tensor/context parallelism both use the "
+                                             "'model' axis"):
+            tm.PrithviMAE(config, pipeline=Pipeline(mesh_lib.ModelAxis(None, 0, 2), 2))
     with pytest.raises(ValueError, match="tp_axis"):
         tm.PrithviMAE(DENSE, tp_group=object())
     with pytest.raises(ValueError, match="one model axis"):
