@@ -222,9 +222,9 @@ any failure raises and the script exits non-zero without printing a result:
    (the kernel nodes of the loaded program's graph), the
    CLI's wall time to the class maps of each, and a changed overlap
    rebuilt. (d) ``cli.export_embeddings --int8`` at crop 224 (#8) and
-   ``--crop 0`` (#5), exact launches. (e) ``train.profiling``: the
-   ``StepTimer`` time, ``FlopCounterMode`` count and MFU of B5's graphed
-   training step.
+   ``--crop 0`` (#5), exact launches. (e) ``profiling.trace`` over B5's
+   graphed training windows: the recorder's window, capture and replay
+   spans and its graph counters, and the graphed step's time.
 23. Packed sources and tune (phase D, run right after phase 6, on its
    data; its packs are removed at its end, so later phases read the
    GeoTIFF tree): (a) ``cli.pack`` of phase 6's fixture as a memmap and as
@@ -595,7 +595,7 @@ TUNE_TRIALS, TUNE_EPOCHS, TUNE_ETA = 3, 2, 2
 # beside tests/test_quantize.py's bound for the model family (UNet 0.15,
 # :69; fc-prithvi 0.1, :134).
 SERVE_SEGMENTS = 8
-PROFILE_SEGMENTS = 700  # (e): 560 train segments, the 17 batches of 32 that one eager step and 4 windows take
+PROFILE_SEGMENTS = 700  # (e): 560 train segments, 17 batches of 32, of which 4 windows of 4 take 16
 INT8_REL_ERR_BOUND = {"efficientnet-unet-b5": 0.15, "fc-prithvi-backbone": 0.1}
 # Kernel names in a profiler trace, by kernel number (#9's bf16 backward is
 # two launches a call: dq, then dk/dv).
@@ -4705,34 +4705,41 @@ def check_embeddings_int8(work: Path) -> dict:
 
 
 def check_profiling(work: Path) -> dict:
-    """(e) ``train.profiling`` on B5's graphed training step (config #2, bf16,
+    """(e) ``profiling.trace`` over B5's graphed training (config #2, bf16,
     batch 32, 224^2, from a corpus of PROFILE_SEGMENTS pooled segments of
-    256^2, K = 4): one eager
-    step's operations by ``FlopCounterMode``, then ``StepTimer`` over
-    windows of four graphed steps, and the MFU against the card's peak."""
+    256^2, K = 4): two windows traced, the first capturing the step graph;
+    its ``spans.json`` must hold two window spans, eight steps' ``begin_step``
+    spans, one capture and seven replays, and count one capture and seven
+    replays. Then the graphed step's time by the host clock over two more
+    windows, with the recorder off."""
+    from s2tpu_torch import profiling
     from s2tpu_torch.data.device_corpus import DeviceCorpus
-    from s2tpu_torch.train import profiling
 
     source, mean_std, counts = pool_source(PROFILE_SEGMENTS)
     corpus = DeviceCorpus(source, torch.device("cuda"))
     with shared_corpus(corpus):
-        trainer = corpus_seg_trainer(work, source, mean_std, counts, device_corpus=True, steps_per_dispatch=1,
+        trainer = corpus_seg_trainer(work, source, mean_std, counts, device_corpus=True, steps_per_dispatch=4,
                                      watch_interval=0)
-        draws = corpus_draws(trainer, 1 + 4 * 4)
-        flops = profiling.count_flops(lambda: trainer.train_window(draws[:1]))
-        trainer.config.train.steps_per_dispatch = 4
-        timer = profiling.StepTimer(warmup=1)
-        for i in range(4):
-            with timer.step():
-                trainer.train_window(draws[1 + 4 * i : 5 + 4 * i])
-    summary = timer.summary()
-    step_s = summary["mean_s"] / 4
-    mfu = profiling.mfu(flops, 1, step_s)
-    log(f"serving extras (e) profiling ({CARD}; torch.cuda.get_device_name: {torch.cuda.get_device_name(0)}): B5 "
-        f"graphed step (K=4) {step_s * 1e3:.3f} ms by StepTimer ({summary}); FlopCounterMode {flops / 1e12:.4f} TFLOP a "
-        f"step; MFU {'not in the peak table' if mfu is None else round(mfu, 4)} of "
-        f"{profiling.peak_flops()} FLOP/s (dense bf16)")
-    return {"step_ms": step_s * 1e3, "tflop_per_step": flops / 1e12, "mfu": mfu}
+        draws = corpus_draws(trainer, 4 * 4)
+        with profiling.trace("chip_smoke", work / "profile") as out:
+            for i in range(2):
+                trainer.train_window(draws[4 * i : 4 * i + 4])
+        recorded = json.loads((out / "spans.json").read_text())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(2, 4):
+            trainer.train_window(draws[4 * i : 4 * i + 4])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 8
+    names = [s["name"] for s in recorded["spans"]]
+    want = {"s2tpu.train.window": 2, "s2tpu.train.begin_step": 8, "s2tpu.train.capture": 1, "s2tpu.train.replay": 7}
+    got = {n: names.count(n) for n in want}
+    graphs = {k: recorded["counts"].get(k, 0) for k in ("graph_captures", "graph_replays")}
+    if got != want or graphs != {"graph_captures": 1, "graph_replays": 7}:
+        raise AssertionError(f"(e) profiling.trace: spans {got} != {want}, counts {recorded['counts']}")
+    log(f"serving extras (e) profiling ({CARD}): B5 graphed windows traced, spans {got}, counts "
+        f"{recorded['counts']}; graphed step (K=4) {step_s * 1e3:.3f} ms by the host clock, recorder off")
+    return {"step_ms": step_s * 1e3, "spans": got, "counts": recorded["counts"]}
 
 
 def phase_serving_extras(work: Path) -> dict:
@@ -4740,7 +4747,7 @@ def phase_serving_extras(work: Path) -> dict:
     statistics it serves): (a) the tiled program graphed against eager for
     B5 config #2, fc-prithvi T=1 and config #3; (b) int8 serving through the
     CLI for B5 and fc-prithvi; (c) ``--aot-cache`` for B5; (d) int8
-    embeddings; (e) profiling of B5's graphed training step."""
+    embeddings; (e) the recorder over B5's graphed training windows."""
     models, result = {}, {}
     for name in ("B5", "fc-prithvi", "config #3"):
         t0 = time.perf_counter()

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from s2tpu_torch import profiling
 from s2tpu_torch.data.dataset import PackedSource, SegmentSource
 from s2tpu_torch.parallel.mesh import DataAxis
 
@@ -103,16 +104,20 @@ class DeviceCorpus:
         self.sharded = data is not None and data.size > 1
         self.size = data.size if self.sharded else 1
         self.n_local = -(-self.n // self.size)
-        images, labels = _materialize(source, block_ids(self.n, self.size, data.index) if self.sharded else None)
-        # (N, H, W, C) single-frame or (N, T, H, W, C) multi-temporal: the
-        # spatial axes are always the two before the channels.
-        self.hw = images.shape[-3:-1]
-        if isinstance(source, PackedSource):
-            self.images = upload(images, device)
-            self.labels = upload(labels, device) if with_labels else None
-        else:
-            self.images = torch.from_numpy(images).to(device)
-            self.labels = torch.from_numpy(labels).to(device) if with_labels else None
+        with profiling.span("s2tpu.data.corpus"):
+            with profiling.span("s2tpu.data.materialize"):
+                ids = block_ids(self.n, self.size, data.index) if self.sharded else None
+                images, labels = _materialize(source, ids)
+            # (N, H, W, C) single-frame or (N, T, H, W, C) multi-temporal: the
+            # spatial axes are always the two before the channels.
+            self.hw = images.shape[-3:-1]
+            with profiling.span("s2tpu.data.upload"):
+                if isinstance(source, PackedSource):
+                    self.images = upload(images, device)
+                    self.labels = upload(labels, device) if with_labels else None
+                else:
+                    self.images = torch.from_numpy(images).to(device)
+                    self.labels = torch.from_numpy(labels).to(device) if with_labels else None
 
     def shard_pools(self, train_idx: np.ndarray) -> list[np.ndarray]:
         """The global train ids by owning block, as ids local to it: block k

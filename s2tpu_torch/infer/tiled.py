@@ -23,6 +23,12 @@ rows are copied into its static input; a capture or replay failure raises.
 On the CPU, and on the card with ``graph=False``, the same chunk program
 runs eagerly.
 
+Under a profiler each :func:`tiled_predict_many` call records its spans
+(``s2tpu_torch.profiling``): the request, and in it the upload, the queue,
+the capture or the staging, the chunks and the finish; ``host_syncs`` counts
+where the host waits for the card: the pageable uploads of the images, the
+rows and the valid weights, and each copy back.
+
 Serving over N cards is N processes, one card each, every one serving its
 round-robin share of the segments with its own graphs
 (:func:`multihost_segment_slice`, ``cli/infer.py --num-devices``): the JAX
@@ -39,9 +45,25 @@ import weakref
 import numpy as np
 import torch
 
+from s2tpu_torch import profiling
 from s2tpu_torch.utils import get_logger
 
 logger = get_logger(__name__)
+
+
+def to_device(t: torch.Tensor, device: torch.device | str) -> torch.Tensor:
+    """``t`` on ``device``. A host tensor's copy to the card is pageable, so
+    the host waits for the card's stream there (counted as ``host_syncs``)."""
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        profiling.count("host_syncs")
+    return t.to(device)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host; from the card the host waits for the copy (counted as ``host_syncs``)."""
+    if t.device.type == "cuda":
+        profiling.count("host_syncs")
+    return t.cpu()
 
 
 def tile_offsets(size: int, tile: int, stride: int) -> list[int]:
@@ -130,7 +152,8 @@ class ChunkProgram:
     def blend(self) -> torch.Tensor:
         """(N, H, W, K) blended logits."""
         n, h, w = self.shape[0], self.shape[-3], self.shape[-2]
-        return (self.acc / self.wsum.clamp_min(1e-9)).reshape(n, h, w, -1)
+        with torch.inference_mode():
+            return (self.acc / self.wsum.clamp_min(1e-9)).reshape(n, h, w, -1)
 
 
 class TiledGraph:
@@ -160,11 +183,13 @@ class TiledGraph:
             program.run()
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         program.predict = None  # replays need no predictor: the cache below then holds none alive
+        profiling.count("graph_captures")
 
     def replay(self, rows: torch.Tensor, valid: torch.Tensor) -> None:
         with torch.inference_mode():  # the static tensors are inference tensors
             self.program.load(rows, valid)
             self.graph.replay()
+        profiling.count("graph_replays")
 
 
 # Captured graphs, per predictor (dropped with it, graph pool and all) and per key.
@@ -196,36 +221,55 @@ def tiled_logits(
     ``graph`` (default: on the card) replays the chunk program as a CUDA
     graph; ``graph=False`` runs it eagerly, for comparison.
     """
+    return stitched(predict, images, tile, stride, num_classes, batch_size, graph).blend()
+
+
+def stitched(
+    predict: typing.Callable,
+    images: torch.Tensor,
+    tile: int,
+    stride: int,
+    num_classes: int,
+    batch_size: int,
+    graph: bool | None = None,
+) -> ChunkProgram:
+    """:func:`tiled_logits` up to the blend: the chunk program after every
+    chunk ran, its ``acc`` and ``wsum`` holding the weighted sums."""
     graph = images.device.type == "cuda" if graph is None else graph
     if graph and images.device.type != "cuda":
         raise ValueError(f"graphed tiled serving runs on the card, not {images.device}")
     n, h, w = images.shape[0], images.shape[-3], images.shape[-2]
-    rows_np, valid_np = padded_queue(n, h, w, tile, stride, batch_size)
-    rows = torch.from_numpy(rows_np).to(images.device)
-    valid = torch.from_numpy(valid_np).to(images.device)
+    with profiling.span("s2tpu.serve.queue"):
+        rows_np, valid_np = padded_queue(n, h, w, tile, stride, batch_size)
+        rows = to_device(torch.from_numpy(rows_np), images.device)
+        valid = to_device(torch.from_numpy(valid_np), images.device)
     with torch.inference_mode():
         if not graph:
-            program = ChunkProgram(predict, images, tile, num_classes, batch_size)
-            for c in range(len(rows)):
-                program.load(rows[c], valid[c])
-                program.run()
-            return program.blend()
+            with profiling.span("s2tpu.serve.chunks"):
+                program = ChunkProgram(predict, images, tile, num_classes, batch_size)
+                for c in range(len(rows)):
+                    program.load(rows[c], valid[c])
+                    program.run()
+            return program
         key = graph_key(predict, images, tile, stride, num_classes, batch_size)
         tiled = cached_graph(predict, key)
         first = 0
         if tiled is None:
-            program = ChunkProgram(predict, images.clone(), tile, num_classes, batch_size)
-            tiled = TiledGraph(program, rows[0], valid[0])
+            with profiling.span("s2tpu.serve.capture"):
+                program = ChunkProgram(predict, images.clone(), tile, num_classes, batch_size)
+                tiled = TiledGraph(program, rows[0], valid[0])
             _graphs.setdefault(predict, {})[key] = tiled
             logger.info(f"captured the tiled program {key} as a CUDA graph ({tiled.pool_bytes} pool bytes)")
             first = 1
         else:
-            tiled.program.images.copy_(images)
-            tiled.program.acc.zero_()
-            tiled.program.wsum.zero_()
-        for c in range(first, len(rows)):
-            tiled.replay(rows[c], valid[c])
-        return tiled.program.blend()
+            with profiling.span("s2tpu.serve.stage"):
+                tiled.program.images.copy_(images)
+                tiled.program.acc.zero_()
+                tiled.program.wsum.zero_()
+        with profiling.span("s2tpu.serve.chunks"):
+            for c in range(first, len(rows)):
+                tiled.replay(rows[c], valid[c])
+        return tiled.program
 
 
 def multihost_segment_slice(indices: typing.Sequence[int], n_proc: int, index: int) -> list[int]:
@@ -257,15 +301,19 @@ def tiled_predict_many(
     program (``infer/aot.py``): a matching one is loaded instead of traced,
     a missing or stale one is exported and written.
     """
-    images = torch.as_tensor(images).to(predict.device)
-    stride = tile - overlap
-    if aot_cache:
-        from s2tpu_torch.infer import aot
+    with profiling.span("s2tpu.serve.request"):
+        with profiling.span("s2tpu.serve.upload"):
+            images = to_device(torch.as_tensor(images), predict.device)
+        stride = tile - overlap
+        if aot_cache:
+            from s2tpu_torch.infer import aot
 
-        predict = aot.cached_predictor(aot_cache, predict, images, tile, stride, num_classes, batch_size)
-    logits = tiled_logits(predict, images, tile, stride, num_classes, batch_size, graph=graph)
-    class_maps = logits.argmax(dim=-1).to(torch.uint8).cpu().numpy()
-    return class_maps, (logits.cpu().numpy() if return_logits else None)
+            predict = aot.cached_predictor(aot_cache, predict, images, tile, stride, num_classes, batch_size)
+        program = stitched(predict, images, tile, stride, num_classes, batch_size, graph=graph)
+        with profiling.span("s2tpu.serve.finish"):
+            logits = program.blend()
+            class_maps = to_host(logits.argmax(dim=-1).to(torch.uint8)).numpy()
+            return class_maps, (to_host(logits).numpy() if return_logits else None)
 
 
 def tiled_predict(

@@ -24,6 +24,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from s2tpu_torch import profiling
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = [
@@ -82,7 +84,9 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+            with profiling.span("s2tpu.ops.build"):
+                proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+            profiling.count("kernel_builds")
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
             so.with_suffix(".log").write_text(proc.stdout + proc.stderr)

@@ -477,7 +477,7 @@ def _(q, k, v):
     return out
 
 
-# FLOP formulas for FlopCounterMode (train/profiling.py's MFU): the
+# FLOP formulas for FlopCounterMode (a step's operations, counted by shape): the
 # algorithm's products, 2 L^2 Dh operations a (batch, head) for each of
 # q k^T and p v forward, and four such products backward (dv, dp, dq, dk),
 # as PyTorch counts scaled_dot_product_attention.

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from s2tpu_torch import plotting
+from s2tpu_torch import plotting, profiling
 from s2tpu_torch.checkpoint.io import on_rank0
 from s2tpu_torch.data.device_corpus import sample_crop_batch, sample_sharded_crop_batch, sharded_epoch_orders
 from s2tpu_torch.data.pipeline import epoch_rng, sample_epoch_order
@@ -444,26 +444,32 @@ class TrainerBase:
         graph (the first one captures it); otherwise the steps run eagerly.
         Returns the last eager step's outputs (None for graphed steps, whose
         outputs live in the graph)."""
-        if self._sums is None:
-            self._sums = {k: torch.zeros(shape, dtype=torch.float32, device=self.device)
-                          for k, shape in self._corpus_sum_shapes().items()}
-        rows = torch.from_numpy(np.ascontiguousarray(draws, dtype=np.int32))
-        if self.device.type == "cuda":  # from pinned memory: the copy does not wait for the stream
-            rows = rows.pin_memory().to(self.device, non_blocking=True)
-        graphed = self._graphed()
-        m = None
-        for row in rows:
-            self._begin_step()
-            if graphed:
-                if self._graph is None:
-                    self._graph = StepGraph(self._corpus_step, row, self.generators)
+        with profiling.span("s2tpu.train.window"):
+            if self._sums is None:
+                self._sums = {k: torch.zeros(shape, dtype=torch.float32, device=self.device)
+                              for k, shape in self._corpus_sum_shapes().items()}
+            with profiling.span("s2tpu.train.draws"):
+                rows = torch.from_numpy(np.ascontiguousarray(draws, dtype=np.int32))
+                if self.device.type == "cuda":  # from pinned memory: the copy does not wait for the stream
+                    rows = rows.pin_memory().to(self.device, non_blocking=True)
+            graphed = self._graphed()
+            m = None
+            for row in rows:
+                with profiling.span("s2tpu.train.begin_step"):
+                    self._begin_step()
+                if graphed:
+                    if self._graph is None:
+                        with profiling.span("s2tpu.train.capture"):
+                            self._graph = StepGraph(self._corpus_step, row, self.generators)
+                    else:
+                        with profiling.span("s2tpu.train.replay"):
+                            self._graph.replay(row)
                 else:
-                    self._graph.replay(row)
-            else:
-                m = self._corpus_step(row)
-                self._maybe_log_watch(m)
-            self.step += 1
-        return m
+                    with profiling.span("s2tpu.train.eager_step"):
+                        m = self._corpus_step(row)
+                    self._maybe_log_watch(m)
+                self.step += 1
+            return m
 
     def _corpus_sampler(self, rng: np.random.Generator, sample_weights: np.ndarray | None, overfit: int,
                         random_crop: bool) -> tuple[typing.Callable[[int], np.ndarray], int]:

@@ -32,6 +32,8 @@ import typing
 
 import torch
 
+from s2tpu_torch import profiling
+
 
 class StepGraph:
     """``step(row)`` captured as a CUDA graph of the whole step.
@@ -62,9 +64,11 @@ class StepGraph:
             self.graph.register_generator_state(g)
         with torch.cuda.graph(self.graph, stream=self.stream, capture_error_mode="thread_local"):
             step(self.row)
+        profiling.count("graph_captures")
 
     def replay(self, row: torch.Tensor) -> None:
         """One step on ``row``'s draws: copied into the graph's input, then
         the graph launched on the current stream."""
         self.row.copy_(row)
         self.graph.replay()
+        profiling.count("graph_replays")

@@ -73,7 +73,7 @@ def test_card_test_files_import_no_jax_and_no_s2tpu(name):
     "s2tpu_torch.cli.train_segmentation", "s2tpu_torch.cli.convert_weights", "s2tpu_torch.cli.export_embeddings",
     "s2tpu_torch.cli.probe_embeddings", "s2tpu_torch.infer.embed", "s2tpu_torch.checkpoint.convert",
     "s2tpu_torch.checkpoint.io", "s2tpu_torch.infer.quantize", "s2tpu_torch.infer.aot", "s2tpu_torch.infer.tiled",
-    "s2tpu_torch.train.profiling", "s2tpu_torch.cli.pack", "s2tpu_torch.train.tune", "s2tpu_torch.plotting",
+    "s2tpu_torch.profiling", "s2tpu_torch.cli.pack", "s2tpu_torch.train.tune", "s2tpu_torch.plotting",
     "s2tpu_torch.native", "s2tpu_torch.data.records",
 ])
 def test_migration_and_embedding_modules_import_no_jax_and_no_s2tpu(module):
