@@ -3,6 +3,7 @@
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --attention    # phases 1, 2 and 8 only, no result lines
     python3 chip_smoke.py --depthwise    # phases 1, 2 (depthwise only), 3 and 4's depthwise part
+    python3 chip_smoke.py --batchnorm    # phases 1, 2 (BatchNorm only) and 4b, no result lines
     python3 chip_smoke.py --extras       # phases 2, 6, 19, 9 and 20 only, no result lines
     python3 chip_smoke.py --corpus       # phases 2, 6 and 21 only, no result lines
     python3 chip_smoke.py --serving      # phases 1, 2, 5 and 22 only, no result lines
@@ -46,6 +47,14 @@ any failure raises and the script exits non-zero without printing a result:
    shapes under ``torch.profiler``: exactly 4 device launches a call (#1
    forward, #1 input gradient, #2, the cast of the filter gradient; no flip
    copy, no sum of partials).
+4b. Train-mode BatchNorm + activation (``ops/batchnorm_act.py``): the
+   kernels' route against the plain route (output, gradients, running
+   statistics) at every distinct BatchNorm shape of B5 at 224^2 and batch
+   32 in bf16, the largest and smallest in f32, and C = 38 over 3 x 7 x 5
+   rows; each pass's CUDA-event time at the largest and smallest shape
+   beside its byte bound, the plain route and ``F.batch_norm`` + the
+   activation (the yardstick); the 126 layers of one B5 step timed on each
+   route (one JSON line, ``batchnorm_kernels``).
 5. Serving slice: B5 (full width and depth, seeded random weights, random
    BatchNorm statistics) saved as a port checkpoint and served through
    ``s2tpu_torch.cli.infer --tiled`` in bf16 over a synthetic 512^2 AOI;
@@ -601,7 +610,10 @@ INT8_REL_ERR_BOUND = {"efficientnet-unet-b5": 0.15, "fc-prithvi-backbone": 0.1}
 # two launches a call: dq, then dk/dv).
 PORT_KERNEL_NAMES = {"#1": "depthwise_s1_fwd", "#2": "depthwise_s1_dw", "#3": "fused_ce_fwd", "#4": "fused_ce_bwd",
                      "#8": "attn_fused_fwd", "#9": "attn_fused_bwd_dq", "#9 dk/dv": "attn_fused_bwd_dkdv",
-                     "#5": "flash_attn_fwd"}
+                     "#5": "flash_attn_fwd", "#10": "batchnorm_act_stats", "#11": "batchnorm_act_finalize",
+                     "#12": "batchnorm_act_apply", "#13": "batchnorm_act_backward_sums",
+                     "#14": "batchnorm_act_backward_dx"}
+BN_KERNELS = ("#10", "#11", "#12", "#13", "#14")  # each once a fused BatchNorm forward and backward
 PORT_KERNEL_FOR = {"depthwise_fwd": "#1", "depthwise_dw": "#2", "fused_ce_fwd": "#3", "fused_ce_bwd": "#4",
                    "attn_fused_fwd": "#8", "attn_fused_bwd": "#9", "attn_flash_fwd": "#5"}  # a counter's name in a trace
 # NCCL's kernels by collective, matched on their lowercased names.
@@ -614,7 +626,7 @@ CARD = "card not read"  # nvidia-smi's name and power limit, set by main
 # Device kernels by kind, matched on name fragments in this order (the
 # port's kernels first, then cuDNN/cuBLAS convolutions and matrix products).
 KERNEL_KINDS = {
-    "port kernels": ("depthwise_s1_", "fused_ce_", "attn_fused_", "flash_attn_"),
+    "port kernels": ("depthwise_s1_", "fused_ce_", "attn_fused_", "flash_attn_", "batchnorm_act_"),
     "conv/gemm": ("xmma", "gemm", "nvjet", "cutlass", "cudnn", "conv", "nchwToNhwc", "nhwcToNchw"),
     "optimizer": ("multi_tensor_apply",),
     "reductions": ("reduce_kernel",),
@@ -673,9 +685,10 @@ def b5_stride1_shapes() -> dict[tuple[int, int, int], int]:
 
 def kernel_libraries() -> dict[str, list[str]]:
     """Every kernel library of the port: name -> sources under ops/csrc."""
-    from s2tpu_torch.ops import depthwise_conv as dw, flash_attention as fa, fused_ce
+    from s2tpu_torch.ops import batchnorm_act as bna, depthwise_conv as dw, flash_attention as fa, fused_ce
 
     return {
+        "batchnorm_act": bna.SOURCES,
         "depthwise_conv": dw.SOURCES,
         "depthwise_grad_weight": dw.GRAD_WEIGHT_SOURCES,
         "fused_ce": fused_ce.SOURCES,
@@ -1036,6 +1049,176 @@ def phase_fused_ce(n: int = CE_PIXELS) -> dict:
     return main_mode
 
 
+# Train-mode BatchNorm + activation (phase 4b): the five kernels of
+# ops/batchnorm_act.py against the plain autograd route on the card, at
+# every distinct BatchNorm shape of B5 at 224^2 and TRAIN_BATCH in bf16, the
+# largest and smallest in f32, and C = 38 over 3 x 7 x 5 rows (2-channel
+# vectors, odd rows). Tolerances as tests/test_torch_batchnorm_act.py's on
+# the card: the kernels sum each channel in another order, so a value near a
+# bf16 rounding boundary may round the other way.
+BN_OUT_TOL = {torch.bfloat16: 2.0**-7, torch.float32: 1e-5}
+BN_GRAD_TOL = {torch.bfloat16: 2.0**-6, torch.float32: 1e-4}
+BN_LAYERS_B5 = 126
+BN_PASSES = ("stats", "finalize", "apply", "backward_sums", "backward_dx")
+
+
+def b5_batchnorm_shapes() -> dict[tuple[int, int, int, str], int]:
+    """(C, H, W, act) -> count of B5's BatchNorms at 224^2: the inputs of
+    every BatchNorm of one forward of one image on the card."""
+    from s2tpu_torch.models.efficientnet_unet import BatchNorm, EfficientNetUNet, EfficientNetUNetConfig
+
+    model = EfficientNetUNet(EfficientNetUNetConfig("b5", 6, 4), dtype=torch.bfloat16, device="cuda")
+    shapes: dict[tuple[int, int, int, str], int] = {}
+
+    def hook(module, inputs, _output):
+        _, c, h, w = inputs[0].shape
+        key = (c, h, w, module.act)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(torch.zeros(1, 224, 224, 6, device="cuda"))
+    for h in handles:
+        h.remove()
+    return shapes
+
+
+def batchnorm_pass_bytes(m: int, c: int, elem: int) -> dict[str, int]:
+    """Bytes each pass must move (each input read once, each output written
+    once): stats reads x; finalize the (2, C) sums and running statistics
+    and writes (3, C) and the statistics; apply reads x and writes y; the
+    backward sums read x and dy; dx reads x and dy and writes dx."""
+    n = m * c * elem
+    return {"stats": n, "finalize": 4 * c * 9, "apply": 2 * n, "backward_sums": 2 * n, "backward_dx": 3 * n}
+
+
+def check_batchnorm(n: int, c: int, h: int, w: int, act: str, dtype: torch.dtype, gen: torch.Generator,
+                    timed: bool = False) -> dict:
+    """The kernels' route against the plain route at one shape (output,
+    gradients, running statistics); raises on disagreement. ``timed``: each
+    pass's device ms and the whole layer's (forward, forward + backward) on
+    the kernels, the plain route and ``F.batch_norm`` + the activation."""
+    import torch.nn.functional as F
+
+    from s2tpu_torch.ops import batchnorm_act as bna
+
+    x = (2.0 * torch.randn(n, c, h, w, generator=gen) + 0.5).to("cuda", dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(n, c, h, w, generator=gen).to("cuda", dtype).contiguous(memory_format=torch.channels_last)
+    weight, bias = (0.5 + torch.rand(c, generator=gen)).cuda(), (0.1 * torch.randn(c, generator=gen)).cuda()
+
+    def fresh_stats():
+        return torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"), torch.zeros((), dtype=torch.int64,
+                                                                                         device="cuda")
+
+    def library(xg, wg, bg, rm, rv, nbt, eps, decay, act_name):
+        return bna.activation(F.batch_norm(xg, None, None, wg, bg, True, 1.0 - decay, eps), act_name)
+
+    def layer(fn, backward: bool = True) -> dict:
+        xg, wg, bg = x.clone().requires_grad_(), weight.clone().requires_grad_(), bias.clone().requires_grad_()
+        rm, rv, nbt = fresh_stats()
+        y = fn(xg, wg, bg, rm, rv, nbt, 1e-3, 0.99, act)
+        if not backward:
+            return {}
+        dx, dw, db = torch.autograd.grad(y, (xg, wg, bg), dy)
+        return {"y": y, "dx": dx, "dweight": dw, "dbias": db, "running_mean": rm, "running_var": rv}
+
+    ours, ref = layer(bna.batchnorm_act), layer(bna.batchnorm_act_plain)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, want in ref.items():
+        tol = (BN_OUT_TOL if key in ("y", "running_mean", "running_var") else BN_GRAD_TOL)[dtype]
+        scale = max(float(want.detach().abs().max()), 1e-6)
+        errs[key] = float((ours[key].detach().double() - want.detach().double()).abs().max()) / scale
+        if not errs[key] <= tol or not bool(torch.isfinite(ours[key]).all()):
+            raise AssertionError(f"BatchNorm + {act} kernels at {(n, c, h, w)} {dtype}: {key} off by "
+                                 f"{errs[key]:.3g} of max|plain| (limit {tol:.3g})")
+    out = {"max_rel_err": max(errs.values())}
+    if not timed:
+        return out
+    ops, code, m = torch.ops.s2tpu_torch, bna.ACTIVATIONS[act], n * h * w
+    rm, rv, nbt = fresh_stats()
+    sums = ops.batchnorm_act_stats(x)
+    saved = ops.batchnorm_act_finalize(sums, rm, rv, nbt, float(m), 1e-3, 0.99, True)
+    bsums = ops.batchnorm_act_backward_sums(x, dy, saved, weight, bias, code)
+    calls = {
+        "stats": lambda: ops.batchnorm_act_stats(x),
+        "finalize": lambda: ops.batchnorm_act_finalize(sums, rm, rv, nbt, float(m), 1e-3, 0.99, True),
+        "apply": lambda: ops.batchnorm_act_apply(x, saved, weight, bias, code),
+        "backward_sums": lambda: ops.batchnorm_act_backward_sums(x, dy, saved, weight, bias, code),
+        "backward_dx": lambda: ops.batchnorm_act_backward_dx(x, dy, saved, weight, bias, bsums, float(m), code),
+    }
+    nbytes = batchnorm_pass_bytes(m, c, x.element_size())
+    for name, call in calls.items():
+        out[f"{name}_ms"] = cuda_ms(call)
+        out[f"{name}_bound_ms"] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+    for route, fn in (("fused", bna.batchnorm_act), ("plain", bna.batchnorm_act_plain), ("library", library)):
+        out[f"{route}_fwd_ms"] = cuda_ms(lambda: layer(fn, backward=False), iters=10)
+        out[f"{route}_ms"] = cuda_ms(lambda: layer(fn), iters=10)
+        out[f"{route}_bwd_ms"] = out[f"{route}_ms"] - out[f"{route}_fwd_ms"]
+    return out
+
+
+def phase_batchnorm() -> dict:
+    """The BatchNorm + activation kernels against the plain route (every B5
+    shape at TRAIN_BATCH in bf16; the largest and smallest in f32; C = 38
+    over odd rows), each pass's time at the largest and smallest shape, and
+    every layer of one B5 step timed on the kernels, the plain route and
+    ``F.batch_norm``: the per-step totals."""
+    shapes = b5_batchnorm_shapes()
+    if sum(shapes.values()) != BN_LAYERS_B5:
+        raise AssertionError(f"B5 has {sum(shapes.values())} BatchNorms a forward, not {BN_LAYERS_B5}: {shapes}")
+    by_size = sorted(shapes, key=lambda k: k[0] * k[1] * k[2])
+    largest, smallest = by_size[-1], by_size[0]
+    gen = torch.Generator().manual_seed(SEED + 23)
+    totals = {"fused_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    timed = {}
+    for key, count in sorted(shapes.items(), key=lambda kv: -kv[0][0] * kv[0][1] * kv[0][2]):
+        c, h, w, act = key
+        t = check_batchnorm(TRAIN_BATCH, c, h, w, act, torch.bfloat16, gen, timed=True)
+        layer_bytes = sum(batchnorm_pass_bytes(TRAIN_BATCH * h * w, c, 2).values())
+        for route in ("fused", "plain", "library"):
+            totals[f"{route}_ms"] += count * t[f"{route}_ms"]
+        totals["bound_ms"] += count * layer_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"batchnorm bf16 C={c:4d} {h:3d}x{w:<3d} B={TRAIN_BATCH} act={act:4s} x{count:2d}: "
+            + " ".join(f"{k}={v:.4f}" for k, v in t.items()))
+        if key in (largest, smallest):
+            timed[key] = t
+    for key in (largest, smallest):
+        c, h, w, act = key
+        t = check_batchnorm(TRAIN_BATCH, c, h, w, act, torch.float32, gen)
+        log(f"batchnorm f32 C={c} {h}x{w} B={TRAIN_BATCH} act={act}: max_rel_err={t['max_rel_err']:.3g}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for act in ("none", "silu", "relu"):
+            t = check_batchnorm(3, 38, 7, 5, act, dtype, gen)
+            log(f"batchnorm {dtype} C=38 3x7x5 act={act}: max_rel_err={t['max_rel_err']:.3g}")
+    log(f"batchnorm per B5 train step ({BN_LAYERS_B5} layers forward and backward, bf16, batch {TRAIN_BATCH}): "
+        + " ".join(f"{k}={v:.4f}" for k, v in totals.items()))
+    rows = []
+    for i, name in enumerate(BN_PASSES):
+        side = "bwd" if name.startswith("backward") else "fwd"
+        rows.append({
+            "number": 10 + i, "name": f"batchnorm_act_{name}", "route": "cuda",
+            "source": "s2tpu_torch/ops/csrc/batchnorm_act.cu", "replaces": "none (XLA fuses BatchNorm on the TPU)",
+            **{f"{tag}_{k}": timed[key][k] for tag, key in (("largest", largest), ("smallest", smallest))
+               for k in (f"{name}_ms", f"{name}_bound_ms", f"plain_{side}_ms", f"library_{side}_ms")},
+            "largest_shape": [TRAIN_BATCH, *largest], "smallest_shape": [TRAIN_BATCH, *smallest],
+        })
+    log(json.dumps({"batchnorm_kernels": rows, "per_step": totals}))
+    return {"rows": rows, "per_step": totals}
+
+
+def batchnorm_only() -> int:
+    """``--batchnorm``: the BatchNorm library's build and phase 4b; no slices
+    and no result lines."""
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi()}; torch {torch.__version__}")
+    t0 = time.perf_counter()
+    phase_build(only=("batchnorm_act",))
+    phase_batchnorm()
+    log(f"batchnorm only: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def randomize_batch_stats_(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Give every BatchNorm non-trivial running statistics from ``generator``
     (mean ~ N(0, 0.1^2), var ~ U(0.5, 1.5)), for runs on random weights."""
@@ -1214,24 +1397,42 @@ def phase_slice(work: Path) -> int:
 
 
 def reset_launch_counts() -> None:
-    from s2tpu_torch.ops import depthwise_conv as dw, flash_attention as fa, fused_ce
+    from s2tpu_torch.ops import batchnorm_act as bna, depthwise_conv as dw, flash_attention as fa, fused_ce
 
     dw.LAUNCHES = dw.DX_LAUNCHES = dw.DW_LAUNCHES = 0
     fused_ce.FWD_LAUNCHES = fused_ce.BWD_LAUNCHES = 0
     fa.FUSED_FWD_LAUNCHES = fa.FUSED_BWD_LAUNCHES = fa.FLASH_FWD_LAUNCHES = 0
     fa.FUSED_QKV_FWD_LAUNCHES = fa.FUSED_QKV_BWD_LAUNCHES = 0
+    bna.LAUNCHES = 0
 
 
 def launch_counts() -> dict[str, int]:
-    from s2tpu_torch.ops import depthwise_conv as dw, flash_attention as fa, fused_ce
+    """The wrappers' launch counters; ``batchnorm`` counts fused train-mode
+    BatchNorm forwards (#10-#12, with #13/#14 in their backward)."""
+    from s2tpu_torch.ops import batchnorm_act as bna, depthwise_conv as dw, flash_attention as fa, fused_ce
 
     return {
         "depthwise_fwd": dw.LAUNCHES, "depthwise_dx": dw.DX_LAUNCHES, "depthwise_dw": dw.DW_LAUNCHES,
         "fused_ce_fwd": fused_ce.FWD_LAUNCHES, "fused_ce_bwd": fused_ce.BWD_LAUNCHES,
         "attn_fused_fwd": fa.FUSED_FWD_LAUNCHES, "attn_fused_bwd": fa.FUSED_BWD_LAUNCHES,
         "attn_fused_qkv_fwd": fa.FUSED_QKV_FWD_LAUNCHES, "attn_fused_qkv_bwd": fa.FUSED_QKV_BWD_LAUNCHES,
-        "attn_flash_fwd": fa.FLASH_FWD_LAUNCHES,
+        "attn_flash_fwd": fa.FLASH_FWD_LAUNCHES, "batchnorm": bna.LAUNCHES,
     }
+
+
+def batchnorm_calls(model: torch.nn.Module, remat: bool = False) -> int:
+    """Train-mode BatchNorm calls in one forward of ``model``, each a fused
+    forward on the card (``batchnorm`` of :func:`launch_counts`; 126 for
+    B5): every BatchNorm once and, under remat, an EfficientNet-UNet's
+    BatchNorms inside its checkpointed blocks and decoder stages (all but
+    the encoder's stem and head) once more, in the recompute."""
+    from s2tpu_torch.models.efficientnet_unet import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    if not remat:
+        return len(bns)
+    kept = {id(m) for part in (model.encoder.stem, model.encoder.conv_head) for m in part.modules()}
+    return len(bns) + sum(id(bn) not in kept for bn in bns)
 
 
 def train_argv(data_dir: Path, name: str, epochs: int = TRAIN_EPOCHS) -> list[str]:
@@ -1286,9 +1487,11 @@ def phase_train(work: Path) -> dict:
         init_model = config.build_model(
             dtype=torch.bfloat16, device="cpu", param_dtype=torch.float32, generator=torch.Generator().manual_seed(SEED)
         )
-        per = count_stride1_depthwise(init_model.config)
+        per, bn = count_stride1_depthwise(init_model.config), batchnorm_calls(init_model)
+        if bn != BN_LAYERS_B5:
+            raise AssertionError(f"B5 has {bn} BatchNorms, not {BN_LAYERS_B5}")
         expected = seg_cli_launches(TRAIN_EPOCHS, per, n_train, n_val,
-                                    TRAIN_BATCH * config.datamodule.val_batch_size_multiplier)
+                                    TRAIN_BATCH * config.datamodule.val_batch_size_multiplier, bn)
         if launches != expected:
             raise AssertionError(f"training path launches {launches} != expected {expected}")
         losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
@@ -1432,13 +1635,15 @@ def seg_device_batch(trainer) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(host.images).cuda(), torch.from_numpy(host.labels).cuda()
 
 
-def seg_step_launches(per: int, micro: int, fwd_per_micro: int | None = None) -> dict[str, int]:
+def seg_step_launches(per: int, micro: int, fwd_per_micro: int | None = None,
+                      bn_per_micro: int = BN_LAYERS_B5) -> dict[str, int]:
     """One B5 train step's launches in ``micro`` micro-batches: #1 forward
     (``fwd_per_micro`` each; ``per`` without remat) and input gradient, #2
-    and #3/#4 once each a micro-batch."""
+    and #3/#4 once each a micro-batch, and ``bn_per_micro`` fused BatchNorms
+    a micro-batch (:func:`batchnorm_calls`)."""
     return launch_dict(
         depthwise_fwd=(fwd_per_micro or per) * micro, depthwise_dx=per * micro, depthwise_dw=per * micro,
-        fused_ce_fwd=micro, fused_ce_bwd=micro,
+        fused_ce_fwd=micro, fused_ce_bwd=micro, batchnorm=bn_per_micro * micro,
     )
 
 
@@ -1644,9 +1849,10 @@ def check_extras_cli(data_dir: Path, per: int) -> dict:
         steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
         eval_batches = TRAIN_EPOCHS * math.ceil(n_val / (TRAIN_BATCH * dmc.val_batch_size_multiplier))
         recal = TRAIN_EPOCHS * EXTRAS_BN_RECAL
+        # bf16 gamma and beta take the kernels too; the recalibration's forwards run BatchNorm in train mode
         expected = launch_dict(
             depthwise_fwd=per * (steps + eval_batches + recal), depthwise_dx=per * steps, depthwise_dw=per * steps,
-            fused_ce_fwd=steps + eval_batches, fused_ce_bwd=steps,
+            fused_ce_fwd=steps + eval_batches, fused_ce_bwd=steps, batchnorm=BN_LAYERS_B5 * (steps + recal),
         )
         if launches != expected:
             raise AssertionError(f"extras CLI launches {launches} != expected {expected}")
@@ -1728,7 +1934,8 @@ def phase_seg_extras(work: Path) -> dict:
     launches, m = step_launches(accum, images, labels)
     if launches != seg_step_launches(per, 2) or not math.isfinite(float(m["loss"])):
         raise AssertionError(f"accum-2 step launches {launches} != {seg_step_launches(per, 2)} or loss {m['loss']}")
-    log(f"B5 extras (a) accum 2: one step's launches {launches} = 2 micro-batches x ({per} + {per} + {per}, 1, 1)")
+    log(f"B5 extras (a) accum 2: one step's launches {launches} = 2 micro-batches x ({per} + {per} + {per}, 1, 1, "
+        f"{BN_LAYERS_B5})")
     out["accum"] = {"launches": launches, **time_seg_steps(f"B5 extras (a) accum 2 step {label}", accum, images, labels)}
     del accum
     out["accum_f32"] = check_accum_f32(data_dir)
@@ -1738,8 +1945,10 @@ def phase_seg_extras(work: Path) -> dict:
         plain, remat = seg_extras_trainer(data_dir), seg_extras_trainer(data_dir, remat=True)
         off, m_off = step_launches(plain, images, labels)
         on, m_on = step_launches(remat, images, labels)
-    if off != seg_step_launches(per, 1) or on != seg_step_launches(per, 1, fwd_per_micro=2 * per):
-        raise AssertionError(f"remat launches {on} / plain {off}: #1 forwards should grow by {per}")
+    if off != seg_step_launches(per, 1) or on != seg_step_launches(
+            per, 1, fwd_per_micro=2 * per, bn_per_micro=batchnorm_calls(remat.model, remat=True)):
+        raise AssertionError(f"remat launches {on} / plain {off}: #1 forwards should grow by {per}, fused "
+                             f"BatchNorms by those of the checkpointed scopes")
     bns = [m for m in remat.model.modules() if isinstance(m, BatchNorm)]
     distances = {
         "loss": abs(float(m_on["loss"]) - float(m_off["loss"])) / abs(float(m_off["loss"])),
@@ -2363,7 +2572,7 @@ def mae_expected_launches(model_config, steps: int, eval_batches: int, mask_rati
     out = {
         "depthwise_fwd": 0, "depthwise_dx": 0, "depthwise_dw": 0, "fused_ce_fwd": 0, "fused_ce_bwd": 0,
         "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
-        "attn_flash_fwd": per["flash"] * (steps + eval_batches),
+        "attn_flash_fwd": per["flash"] * (steps + eval_batches), "batchnorm": 0,
     }
     out[f"{fused}_fwd"], out[f"{fused}_bwd"] = per["fused"] * (steps + eval_batches), per["fused"] * steps
     return out
@@ -2875,6 +3084,7 @@ def phase_fc_prithvi(work: Path) -> dict:
             "fused_ce_fwd": steps + eval_batches, "fused_ce_bwd": steps,
             "attn_fused_fwd": FC_DEPTH * (steps + eval_batches), "attn_fused_bwd": FC_DEPTH * unfrozen_steps,
             "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0, "attn_flash_fwd": 0,
+            "batchnorm": sum(k.endswith(".running_mean") for k in state) * steps,  # the head's, frozen or not
         }
         if launches != expected:
             raise AssertionError(f"fc-prithvi path launches {launches} != expected {expected}")
@@ -3013,7 +3223,7 @@ def phase_fc_prithvi_t3(work: Path) -> dict:
     expected = {
         "depthwise_fwd": 0, "depthwise_dx": 0, "depthwise_dw": 0, "fused_ce_fwd": 2, "fused_ce_bwd": 2,
         "attn_fused_fwd": 0, "attn_fused_bwd": 0, "attn_fused_qkv_fwd": 0, "attn_fused_qkv_bwd": 0,
-        "attn_flash_fwd": 2 * FC_DEPTH,
+        "attn_flash_fwd": 2 * FC_DEPTH, "batchnorm": 2 * batchnorm_calls(trainer.model),
     }
     if launches != expected:
         raise AssertionError(f"fc-prithvi T=3 launches {launches} != expected {expected}")
@@ -3205,7 +3415,8 @@ def phase_config3(work: Path) -> dict:
         )
         per = count_stride1_depthwise(init_model.config)
         expected = seg_cli_launches(TRAIN_EPOCHS, per, n_train, n_val,
-                                    TRAIN_BATCH * config.datamodule.val_batch_size_multiplier)
+                                    TRAIN_BATCH * config.datamodule.val_batch_size_multiplier,
+                                    batchnorm_calls(init_model))
         if launches != expected:
             raise AssertionError(f"config #3 launches {launches} != expected {expected}")
         losses = step_losses + [r[k] for r in history for k in ("train/loss", "val/loss")]
@@ -3629,13 +3840,18 @@ def bit_equal(what: str, ours: dict, ref: dict, skip: tuple = ()) -> int:
 def device_profile(run) -> dict:
     """One call of ``run`` under ``torch.profiler``: device ms, the port
     kernels' launches by number (``PORT_KERNEL_NAMES``) and the host's
-    launch API calls."""
+    launch API calls. A first call runs under the profiler's warm-up and is
+    dropped: the tracer's start can lose the first kernels of its window
+    (a step's first #1 and BatchNorms, seen on the H100)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not (getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."))]
@@ -3783,7 +3999,7 @@ def check_corpus_cli(work: Path, per: int) -> dict:
         # Each trainer's counts move in its warm-up step and its capture only
         # (a replay launches from the graph): two steps, then the eval batch.
         expected = launch_dict(depthwise_fwd=2 * per + per, depthwise_dx=2 * per, depthwise_dw=2 * per,
-                               fused_ce_fwd=2 + 1, fused_ce_bwd=2)
+                               fused_ce_fwd=2 + 1, fused_ce_bwd=2, batchnorm=2 * BN_LAYERS_B5)
         if launches != expected:
             raise AssertionError(f"corpus CLI launches {launches} != expected {expected}")
         log(f"corpus (e) CLI --device-corpus --steps-per-dispatch {CORPUS_K} (B5 bf16, batch {PREEMPT_CORPUS_BATCH}, "
@@ -3920,7 +4136,7 @@ def phase_corpus(work: Path) -> dict:
             per = count_stride1_depthwise(eager.model.config)
             out["b5_launches"] = check_replay_launches(
                 f"corpus B5 {label}", graphed, eager, draws[CORPUS_K:CORPUS_K + 1],
-                {"#1": 2 * per, "#2": per, "#3": 1, "#4": 1})
+                {"#1": 2 * per, "#2": per, "#3": 1, "#4": 1, **dict.fromkeys(BN_KERNELS, BN_LAYERS_B5)})
         log(f"corpus (b), (c), (d) B5: {time.perf_counter() - t_sub:.1f} s")
         t_sub = time.perf_counter()
         out["peak_with_b5_bytes"] = torch.cuda.max_memory_allocated()
@@ -3950,13 +4166,25 @@ def phase_corpus(work: Path) -> dict:
             extras = ("--param-dtype", "bfloat16", "--ema-decay", str(EXTRAS_EMA_DECAY))
             eager = make(argv_extra=extras, device_corpus=True)
             graphed = make(argv_extra=extras, device_corpus=True, steps_per_dispatch=CORPUS_K)
+            torch.cuda.synchronize()
+            reset_launch_counts()
             eager.train_window(draws[:CORPUS_K])
+            torch.cuda.synchronize()
+            bf16_launches = launch_counts()
             graphed.train_window(draws[:CORPUS_K])
             held = bit_equal("(c) B5 bf16 + master + EMA graphed vs eager", trainer_state(graphed),
                              trainer_state(eager))
+        if bf16_launches["batchnorm"] != BN_LAYERS_B5 * CORPUS_K:
+            raise AssertionError(f"(c) B5 bf16 parameters: {bf16_launches['batchnorm']} fused BatchNorms in "
+                                 f"{CORPUS_K} eager steps, not {BN_LAYERS_B5} a step")
         log(f"corpus (c) B5 bf16 parameters + f32 master + EMA {EXTRAS_EMA_DECAY} {label}: a window of {CORPUS_K} "
             f"graphed steps vs {CORPUS_K} eager steps: {held} tensors (with the masters and the EMA) equal, bit for "
-            "bit")
+            f"bit; the eager steps' launches {bf16_launches} ({BN_LAYERS_B5} fused BatchNorms a step)")
+        out["bf16_launches"] = bf16_launches
+        graphed._graph = None  # captured again outside deterministic cuDNN
+        times["bf16 params"] = time_run(
+            f"corpus (f) B5 bf16 parameters + master + EMA graphed K={CORPUS_K} {label}",
+            windows(graphed, draws[:CORPUS_K], CORPUS_K), CORPUS_K, TRAIN_BATCH, windows(graphed, draws[:1], CORPUS_K))
         del eager, graphed
         torch.cuda.empty_cache()
         log(f"corpus (c) B5 bf16: {time.perf_counter() - t_sub:.1f} s")
@@ -4011,14 +4239,16 @@ def phase_corpus(work: Path) -> dict:
     return out
 
 
-def seg_cli_launches(epochs: int, per: int, n_train: int, n_val: int, val_batch: int) -> dict[str, int]:
+def seg_cli_launches(epochs: int, per: int, n_train: int, n_val: int, val_batch: int,
+                     bn: int = BN_LAYERS_B5) -> dict[str, int]:
     """#1-#4 launches of a config #2 run of ``epochs`` epochs (no
     recalibration): every train step each stride-1 depthwise layer forward,
-    as input gradient and as filter gradient, and the fused loss forward and
-    backward; every eval batch the forwards."""
+    as input gradient and as filter gradient, the fused loss forward and
+    backward and the ``bn`` fused BatchNorms; every eval batch the forwards
+    (eval BatchNorm is not fused)."""
     steps, evals = epochs * (n_train // TRAIN_BATCH), epochs * math.ceil(n_val / val_batch)
     return launch_dict(depthwise_fwd=per * (steps + evals), depthwise_dx=per * steps, depthwise_dw=per * steps,
-                       fused_ce_fwd=steps + evals, fused_ce_bwd=steps)
+                       fused_ce_fwd=steps + evals, fused_ce_bwd=steps, batchnorm=bn * steps)
 
 
 def same_batches(what: str, ours, ref, calls: list | None = None) -> int:
@@ -5470,9 +5700,10 @@ def check_dp_fc(data_dir: Path, ranks: list[dict]) -> dict:
         f32_ref = dp_fc_f32(data_dir)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    expected = {"frozen": launch_dict(attn_fused_fwd=FC_DEPTH, fused_ce_fwd=1, fused_ce_bwd=1),
+    head_bn = sum(n.endswith(".running_mean") for n in ranks[0]["fc"]["frozen"]["stats"])
+    expected = {"frozen": launch_dict(attn_fused_fwd=FC_DEPTH, fused_ce_fwd=1, fused_ce_bwd=1, batchnorm=head_bn),
                 "unfrozen": launch_dict(attn_fused_fwd=FC_DEPTH, attn_fused_bwd=FC_DEPTH, fused_ce_fwd=1,
-                                        fused_ce_bwd=1)}
+                                        fused_ce_bwd=1, batchnorm=head_bn)}
     failures, out = [], {"launches": {}, "distances": {}, "sensitivity": {}, "limits": {}, "f32": {}}
     first = ranks[0]
     for form in ("frozen", "unfrozen"):
@@ -5798,7 +6029,7 @@ def phase_data_parallel(work: Path) -> dict:
 def data_parallel_only() -> int:
     """``--data-parallel``: the build of #1-#4 and phase E on data of its
     own; no result lines."""
-    phase_build(only=("depthwise_conv", "depthwise_grad_weight", "fused_ce", "fused_attention_dense"))
+    phase_build(only=("depthwise_conv", "depthwise_grad_weight", "fused_ce", "fused_attention_dense", "batchnorm_act"))
     work = REPO / "out" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -6486,7 +6717,8 @@ def corpus_entries(corpus: dict, part: str, kernel: str, key: str) -> dict:
 
 def main(argv: list[str]) -> int:
     global CARD
-    modes = {"--attention": attention_only, "--depthwise": depthwise_only, "--extras": extras_only,
+    modes = {"--attention": attention_only, "--depthwise": depthwise_only, "--batchnorm": batchnorm_only,
+             "--extras": extras_only,
              "--corpus": corpus_only, "--serving": serving_only, "--data": data_only,
              "--data-parallel": data_parallel_only, "--model-axis": model_axis_only, "--pipeline": pipeline_only}
     if argv and (len(argv) > 1 or argv[0] not in modes):
@@ -6520,6 +6752,7 @@ def main(argv: list[str]) -> int:
     bwd_times = timed("kernels (depthwise backward)", phase_train_kernels)
     timed("depthwise launch breakdown", depthwise_launch_breakdown, 4)
     ce_times = timed("kernels (fused CE)", phase_fused_ce)
+    timed("kernels (BatchNorm + activation)", phase_batchnorm)
     attn_times = timed("kernels (attention)", phase_attention_kernels)
     timed("attention tile edges", check_flash_edges, torch.Generator().manual_seed(SEED + 6))
     timed("fused attention forward tile edges", check_fused_edges, torch.Generator().manual_seed(SEED + 7))

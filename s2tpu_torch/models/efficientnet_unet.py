@@ -17,14 +17,18 @@ Module names are the reference PyTorch model's state-dict names
 ``...squeeze_excitation.{1,3}``, ``...final_layer.*``, ``encoder.conv_head.*``,
 ``up_convs.{i}``, ``double_convs.{i}.{0,1,3,4}``, ``input_up_conv``,
 ``input_double_conv.*``, ``out_conv1x1``), so a reference state dict without
-its unused ``encoder.fc.*`` loads with ``strict=True``.
+its unused ``encoder.fc.*`` loads with ``strict=True``. Each SiLU or ReLU that
+follows a BatchNorm runs inside it (``BatchNorm.act``); a parameterless
+``nn.Identity`` holds its index.
 
 Numerics that differ from torch's defaults, taken from the JAX model:
 XLA SAME padding (asymmetric at stride 2), encoder BatchNorm eps 1e-3 and
 decoder eps 1e-5. In eval mode BatchNorm runs from its running statistics;
 in train mode it has flax semantics (f32 statistics as E[x^2] - E[x]^2
 clipped at 0, running statistics updated with the biased batch variance at
-the flax decay: encoder 0.99, decoder 0.9), and residual MBConv blocks apply
+the flax decay: encoder 0.99, decoder 0.9; on the card a train-mode
+BatchNorm and its activation run as one op with hand-written kernels,
+``ops.batchnorm_act``), and residual MBConv blocks apply
 per-sample drop-connect at ``drop_connect_rate * i / n``. Weights are cast to
 the compute dtype where they are used, as flax does, so they may be stored
 in f32 (training), bf16 (training with an f32 master) or in the compute
@@ -51,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from s2tpu_torch.models.remat import checkpointed, recomputing
+from s2tpu_torch.ops.batchnorm_act import activation, batchnorm_act
 from s2tpu_torch.ops.depthwise_conv import depthwise_conv2d, same_padding
 from s2tpu_torch.parallel.mesh import SINGLE, DataAxis
 
@@ -233,49 +238,38 @@ class DepthwiseConv(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm with the JAX model's semantics; ``decay`` is flax's momentum
-    (torch's ``momentum`` is 1 - decay).
+    """BatchNorm with the JAX model's semantics, and the activation that
+    follows it (``act``: "none", "silu" or "relu"); ``decay`` is flax's
+    momentum (torch's ``momentum`` is 1 - decay).
 
     Eval: from running statistics, scale and shift folded in f32, then
-    applied in the activation dtype. Train (flax ``nn.BatchNorm``): batch
-    statistics in f32 as E[x^2] - E[x]^2 clipped at 0, normalization in f32
-    cast back to the activation dtype, and running statistics updated as
-    ``decay * running + (1 - decay) * batch`` with the biased variance,
-    except in a checkpointed block's recompute, which must not update them a
-    second time (the recompute sums over the data axis again). On a data
-    axis of several ranks the statistics are the global batch's: Σx and Σx²
-    summed over the ranks, over the global count.
+    applied in the activation dtype, then the activation. Train (flax
+    ``nn.BatchNorm``, through ``ops.batchnorm_act``: the CUDA kernels on
+    the card, the plain autograd form on the CPU): batch statistics in f32
+    as E[x^2] - E[x]^2 clipped at 0, normalization in f32 cast back to the
+    activation dtype, the activation on that, and running statistics
+    updated as ``decay * running + (1 - decay) * batch`` with the biased
+    variance, except in a checkpointed block's recompute, which must not
+    update them a second time (the recompute sums over the data axis
+    again). On a data axis of several ranks the statistics are the global
+    batch's: Σx and Σx² summed over the ranks, over the global count.
     """
 
     data_axis: DataAxis = SINGLE
 
-    def __init__(self, num_features: int, eps: float, decay: float) -> None:
+    def __init__(self, num_features: int, eps: float, decay: float, act: str = "none") -> None:
         super().__init__(num_features, eps=eps, momentum=1.0 - decay)
         self.decay = decay
+        self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.to(torch.float32)
-            if self.data_axis.size == 1:
-                mean, ex2 = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
-            else:
-                sums = self.data_axis.sum(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
-                mean, ex2 = sums / (xf.numel() // xf.shape[1] * self.data_axis.size)
-            var = (ex2 - mean * mean).clamp_min(0.0)
-            if not recomputing():
-                self._update_running(mean, var)
-            mul = torch.rsqrt(var + self.eps) * self.weight
-            y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-            return y.to(x.dtype)
+            return batchnorm_act(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                 self.num_batches_tracked, self.eps, self.decay, self.act, self.data_axis,
+                                 update=not recomputing())
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
-
-    @torch.no_grad()
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        self.running_mean.copy_(self.decay * self.running_mean + (1.0 - self.decay) * mean)
-        self.running_var.copy_(self.decay * self.running_var + (1.0 - self.decay) * var)
-        self.num_batches_tracked.add_(1)
+        return activation(x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None], self.act)
 
 
 @torch.no_grad()
@@ -310,11 +304,12 @@ class MBConv(nn.Module):
         super().__init__()
         s = spec
         mid = s.in_filters * s.expand_ratio
-        bn = lambda n: BatchNorm(n, eps=bn_eps, decay=bn_decay)  # noqa: E731
+        bn = lambda n, act="none": BatchNorm(n, eps=bn_eps, decay=bn_decay, act=act)  # noqa: E731
         layers: list[nn.Module] = []
+        # each SiLU runs inside the BatchNorm before it; an Identity keeps its index
         if s.expand_ratio != 1:
-            layers += [Conv1x1(s.in_filters, mid, bias=False, **factory), bn(mid), nn.SiLU()]
-        layers += [DepthwiseConv(mid, s.kernel_size, s.stride, **factory), bn(mid), nn.SiLU()]
+            layers += [Conv1x1(s.in_filters, mid, bias=False, **factory), bn(mid, "silu"), nn.Identity()]
+        layers += [DepthwiseConv(mid, s.kernel_size, s.stride, **factory), bn(mid, "silu"), nn.Identity()]
         self.stem = nn.Sequential(*layers)
         self.squeeze_excitation = None
         if 0 < s.se_ratio <= 1:
@@ -369,15 +364,15 @@ class EfficientNetEncoder(nn.Module):
         self.head_filters = round_filters(1280, w, config.depth_divisor, config.min_depth)
         self.stem = nn.Sequential(
             Conv2dSame(config.in_channels, stem_filters, 3, stride=2, bias=False, **factory),
-            BatchNorm(stem_filters, eps=eps, decay=decay),
-            nn.SiLU(),
+            BatchNorm(stem_filters, eps=eps, decay=decay, act="silu"),
+            nn.Identity(),
         )
         n, rate = len(self.specs), config.drop_connect_rate or 0.0
         self.blocks = nn.ModuleList(MBConv(s, eps, decay, rate * i / n, **factory) for i, s in enumerate(self.specs))
         self.conv_head = nn.Sequential(
             Conv1x1(self.specs[-1].out_filters, self.head_filters, bias=False, **factory),
-            BatchNorm(self.head_filters, eps=eps, decay=decay),
-            nn.SiLU(),
+            BatchNorm(self.head_filters, eps=eps, decay=decay, act="silu"),
+            nn.Identity(),
         )
 
     @property
@@ -413,11 +408,11 @@ class EfficientNetEncoder(nn.Module):
 def _double_conv(cin: int, features: int, decay: float, **factory) -> nn.Sequential:
     return nn.Sequential(
         Conv2d(cin, features, 3, padding=1, **factory),
-        BatchNorm(features, eps=DECODER_BN_EPS, decay=decay),
-        nn.ReLU(),
+        BatchNorm(features, eps=DECODER_BN_EPS, decay=decay, act="relu"),
+        nn.Identity(),  # the ReLU runs inside the BatchNorm
         Conv2d(features, features, 3, padding=1, **factory),
-        BatchNorm(features, eps=DECODER_BN_EPS, decay=decay),
-        nn.ReLU(),
+        BatchNorm(features, eps=DECODER_BN_EPS, decay=decay, act="relu"),
+        nn.Identity(),
     )
 
 

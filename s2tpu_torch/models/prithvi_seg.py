@@ -144,7 +144,9 @@ class FCNHead(nn.Module):
         layers: list[nn.Module] = []
         for i in range(num_convs):
             cin = in_channels if i == 0 else channels
-            layers += [Conv2d(cin, channels, 3, padding=1), BatchNorm(channels, HEAD_BN_EPS, HEAD_BN_DECAY), nn.ReLU()]
+            # the ReLU runs inside the BatchNorm; an Identity keeps its index
+            bn = BatchNorm(channels, HEAD_BN_EPS, HEAD_BN_DECAY, act="relu")
+            layers += [Conv2d(cin, channels, 3, padding=1), bn, nn.Identity()]
         cin = channels if num_convs else in_channels
         layers += [Dropout(dropout), Conv1x1(cin, num_classes, bias=True)]
         self.net = nn.ModuleList(layers)

@@ -30,8 +30,10 @@ Spans, at the layer boundaries (roots first):
 - kernels, ``ops/_build.py``: ``s2tpu.ops.build`` (one nvcc run).
 
 Counters: ``graph_captures`` and ``graph_replays`` (``StepGraph`` and
-``TiledGraph``), ``host_syncs`` (where serving's host waits for the card)
-and ``kernel_builds`` (nvcc runs).
+``TiledGraph``), ``host_syncs`` (where serving's host waits for the card),
+``kernel_builds`` (nvcc runs), and ``batchnorm_fused`` (each train-mode
+BatchNorm call on the card, ``ops/batchnorm_act.py``; a graph replay calls
+none).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ checked the same way in ``tests/test_torch_cuda_kernels.py``).
 import pytest
 import torch
 
-from s2tpu_torch.ops import depthwise_conv, flash_attention, fused_ce  # noqa: F401 (registers the ops)
+from s2tpu_torch.ops import batchnorm_act, depthwise_conv, flash_attention, fused_ce  # noqa: F401 (registers the ops)
 
 
 def op_cases(device: str = "cpu") -> dict[str, tuple]:
@@ -41,6 +41,18 @@ def op_cases(device: str = "cpu") -> dict[str, tuple]:
             torch.ops.s2tpu_torch.fused_attention_qkv_backward, (hm, hm_out, r(*hm_out.shape, dtype=dtype)))
         q, k, v = r(2, 520, 3 * 64, dtype=dtype).reshape(2, 520, 3, 2, 32).unbind(2)  # strided views
         cases[f"flash_attention_forward-{tag}"] = (torch.ops.s2tpu_torch.flash_attention_forward, (q, k, v))
+        bn_x, bn_dy = (r(2, 8, 5, 3, dtype=dtype).contiguous(memory_format=torch.channels_last) for _ in range(2))
+        saved = torch.stack([r(8), r(8).abs() + 0.5, torch.ones(8, device=device)])
+        gamma, beta = r(8), r(8)
+        cases[f"batchnorm_act_stats-{tag}"] = (torch.ops.s2tpu_torch.batchnorm_act_stats, (bn_x,))
+        cases[f"batchnorm_act_apply-{tag}"] = (torch.ops.s2tpu_torch.batchnorm_act_apply, (bn_x, saved, gamma, beta, 1))
+        cases[f"batchnorm_act_backward_sums-{tag}"] = (
+            torch.ops.s2tpu_torch.batchnorm_act_backward_sums, (bn_x, bn_dy, saved, gamma, beta, 1))
+        cases[f"batchnorm_act_backward_dx-{tag}"] = (
+            torch.ops.s2tpu_torch.batchnorm_act_backward_dx, (bn_x, bn_dy, saved, gamma, beta, r(2, 8), 30.0, 2))
+    running = (r(8), r(8).abs(), torch.zeros((), dtype=torch.int64, device=device))
+    cases["batchnorm_act_finalize-update"] = (
+        torch.ops.s2tpu_torch.batchnorm_act_finalize, (r(2, 8).abs() * 30.0, *running, 30.0, 1e-3, 0.9, True))
     logits = r(40, 4)
     labels = torch.randint(0, 4, (40,), generator=g, dtype=torch.int32).to(device)
     weights, cot = r(4).abs(), r(40)
@@ -63,4 +75,6 @@ def test_every_kernel_entry_is_an_op():
         "depthwise_conv2d_s1", "depthwise_conv2d_s1_input_grad", "depthwise_conv2d_s1_grad_weight",
         "fused_ce_forward", "fused_ce_backward", "fused_attention_dense_forward", "fused_attention_dense_backward",
         "fused_attention_qkv_forward", "fused_attention_qkv_backward", "flash_attention_forward",
+        "batchnorm_act_stats", "batchnorm_act_finalize", "batchnorm_act_apply", "batchnorm_act_backward_sums",
+        "batchnorm_act_backward_dx",
     }
